@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py              # from the repository root
+    python3 chip_smoke.py --profile    # also a torch.profiler kernel table
+
+Phase 0  prints the card and its power limit, builds the four CUDA kernels
+         from `openai_whisper_compression_tpu_torch/csrc` (nvcc, sm_90a).
+Phase 1  each kernel against its plain PyTorch version on the card, at
+         whisper-small main-path shapes with batch 32, with CUDA-event times.
+Phase 2  the slice: whisper-small at full width with seeded random bf16
+         weights, int8 linears, fused decoder qkv, `make_transcribe_fn`
+         (bf16 DFT mel, tanh encoder GELU, greedy 25 tokens): three batches
+         of 32 seeded 30 s waveforms with EOT suppressed, then the first
+         batch again with EOT allowed and its embedding tied to a generated
+         token, so that rows stop at different steps. Every kernel's launch
+         count over this run must be > 0.
+Phase 3  first-step logits of 2 utterances, card (bf16, kernels) against
+         the same port run on the CPU in f32 (plain versions).
+
+Any failure exits nonzero. On success the last stdout line is
+{"ok": true, "device": {...}}; the line before it lists every kernel with
+its launch count, error and times. Needs torch with CUDA, numpy and nvcc;
+never imports jax.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SEED = 0
+ARCH = "small"
+BATCH = 32
+AUDIO_S = 30.0
+
+# Tolerances, card kernel vs plain version on identical inputs (the plain
+# versions compute in f32 from the same bf16-rounded operands):
+# - mel: f32 sums in another order, then log10 and /4, on log-mel values of
+#   order 1: 1e-5 absolute (sound runs read ~1e-7; a power spectrum or mel
+#   product kept in bf16 would be off by 1e-4 or more).
+MEL_ATOL = 1e-5
+# - bf16 outputs (int8 matmul, attention): the two sides round f32 values
+#   that differ only by sum order, so they differ by at most one bf16 step
+#   (2**-8 to 2**-7 of the value): 2**-7 of the reference's own largest
+#   magnitude.
+BF16_REL = 2.0 ** -7
+# - slice, card bf16 vs CPU f32 first-step logits: bf16 activations (2**-9
+#   relative rounding per op) through 24 residual blocks, int8 weights equal
+#   on both sides; a few percent expected, while a layout or indexing fault
+#   gives an error of order 1.
+LOGITS_REL_L2 = 0.1
+
+
+def check(cond, msg) -> None:
+    """Fail the run (explicitly, so that `python -O` cannot drop it)."""
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Mean device time per call over `iters` back-to-back calls. A spin
+    kernel (~25 ms) runs first, so the host has enqueued every call before
+    the timed region starts: the events then time the device, not the
+    Python wrapper's launch rate (which bounds a 10 µs kernel)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def phase1(dev, results: dict) -> None:
+    from openai_whisper_compression_tpu_torch.audio import features
+    from openai_whisper_compression_tpu_torch.audio.mel_kernel import log_mel_cuda
+    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
+        decode_cross_attention_grouped, decode_cross_attention_grouped_ref)
+    from openai_whisper_compression_tpu_torch.ops.qtensor import dequantize
+    from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
+        int8_matmul, int8_matmul_ref)
+    from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
+        decode_self_attention_update, decode_self_attention_update_ref)
+    from openai_whisper_compression_tpu_torch.quant.core import quantize_int8
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+
+    # mel: 32 x 30 s, bf16 DFT (fast_mel)
+    wav = torch.randn(BATCH, 480_000, generator=gen, device=dev) * 0.1
+    got = log_mel_cuda(wav, 80, bf16)
+    ref = features.log_mel(wav, 80, bf16)
+    err = max_err(got, ref)
+    check(got.shape == (BATCH, 80, 3000) and err <= MEL_ATOL,
+          f"mel err {err}")
+    results["mel"] = {"max_abs_err": err,
+                      "ms": cuda_ms(lambda: log_mel_cuda(wav, 80, bf16)),
+                      "plain_ms": cuda_ms(lambda: features.log_mel(wav, 80, bf16))}
+    log(f"phase1 mel ({BATCH}, 480000) bf16 DFT: err {err:.3g} (bound {MEL_ATOL:g}) "
+        f"kernel {results['mel']['ms']:.4f} ms plain {results['mel']['plain_ms']:.4f} ms")
+    del wav
+
+    # int8 matmul at every decoder linear shape, M = B (step) and 3B (prefill)
+    errs, rows = [], []
+    for k, n, what in ((768, 2304, "qkv"), (768, 768, "o/cross q/cross o"),
+                       (768, 3072, "fc1"), (3072, 768, "fc2")):
+        q = quantize_int8(torch.randn(k, n, generator=gen, device=dev) * 0.02)
+        for m in (BATCH, 3 * BATCH):
+            x = torch.randn(m, k, generator=gen, device=dev).to(bf16)
+            got = int8_matmul(x, q.data, q.scale)
+            ref = int8_matmul_ref(x, q.data, q.scale)
+            err, bound = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+            check(err <= bound, f"int8_matmul M={m} K={k} N={n}: err {err} > {bound}")
+            errs.append(err)
+            t_k = cuda_ms(lambda: int8_matmul(x, q.data, q.scale))
+            t_p = cuda_ms(lambda: int8_matmul_ref(x, q.data, q.scale))
+            t_d = cuda_ms(lambda: torch.matmul(x, dequantize(q, bf16)))
+            rows.append((m, k, n, what, err, t_k, t_p, t_d))
+            log(f"phase1 int8_matmul M={m} K={k} N={n} ({what}): err {err:.3g} "
+                f"(bound {bound:.3g}) "
+                f"kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+                f"dequant+torch.matmul {t_d:.4f} ms")
+    qkv32 = rows[0]
+    results["int8_matmul"] = {"max_abs_err": max(errs), "ms": qkv32[5],
+                              "plain_ms": qkv32[6]}
+
+    # grouped cross-attention: K = 1 (step) and K = 3 (prefill)
+    bh, s_pad, s_valid = BATCH * 12, 1536, 1500
+    k_t = torch.randn(bh, 64, s_pad, generator=gen, device=dev).to(bf16)
+    v_t = torch.randn(bh, 64, s_pad, generator=gen, device=dev).to(bf16)
+    errs = []
+    for kq in (1, 3):
+        qg = (torch.randn(bh, kq, 64, generator=gen, device=dev) * 0.125).to(bf16)
+        got = decode_cross_attention_grouped(qg, k_t, v_t, s_valid)
+        ref = decode_cross_attention_grouped_ref(qg, k_t, v_t, s_valid)
+        err, bound = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+        check(err <= bound, f"cross attention K={kq}: err {err} > {bound}")
+        errs.append(err)
+        t_k = cuda_ms(lambda: decode_cross_attention_grouped(qg, k_t, v_t, s_valid))
+        t_p = cuda_ms(lambda: decode_cross_attention_grouped_ref(qg, k_t, v_t, s_valid))
+        if kq == 1:
+            results["cross"] = {"ms": t_k, "plain_ms": t_p}
+        log(f"phase1 cross_attention_grouped K={kq} ({bh}, 64, {s_pad}) "
+            f"s_valid {s_valid}: err {err:.3g} (bound {bound:.3g}) "
+            f"kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+    results["cross"]["max_abs_err"] = max(errs)
+    del k_t, v_t
+
+    # self-attention update over a 64-row bf16 cache
+    kc0 = torch.randn(bh, 64, 64, generator=gen, device=dev).to(bf16)
+    vc0 = torch.randn(bh, 64, 64, generator=gen, device=dev).to(bf16)
+    errs = []
+    for pos in (3, 30, 63):
+        qf = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(bf16)
+        kn = torch.randn(bh, 64, generator=gen, device=dev).to(bf16)
+        vn = torch.randn(bh, 64, generator=gen, device=dev).to(bf16)
+        kc, vc, kr, vr = kc0.clone(), vc0.clone(), kc0.clone(), vc0.clone()
+        got = decode_self_attention_update(qf, kn, vn, kc, vc, pos)
+        ref = decode_self_attention_update_ref(qf, kn, vn, kr, vr, pos)
+        err, bound = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+        check(torch.equal(kc, kr) and torch.equal(vc, vr),
+              f"self attention pos={pos}: cache rows differ")
+        check(err <= bound, f"self attention pos={pos}: err {err} > {bound}")
+        errs.append(err)
+        t_k = cuda_ms(lambda: decode_self_attention_update(qf, kn, vn, kc, vc, pos))
+        t_p = cuda_ms(lambda: decode_self_attention_update_ref(qf, kn, vn, kr, vr, pos))
+        if pos == 30:
+            results["self"] = {"ms": t_k, "plain_ms": t_p}
+        log(f"phase1 self_attention_update pos={pos} ({bh}, 64, 64): err {err:.3g} "
+            f"(bound {bound:.3g}) "
+            f"cache rows equal; kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+    results["self"]["max_abs_err"] = max(errs)
+
+
+def make_slice(dev):
+    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import (
+        make_transcribe_fn)
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+    from openai_whisper_compression_tpu_torch.quant.api import quantize_params
+
+    arch = ARCHS[ARCH]
+    params = init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev)
+    params = fuse_qkv(quantize_params(params, "int8"))
+    return arch, params, DecodeConfig, make_transcribe_fn
+
+
+def waveforms(seed: int) -> np.ndarray:
+    """Seeded synthetic 30 s batch: noise under a few drifting tones."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(AUDIO_S * 16000), dtype=np.float32) / 16000.0
+    f0 = rng.uniform(100.0, 300.0, size=(BATCH, 1)).astype(np.float32)
+    tone = 0.3 * np.sin(2 * np.pi * f0 * t * (1 + 0.05 * np.sin(0.5 * t)))
+    return (tone + 0.05 * rng.standard_normal((BATCH, t.size))).astype(np.float32)
+
+
+def eot_twin_params(params: dict, tokens: torch.Tensor, p_len: int, eot: int):
+    """Params whose EOT embedding row is 1.02 x that of one generated token,
+    the twin. The output projection is tied to the embedding, so EOT then
+    outscores the twin wherever the twin's logit is positive, and a row stops
+    where it would have emitted the twin, or where the twin came within 2%
+    of the top logit. (1.02 clears the bf16 rounding of the logits, 2**-9;
+    with random weights the top logits lie so close that 1.3 stops every
+    row at the first step.) `tokens` come from a
+    run with EOT suppressed; the twin is the token whose first appearances
+    give the rows the most distinct stopping steps. Returns the params, the
+    twin and those steps (25 for a row that never emits it)."""
+    gen = tokens[:, p_len: p_len + 25].numpy()
+
+    def stops(t):
+        return sorted({int(np.argmax(r == t)) + 1 if (r == t).any() else 25
+                       for r in gen})
+
+    twin = max(np.unique(gen).tolist(), key=lambda t: len(stops(t)))
+    embed = params["decoder"]["embed"].clone()
+    embed[eot] = 1.02 * embed[twin]
+    return ({**params, "decoder": {**params["decoder"], "embed": embed}},
+            twin, stops(twin))
+
+
+def phase2(dev, kernel_fns, profile: bool) -> dict:
+    arch, params, DecodeConfig, make_transcribe_fn = make_slice(dev)
+    eot = arch.eos_token_id
+    p_len = 4  # <|sot|> <|en|> <|transcribe|> <|notimestamps|>
+    prefix = torch.tensor([arch.decoder_start_token_id, arch.language_en_token_id,
+                           arch.task_transcribe_token_id,
+                           arch.no_timestamps_token_id])
+    fn_sup = make_transcribe_fn(arch, DecodeConfig(max_new_tokens=25,
+                                                   suppress_tokens=(eot,)),
+                                fast_mel=True, fast_gelu=True, device=dev)
+    fn_eot = make_transcribe_fn(arch, DecodeConfig(max_new_tokens=25),
+                                fast_mel=True, fast_gelu=True, device=dev)
+    wavs = [torch.from_numpy(waveforms(SEED + i)).to(dev) for i in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for f in kernel_fns:
+        f.launches = 0
+    walls, outs = [], []
+
+    def run(fn, p, wav, what):
+        t0 = time.perf_counter()
+        tokens, lengths = fn(p, wav)
+        tokens, lengths = tokens.cpu(), lengths.cpu()   # the timing fence
+        wall = time.perf_counter() - t0
+        log(f"phase2 batch {len(walls)} ({what}): wall {wall:.4f} s, "
+            f"{BATCH / wall:.2f} utt/s, RTFx {BATCH * AUDIO_S / wall:.2f}, "
+            f"lengths min {int(lengths.min())} max {int(lengths.max())}")
+        walls.append(wall)
+        outs.append((tokens, lengths, what))
+
+    for wav in wavs:
+        run(fn_sup, params, wav, "EOT suppressed")
+    # the fourth batch: batch 0's audio with EOT allowed and made reachable
+    params_eot, twin, stops = eot_twin_params(params, outs[0][0], p_len, eot)
+    log(f"phase2 EOT twin: token {twin}; batch 0 emitted it first at steps "
+        f"{stops} (25: never)")
+    run(fn_eot, params_eot, wavs[0], "EOT allowed")
+    launches = {f.__name__: f.launches for f in kernel_fns}
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    log(f"phase2 launches {json.dumps(launches)}")
+    log(f"phase2 peak memory {peak_mb:.1f} MiB (torch.cuda.max_memory_allocated)")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the main path")
+
+    for tokens, lengths, what in outs:
+        check(tokens.shape == (BATCH, 64), f"tokens shape {tuple(tokens.shape)}")
+        check(int(tokens.min()) >= 0 and int(tokens.max()) < arch.vocab_size,
+              "tokens outside the vocabulary")
+        check(torch.equal(tokens[:, :p_len], prefix.expand(BATCH, -1)),
+              "forced prefix not intact")
+        for row, n in zip(tokens, lengths.tolist()):
+            check(bool((row[n:] == eot).all()), "tokens past the length must be EOT")
+            check(not bool((row[p_len: n - 1] == eot).any()),
+                  "EOT inside a row's valid tokens")
+        if what == "EOT suppressed":
+            check(bool((lengths == p_len + 25).all()), f"lengths {lengths.tolist()}")
+            check(not bool((tokens[:, p_len: p_len + 25] == eot).any()),
+                  "EOT emitted although suppressed")
+    tokens, lengths, _ = outs[3]
+    check(bool(((lengths > p_len) & (lengths <= p_len + 25)).all()),
+          f"lengths {lengths.tolist()}")
+    for row, n in zip(tokens, lengths.tolist()):
+        check(n == p_len + 25 or int(row[n - 1]) == eot,
+              "a row shorter than the limit must end in EOT")
+    check(len(set(lengths.tolist())) > 1,
+          f"EOT-allowed rows must stop at different steps: {lengths.tolist()}")
+    same = sum(torch.equal(tokens[r, p_len: n - 1], outs[0][0][r, p_len: n - 1])
+               for r, n in enumerate(lengths.tolist()))
+    log(f"phase2 EOT allowed: lengths {sorted(set(lengths.tolist()))}, "
+        f"{int((lengths < p_len + 25).sum())} of {BATCH} rows stopped early; "
+        f"{same} rows equal batch 0 up to their stop")
+    steady = walls[1:3]
+    summary = {"walls_s": walls, "rtfx_steady": BATCH * AUDIO_S / (sum(steady) / len(steady)),
+               "peak_mib": peak_mb, "launches": launches}
+    log(f"phase2 steady (batches 1-2) RTFx {summary['rtfx_steady']:.2f}")
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        wav = wavs[1]
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn_sup(params, wav)[0].cpu()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        dev_us = sum(e.self_device_time_total for e in events  # kernels only
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation)
+        log(f"profile: wall {wall * 1e3:.1f} ms, summed device kernel time "
+            f"{dev_us / 1e3:.1f} ms, idle share "
+            f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}")
+        log(events.table(sort_by="self_device_time_total", row_limit=30,
+                         max_name_column_width=60))
+    return {"arch": arch, "params": params, "cfg": DecodeConfig(max_new_tokens=25,
+                                                                suppress_tokens=(eot,)),
+            "wav": wavs[0][:2], "summary": summary}
+
+
+@torch.inference_mode()
+def phase3(dev, state: dict) -> float:
+    from openai_whisper_compression_tpu_torch.audio.features import preprocess
+    from openai_whisper_compression_tpu_torch.models.decode import first_step_logits
+    from openai_whisper_compression_tpu_torch.models.params import tree_to
+    from openai_whisper_compression_tpu_torch.models.whisper import encode
+
+    arch, cfg = state["arch"], state["cfg"]
+
+    def logits(params, wav, dtype):
+        mel = preprocess(wav, arch.num_mel_bins, dft_dtype=torch.bfloat16).to(dtype)
+        enc = encode(params, arch, mel, fast_gelu=True)
+        return first_step_logits(params, arch, enc, cfg).float().cpu()
+
+    card = logits(state["params"], state["wav"], torch.bfloat16)
+    params_cpu = tree_to(state["params"], "cpu", torch.float32)
+    ref = logits(params_cpu, state["wav"].cpu(), torch.float32)
+    rel = float((card - ref).norm() / ref.norm())
+    agree = float((card.argmax(-1) == ref.argmax(-1)).float().mean())
+    log(f"phase3 first-step logits card bf16 vs CPU f32: relative L2 {rel:.4g} "
+        f"(bound {LOGITS_REL_L2}), max abs {max_err(card, ref):.4g}, "
+        f"|logits| max {float(ref.abs().max()):.4g}, argmax agreement {agree:.2f} "
+        "(not checked: random weights make argmax tie-prone)")
+    check(torch.isfinite(card).all() and card.shape == (2, arch.vocab_size),
+          'check failed: torch.isfinite(card).all() and card.shape == (2, arch.vocab_')
+    check(rel <= LOGITS_REL_L2,
+          f"card logits off by {rel:.4g} relative L2")
+    return rel
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one slice batch with torch.profiler")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from openai_whisper_compression_tpu_torch.audio.mel_kernel import log_mel_cuda
+    from openai_whisper_compression_tpu_torch.ops import kernels
+    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
+        decode_cross_attention_grouped)
+    from openai_whisper_compression_tpu_torch.ops.quant_matmul import int8_matmul
+    from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
+        decode_self_attention_update)
+
+    # f32 references run in full f32 on the card, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"phase0 {smi}")
+    log(f"phase0 torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    kernels.lib()
+    log(f"phase0 kernel library {kernels.library_path().name}: ready in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc build "
+        f"{kernels.build_seconds if kernels.build_seconds is not None else 'cached'} s)")
+
+    results: dict = {}
+    phase1(dev, results)
+    kernel_fns = (log_mel_cuda, int8_matmul, decode_cross_attention_grouped,
+                  decode_self_attention_update)
+    state = phase2(dev, kernel_fns, args.profile)
+    phase3(dev, state)
+
+    csrc = "openai_whisper_compression_tpu_torch/csrc/"
+    table = [
+        ("log_mel_cuda", "mel", "mel.cu", "audio/mel_pallas.py:62"),
+        ("int8_matmul", "int8_matmul", "int8_matmul.cu", "ops/quant_matmul.py:55"),
+        ("decode_cross_attention_grouped", "cross", "cross_attention.cu",
+         "ops/cross_attention.py:321"),
+        ("decode_self_attention_update", "self", "self_attention_step.cu",
+         "ops/self_attention_step.py:245"),
+    ]
+    launches = state["summary"]["launches"]
+    kernels_line = {"kernels": [
+        {"name": name, "route": "cuda", "source": csrc + src,
+         "replaces": "openai_whisper_compression_tpu/" + rep,
+         "launches": launches[name], "max_abs_err": results[key]["max_abs_err"],
+         "ms": results[key]["ms"], "plain_ms": results[key]["plain_ms"]}
+        for name, key, src, rep in table]}
+    print(smi)
+    print(json.dumps(kernels_line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

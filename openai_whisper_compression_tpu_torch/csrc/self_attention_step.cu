@@ -1,0 +1,92 @@
+// Fused KV-cache row write + one-query decode self-attention (fp cache).
+//
+// Replaces: openai_whisper_compression_tpu/ops/self_attention_step.py
+//           decode_self_attention_update (kernel body _kernel_upd_nostart).
+// For each (batch, head) row g of BH:
+//   k_cache[g, pos, :] = k_new[g, :];  v_cache[g, pos, :] = v_new[g, :]
+//   scores[s] = q[g, :] . k_cache[g, s, :]           for 0 <= s <= pos
+//   out[g, :] = sum_s softmax(scores)[s] * v_cache[g, s, :]
+// in f32, from bf16 q/k/v and caches, output in bf16. The caches are
+// updated in place.
+//
+// What bounds it on the H100: launch latency, then bytes. At whisper-small,
+// batch 32, a 64-slot cache is BH x 64 x 64 x 2 bytes = 3 MB per tensor, a
+// microsecond of device-memory time; the step is tiny, so the gain is one
+// launch in place of the separate row write, score, softmax and value
+// kernels. Only the pos + 1 live cache rows are read.
+//
+// Design: one block (128 threads) per (batch, head) row, which owns that
+// row's cache slice: it writes row pos first, and __syncthreads makes the
+// write visible before any thread of the block reads the cache back. Each
+// warp scores a strided set of positions (lanes split the 64 dims, warp
+// reduction), block reductions give the softmax, and 64 threads sum the
+// value rows (neighbouring threads read neighbouring dims: coalesced).
+#include "common.cuh"
+
+namespace {
+
+constexpr int DH = 64, THREADS = 128;
+using T = __nv_bfloat16;
+
+__global__ void __launch_bounds__(THREADS)
+self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
+                        const T* __restrict__ v_new, T* k_cache, T* v_cache,
+                        T* __restrict__ out, int S, int pos) {
+  extern __shared__ __align__(16) float sc[];  // [pos + 1]
+  __shared__ float qs[DH];
+  __shared__ float red[32];
+  const int g = blockIdx.x, tid = threadIdx.x;
+  T* kg = k_cache + (size_t)g * S * DH;
+  T* vg = v_cache + (size_t)g * S * DH;
+
+  if (tid < DH) {
+    kg[(size_t)pos * DH + tid] = k_new[(size_t)g * DH + tid];
+    vg[(size_t)pos * DH + tid] = v_new[(size_t)g * DH + tid];
+    qs[tid] = owc_to_float(q[(size_t)g * DH + tid]);
+  }
+  __syncthreads();  // the row write lands before the block reads the cache
+
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int s = warp; s <= pos; s += THREADS / 32) {
+    const T* krow = kg + (size_t)s * DH;
+    float part = qs[lane] * owc_to_float(krow[lane]) +
+                 qs[lane + 32] * owc_to_float(krow[lane + 32]);
+    part = owc_warp_sum(part);
+    if (lane == 0) sc[s] = part;
+  }
+  __syncthreads();
+
+  float m = -INFINITY;
+  for (int s = tid; s <= pos; s += THREADS) m = fmaxf(m, sc[s]);
+  m = owc_block_max(m, red);
+  float l = 0.0f;
+  for (int s = tid; s <= pos; s += THREADS) {
+    const float p = expf(sc[s] - m);
+    sc[s] = p;
+    l += p;
+  }
+  l = owc_block_sum(l, red);  // ends with a barrier: sc holds probabilities
+
+  if (tid < DH) {
+    float acc = 0.0f;
+    for (int s = 0; s <= pos; ++s)
+      acc = fmaf(sc[s], owc_to_float(vg[(size_t)s * DH + tid]), acc);
+    owc_store(out + (size_t)g * DH + tid, acc / l);
+  }
+}
+
+}  // namespace
+
+// q/k_new/v_new (BH, 64), k_cache/v_cache (BH, S, 64) updated in place,
+// out (BH, 64); all bf16. Requires 0 <= pos < S <= 12288.
+extern "C" int owc_self_attention_update(const void* q, const void* k_new,
+                                         const void* v_new, void* k_cache,
+                                         void* v_cache, void* out, int BH,
+                                         int S, int pos, void* stream) {
+  const size_t smem = (size_t)(pos + 1) * sizeof(float);
+  self_attn_update_kernel<<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_new),
+      static_cast<const T*>(v_new), static_cast<T*>(k_cache),
+      static_cast<T*>(v_cache), static_cast<T*>(out), S, pos);
+  return (int)cudaGetLastError();
+}

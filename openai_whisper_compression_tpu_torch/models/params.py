@@ -1,0 +1,160 @@
+"""Parameter tree: seeded init, conversion from the JAX tree, tree utilities.
+
+Same layout as the JAX package's `models/params.py`: nested dicts with
+Python lists of layers; linear weights are (in_dim, out_dim) so the hot
+contraction is `x @ w`; conv-stem weights keep torch's (out, in, width);
+`decoder.embed` is (vocab, d) and doubles as the tied output projection.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..config import WhisperArch
+from ..ops.qtensor import QTensor
+
+Params = dict[str, Any]
+
+INIT_STD = 0.02  # HF WhisperConfig.init_std, as in the JAX init_params
+
+
+def sinusoid_positions(length: int, channels: int,
+                       max_timescale: float = 10000.0) -> np.ndarray:
+    """Whisper encoder sinusoidal positions, concat(sin, cos) layout."""
+    assert channels % 2 == 0
+    log_inc = math.log(max_timescale) / (channels // 2 - 1)
+    inv = np.exp(-log_inc * np.arange(channels // 2))
+    t = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
+
+
+def init_params(arch: WhisperArch, seed: int = 0, dtype=torch.float32,
+                device: str | torch.device = "cpu") -> Params:
+    """Random-init tree with the JAX `init_params` layout and statistics
+    (normal(0, 0.02) linears/conv/embeddings/decoder positions, zero biases,
+    unit layernorms, sinusoidal encoder positions). Draws come from a
+    `torch.Generator` seeded with `seed` on `device`, so they are not the
+    JAX draws; parity tests convert JAX's tree with `from_numpy` instead."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, ffn = arch.d_model, arch.ffn_dim
+
+    def normal(*shape):
+        x = torch.randn(*shape, generator=gen, device=device,
+                        dtype=torch.float32) * INIT_STD
+        return x.to(dtype)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dtype, device=device)
+
+    def linear(i, o, bias=True):
+        p = {"w": normal(i, o)}
+        if bias:
+            p["b"] = zeros(o)
+        return p
+
+    def ln():
+        return {"g": torch.ones(d, dtype=dtype, device=device), "b": zeros(d)}
+
+    def attn():
+        return {"q": linear(d, d), "k": linear(d, d, bias=False),
+                "v": linear(d, d), "o": linear(d, d)}
+
+    def enc_layer():
+        return {"attn": attn(), "attn_ln": ln(), "fc1": linear(d, ffn),
+                "fc2": linear(ffn, d), "mlp_ln": ln()}
+
+    def dec_layer():
+        p = enc_layer()
+        p["cross"] = attn()
+        p["cross_ln"] = ln()
+        return p
+
+    pos = sinusoid_positions(arch.max_source_positions, d)
+    encoder = {
+        "conv1": {"w": normal(d, arch.num_mel_bins, 3), "b": zeros(d)},
+        "conv2": {"w": normal(d, d, 3), "b": zeros(d)},
+        "pos": torch.from_numpy(pos).to(device=device, dtype=dtype),
+        "layers": [enc_layer() for _ in range(arch.encoder_layers)],
+        "ln": ln(),
+    }
+    decoder = {
+        "embed": normal(arch.vocab_size, d),
+        "pos": normal(arch.max_target_positions, d),
+        "layers": [dec_layer() for _ in range(arch.decoder_layers)],
+        "ln": ln(),
+    }
+    return {"encoder": encoder, "decoder": decoder}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch twin in numpy
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
+    """Port tree from the JAX parameter tree with numpy leaves. QTensor
+    leaves arrive as objects with `data`, `scale`, `kind` and `shape`
+    (the JAX QTensor after `jax.tree.map(np.asarray, ...)`)."""
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [from_numpy(v, device) for v in tree]
+    if hasattr(tree, "kind") and hasattr(tree, "scale"):
+        return QTensor(data=_tensor(tree.data, device),
+                       scale=_tensor(tree.scale, device), kind=tree.kind,
+                       shape=tuple(tree.shape))
+    return _tensor(tree, device)
+
+
+def tree_to(params: Any, device: str | torch.device, dtype: torch.dtype) -> Any:
+    """Move every leaf to `device`, casting dense floating leaves to `dtype`
+    (QTensor data and scales keep their types)."""
+    if isinstance(params, dict):
+        return {k: tree_to(v, device, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [tree_to(v, device, dtype) for v in params]
+    if isinstance(params, QTensor):
+        return params.to(device)
+    return params.to(device=device, dtype=dtype)
+
+
+def copy_tree(params: Any) -> Any:
+    """Copy of the dict/list structure (leaves shared), so that `set_leaf`
+    on the copy leaves the input alone."""
+    if isinstance(params, dict):
+        return {k: copy_tree(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [copy_tree(v) for v in params]
+    return params
+
+
+def named_leaves(params: Params, prefix: str = "") -> list[tuple[str, Any]]:
+    """Flat (dotted-name, leaf) pairs, e.g. 'decoder.layers.3.attn.q.w'."""
+    out: list[tuple[str, Any]] = []
+    if isinstance(params, dict):
+        for k, v in params.items():
+            out.extend(named_leaves(v, f"{prefix}{k}."))
+    elif isinstance(params, (list, tuple)):
+        for i, v in enumerate(params):
+            out.extend(named_leaves(v, f"{prefix}{i}."))
+    else:
+        out.append((prefix[:-1], params))
+    return out
+
+
+def set_leaf(params: Params, name: str, value) -> None:
+    parts = name.split(".")
+    node = params
+    for part in parts[:-1]:
+        node = node[int(part)] if isinstance(node, list) else node[part]
+    if isinstance(node, list):
+        node[int(parts[-1])] = value
+    else:
+        node[parts[-1]] = value
+

@@ -1,0 +1,220 @@
+"""Whisper encoder and the decode-side building blocks, in PyTorch.
+
+Functions over the parameter tree of `models.params`, numerically the JAX
+package's `models/whisper.py`: pre-LN blocks, q scaled by head_dim**-0.5,
+k projection without bias, layer_norm eps 1e-5 in f32, exact-erf GELU in the
+conv stem and decoder, tanh GELU in the encoder MLPs with `fast_gelu`,
+sin|cos encoder positions, learned decoder positions, output projection
+tied to the embedding. Every matmul with a weight goes through
+`ops.linear.linear`.
+
+Not carried over: the JAX encoder's batch chunking (`_encode_batch_chunks`)
+works around an XLA fusion cliff that PyTorch's eager attention does not
+have, and `encoder_attention_pallas` is reached only past that cliff, so
+encoder attention here is plain torch (matmul with f32 scores, f32
+softmax, matmul).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..config import WhisperArch
+from ..ops.cross_attention import decode_cross_attention_grouped, pad_cross_len
+from ..ops.linear import linear
+from ..ops.qtensor import QTensor
+from .fuse import qkv_split
+
+Params = dict[str, Any]
+
+NEG_INF = -1e9  # finite additive mask value, as in the JAX package
+
+
+def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
+    y = F.layer_norm(x.float(), (x.shape[-1],), p["g"].float(), p["b"].float(),
+                     eps)
+    return y.to(x.dtype)
+
+
+def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def _out_width(w) -> int:
+    return w.data.shape[1] if isinstance(w, QTensor) else w.shape[-1]
+
+
+def _num_heads(attn_p: Params, head_dim: int) -> int:
+    if "qkv" in attn_p:
+        return _out_width(attn_p["qkv"]["w"]) // 3 // head_dim
+    return _out_width(attn_p["q"]["w"]) // head_dim
+
+
+def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, T, H*Dh) -> (B, H, T, Dh)"""
+    b, t, _ = x.shape
+    return x.reshape(b, t, n_heads, -1).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, Dh) -> (B, T, H*Dh)"""
+    b, h, t, dh = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def qkv_project(p: Params, x: torch.Tensor, n_heads: int):
+    """q/k/v projections -> (B, H, T, Dh) triple (fused qkv when present)."""
+    if "qkv" in p:
+        q, k, v = qkv_split(linear(x, p["qkv"]["w"], p["qkv"]["b"]))
+    else:
+        q = linear(x, p["q"]["w"], p["q"]["b"])
+        k = linear(x, p["k"]["w"])
+        v = linear(x, p["v"]["w"], p["v"]["b"])
+    return split_heads(q, n_heads), split_heads(k, n_heads), split_heads(v, n_heads)
+
+
+def _scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q · kᵀ over (B, H, T, Dh) with f32 output: products of the inputs
+    summed in f32 and never rounded to bf16, as the JAX einsum's
+    `preferred_element_type=f32` (a bf16 score of order 30 would be off by
+    up to 0.06). On the card, bf16 inputs take cuBLAS's bf16 GEMM with an
+    f32 output; elsewhere the inputs are widened to f32."""
+    if q.is_cuda and q.dtype == torch.bfloat16:
+        b, h, t, dh = q.shape
+        scores = torch.bmm(q.reshape(b * h, t, dh),
+                           k.reshape(b * h, -1, dh).transpose(1, 2),
+                           out_dtype=torch.float32)
+        return scores.reshape(b, h, t, -1)
+    return torch.matmul(q.float(), k.float().transpose(-1, -2))
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Scaled dot-product attention over (B, H, T, Dh), as the JAX
+    package's: f32 scores (plus an optional additive f32 mask), f32
+    softmax, probabilities in q's dtype, matmul."""
+    dh = q.shape[-1]
+    scores = _scores_f32(q * (dh ** -0.5), k)
+    if mask is not None:
+        scores += mask
+    probs = torch.softmax(scores, dim=-1)
+    del scores  # at most two (B, H, T, T) f32 tensors live at once
+    return torch.matmul(probs.to(q.dtype), v)
+
+
+def self_attention(p: Params, x: torch.Tensor, head_dim: int,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    q, k, v = qkv_project(p, x, _num_heads(p, head_dim))
+    o = attention(q, k, v, mask)
+    return linear(merge_heads(o), p["o"]["w"], p["o"]["b"])
+
+
+def mlp(p: Params, x: torch.Tensor, fast_gelu: bool = False) -> torch.Tensor:
+    h = gelu(linear(x, p["fc1"]["w"], p["fc1"]["b"]), approximate=fast_gelu)
+    return linear(h, p["fc2"]["w"], p["fc2"]["b"])
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            stride: int) -> torch.Tensor:
+    """x: (B, C_in, T); w: (C_out, C_in, width); padding 1."""
+    y = F.conv1d(x, w.to(x.dtype), stride=stride, padding=1)
+    return y + b.to(y.dtype)[None, :, None]
+
+
+def encoder_layer(p: Params, x: torch.Tensor, head_dim: int,
+                  fast_gelu: bool = False) -> torch.Tensor:
+    x = x + self_attention(p["attn"], layer_norm(x, p["attn_ln"]), head_dim)
+    return x + mlp(p, layer_norm(x, p["mlp_ln"]), fast_gelu=fast_gelu)
+
+
+def encode(params: Params, arch: WhisperArch, mel: torch.Tensor,
+           fast_gelu: bool = False) -> torch.Tensor:
+    """mel (B, n_mels, 2·T) -> encoder states (B, T, d_model).
+    fast_gelu: tanh-approximate GELU in the encoder MLPs (the conv stem
+    keeps exact erf)."""
+    enc = params["encoder"]
+    x = gelu(_conv1d(mel, enc["conv1"]["w"], enc["conv1"]["b"], stride=1))
+    x = gelu(_conv1d(x, enc["conv2"]["w"], enc["conv2"]["b"], stride=2))
+    x = x.transpose(1, 2)
+    x = x + enc["pos"][: x.shape[1]].to(x.dtype)
+    for layer in enc["layers"]:
+        x = encoder_layer(layer, x, arch.head_dim, fast_gelu=fast_gelu)
+    return layer_norm(x, enc["ln"])
+
+
+# ---------------------------------------------------------------------------
+# Decode-side cross-attention over transposed K/V
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CrossKV:
+    """Per-layer cross-attention K/V in the kernel layout (B·H, Dh, S_pad),
+    S padded to a multiple of 128; positions >= s_valid are padding."""
+
+    k_t: torch.Tensor
+    v_t: torch.Tensor
+    s_valid: int = 0  # 0 means all S_pad positions are valid
+
+    @property
+    def valid_len(self) -> int:
+        return self.s_valid if self.s_valid > 0 else self.k_t.shape[2]
+
+
+def _transpose_kv(x: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, S, H*Dh) -> (B*H, Dh, S_pad), zero padded along S."""
+    b, s, d = x.shape
+    x = x.reshape(b, s, h, d // h).permute(0, 2, 3, 1)
+    x = F.pad(x, (0, pad_cross_len(s) - s))
+    return x.reshape(b * h, d // h, -1).contiguous()
+
+
+def precompute_cross_kv_t(params: Params, arch: WhisperArch,
+                          enc_out: torch.Tensor) -> list[CrossKV]:
+    """Per-layer transposed cross K/V from the encoder states, in the
+    encoder's dtype (the JAX bits=16 layout; int8/int4 K/V are a later
+    slice)."""
+    s = enc_out.shape[1]
+    kvs = []
+    for layer in params["decoder"]["layers"]:
+        p = layer["cross"]
+        h = _num_heads(p, arch.head_dim)
+        k_t = _transpose_kv(linear(enc_out, p["k"]["w"]), h)
+        v_t = _transpose_kv(linear(enc_out, p["v"]["w"], p["v"]["b"]), h)
+        kvs.append(CrossKV(k_t.to(enc_out.dtype), v_t.to(enc_out.dtype),
+                           s_valid=s))
+    return kvs
+
+
+def cross_attention(p: Params, x: torch.Tensor, kv: CrossKV,
+                    head_dim: int) -> torch.Tensor:
+    """Cross-attention of x (B, P, d) over transposed K/V: P = 1 in a decode
+    step, the prefill window in prefill (the JAX package's `cross_attention`
+    and `decode._cross_window_t`). The P query positions of a (b, h) row
+    share its K/V entry, so they ride the grouped kernel's query slots."""
+    b, p_len, _ = x.shape
+    h = _num_heads(p, head_dim)
+    q = linear(x, p["q"]["w"], p["q"]["b"])                 # (B, P, H*Dh)
+    qg = (q.reshape(b, p_len, h, head_dim).transpose(1, 2)
+          .reshape(b * h, p_len, head_dim) * (head_dim ** -0.5)).to(q.dtype)
+    o = decode_cross_attention_grouped(qg.contiguous(), kv.k_t, kv.v_t,
+                                       kv.valid_len)
+    o = o.reshape(b, h, p_len, head_dim).transpose(1, 2).reshape(
+        b, p_len, h * head_dim)
+    return linear(o.to(x.dtype), p["o"]["w"], p["o"]["b"])
+
+
+def embed_tokens(dec: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return dec["embed"][tokens]
+
+
+def project_out(dec: Params, x: torch.Tensor) -> torch.Tensor:
+    """Output projection tied to the token embedding."""
+    return linear(x, dec["embed"].t())

@@ -1,0 +1,141 @@
+"""Build and load the port's hand-written CUDA kernels (`csrc/*.cu`).
+
+All kernels compile, at first use, into one shared library with a plain C
+interface (`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`), which
+is loaded with ctypes. The library lives in `_build/` inside the package,
+under a name keyed by a hash of the sources and flags, so a fresh checkout
+builds exactly what it holds and a changed source never loads a stale
+binary. Nothing here runs at import time: the CPU tests import every module
+of the port without a CUDA toolkit.
+
+Each launcher takes raw device pointers (`tensor.data_ptr()`), sizes, a
+dtype code where the kernel takes both f32 and bf16 input, and the current
+CUDA stream, and returns `cudaGetLastError()`; `check()` turns a nonzero
+code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# dtype codes shared with csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C launcher name -> argtypes (pointers and the stream as c_void_p, sizes as
+# c_int); every launcher returns a cudaError_t as int
+_SIGNATURES = {
+    "owc_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "owc_mel_log10": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "owc_cross_attention_grouped": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "owc_self_attention_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of this process's build
+
+
+def _sources() -> list[Path]:
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "(put the CUDA toolkit's bin directory on PATH)")
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libowc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed shared library unless it exists.
+    A file lock serialises concurrent builders; the library is written to a
+    temporary name and renamed into place, so a reader never sees half a
+    file."""
+    global build_seconds
+    so = library_path()
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():
+            return so
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(p) for p in _sources() if p.suffix == ".cu"]]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"CUDA kernel build failed ({' '.join(cmd)}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, so)
+        build_seconds = time.perf_counter() - t0
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor, name: str) -> int:
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got "
+                        f"{t.dtype}") from None
+
+
+def require_bf16(name: str, *tensors: torch.Tensor) -> None:
+    """Raise TypeError unless every tensor is bfloat16 (bf16-only kernels)."""
+    for t in tensors:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+
+
+def require(cond: bool, name: str, what: str) -> None:
+    """Raise ValueError unless `cond` (input checks before a launch)."""
+    if not cond:
+        raise ValueError(f"{name}: {what}")

@@ -1,0 +1,78 @@
+"""Fused KV-cache row write + one-query decode self-attention over an fp
+cache (`csrc/self_attention_step.cu`) and its plain version: the port of the
+JAX package's `ops/self_attention_step.py::decode_self_attention_update`
+(the `nostart` variant; prompt left-padding via `start` is a later slice).
+
+Both versions MUTATE the caches: row `pos` of k_cache/v_cache is overwritten
+with k_new/v_new in place (the JAX function donates the buffers and returns
+the updated ones; here the caller keeps using its own tensors).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+
+HEAD_DIM = 64
+
+
+def decode_self_attention_update_ref(q: torch.Tensor, k_new: torch.Tensor,
+                                     v_new: torch.Tensor,
+                                     k_cache: torch.Tensor,
+                                     v_cache: torch.Tensor,
+                                     pos: int) -> torch.Tensor:
+    """Plain version: write row pos, then f32 masked softmax attention of
+    each pre-scaled query over cache rows 0..pos. Returns (BH, Dh) in q's
+    dtype."""
+    k_cache[:, pos, :] = k_new.to(k_cache.dtype)
+    v_cache[:, pos, :] = v_new.to(v_cache.dtype)
+    k = k_cache[:, : pos + 1, :].float()
+    v = v_cache[:, : pos + 1, :].float()
+    scores = torch.einsum("gd,gsd->gs", q.float(), k)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("gs,gsd->gd", probs, v).to(q.dtype)
+
+
+def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
+                                 v_new: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor, pos: int,
+                                 start: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """q/k_new/v_new (BH, Dh), q pre-scaled by Dh**-0.5; caches (BH, S, Dh)
+    written at row `pos` IN PLACE; attention over rows 0..pos. Returns
+    (BH, Dh) in q's dtype. A CUDA tensor launches the kernel (bf16 only;
+    counted in `decode_self_attention_update.launches`); a CPU tensor takes
+    the plain version."""
+    if start is not None:
+        raise NotImplementedError("prompt left-padding (start) is not ported")
+    pos = int(pos)
+    if not q.is_cuda:
+        return decode_self_attention_update_ref(q, k_new, v_new, k_cache,
+                                                v_cache, pos)
+    name = "decode_self_attention_update"
+    bh, dh = q.shape
+    s = k_cache.shape[1]
+    kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
+    kernels.require(k_new.shape == q.shape and v_new.shape == q.shape, name,
+                    "q, k_new and v_new must have one shape")
+    kernels.require(k_cache.shape == (bh, s, dh) and v_cache.shape
+                    == k_cache.shape, name, f"caches must be ({bh}, S, {dh})")
+    kernels.require(0 <= pos < s and s <= 12288, name,
+                    f"pos {pos} outside the {s}-row cache (at most 12288 rows)")
+    kernels.require_bf16(name, q, k_new, v_new, k_cache, v_cache)
+    kernels.require(len({t.device for t in (q, k_new, v_new, k_cache, v_cache)})
+                    == 1, name, "q, k/v and the caches must share a device")
+    kernels.require(all(t.is_contiguous() for t in
+                        (q, k_new, v_new, k_cache, v_cache)), name,
+                    "inputs must be contiguous")
+    out = torch.empty_like(q)
+    err = kernels.lib().owc_self_attention_update(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), out.data_ptr(), bh, s, pos, kernels.stream_of(q))
+    kernels.check(name, err)
+    decode_self_attention_update.launches += 1
+    return out
+
+
+decode_self_attention_update.launches = 0

@@ -1,0 +1,164 @@
+"""The four CUDA kernels against their plain PyTorch versions on the card,
+at edge shapes and in the dtypes each takes (chip_smoke.py covers the
+whisper-small main-path shapes), and bf16 attention on the card against a
+float64 reference with f32 scores. Marked `cuda`; every test skips where no
+CUDA device is present. Needs no jax, so on the GPU machine run it without the JAX test
+configuration:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import pytest
+import torch
+
+from openai_whisper_compression_tpu_torch.audio import features
+from openai_whisper_compression_tpu_torch.audio.mel_kernel import log_mel_cuda
+from openai_whisper_compression_tpu_torch.models import whisper
+from openai_whisper_compression_tpu_torch.ops.cross_attention import (
+    decode_cross_attention_grouped, decode_cross_attention_grouped_ref)
+from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
+    int8_matmul, int8_matmul_ref)
+from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
+    decode_self_attention_update, decode_self_attention_update_ref)
+from openai_whisper_compression_tpu_torch.quant.core import quantize_int8
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(dtype, scale):
+    """Of the reference's largest magnitude `scale`: f32 outputs differ by
+    sum-order noise (1e-5); bf16 outputs by at most one bf16 step (2**-7)."""
+    return (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(1, 64, 64), (33, 768, 2304),
+                                   (96, 3072, 768), (200, 128, 192)])
+def test_int8_matmul(dev, dtype, m, k, n):
+    g = torch.Generator(device=dev).manual_seed(m)
+    q = quantize_int8(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    before = int8_matmul.launches
+    got = int8_matmul(x, q.data, q.scale)
+    assert int8_matmul.launches == before + 1
+    ref = int8_matmul_ref(x, q.data, q.scale)
+    assert got.dtype == dtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(dtype, float(ref.float().abs().max())))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t", [(2, 20480), (1, 480_000)])
+def test_log_mel(dev, dtype, b, t):
+    """Log-mel values of order 1: 1e-5 absolute (sum order, then log10;
+    a bf16 power spectrum or mel product would be off by 1e-4 or more)."""
+    g = torch.Generator(device=dev).manual_seed(t)
+    wav = torch.randn(b, t, generator=g, device=dev) * 0.1
+    got = log_mel_cuda(wav, 80, dtype)
+    ref = features.log_mel(wav, 80, dtype)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("bh,kq,s_valid", [(12, 1, 1), (12, 3, 100),
+                                           (384, 1, 1500), (20, 4, 1500)])
+def test_cross_attention_grouped(dev, bh, kq, s_valid):
+    dtype = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(bh + kq)
+    s_pad = -(-s_valid // 128) * 128
+    q = (torch.randn(bh, kq, 64, generator=g, device=dev) * 0.125).to(dtype)
+    k_t = torch.randn(bh, 64, s_pad, generator=g, device=dev).to(dtype)
+    v_t = torch.randn(bh, 64, s_pad, generator=g, device=dev).to(dtype)
+    got = decode_cross_attention_grouped(q, k_t, v_t, s_valid)
+    ref = decode_cross_attention_grouped_ref(q, k_t, v_t, s_valid)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(dtype, float(ref.float().abs().max())))
+    # padding is never read: poisoning it changes no output bit
+    k_t[:, :, s_valid:] = 100.0
+    v_t[:, :, s_valid:] = -77.0
+    assert torch.equal(decode_cross_attention_grouped(q, k_t, v_t, s_valid), got)
+
+
+@pytest.mark.parametrize("s,pos", [(64, 0), (64, 5), (64, 63), (448, 300)])
+def test_self_attention_update(dev, s, pos):
+    dtype = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(s + pos)
+    bh = 24
+    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).to(dtype)
+    kn, vn = (torch.randn(2, bh, 64, generator=g, device=dev)).to(dtype)
+    kc = torch.randn(bh, s, 64, generator=g, device=dev).to(dtype)
+    vc = torch.randn(bh, s, 64, generator=g, device=dev).to(dtype)
+    kr, vr = kc.clone(), vc.clone()
+    got = decode_self_attention_update(q, kn, vn, kc, vc, pos)
+    ref = decode_self_attention_update_ref(q, kn, vn, kr, vr, pos)
+    assert torch.equal(kc, kr) and torch.equal(vc, vr)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(dtype, float(ref.float().abs().max())))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(4, 32, device=dev)
+    with pytest.raises(ValueError):  # head dim 32
+        decode_self_attention_update(x, x, x, torch.zeros(4, 8, 32, device=dev),
+                                     torch.zeros(4, 8, 32, device=dev), 1)
+    with pytest.raises(ValueError):  # 5 query slots
+        decode_cross_attention_grouped(torch.zeros(4, 5, 64, device=dev),
+                                       torch.zeros(4, 64, 128, device=dev),
+                                       torch.zeros(4, 64, 128, device=dev))
+    with pytest.raises(TypeError):  # the attention kernels take bf16 only
+        decode_cross_attention_grouped(torch.zeros(4, 1, 64, device=dev),
+                                       torch.zeros(4, 64, 128, device=dev),
+                                       torch.zeros(4, 64, 128, device=dev))
+    with pytest.raises(TypeError):
+        decode_self_attention_update(*torch.zeros(3, 4, 64, device=dev),
+                                     torch.zeros(4, 8, 64, device=dev),
+                                     torch.zeros(4, 8, 64, device=dev), 1)
+    with pytest.raises(ValueError):  # w at an offset that breaks 16-byte loads
+        int8_matmul(torch.zeros(2, 64, device=dev),
+                    torch.zeros(64 * 64 + 8, dtype=torch.int8,
+                                device=dev)[8:].view(64, 64),
+                    torch.ones(1, 64, device=dev))
+    with pytest.raises(ValueError):  # N not a multiple of 64
+        int8_matmul(torch.zeros(2, 64, device=dev),
+                    torch.zeros(64, 96, dtype=torch.int8, device=dev),
+                    torch.ones(1, 96, device=dev))
+    with pytest.raises(TypeError):  # float16 is not a kernel dtype
+        int8_matmul(torch.zeros(2, 64, device=dev, dtype=torch.float16),
+                    torch.zeros(64, 64, dtype=torch.int8, device=dev),
+                    torch.ones(1, 64, device=dev))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_scores_stay_f32(dev, causal):
+    """bf16 attention with scores near 30 to 45, where a bf16 score is off
+    by up to 0.125, against a float64 reference of the JAX semantics (f32
+    scores, bf16 probabilities): within one bf16 step of the output's scale,
+    which bf16-rounded scores would miss by far."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, h, t, dh = 1, 4, 1500, 64
+    q = torch.randn(b, h, t, dh, generator=g, device=dev) * 4
+    k = torch.randn(b, h, t, dh, generator=g, device=dev)
+    q[..., 0], k[..., 0] = 8.0, 30.0   # q is scaled by 1/8: +30 on every score
+    q, k = q.bfloat16(), k.bfloat16()
+    v = torch.randn(b, h, t, dh, generator=g, device=dev).bfloat16()
+    i = torch.arange(t, device=dev)
+    mask = torch.where(i[None, :] <= i[:, None], 0.0, -1e9) if causal else None
+    got = whisper.attention(q, k, v, mask).double().cpu()
+    q64, k64, v64 = (x.double().cpu() for x in (q, k, v))
+    scores = (q64 * dh ** -0.5) @ k64.transpose(-1, -2)
+    if causal:
+        scores = scores + mask.double().cpu()
+    probs = torch.softmax(scores, dim=-1).bfloat16().double()
+    ref = probs @ v64
+    assert float((got - ref).abs().max()) <= 2 ** -7 * float(ref.abs().max())
