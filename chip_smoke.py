@@ -4,19 +4,29 @@
     python3 chip_smoke.py              # from the repository root
     python3 chip_smoke.py --profile    # also a torch.profiler kernel table
 
-Phase 0  prints the card and its power limit, builds the four CUDA kernels
-         from `openai_whisper_compression_tpu_torch/csrc` (nvcc, sm_90a).
+Phase 0  prints the card and its power limit, builds the CUDA kernels from
+         `openai_whisper_compression_tpu_torch/csrc` (nvcc, sm_90a, one
+         process per source).
 Phase 1  each kernel against its plain PyTorch version on the card, at
-         whisper-small main-path shapes with batch 32, with CUDA-event times.
-Phase 2  the slice: whisper-small at full width with seeded random bf16
+         whisper-small main-path shapes (batch 32 for slice 1's four
+         kernels, batch 96 for the int8/int4-KV kernels), with CUDA-event
+         times.
+Phase 2  three runs of whisper-small at full width with seeded random bf16
          weights, int8 linears, fused decoder qkv, `make_transcribe_fn`
-         (bf16 DFT mel, tanh encoder GELU, greedy 25 tokens): three batches
-         of 32 seeded 30 s waveforms with EOT suppressed, then the first
-         batch again with EOT allowed and its embedding tied to a generated
-         token, so that rows stop at different steps. Every kernel's launch
-         count over this run must be > 0.
+         (bf16 DFT mel, tanh encoder GELU, greedy 25 tokens) on seeded
+         synthetic 30 s waveforms:
+           bf16-kv   batch 32, bf16 self-KV and cross-KV (slice 1);
+           int8-kv   batch 96, int8 self-KV and int8 cross-KV (`bench.py`'s
+                     headline decode);
+           int4-ckv  batch 96, int8 self-KV and int4 cross-KV (one batch).
+         The first two run three batches with EOT suppressed, then the
+         first batch again with EOT allowed and its embedding tied to a
+         generated token, so that rows stop at different steps. Every
+         launch count is set to 0 before a run and read after it: each
+         kernel of the run's path must have launched, and no other.
 Phase 3  first-step logits of 2 utterances, card (bf16, kernels) against
-         the same port run on the CPU in f32 (plain versions).
+         the same port run on the CPU in f32 (plain versions), with bf16
+         caches and with the int8 self-KV and cross-KV.
 
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
@@ -38,8 +48,51 @@ import torch
 
 SEED = 0
 ARCH = "small"
-BATCH = 32
+BATCH = 32        # slice 1's phase-1 shapes and its bf16-KV run
+HEAD_BATCH = 96   # bench.py's headline batch (int8 self-KV and cross-KV)
 AUDIO_S = 30.0
+CSRC = "openai_whisper_compression_tpu_torch/csrc/"
+JAX_PKG = "openai_whisper_compression_tpu/"
+# every kernel: (entry name, wrapper module, wrapper, launch counter
+# attribute, source file, the TPU kernel it replaces, phase-1 result key)
+KERNELS = [
+    ("log_mel_cuda", "audio.mel_kernel", "log_mel_cuda", "launches",
+     "mel.cu", "audio/mel_pallas.py:62", "mel"),
+    ("int8_matmul", "ops.quant_matmul", "int8_matmul", "launches",
+     "int8_matmul.cu", "ops/quant_matmul.py:55", "int8_matmul"),
+    ("decode_cross_attention_grouped", "ops.cross_attention",
+     "decode_cross_attention_grouped", "launches", "cross_attention.cu",
+     "ops/cross_attention.py:321", "cross"),
+    ("decode_self_attention_update", "ops.self_attention_step",
+     "decode_self_attention_update", "launches", "self_attention_step.cu",
+     "ops/self_attention_step.py:245", "self"),
+    ("transpose_quant_kv", "ops.cross_attention", "transpose_quant_kv",
+     "launches", "transpose_quant.cu", "ops/cross_attention.py:248", "tq"),
+    ("decode_cross_attention_grouped_int8", "ops.cross_attention",
+     "decode_cross_attention_grouped", "launches_int8", "cross_attention.cu",
+     "ops/cross_attention.py:306", "cross_int8"),
+    ("decode_cross_attention_grouped_int4", "ops.cross_attention",
+     "decode_cross_attention_grouped", "launches_int4", "cross_attention.cu",
+     "ops/cross_attention.py:313", "cross_int4"),
+    ("decode_self_attention_update_int8", "ops.self_attention_step",
+     "decode_self_attention_update_int8", "launches", "self_attention_step.cu",
+     "ops/self_attention_step.py:386", "self_int8"),
+]
+# phase-2 runs: (name, DecodeConfig switches, batch, batches with EOT
+# suppressed, kernels of the path); the entry of KERNELS reports the launch
+# count of the first run whose path holds it
+RUNS = [
+    ("bf16-kv", {}, BATCH, 3,
+     ("log_mel_cuda", "int8_matmul", "decode_cross_attention_grouped",
+      "decode_self_attention_update")),
+    ("int8-kv", {"kv_int8": True, "cross_kv_int8": True}, HEAD_BATCH, 3,
+     ("log_mel_cuda", "int8_matmul", "transpose_quant_kv",
+      "decode_cross_attention_grouped_int8",
+      "decode_self_attention_update_int8")),
+    ("int4-ckv", {"kv_int8": True, "cross_kv_int4": True}, HEAD_BATCH, 1,
+     ("log_mel_cuda", "int8_matmul", "decode_cross_attention_grouped_int4",
+      "decode_self_attention_update_int8")),
+]
 
 # Tolerances, card kernel vs plain version on identical inputs (the plain
 # versions compute in f32 from the same bf16-rounded operands):
@@ -152,13 +205,15 @@ def phase1(dev, results: dict) -> None:
     errs = []
     for kq in (1, 3):
         qg = (torch.randn(bh, kq, 64, generator=gen, device=dev) * 0.125).to(bf16)
-        got = decode_cross_attention_grouped(qg, k_t, v_t, s_valid)
-        ref = decode_cross_attention_grouped_ref(qg, k_t, v_t, s_valid)
+        got = decode_cross_attention_grouped(qg, k_t, v_t, s_valid=s_valid)
+        ref = decode_cross_attention_grouped_ref(qg, k_t, v_t, s_valid=s_valid)
         err, bound = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
         check(err <= bound, f"cross attention K={kq}: err {err} > {bound}")
         errs.append(err)
-        t_k = cuda_ms(lambda: decode_cross_attention_grouped(qg, k_t, v_t, s_valid))
-        t_p = cuda_ms(lambda: decode_cross_attention_grouped_ref(qg, k_t, v_t, s_valid))
+        t_k = cuda_ms(lambda: decode_cross_attention_grouped(
+            qg, k_t, v_t, s_valid=s_valid))
+        t_p = cuda_ms(lambda: decode_cross_attention_grouped_ref(
+            qg, k_t, v_t, s_valid=s_valid))
         if kq == 1:
             results["cross"] = {"ms": t_k, "plain_ms": t_p}
         log(f"phase1 cross_attention_grouped K={kq} ({bh}, 64, {s_pad}) "
@@ -193,6 +248,92 @@ def phase1(dev, results: dict) -> None:
     results["self"]["max_abs_err"] = max(errs)
 
 
+def phase1_quantized(dev, results: dict) -> None:
+    """The int8/int4-KV kernels at the shapes of bench.py's batch 96."""
+    from openai_whisper_compression_tpu_torch.models.whisper import _quant_kv4_t
+    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
+        decode_cross_attention_grouped, decode_cross_attention_grouped_ref,
+        transpose_kv, transpose_quant_kv, transpose_quant_kv_ref)
+    from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
+        decode_self_attention_update_int8, decode_self_attention_update_int8_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    bf16 = torch.bfloat16
+    b, s, h = HEAD_BATCH, 1500, 12
+    bh = b * h
+
+    # transpose + int8 quantize of a cross K and a cross V projection
+    xk, xv = ((torch.randn(b, s, h * 64, generator=gen, device=dev) * 0.4).to(bf16)
+              for _ in range(2))
+    k8, ks8 = transpose_quant_kv(xk, h)
+    ref_k, ref_ks = transpose_quant_kv_ref(xk, h)
+    check(torch.equal(k8, ref_k) and torch.equal(ks8, ref_ks),
+          "transpose_quant_kv: codes or scales differ from the plain version")
+    v8, vs8 = transpose_quant_kv(xv, h)
+    t_k = cuda_ms(lambda: transpose_quant_kv(xk, h))
+    t_p = cuda_ms(lambda: transpose_quant_kv_ref(xk, h))
+    results["tq"] = {"max_abs_err": max(max_err(k8, ref_k), max_err(ks8, ref_ks)),
+                     "ms": t_k, "plain_ms": t_p}
+    log(f"phase1 transpose_quant_kv ({b}, {s}, {h * 64}) bf16 -> ({bh}, 64, "
+        f"{k8.shape[2]}) int8: codes and scales equal; kernel {t_k:.4f} ms "
+        f"plain {t_p:.4f} ms")
+    del ref_k, ref_ks
+    k4, ks4 = _quant_kv4_t(transpose_kv(xk, h))
+    v4, vs4 = _quant_kv4_t(transpose_kv(xv, h))
+    t_q4 = cuda_ms(lambda: _quant_kv4_t(transpose_kv(xk, h)))
+    log(f"phase1 int4 cross-KV transpose + quantize + pack ({b}, {s}, "
+        f"{h * 64}) bf16, plain torch (no kernel, as in the JAX package): "
+        f"{t_q4:.4f} ms")
+    del xk, xv
+
+    # int8 and int4 grouped cross-attention, K = 1 (step) and K = 3 (prefill)
+    for key, what, kv in (("cross_int8", "int8", (k8, v8, ks8, vs8)),
+                          ("cross_int4", "int4", (k4, v4, ks4, vs4))):
+        errs = []
+        for kq in (1, 3):
+            qg = (torch.randn(bh, kq, 64, generator=gen, device=dev) * 0.125).to(bf16)
+            got = decode_cross_attention_grouped(qg, *kv, s)
+            ref = decode_cross_attention_grouped_ref(qg, *kv, s)
+            err, bound = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+            check(err <= bound, f"cross attention {what} K={kq}: err {err} > {bound}")
+            errs.append(err)
+            t_k = cuda_ms(lambda: decode_cross_attention_grouped(qg, *kv, s))
+            t_p = cuda_ms(lambda: decode_cross_attention_grouped_ref(qg, *kv, s))
+            if kq == 1:
+                results[key] = {"ms": t_k, "plain_ms": t_p}
+            log(f"phase1 cross_attention_grouped {what} K={kq} "
+                f"{tuple(kv[0].shape)} s_valid {s}: err {err:.3g} (bound "
+                f"{bound:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+        results[key]["max_abs_err"] = max(errs)
+    del k8, v8, k4, v4
+
+    # int8 self-attention update over a 64-row int8 cache
+    kc0, vc0 = torch.randint(-127, 128, (2, bh, 64, 64), generator=gen,
+                             device=dev, dtype=torch.int8)
+    ks0, vs0 = torch.rand(2, bh, 64, generator=gen, device=dev) * 0.03 + 1e-3
+    errs = []
+    for pos in (3, 30, 63):
+        qf = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(bf16)
+        kn, vn = (torch.randn(2, bh, 64, generator=gen, device=dev) * 2).to(bf16)
+        bufs = [t.clone() for t in (kc0, vc0, ks0, vs0)]
+        refs = [t.clone() for t in (kc0, vc0, ks0, vs0)]
+        got = decode_self_attention_update_int8(qf, kn, vn, *bufs, pos)
+        ref = decode_self_attention_update_int8_ref(qf, kn, vn, *refs, pos)
+        err, bound = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+        check(all(torch.equal(a, r) for a, r in zip(bufs, refs)),
+              f"self attention int8 pos={pos}: cache rows or scales differ")
+        check(err <= bound, f"self attention int8 pos={pos}: err {err} > {bound}")
+        errs.append(err)
+        t_k = cuda_ms(lambda: decode_self_attention_update_int8(qf, kn, vn, *bufs, pos))
+        t_p = cuda_ms(lambda: decode_self_attention_update_int8_ref(qf, kn, vn, *refs, pos))
+        if pos == 30:
+            results["self_int8"] = {"ms": t_k, "plain_ms": t_p}
+        log(f"phase1 self_attention_update_int8 pos={pos} ({bh}, 64, 64): err "
+            f"{err:.3g} (bound {bound:.3g}) cache rows and scales equal; "
+            f"kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+    results["self_int8"]["max_abs_err"] = max(errs)
+
+
 def make_slice(dev):
     from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
     from openai_whisper_compression_tpu_torch.evaluation.harness import (
@@ -207,13 +348,13 @@ def make_slice(dev):
     return arch, params, DecodeConfig, make_transcribe_fn
 
 
-def waveforms(seed: int) -> np.ndarray:
+def waveforms(seed: int, batch: int) -> np.ndarray:
     """Seeded synthetic 30 s batch: noise under a few drifting tones."""
     rng = np.random.default_rng(seed)
     t = np.arange(int(AUDIO_S * 16000), dtype=np.float32) / 16000.0
-    f0 = rng.uniform(100.0, 300.0, size=(BATCH, 1)).astype(np.float32)
+    f0 = rng.uniform(100.0, 300.0, size=(batch, 1)).astype(np.float32)
     tone = 0.3 * np.sin(2 * np.pi * f0 * t * (1 + 0.05 * np.sin(0.5 * t)))
-    return (tone + 0.05 * rng.standard_normal((BATCH, t.size))).astype(np.float32)
+    return (tone + 0.05 * rng.standard_normal((batch, t.size))).astype(np.float32)
 
 
 def eot_twin_params(params: dict, tokens: torch.Tensor, p_len: int, eot: int):
@@ -240,55 +381,75 @@ def eot_twin_params(params: dict, tokens: torch.Tensor, p_len: int, eot: int):
             twin, stops(twin))
 
 
-def phase2(dev, kernel_fns, profile: bool) -> dict:
-    arch, params, DecodeConfig, make_transcribe_fn = make_slice(dev)
+def launch_counters() -> dict:
+    """Entry name -> (wrapper, counter attribute), for every kernel."""
+    import importlib
+
+    return {name: (getattr(importlib.import_module(
+        "openai_whisper_compression_tpu_torch." + mod), fn), attr)
+        for name, mod, fn, attr, *_ in KERNELS}
+
+
+def run_path(dev, slice_, run, profile: bool) -> dict:
+    """One phase-2 run (see RUNS): its batches, checks, walls, steady RTFx,
+    peak memory and the launch count of every kernel over the run."""
+    name, switches, batch, n_sup, path = run
+    arch, params, DecodeConfig, make_transcribe_fn = slice_
     eot = arch.eos_token_id
     p_len = 4  # <|sot|> <|en|> <|transcribe|> <|notimestamps|>
     prefix = torch.tensor([arch.decoder_start_token_id, arch.language_en_token_id,
                            arch.task_transcribe_token_id,
                            arch.no_timestamps_token_id])
-    fn_sup = make_transcribe_fn(arch, DecodeConfig(max_new_tokens=25,
-                                                   suppress_tokens=(eot,)),
-                                fast_mel=True, fast_gelu=True, device=dev)
-    fn_eot = make_transcribe_fn(arch, DecodeConfig(max_new_tokens=25),
-                                fast_mel=True, fast_gelu=True, device=dev)
-    wavs = [torch.from_numpy(waveforms(SEED + i)).to(dev) for i in range(3)]
+
+    def make(**kw):
+        return make_transcribe_fn(arch, DecodeConfig(max_new_tokens=25, **switches,
+                                                     **kw),
+                                  fast_mel=True, fast_gelu=True, device=dev)
+
+    fn_sup = make(suppress_tokens=(eot,))
+    wavs = [torch.from_numpy(waveforms(SEED + i, batch)).to(dev) for i in range(n_sup)]
+    counters = launch_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for f in kernel_fns:
-        f.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     walls, outs = [], []
 
-    def run(fn, p, wav, what):
+    def one(fn, p, wav, what):
         t0 = time.perf_counter()
         tokens, lengths = fn(p, wav)
         tokens, lengths = tokens.cpu(), lengths.cpu()   # the timing fence
         wall = time.perf_counter() - t0
-        log(f"phase2 batch {len(walls)} ({what}): wall {wall:.4f} s, "
-            f"{BATCH / wall:.2f} utt/s, RTFx {BATCH * AUDIO_S / wall:.2f}, "
+        log(f"phase2 {name} batch {len(walls)} ({what}): wall {wall:.4f} s, "
+            f"{batch / wall:.2f} utt/s, RTFx {batch * AUDIO_S / wall:.2f}, "
             f"lengths min {int(lengths.min())} max {int(lengths.max())}")
         walls.append(wall)
         outs.append((tokens, lengths, what))
 
     for wav in wavs:
-        run(fn_sup, params, wav, "EOT suppressed")
-    # the fourth batch: batch 0's audio with EOT allowed and made reachable
-    params_eot, twin, stops = eot_twin_params(params, outs[0][0], p_len, eot)
-    log(f"phase2 EOT twin: token {twin}; batch 0 emitted it first at steps "
-        f"{stops} (25: never)")
-    run(fn_eot, params_eot, wavs[0], "EOT allowed")
-    launches = {f.__name__: f.launches for f in kernel_fns}
+        one(fn_sup, params, wav, "EOT suppressed")
+    if n_sup > 1:
+        # batch 0's audio again with EOT allowed and made reachable
+        params_eot, twin, stops = eot_twin_params(params, outs[0][0], p_len, eot)
+        log(f"phase2 {name} EOT twin: token {twin}; batch 0 emitted it first at "
+            f"steps {stops} (25: never)")
+        one(make(), params_eot, wavs[0], "EOT allowed")
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
-    log(f"phase2 launches {json.dumps(launches)}")
-    log(f"phase2 peak memory {peak_mb:.1f} MiB (torch.cuda.max_memory_allocated)")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    log(f"phase2 {name} launches {json.dumps(launches)}")
+    log(f"phase2 {name} peak memory {peak_mb:.1f} MiB "
+        "(torch.cuda.max_memory_allocated)")
+    for k, count in launches.items():
+        if k in path:
+            check(count > 0, f"{name}: kernel {k} was not launched on its path")
+        else:
+            check(count == 0, f"{name}: kernel {k} launched outside its path")
 
     for tokens, lengths, what in outs:
-        check(tokens.shape == (BATCH, 64), f"tokens shape {tuple(tokens.shape)}")
+        check(tokens.shape == (batch, 64), f"tokens shape {tuple(tokens.shape)}")
         check(int(tokens.min()) >= 0 and int(tokens.max()) < arch.vocab_size,
               "tokens outside the vocabulary")
-        check(torch.equal(tokens[:, :p_len], prefix.expand(BATCH, -1)),
+        check(torch.equal(tokens[:, :p_len], prefix.expand(batch, -1)),
               "forced prefix not intact")
         for row, n in zip(tokens, lengths.tolist()):
             check(bool((row[n:] == eot).all()), "tokens past the length must be EOT")
@@ -298,28 +459,31 @@ def phase2(dev, kernel_fns, profile: bool) -> dict:
             check(bool((lengths == p_len + 25).all()), f"lengths {lengths.tolist()}")
             check(not bool((tokens[:, p_len: p_len + 25] == eot).any()),
                   "EOT emitted although suppressed")
-    tokens, lengths, _ = outs[3]
-    check(bool(((lengths > p_len) & (lengths <= p_len + 25)).all()),
-          f"lengths {lengths.tolist()}")
-    for row, n in zip(tokens, lengths.tolist()):
-        check(n == p_len + 25 or int(row[n - 1]) == eot,
-              "a row shorter than the limit must end in EOT")
-    check(len(set(lengths.tolist())) > 1,
-          f"EOT-allowed rows must stop at different steps: {lengths.tolist()}")
-    same = sum(torch.equal(tokens[r, p_len: n - 1], outs[0][0][r, p_len: n - 1])
-               for r, n in enumerate(lengths.tolist()))
-    log(f"phase2 EOT allowed: lengths {sorted(set(lengths.tolist()))}, "
-        f"{int((lengths < p_len + 25).sum())} of {BATCH} rows stopped early; "
-        f"{same} rows equal batch 0 up to their stop")
-    steady = walls[1:3]
-    summary = {"walls_s": walls, "rtfx_steady": BATCH * AUDIO_S / (sum(steady) / len(steady)),
+    if n_sup > 1:
+        tokens, lengths, _ = outs[-1]
+        check(bool(((lengths > p_len) & (lengths <= p_len + 25)).all()),
+              f"lengths {lengths.tolist()}")
+        for row, n in zip(tokens, lengths.tolist()):
+            check(n == p_len + 25 or int(row[n - 1]) == eot,
+                  "a row shorter than the limit must end in EOT")
+        check(len(set(lengths.tolist())) > 1,
+              f"EOT-allowed rows must stop at different steps: {lengths.tolist()}")
+        same = sum(torch.equal(tokens[r, p_len: n - 1], outs[0][0][r, p_len: n - 1])
+                   for r, n in enumerate(lengths.tolist()))
+        log(f"phase2 {name} EOT allowed: lengths {sorted(set(lengths.tolist()))}, "
+            f"{int((lengths < p_len + 25).sum())} of {batch} rows stopped early; "
+            f"{same} rows equal batch 0 up to their stop")
+    steady = walls[1:3] if n_sup >= 3 else walls[:1]
+    summary = {"batch": batch, "walls_s": walls,
+               "rtfx_steady": batch * AUDIO_S / (sum(steady) / len(steady)),
                "peak_mib": peak_mb, "launches": launches}
-    log(f"phase2 steady (batches 1-2) RTFx {summary['rtfx_steady']:.2f}")
+    log(f"phase2 {name} steady ({'batches 1-2' if n_sup >= 3 else 'batch 0'}) "
+        f"RTFx {summary['rtfx_steady']:.2f}")
 
     if profile:
         from torch.profiler import ProfilerActivity, profile as tprofile
 
-        wav = wavs[1]
+        wav = wavs[-1]
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -329,50 +493,55 @@ def phase2(dev, kernel_fns, profile: bool) -> dict:
         dev_us = sum(e.self_device_time_total for e in events  # kernels only
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and not e.is_user_annotation)
-        log(f"profile: wall {wall * 1e3:.1f} ms, summed device kernel time "
-            f"{dev_us / 1e3:.1f} ms, idle share "
+        log(f"profile {name}: wall {wall * 1e3:.1f} ms, summed device kernel "
+            f"time {dev_us / 1e3:.1f} ms, idle share "
             f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}")
         log(events.table(sort_by="self_device_time_total", row_limit=30,
                          max_name_column_width=60))
-    return {"arch": arch, "params": params, "cfg": DecodeConfig(max_new_tokens=25,
-                                                                suppress_tokens=(eot,)),
-            "wav": wavs[0][:2], "summary": summary}
+    return summary
 
 
 @torch.inference_mode()
-def phase3(dev, state: dict) -> float:
+def phase3(dev, slice_) -> None:
+    """First-step logits of 2 utterances, card bf16 vs CPU f32, with bf16
+    caches and with bench.py's int8 self-KV and cross-KV."""
     from openai_whisper_compression_tpu_torch.audio.features import preprocess
     from openai_whisper_compression_tpu_torch.models.decode import first_step_logits
     from openai_whisper_compression_tpu_torch.models.params import tree_to
     from openai_whisper_compression_tpu_torch.models.whisper import encode
 
-    arch, cfg = state["arch"], state["cfg"]
+    arch, params, DecodeConfig, _ = slice_
+    cfgs = {name: DecodeConfig(max_new_tokens=25, suppress_tokens=(arch.eos_token_id,),
+                               **switches)
+            for name, switches, *_ in RUNS[:2]}
+    wav = torch.from_numpy(waveforms(SEED, 2))
 
     def logits(params, wav, dtype):
         mel = preprocess(wav, arch.num_mel_bins, dft_dtype=torch.bfloat16).to(dtype)
         enc = encode(params, arch, mel, fast_gelu=True)
-        return first_step_logits(params, arch, enc, cfg).float().cpu()
+        return {name: first_step_logits(params, arch, enc, cfg).float().cpu()
+                for name, cfg in cfgs.items()}
 
-    card = logits(state["params"], state["wav"], torch.bfloat16)
-    params_cpu = tree_to(state["params"], "cpu", torch.float32)
-    ref = logits(params_cpu, state["wav"].cpu(), torch.float32)
-    rel = float((card - ref).norm() / ref.norm())
-    agree = float((card.argmax(-1) == ref.argmax(-1)).float().mean())
-    log(f"phase3 first-step logits card bf16 vs CPU f32: relative L2 {rel:.4g} "
-        f"(bound {LOGITS_REL_L2}), max abs {max_err(card, ref):.4g}, "
-        f"|logits| max {float(ref.abs().max()):.4g}, argmax agreement {agree:.2f} "
-        "(not checked: random weights make argmax tie-prone)")
-    check(torch.isfinite(card).all() and card.shape == (2, arch.vocab_size),
-          'check failed: torch.isfinite(card).all() and card.shape == (2, arch.vocab_')
-    check(rel <= LOGITS_REL_L2,
-          f"card logits off by {rel:.4g} relative L2")
-    return rel
+    card = logits(params, wav.to(dev), torch.bfloat16)
+    ref = logits(tree_to(params, "cpu", torch.float32), wav, torch.float32)
+    for name in cfgs:
+        c, r = card[name], ref[name]
+        rel = float((c - r).norm() / r.norm())
+        agree = float((c.argmax(-1) == r.argmax(-1)).float().mean())
+        log(f"phase3 {name} first-step logits card bf16 vs CPU f32: relative L2 "
+            f"{rel:.4g} (bound {LOGITS_REL_L2}), max abs {max_err(c, r):.4g}, "
+            f"|logits| max {float(r.abs().max()):.4g}, argmax agreement {agree:.2f} "
+            "(not checked: random weights make argmax tie-prone)")
+        check(bool(torch.isfinite(c).all()) and c.shape == (2, arch.vocab_size),
+              f"{name}: card logits not finite or of shape {tuple(c.shape)}")
+        check(rel <= LOGITS_REL_L2, f"{name}: card logits off by {rel:.4g} relative L2")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one slice batch with torch.profiler")
+                    help="profile one batch of the batch-96 int8-KV run with "
+                         "torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -380,13 +549,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from openai_whisper_compression_tpu_torch.audio.mel_kernel import log_mel_cuda
     from openai_whisper_compression_tpu_torch.ops import kernels
-    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
-        decode_cross_attention_grouped)
-    from openai_whisper_compression_tpu_torch.ops.quant_matmul import int8_matmul
-    from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
-        decode_self_attention_update)
 
     # f32 references run in full f32 on the card, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -407,27 +570,24 @@ def main() -> int:
 
     results: dict = {}
     phase1(dev, results)
-    kernel_fns = (log_mel_cuda, int8_matmul, decode_cross_attention_grouped,
-                  decode_self_attention_update)
-    state = phase2(dev, kernel_fns, args.profile)
-    phase3(dev, state)
+    phase1_quantized(dev, results)
+    torch.cuda.empty_cache()
+    slice_ = make_slice(dev)
+    summaries = {run[0]: run_path(dev, slice_, run,
+                                  args.profile and run[0] == "int8-kv")
+                 for run in RUNS}
+    phase3(dev, slice_)
 
-    csrc = "openai_whisper_compression_tpu_torch/csrc/"
-    table = [
-        ("log_mel_cuda", "mel", "mel.cu", "audio/mel_pallas.py:62"),
-        ("int8_matmul", "int8_matmul", "int8_matmul.cu", "ops/quant_matmul.py:55"),
-        ("decode_cross_attention_grouped", "cross", "cross_attention.cu",
-         "ops/cross_attention.py:321"),
-        ("decode_self_attention_update", "self", "self_attention_step.cu",
-         "ops/self_attention_step.py:245"),
-    ]
-    launches = state["summary"]["launches"]
+    def launches(name):  # from the first run whose path holds the kernel
+        run = next(r for r in RUNS if name in r[4])
+        return summaries[run[0]]["launches"][name]
+
     kernels_line = {"kernels": [
-        {"name": name, "route": "cuda", "source": csrc + src,
-         "replaces": "openai_whisper_compression_tpu/" + rep,
-         "launches": launches[name], "max_abs_err": results[key]["max_abs_err"],
+        {"name": name, "route": "cuda", "source": CSRC + src,
+         "replaces": JAX_PKG + rep, "launches": launches(name),
+         "max_abs_err": results[key]["max_abs_err"],
          "ms": results[key]["ms"], "plain_ms": results[key]["plain_ms"]}
-        for name, key, src, rep in table]}
+        for name, _, _, _, src, rep, key in KERNELS]}
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,13 @@ __device__ __forceinline__ float owc_round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// Symmetric int8 code of x under `scale`: clamp(rint(x / scale), -127, 127),
+// an IEEE division (no fast-math flags) rounded half to even, as jnp.round
+// and torch.round round.
+__device__ __forceinline__ int owc_quant_int8(float x, float scale) {
+  return (int)fminf(fmaxf(rintf(x / scale), -127.0f), 127.0f);
+}
+
 __device__ __forceinline__ float owc_warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -1,68 +1,120 @@
 // Grouped decode cross-attention over transposed encoder K/V.
 //
 // Replaces: openai_whisper_compression_tpu/ops/cross_attention.py
-//           decode_cross_attention_grouped (bf16 body _beam_core via
-//           _kernel_beam).
+//           decode_cross_attention_grouped, its three bodies over _beam_core:
+//           _kernel_beam (bf16 K/V), _kernel_beam_int8 (int8 K/V) and
+//           _kernel_beam_int4 (split-half packed int4 K/V).
 // Computes, for each (batch, head) row g of BH and each of its KQ query
 // slots j (KQ = 1 in a decode step, KQ = prefix length - 1 in prefill):
-//   scores[j, s] = sum_d q[g, j, d] * k_t[g, d, s]          (q pre-scaled)
-//   p[j, :]      = softmax(scores[j, :]) with s >= s_valid masked to
-//                  probability exactly zero
-//   out[g, j, d] = sum_s p[j, s] * v_t[g, d, s]
-// in f32, from bf16 q/K/V, output in bf16.
+//   scores[j, s] = (sum_d q[g, j, d] * k_t[g, d, s]) * k_scale[g, s]
+//   scores[j, s] = -inf for s >= s_valid
+//   p[j, s]      = exp(scores[j, s] - max_s), l[j] = sum_s p[j, s]
+//   out[g, j, d] = sum_s p[j, s] * v_scale[g, s] * v_t[g, d, s] / l[j]
+// in f32, from bf16 q and bf16 / int8 / int4 K/V (the scales are absent, 1,
+// for bf16), output in bf16. l is summed before the v-scale fold, as in
+// _beam_core.
 //
 // What bounds it on the H100: device-memory bytes. Every decode step reads
-// the whole cross K/V once: BH x 64 x S_pad x 2 tensors x 2 bytes (151 MB
-// per layer at whisper-small, batch 32), against 4 x KQ FLOPs per element,
-// far below the balance point. The design reads each K/V element once per
-// call, in 16-byte loads, and shares it across the KQ query slots of its
-// row; past s_valid only the tail of the last 8-position chunk is read, and
-// masked.
+// the whole cross K/V once: BH x 64 x S_pad x 2 tensors x 2 bytes for bf16
+// (151 MB per layer at whisper-small, batch 32), half that for int8 and a
+// quarter for int4, against 4 x KQ FLOPs per element, far below the balance
+// point. The design reads each K/V element once per call, in 16-byte loads,
+// and shares it across the KQ query slots of its row; past s_valid only the
+// tail of the last chunk is read, and masked.
 //
 // Design: one block (256 threads) per (batch, head) row. The q slots sit in
-// shared memory as f32. Pass 1: a thread per 8-position chunk walks the 64
-// rows of k_t (one 16-byte load per row; neighbouring threads read
-// neighbouring chunks, so each row read is coalesced) and keeps 8 x KQ dot
-// products in registers; scores go to shared memory. Block-wide max/sum
-// reductions give the softmax. Pass 2: each warp owns 8 of the 64 value
-// rows, its lanes stride along the row in 16-byte chunks, and a warp
-// reduction yields out[j, d]. The slot count is a template parameter
-// (1 or 4), so a decode step keeps only 8 sums per thread in registers.
-// Beam widths (KQ up to 8) wait for the beam-search slice.
+// shared memory as f32. Pass 1: a thread per chunk of positions (8 for bf16,
+// 16 for int8 and int4: one 16-byte load) walks the stored rows of k_t
+// (neighbouring threads read neighbouring chunks, so each row read is
+// coalesced) and keeps chunk x KQ dot products in registers; scores times
+// the k scale go to shared memory. Block-wide max/sum reductions give the
+// softmax; the probabilities are stored already multiplied by the v scale.
+// Pass 2: each warp owns a set of stored rows, its lanes stride along the
+// row in 16-byte chunks, and a warp reduction yields out[j, d]. An int4 row
+// d holds dim d in the low nibble and dim d + 32 in the high nibble (both
+// signed), so it yields two output dims. The storage kind and the slot
+// count (1 or 4) are template parameters, so a decode step keeps only one
+// chunk of sums per thread in registers. Beam widths (KQ up to 8) wait for
+// the beam-search slice.
 #include "common.cuh"
 
 namespace {
 
-constexpr int DH = 64, THREADS = 256, VEC = 8;
-using T = __nv_bfloat16;
+constexpr int DH = 64, THREADS = 256;
+using BF = __nv_bfloat16;
 
-// 8 consecutive bf16 elements as f32, in one 16-byte load.
-__device__ __forceinline__ void load8(const T* p, float out[VEC]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// storage kinds, codes shared with ops/cross_attention.py
+enum Kind { KV_BF16 = 0, KV_INT8 = 1, KV_INT4 = 2 };
+
+// How a kind stores one (64, S_pad) K or V slab: ROWS stored rows of S_pad
+// elements; one 16-byte load holds VEC consecutive positions of a row, and
+// each stored row carries DIMS head dims (row r holds dims r + i * ROWS).
+template <int KIND> struct Store;
+
+template <> struct Store<KV_BF16> {
+  using T = BF;
+  static constexpr int ROWS = 64, VEC = 8, DIMS = 1;
+  __device__ static void load(const T* p, float out[DIMS][VEC]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[0][2 * i] = f.x;
+      out[0][2 * i + 1] = f.y;
+    }
   }
-}
+};
 
-template <int MAXQ>
+template <> struct Store<KV_INT8> {
+  using T = int8_t;
+  static constexpr int ROWS = 64, VEC = 16, DIMS = 1;
+  __device__ static void load(const T* p, float out[DIMS][VEC]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[0][i] = (float)b[i];
+  }
+};
+
+template <> struct Store<KV_INT4> {
+  using T = int8_t;
+  static constexpr int ROWS = 32, VEC = 16, DIMS = 2;
+  __device__ static void load(const T* p, float out[DIMS][VEC]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const int x = b[i];                          // sign-extended byte
+      out[0][i] = (float)(((x & 15) ^ 8) - 8);     // signed low nibble
+      out[1][i] = (float)(x >> 4);                 // signed high nibble
+    }
+  }
+};
+
+template <int KIND, int MAXQ>
 __global__ void __launch_bounds__(THREADS)
-cross_attn_grouped_kernel(const T* __restrict__ q, const T* __restrict__ k_t,
-                          const T* __restrict__ v_t, T* __restrict__ out,
-                          int KQ, int S_pad, int s_valid) {
+cross_attn_grouped_kernel(const BF* __restrict__ q,
+                          const typename Store<KIND>::T* __restrict__ k_t,
+                          const typename Store<KIND>::T* __restrict__ v_t,
+                          const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale,
+                          BF* __restrict__ out, int KQ, int S_pad, int s_valid) {
+  using St = Store<KIND>;
+  constexpr int ROWS = St::ROWS, VEC = St::VEC, DIMS = St::DIMS;
+  constexpr bool SCALED = KIND != KV_BF16;
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;               // [MAXQ][DH]
   float* sc = sm + MAXQ * DH;   // [KQ][S_pad] scores, then probabilities
   __shared__ float red[32];
   __shared__ float inv_l[MAXQ];
   const int g = blockIdx.x, tid = threadIdx.x;
-  const T* kg = k_t + (size_t)g * DH * S_pad;
-  const T* vg = v_t + (size_t)g * DH * S_pad;
+  const typename St::T* kg = k_t + (size_t)g * ROWS * S_pad;
+  const typename St::T* vg = v_t + (size_t)g * ROWS * S_pad;
+  const float* ksg = SCALED ? k_scale + (size_t)g * S_pad : nullptr;
+  const float* vsg = SCALED ? v_scale + (size_t)g * S_pad : nullptr;
   const int nchunks = (s_valid + VEC - 1) / VEC;
-  const int s_end = nchunks * VEC;  // <= S_pad (S_pad % 8 == 0)
+  const int s_end = nchunks * VEC;  // <= S_pad (S_pad % VEC == 0)
 
   for (int i = tid; i < KQ * DH; i += THREADS)
     qs[i] = owc_to_float(q[(size_t)g * KQ * DH + i]);
@@ -76,15 +128,18 @@ cross_attn_grouped_kernel(const T* __restrict__ q, const T* __restrict__ k_t,
 #pragma unroll
       for (int v = 0; v < VEC; ++v) acc[j][v] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float kv[VEC];
-      load8(kg + (size_t)d * S_pad + s0, kv);
+    for (int r = 0; r < ROWS; ++r) {
+      float kv[DIMS][VEC];
+      St::load(kg + (size_t)r * S_pad + s0, kv);
 #pragma unroll
       for (int j = 0; j < MAXQ; ++j) {
         if (j < KQ) {
-          const float qd = qs[j * DH + d];
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) acc[j][v] = fmaf(qd, kv[v], acc[j][v]);
+          for (int i = 0; i < DIMS; ++i) {
+            const float qd = qs[j * DH + r + i * ROWS];
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) acc[j][v] = fmaf(qd, kv[i][v], acc[j][v]);
+          }
         }
       }
     }
@@ -92,8 +147,11 @@ cross_attn_grouped_kernel(const T* __restrict__ q, const T* __restrict__ k_t,
     for (int j = 0; j < MAXQ; ++j) {
       if (j < KQ) {
 #pragma unroll
-        for (int v = 0; v < VEC; ++v)
-          sc[j * S_pad + s0 + v] = s0 + v < s_valid ? acc[j][v] : -INFINITY;
+        for (int v = 0; v < VEC; ++v) {
+          const int s = s0 + v;
+          const float x = SCALED ? acc[j][v] * ksg[s] : acc[j][v];
+          sc[j * S_pad + s] = s < s_valid ? x : -INFINITY;
+        }
       }
     }
   }
@@ -107,8 +165,9 @@ cross_attn_grouped_kernel(const T* __restrict__ q, const T* __restrict__ k_t,
     float l = 0.0f;
     for (int s = tid; s < s_end; s += THREADS) {
       const float p = expf(row[s] - m);  // exactly 0 for masked positions
-      row[s] = p;
       l += p;
+      // the v scale folds in after l; padding scales may hold anything
+      row[s] = SCALED ? (s < s_valid ? p * vsg[s] : 0.0f) : p;
     }
     l = owc_block_sum(l, red);
     if (tid == 0) inv_l[j] = 1.0f / l;
@@ -116,62 +175,110 @@ cross_attn_grouped_kernel(const T* __restrict__ q, const T* __restrict__ k_t,
   __syncthreads();
 
   const int lane = tid & 31, warp = tid >> 5;
-  for (int d = warp; d < DH; d += THREADS / 32) {
-    const T* vrow = vg + (size_t)d * S_pad;
-    float acc[MAXQ];
+  for (int r = warp; r < ROWS; r += THREADS / 32) {
+    const typename St::T* vrow = vg + (size_t)r * S_pad;
+    float acc[DIMS][MAXQ];
 #pragma unroll
-    for (int j = 0; j < MAXQ; ++j) acc[j] = 0.0f;
+    for (int i = 0; i < DIMS; ++i)
+#pragma unroll
+      for (int j = 0; j < MAXQ; ++j) acc[i][j] = 0.0f;
     for (int c = lane; c < nchunks; c += 32) {
       const int s0 = c * VEC;
-      float vv[VEC];
-      load8(vrow + s0, vv);
+      float vv[DIMS][VEC];
+      St::load(vrow + s0, vv);
 #pragma unroll
       for (int v = 0; v < VEC; ++v)
-        if (s0 + v >= s_valid) vv[v] = 0.0f;  // padding may hold anything
+        if (s0 + v >= s_valid) {  // padding may hold anything
+#pragma unroll
+          for (int i = 0; i < DIMS; ++i) vv[i][v] = 0.0f;
+        }
 #pragma unroll
       for (int j = 0; j < MAXQ; ++j) {
         if (j < KQ) {
-          const float* p = sc + j * S_pad + s0;
+          const float4* p4 = reinterpret_cast<const float4*>(sc + j * S_pad + s0);
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) acc[j] = fmaf(p[v], vv[v], acc[j]);
+          for (int v4 = 0; v4 < VEC / 4; ++v4) {
+            const float4 p = p4[v4];
+            const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+            for (int i = 0; i < DIMS; ++i)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[i][j] = fmaf(pv[e], vv[i][4 * v4 + e], acc[i][j]);
+          }
         }
       }
     }
 #pragma unroll
-    for (int j = 0; j < MAXQ; ++j) {
-      if (j < KQ) {
-        const float tot = owc_warp_sum(acc[j]);
-        if (lane == 0) owc_store(out + ((size_t)g * KQ + j) * DH + d, tot * inv_l[j]);
+    for (int i = 0; i < DIMS; ++i) {
+#pragma unroll
+      for (int j = 0; j < MAXQ; ++j) {
+        if (j < KQ) {
+          const float tot = owc_warp_sum(acc[i][j]);
+          if (lane == 0)
+            owc_store(out + ((size_t)g * KQ + j) * DH + r + i * ROWS, tot * inv_l[j]);
+        }
       }
     }
   }
 }
 
-template <int MAXQ>
-int launch(const void* q, const void* k_t, const void* v_t, void* out, int BH,
-           int KQ, int S_pad, int s_valid, cudaStream_t st) {
+template <int KIND, int MAXQ>
+int launch(const void* q, const void* k_t, const void* v_t, const void* k_scale,
+           const void* v_scale, void* out, int BH, int KQ, int S_pad,
+           int s_valid, cudaStream_t st) {
+  using T = typename Store<KIND>::T;
   const size_t smem = (size_t)(MAXQ * DH + KQ * S_pad) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      cross_attn_grouped_kernel<MAXQ>,
+      cross_attn_grouped_kernel<KIND, MAXQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  cross_attn_grouped_kernel<MAXQ><<<BH, THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_t),
-      static_cast<const T*>(v_t), static_cast<T*>(out), KQ, S_pad, s_valid);
+  cross_attn_grouped_kernel<KIND, MAXQ><<<BH, THREADS, smem, st>>>(
+      static_cast<const BF*>(q), static_cast<const T*>(k_t),
+      static_cast<const T*>(v_t), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<BF*>(out), KQ, S_pad,
+      s_valid);
   return (int)cudaGetLastError();
+}
+
+template <int KIND>
+int launch_kind(const void* q, const void* k_t, const void* v_t,
+                const void* k_scale, const void* v_scale, void* out, int BH,
+                int KQ, int S_pad, int s_valid, cudaStream_t st) {
+  if (KQ == 1)
+    return launch<KIND, 1>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ, S_pad,
+                           s_valid, st);
+  return launch<KIND, 4>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ, S_pad,
+                         s_valid, st);
 }
 
 }  // namespace
 
-// q (BH, KQ, 64), k_t/v_t (BH, 64, S_pad), out (BH, KQ, 64), all bf16.
-// Requires 1 <= KQ <= 4, 1 <= s_valid <= S_pad, S_pad % 8 == 0, 16-byte
-// aligned k_t/v_t, and (4 * 64 + KQ * S_pad) * 4 bytes of shared memory
-// (at most 227 KB).
+// q (BH, KQ, 64) bf16; out (BH, KQ, 64) bf16. kind 0: k_t/v_t (BH, 64,
+// S_pad) bf16, scales unused (may be null). kind 1: k_t/v_t (BH, 64, S_pad)
+// int8 with k_scale/v_scale (BH, 1, S_pad) f32. kind 2: k_t/v_t (BH, 32,
+// S_pad) split-half packed int4 with the same scales. Requires
+// 1 <= KQ <= 4, 1 <= s_valid <= S_pad, S_pad a multiple of the kind's
+// 16-byte chunk (8 positions for bf16, 16 for int8/int4), 16-byte aligned
+// k_t/v_t, and (4 * 64 + KQ * S_pad) * 4 bytes of shared memory (at most
+// 227 KB).
 extern "C" int owc_cross_attention_grouped(const void* q, const void* k_t,
-                                           const void* v_t, void* out, int BH,
-                                           int KQ, int S_pad, int s_valid,
-                                           void* stream) {
+                                           const void* v_t, const void* k_scale,
+                                           const void* v_scale, void* out,
+                                           int BH, int KQ, int S_pad,
+                                           int s_valid, int kind, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (KQ == 1) return launch<1>(q, k_t, v_t, out, BH, KQ, S_pad, s_valid, st);
-  return launch<4>(q, k_t, v_t, out, BH, KQ, S_pad, s_valid, st);
+  switch (kind) {
+    case KV_BF16:
+      return launch_kind<KV_BF16>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
+                                  S_pad, s_valid, st);
+    case KV_INT8:
+      return launch_kind<KV_INT8>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
+                                  S_pad, s_valid, st);
+    case KV_INT4:
+      return launch_kind<KV_INT4>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
+                                  S_pad, s_valid, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

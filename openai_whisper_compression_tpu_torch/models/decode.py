@@ -4,12 +4,14 @@ The JAX package's `models/decode.py` greedy path as a Python loop on the
 host: one batched prefill of the forced prefix, then one `decoder_step` per
 token, stopping early once every row has emitted EOT (the host reads one
 flag per step). Each decoder layer's step runs the fused self-attention
-kernel (cache row write + attention) and the grouped cross-attention
-kernel; the decode-step linears run the int8 kernel.
+kernel (cache row write + attention; the int8 kernel quantizes the row too
+when `kv_int8` gives an int8 cache) and the grouped cross-attention kernel
+over bf16, int8 (`cross_kv_int8`) or int4 (`cross_kv_int4`) cross-KV; the
+decode-step linears run the int8 kernel.
 
 Not in this slice (NotImplementedError): beam search, timestamp rules,
-prompt conditioning, sampling, int8 self-KV, int8/int4 cross-KV, cross-KV
-pooling/merging, and the non-fused (cross_pallas/self_pallas False) paths.
+prompt conditioning, sampling, cross-KV pooling/merging, and the non-fused
+(cross_pallas/self_pallas False) paths.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 
 from ..config import DecodeConfig, WhisperArch
 from ..ops.linear import linear
-from ..ops.self_attention_step import decode_self_attention_update
+from ..ops.self_attention_step import (decode_self_attention_update,
+                                       decode_self_attention_update_int8)
 from . import cache as kv_cache
 from .whisper import (NEG_INF, _num_heads, attention, cross_attention,
                       embed_tokens, layer_norm, merge_heads, mlp,
@@ -62,8 +65,6 @@ def check_supported(arch: WhisperArch, cfg: DecodeConfig) -> None:
     """Raise NotImplementedError for every setting outside the port's slice."""
     unsupported = {
         "beam search (beam_size > 1)": cfg.beam_size != 1,
-        "the int8 self-attention KV cache (kv_int8)": cfg.kv_int8,
-        "int8/int4 cross-KV": cfg.cross_kv_int8 or cfg.cross_kv_int4,
         "cross-KV pooling/merging": cfg.cross_kv_pool > 1 or cfg.cross_kv_merge > 0,
         "the unfused decode paths (cross_pallas/self_pallas False)":
             not (cfg.cross_pallas and cfg.self_pallas),
@@ -78,7 +79,8 @@ def check_supported(arch: WhisperArch, cfg: DecodeConfig) -> None:
 def decoder_step(params: Params, arch: WhisperArch, tok: torch.Tensor,
                  pos: int, cache: list, cross_kvs: list) -> torch.Tensor:
     """tok (B,) current tokens at position `pos` (a host int). Writes cache
-    row `pos` of every layer in place; returns logits (B, V)."""
+    row `pos` of every layer in place (quantized, with its scales, in an
+    int8 cache); returns logits (B, V)."""
     dec = params["decoder"]
     b = tok.shape[0]
     dh = arch.head_dim
@@ -90,11 +92,17 @@ def decoder_step(params: Params, arch: WhisperArch, tok: torch.Tensor,
         q, k, v = qkv_project(p, layer_norm(x, layer["attn_ln"]), h)
         bh = b * h
         qf = (q.reshape(bh, dh) * (dh ** -0.5)).to(q.dtype)
-        kc, vc = cache[i]["k"], cache[i]["v"]
-        o = decode_self_attention_update(
-            qf.contiguous(), k.reshape(bh, dh).contiguous(),
-            v.reshape(bh, dh).contiguous(), kc.view(bh, kc.shape[2], dh),
-            vc.view(bh, vc.shape[2], dh), pos)
+        entry = cache[i]
+        s = entry["k"].shape[2]
+        rows = (qf.contiguous(), k.reshape(bh, dh).contiguous(),
+                v.reshape(bh, dh).contiguous(), entry["k"].view(bh, s, dh),
+                entry["v"].view(bh, s, dh))
+        if "k_scale" in entry:
+            o = decode_self_attention_update_int8(
+                *rows, entry["k_scale"].view(bh, s),
+                entry["v_scale"].view(bh, s), pos)
+        else:
+            o = decode_self_attention_update(*rows, pos)
         x = x + linear(o.reshape(b, 1, h * dh), p["o"]["w"], p["o"]["b"])
         x = x + cross_attention(layer["cross"], layer_norm(x, layer["cross_ln"]),
                                 cross_kvs[i], dh)
@@ -106,7 +114,9 @@ def decoder_step(params: Params, arch: WhisperArch, tok: torch.Tensor,
 def prefill(params: Params, arch: WhisperArch, tokens: torch.Tensor,
             cache: list, cross_kvs: list) -> None:
     """Run the (B, P) forced-prefix window through the decoder in one
-    batched pass, filling cache positions [0, P) in place."""
+    batched pass, filling cache positions [0, P) in place. With an int8
+    cache the window attends to its exact k/v and only the cache holds the
+    quantized rows, as in the JAX package."""
     dec = params["decoder"]
     b, p_len = tokens.shape
     x = embed_tokens(dec, tokens)
@@ -151,9 +161,10 @@ def _prepare(params: Params, arch: WhisperArch, enc_out: torch.Tensor,
     prefix = forced_prefix(arch, cfg)
     p_len = len(prefix)
     max_len = _auto_cache_len(arch, p_len, cfg)
-    cross_kvs = precompute_cross_kv_t(params, arch, enc_out)
+    bits = 4 if cfg.cross_kv_int4 else 8 if cfg.cross_kv_int8 else 16
+    cross_kvs = precompute_cross_kv_t(params, arch, enc_out, bits=bits)
     cache = kv_cache.init_cache(params, arch, b, max_len, dtype=enc_out.dtype,
-                                device=device)
+                                device=device, int8=cfg.kv_int8)
     tokens = torch.full((b, max_len), arch.eos_token_id, dtype=torch.long,
                         device=device)
     tokens[:, :p_len] = torch.tensor(prefix, dtype=torch.long, device=device)

@@ -24,9 +24,11 @@ import torch
 import torch.nn.functional as F
 
 from ..config import WhisperArch
-from ..ops.cross_attention import decode_cross_attention_grouped, pad_cross_len
+from ..ops.cross_attention import (decode_cross_attention_grouped,
+                                   transpose_kv, transpose_quant_kv, unpack4)
 from ..ops.linear import linear
 from ..ops.qtensor import QTensor
+from ..quant.core import quantize_absmax
 from .fuse import qkv_split
 
 Params = dict[str, Any]
@@ -157,10 +159,15 @@ def encode(params: Params, arch: WhisperArch, mel: torch.Tensor,
 @dataclasses.dataclass
 class CrossKV:
     """Per-layer cross-attention K/V in the kernel layout (B·H, Dh, S_pad),
-    S padded to a multiple of 128; positions >= s_valid are padding."""
+    S padded to a multiple of 128; positions >= s_valid are padding. bf16
+    (or the encoder's dtype) without scales; int8, or split-half packed
+    int4 with Dh/2 rows, with per-(bh, position) absmax scales
+    (B·H, 1, S_pad) f32."""
 
     k_t: torch.Tensor
     v_t: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
     s_valid: int = 0  # 0 means all S_pad positions are valid
 
     @property
@@ -168,28 +175,49 @@ class CrossKV:
         return self.s_valid if self.s_valid > 0 else self.k_t.shape[2]
 
 
-def _transpose_kv(x: torch.Tensor, h: int) -> torch.Tensor:
-    """(B, S, H*Dh) -> (B*H, Dh, S_pad), zero padded along S."""
-    b, s, d = x.shape
-    x = x.reshape(b, s, h, d // h).permute(0, 2, 3, 1)
-    x = F.pad(x, (0, pad_cross_len(s) - s))
-    return x.reshape(b * h, d // h, -1).contiguous()
+def _quant_kv4_t(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int4-quantize transposed K/V, split-half packed along Dh: byte row d
+    holds element d (low nibble) and d + Dh/2 (high nibble), per-(bh,
+    position) absmax/7 scales (B·H, 1, S)."""
+    q, scale = quantize_absmax(x, dim=1, qmax=7)
+    q = q.to(torch.int32)
+    dh = x.shape[1]
+    packed = (q[:, : dh // 2] & 0xF) | ((q[:, dh // 2:] & 0xF) << 4)
+    return torch.where(packed > 127, packed - 256, packed).to(torch.int8), scale
+
+
+def unpack_kv4_t(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of _quant_kv4_t's packing (without scales): (B·H, Dh/2, S)
+    int8 -> (B·H, Dh, S) f32 in [-7, 7], the unpack the kernels' plain
+    version uses."""
+    return unpack4(packed)
 
 
 def precompute_cross_kv_t(params: Params, arch: WhisperArch,
-                          enc_out: torch.Tensor) -> list[CrossKV]:
-    """Per-layer transposed cross K/V from the encoder states, in the
-    encoder's dtype (the JAX bits=16 layout; int8/int4 K/V are a later
-    slice)."""
+                          enc_out: torch.Tensor, bits: int = 16) -> list[CrossKV]:
+    """Per-layer transposed cross K/V from the encoder states. bits: 16
+    (the encoder's dtype), 8 (int8 through `transpose_quant_kv`: the kernel
+    on the card) or 4 (split-half packed int4, quantized in plain torch, as
+    the JAX package does outside any Pallas kernel)."""
+    if bits not in (16, 8, 4):
+        raise ValueError(f"cross-KV bits must be 16, 8 or 4, got {bits}")
     s = enc_out.shape[1]
     kvs = []
     for layer in params["decoder"]["layers"]:
         p = layer["cross"]
         h = _num_heads(p, arch.head_dim)
-        k_t = _transpose_kv(linear(enc_out, p["k"]["w"]), h)
-        v_t = _transpose_kv(linear(enc_out, p["v"]["w"], p["v"]["b"]), h)
-        kvs.append(CrossKV(k_t.to(enc_out.dtype), v_t.to(enc_out.dtype),
-                           s_valid=s))
+        k = linear(enc_out, p["k"]["w"])
+        v = linear(enc_out, p["v"]["w"], p["v"]["b"])
+        if bits == 8:
+            (k_t, ks), (v_t, vs) = (transpose_quant_kv(t.contiguous(), h)
+                                    for t in (k, v))
+        elif bits == 4:
+            (k_t, ks), (v_t, vs) = (_quant_kv4_t(transpose_kv(t, h))
+                                    for t in (k, v))
+        else:
+            k_t, v_t = (transpose_kv(t, h).to(enc_out.dtype) for t in (k, v))
+            ks = vs = None
+        kvs.append(CrossKV(k_t, v_t, ks, vs, s_valid=s))
     return kvs
 
 
@@ -205,7 +233,7 @@ def cross_attention(p: Params, x: torch.Tensor, kv: CrossKV,
     qg = (q.reshape(b, p_len, h, head_dim).transpose(1, 2)
           .reshape(b * h, p_len, head_dim) * (head_dim ** -0.5)).to(q.dtype)
     o = decode_cross_attention_grouped(qg.contiguous(), kv.k_t, kv.v_t,
-                                       kv.valid_len)
+                                       kv.k_scale, kv.v_scale, kv.valid_len)
     o = o.reshape(b, h, p_len, head_dim).transpose(1, 2).reshape(
         b, p_len, h * head_dim)
     return linear(o.to(x.dtype), p["o"]["w"], p["o"]["b"])

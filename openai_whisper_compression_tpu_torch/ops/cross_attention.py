@@ -1,84 +1,193 @@
-"""Grouped decode cross-attention over transposed K/V (`csrc/cross_attention.cu`)
-and its plain version: the port of the JAX package's
-`ops/cross_attention.py::decode_cross_attention_grouped` for bf16 K/V.
+"""Grouped decode cross-attention over transposed K/V
+(`csrc/cross_attention.cu`) and the fused cross-KV transpose + int8 quantize
+(`csrc/transpose_quant.cu`), each with its plain version: the port of the
+JAX package's `ops/cross_attention.py::decode_cross_attention_grouped` (its
+bf16, int8 and int4 K/V bodies) and `transpose_quant_kv`.
 
 K query slots per (batch, head) row share one K/V entry: K = 1 in a decode
 step, K = prefix length - 1 (at most 3) in prefill; beam widths wait for the
 beam-search slice. The kernel takes any B·H, so the JAX package's ungrouped
-fallback for B·H % 16 != 0 has no counterpart here.
+fallback for B·H % 16 != 0 has no counterpart here. K/V storage follows the
+JAX layout: (B·H, Dh, S_pad) bf16; int8 with (B·H, 1, S_pad) f32
+per-position scales; or split-half packed int4 (B·H, Dh/2, S_pad) with the
+same scales, told apart from int8 by its Dh/2 rows, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from ..quant.core import quantize_absmax
 from . import kernels
 
 NEG_INF = -1e30
-HEAD_DIM = 64   # every Whisper size; the kernel is written for it
+HEAD_DIM = 64   # every Whisper size; the kernels are written for it
 MAX_SLOTS = 4   # query slots per (batch, head) row the kernel holds
+# K/V storage kind -> (code of csrc/cross_attention.cu, positions per
+# 16-byte load, launch counter on decode_cross_attention_grouped)
+_KINDS = {"bf16": (0, 8, "launches"), "int8": (1, 16, "launches_int8"),
+          "int4": (2, 16, "launches_int4")}
+
+
+def pad_cross_len(s: int) -> int:
+    """S padded to a multiple of 128 (the JAX layout's lane width)."""
+    return -(-s // 128) * 128
+
+
+def transpose_kv(x: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, S, H*Dh) -> (B*H, Dh, S_pad), zero padded along S."""
+    b, s, d = x.shape
+    x = x.reshape(b, s, h, d // h).permute(0, 2, 3, 1)
+    x = F.pad(x, (0, pad_cross_len(s) - s))
+    return x.reshape(b * h, d // h, -1).contiguous()
+
+
+def transpose_quant_kv_ref(x: torch.Tensor, h: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: `transpose_kv`, then int8 with a per-(bh, position)
+    absmax scale over Dh (the JAX `_quant_kv8_t(_transpose_kv(x, h))`)."""
+    return quantize_absmax(transpose_kv(x, h), dim=1, qmax=127)
+
+
+def transpose_quant_kv(x: torch.Tensor, h: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, H*Dh) f32/bf16 -> ((B*H, Dh, S_pad) int8, (B*H, 1, S_pad)
+    f32 scales), S_pad = `pad_cross_len(S)`, padding positions quantized
+    from zeros. A CUDA tensor launches the kernel (Dh = 64; counted in
+    `transpose_quant_kv.launches`); a CPU tensor takes the plain version."""
+    if not x.is_cuda:
+        return transpose_quant_kv_ref(x, h)
+    name = "transpose_quant_kv"
+    kernels.require(x.dim() == 3 and h >= 1 and x.shape[2] == h * HEAD_DIM,
+                    name, f"x must be (B, S, {h} * {HEAD_DIM}), got "
+                    f"{tuple(x.shape)}")
+    b, s, _ = x.shape
+    kernels.require(1 <= b <= 65535 and h <= 65535 and s >= 1, name,
+                    f"B {b} and H {h} must lie in 1..65535, S {s} >= 1")
+    code = kernels.dtype_code(x, name)
+    kernels.require(x.is_contiguous(), name, "x must be contiguous")
+    s_pad = pad_cross_len(s)
+    q = torch.empty((b * h, HEAD_DIM, s_pad), dtype=torch.int8, device=x.device)
+    scale = torch.empty((b * h, 1, s_pad), dtype=torch.float32, device=x.device)
+    err = kernels.lib().owc_transpose_quant_kv(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), b, s, h, s_pad, code,
+        kernels.stream_of(x))
+    kernels.check(name, err)
+    transpose_quant_kv.launches += 1
+    return q, scale
+
+
+transpose_quant_kv.launches = 0
+
+
+def unpack4(packed: torch.Tensor) -> torch.Tensor:
+    """(G, Dh/2, S) split-half packed int4 -> (G, Dh, S) f32 in [-7, 7]:
+    byte row d holds dim d in its low nibble and dim d + Dh/2 in its high
+    nibble, both signed (the JAX `_unpack4`)."""
+    u = packed.to(torch.int32)
+    lo = ((u & 15) ^ 8) - 8
+    hi = u >> 4
+    return torch.cat([lo, hi], dim=1).to(torch.float32)
 
 
 def decode_cross_attention_grouped_ref(q: torch.Tensor, k_t: torch.Tensor,
                                        v_t: torch.Tensor,
+                                       k_scale: torch.Tensor | None = None,
+                                       v_scale: torch.Tensor | None = None,
                                        s_valid: int | None = None
                                        ) -> torch.Tensor:
-    """Plain version (the math of `_cross_t_ref` per query slot): f32
-    scores, positions >= s_valid masked, f32 softmax, f32 value sum,
-    output in q's dtype."""
+    """Plain version (the math of `_beam_core`): f32 scores times the k
+    scale, positions >= s_valid masked, f32 softmax with l summed before the
+    v scale folds into the probabilities, f32 value sum, output in q's
+    dtype."""
     s_pad = k_t.shape[2]
     s_valid = s_pad if s_valid is None else s_valid
-    scores = torch.einsum("gkd,gds->gks", q.float(), k_t.float())
+    if k_t.shape[1] == q.shape[2] // 2:   # split-half packed int4
+        k, v = unpack4(k_t), unpack4(v_t)
+    else:
+        k, v = k_t.float(), v_t.float()
+    scores = torch.einsum("gkd,gds->gks", q.float(), k)
+    if k_scale is not None:
+        scores = scores * k_scale.float()
     mask = torch.arange(s_pad, device=q.device) < s_valid
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("gks,gds->gkd", probs, v_t.float()).to(q.dtype)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:   # padding scales may hold anything
+        p = torch.where(mask, p * v_scale.float(), torch.zeros_like(p))
+    return torch.einsum("gks,gds->gkd", p / l, v).to(q.dtype)
 
 
 def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
                                    v_t: torch.Tensor,
+                                   k_scale: torch.Tensor | None = None,
+                                   v_scale: torch.Tensor | None = None,
                                    s_valid: int | None = None) -> torch.Tensor:
-    """q (BH, K, Dh) pre-scaled by Dh**-0.5; k_t/v_t (BH, Dh, S_pad), with
-    positions >= s_valid treated as padding (zero probability). Returns
-    (BH, K, Dh) in q's dtype. A CUDA tensor launches the kernel (bf16 only;
-    counted in `decode_cross_attention_grouped.launches`); a CPU tensor
+    """q (BH, K, Dh) pre-scaled by Dh**-0.5; k_t/v_t (BH, Dh, S_pad) bf16,
+    or int8 (Dh rows) or packed int4 (Dh/2 rows) with k_scale/v_scale
+    (BH, 1, S_pad) f32; positions >= s_valid are padding (zero probability).
+    Returns (BH, K, Dh) in q's dtype. A CUDA tensor launches the kernel
+    (bf16 q; each storage kind counts its launches in its own attribute:
+    `launches` for bf16, `launches_int8`, `launches_int4`); a CPU tensor
     takes the plain version."""
     if not q.is_cuda:
-        return decode_cross_attention_grouped_ref(q, k_t, v_t, s_valid)
+        return decode_cross_attention_grouped_ref(q, k_t, v_t, k_scale,
+                                                  v_scale, s_valid)
     name = "decode_cross_attention_grouped"
     bh, kq, dh = q.shape
-    s_pad = k_t.shape[2]
+    rows, s_pad = k_t.shape[1], k_t.shape[2]
     s_valid = s_pad if s_valid is None else s_valid
     kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
     kernels.require(1 <= kq <= MAX_SLOTS, name,
                     f"1..{MAX_SLOTS} query slots per row, got {kq}")
-    kernels.require(k_t.shape == (bh, dh, s_pad) and v_t.shape == k_t.shape,
-                    name, f"k_t/v_t must be ({bh}, {dh}, S_pad), got "
+    kernels.require_bf16(name, q)
+    tensors = [q, k_t, v_t]
+    if k_scale is None and v_scale is None:
+        kind = "bf16"
+        kernels.require_bf16(name, k_t, v_t)
+        kernels.require(rows == dh, name, f"bf16 k_t must have {dh} rows, got {rows}")
+    else:
+        kernels.require(k_scale is not None and v_scale is not None, name,
+                        "int8/int4 K/V need both k_scale and v_scale")
+        kernels.require_dtype(name, torch.int8, k_t, v_t)
+        kernels.require(rows in (dh, dh // 2), name,
+                        f"int8 k_t has {dh} rows and packed int4 {dh // 2}, "
+                        f"got {rows}")
+        kind = "int8" if rows == dh else "int4"
+        kernels.require_dtype(name, torch.float32, k_scale, v_scale)
+        kernels.require(k_scale.shape == (bh, 1, s_pad)
+                        and v_scale.shape == k_scale.shape, name,
+                        f"scales must be ({bh}, 1, {s_pad}), got "
+                        f"{tuple(k_scale.shape)} and {tuple(v_scale.shape)}")
+        tensors += [k_scale, v_scale]
+    code, vec, counter = _KINDS[kind]
+    kernels.require(k_t.shape == (bh, rows, s_pad) and v_t.shape == k_t.shape,
+                    name, f"k_t/v_t must be ({bh}, {rows}, S_pad), got "
                     f"{tuple(k_t.shape)} and {tuple(v_t.shape)}")
-    kernels.require(1 <= s_valid <= s_pad and s_pad % 8 == 0, name,
+    kernels.require(1 <= s_valid <= s_pad and s_pad % vec == 0, name,
                     f"s_valid {s_valid} outside 1..{s_pad}, or S_pad not a "
-                    "multiple of 8")
-    kernels.require_bf16(name, q, k_t, v_t)
-    kernels.require(k_t.device == q.device == v_t.device, name,
-                    "q, k_t and v_t must share a device")
-    kernels.require(q.is_contiguous() and k_t.is_contiguous()
-                    and v_t.is_contiguous(), name, "inputs must be contiguous")
+                    f"multiple of {vec} ({kind} K/V)")
+    kernels.require(len({t.device for t in tensors}) == 1, name,
+                    "q, the K/V and their scales must share a device")
+    kernels.require(all(t.is_contiguous() for t in tensors), name,
+                    "inputs must be contiguous")
     kernels.require(k_t.data_ptr() % 16 == 0 and v_t.data_ptr() % 16 == 0,
                     name, "k_t/v_t must be 16-byte aligned")
     kernels.require((MAX_SLOTS * dh + kq * s_pad) * 4 <= 227 * 1024, name,
                     "scores do not fit in shared memory")
     out = torch.empty_like(q)
     err = kernels.lib().owc_cross_attention_grouped(
-        q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), out.data_ptr(), bh, kq,
-        s_pad, s_valid, kernels.stream_of(q))
+        q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+        k_scale.data_ptr() if kind != "bf16" else None,
+        v_scale.data_ptr() if kind != "bf16" else None,
+        out.data_ptr(), bh, kq, s_pad, s_valid, code, kernels.stream_of(q))
     kernels.check(name, err)
-    decode_cross_attention_grouped.launches += 1
+    setattr(decode_cross_attention_grouped, counter,
+            getattr(decode_cross_attention_grouped, counter) + 1)
     return out
 
 
-decode_cross_attention_grouped.launches = 0
-
-
-def pad_cross_len(s: int) -> int:
-    """S padded to a multiple of 128 (the JAX layout's lane width)."""
-    return -(-s // 128) * 128
+decode_cross_attention_grouped.launches = 0        # bf16 K/V
+decode_cross_attention_grouped.launches_int8 = 0   # int8 K/V
+decode_cross_attention_grouped.launches_int4 = 0   # split-half int4 K/V

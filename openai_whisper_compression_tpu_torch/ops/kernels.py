@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels (`csrc/*.cu`).
 
 All kernels compile, at first use, into one shared library with a plain C
-interface (`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`), which
-is loaded with ctypes. The library lives in `_build/` inside the package,
+interface, which is loaded with ctypes: one `nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -c` per source, all started together,
+then one `nvcc -shared` link. The library lives in `_build/` inside the package,
 under a name keyed by a hash of the sources and flags, so a fresh checkout
 builds exactly what it holds and a changed source never loads a stale
 binary. Nothing here runs at import time: the CPU tests import every module
@@ -22,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -30,8 +32,10 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
+# no fast-math flags: the quantizing kernels need IEEE division to round
+# as the plain versions do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,8 +46,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "owc_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "owc_mel_log10": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "owc_cross_attention_grouped": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "owc_cross_attention_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _P],
+    "owc_transpose_quant_kv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "owc_self_attention_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "owc_self_attention_update_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -73,10 +81,10 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed shared library unless it exists.
-    A file lock serialises concurrent builders; the library is written to a
-    temporary name and renamed into place, so a reader never sees half a
-    file."""
+    """Compile csrc/*.cu into the hashed shared library unless it exists:
+    one nvcc process per source, all at once, then a link. A file lock
+    serialises concurrent builds; the library is written to a temporary
+    name and renamed into place, so a reader never sees half a file."""
     global build_seconds
     so = library_path()
     BUILD_DIR.mkdir(exist_ok=True)
@@ -84,18 +92,33 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if so.exists():
             return so
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in _sources() if p.suffix == ".cu"]]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"CUDA kernel build failed ({' '.join(cmd)}):\n"
-                               f"{res.stdout}\n{res.stderr}")
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+            objs = [str(Path(objdir) / (p.stem + ".o"))
+                    for p in _sources() if p.suffix == ".cu"]
+            jobs = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / (Path(o).stem + ".cu")),
+                     "-o", o] for o in objs]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in jobs]
+            outputs = [proc.communicate()[0] for proc in procs]
+            for cmd, proc, out in zip(jobs, procs, outputs):
+                _check_build(cmd, out, proc.returncode)
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
+            res = subprocess.run(link, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            _check_build(link, res.stdout, res.returncode)
         os.replace(tmp, so)
         build_seconds = time.perf_counter() - t0
     return so
+
+
+def _check_build(cmd: list[str], output: str, returncode: int) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"CUDA kernel build failed ({' '.join(cmd)}):\n"
+                           f"{output}")
 
 
 def lib() -> ctypes.CDLL:
@@ -130,9 +153,14 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
 
 def require_bf16(name: str, *tensors: torch.Tensor) -> None:
     """Raise TypeError unless every tensor is bfloat16 (bf16-only kernels)."""
+    require_dtype(name, torch.bfloat16, *tensors)
+
+
+def require_dtype(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """Raise TypeError unless every tensor has `dtype`."""
     for t in tensors:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
 
 
 def require(cond: bool, name: str, what: str) -> None:

@@ -1,17 +1,21 @@
-"""Fused KV-cache row write + one-query decode self-attention over an fp
-cache (`csrc/self_attention_step.cu`) and its plain version: the port of the
-JAX package's `ops/self_attention_step.py::decode_self_attention_update`
-(the `nostart` variant; prompt left-padding via `start` is a later slice).
+"""Fused KV-cache row write + one-query decode self-attention
+(`csrc/self_attention_step.cu`), over an fp cache and over an int8 cache
+with per-position scales, each with its plain version: the port of the JAX
+package's `ops/self_attention_step.py::decode_self_attention_update` and
+`decode_self_attention_update_int8` (the `nostart` variants; prompt
+left-padding via `start` is a later slice).
 
-Both versions MUTATE the caches: row `pos` of k_cache/v_cache is overwritten
-with k_new/v_new in place (the JAX function donates the buffers and returns
-the updated ones; here the caller keeps using its own tensors).
+Every version MUTATES its buffers: row `pos` of k_cache/v_cache (and, for
+the int8 cache, position `pos` of k_scale/v_scale) is overwritten in place
+(the JAX functions donate the buffers and return the updated ones; here the
+caller keeps using its own tensors).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..quant.core import quantize_absmax
 from . import kernels
 
 HEAD_DIM = 64
@@ -76,3 +80,83 @@ def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
 
 
 decode_self_attention_update.launches = 0
+
+
+def decode_self_attention_update_int8_ref(q: torch.Tensor, k_new: torch.Tensor,
+                                          v_new: torch.Tensor,
+                                          k_cache: torch.Tensor,
+                                          v_cache: torch.Tensor,
+                                          k_scale: torch.Tensor,
+                                          v_scale: torch.Tensor,
+                                          pos: int) -> torch.Tensor:
+    """Plain version (the math of `_kernel_upd_i8`): quantize the fresh k/v
+    rows (absmax over Dh, scale * 1/127), write them and their scales at
+    `pos`, then f32 scores times the k scales over rows 0..pos, softmax
+    with l summed before the v scales fold into the probabilities, f32
+    value sum. Returns (BH, Dh) in q's dtype."""
+    kq, ks = quantize_absmax(k_new, dim=-1, qmax=127)
+    vq, vs = quantize_absmax(v_new, dim=-1, qmax=127)
+    k_cache[:, pos, :] = kq
+    v_cache[:, pos, :] = vq
+    k_scale[:, pos] = ks[:, 0]
+    v_scale[:, pos] = vs[:, 0]
+    scores = torch.einsum("gd,gsd->gs", q.float(),
+                          k_cache[:, : pos + 1, :].float()) * k_scale[:, : pos + 1]
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    p = p * v_scale[:, : pos + 1]
+    out = torch.einsum("gs,gsd->gd", p, v_cache[:, : pos + 1, :].float()) / l
+    return out.to(q.dtype)
+
+
+def decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
+                                      v_new: torch.Tensor,
+                                      k_cache: torch.Tensor,
+                                      v_cache: torch.Tensor,
+                                      k_scale: torch.Tensor,
+                                      v_scale: torch.Tensor, pos: int,
+                                      start: torch.Tensor | None = None
+                                      ) -> torch.Tensor:
+    """q/k_new/v_new (BH, Dh), q pre-scaled by Dh**-0.5; k_cache/v_cache
+    (BH, S, Dh) int8 and k_scale/v_scale (BH, S) f32, all four written at
+    `pos` IN PLACE; attention over rows 0..pos with the scales folded in.
+    Returns (BH, Dh) in q's dtype. A CUDA tensor launches the kernel (bf16
+    q/k/v; counted in `decode_self_attention_update_int8.launches`); a CPU
+    tensor takes the plain version."""
+    if start is not None:
+        raise NotImplementedError("prompt left-padding (start) is not ported")
+    pos = int(pos)
+    if not q.is_cuda:
+        return decode_self_attention_update_int8_ref(
+            q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pos)
+    name = "decode_self_attention_update_int8"
+    bh, dh = q.shape
+    s = k_cache.shape[1]
+    tensors = (q, k_new, v_new, k_cache, v_cache, k_scale, v_scale)
+    kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
+    kernels.require(k_new.shape == q.shape and v_new.shape == q.shape, name,
+                    "q, k_new and v_new must have one shape")
+    kernels.require(k_cache.shape == (bh, s, dh) and v_cache.shape
+                    == k_cache.shape, name, f"caches must be ({bh}, S, {dh})")
+    kernels.require(k_scale.shape == (bh, s) and v_scale.shape == (bh, s),
+                    name, f"scales must be ({bh}, {s})")
+    kernels.require(0 <= pos < s and s <= 12288, name,
+                    f"pos {pos} outside the {s}-row cache (at most 12288 rows)")
+    kernels.require_bf16(name, q, k_new, v_new)
+    kernels.require_dtype(name, torch.int8, k_cache, v_cache)
+    kernels.require_dtype(name, torch.float32, k_scale, v_scale)
+    kernels.require(len({t.device for t in tensors}) == 1, name,
+                    "q, k/v, the caches and the scales must share a device")
+    kernels.require(all(t.is_contiguous() for t in tensors), name,
+                    "inputs must be contiguous")
+    out = torch.empty_like(q)
+    err = kernels.lib().owc_self_attention_update_int8(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        out.data_ptr(), bh, s, pos, kernels.stream_of(q))
+    kernels.check(name, err)
+    decode_self_attention_update_int8.launches += 1
+    return out
+
+
+decode_self_attention_update_int8.launches = 0

@@ -2,7 +2,9 @@
 
 Ported: per-output-channel symmetric int8 (`quantize_int8`), bit-identical
 to the JAX package's `quant/core.py::quantize_int8` (both round half to
-even). The other quantizers are later slices.
+even), and the per-position absmax quantizer of the int8 self-KV cache and
+the int8/int4 cross-KV (`quantize_absmax`). The other quantizers are later
+slices.
 """
 
 from __future__ import annotations
@@ -27,6 +29,25 @@ def quantize_int8(w: torch.Tensor) -> QTensor:
     data = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return QTensor(data=data, scale=scale, kind="int8_pc",
                    shape=tuple(w.shape))
+
+
+def quantize_absmax(x: torch.Tensor, dim: int,
+                    qmax: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax quantization along `dim` (the KV caches' scheme):
+    scale = max(absmax, 1e-12) * f32(1 / qmax), q = clip(round(x / scale),
+    -qmax, qmax). Returns (q int8, scale f32 with `dim` kept as size 1).
+
+    Under jit the JAX package's `max(absmax, 1e-12) / qmax` compiles to a
+    multiply by the f32 reciprocal, so this multiplies too (a true division
+    differs in the last bit for a few percent of scales); the quotient
+    `x / scale` stays a true division, as it does under jit."""
+    xf = x.to(torch.float32)
+    # a 0-dim CPU tensor multiplies a CUDA tensor as an f32 scalar, with no
+    # host-to-device copy (which would wait for the stream)
+    inv = torch.tensor(1.0 / qmax, dtype=torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=dim, keepdim=True), min=1e-12) * inv
+    q = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
+    return q, scale
 
 
 QUANTIZERS = {"int8": quantize_int8}

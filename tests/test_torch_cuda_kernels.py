@@ -1,7 +1,9 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card,
-at edge shapes and in the dtypes each takes (chip_smoke.py covers the
-whisper-small main-path shapes), and bf16 attention on the card against a
-float64 reference with f32 scores. Marked `cuda`; every test skips where no
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+edge shapes and in the dtypes each takes (chip_smoke.py covers the
+whisper-small main-path shapes): mel, int8 matmul, grouped cross-attention
+over bf16 / int8 / int4 K/V, the cross-KV transpose + int8 quantize, and
+the fp and int8 self-attention cache updates; the wrappers' refusals; and
+bf16 attention on the card against a float64 reference with f32 scores. Marked `cuda`; every test skips where no
 CUDA device is present. Needs no jax, so on the GPU machine run it without the JAX test
 configuration:
 
@@ -15,11 +17,13 @@ from openai_whisper_compression_tpu_torch.audio import features
 from openai_whisper_compression_tpu_torch.audio.mel_kernel import log_mel_cuda
 from openai_whisper_compression_tpu_torch.models import whisper
 from openai_whisper_compression_tpu_torch.ops.cross_attention import (
-    decode_cross_attention_grouped, decode_cross_attention_grouped_ref)
+    decode_cross_attention_grouped, decode_cross_attention_grouped_ref,
+    transpose_quant_kv, transpose_quant_kv_ref)
 from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
     int8_matmul, int8_matmul_ref)
 from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
-    decode_self_attention_update, decode_self_attention_update_ref)
+    decode_self_attention_update, decode_self_attention_update_int8,
+    decode_self_attention_update_int8_ref, decode_self_attention_update_ref)
 from openai_whisper_compression_tpu_torch.quant.core import quantize_int8
 
 torch.set_num_threads(2)
@@ -80,14 +84,73 @@ def test_cross_attention_grouped(dev, bh, kq, s_valid):
     q = (torch.randn(bh, kq, 64, generator=g, device=dev) * 0.125).to(dtype)
     k_t = torch.randn(bh, 64, s_pad, generator=g, device=dev).to(dtype)
     v_t = torch.randn(bh, 64, s_pad, generator=g, device=dev).to(dtype)
-    got = decode_cross_attention_grouped(q, k_t, v_t, s_valid)
-    ref = decode_cross_attention_grouped_ref(q, k_t, v_t, s_valid)
+    got = decode_cross_attention_grouped(q, k_t, v_t, s_valid=s_valid)
+    ref = decode_cross_attention_grouped_ref(q, k_t, v_t, s_valid=s_valid)
     torch.testing.assert_close(got.float(), ref.float(), rtol=0,
                                atol=_tol(dtype, float(ref.float().abs().max())))
     # padding is never read: poisoning it changes no output bit
     k_t[:, :, s_valid:] = 100.0
     v_t[:, :, s_valid:] = -77.0
-    assert torch.equal(decode_cross_attention_grouped(q, k_t, v_t, s_valid), got)
+    assert torch.equal(decode_cross_attention_grouped(q, k_t, v_t,
+                                                      s_valid=s_valid), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h", [(2, 1500, 12), (3, 64, 2), (1, 200, 5)])
+def test_transpose_quant_kv(dev, dtype, b, s, h):
+    """int8 codes and f32 scales equal to the plain version bit for bit
+    (the same f32 reciprocal, IEEE division and half-to-even rounding)."""
+    g = torch.Generator(device=dev).manual_seed(b * s + h)
+    x = (torch.randn(b, s, h * 64, generator=g, device=dev) * 0.4).to(dtype)
+    before = transpose_quant_kv.launches
+    q, sc = transpose_quant_kv(x, h)
+    assert transpose_quant_kv.launches == before + 1
+    q_ref, sc_ref = transpose_quant_kv_ref(x, h)
+    assert q.shape == q_ref.shape and sc.shape == sc_ref.shape
+    assert torch.equal(q, q_ref) and torch.equal(sc, sc_ref)
+
+
+def _quantized_kv(dev, bits, bh, s_valid, seed):
+    """Seeded int8 or split-half int4 K/V and scales, quantized on the card
+    by the plain quantizers (positions >= s_valid are quantized zeros)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s_pad = -(-s_valid // 128) * 128
+    out = []
+    for _ in range(2):
+        x = torch.randn(1, s_pad, bh * 64, generator=g, device=dev)
+        x[:, s_valid:] = 0
+        data, scale = transpose_quant_kv_ref(x, bh)
+        if bits == 4:
+            data, scale = whisper._quant_kv4_t(data.float() * scale)
+        out.append((data, scale))
+    (k, ks), (v, vs) = out
+    return k, v, ks, vs
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("bh,kq,s_valid", [(12, 1, 1), (12, 3, 100),
+                                           (1152, 1, 1500), (20, 4, 1500)])
+def test_cross_attention_grouped_quantized(dev, bits, bh, kq, s_valid):
+    """int8 / int4 bodies within one bf16 step of the plain version's
+    largest output; poisoning the padding (codes and scales) changes no
+    output bit; each body counts its own launches."""
+    g = torch.Generator(device=dev).manual_seed(bh + kq + bits)
+    q = (torch.randn(bh, kq, 64, generator=g, device=dev) * 0.125).bfloat16()
+    k, v, ks, vs = _quantized_kv(dev, bits, bh, s_valid, bh + bits)
+    counter = "launches_int4" if bits == 4 else "launches_int8"
+    before = getattr(decode_cross_attention_grouped, counter)
+    got = decode_cross_attention_grouped(q, k, v, ks, vs, s_valid)
+    assert getattr(decode_cross_attention_grouped, counter) == before + 1
+    ref = decode_cross_attention_grouped_ref(q, k, v, ks, vs, s_valid)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(torch.bfloat16,
+                                         float(ref.float().abs().max())))
+    for t in (k, v):
+        t[:, :, s_valid:] = 99
+    for t in (ks, vs):
+        t[:, :, s_valid:] = float("inf")
+    assert torch.equal(decode_cross_attention_grouped(q, k, v, ks, vs, s_valid),
+                       got)
 
 
 @pytest.mark.parametrize("s,pos", [(64, 0), (64, 5), (64, 63), (448, 300)])
@@ -105,6 +168,31 @@ def test_self_attention_update(dev, s, pos):
     assert torch.equal(kc, kr) and torch.equal(vc, vr)
     torch.testing.assert_close(got.float(), ref.float(), rtol=0,
                                atol=_tol(dtype, float(ref.float().abs().max())))
+
+
+@pytest.mark.parametrize("s,pos", [(64, 0), (64, 30), (64, 63), (448, 300)])
+def test_self_attention_update_int8(dev, s, pos):
+    """Rows and scales written equal to the plain version's bit for bit;
+    output within one bf16 step of its largest magnitude."""
+    g = torch.Generator(device=dev).manual_seed(s + pos + 1)
+    bh = 36
+    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).bfloat16()
+    kn, vn = (torch.randn(2, bh, 64, generator=g, device=dev) * 2).bfloat16()
+    kc, vc = torch.randint(-127, 128, (2, bh, s, 64), generator=g, device=dev,
+                           dtype=torch.int8)
+    ks, vs = torch.rand(2, bh, s, generator=g, device=dev) * 0.03 + 0.001
+    bufs = [t.clone() for t in (kc, vc, ks, vs)]
+    refs = [t.clone() for t in (kc, vc, ks, vs)]
+    before = decode_self_attention_update_int8.launches
+    got = decode_self_attention_update_int8(q, kn, vn, *bufs, pos)
+    assert decode_self_attention_update_int8.launches == before + 1
+    ref = decode_self_attention_update_int8_ref(q, kn, vn, *refs, pos)
+    for a, b in zip(bufs, refs):
+        assert torch.equal(a, b)
+    assert not torch.equal(bufs[0][:, pos], kc[:, pos])
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(torch.bfloat16,
+                                         float(ref.float().abs().max())))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -137,6 +225,54 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         int8_matmul(torch.zeros(2, 64, device=dev, dtype=torch.float16),
                     torch.zeros(64, 64, dtype=torch.int8, device=dev),
                     torch.ones(1, 64, device=dev))
+
+
+def test_quantized_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """int8/int4 K/V, the transpose + quantize and the int8 cache update
+    raise on every shape, type and pointer their kernels do not take; none
+    reroutes to its plain version."""
+    bf, i8 = torch.bfloat16, torch.int8
+    q = torch.zeros(4, 1, 64, device=dev, dtype=bf)
+    kv = torch.zeros(4, 64, 128, device=dev, dtype=i8)
+    sc = torch.ones(4, 1, 128, device=dev)
+    with pytest.raises(ValueError):  # a missing v scale
+        decode_cross_attention_grouped(q, kv, kv, sc, None)
+    with pytest.raises(TypeError):  # f32 q
+        decode_cross_attention_grouped(q.float(), kv, kv, sc, sc)
+    with pytest.raises(TypeError):  # bf16 K/V with scales
+        decode_cross_attention_grouped(q, kv.to(bf), kv.to(bf), sc, sc)
+    with pytest.raises(ValueError):  # 33 stored rows: neither Dh nor Dh/2
+        odd = torch.zeros(4, 33, 128, device=dev, dtype=i8)
+        decode_cross_attention_grouped(q, odd, odd, sc, sc)
+    with pytest.raises(ValueError):  # int8 S_pad not a multiple of 16
+        kv8 = torch.zeros(4, 64, 136, device=dev, dtype=i8)
+        sc8 = torch.ones(4, 1, 136, device=dev)
+        decode_cross_attention_grouped(q, kv8, kv8, sc8, sc8, 130)
+    with pytest.raises(ValueError):  # K/V at an offset that breaks 16-byte loads
+        off = torch.zeros(4 * 64 * 128 + 8, device=dev, dtype=i8)[8:].view(4, 64, 128)
+        decode_cross_attention_grouped(q, off, kv, sc, sc)
+    with pytest.raises(ValueError):  # scales of the wrong shape
+        decode_cross_attention_grouped(q, kv, kv, sc[:, :, :64], sc[:, :, :64])
+    with pytest.raises(ValueError):  # head dim 48
+        transpose_quant_kv(torch.zeros(1, 10, 96, device=dev, dtype=bf), 2)
+    with pytest.raises(TypeError):  # float16 input
+        transpose_quant_kv(torch.zeros(1, 10, 128, device=dev,
+                                       dtype=torch.float16), 2)
+    row = torch.zeros(4, 64, device=dev, dtype=bf)
+    cache = torch.zeros(4, 8, 64, device=dev, dtype=i8)
+    scale = torch.ones(4, 8, device=dev)
+    with pytest.raises(TypeError):  # a bf16 cache
+        decode_self_attention_update_int8(row, row, row, cache.to(bf),
+                                          cache.to(bf), scale, scale, 1)
+    with pytest.raises(TypeError):  # f32 q/k/v
+        decode_self_attention_update_int8(row.float(), row.float(), row.float(),
+                                          cache, cache, scale, scale, 1)
+    with pytest.raises(ValueError):  # pos past the cache
+        decode_self_attention_update_int8(row, row, row, cache, cache, scale,
+                                          scale, 8)
+    with pytest.raises(ValueError):  # scales of the wrong shape
+        decode_self_attention_update_int8(row, row, row, cache, cache,
+                                          scale[:, :4], scale[:, :4], 1)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -1,9 +1,12 @@
 """The port's slice as a whole against the JAX package on `test2l`:
 int8 weights + fused decoder qkv, f32, the JAX transcription function with
-the Pallas mel kernel (interpret mode on the CPU). Tokens and lengths must
-match exactly; encoder states and first-step logits within stated bounds.
-Also: the port imports without jax, options outside the slice raise, and a
-CPU call to a kernel wrapper never loads the CUDA library."""
+the Pallas mel kernel (interpret mode on the CPU), with fp caches and with
+`bench.py`'s int8 self-KV / int8 cross-KV (and int4 cross-KV). Tokens and
+lengths must match exactly; the quantized cross-KV and the int8 cache's
+row quantize + write bit for bit; encoder states, the int8 cache after the
+whole prefill and first-step logits within stated bounds. Also: the port imports without jax, options outside the
+slice raise, and a CPU call to a kernel wrapper never loads the CUDA
+library."""
 
 import subprocess
 import sys
@@ -27,6 +30,7 @@ from openai_whisper_compression_tpu.models.fuse import fuse_qkv as jax_fuse_qkv
 from openai_whisper_compression_tpu.quant.api import quantize_params as jax_quantize
 from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
 from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+from openai_whisper_compression_tpu_torch.models import cache as kv_cache
 from openai_whisper_compression_tpu_torch.models import decode, whisper
 from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
 from openai_whisper_compression_tpu_torch.models.params import from_numpy
@@ -41,6 +45,11 @@ N = 20480  # test2l's waveform samples
 # std 0.5 weights give varied tokens per utterance (std 0.02 repeats one
 # token); EOT's embedding row is tied to token 611's so some rows stop early
 STD, EOT_TWIN = 0.5, 611
+# the quantized-KV settings: bench.py's default pair, each alone, and int4
+# cross-KV over the int8 cache
+KV_CONFIGS = {"kv8": {"kv_int8": True}, "ckv8": {"cross_kv_int8": True},
+              "kv8-ckv8": {"kv_int8": True, "cross_kv_int8": True},
+              "kv8-ckv4": {"kv_int8": True, "cross_kv_int4": True}}
 
 
 @pytest.fixture(scope="module")
@@ -117,12 +126,109 @@ def test_first_step_logits_match_jax(slice_params):
 
 
 @pytest.mark.parametrize("change", [
-    {"beam_size": 2}, {"kv_int8": True}, {"cross_kv_int8": True},
-    {"cross_kv_int4": True}, {"cross_kv_pool": 2}, {"cross_kv_merge": 4},
+    {"beam_size": 2}, {"cross_kv_pool": 2}, {"cross_kv_merge": 4},
     {"cross_pallas": False}, {"self_pallas": False}])
 def test_options_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError):
         make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**change))
+
+
+@pytest.mark.parametrize("kv", KV_CONFIGS)
+def test_quantized_kv_tokens_match_jax(slice_params, kv):
+    """Greedy tokens and lengths equal to the jitted JAX transcription
+    function's with the int8 / int4 caches (EOT allowed: its twin makes
+    rows stop at different steps)."""
+    jp, tp = slice_params
+    wav = _wav()
+    jt, jl = jax_make_transcribe_fn(
+        ARCH, JaxDecodeConfig(max_new_tokens=12, **KV_CONFIGS[kv]),
+        use_pallas_mel=True)(jp, jnp.asarray(wav))
+    tt, tl = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(
+        max_new_tokens=12, **KV_CONFIGS[kv]))(tp, wav)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+@pytest.mark.parametrize("kv", KV_CONFIGS)
+def test_quantized_kv_state_and_logits_match_jax(slice_params, kv):
+    """The quantized cross-KV (bytes and scales) is bit-identical to the
+    jitted JAX package's. The int8 self-KV cache after the batched prefill
+    holds the same codes and scales up to the last bit of its inputs: the
+    two frameworks' f32 layer norms round their sums differently (2.4e-7
+    apart), which the projections carry into k/v, so a scale may differ by
+    a few ulps (1e-6 relative) and a code by one step (the quantizer alone
+    is bit-identical, test_int8_cache_update_matches_jax).
+    The first-step logits lie within 1e-3 absolute of logits of order
+    10."""
+    jp, tp = slice_params
+    kw = KV_CONFIGS[kv]
+    enc = np.random.default_rng(3).standard_normal((2, 64, 64)).astype(np.float32)
+    cfg = JaxDecodeConfig(max_new_tokens=12, **kw)
+    bits = 4 if cfg.cross_kv_int4 else 8 if cfg.cross_kv_int8 else 16
+    prefix = jax_decode.forced_prefix(ARCH, cfg)
+    p_len = len(prefix)
+    max_len = jax_decode._auto_cache_len(ARCH, p_len, cfg)
+    toks = jnp.asarray([prefix] * 2, jnp.int32)
+
+    @jax.jit
+    def jax_state(p, e):
+        kvs = jax_whisper.precompute_cross_kv_t(p, ARCH, e, bits=bits)
+        cache = jax_cache.init_cache(p, ARCH, 2, max_len, int8=cfg.kv_int8)
+        cache = jax_decode.prefill(p, ARCH, toks[:, : p_len - 1], cache, kvs)
+        logits, _ = jax_decode.decoder_step(p, ARCH, toks[:, p_len - 1],
+                                            jnp.asarray(p_len - 1), cache, kvs,
+                                            max_len)
+        return kvs, cache, logits
+
+    j_kvs, j_cache, ref = jax_state(jp, jnp.asarray(enc))
+    t_kvs, t_cache, tokens, _, _ = decode._prepare(
+        tp, ARCHS["test2l"], torch.from_numpy(enc),
+        DecodeConfig(max_new_tokens=12, **kw))
+    for jk, tk in zip(j_kvs, t_kvs):
+        if bits == 16:
+            assert tk.k_scale is None and tk.v_scale is None
+            continue
+        for name in ("k_t", "v_t", "k_scale", "v_scale"):
+            np.testing.assert_array_equal(getattr(tk, name).numpy(),
+                                          np.asarray(getattr(jk, name)))
+    assert set(t_cache[0]) == set(j_cache[0])
+    if cfg.kv_int8:
+        for je, te in zip(j_cache, t_cache):
+            for name in ("k", "v"):
+                np.testing.assert_allclose(te[name].numpy(), np.asarray(je[name]),
+                                           rtol=0, atol=1)
+            for name in ("k_scale", "v_scale"):
+                np.testing.assert_allclose(te[name].numpy(), np.asarray(je[name]),
+                                           rtol=1e-6, atol=0)
+    got = decode.decoder_step(tp, ARCHS["test2l"], tokens[:, p_len - 1],
+                              p_len - 1, t_cache, t_kvs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-3)
+
+
+@pytest.mark.parametrize("pos,t", [(0, 3), (5, 1), (28, 4)])
+def test_int8_cache_update_matches_jax(pos, t):
+    """The int8 cache's write of (B, H, T, Dh) rows (the prefill's path):
+    codes and scales bit-identical to the jitted JAX `cache.update`, and
+    `read` dequantizes as JAX's does."""
+    rng = np.random.default_rng(pos)
+    k, v = (rng.standard_normal((2, 2, 4, t, 16)) * 3).astype(np.float32)
+    j_entry = jax_cache.init_cache(JP.init_params(ARCH, jax.random.PRNGKey(0)),
+                                   ARCH, 2, 32, int8=True)[0]
+    j_entry = jax.jit(jax_cache.update)(j_entry, jnp.asarray(k), jnp.asarray(v),
+                                        jnp.asarray(pos))
+    t_entry = kv_cache.init_cache({"decoder": {"layers": [
+        {"attn": {"q": {"w": torch.zeros(64, 64)}}}]}}, ARCHS["test2l"], 2, 32,
+        int8=True)[0]
+    kv_cache.update(t_entry, torch.from_numpy(k), torch.from_numpy(v), pos)
+    assert set(t_entry) == set(j_entry)
+    for name in t_entry:
+        want = np.asarray(j_entry[name])
+        assert t_entry[name].numpy().dtype == want.dtype
+        np.testing.assert_array_equal(t_entry[name].numpy(), want)
+    for got, want in zip(kv_cache.read(t_entry, torch.float32),
+                         jax.jit(jax_cache.read, static_argnums=1)(
+                             j_entry, jnp.float32)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_timestamps_raise():
@@ -145,27 +251,39 @@ def test_port_imports_without_jax():
 def test_cpu_wrappers_never_load_the_library(monkeypatch):
     from openai_whisper_compression_tpu_torch.audio.mel_kernel import log_mel_cuda
     from openai_whisper_compression_tpu_torch.ops.cross_attention import (
-        decode_cross_attention_grouped)
+        decode_cross_attention_grouped, transpose_quant_kv)
     from openai_whisper_compression_tpu_torch.ops.quant_matmul import int8_matmul
     from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
-        decode_self_attention_update)
+        decode_self_attention_update, decode_self_attention_update_int8)
 
     def refuse():
         raise AssertionError("a CPU call reached the CUDA kernel library")
 
     monkeypatch.setattr(kernels, "lib", refuse)
     monkeypatch.setattr(kernels, "build", refuse)
-    counts = [f.launches for f in (log_mel_cuda, int8_matmul,
-                                   decode_cross_attention_grouped,
-                                   decode_self_attention_update)]
+    counters = [(log_mel_cuda, "launches"), (int8_matmul, "launches"),
+                (decode_cross_attention_grouped, "launches"),
+                (decode_cross_attention_grouped, "launches_int8"),
+                (decode_cross_attention_grouped, "launches_int4"),
+                (transpose_quant_kv, "launches"),
+                (decode_self_attention_update, "launches"),
+                (decode_self_attention_update_int8, "launches")]
+    counts = [getattr(f, a) for f, a in counters]
     log_mel_cuda(torch.zeros(1, N), 80)
     int8_matmul(torch.ones(2, 64), torch.ones(64, 64, dtype=torch.int8),
                 torch.ones(1, 64))
     decode_cross_attention_grouped(torch.ones(4, 1, 64), torch.ones(4, 64, 128),
-                                   torch.ones(4, 64, 128), 100)
+                                   torch.ones(4, 64, 128), s_valid=100)
+    k8, s8 = transpose_quant_kv(torch.ones(2, 100, 128), 2)
+    decode_cross_attention_grouped(torch.ones(4, 3, 64), k8, k8, s8, s8, 100)
+    k4 = k8[:, :32].contiguous()
+    decode_cross_attention_grouped(torch.ones(4, 1, 64), k4, k4, s8, s8, 100)
     decode_self_attention_update(torch.ones(4, 64), torch.ones(4, 64),
                                  torch.ones(4, 64), torch.zeros(4, 8, 64),
                                  torch.zeros(4, 8, 64), 3)
-    assert counts == [f.launches for f in (log_mel_cuda, int8_matmul,
-                                           decode_cross_attention_grouped,
-                                           decode_self_attention_update)]
+    decode_self_attention_update_int8(
+        torch.ones(4, 64), torch.ones(4, 64), torch.ones(4, 64),
+        torch.zeros(4, 8, 64, dtype=torch.int8),
+        torch.zeros(4, 8, 64, dtype=torch.int8), torch.zeros(4, 8),
+        torch.zeros(4, 8), 3)
+    assert counts == [getattr(f, a) for f, a in counters]
