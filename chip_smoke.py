@@ -2,31 +2,44 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py              # from the repository root
-    python3 chip_smoke.py --profile    # also a torch.profiler kernel table
+    python3 chip_smoke.py --profile    # also torch.profiler kernel tables
 
 Phase 0  prints the card and its power limit, builds the CUDA kernels from
          `openai_whisper_compression_tpu_torch/csrc` (nvcc, sm_90a, one
          process per source).
 Phase 1  each kernel against its plain PyTorch version on the card, at
-         whisper-small main-path shapes (batch 32 for slice 1's four
-         kernels, batch 96 for the int8/int4-KV kernels), with CUDA-event
-         times.
-Phase 2  three runs of whisper-small at full width with seeded random bf16
-         weights, int8 linears, fused decoder qkv, `make_transcribe_fn`
-         (bf16 DFT mel, tanh encoder GELU, greedy 25 tokens) on seeded
-         synthetic 30 s waveforms:
-           bf16-kv   batch 32, bf16 self-KV and cross-KV (slice 1);
-           int8-kv   batch 96, int8 self-KV and int8 cross-KV (`bench.py`'s
-                     headline decode);
-           int4-ckv  batch 96, int8 self-KV and int4 cross-KV (one batch).
-         The first two run three batches with EOT suppressed, then the
-         first batch again with EOT allowed and its embedding tied to a
-         generated token, so that rows stop at different steps. Every
-         launch count is set to 0 before a run and read after it: each
-         kernel of the run's path must have launched, and no other.
+         main-path shapes (whisper-small batch 32 for slice 1's four
+         kernels, batch 96 for the int8/int4-KV kernels; for the int4,
+         NF4/FP4 and HQQ dequant-matmuls, the decoder linears of the
+         phase-2 run of each kind at M = batch and 3 x batch, and
+         whisper-medium's at M = 64 and 256), with CUDA-event times; the
+         dequant-matmuls also beside dequant + torch.matmul.
+Phase 2  decode runs at full width with seeded random bf16 weights, fused
+         decoder qkv, `make_transcribe_fn` (bf16 DFT mel, tanh encoder
+         GELU, greedy 25 tokens) on seeded synthetic 30 s waveforms:
+           bf16-kv      whisper-small, int8 weights, batch 32, bf16
+                        self-KV and cross-KV (slice 1);
+           int8-kv      whisper-small, int8 weights, batch 96, int8 self-KV
+                        and int8 cross-KV (`bench.py`'s headline decode);
+           int4-ckv     the same with int4 cross-KV (one batch);
+           medium-int4  whisper-medium, int4 weights, batch 64, int8
+                        self-KV and cross-KV (`bench.py --presets`'
+                        medium_int4_kv8 row);
+           small-nf4dq, small-hqq4, small-hqq8  whisper-small, batch 32,
+                        int8 self-KV and cross-KV, with the REGISTRY's
+                        bnb_nf4_double_quant, hqq_int4 and hqq_int8 weights
+                        (one batch each).
+         bf16-kv and int8-kv run three batches with EOT suppressed, then
+         the first batch again with EOT allowed and its embedding tied to
+         a generated token, so that rows stop at different steps;
+         medium-int4 runs three batches with EOT suppressed. Every launch
+         count is set to 0 before a run and read after it: each kernel of
+         the run's path must have launched, and no other.
 Phase 3  first-step logits of 2 utterances, card (bf16, kernels) against
-         the same port run on the CPU in f32 (plain versions), with bf16
-         caches and with the int8 self-KV and cross-KV.
+         the same port run on the CPU in f32 (plain versions): whisper-small
+         int8 weights with bf16 caches and with the int8 self-KV and
+         cross-KV, and int4, NF4 double-quant and HQQ int4 weights with the
+         int8 caches.
 
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
@@ -48,8 +61,9 @@ import torch
 
 SEED = 0
 ARCH = "small"
-BATCH = 32        # slice 1's phase-1 shapes and its bf16-KV run
+BATCH = 32        # slice 1's phase-1 shapes, its bf16-KV run, the small 4-bit runs
 HEAD_BATCH = 96   # bench.py's headline batch (int8 self-KV and cross-KV)
+MEDIUM_BATCH = 64  # bench.py --presets' medium_int4_kv8 batch
 AUDIO_S = 30.0
 CSRC = "openai_whisper_compression_tpu_torch/csrc/"
 JAX_PKG = "openai_whisper_compression_tpu/"
@@ -59,7 +73,7 @@ KERNELS = [
     ("log_mel_cuda", "audio.mel_kernel", "log_mel_cuda", "launches",
      "mel.cu", "audio/mel_pallas.py:62", "mel"),
     ("int8_matmul", "ops.quant_matmul", "int8_matmul", "launches",
-     "int8_matmul.cu", "ops/quant_matmul.py:55", "int8_matmul"),
+     "quant_matmul.cu", "ops/quant_matmul.py:55", "int8_matmul"),
     ("decode_cross_attention_grouped", "ops.cross_attention",
      "decode_cross_attention_grouped", "launches", "cross_attention.cu",
      "ops/cross_attention.py:321", "cross"),
@@ -77,22 +91,56 @@ KERNELS = [
     ("decode_self_attention_update_int8", "ops.self_attention_step",
      "decode_self_attention_update_int8", "launches", "self_attention_step.cu",
      "ops/self_attention_step.py:386", "self_int8"),
+    ("int4_matmul", "ops.quant_matmul", "int4_matmul", "launches",
+     "quant_matmul.cu", "ops/quant_matmul.py:92", "int4"),
+    ("nf4_matmul", "ops.quant_matmul", "nf4_matmul", "launches",
+     "quant_matmul.cu", "ops/quant_matmul.py:212", "nf4"),
+    ("group_asym_matmul", "ops.quant_matmul", "group_asym_matmul", "launches",
+     "quant_matmul.cu", "ops/quant_matmul.py:260", "hqq"),
+    ("group_asym_matmul_u8", "ops.quant_matmul", "group_asym_matmul",
+     "launches_u8", "quant_matmul.cu", "ops/quant_matmul.py:260", "hqq_u8"),
 ]
-# phase-2 runs: (name, DecodeConfig switches, batch, batches with EOT
-# suppressed, kernels of the path); the entry of KERNELS reports the launch
-# count of the first run whose path holds it
+KV8 = {"kv_int8": True, "cross_kv_int8": True}
+DECODE_KERNELS = ("log_mel_cuda", "transpose_quant_kv",
+                  "decode_cross_attention_grouped_int8",
+                  "decode_self_attention_update_int8")
+# phase-2 runs: (name, arch, weight quantization, DecodeConfig switches,
+# batch, batches with EOT suppressed, EOT-allowed batch after them, kernels
+# of the path); the entry of KERNELS reports the launch count of the first
+# run whose path holds it
 RUNS = [
-    ("bf16-kv", {}, BATCH, 3,
+    ("bf16-kv", ARCH, "int8", {}, BATCH, 3, True,
      ("log_mel_cuda", "int8_matmul", "decode_cross_attention_grouped",
       "decode_self_attention_update")),
-    ("int8-kv", {"kv_int8": True, "cross_kv_int8": True}, HEAD_BATCH, 3,
-     ("log_mel_cuda", "int8_matmul", "transpose_quant_kv",
-      "decode_cross_attention_grouped_int8",
-      "decode_self_attention_update_int8")),
-    ("int4-ckv", {"kv_int8": True, "cross_kv_int4": True}, HEAD_BATCH, 1,
+    ("int8-kv", ARCH, "int8", KV8, HEAD_BATCH, 3, True,
+     ("int8_matmul",) + DECODE_KERNELS),
+    ("int4-ckv", ARCH, "int8", {"kv_int8": True, "cross_kv_int4": True},
+     HEAD_BATCH, 1, False,
      ("log_mel_cuda", "int8_matmul", "decode_cross_attention_grouped_int4",
       "decode_self_attention_update_int8")),
+    ("medium-int4", "medium", "int4", KV8, MEDIUM_BATCH, 3, False,
+     ("int4_matmul",) + DECODE_KERNELS),
+    ("small-nf4dq", ARCH, "bnb_nf4_double_quant", KV8, BATCH, 1, False,
+     ("nf4_matmul",) + DECODE_KERNELS),
+    ("small-hqq4", ARCH, "hqq_int4", KV8, BATCH, 1, False,
+     ("group_asym_matmul",) + DECODE_KERNELS),
+    ("small-hqq8", ARCH, "hqq_int8", KV8, BATCH, 1, False,
+     ("group_asym_matmul_u8",) + DECODE_KERNELS),
 ]
+# phase-3 configurations: (name, weight quantization, DecodeConfig switches)
+LOGIT_RUNS = [("int8 bf16-kv", "int8", {}), ("int8 int8-kv", "int8", KV8),
+              ("int4 int8-kv", "int4", KV8),
+              ("nf4-dq int8-kv", "bnb_nf4_double_quant", KV8),
+              ("hqq-int4 int8-kv", "hqq_int4", KV8)]
+# phase-1 4-bit weight kinds: (label, quantize_params method, wrapper key,
+# the RUNS entry whose decoder linears give the shapes; the kinds on no
+# run's path take the run of their kernel)
+FOUR_BIT = [("int4", "int4", "int4", "medium-int4"),
+            ("nf4", "nf4", "nf4", "small-nf4dq"),
+            ("fp4-dq", "fp4_dq", "nf4", "small-nf4dq"),
+            ("hqq4", "hqq_int4", "hqq", "small-hqq4"),
+            ("hqq3", "hqq_int3", "hqq", "small-hqq4"),
+            ("hqq8", "hqq_int8", "hqq_u8", "small-hqq8")]
 
 # Tolerances, card kernel vs plain version on identical inputs (the plain
 # versions compute in f32 from the same bf16-rounded operands):
@@ -334,18 +382,78 @@ def phase1_quantized(dev, results: dict) -> None:
     results["self_int8"]["max_abs_err"] = max(errs)
 
 
-def make_slice(dev):
-    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
-    from openai_whisper_compression_tpu_torch.evaluation.harness import (
-        make_transcribe_fn)
+def linear_shapes(arch) -> tuple:
+    """(K, N, what) of every decoder linear of `arch` (fused qkv)."""
+    d, f = arch.d_model, arch.ffn_dim
+    return ((d, 3 * d, "qkv"), (d, d, "o/cross q/cross o"), (d, f, "fc1"),
+            (f, d, "fc2"))
+
+
+def phase1_4bit(dev, results: dict) -> None:
+    """The int4, NF4/FP4 and HQQ dequant-matmuls against their plain
+    versions and beside dequant + torch.matmul, on the weights and calls
+    `linear` makes (`kernel_call`): at the decoder linears of the phase-2
+    run of each kind, M = batch (a decode step) and 3 x batch (the prefill
+    of three prefix tokens), and at whisper-medium's linears, M = 64 and
+    256, for every kind."""
+    from openai_whisper_compression_tpu_torch.config import ARCHS
+    from openai_whisper_compression_tpu_torch.ops.linear import kernel_call
+    from openai_whisper_compression_tpu_torch.ops.qtensor import dequantize
+    from openai_whisper_compression_tpu_torch.quant.core import QUANTIZERS
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    bf16 = torch.bfloat16
+    runs = {r[0]: r for r in RUNS}
+    counter = {key: (fn, attr) for _, _, fn, attr, _, _, key in KERNELS}
+    weights, xs = {}, {}
+    for label, method, key, run_name in FOUR_BIT:
+        _, arch_name, _, _, batch = runs[run_name][:5]
+        step = (arch_name, batch)   # the kernels line reports its qkv
+        cases = dict.fromkeys([step, (arch_name, 3 * batch),
+                               ("medium", MEDIUM_BATCH), ("medium", 256)])
+        errs = []
+        for arch_name, m in cases:
+            for k, n, what in linear_shapes(ARCHS[arch_name]):
+                if (k, n) not in weights:
+                    weights[k, n] = torch.randn(k, n, generator=gen, device=dev) * 0.02
+                if (m, k) not in xs:
+                    xs[m, k] = torch.randn(m, k, generator=gen, device=dev).to(bf16)
+                q, x = QUANTIZERS[method](weights[k, n]), xs[m, k]
+                call = kernel_call(q)
+                check(call is not None, f"{label} K={k}: no kernel on the card")
+                fn, plain_fn, args = call
+                kernel, plain = (lambda: fn(x, *args)), (lambda: plain_fn(x, *args))
+                before = getattr(fn, counter[key][1])
+                got, ref = kernel(), plain()
+                check(fn.__name__ == counter[key][0]
+                      and getattr(fn, counter[key][1]) == before + 1,
+                      f"{label}: linear does not launch {'.'.join(counter[key])}")
+                err = max_err(got, ref)
+                bound = BF16_REL * float(ref.float().abs().max())
+                check(got.shape == (m, n) and err <= bound,
+                      f"{label} {arch_name} M={m} K={k} N={n}: err {err} > {bound}")
+                errs.append(err)
+                t_k, t_p = cuda_ms(kernel), cuda_ms(plain)
+                t_d = cuda_ms(lambda: torch.matmul(x, dequantize(q, bf16)))
+                if (arch_name, m, what) == (*step, "qkv") and key not in results:
+                    results[key] = {"ms": t_k, "plain_ms": t_p}
+                log(f"phase1 {label} {arch_name} M={m} K={k} N={n} ({what}): err "
+                    f"{err:.3g} (bound {bound:.3g}) kernel {t_k:.4f} ms plain "
+                    f"{t_p:.4f} ms dequant+torch.matmul {t_d:.4f} ms")
+        results[key]["max_abs_err"] = max(errs + [results[key].get("max_abs_err", 0.0)])
+
+
+def make_params(dev, arch_name: str, method: str):
+    """Seeded random bf16 weights of `arch_name`, `quantize_params(method)`
+    (a QUANTIZERS method or a REGISTRY name), decoder qkv fused."""
+    from openai_whisper_compression_tpu_torch.config import ARCHS
     from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
     from openai_whisper_compression_tpu_torch.models.params import init_params
     from openai_whisper_compression_tpu_torch.quant.api import quantize_params
 
-    arch = ARCHS[ARCH]
+    arch = ARCHS[arch_name]
     params = init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev)
-    params = fuse_qkv(quantize_params(params, "int8"))
-    return arch, params, DecodeConfig, make_transcribe_fn
+    return arch, fuse_qkv(quantize_params(params, method))
 
 
 def waveforms(seed: int, batch: int) -> np.ndarray:
@@ -390,12 +498,20 @@ def launch_counters() -> dict:
         for name, mod, fn, attr, *_ in KERNELS}
 
 
-def run_path(dev, slice_, run, profile: bool) -> dict:
+def run_path(dev, arch, params, run, profile: bool) -> dict:
     """One phase-2 run (see RUNS): its batches, checks, walls, steady RTFx,
-    peak memory and the launch count of every kernel over the run."""
-    name, switches, batch, n_sup, path = run
-    arch, params, DecodeConfig, make_transcribe_fn = slice_
+    peak memory, stored weight size and the launch count of every kernel
+    over the run."""
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import (
+        make_transcribe_fn)
+    from openai_whisper_compression_tpu_torch.models.params import size_in_mb
+
+    name, _, method, switches, batch, n_sup, eot_batch, path = run
     eot = arch.eos_token_id
+    weights_mib = size_in_mb(params)
+    log(f"phase2 {name}: {arch.name}, {method} weights, stored {weights_mib:.1f} "
+        f"MiB (size_in_mb), batch {batch}, {json.dumps(switches)}")
     p_len = 4  # <|sot|> <|en|> <|transcribe|> <|notimestamps|>
     prefix = torch.tensor([arch.decoder_start_token_id, arch.language_en_token_id,
                            arch.task_transcribe_token_id,
@@ -428,7 +544,7 @@ def run_path(dev, slice_, run, profile: bool) -> dict:
 
     for wav in wavs:
         one(fn_sup, params, wav, "EOT suppressed")
-    if n_sup > 1:
+    if eot_batch:
         # batch 0's audio again with EOT allowed and made reachable
         params_eot, twin, stops = eot_twin_params(params, outs[0][0], p_len, eot)
         log(f"phase2 {name} EOT twin: token {twin}; batch 0 emitted it first at "
@@ -459,7 +575,7 @@ def run_path(dev, slice_, run, profile: bool) -> dict:
             check(bool((lengths == p_len + 25).all()), f"lengths {lengths.tolist()}")
             check(not bool((tokens[:, p_len: p_len + 25] == eot).any()),
                   "EOT emitted although suppressed")
-    if n_sup > 1:
+    if eot_batch:
         tokens, lengths, _ = outs[-1]
         check(bool(((lengths > p_len) & (lengths <= p_len + 25)).all()),
               f"lengths {lengths.tolist()}")
@@ -476,7 +592,8 @@ def run_path(dev, slice_, run, profile: bool) -> dict:
     steady = walls[1:3] if n_sup >= 3 else walls[:1]
     summary = {"batch": batch, "walls_s": walls,
                "rtfx_steady": batch * AUDIO_S / (sum(steady) / len(steady)),
-               "peak_mib": peak_mb, "launches": launches}
+               "peak_mib": peak_mb, "weights_mib": weights_mib,
+               "launches": launches}
     log(f"phase2 {name} steady ({'batches 1-2' if n_sup >= 3 else 'batch 0'}) "
         f"RTFx {summary['rtfx_steady']:.2f}")
 
@@ -502,46 +619,49 @@ def run_path(dev, slice_, run, profile: bool) -> dict:
 
 
 @torch.inference_mode()
-def phase3(dev, slice_) -> None:
-    """First-step logits of 2 utterances, card bf16 vs CPU f32, with bf16
-    caches and with bench.py's int8 self-KV and cross-KV."""
+def phase3(dev, params_for) -> None:
+    """First-step logits of 2 utterances, card bf16 vs CPU f32, for each
+    LOGIT_RUNS configuration of whisper-small."""
     from openai_whisper_compression_tpu_torch.audio.features import preprocess
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
     from openai_whisper_compression_tpu_torch.models.decode import first_step_logits
     from openai_whisper_compression_tpu_torch.models.params import tree_to
     from openai_whisper_compression_tpu_torch.models.whisper import encode
 
-    arch, params, DecodeConfig, _ = slice_
-    cfgs = {name: DecodeConfig(max_new_tokens=25, suppress_tokens=(arch.eos_token_id,),
-                               **switches)
-            for name, switches, *_ in RUNS[:2]}
     wav = torch.from_numpy(waveforms(SEED, 2))
+    for method in dict.fromkeys(m for _, m, _ in LOGIT_RUNS):
+        arch, params = params_for(ARCH, method)
+        cfgs = {name: DecodeConfig(max_new_tokens=25,
+                                   suppress_tokens=(arch.eos_token_id,), **switches)
+                for name, m, switches in LOGIT_RUNS if m == method}
 
-    def logits(params, wav, dtype):
-        mel = preprocess(wav, arch.num_mel_bins, dft_dtype=torch.bfloat16).to(dtype)
-        enc = encode(params, arch, mel, fast_gelu=True)
-        return {name: first_step_logits(params, arch, enc, cfg).float().cpu()
-                for name, cfg in cfgs.items()}
+        def logits(params, wav, dtype):
+            mel = preprocess(wav, arch.num_mel_bins, dft_dtype=torch.bfloat16).to(dtype)
+            enc = encode(params, arch, mel, fast_gelu=True)
+            return {name: first_step_logits(params, arch, enc, cfg).float().cpu()
+                    for name, cfg in cfgs.items()}
 
-    card = logits(params, wav.to(dev), torch.bfloat16)
-    ref = logits(tree_to(params, "cpu", torch.float32), wav, torch.float32)
-    for name in cfgs:
-        c, r = card[name], ref[name]
-        rel = float((c - r).norm() / r.norm())
-        agree = float((c.argmax(-1) == r.argmax(-1)).float().mean())
-        log(f"phase3 {name} first-step logits card bf16 vs CPU f32: relative L2 "
-            f"{rel:.4g} (bound {LOGITS_REL_L2}), max abs {max_err(c, r):.4g}, "
-            f"|logits| max {float(r.abs().max()):.4g}, argmax agreement {agree:.2f} "
-            "(not checked: random weights make argmax tie-prone)")
-        check(bool(torch.isfinite(c).all()) and c.shape == (2, arch.vocab_size),
-              f"{name}: card logits not finite or of shape {tuple(c.shape)}")
-        check(rel <= LOGITS_REL_L2, f"{name}: card logits off by {rel:.4g} relative L2")
+        card = logits(params, wav.to(dev), torch.bfloat16)
+        ref = logits(tree_to(params, "cpu", torch.float32), wav, torch.float32)
+        for name in cfgs:
+            c, r = card[name], ref[name]
+            rel = float((c - r).norm() / r.norm())
+            agree = float((c.argmax(-1) == r.argmax(-1)).float().mean())
+            log(f"phase3 {name} first-step logits card bf16 vs CPU f32: relative L2 "
+                f"{rel:.4g} (bound {LOGITS_REL_L2}), max abs {max_err(c, r):.4g}, "
+                f"|logits| max {float(r.abs().max()):.4g}, argmax agreement "
+                f"{agree:.2f} (not checked: random weights make argmax tie-prone)")
+            check(bool(torch.isfinite(c).all()) and c.shape == (2, arch.vocab_size),
+                  f"{name}: card logits not finite or of shape {tuple(c.shape)}")
+            check(rel <= LOGITS_REL_L2,
+                  f"{name}: card logits off by {rel:.4g} relative L2")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one batch of the batch-96 int8-KV run with "
-                         "torch.profiler")
+                    help="profile one batch of the int8-kv and medium-int4 "
+                         "runs with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -571,15 +691,27 @@ def main() -> int:
     results: dict = {}
     phase1(dev, results)
     phase1_quantized(dev, results)
+    phase1_4bit(dev, results)
     torch.cuda.empty_cache()
-    slice_ = make_slice(dev)
-    summaries = {run[0]: run_path(dev, slice_, run,
-                                  args.profile and run[0] == "int8-kv")
-                 for run in RUNS}
-    phase3(dev, slice_)
+    built: dict = {}
+
+    def params_for(arch_name: str, method: str):
+        if (arch_name, method) not in built:
+            built[arch_name, method] = make_params(dev, arch_name, method)
+        return built[arch_name, method]
+
+    summaries = {}
+    for run in RUNS:
+        name, arch_name, method = run[:3]
+        summaries[name] = run_path(dev, *params_for(arch_name, method), run,
+                                   args.profile and name in ("int8-kv", "medium-int4"))
+        if arch_name != ARCH:
+            del built[arch_name, method]
+            torch.cuda.empty_cache()
+    phase3(dev, params_for)
 
     def launches(name):  # from the first run whose path holds the kernel
-        run = next(r for r in RUNS if name in r[4])
+        run = next(r for r in RUNS if name in r[-1])
         return summaries[run[0]]["launches"][name]
 
     kernels_line = {"kernels": [

@@ -1,10 +1,15 @@
 """Decode-time fusion of the decoder self-attention q/k/v projections into
-one (d, 3·H·Dh) matmul, on dense weights or int8_pc QTensors (data and
-per-channel scales concatenate along the output axis). Apply after
-quantization, as in the JAX package's `models/fuse.py`."""
+one (d, 3·H·Dh) matmul, as the JAX package's `models/fuse.py`: dense
+weights concatenate along the output axis, and so do QTensors of one
+weight-only kind (every stored array keeps N as its last axis: data,
+scales, zeros and the double-quant scale2/offset2). Layers whose q/k/v
+cannot fuse (mixed dense and quantized, or mixed kinds) stay unfused; every
+kind the port carries fuses (the JAX package's FUSABLE_KINDS less fp8).
+Apply after quantization."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -13,16 +18,31 @@ from ..ops.qtensor import QTensor
 from .params import copy_tree
 
 
-def _fuse_attn(attn: dict) -> dict:
-    qw, kw, vw = attn["q"]["w"], attn["k"]["w"], attn["v"]["w"]
-    ws = (qw, kw, vw)
-    if any(isinstance(w, QTensor) for w in ws):
-        if not all(isinstance(w, QTensor) for w in ws):
-            raise NotImplementedError("fusing mixed dense/quantized q/k/v")
-        w = QTensor(data=torch.cat([t.data for t in ws], dim=1),
-                    scale=torch.cat([t.scale for t in ws], dim=1),
-                    kind=qw.kind,
-                    shape=(qw.shape[0], sum(t.shape[1] for t in ws)))
+def _concat_qtensors(tensors: list[QTensor]) -> QTensor | None:
+    t0 = tensors[0]
+    if {t.kind for t in tensors} != {t0.kind}:
+        return None
+
+    def cat(field):
+        vals = [getattr(t, field) for t in tensors]
+        return None if any(v is None for v in vals) else torch.cat(vals, dim=1)
+
+    return dataclasses.replace(
+        t0, data=cat("data"), scale=cat("scale"), zero=cat("zero"),
+        scale2=cat("scale2"), offset2=cat("offset2"),
+        shape=(t0.shape[0], sum(t.shape[1] for t in tensors)))
+
+
+def _fuse_attn(attn: dict) -> dict | None:
+    """{q, k, v, o} -> {qkv, o}, or None when the weights cannot fuse."""
+    ws = (attn["q"]["w"], attn["k"]["w"], attn["v"]["w"])
+    quantized = [isinstance(w, QTensor) for w in ws]
+    if all(quantized):
+        w = _concat_qtensors(list(ws))
+        if w is None:
+            return None
+    elif any(quantized):
+        return None
     else:
         w = torch.cat(ws, dim=1)
     qb, vb = attn["q"]["b"], attn["v"]["b"]
@@ -35,7 +55,9 @@ def fuse_qkv(params: Any, components: tuple[str, ...] = ("decoder",)) -> Any:
     out = copy_tree(params)
     for comp in components:
         for layer in out[comp]["layers"]:
-            layer["attn"] = _fuse_attn(layer["attn"])
+            fused = _fuse_attn(layer["attn"])
+            if fused is not None:
+                layer["attn"] = fused
     return out
 
 

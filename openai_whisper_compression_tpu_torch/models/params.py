@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..config import WhisperArch
-from ..ops.qtensor import QTensor
+from ..ops.qtensor import KINDS, QTensor
 
 Params = dict[str, Any]
 
@@ -99,16 +99,24 @@ def _tensor(a, device) -> torch.Tensor:
 
 def from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
     """Port tree from the JAX parameter tree with numpy leaves. QTensor
-    leaves arrive as objects with `data`, `scale`, `kind` and `shape`
-    (the JAX QTensor after `jax.tree.map(np.asarray, ...)`)."""
+    leaves arrive as objects with the JAX QTensor's fields (after
+    `jax.tree.map(np.asarray, ...)`); every field of the weight-only kinds
+    carries over, and activation-quantized leaves are refused."""
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [from_numpy(v, device) for v in tree]
     if hasattr(tree, "kind") and hasattr(tree, "scale"):
-        return QTensor(data=_tensor(tree.data, device),
-                       scale=_tensor(tree.scale, device), kind=tree.kind,
-                       shape=tuple(tree.shape))
+        if getattr(tree, "act", None) is not None or tree.kind not in KINDS:
+            raise NotImplementedError(
+                f"QTensor kind {tree.kind!r} with activations {tree.act}: "
+                "activation quantization and fp8 weights come with the w8a8 "
+                "kernel, a later slice of the port")
+        fields = {f: _tensor(getattr(tree, f), device)
+                  for f in ("data", "scale", "zero", "scale2", "offset2")
+                  if getattr(tree, f, None) is not None}
+        return QTensor(**fields, kind=tree.kind, bits=int(tree.bits),
+                       shape=tuple(tree.shape), block_size=int(tree.block_size))
     return _tensor(tree, device)
 
 
@@ -122,6 +130,26 @@ def tree_to(params: Any, device: str | torch.device, dtype: torch.dtype) -> Any:
     if isinstance(params, QTensor):
         return params.to(device)
     return params.to(device=device, dtype=dtype)
+
+
+def tree_cast(params: Any, dtype: torch.dtype) -> Any:
+    """Cast floating leaves to `dtype` (QTensors and integer leaves stay)."""
+    if isinstance(params, dict):
+        return {k: tree_cast(v, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [tree_cast(v, dtype) for v in params]
+    if isinstance(params, QTensor) or not params.is_floating_point():
+        return params
+    return params.to(dtype)
+
+
+def size_in_mb(params: Any) -> float:
+    """Stored size in MiB (quantized leaves count their packed bytes and
+    every scale, zero and offset array)."""
+    total = sum(leaf.nbytes() if isinstance(leaf, QTensor)
+                else leaf.numel() * leaf.element_size()
+                for _, leaf in named_leaves(params))
+    return total / 2 ** 20
 
 
 def copy_tree(params: Any) -> Any:

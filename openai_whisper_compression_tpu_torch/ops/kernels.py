@@ -45,6 +45,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_int); every launcher returns a cudaError_t as int
 _SIGNATURES = {
     "owc_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "owc_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "owc_nf4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "owc_group_asym_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
     "owc_mel_log10": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "owc_cross_attention_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _P],

@@ -19,12 +19,15 @@ from openai_whisper_compression_tpu_torch.models import whisper
 from openai_whisper_compression_tpu_torch.ops.cross_attention import (
     decode_cross_attention_grouped, decode_cross_attention_grouped_ref,
     transpose_quant_kv, transpose_quant_kv_ref)
+from openai_whisper_compression_tpu_torch.ops.qtensor import effective_block_scale
 from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
-    int8_matmul, int8_matmul_ref)
+    group_asym_matmul, group_asym_matmul_ref, int4_matmul, int4_matmul_ref,
+    int8_matmul, int8_matmul_ref, nf4_matmul, nf4_matmul_ref)
 from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
     decode_self_attention_update, decode_self_attention_update_int8,
     decode_self_attention_update_int8_ref, decode_self_attention_update_ref)
-from openai_whisper_compression_tpu_torch.quant.core import quantize_int8
+from openai_whisper_compression_tpu_torch.quant.core import (
+    quantize_hqq, quantize_int8, quantize_int_sub8, quantize_nf4)
 
 torch.set_num_threads(2)
 
@@ -61,6 +64,123 @@ def test_int8_matmul(dev, dtype, m, k, n):
     assert got.dtype == dtype and got.shape == (m, n)
     torch.testing.assert_close(got.float(), ref.float(), rtol=0,
                                atol=_tol(dtype, float(ref.float().abs().max())))
+
+
+# (M, K, N): one decode row and a batch-256 prefill at whisper-medium's
+# fc2 (4096 x 1024) and qkv (1024 x 3072), a ragged M, the smallest tile
+FOUR_BIT_SHAPES = [(1, 4096, 1024), (256, 4096, 1024), (1, 1024, 3072),
+                   (256, 1024, 3072), (37, 256, 64)]
+
+
+def _check_kernel(fn, ref, counter, x, *args):
+    """fn(x, *args) launches once and lies within _tol of ref(x, *args)."""
+    wrapper, attr = counter
+    before = getattr(wrapper, attr)
+    got = fn(x, *args)
+    assert getattr(wrapper, attr) == before + 1
+    want = ref(x, *args)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(x.dtype, float(want.float().abs().max())))
+    return got
+
+
+def _weight_and_x(dev, dtype, m, k, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(k, n, generator=g, device=dev) * 0.02
+    w[:, 5] = 0.0   # an all-zero column: the smallest scales the quantizers make
+    return w, torch.randn(m, k, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", FOUR_BIT_SHAPES)
+def test_int4_matmul(dev, dtype, m, k, n):
+    """Column scales of 0 and 1e-12 included (1e-12 is the quantizer's
+    floor, for an all-zero column)."""
+    w, x = _weight_and_x(dev, dtype, m, k, n, m + k + n)
+    q = quantize_int_sub8(w, 4)
+    q.scale[:, 0] = 0.0
+    assert float(q.scale[0, 5]) == float(torch.tensor(1e-12))
+    got = _check_kernel(int4_matmul, int4_matmul_ref, (int4_matmul, "launches"),
+                        x, q.data, q.scale)
+    assert not got[:, 0].any() and not got[:, 5].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", FOUR_BIT_SHAPES)
+@pytest.mark.parametrize("kind,dq,block", [("nf4", False, 64), ("fp4", True, 64),
+                                           ("nf4", True, 128)])
+def test_nf4_matmul(dev, dtype, m, k, n, kind, dq, block):
+    """NF4 and FP4 (its -0.0 and 0.0052 entries), plain and double-quant
+    scales folded as `linear` folds them, blocks of 64 and 128, and block
+    scales of 0 and 1e-12."""
+    w, x = _weight_and_x(dev, dtype, m, k, n, m + k + n + block)
+    q = quantize_nf4(w, block_size=block, double_quant=dq, kind=kind)
+    scale = effective_block_scale(q).contiguous()
+    scale[0, :8] = 0.0
+    scale[-1, 8:16] = 1e-12
+    _check_kernel(nf4_matmul, nf4_matmul_ref, (nf4_matmul, "launches"),
+                  x, q.data, scale, kind, block)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", FOUR_BIT_SHAPES)
+@pytest.mark.parametrize("bits,group", [(3, 64), (4, 64), (4, 128), (8, 128)])
+def test_group_asym_matmul(dev, dtype, m, k, n, bits, group):
+    """HQQ values as split-half nibbles (bits 3, 4) and as uint8 (bits 8),
+    groups of 64 and 128, with group scales of 0 and 1e-12; each storage
+    counts its own launches."""
+    w, x = _weight_and_x(dev, dtype, m, k, n, m + k + n + bits)
+    q = quantize_hqq(w, bits=bits, group_size=group)
+    q.scale[0, :8] = 0.0
+    q.scale[-1, 8:16] = 1e-12
+    attr = "launches_u8" if bits == 8 else "launches"
+    _check_kernel(group_asym_matmul, group_asym_matmul_ref,
+                  (group_asym_matmul, attr), x, q.data, q.scale, q.zero, group)
+
+
+def test_4bit_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """The int4, NF4 and group-asym wrappers raise on every shape, type and
+    pointer their kernels do not take; none reroutes to its plain
+    version."""
+    x = torch.zeros(2, 256, device=dev)
+    nib = torch.zeros(128, 64, dtype=torch.int8, device=dev)
+    col = torch.ones(1, 64, device=dev)
+    grp = torch.ones(4, 64, device=dev)
+    with pytest.raises(ValueError):  # K/2 rows expected, K given
+        int4_matmul(x, torch.zeros(256, 64, dtype=torch.int8, device=dev), col)
+    with pytest.raises(ValueError):  # uint8 nibbles
+        int4_matmul(x, nib.view(torch.uint8), col)
+    with pytest.raises(ValueError):  # N not a multiple of 64
+        int4_matmul(x, torch.zeros(128, 96, dtype=torch.int8, device=dev),
+                    torch.ones(1, 96, device=dev))
+    with pytest.raises(ValueError):  # K/2 not a multiple of 32
+        int4_matmul(torch.zeros(2, 96, device=dev),
+                    torch.zeros(48, 64, dtype=torch.int8, device=dev), col)
+    with pytest.raises(ValueError):  # a column scale short of N
+        int4_matmul(x, nib, col[:, :32])
+    with pytest.raises(ValueError):  # nibbles at an offset that breaks 16-byte loads
+        off = torch.zeros(128 * 64 + 8, dtype=torch.int8, device=dev)[8:].view(128, 64)
+        int4_matmul(x, off, col)
+    with pytest.raises(TypeError):  # float16 is not a kernel dtype
+        int4_matmul(x.half(), nib, col)
+    with pytest.raises(ValueError):  # not a codebook kind
+        nf4_matmul(x, nib, grp, "int4", 64)
+    with pytest.raises(ValueError):  # block scales of the wrong shape
+        nf4_matmul(x, nib, grp[:2], "nf4", 64)
+    with pytest.raises(ValueError):  # int8 double-quant codes, not folded
+        nf4_matmul(x, nib, grp.to(torch.int8), "nf4", 64)
+    with pytest.raises(ValueError):  # K not a whole number of blocks
+        nf4_matmul(x, nib, torch.ones(3, 64, device=dev), "fp4", 96)
+    with pytest.raises(ValueError):  # (K, N) int8: uint8 values expected
+        group_asym_matmul(x, torch.zeros(256, 64, dtype=torch.int8, device=dev),
+                          grp[:2], grp[:2], 128)
+    with pytest.raises(ValueError):  # (K/2, N) uint8: int8 nibbles expected
+        group_asym_matmul(x, nib.view(torch.uint8), grp, grp, 64)
+    with pytest.raises(ValueError):  # a zero of the wrong shape
+        group_asym_matmul(x, nib, grp, grp[:2], 64)
+    with pytest.raises(ValueError):  # scales on the CPU
+        group_asym_matmul(x, nib, grp.cpu(), grp, 64)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

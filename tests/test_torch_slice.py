@@ -50,14 +50,24 @@ STD, EOT_TWIN = 0.5, 611
 KV_CONFIGS = {"kv8": {"kv_int8": True}, "ckv8": {"cross_kv_int8": True},
               "kv8-ckv8": {"kv_int8": True, "cross_kv_int8": True},
               "kv8-ckv4": {"kv_int8": True, "cross_kv_int4": True}}
+# the 4-bit weight kinds: bench.py's medium_int4_kv8 preset, and the
+# REGISTRY's double-quant NF4 and HQQ int4 (each with its own kernel)
+WEIGHT_METHODS = ["int4", "bnb_nf4_double_quant", "hqq_int4"]
 
 
 @pytest.fixture(scope="module")
-def slice_params():
+def dense_params():
+    """The JAX tree before quantization: std 0.5, EOT tied to its twin."""
     p = JP.init_params_jit(ARCH, jax.random.PRNGKey(0), std=STD)
     embed = np.asarray(p["decoder"]["embed"]).copy()
     embed[ARCH.eos_token_id] = 1.3 * embed[EOT_TWIN]
     p["decoder"] = {**p["decoder"], "embed": jnp.asarray(embed)}
+    return p
+
+
+@pytest.fixture(scope="module")
+def slice_params(dense_params):
+    p = dense_params
     jp = jax_fuse_qkv(jax_quantize(p, "int8"))
     tp = from_numpy(jax.tree.map(np.asarray, jp))
     # the port's own quantize + fuse gives the same tree (bytes pinned in
@@ -205,6 +215,31 @@ def test_quantized_kv_state_and_logits_match_jax(slice_params, kv):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-3)
 
 
+@pytest.mark.parametrize("method", WEIGHT_METHODS)
+def test_4bit_weights_tokens_match_jax(dense_params, method):
+    """The 4-bit weight kinds through the whole slice (fused qkv, int8
+    self-KV and cross-KV, EOT allowed), f32: greedy tokens and lengths equal
+    to the jitted JAX transcription function's, from JAX's quantized tree
+    carried over and from the port's own quantize + fuse (whose codes equal
+    JAX's, and whose second-level scales and HQQ zeros differ in the last
+    bits, `test_torch_quant4.py`)."""
+    wav = _wav()
+    cfg = dict(max_new_tokens=12, kv_int8=True, cross_kv_int8=True)
+    jp = jax_fuse_qkv(jax_quantize(dense_params, method))
+    jt, jl = jax_make_transcribe_fn(ARCH, JaxDecodeConfig(**cfg),
+                                    use_pallas_mel=True)(jp, jnp.asarray(wav))
+    fn = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**cfg))
+    carried = from_numpy(jax.tree.map(np.asarray, jp))
+    own = fuse_qkv(quantize_params(from_numpy(jax.tree.map(np.asarray,
+                                                           dense_params)), method))
+    for tp in (carried, own):
+        qkv = tp["decoder"]["layers"][0]["attn"]["qkv"]["w"]
+        assert qkv.kind == jp["decoder"]["layers"][0]["attn"]["qkv"]["w"].kind
+        tt, tl = fn(tp, wav)
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
 @pytest.mark.parametrize("pos,t", [(0, 3), (5, 1), (28, 4)])
 def test_int8_cache_update_matches_jax(pos, t):
     """The int8 cache's write of (B, H, T, Dh) rows (the prefill's path):
@@ -252,7 +287,8 @@ def test_cpu_wrappers_never_load_the_library(monkeypatch):
     from openai_whisper_compression_tpu_torch.audio.mel_kernel import log_mel_cuda
     from openai_whisper_compression_tpu_torch.ops.cross_attention import (
         decode_cross_attention_grouped, transpose_quant_kv)
-    from openai_whisper_compression_tpu_torch.ops.quant_matmul import int8_matmul
+    from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
+        group_asym_matmul, int4_matmul, int8_matmul, nf4_matmul)
     from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
         decode_self_attention_update, decode_self_attention_update_int8)
 
@@ -262,6 +298,9 @@ def test_cpu_wrappers_never_load_the_library(monkeypatch):
     monkeypatch.setattr(kernels, "lib", refuse)
     monkeypatch.setattr(kernels, "build", refuse)
     counters = [(log_mel_cuda, "launches"), (int8_matmul, "launches"),
+                (int4_matmul, "launches"), (nf4_matmul, "launches"),
+                (group_asym_matmul, "launches"),
+                (group_asym_matmul, "launches_u8"),
                 (decode_cross_attention_grouped, "launches"),
                 (decode_cross_attention_grouped, "launches_int8"),
                 (decode_cross_attention_grouped, "launches_int4"),
@@ -272,6 +311,11 @@ def test_cpu_wrappers_never_load_the_library(monkeypatch):
     log_mel_cuda(torch.zeros(1, N), 80)
     int8_matmul(torch.ones(2, 64), torch.ones(64, 64, dtype=torch.int8),
                 torch.ones(1, 64))
+    x, nib, g = torch.ones(2, 256), torch.ones(128, 64, dtype=torch.int8), torch.ones(4, 64)
+    int4_matmul(x, nib, torch.ones(1, 64))
+    nf4_matmul(x, nib, g, "nf4", 64)
+    group_asym_matmul(x, nib, g, g, 64)
+    group_asym_matmul(x, torch.ones(256, 64, dtype=torch.uint8), g[:2], g[:2], 128)
     decode_cross_attention_grouped(torch.ones(4, 1, 64), torch.ones(4, 64, 128),
                                    torch.ones(4, 64, 128), s_valid=100)
     k8, s8 = transpose_quant_kv(torch.ones(2, 100, 128), 2)
