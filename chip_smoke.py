@@ -12,8 +12,16 @@ Phase 1  each kernel against its plain PyTorch version on the card, at
          kernels, batch 96 for the int8/int4-KV kernels; for the int4,
          NF4/FP4 and HQQ dequant-matmuls, the decoder linears of the
          phase-2 run of each kind at M = batch and 3 x batch, and
-         whisper-medium's at M = 64 and 256), with CUDA-event times; the
-         dequant-matmuls also beside dequant + torch.matmul.
+         whisper-medium's at M = 64 and 256; the encoder attention at
+         whisper-small batch 96 and whisper-medium batch 64, on the strided
+         layout the projections leave; the cache updates with a mixed
+         `start`; the grouped cross-attention at 5 and 8 query slots), with
+         CUDA-event times; the dequant-matmuls also beside dequant +
+         torch.matmul, the bf16 attentions beside
+         `F.scaled_dot_product_attention` (a yardstick that no path of the
+         port calls), and every kernel beside its bound: the larger of its
+         bytes over the card's memory rate and its operations over the
+         card's peak rate.
 Phase 2  decode runs at full width with seeded random bf16 weights, fused
          decoder qkv, `make_transcribe_fn` (bf16 DFT mel, tanh encoder
          GELU, greedy 25 tokens) on seeded synthetic 30 s waveforms:
@@ -32,18 +40,32 @@ Phase 2  decode runs at full width with seeded random bf16 weights, fused
          bf16-kv and int8-kv run three batches with EOT suppressed, then
          the first batch again with EOT allowed and its embedding tied to
          a generated token, so that rows stop at different steps;
-         medium-int4 runs three batches with EOT suppressed. Every launch
-         count is set to 0 before a run and read after it: each kernel of
-         the run's path must have launched, and no other.
+         medium-int4 runs three batches with EOT suppressed. Then three
+         prompt-conditioned runs of whisper-small with int8 weights (a
+         16-token prompt window, prompt lengths mixed over 4..16, 25 new
+         tokens, EOT suppressed, two batches each), through
+         `beam_decode` / `greedy_decode` with `prompt_tokens`:
+           beam5-prompt      beam 5, int8 self-KV and cross-KV, batch 16;
+           greedy-prompt-ts  bf16 caches, batch 32, timestamp rules on;
+           beam5-int4ckv     beam 5, int8 self-KV, int4 cross-KV, batch 16.
+         Every launch count is set to 0 before a run and read after it:
+         each kernel of the run's path must have launched (the encoder
+         attention layers x batches times; in the prompt runs every
+         attention kernel exactly as often as the path calls it), and no
+         other. The beam runs' output is checked against all five beams
+         rescored by teacher forcing, a left-padded row against the same row
+         run alone with its unpadded prompt, and the timestamp run against
+         the timestamp rules.
 Phase 3  first-step logits of 2 utterances, card (bf16, kernels) against
          the same port run on the CPU in f32 (plain versions): whisper-small
          int8 weights with bf16 caches and with the int8 self-KV and
          cross-KV, and int4, NF4 double-quant and HQQ int4 weights with the
-         int8 caches.
+         int8 caches; and the beam5-prompt configuration (prompted, five
+         beams).
 
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
-its launch count, error and times. Needs torch with CUDA, numpy and nvcc;
+its launch count, error, times and bound. Needs torch with CUDA, numpy and nvcc;
 never imports jax.
 """
 
@@ -58,6 +80,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 ARCH = "small"
@@ -99,9 +122,27 @@ KERNELS = [
      "quant_matmul.cu", "ops/quant_matmul.py:260", "hqq"),
     ("group_asym_matmul_u8", "ops.quant_matmul", "group_asym_matmul",
      "launches_u8", "quant_matmul.cu", "ops/quant_matmul.py:260", "hqq_u8"),
+    ("encoder_attention", "ops.attention", "encoder_attention", "launches",
+     "encoder_attention.cu", "ops/attention.py:57", "enc_attn"),
+    ("decode_self_attention_update_start", "ops.self_attention_step",
+     "decode_self_attention_update", "launches_start",
+     "self_attention_step.cu", "ops/self_attention_step.py:104", "self_start"),
+    ("decode_self_attention_update_int8_start", "ops.self_attention_step",
+     "decode_self_attention_update_int8", "launches_start",
+     "self_attention_step.cu", "ops/self_attention_step.py:164",
+     "self_int8_start"),
+    ("decode_cross_attention_grouped_wide", "ops.cross_attention",
+     "decode_cross_attention_grouped", "launches_wide", "cross_attention.cu",
+     "ops/cross_attention.py:321", "cross_wide"),
+    ("decode_cross_attention_grouped_int8_wide", "ops.cross_attention",
+     "decode_cross_attention_grouped", "launches_int8_wide",
+     "cross_attention.cu", "ops/cross_attention.py:306", "cross_int8_wide"),
+    ("decode_cross_attention_grouped_int4_wide", "ops.cross_attention",
+     "decode_cross_attention_grouped", "launches_int4_wide",
+     "cross_attention.cu", "ops/cross_attention.py:313", "cross_int4_wide"),
 ]
 KV8 = {"kv_int8": True, "cross_kv_int8": True}
-DECODE_KERNELS = ("log_mel_cuda", "transpose_quant_kv",
+DECODE_KERNELS = ("log_mel_cuda", "encoder_attention", "transpose_quant_kv",
                   "decode_cross_attention_grouped_int8",
                   "decode_self_attention_update_int8")
 # phase-2 runs: (name, arch, weight quantization, DecodeConfig switches,
@@ -110,13 +151,14 @@ DECODE_KERNELS = ("log_mel_cuda", "transpose_quant_kv",
 # run whose path holds it
 RUNS = [
     ("bf16-kv", ARCH, "int8", {}, BATCH, 3, True,
-     ("log_mel_cuda", "int8_matmul", "decode_cross_attention_grouped",
-      "decode_self_attention_update")),
+     ("log_mel_cuda", "encoder_attention", "int8_matmul",
+      "decode_cross_attention_grouped", "decode_self_attention_update")),
     ("int8-kv", ARCH, "int8", KV8, HEAD_BATCH, 3, True,
      ("int8_matmul",) + DECODE_KERNELS),
     ("int4-ckv", ARCH, "int8", {"kv_int8": True, "cross_kv_int4": True},
      HEAD_BATCH, 1, False,
-     ("log_mel_cuda", "int8_matmul", "decode_cross_attention_grouped_int4",
+     ("log_mel_cuda", "encoder_attention", "int8_matmul",
+      "decode_cross_attention_grouped_int4",
       "decode_self_attention_update_int8")),
     ("medium-int4", "medium", "int4", KV8, MEDIUM_BATCH, 3, False,
      ("int4_matmul",) + DECODE_KERNELS),
@@ -126,6 +168,17 @@ RUNS = [
      ("group_asym_matmul",) + DECODE_KERNELS),
     ("small-hqq8", ARCH, "hqq_int8", KV8, BATCH, 1, False,
      ("group_asym_matmul_u8",) + DECODE_KERNELS),
+]
+# prompt-conditioned phase-2 runs of whisper-small with int8 weights: (name,
+# DecodeConfig switches, batch); two batches each, EOT suppressed, a
+# PROMPT_W-token prompt window with lengths mixed over 4..PROMPT_W
+PROMPT_W = 16
+NEW_TOKENS = 25
+BEAM5 = {"beam_size": 5, "kv_int8": True, "cross_kv_int8": True}
+PROMPT_RUNS = [
+    ("beam5-prompt", BEAM5, 16),
+    ("greedy-prompt-ts", {"notimestamps": False}, 32),
+    ("beam5-int4ckv", {"beam_size": 5, "kv_int8": True, "cross_kv_int4": True}, 16),
 ]
 # phase-3 configurations: (name, weight quantization, DecodeConfig switches)
 LOGIT_RUNS = [("int8 bf16-kv", "int8", {}), ("int8 int8-kv", "int8", KV8),
@@ -158,6 +211,42 @@ BF16_REL = 2.0 ** -7
 #   on both sides; a few percent expected, while a layout or indexing fault
 #   gives an error of order 1.
 LOGITS_REL_L2 = 0.1
+# - a left-padded prompt row against the same row run alone with its
+#   unpadded prompt, both on the card in bf16: the same function, computed at
+#   another batch size and window length (other launch shapes, so bf16
+#   roundings fall elsewhere through 12 layers): a few 1e-3 expected.
+PROMPT_ROW_REL_L2 = 0.03
+# - a beam's summed logprob (25 tokens, of order -200) against the same
+#   tokens rescored by teacher forcing at another batch shape, bf16 logits:
+#   0.5% of the score (runs read 0.01-0.05%); a cache row gathered from the
+#   wrong beam is off by far more.
+RESCORE_REL = 0.005
+
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the
+# bounds: device memory bytes/s, tensor-core bf16 FLOP/s and int8 OP/s, f32
+# FLOP/s outside the tensor cores.
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def bound(moved_bytes: float, op_seconds: float) -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input read once, each output written once) over the memory rate,
+    or its operations over the peak rate of their type (`op_seconds`),
+    whichever is larger."""
+    byte_seconds = moved_bytes / HBM_BPS
+    return {"bound_ms": 1e3 * max(byte_seconds, op_seconds),
+            "bound_by": "bytes" if byte_seconds >= op_seconds else "operations"}
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale=None):
+    """PyTorch's fused attention, timed beside the attention kernels as a
+    yardstick only: nothing in the port calls it."""
+    return F.scaled_dot_product_attention(q, k, v, scale=scale)
 
 
 def check(cond, msg) -> None:
@@ -193,16 +282,87 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def check_grouped(what: str, qg: torch.Tensor, kv: tuple, s_valid: int) -> dict:
+    """The grouped cross-attention kernel on q (BH, K, 64) and kv = (k_t,
+    v_t, k_scale, v_scale) against its plain version, with times, its bound
+    (the valid part of K/V and its scales read once) and, for bf16 K/V,
+    PyTorch's fused attention on the same tensors."""
+    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
+        decode_cross_attention_grouped, decode_cross_attention_grouped_ref)
+
+    bh, kq, _ = qg.shape
+    got = decode_cross_attention_grouped(qg, *kv, s_valid)
+    ref = decode_cross_attention_grouped_ref(qg, *kv, s_valid)
+    err, tol = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+    check(err <= tol, f"{what}: err {err} > {tol}")
+    t_k = cuda_ms(lambda: decode_cross_attention_grouped(qg, *kv, s_valid))
+    t_p = cuda_ms(lambda: decode_cross_attention_grouped_ref(qg, *kv, s_valid))
+    k_t, v_t, k_scale, _ = kv
+    valid = s_valid / k_t.shape[2]
+    least = bound(nbytes(qg, got) + valid * nbytes(*kv),
+                  4 * bh * kq * 64 * s_valid / BF16_FLOPS)
+    t_lib = None
+    if k_scale is None:
+        k, v = (t[:, :, :s_valid].transpose(1, 2) for t in (k_t, v_t))
+        t_lib = cuda_ms(lambda: sdpa(qg, k, v, scale=1.0))
+    log(f"phase1 {what} {tuple(k_t.shape)} s_valid {s_valid}: err {err:.3g} "
+        f"(bound {tol:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms least "
+        f"{least['bound_ms']:.4f} ms ({least['bound_by']})"
+        + ("" if t_lib is None else f" sdpa {t_lib:.4f} ms"))
+    return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least,
+            "library_ms": t_lib}
+
+
+def check_update(what: str, bh: int, pos: int, gen, int8: bool,
+                 start: torch.Tensor | None) -> dict:
+    """One of the two cache-update kernels over a 64-row cache of `bh` rows
+    against its plain version: caches (codes and scales) bit for bit, the
+    output within one bf16 step; with times and its bound (the rows
+    start..pos read once, row pos written)."""
+    from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
+
+    dev, bf16 = gen.device, torch.bfloat16
+    qf = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(bf16)
+    kn, vn = (torch.randn(2, bh, 64, generator=gen, device=dev) * 2).to(bf16)
+    if int8:
+        fn, ref_fn = (sas.decode_self_attention_update_int8,
+                      sas.decode_self_attention_update_int8_ref)
+        kc, vc = torch.randint(-127, 128, (2, bh, 64, 64), generator=gen,
+                               device=dev, dtype=torch.int8)
+        ks, vs = torch.rand(2, bh, 64, generator=gen, device=dev) * 0.03 + 1e-3
+        bufs = [kc, vc, ks, vs]
+    else:
+        fn, ref_fn = (sas.decode_self_attention_update,
+                      sas.decode_self_attention_update_ref)
+        bufs = [torch.randn(bh, 64, 64, generator=gen, device=dev).to(bf16)
+                for _ in range(2)]
+    refs = [t.clone() for t in bufs]
+    got = fn(qf, kn, vn, *bufs, pos, start=start)
+    ref = ref_fn(qf, kn, vn, *refs, pos, start=start)
+    err, tol = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+    check(all(torch.equal(a, r) for a, r in zip(bufs, refs)),
+          f"{what} pos={pos}: cache rows or scales differ")
+    check(err <= tol, f"{what} pos={pos}: err {err} > {tol}")
+    t_k = cuda_ms(lambda: fn(qf, kn, vn, *bufs, pos, start=start))
+    t_p = cuda_ms(lambda: ref_fn(qf, kn, vn, *refs, pos, start=start))
+    rows = bh * (pos + 1) - (0 if start is None else int(start.sum()))
+    per_row = sum(t[0, 0].numel() * t.element_size() for t in bufs)
+    least = bound(nbytes(qf, kn, vn, got) + per_row * (rows + bh),
+                  4 * 64 * rows / BF16_FLOPS)
+    log(f"phase1 {what} pos={pos} ({bh}, 64, 64)"
+        + ("" if start is None else f" start {int(start.min())}..{int(start.max())}")
+        + f": err {err:.3g} (bound {tol:.3g}) caches equal; kernel {t_k:.4f} ms "
+        f"plain {t_p:.4f} ms least {least['bound_ms']:.5f} ms ({least['bound_by']})")
+    return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least,
+            "library_ms": None}
+
+
 def phase1(dev, results: dict) -> None:
     from openai_whisper_compression_tpu_torch.audio import features
     from openai_whisper_compression_tpu_torch.audio.mel_kernel import log_mel_cuda
-    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
-        decode_cross_attention_grouped, decode_cross_attention_grouped_ref)
     from openai_whisper_compression_tpu_torch.ops.qtensor import dequantize
     from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
         int8_matmul, int8_matmul_ref)
-    from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
-        decode_self_attention_update, decode_self_attention_update_ref)
     from openai_whisper_compression_tpu_torch.quant.core import quantize_int8
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -215,11 +375,16 @@ def phase1(dev, results: dict) -> None:
     err = max_err(got, ref)
     check(got.shape == (BATCH, 80, 3000) and err <= MEL_ATOL,
           f"mel err {err}")
+    frames = BATCH * 3000   # DFT in bf16 (re and im, 400 taps x 201 bins), mel in f32
     results["mel"] = {"max_abs_err": err,
                       "ms": cuda_ms(lambda: log_mel_cuda(wav, 80, bf16)),
-                      "plain_ms": cuda_ms(lambda: features.log_mel(wav, 80, bf16))}
+                      "plain_ms": cuda_ms(lambda: features.log_mel(wav, 80, bf16)),
+                      **bound(nbytes(wav, got), frames * 4 * 400 * 201 / BF16_FLOPS
+                              + frames * 2 * 201 * 80 / F32_FLOPS),
+                      "library_ms": None}
     log(f"phase1 mel ({BATCH}, 480000) bf16 DFT: err {err:.3g} (bound {MEL_ATOL:g}) "
-        f"kernel {results['mel']['ms']:.4f} ms plain {results['mel']['plain_ms']:.4f} ms")
+        f"kernel {results['mel']['ms']:.4f} ms plain {results['mel']['plain_ms']:.4f} ms "
+        f"bound {results['mel']['bound_ms']:.4f} ms ({results['mel']['bound_by']})")
     del wav
 
     # int8 matmul at every decoder linear shape, M = B (step) and 3B (prefill)
@@ -231,79 +396,62 @@ def phase1(dev, results: dict) -> None:
             x = torch.randn(m, k, generator=gen, device=dev).to(bf16)
             got = int8_matmul(x, q.data, q.scale)
             ref = int8_matmul_ref(x, q.data, q.scale)
-            err, bound = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
-            check(err <= bound, f"int8_matmul M={m} K={k} N={n}: err {err} > {bound}")
+            err, tol = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+            check(err <= tol, f"int8_matmul M={m} K={k} N={n}: err {err} > {tol}")
             errs.append(err)
             t_k = cuda_ms(lambda: int8_matmul(x, q.data, q.scale))
             t_p = cuda_ms(lambda: int8_matmul_ref(x, q.data, q.scale))
             t_d = cuda_ms(lambda: torch.matmul(x, dequantize(q, bf16)))
-            rows.append((m, k, n, what, err, t_k, t_p, t_d))
+            least = bound(nbytes(x, q.data, q.scale, got), 2 * m * k * n / BF16_FLOPS)
+            rows.append((m, k, n, what, err, t_k, t_p, t_d, least))
             log(f"phase1 int8_matmul M={m} K={k} N={n} ({what}): err {err:.3g} "
-                f"(bound {bound:.3g}) "
+                f"(bound {tol:.3g}) "
                 f"kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-                f"dequant+torch.matmul {t_d:.4f} ms")
-    qkv32 = rows[0]
+                f"dequant+torch.matmul {t_d:.4f} ms least {least['bound_ms']:.5f} ms "
+                f"({least['bound_by']})")
+    qkv32 = rows[0]   # the qkv projection of a batch-32 decode step
     results["int8_matmul"] = {"max_abs_err": max(errs), "ms": qkv32[5],
-                              "plain_ms": qkv32[6]}
+                              "plain_ms": qkv32[6], **qkv32[8],
+                              "library_ms": qkv32[7]}
 
-    # grouped cross-attention: K = 1 (step) and K = 3 (prefill)
+    # grouped cross-attention: K = 1 (a greedy step), 3 (the prefix's
+    # prefill), 5 (a beam-5 step) and 8 (a full launch of a prompt window)
     bh, s_pad, s_valid = BATCH * 12, 1536, 1500
     k_t = torch.randn(bh, 64, s_pad, generator=gen, device=dev).to(bf16)
     v_t = torch.randn(bh, 64, s_pad, generator=gen, device=dev).to(bf16)
     errs = []
-    for kq in (1, 3):
+    for kq in (1, 3, 5, 8):
         qg = (torch.randn(bh, kq, 64, generator=gen, device=dev) * 0.125).to(bf16)
-        got = decode_cross_attention_grouped(qg, k_t, v_t, s_valid=s_valid)
-        ref = decode_cross_attention_grouped_ref(qg, k_t, v_t, s_valid=s_valid)
-        err, bound = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
-        check(err <= bound, f"cross attention K={kq}: err {err} > {bound}")
-        errs.append(err)
-        t_k = cuda_ms(lambda: decode_cross_attention_grouped(
-            qg, k_t, v_t, s_valid=s_valid))
-        t_p = cuda_ms(lambda: decode_cross_attention_grouped_ref(
-            qg, k_t, v_t, s_valid=s_valid))
+        res = check_grouped(f"cross_attention_grouped K={kq}", qg,
+                            (k_t, v_t, None, None), s_valid)
         if kq == 1:
-            results["cross"] = {"ms": t_k, "plain_ms": t_p}
-        log(f"phase1 cross_attention_grouped K={kq} ({bh}, 64, {s_pad}) "
-            f"s_valid {s_valid}: err {err:.3g} (bound {bound:.3g}) "
-            f"kernel {t_k:.4f} ms plain {t_p:.4f} ms")
-    results["cross"]["max_abs_err"] = max(errs)
+            results["cross"] = res
+        elif kq == 8:   # the greedy-prompt-ts prefill's full launches
+            results["cross_wide"] = res
+        else:
+            errs.append(res["max_abs_err"])
+    results["cross"]["max_abs_err"] = max(errs + [results["cross"]["max_abs_err"]])
     del k_t, v_t
 
-    # self-attention update over a 64-row bf16 cache
-    kc0 = torch.randn(bh, 64, 64, generator=gen, device=dev).to(bf16)
-    vc0 = torch.randn(bh, 64, 64, generator=gen, device=dev).to(bf16)
+    # self-attention update over a 64-row bf16 cache, and with the mixed
+    # `start` of the greedy-prompt-ts run (16 - prompt length: 0..12)
     errs = []
     for pos in (3, 30, 63):
-        qf = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(bf16)
-        kn = torch.randn(bh, 64, generator=gen, device=dev).to(bf16)
-        vn = torch.randn(bh, 64, generator=gen, device=dev).to(bf16)
-        kc, vc, kr, vr = kc0.clone(), vc0.clone(), kc0.clone(), vc0.clone()
-        got = decode_self_attention_update(qf, kn, vn, kc, vc, pos)
-        ref = decode_self_attention_update_ref(qf, kn, vn, kr, vr, pos)
-        err, bound = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
-        check(torch.equal(kc, kr) and torch.equal(vc, vr),
-              f"self attention pos={pos}: cache rows differ")
-        check(err <= bound, f"self attention pos={pos}: err {err} > {bound}")
-        errs.append(err)
-        t_k = cuda_ms(lambda: decode_self_attention_update(qf, kn, vn, kc, vc, pos))
-        t_p = cuda_ms(lambda: decode_self_attention_update_ref(qf, kn, vn, kr, vr, pos))
+        res = check_update("self_attention_update", bh, pos, gen, False, None)
         if pos == 30:
-            results["self"] = {"ms": t_k, "plain_ms": t_p}
-        log(f"phase1 self_attention_update pos={pos} ({bh}, 64, 64): err {err:.3g} "
-            f"(bound {bound:.3g}) "
-            f"cache rows equal; kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+            results["self"] = res
+        errs.append(res["max_abs_err"])
     results["self"]["max_abs_err"] = max(errs)
+    start = (torch.arange(bh, device=dev) // 12 * 5 % 13).to(torch.int32)
+    results["self_start"] = check_update("self_attention_update start", bh, 30,
+                                         gen, False, start)
 
 
 def phase1_quantized(dev, results: dict) -> None:
     """The int8/int4-KV kernels at the shapes of bench.py's batch 96."""
     from openai_whisper_compression_tpu_torch.models.whisper import _quant_kv4_t
     from openai_whisper_compression_tpu_torch.ops.cross_attention import (
-        decode_cross_attention_grouped, decode_cross_attention_grouped_ref,
         transpose_kv, transpose_quant_kv, transpose_quant_kv_ref)
-    from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
-        decode_self_attention_update_int8, decode_self_attention_update_int8_ref)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     bf16 = torch.bfloat16
@@ -321,10 +469,14 @@ def phase1_quantized(dev, results: dict) -> None:
     t_k = cuda_ms(lambda: transpose_quant_kv(xk, h))
     t_p = cuda_ms(lambda: transpose_quant_kv_ref(xk, h))
     results["tq"] = {"max_abs_err": max(max_err(k8, ref_k), max_err(ks8, ref_ks)),
-                     "ms": t_k, "plain_ms": t_p}
+                     "ms": t_k, "plain_ms": t_p,
+                     # an abs, a max, a divide and a rounding per element, f32
+                     **bound(nbytes(xk, k8, ks8), 4 * xk.numel() / F32_FLOPS),
+                     "library_ms": None}
     log(f"phase1 transpose_quant_kv ({b}, {s}, {h * 64}) bf16 -> ({bh}, 64, "
         f"{k8.shape[2]}) int8: codes and scales equal; kernel {t_k:.4f} ms "
-        f"plain {t_p:.4f} ms")
+        f"plain {t_p:.4f} ms least {results['tq']['bound_ms']:.4f} ms "
+        f"({results['tq']['bound_by']})")
     del ref_k, ref_ks
     k4, ks4 = _quant_kv4_t(transpose_kv(xk, h))
     v4, vs4 = _quant_kv4_t(transpose_kv(xv, h))
@@ -334,52 +486,80 @@ def phase1_quantized(dev, results: dict) -> None:
         f"{t_q4:.4f} ms")
     del xk, xv
 
-    # int8 and int4 grouped cross-attention, K = 1 (step) and K = 3 (prefill)
+    # int8 and int4 grouped cross-attention: K = 1 (a greedy step), 3 (the
+    # prefix's prefill), 5 and 8 at batch 96; then K = 5 at the beam runs'
+    # batch 16 (B*H = 192), the shape their decode steps give the kernel
+    beam_bh = 16 * h
     for key, what, kv in (("cross_int8", "int8", (k8, v8, ks8, vs8)),
                           ("cross_int4", "int4", (k4, v4, ks4, vs4))):
         errs = []
-        for kq in (1, 3):
+        for kq in (1, 3, 5, 8):
             qg = (torch.randn(bh, kq, 64, generator=gen, device=dev) * 0.125).to(bf16)
-            got = decode_cross_attention_grouped(qg, *kv, s)
-            ref = decode_cross_attention_grouped_ref(qg, *kv, s)
-            err, bound = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
-            check(err <= bound, f"cross attention {what} K={kq}: err {err} > {bound}")
-            errs.append(err)
-            t_k = cuda_ms(lambda: decode_cross_attention_grouped(qg, *kv, s))
-            t_p = cuda_ms(lambda: decode_cross_attention_grouped_ref(qg, *kv, s))
+            res = check_grouped(f"cross_attention_grouped {what} K={kq}", qg, kv, s)
             if kq == 1:
-                results[key] = {"ms": t_k, "plain_ms": t_p}
-            log(f"phase1 cross_attention_grouped {what} K={kq} "
-                f"{tuple(kv[0].shape)} s_valid {s}: err {err:.3g} (bound "
-                f"{bound:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+                results[key] = res
+            errs.append(res["max_abs_err"])
         results[key]["max_abs_err"] = max(errs)
+        qg = (torch.randn(beam_bh, 5, 64, generator=gen, device=dev) * 0.125).to(bf16)
+        results[key + "_wide"] = check_grouped(
+            f"cross_attention_grouped {what} K=5", qg,
+            tuple(t[:beam_bh] for t in kv), s)
     del k8, v8, k4, v4
 
-    # int8 self-attention update over a 64-row int8 cache
-    kc0, vc0 = torch.randint(-127, 128, (2, bh, 64, 64), generator=gen,
-                             device=dev, dtype=torch.int8)
-    ks0, vs0 = torch.rand(2, bh, 64, generator=gen, device=dev) * 0.03 + 1e-3
+    # int8 self-attention update over a 64-row int8 cache, and with the mixed
+    # `start` of the beam5-prompt run at its 16 x 5 rows (B*H = 960)
     errs = []
     for pos in (3, 30, 63):
-        qf = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(bf16)
-        kn, vn = (torch.randn(2, bh, 64, generator=gen, device=dev) * 2).to(bf16)
-        bufs = [t.clone() for t in (kc0, vc0, ks0, vs0)]
-        refs = [t.clone() for t in (kc0, vc0, ks0, vs0)]
-        got = decode_self_attention_update_int8(qf, kn, vn, *bufs, pos)
-        ref = decode_self_attention_update_int8_ref(qf, kn, vn, *refs, pos)
-        err, bound = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
-        check(all(torch.equal(a, r) for a, r in zip(bufs, refs)),
-              f"self attention int8 pos={pos}: cache rows or scales differ")
-        check(err <= bound, f"self attention int8 pos={pos}: err {err} > {bound}")
-        errs.append(err)
-        t_k = cuda_ms(lambda: decode_self_attention_update_int8(qf, kn, vn, *bufs, pos))
-        t_p = cuda_ms(lambda: decode_self_attention_update_int8_ref(qf, kn, vn, *refs, pos))
+        res = check_update("self_attention_update_int8", bh, pos, gen, True, None)
         if pos == 30:
-            results["self_int8"] = {"ms": t_k, "plain_ms": t_p}
-        log(f"phase1 self_attention_update_int8 pos={pos} ({bh}, 64, 64): err "
-            f"{err:.3g} (bound {bound:.3g}) cache rows and scales equal; "
-            f"kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+            results["self_int8"] = res
+        errs.append(res["max_abs_err"])
     results["self_int8"]["max_abs_err"] = max(errs)
+    rows = 16 * 5 * h
+    start = (torch.arange(rows, device=dev) // (5 * h) * 5 % 13).to(torch.int32)
+    results["self_int8_start"] = check_update("self_attention_update_int8 start",
+                                              rows, 30, gen, True, start)
+
+
+def phase1_attention(dev, results: dict) -> None:
+    """The encoder attention at whisper-small batch 96 (B*H = 1152) and
+    whisper-medium batch 64 (B*H = 1024), T = 1500, on (B, H, T, 64) views
+    of (B, T, H*64) projections (the strided layout the model hands it),
+    against its plain version on all rows (its f32 scores, 10.4 and 9.2 GB,
+    fit beside the inputs), beside PyTorch's fused attention."""
+    from openai_whisper_compression_tpu_torch.models.whisper import split_heads
+    from openai_whisper_compression_tpu_torch.ops.attention import (
+        encoder_attention, encoder_attention_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    t = 1500
+    for name, b, h in (("small", HEAD_BATCH, 12), ("medium", MEDIUM_BATCH, 16)):
+        q, k, v = (split_heads(torch.randn(b, t, h * 64, generator=gen, device=dev)
+                               .to(torch.bfloat16), h) for _ in range(3))
+        got = encoder_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = encoder_attention_ref(q, k, v)
+        err, tol = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+        check(got.shape == (b, h, t, 64) and bool(torch.isfinite(got).all()),
+              f"encoder_attention {name}: output not finite or of shape "
+              f"{tuple(got.shape)}")
+        check(err <= tol, f"encoder_attention {name}: err {err} > {tol}")
+        del ref
+        t_k = cuda_ms(lambda: encoder_attention(q, k, v))
+        t_p = cuda_ms(lambda: encoder_attention_ref(q, k, v), warmup=1, iters=3)
+        t_lib = cuda_ms(lambda: sdpa(q, k, v))
+        flop = 4 * b * h * t * t * 64
+        least = bound(4 * b * h * t * 64 * 2, flop / BF16_FLOPS)
+        res = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least,
+               "library_ms": t_lib}
+        if name == "small":
+            results["enc_attn"] = res
+        log(f"phase1 encoder_attention {name} ({b}, {h}, {t}, 64) bf16: err "
+            f"{err:.3g} (bound {tol:.3g}) kernel {t_k:.4f} ms "
+            f"({flop / t_k / 1e9:.1f} TFLOP/s) plain {t_p:.4f} ms sdpa "
+            f"{t_lib:.4f} ms least {least['bound_ms']:.4f} ms ({least['bound_by']})")
+        del q, k, v, got
+        torch.cuda.empty_cache()
 
 
 def linear_shapes(arch) -> tuple:
@@ -429,17 +609,20 @@ def phase1_4bit(dev, results: dict) -> None:
                       and getattr(fn, counter[key][1]) == before + 1,
                       f"{label}: linear does not launch {'.'.join(counter[key])}")
                 err = max_err(got, ref)
-                bound = BF16_REL * float(ref.float().abs().max())
-                check(got.shape == (m, n) and err <= bound,
-                      f"{label} {arch_name} M={m} K={k} N={n}: err {err} > {bound}")
+                tol = BF16_REL * float(ref.float().abs().max())
+                check(got.shape == (m, n) and err <= tol,
+                      f"{label} {arch_name} M={m} K={k} N={n}: err {err} > {tol}")
                 errs.append(err)
                 t_k, t_p = cuda_ms(kernel), cuda_ms(plain)
                 t_d = cuda_ms(lambda: torch.matmul(x, dequantize(q, bf16)))
+                least = bound(nbytes(x, got, *args), 2 * m * k * n / BF16_FLOPS)
                 if (arch_name, m, what) == (*step, "qkv") and key not in results:
-                    results[key] = {"ms": t_k, "plain_ms": t_p}
+                    results[key] = {"ms": t_k, "plain_ms": t_p, **least,
+                                    "library_ms": t_d}
                 log(f"phase1 {label} {arch_name} M={m} K={k} N={n} ({what}): err "
-                    f"{err:.3g} (bound {bound:.3g}) kernel {t_k:.4f} ms plain "
-                    f"{t_p:.4f} ms dequant+torch.matmul {t_d:.4f} ms")
+                    f"{err:.3g} (bound {tol:.3g}) kernel {t_k:.4f} ms plain "
+                    f"{t_p:.4f} ms dequant+torch.matmul {t_d:.4f} ms least "
+                    f"{least['bound_ms']:.5f} ms ({least['bound_by']})")
         results[key]["max_abs_err"] = max(errs + [results[key].get("max_abs_err", 0.0)])
 
 
@@ -496,6 +679,209 @@ def launch_counters() -> dict:
     return {name: (getattr(importlib.import_module(
         "openai_whisper_compression_tpu_torch." + mod), fn), attr)
         for name, mod, fn, attr, *_ in KERNELS}
+
+
+def check_launches(name: str, launches: dict, path, exact: dict) -> None:
+    """Every kernel of `path` launched (exactly `exact[k]` times where
+    given), and no kernel outside it."""
+    for k, count in launches.items():
+        if k in exact:
+            check(count == exact[k],
+                  f"{name}: kernel {k} launched {count} times, expected {exact[k]}")
+        elif k in path:
+            check(count > 0, f"{name}: kernel {k} was not launched on its path")
+        else:
+            check(count == 0, f"{name}: kernel {k} launched outside its path")
+
+
+def prompt_window(arch, seed: int, batch: int):
+    """Seeded right-aligned prompts: (batch, PROMPT_W) text-token ids, the
+    left padding holding EOT, and their lengths mixed over 4..PROMPT_W."""
+    rng = np.random.default_rng(seed)
+    lens = 4 + (np.arange(batch) * 5) % (PROMPT_W - 3)
+    prompt = rng.integers(1000, 20000, (batch, PROMPT_W))
+    prompt[np.arange(PROMPT_W)[None, :] < (PROMPT_W - lens)[:, None]] = arch.eos_token_id
+    return torch.from_numpy(prompt), torch.from_numpy(lens.astype(np.int32))
+
+
+def expected_prompt_launches(arch, cfg, p_len: int, batches: int) -> dict:
+    """How often one prompt run's path calls each attention kernel: the
+    encoder attention once per encoder layer; per decoder layer the prefill
+    window in launches of at most 8 slots and one grouped launch per step
+    (of beam_size slots), one cache update per step, and the cross-KV
+    quantization of K and V."""
+    cross = "decode_cross_attention_grouped" + (
+        "_int4" if cfg.cross_kv_int4 else "_int8" if cfg.cross_kv_int8 else "")
+    update = "decode_self_attention_update" + ("_int8" if cfg.kv_int8 else "")
+    window = PROMPT_W + p_len - 1
+    chunks = [min(8, window - j0) for j0 in range(0, window, 8)]
+    wide = sum(c > 4 for c in chunks) + NEW_TOKENS * (cfg.beam_size > 4)
+    narrow = sum(c <= 4 for c in chunks) + NEW_TOKENS * (cfg.beam_size <= 4)
+    layers = arch.decoder_layers
+    exact = {"log_mel_cuda": 1, "encoder_attention": arch.encoder_layers,
+             cross + "_wide": layers * wide, cross: layers * narrow,
+             update + "_start": layers * NEW_TOKENS}
+    if cfg.cross_kv_int8 and not cfg.cross_kv_int4:
+        exact["transpose_quant_kv"] = 2 * layers
+    return {k: n * batches for k, n in exact.items()}
+
+
+@torch.inference_mode()
+def rescore(params, arch, cfg, enc, seqs, prompt, lens, first_gen: int):
+    """Summed logprob of seqs[:, first_gen: first_gen + NEW_TOKENS] under
+    teacher forcing, one row per sequence (enc, prompt and lens hold that
+    row's utterance), through the greedy step with cfg's caches and
+    suppressions."""
+    import dataclasses
+
+    from openai_whisper_compression_tpu_torch.models import decode
+
+    cfg1 = dataclasses.replace(cfg, beam_size=1)
+    cross_kvs, cache, tokens, start, fg, _ = decode._prepare(
+        params, arch, enc, cfg1, None, prompt, lens)
+    check(fg == first_gen, "rescoring starts at another position")
+    logits_fn, _ = decode._logits_fn(params, arch, cfg1, cross_kvs, start, fg, 1,
+                                     enc.device)
+    last_ts = torch.zeros(enc.shape[0], dtype=torch.long, device=enc.device)
+    total = torch.zeros(enc.shape[0], dtype=torch.float32, device=enc.device)
+    for pos in range(fg - 1, fg - 1 + NEW_TOKENS):
+        logp = torch.log_softmax(logits_fn(seqs, cache, pos, last_ts).float(), -1)
+        total += logp.gather(1, seqs[:, pos + 1: pos + 2])[:, 0]
+    return total
+
+
+def run_prompt_path(dev, arch, params, run) -> dict:
+    """One prompt-conditioned phase-2 run (see PROMPT_RUNS): mel, encoder,
+    then `beam_decode` or `greedy_decode` with a left-padded prompt window;
+    exact launch counts, the output contract, and the run's own checks."""
+    from openai_whisper_compression_tpu_torch.audio.features import preprocess
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.models import decode
+    from openai_whisper_compression_tpu_torch.models.whisper import encode
+
+    name, switches, batch = run
+    eot = arch.eos_token_id
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(eot,), **switches)
+    beam = cfg.beam_size
+    prefix = decode.forced_prefix(arch, cfg)
+    first_gen = PROMPT_W + len(prefix)
+    log(f"phase2 {name}: {arch.name}, int8 weights, batch {batch}, prompt window "
+        f"{PROMPT_W}, prefix {prefix}, {json.dumps(switches)}")
+    n_batches = 2
+    wavs = [torch.from_numpy(waveforms(SEED + 10 + i, batch)).to(dev)
+            for i in range(n_batches)]
+    prompt, lens = (t.to(dev) for t in prompt_window(arch, SEED, batch))
+
+    @torch.inference_mode()
+    def transcribe(wav, prompt, lens):
+        mel = preprocess(wav, arch.num_mel_bins, dft_dtype=torch.bfloat16)
+        enc = encode(params, arch, mel.to(params["encoder"]["ln"]["g"].dtype), fast_gelu=True)
+        fn = decode.beam_decode if beam > 1 else decode.greedy_decode
+        return enc, fn(params, arch, enc, cfg, prompt_tokens=prompt, prompt_lens=lens)
+
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    walls, outs = [], []
+    for wav in wavs:
+        t0 = time.perf_counter()
+        enc, (tokens, lengths) = transcribe(wav, prompt, lens)
+        tokens, lengths = tokens.cpu(), lengths.cpu()   # the timing fence
+        walls.append(time.perf_counter() - t0)
+        outs.append((tokens, lengths))
+        log(f"phase2 {name} batch {len(walls) - 1}: wall {walls[-1]:.4f} s, "
+            f"{batch / walls[-1]:.2f} utt/s, RTFx {batch * AUDIO_S / walls[-1]:.2f}")
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    log(f"phase2 {name} launches {json.dumps(launches)}")
+    log(f"phase2 {name} peak memory {peak_mb:.1f} MiB "
+        "(torch.cuda.max_memory_allocated)")
+    exact = expected_prompt_launches(arch, cfg, len(prefix), n_batches)
+    check_launches(name, launches, set(exact) | {"int8_matmul"}, exact)
+
+    ts_begin = arch.no_timestamps_token_id + 1
+    for tokens, lengths in outs:
+        check(tokens.shape == (batch, 64), f"tokens shape {tuple(tokens.shape)}")
+        check(int(tokens.min()) >= 0 and int(tokens.max()) < arch.vocab_size,
+              "tokens outside the vocabulary")
+        check(torch.equal(tokens[:, :PROMPT_W], prompt.cpu()), "prompt window not intact")
+        check(torch.equal(tokens[:, PROMPT_W: first_gen],
+                          torch.tensor(prefix).expand(batch, -1)),
+              "forced prefix not intact")
+        check(bool((lengths == first_gen + NEW_TOKENS).all()),
+              f"lengths {lengths.tolist()}")
+        gen = tokens[:, first_gen: first_gen + NEW_TOKENS]
+        check(not bool((gen == eot).any()), "EOT emitted although suppressed")
+        check(bool((tokens[:, first_gen + NEW_TOKENS:] == eot).all()),
+              "tokens past the length must be EOT")
+        if not cfg.notimestamps:   # the timestamp rules
+            check(bool(((gen[:, 0] >= ts_begin) & (gen[:, 0] <= ts_begin
+                        + cfg.max_initial_timestamp_index)).all()),
+                  f"first tokens {gen[:, 0].tolist()} are not early timestamps")
+            check(not bool((gen == arch.no_timestamps_token_id).any()),
+                  "<|notimestamps|> was sampled")
+            for row in gen.tolist():
+                stamps = [t for t in row if t >= ts_begin]
+                check(stamps == sorted(stamps), f"timestamps decrease: {stamps}")
+                runs = "".join("t" if t >= ts_begin else "w" for t in row)
+                check("ttt" not in runs, f"three timestamps in a row: {runs}")
+    if not cfg.notimestamps:
+        n_ts = int((outs[0][0][:, first_gen: first_gen + NEW_TOKENS] >= ts_begin).sum())
+        log(f"phase2 {name} timestamp rules hold; {n_ts} timestamps among "
+            f"{batch * NEW_TOKENS} tokens of batch 0")
+
+    # a left-padded row equals the same row run alone with its unpadded prompt
+    with torch.inference_mode():
+        rows = [int(i) for i in (lens.argmin(), lens.argmax())]
+        full = decode.first_step_logits(params, arch, enc, cfg, prompt, lens)[::beam]
+        for i in rows:
+            n = int(lens[i])
+            alone = decode.first_step_logits(params, arch, enc[i: i + 1], cfg,
+                                             prompt[i: i + 1, PROMPT_W - n:])[0]
+            rel = float((full[i] - alone).norm() / alone.norm())
+            log(f"phase2 {name} row {i} (prompt length {n}) padded vs alone "
+                f"first-step logits: relative L2 {rel:.4g} (bound {PROMPT_ROW_REL_L2})")
+            check(rel <= PROMPT_ROW_REL_L2,
+                  f"{name}: padded row {i} off by {rel:.4g} from the row alone")
+
+    if beam > 1:   # all five beams of two utterances, rescored by teacher forcing
+        with torch.inference_mode():
+            sub = slice(0, 2)
+            seqs, scores, gen_len, fg = decode._beam_search(
+                params, arch, enc[sub], cfg, None, prompt[sub], lens[sub])
+            best_t, best_l = decode.beam_decode(params, arch, enc[sub], cfg,
+                                                prompt_tokens=prompt[sub],
+                                                prompt_lens=lens[sub])
+            again = rescore(params, arch, cfg, enc[sub].repeat_interleave(beam, 0),
+                            seqs, prompt[sub].repeat_interleave(beam, 0),
+                            lens[sub].repeat_interleave(beam), fg)
+        adj = (scores / gen_len.float() ** cfg.length_penalty).reshape(2, beam)
+        adj_again = (again / gen_len.float() ** cfg.length_penalty).reshape(2, beam)
+        for u in range(2):
+            pick = int(adj[u].argmax())
+            check(torch.equal(best_t[u], seqs[u * beam + pick]),
+                  f"{name}: utterance {u} is not its best-scoring beam")
+            check(len({tuple(r.tolist()) for r in seqs[u * beam: (u + 1) * beam]})
+                  == beam, f"{name}: utterance {u} holds a beam twice")
+            worst = float(((again - scores).abs() / scores.abs()).reshape(2, beam)[u].max())
+            check(worst <= RESCORE_REL,
+                  f"{name}: utterance {u} beam scores off by {worst:.4g} of "
+                  "their teacher-forced rescoring")
+            slack = RESCORE_REL * float(adj_again[u].abs().max())
+            check(float(adj_again[u, pick]) >= float(adj_again[u].max()) - slack,
+                  f"{name}: utterance {u}'s beam is not the best when rescored")
+            log(f"phase2 {name} utterance {u}: beam scores "
+                f"{[round(float(x), 2) for x in scores[u * beam: (u + 1) * beam]]}, "
+                f"rescored {[round(float(x), 2) for x in again[u * beam: (u + 1) * beam]]} "
+                f"(off by at most {worst:.4g} of the score, bound {RESCORE_REL}); "
+                f"returned beam {pick}")
+    summary = {"batch": batch, "walls_s": walls,
+               "rtfx_steady": batch * AUDIO_S / walls[-1],
+               "peak_mib": peak_mb, "launches": launches}
+    log(f"phase2 {name} batch 1 RTFx {summary['rtfx_steady']:.2f}")
+    return summary
 
 
 def run_path(dev, arch, params, run, profile: bool) -> dict:
@@ -555,11 +941,8 @@ def run_path(dev, arch, params, run, profile: bool) -> dict:
     log(f"phase2 {name} launches {json.dumps(launches)}")
     log(f"phase2 {name} peak memory {peak_mb:.1f} MiB "
         "(torch.cuda.max_memory_allocated)")
-    for k, count in launches.items():
-        if k in path:
-            check(count > 0, f"{name}: kernel {k} was not launched on its path")
-        else:
-            check(count == 0, f"{name}: kernel {k} launched outside its path")
+    check_launches(name, launches, path,
+                   {"encoder_attention": arch.encoder_layers * len(walls)})
 
     for tokens, lengths, what in outs:
         check(tokens.shape == (batch, 64), f"tokens shape {tuple(tokens.shape)}")
@@ -656,6 +1039,28 @@ def phase3(dev, params_for) -> None:
             check(rel <= LOGITS_REL_L2,
                   f"{name}: card logits off by {rel:.4g} relative L2")
 
+    # the beam5-prompt configuration: prompted, five beams per utterance
+    arch, params = params_for(ARCH, "int8")
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,),
+                       **BEAM5)
+    prompt, lens = prompt_window(arch, SEED, 2)
+
+    def beam_logits(params, wav, dtype):
+        mel = preprocess(wav, arch.num_mel_bins, dft_dtype=torch.bfloat16).to(dtype)
+        enc = encode(params, arch, mel, fast_gelu=True)
+        return first_step_logits(params, arch, enc, cfg, prompt.to(wav.device),
+                                 lens.to(wav.device)).float().cpu()
+
+    c = beam_logits(params, wav.to(dev), torch.bfloat16)
+    r = beam_logits(tree_to(params, "cpu", torch.float32), wav, torch.float32)
+    rel = float((c - r).norm() / r.norm())
+    log(f"phase3 beam5-prompt first-step logits card bf16 vs CPU f32: relative L2 "
+        f"{rel:.4g} (bound {LOGITS_REL_L2}), max abs {max_err(c, r):.4g}, |logits| "
+        f"max {float(r.abs().max()):.4g}")
+    check(bool(torch.isfinite(c).all()) and c.shape == (2 * 5, arch.vocab_size),
+          f"beam5-prompt: card logits not finite or of shape {tuple(c.shape)}")
+    check(rel <= LOGITS_REL_L2, f"beam5-prompt: card logits off by {rel:.4g} relative L2")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -692,6 +1097,7 @@ def main() -> int:
     phase1(dev, results)
     phase1_quantized(dev, results)
     phase1_4bit(dev, results)
+    phase1_attention(dev, results)
     torch.cuda.empty_cache()
     built: dict = {}
 
@@ -708,17 +1114,19 @@ def main() -> int:
         if arch_name != ARCH:
             del built[arch_name, method]
             torch.cuda.empty_cache()
+    for run in PROMPT_RUNS:
+        summaries[run[0]] = run_prompt_path(dev, *params_for(ARCH, "int8"), run)
     phase3(dev, params_for)
 
-    def launches(name):  # from the first run whose path holds the kernel
-        run = next(r for r in RUNS if name in r[-1])
-        return summaries[run[0]]["launches"][name]
+    def launches(name):  # from the first run that launched the kernel
+        return next(s["launches"][name] for s in summaries.values()
+                    if s["launches"][name] > 0)
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": CSRC + src,
          "replaces": JAX_PKG + rep, "launches": launches(name),
-         "max_abs_err": results[key]["max_abs_err"],
-         "ms": results[key]["ms"], "plain_ms": results[key]["plain_ms"]}
+         **{k: results[key][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms")}}
         for name, _, _, _, src, rep, key in KERNELS]}
     print(smi)
     print(json.dumps(kernels_line))

@@ -135,12 +135,12 @@ N_FRAMES = N_SAMPLES // HOP_LENGTH           # 3000 mel frames
 class DecodeConfig:
     """Generation settings, field for field the JAX package's (whose
     defaults keep fp caches; `bench.py` turns on `kv_int8` and
-    `cross_kv_int8`). The port decodes greedily through the fused kernels
-    with fp or int8 self-KV (`kv_int8`) and fp (bf16 on the card), int8
-    (`cross_kv_int8`) or int4 (`cross_kv_int4`, which wins over int8)
-    cross-KV; `models.decode.check_supported` raises NotImplementedError
-    for beam search, timestamp rules, cross-KV pooling/merging and the
-    unfused (`cross_pallas`/`self_pallas` False) paths."""
+    `cross_kv_int8`). The port decodes, greedily or with `beam_size` beams,
+    through the fused kernels with fp or int8 self-KV (`kv_int8`) and fp
+    (bf16 on the card), int8 (`cross_kv_int8`) or int4 (`cross_kv_int4`,
+    which wins over int8) cross-KV; `models.decode.check_supported` raises
+    NotImplementedError for cross-KV pooling/merging and the unfused
+    (`cross_pallas`/`self_pallas` False) paths."""
 
     max_new_tokens: int = 445
     beam_size: int = 1  # 1 = greedy

@@ -5,7 +5,8 @@
 //           _kernel_beam (bf16 K/V), _kernel_beam_int8 (int8 K/V) and
 //           _kernel_beam_int4 (split-half packed int4 K/V).
 // Computes, for each (batch, head) row g of BH and each of its KQ query
-// slots j (KQ = 1 in a decode step, KQ = prefix length - 1 in prefill):
+// slots j (KQ = 1 in a greedy decode step, the beam width in a beam-search
+// step, up to 8 positions of the prompt and prefix window in prefill):
 //   scores[j, s] = (sum_d q[g, j, d] * k_t[g, d, s]) * k_scale[g, s]
 //   scores[j, s] = -inf for s >= s_valid
 //   p[j, s]      = exp(scores[j, s] - max_s), l[j] = sum_s p[j, s]
@@ -33,9 +34,13 @@
 // row in 16-byte chunks, and a warp reduction yields out[j, d]. An int4 row
 // d holds dim d in the low nibble and dim d + 32 in the high nibble (both
 // signed), so it yields two output dims. The storage kind and the slot
-// count (1 or 4) are template parameters, so a decode step keeps only one
-// chunk of sums per thread in registers. Beam widths (KQ up to 8) wait for
-// the beam-search slice.
+// count (1, 4 or 8) are template parameters, so a decode step keeps only one
+// chunk of sums per thread in registers. Pass 1 sweeps the K rows once per
+// group of 4 slots (at 8 slots twice; the second sweep finds its chunk in
+// L1/L2), so that at most 4 x 16 sums live in registers. The TPU kernel
+// takes any slot count; here a window longer than 8 slots is several
+// launches, each over its own slots of q and out (hence the row stride),
+// each reading K/V again.
 #include "common.cuh"
 
 namespace {
@@ -99,10 +104,12 @@ cross_attn_grouped_kernel(const BF* __restrict__ q,
                           const typename Store<KIND>::T* __restrict__ v_t,
                           const float* __restrict__ k_scale,
                           const float* __restrict__ v_scale,
-                          BF* __restrict__ out, int KQ, int S_pad, int s_valid) {
+                          BF* __restrict__ out, int KQ, int row_stride,
+                          int S_pad, int s_valid) {
   using St = Store<KIND>;
   constexpr int ROWS = St::ROWS, VEC = St::VEC, DIMS = St::DIMS;
   constexpr bool SCALED = KIND != KV_BF16;
+  constexpr int QG = MAXQ < 4 ? MAXQ : 4;  // slots per sweep of pass 1
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;               // [MAXQ][DH]
   float* sc = sm + MAXQ * DH;   // [KQ][S_pad] scores, then probabilities
@@ -117,40 +124,44 @@ cross_attn_grouped_kernel(const BF* __restrict__ q,
   const int s_end = nchunks * VEC;  // <= S_pad (S_pad % VEC == 0)
 
   for (int i = tid; i < KQ * DH; i += THREADS)
-    qs[i] = owc_to_float(q[(size_t)g * KQ * DH + i]);
+    qs[i] = owc_to_float(q[(size_t)g * row_stride + i]);
   __syncthreads();
 
   for (int c = tid; c < nchunks; c += THREADS) {
     const int s0 = c * VEC;
-    float acc[MAXQ][VEC];
 #pragma unroll
-    for (int j = 0; j < MAXQ; ++j)
+    for (int j0 = 0; j0 < MAXQ; j0 += QG) {
+      if (j0 >= KQ) break;
+      float acc[QG][VEC];
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) acc[j][v] = 0.0f;
+      for (int j = 0; j < QG; ++j)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[j][v] = 0.0f;
 #pragma unroll 4
-    for (int r = 0; r < ROWS; ++r) {
-      float kv[DIMS][VEC];
-      St::load(kg + (size_t)r * S_pad + s0, kv);
+      for (int r = 0; r < ROWS; ++r) {
+        float kv[DIMS][VEC];
+        St::load(kg + (size_t)r * S_pad + s0, kv);
 #pragma unroll
-      for (int j = 0; j < MAXQ; ++j) {
-        if (j < KQ) {
+        for (int j = 0; j < QG; ++j) {
+          if (j0 + j < KQ) {
 #pragma unroll
-          for (int i = 0; i < DIMS; ++i) {
-            const float qd = qs[j * DH + r + i * ROWS];
+            for (int i = 0; i < DIMS; ++i) {
+              const float qd = qs[(j0 + j) * DH + r + i * ROWS];
 #pragma unroll
-            for (int v = 0; v < VEC; ++v) acc[j][v] = fmaf(qd, kv[i][v], acc[j][v]);
+              for (int v = 0; v < VEC; ++v) acc[j][v] = fmaf(qd, kv[i][v], acc[j][v]);
+            }
           }
         }
       }
-    }
 #pragma unroll
-    for (int j = 0; j < MAXQ; ++j) {
-      if (j < KQ) {
+      for (int j = 0; j < QG; ++j) {
+        if (j0 + j < KQ) {
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          const int s = s0 + v;
-          const float x = SCALED ? acc[j][v] * ksg[s] : acc[j][v];
-          sc[j * S_pad + s] = s < s_valid ? x : -INFINITY;
+          for (int v = 0; v < VEC; ++v) {
+            const int s = s0 + v;
+            const float x = SCALED ? acc[j][v] * ksg[s] : acc[j][v];
+            sc[(j0 + j) * S_pad + s] = s < s_valid ? x : -INFINITY;
+          }
         }
       }
     }
@@ -216,7 +227,8 @@ cross_attn_grouped_kernel(const BF* __restrict__ q,
         if (j < KQ) {
           const float tot = owc_warp_sum(acc[i][j]);
           if (lane == 0)
-            owc_store(out + ((size_t)g * KQ + j) * DH + r + i * ROWS, tot * inv_l[j]);
+            owc_store(out + (size_t)g * row_stride + j * DH + r + i * ROWS,
+                      tot * inv_l[j]);
         }
       }
     }
@@ -225,8 +237,8 @@ cross_attn_grouped_kernel(const BF* __restrict__ q,
 
 template <int KIND, int MAXQ>
 int launch(const void* q, const void* k_t, const void* v_t, const void* k_scale,
-           const void* v_scale, void* out, int BH, int KQ, int S_pad,
-           int s_valid, cudaStream_t st) {
+           const void* v_scale, void* out, int BH, int KQ, int row_stride,
+           int S_pad, int s_valid, cudaStream_t st) {
   using T = typename Store<KIND>::T;
   const size_t smem = (size_t)(MAXQ * DH + KQ * S_pad) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
@@ -236,48 +248,56 @@ int launch(const void* q, const void* k_t, const void* v_t, const void* k_scale,
   cross_attn_grouped_kernel<KIND, MAXQ><<<BH, THREADS, smem, st>>>(
       static_cast<const BF*>(q), static_cast<const T*>(k_t),
       static_cast<const T*>(v_t), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<BF*>(out), KQ, S_pad,
-      s_valid);
+      static_cast<const float*>(v_scale), static_cast<BF*>(out), KQ, row_stride,
+      S_pad, s_valid);
   return (int)cudaGetLastError();
 }
 
 template <int KIND>
 int launch_kind(const void* q, const void* k_t, const void* v_t,
                 const void* k_scale, const void* v_scale, void* out, int BH,
-                int KQ, int S_pad, int s_valid, cudaStream_t st) {
+                int KQ, int row_stride, int S_pad, int s_valid,
+                cudaStream_t st) {
   if (KQ == 1)
-    return launch<KIND, 1>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ, S_pad,
-                           s_valid, st);
-  return launch<KIND, 4>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ, S_pad,
-                         s_valid, st);
+    return launch<KIND, 1>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
+                           row_stride, S_pad, s_valid, st);
+  if (KQ <= 4)
+    return launch<KIND, 4>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
+                           row_stride, S_pad, s_valid, st);
+  return launch<KIND, 8>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
+                         row_stride, S_pad, s_valid, st);
 }
 
 }  // namespace
 
-// q (BH, KQ, 64) bf16; out (BH, KQ, 64) bf16. kind 0: k_t/v_t (BH, 64,
+// q and out: KQ slots of 64 bf16 for each of BH rows, row g at element
+// g * row_stride (row_stride = KQ * 64 for contiguous (BH, KQ, 64) tensors;
+// larger when the call covers some of a longer window's slots). kind 0: k_t/v_t (BH, 64,
 // S_pad) bf16, scales unused (may be null). kind 1: k_t/v_t (BH, 64, S_pad)
 // int8 with k_scale/v_scale (BH, 1, S_pad) f32. kind 2: k_t/v_t (BH, 32,
 // S_pad) split-half packed int4 with the same scales. Requires
-// 1 <= KQ <= 4, 1 <= s_valid <= S_pad, S_pad a multiple of the kind's
+// 1 <= KQ <= 8, 1 <= s_valid <= S_pad, S_pad a multiple of the kind's
 // 16-byte chunk (8 positions for bf16, 16 for int8/int4), 16-byte aligned
-// k_t/v_t, and (4 * 64 + KQ * S_pad) * 4 bytes of shared memory (at most
-// 227 KB).
+// k_t/v_t, and (8 * 64 + KQ * S_pad) * 4 bytes of shared memory at most
+// (227 KB is the card's limit).
 extern "C" int owc_cross_attention_grouped(const void* q, const void* k_t,
                                            const void* v_t, const void* k_scale,
                                            const void* v_scale, void* out,
-                                           int BH, int KQ, int S_pad,
-                                           int s_valid, int kind, void* stream) {
+                                           int BH, int KQ, int row_stride,
+                                           int S_pad, int s_valid, int kind,
+                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (KQ < 1 || KQ > 8) return (int)cudaErrorInvalidValue;
   switch (kind) {
     case KV_BF16:
       return launch_kind<KV_BF16>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
-                                  S_pad, s_valid, st);
+                                  row_stride, S_pad, s_valid, st);
     case KV_INT8:
       return launch_kind<KV_INT8>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
-                                  S_pad, s_valid, st);
+                                  row_stride, S_pad, s_valid, st);
     case KV_INT4:
       return launch_kind<KV_INT4>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
-                                  S_pad, s_valid, st);
+                                  row_stride, S_pad, s_valid, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

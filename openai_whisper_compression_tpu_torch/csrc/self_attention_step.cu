@@ -2,16 +2,19 @@
 // cache and over an int8 cache with per-position scales.
 //
 // Replaces: openai_whisper_compression_tpu/ops/self_attention_step.py
-//           decode_self_attention_update (kernel body _kernel_upd_nostart)
-//           and decode_self_attention_update_int8 (_kernel_upd_i8_nostart).
-// fp cache, for each (batch, head) row g of BH:
+//           decode_self_attention_update (kernel bodies _kernel_upd and
+//           _kernel_upd_nostart) and decode_self_attention_update_int8
+//           (_kernel_upd_i8 and _kernel_upd_i8_nostart).
+// fp cache, for each (batch, head) row g of BH, with lo = start[g] (the
+// first valid cache position of a left-padded prompt), or 0 where start is
+// null:
 //   k_cache[g, pos, :] = k_new[g, :];  v_cache[g, pos, :] = v_new[g, :]
-//   scores[s] = q[g, :] . k_cache[g, s, :]           for 0 <= s <= pos
+//   scores[s] = q[g, :] . k_cache[g, s, :]           for lo <= s <= pos
 //   out[g, :] = sum_s softmax(scores)[s] * v_cache[g, s, :]
 // int8 cache: the fresh rows are quantized first (scale = max(absmax over
 // the 64 dims, 1e-12) * f32(1 / 127), q = clamp(rint(x / scale), -127, 127))
 // and written with their scales at pos; then
-//   scores[s] = (q[g, :] . kq[g, s, :]) * k_scale[g, s]  for 0 <= s <= pos
+//   scores[s] = (q[g, :] . kq[g, s, :]) * k_scale[g, s]  for lo <= s <= pos
 //   p[s] = exp(scores[s] - max), l = sum_s p[s]
 //   out[g, :] = sum_s p[s] * v_scale[g, s] * vq[g, s, :] / l
 // so the fresh row attends at its quantized-then-dequantized value, as in
@@ -23,7 +26,8 @@
 // (half that in int8 at batch 32, 4.7 MB at batch 96), a microsecond or two
 // of device-memory time; the step is tiny, so the gain is one launch in
 // place of the separate quantize, row write, score, softmax and value
-// kernels. Only the pos + 1 live cache rows are read.
+// kernels. Only the live cache rows lo..pos are read; the start variants of
+// the TPU kernels are one null-able pointer here, not separate bodies.
 //
 // Design: one block (128 threads) per (batch, head) row, which owns that
 // row's cache slice: it writes row pos first (in the int8 kernel warp 0
@@ -44,11 +48,13 @@ using T = __nv_bfloat16;
 __global__ void __launch_bounds__(THREADS)
 self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, T* k_cache, T* v_cache,
-                        T* __restrict__ out, int S, int pos) {
+                        T* __restrict__ out, const int* __restrict__ start,
+                        int S, int pos) {
   extern __shared__ __align__(16) float sc[];  // [pos + 1]
   __shared__ float qs[DH];
   __shared__ float red[32];
   const int g = blockIdx.x, tid = threadIdx.x;
+  const int lo = start ? start[g] : 0;  // first position that attends
   T* kg = k_cache + (size_t)g * S * DH;
   T* vg = v_cache + (size_t)g * S * DH;
 
@@ -60,7 +66,7 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   __syncthreads();  // the row write lands before the block reads the cache
 
   const int lane = tid & 31, warp = tid >> 5;
-  for (int s = warp; s <= pos; s += THREADS / 32) {
+  for (int s = lo + warp; s <= pos; s += THREADS / 32) {
     const T* krow = kg + (size_t)s * DH;
     float part = qs[lane] * owc_to_float(krow[lane]) +
                  qs[lane + 32] * owc_to_float(krow[lane + 32]);
@@ -70,10 +76,10 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   __syncthreads();
 
   float m = -INFINITY;
-  for (int s = tid; s <= pos; s += THREADS) m = fmaxf(m, sc[s]);
+  for (int s = lo + tid; s <= pos; s += THREADS) m = fmaxf(m, sc[s]);
   m = owc_block_max(m, red);
   float l = 0.0f;
-  for (int s = tid; s <= pos; s += THREADS) {
+  for (int s = lo + tid; s <= pos; s += THREADS) {
     const float p = expf(sc[s] - m);
     sc[s] = p;
     l += p;
@@ -82,7 +88,7 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 
   if (tid < DH) {
     float acc = 0.0f;
-    for (int s = 0; s <= pos; ++s)
+    for (int s = lo; s <= pos; ++s)
       acc = fmaf(sc[s], owc_to_float(vg[(size_t)s * DH + tid]), acc);
     owc_store(out + (size_t)g * DH + tid, acc / l);
   }
@@ -92,11 +98,13 @@ __global__ void __launch_bounds__(THREADS)
 self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                              const T* __restrict__ v_new, int8_t* k_cache,
                              int8_t* v_cache, float* k_scale, float* v_scale,
-                             T* __restrict__ out, int S, int pos) {
+                             T* __restrict__ out,
+                             const int* __restrict__ start, int S, int pos) {
   extern __shared__ __align__(16) float sc[];  // [pos + 1]
   __shared__ float qs[DH];
   __shared__ float red[32];
   const int g = blockIdx.x, tid = threadIdx.x;
+  const int lo = start ? start[g] : 0;  // first position that attends
   const int lane = tid & 31, warp = tid >> 5;
   int8_t* kg = k_cache + (size_t)g * S * DH;
   int8_t* vg = v_cache + (size_t)g * S * DH;
@@ -118,7 +126,7 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
   }
   __syncthreads();  // the row and scale writes land before the block reads
 
-  for (int s = warp; s <= pos; s += THREADS / 32) {
+  for (int s = lo + warp; s <= pos; s += THREADS / 32) {
     const int8_t* krow = kg + (size_t)s * DH;
     float part = qs[lane] * (float)krow[lane] + qs[lane + 32] * (float)krow[lane + 32];
     part = owc_warp_sum(part);
@@ -127,10 +135,10 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
   __syncthreads();
 
   float m = -INFINITY;
-  for (int s = tid; s <= pos; s += THREADS) m = fmaxf(m, sc[s]);
+  for (int s = lo + tid; s <= pos; s += THREADS) m = fmaxf(m, sc[s]);
   m = owc_block_max(m, red);
   float l = 0.0f;
-  for (int s = tid; s <= pos; s += THREADS) {
+  for (int s = lo + tid; s <= pos; s += THREADS) {
     const float p = expf(sc[s] - m);
     l += p;
     sc[s] = p * vsg[s];  // the v scale folds in after l
@@ -139,7 +147,7 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
 
   if (tid < DH) {
     float acc = 0.0f;
-    for (int s = 0; s <= pos; ++s)
+    for (int s = lo; s <= pos; ++s)
       acc = fmaf(sc[s], (float)vg[(size_t)s * DH + tid], acc);
     owc_store(out + (size_t)g * DH + tid, acc / l);
   }
@@ -148,33 +156,39 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
 }  // namespace
 
 // q/k_new/v_new (BH, 64), k_cache/v_cache (BH, S, 64) updated in place,
-// out (BH, 64); all bf16. Requires 0 <= pos < S <= 12288.
+// out (BH, 64); all bf16. start: (BH,) int32 first attending position of
+// each row, or null for 0. Requires 0 <= start[g] <= pos < S <= 12288.
 extern "C" int owc_self_attention_update(const void* q, const void* k_new,
                                          const void* v_new, void* k_cache,
-                                         void* v_cache, void* out, int BH,
-                                         int S, int pos, void* stream) {
+                                         void* v_cache, void* out,
+                                         const void* start, int BH, int S,
+                                         int pos, void* stream) {
   const size_t smem = (size_t)(pos + 1) * sizeof(float);
   self_attn_update_kernel<<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<T*>(k_cache),
-      static_cast<T*>(v_cache), static_cast<T*>(out), S, pos);
+      static_cast<T*>(v_cache), static_cast<T*>(out),
+      static_cast<const int*>(start), S, pos);
   return (int)cudaGetLastError();
 }
 
 // q/k_new/v_new (BH, 64) bf16; k_cache/v_cache (BH, S, 64) int8 and
 // k_scale/v_scale (BH, S) f32, all four updated in place at row pos;
-// out (BH, 64) bf16. Requires 0 <= pos < S <= 12288.
+// out (BH, 64) bf16. start: (BH,) int32 first attending position of each
+// row, or null for 0. Requires 0 <= start[g] <= pos < S <= 12288.
 extern "C" int owc_self_attention_update_int8(const void* q, const void* k_new,
                                               const void* v_new, void* k_cache,
                                               void* v_cache, void* k_scale,
-                                              void* v_scale, void* out, int BH,
-                                              int S, int pos, void* stream) {
+                                              void* v_scale, void* out,
+                                              const void* start, int BH, int S,
+                                              int pos, void* stream) {
   const size_t smem = (size_t)(pos + 1) * sizeof(float);
   self_attn_update_int8_kernel<<<BH, THREADS, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<int8_t*>(k_cache),
       static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale),
-      static_cast<float*>(v_scale), static_cast<T*>(out), S, pos);
+      static_cast<float*>(v_scale), static_cast<T*>(out),
+      static_cast<const int*>(start), S, pos);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,10 @@
 """End-to-end transcription entry point: waveform batch -> token ids.
 
-The port of the JAX package's `evaluation/harness.py::make_transcribe_fn`
-for greedy decoding: log-mel frontend (fused mel kernel), encoder, then
-`models.decode.greedy_decode`. PyTorch runs eagerly, so the returned
-function is plain Python around the kernels, run under inference mode.
+The port of the JAX package's `evaluation/harness.py::make_transcribe_fn`:
+log-mel frontend (fused mel kernel), encoder, then
+`models.decode.greedy_decode`, or `beam_decode` when `cfg.beam_size > 1`.
+PyTorch runs eagerly, so the returned function is plain Python around the
+kernels, run under inference mode.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from ..audio import features
 from ..config import HOP_LENGTH, DecodeConfig, WhisperArch
-from ..models.decode import check_supported, greedy_decode
+from ..models.decode import beam_decode, check_supported, greedy_decode
 from ..models.whisper import encode
 
 
@@ -25,11 +26,17 @@ def samples_for_arch(arch: WhisperArch) -> int:
 
 def make_transcribe_fn(arch: WhisperArch, cfg: DecodeConfig,
                        fast_mel: bool = False, fast_gelu: bool = False,
-                       device: str | torch.device = "cpu"):
+                       device: str | torch.device = "cpu",
+                       token_logprobs: bool = False):
     """Build fn(params, wav) -> (tokens (B, L), lengths (B,)) running on
     `device`. fast_mel: bf16 DFT operands (f32 sums); fast_gelu:
-    tanh-approximate GELU in the encoder MLPs. `params` must already live on
-    `device`; `wav` (B, T) f32 may be a numpy array or a tensor anywhere."""
+    tanh-approximate GELU in the encoder MLPs; token_logprobs: append the
+    greedy per-position logprob trace (B, L) to the outputs (greedy only).
+    `params` must already live on `device`; `wav` (B, T) f32 may be a numpy
+    array or a tensor anywhere."""
+    if token_logprobs and cfg.beam_size > 1:
+        raise ValueError("token_logprobs is only available for greedy "
+                         "decoding (beam_size == 1)")
     check_supported(arch, cfg)
     device = torch.device(device)
     n_samples = samples_for_arch(arch)
@@ -44,6 +51,9 @@ def make_transcribe_fn(arch: WhisperArch, cfg: DecodeConfig,
                                   length=n_samples, dft_dtype=dft_dtype)
         mel = mel.to(params["encoder"]["ln"]["g"].dtype)
         enc = encode(params, arch, mel, fast_gelu=fast_gelu)
-        return greedy_decode(params, arch, enc, cfg)
+        if cfg.beam_size > 1:
+            return beam_decode(params, arch, enc, cfg)
+        return greedy_decode(params, arch, enc, cfg,
+                             return_token_logprobs=token_logprobs)
 
     return fn

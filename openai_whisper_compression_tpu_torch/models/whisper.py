@@ -8,11 +8,12 @@ sin|cos encoder positions, learned decoder positions, output projection
 tied to the embedding. Every matmul with a weight goes through
 `ops.linear.linear`.
 
-Not carried over: the JAX encoder's batch chunking (`_encode_batch_chunks`)
-works around an XLA fusion cliff that PyTorch's eager attention does not
-have, and `encoder_attention_pallas` is reached only past that cliff, so
-encoder attention here is plain torch (matmul with f32 scores, f32
-softmax, matmul).
+Encoder attention on the card runs the fused kernel of `ops.attention` at
+every size: the JAX package reaches `encoder_attention_pallas` only past
+the byte threshold where XLA's own fusion gives way, while eager PyTorch
+would materialise the (B, H, T, T) scores at every size. Not carried over:
+the JAX encoder's batch chunking (`_encode_batch_chunks`), which works
+around that same XLA cliff.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import WhisperArch
+from ..ops.attention import encoder_attention, matmul_f32
 from ..ops.cross_attention import (decode_cross_attention_grouped,
                                    transpose_kv, transpose_quant_kv, unpack4)
 from ..ops.linear import linear
@@ -79,32 +81,23 @@ def qkv_project(p: Params, x: torch.Tensor, n_heads: int):
     return split_heads(q, n_heads), split_heads(k, n_heads), split_heads(v, n_heads)
 
 
-def _scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q · kᵀ over (B, H, T, Dh) with f32 output: products of the inputs
-    summed in f32 and never rounded to bf16, as the JAX einsum's
-    `preferred_element_type=f32` (a bf16 score of order 30 would be off by
-    up to 0.06). On the card, bf16 inputs take cuBLAS's bf16 GEMM with an
-    f32 output; elsewhere the inputs are widened to f32."""
-    if q.is_cuda and q.dtype == torch.bfloat16:
-        b, h, t, dh = q.shape
-        scores = torch.bmm(q.reshape(b * h, t, dh),
-                           k.reshape(b * h, -1, dh).transpose(1, 2),
-                           out_dtype=torch.float32)
-        return scores.reshape(b, h, t, -1)
-    return torch.matmul(q.float(), k.float().transpose(-1, -2))
-
-
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor | None = None) -> torch.Tensor:
     """Scaled dot-product attention over (B, H, T, Dh), as the JAX
-    package's: f32 scores (plus an optional additive f32 mask), f32
-    softmax, probabilities in q's dtype, matmul."""
+    package's. On the card, an unmasked bf16 call with Tq = Tk >= 256 (the
+    encoder's) goes to the fused `encoder_attention` kernel. Everything else
+    (the masked prefill window, f32, short contexts, the CPU) is plain
+    torch: f32 scores (plus an optional additive f32 mask), f32 softmax,
+    probabilities in q's dtype, matmul."""
     dh = q.shape[-1]
-    scores = _scores_f32(q * (dh ** -0.5), k)
+    if (mask is None and q.is_cuda and q.dtype == torch.bfloat16
+            and q.shape[2] == k.shape[2] >= 256):
+        return encoder_attention(q, k, v)
+    scores = matmul_f32(q * (dh ** -0.5), k.transpose(-1, -2))
     if mask is not None:
         scores += mask
     probs = torch.softmax(scores, dim=-1)
-    del scores  # at most two (B, H, T, T) f32 tensors live at once
+    del scores  # at most two (B, H, Tq, Tk) f32 tensors live at once
     return torch.matmul(probs.to(q.dtype), v)
 
 
@@ -221,22 +214,39 @@ def precompute_cross_kv_t(params: Params, arch: WhisperArch,
     return kvs
 
 
+def _cross_t(p: Params, x: torch.Tensor, kv: CrossKV, head_dim: int,
+             rows: int, slots: int) -> torch.Tensor:
+    """Cross-attention of x, `rows * slots` query vectors in (row, slot)
+    order along its first two axes, over the transposed K/V of `rows` batch
+    entries: the `slots` queries of a (row, head) pair share its K/V entry
+    and ride the grouped kernel's query slots. Returns x's shape."""
+    h = _num_heads(p, head_dim)
+    q = linear(x, p["q"]["w"], p["q"]["b"])                 # (.., H*Dh)
+    qg = (q.reshape(rows, slots, h, head_dim).transpose(1, 2)
+          .reshape(rows * h, slots, head_dim) * (head_dim ** -0.5)).to(q.dtype)
+    o = decode_cross_attention_grouped(qg.contiguous(), kv.k_t, kv.v_t,
+                                       kv.k_scale, kv.v_scale, kv.valid_len)
+    o = o.reshape(rows, h, slots, head_dim).transpose(1, 2).reshape(
+        *x.shape[:-1], h * head_dim)
+    return linear(o.to(x.dtype), p["o"]["w"], p["o"]["b"])
+
+
 def cross_attention(p: Params, x: torch.Tensor, kv: CrossKV,
                     head_dim: int) -> torch.Tensor:
     """Cross-attention of x (B, P, d) over transposed K/V: P = 1 in a decode
-    step, the prefill window in prefill (the JAX package's `cross_attention`
-    and `decode._cross_window_t`). The P query positions of a (b, h) row
-    share its K/V entry, so they ride the grouped kernel's query slots."""
-    b, p_len, _ = x.shape
-    h = _num_heads(p, head_dim)
-    q = linear(x, p["q"]["w"], p["q"]["b"])                 # (B, P, H*Dh)
-    qg = (q.reshape(b, p_len, h, head_dim).transpose(1, 2)
-          .reshape(b * h, p_len, head_dim) * (head_dim ** -0.5)).to(q.dtype)
-    o = decode_cross_attention_grouped(qg.contiguous(), kv.k_t, kv.v_t,
-                                       kv.k_scale, kv.v_scale, kv.valid_len)
-    o = o.reshape(b, h, p_len, head_dim).transpose(1, 2).reshape(
-        b, p_len, h * head_dim)
-    return linear(o.to(x.dtype), p["o"]["w"], p["o"]["b"])
+    step, the prompt and prefix window in prefill (the JAX package's
+    `cross_attention` and `decode._cross_window_t`): the P positions of a
+    batch row are the slots."""
+    return _cross_t(p, x, kv, head_dim, x.shape[0], x.shape[1])
+
+
+def grouped_cross_attention(p: Params, x: torch.Tensor, kv: CrossKV,
+                            head_dim: int, beam: int) -> torch.Tensor:
+    """Beam-search decode step: x is (B*beam, 1, d), `beam` consecutive rows
+    sharing one K/V entry of kv, which stays at batch B (the JAX package's
+    `_grouped_cross_attention_t`): the beams are the slots, so a step reads
+    the encoder K/V once per utterance, not once per beam."""
+    return _cross_t(p, x, kv, head_dim, x.shape[0] // beam, beam)
 
 
 def embed_tokens(dec: Params, tokens: torch.Tensor) -> torch.Tensor:

@@ -4,10 +4,13 @@
 JAX package's `ops/cross_attention.py::decode_cross_attention_grouped` (its
 bf16, int8 and int4 K/V bodies) and `transpose_quant_kv`.
 
-K query slots per (batch, head) row share one K/V entry: K = 1 in a decode
-step, K = prefix length - 1 (at most 3) in prefill; beam widths wait for the
-beam-search slice. The kernel takes any B·H, so the JAX package's ungrouped
-fallback for B·H % 16 != 0 has no counterpart here. K/V storage follows the
+K query slots per (batch, head) row share one K/V entry: K = 1 in a greedy
+decode step, the beam width in a beam-search step, the window of prompt and
+prefix positions in prefill. The kernel holds up to `MAX_SLOTS` slots, so a
+longer window runs as several launches, each over its own slots and each
+reading the K/V again (the JAX kernel takes any K in one call). The kernel
+takes any B·H, so the JAX package's ungrouped fallback for B·H % 16 != 0
+has no counterpart here. K/V storage follows the
 JAX layout: (B·H, Dh, S_pad) bf16; int8 with (B·H, 1, S_pad) f32
 per-position scales; or split-half packed int4 (B·H, Dh/2, S_pad) with the
 same scales, told apart from int8 by its Dh/2 rows, as the JAX package does.
@@ -23,7 +26,8 @@ from . import kernels
 
 NEG_INF = -1e30
 HEAD_DIM = 64   # every Whisper size; the kernels are written for it
-MAX_SLOTS = 4   # query slots per (batch, head) row the kernel holds
+MAX_SLOTS = 8   # query slots per (batch, head) row one launch holds
+NARROW_SLOTS = 4  # up to here the kernel's 1- and 4-slot bodies, above its 8-slot body
 # K/V storage kind -> (code of csrc/cross_attention.cu, positions per
 # 16-byte load, launch counter on decode_cross_attention_grouped)
 _KINDS = {"bf16": (0, 8, "launches"), "int8": (1, 16, "launches_int8"),
@@ -127,10 +131,12 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
     """q (BH, K, Dh) pre-scaled by Dh**-0.5; k_t/v_t (BH, Dh, S_pad) bf16,
     or int8 (Dh rows) or packed int4 (Dh/2 rows) with k_scale/v_scale
     (BH, 1, S_pad) f32; positions >= s_valid are padding (zero probability).
-    Returns (BH, K, Dh) in q's dtype. A CUDA tensor launches the kernel
-    (bf16 q; each storage kind counts its launches in its own attribute:
-    `launches` for bf16, `launches_int8`, `launches_int4`); a CPU tensor
-    takes the plain version."""
+    Returns (BH, K, Dh) in q's dtype. A CUDA tensor launches the kernel,
+    once for every `MAX_SLOTS` slots of K (bf16 q; each storage kind counts
+    its launches in its own attribute: `launches` for bf16, `launches_int8`,
+    `launches_int4`, and a launch of more than `NARROW_SLOTS` slots, which
+    runs the kernel's 8-slot body, in that attribute + `_wide`); a CPU
+    tensor takes the plain version."""
     if not q.is_cuda:
         return decode_cross_attention_grouped_ref(q, k_t, v_t, k_scale,
                                                   v_scale, s_valid)
@@ -139,8 +145,7 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
     rows, s_pad = k_t.shape[1], k_t.shape[2]
     s_valid = s_pad if s_valid is None else s_valid
     kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
-    kernels.require(1 <= kq <= MAX_SLOTS, name,
-                    f"1..{MAX_SLOTS} query slots per row, got {kq}")
+    kernels.require(kq >= 1, name, f"at least one query slot per row, got {kq}")
     kernels.require_bf16(name, q)
     tensors = [q, k_t, v_t]
     if k_scale is None and v_scale is None:
@@ -174,20 +179,28 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
                     "inputs must be contiguous")
     kernels.require(k_t.data_ptr() % 16 == 0 and v_t.data_ptr() % 16 == 0,
                     name, "k_t/v_t must be 16-byte aligned")
-    kernels.require((MAX_SLOTS * dh + kq * s_pad) * 4 <= 227 * 1024, name,
-                    "scores do not fit in shared memory")
+    kernels.require((MAX_SLOTS * dh + min(kq, MAX_SLOTS) * s_pad) * 4
+                    <= 227 * 1024, name, "scores do not fit in shared memory")
     out = torch.empty_like(q)
-    err = kernels.lib().owc_cross_attention_grouped(
-        q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
-        k_scale.data_ptr() if kind != "bf16" else None,
-        v_scale.data_ptr() if kind != "bf16" else None,
-        out.data_ptr(), bh, kq, s_pad, s_valid, code, kernels.stream_of(q))
-    kernels.check(name, err)
-    setattr(decode_cross_attention_grouped, counter,
-            getattr(decode_cross_attention_grouped, counter) + 1)
+    for j0 in range(0, kq, MAX_SLOTS):   # slots j0.. of every row, in place
+        offset = j0 * dh * q.element_size()
+        slots = min(MAX_SLOTS, kq - j0)
+        err = kernels.lib().owc_cross_attention_grouped(
+            q.data_ptr() + offset, k_t.data_ptr(), v_t.data_ptr(),
+            k_scale.data_ptr() if kind != "bf16" else None,
+            v_scale.data_ptr() if kind != "bf16" else None,
+            out.data_ptr() + offset, bh, slots, kq * dh, s_pad, s_valid, code,
+            kernels.stream_of(q))
+        kernels.check(name, err)
+        attr = counter + ("_wide" if slots > NARROW_SLOTS else "")
+        setattr(decode_cross_attention_grouped, attr,
+                getattr(decode_cross_attention_grouped, attr) + 1)
     return out
 
 
-decode_cross_attention_grouped.launches = 0        # bf16 K/V
+decode_cross_attention_grouped.launches = 0        # bf16 K/V, 1..4 slots
 decode_cross_attention_grouped.launches_int8 = 0   # int8 K/V
 decode_cross_attention_grouped.launches_int4 = 0   # split-half int4 K/V
+decode_cross_attention_grouped.launches_wide = 0        # bf16 K/V, 5..8 slots
+decode_cross_attention_grouped.launches_int8_wide = 0   # int8 K/V
+decode_cross_attention_grouped.launches_int4_wide = 0   # split-half int4 K/V

@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C launcher name -> argtypes (pointers and the stream as c_void_p, sizes as
 # c_int); every launcher returns a cudaError_t as int
 _SIGNATURES = {
@@ -51,11 +51,14 @@ _SIGNATURES = {
                               _I, _P],
     "owc_mel_log10": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "owc_cross_attention_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _P],
+                                    _I, _I, _P],
     "owc_transpose_quant_kv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "owc_self_attention_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "owc_self_attention_update_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                       _I, _P],
+    "owc_self_attention_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "owc_self_attention_update_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _P],
+    # the 12 strides are a host array of long long
+    "owc_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _F,
+                              ctypes.POINTER(ctypes.c_longlong), _P],
 }
 
 _lib: ctypes.CDLL | None = None

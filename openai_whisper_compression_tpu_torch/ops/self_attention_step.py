@@ -2,8 +2,8 @@
 (`csrc/self_attention_step.cu`), over an fp cache and over an int8 cache
 with per-position scales, each with its plain version: the port of the JAX
 package's `ops/self_attention_step.py::decode_self_attention_update` and
-`decode_self_attention_update_int8` (the `nostart` variants; prompt
-left-padding via `start` is a later slice).
+`decode_self_attention_update_int8`, with and without `start`: the first
+valid cache position of each row, which masks a prompt's left padding.
 
 Every version MUTATES its buffers: row `pos` of k_cache/v_cache (and, for
 the int8 cache, position `pos` of k_scale/v_scale) is overwritten in place
@@ -21,21 +21,46 @@ from . import kernels
 HEAD_DIM = 64
 
 
+def _mask_before_start(scores: torch.Tensor,
+                       start: torch.Tensor | None) -> torch.Tensor:
+    """scores (BH, pos + 1) with the positions before each row's `start`
+    set to -inf (zero probability); unchanged without `start`."""
+    if start is None:
+        return scores
+    idx = torch.arange(scores.shape[1], device=scores.device)
+    return scores.masked_fill(idx[None, :] < start[:, None], float("-inf"))
+
+
 def decode_self_attention_update_ref(q: torch.Tensor, k_new: torch.Tensor,
                                      v_new: torch.Tensor,
                                      k_cache: torch.Tensor,
-                                     v_cache: torch.Tensor,
-                                     pos: int) -> torch.Tensor:
+                                     v_cache: torch.Tensor, pos: int,
+                                     start: torch.Tensor | None = None
+                                     ) -> torch.Tensor:
     """Plain version: write row pos, then f32 masked softmax attention of
-    each pre-scaled query over cache rows 0..pos. Returns (BH, Dh) in q's
-    dtype."""
+    each pre-scaled query over cache rows start..pos (0..pos without
+    `start`). Returns (BH, Dh) in q's dtype."""
     k_cache[:, pos, :] = k_new.to(k_cache.dtype)
     v_cache[:, pos, :] = v_new.to(v_cache.dtype)
     k = k_cache[:, : pos + 1, :].float()
     v = v_cache[:, : pos + 1, :].float()
-    scores = torch.einsum("gd,gsd->gs", q.float(), k)
+    scores = _mask_before_start(torch.einsum("gd,gsd->gs", q.float(), k), start)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("gs,gsd->gd", probs, v).to(q.dtype)
+
+
+def _start_arg(name: str, start: torch.Tensor | None, q: torch.Tensor) -> int | None:
+    """The kernels' `start` pointer (None for the variants without it),
+    after the checks of what they take: (BH,) int32, contiguous, on q's
+    device."""
+    if start is None:
+        return None
+    kernels.require(start.shape == (q.shape[0],), name,
+                    f"start must be ({q.shape[0]},), got {tuple(start.shape)}")
+    kernels.require_dtype(name, torch.int32, start)
+    kernels.require(start.device == q.device and start.is_contiguous(), name,
+                    "start must be contiguous and on q's device")
+    return start.data_ptr()
 
 
 def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
@@ -44,16 +69,15 @@ def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
                                  start: torch.Tensor | None = None
                                  ) -> torch.Tensor:
     """q/k_new/v_new (BH, Dh), q pre-scaled by Dh**-0.5; caches (BH, S, Dh)
-    written at row `pos` IN PLACE; attention over rows 0..pos. Returns
+    written at row `pos` IN PLACE; attention over rows start..pos, `start`
+    (BH,) int32 with start <= pos (rows 0..pos without it). Returns
     (BH, Dh) in q's dtype. A CUDA tensor launches the kernel (bf16 only;
-    counted in `decode_self_attention_update.launches`); a CPU tensor takes
-    the plain version."""
-    if start is not None:
-        raise NotImplementedError("prompt left-padding (start) is not ported")
+    counted in `decode_self_attention_update.launches`, with `start` in
+    `.launches_start`); a CPU tensor takes the plain version."""
     pos = int(pos)
     if not q.is_cuda:
         return decode_self_attention_update_ref(q, k_new, v_new, k_cache,
-                                                v_cache, pos)
+                                                v_cache, pos, start)
     name = "decode_self_attention_update"
     bh, dh = q.shape
     s = k_cache.shape[1]
@@ -70,16 +94,22 @@ def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
     kernels.require(all(t.is_contiguous() for t in
                         (q, k_new, v_new, k_cache, v_cache)), name,
                     "inputs must be contiguous")
+    start_ptr = _start_arg(name, start, q)
     out = torch.empty_like(q)
     err = kernels.lib().owc_self_attention_update(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), bh, s, pos, kernels.stream_of(q))
+        v_cache.data_ptr(), out.data_ptr(), start_ptr, bh, s, pos,
+        kernels.stream_of(q))
     kernels.check(name, err)
-    decode_self_attention_update.launches += 1
+    if start is None:
+        decode_self_attention_update.launches += 1
+    else:
+        decode_self_attention_update.launches_start += 1
     return out
 
 
-decode_self_attention_update.launches = 0
+decode_self_attention_update.launches = 0         # without start
+decode_self_attention_update.launches_start = 0   # with start
 
 
 def decode_self_attention_update_int8_ref(q: torch.Tensor, k_new: torch.Tensor,
@@ -87,13 +117,14 @@ def decode_self_attention_update_int8_ref(q: torch.Tensor, k_new: torch.Tensor,
                                           k_cache: torch.Tensor,
                                           v_cache: torch.Tensor,
                                           k_scale: torch.Tensor,
-                                          v_scale: torch.Tensor,
-                                          pos: int) -> torch.Tensor:
+                                          v_scale: torch.Tensor, pos: int,
+                                          start: torch.Tensor | None = None
+                                          ) -> torch.Tensor:
     """Plain version (the math of `_kernel_upd_i8`): quantize the fresh k/v
     rows (absmax over Dh, scale * 1/127), write them and their scales at
-    `pos`, then f32 scores times the k scales over rows 0..pos, softmax
-    with l summed before the v scales fold into the probabilities, f32
-    value sum. Returns (BH, Dh) in q's dtype."""
+    `pos`, then f32 scores times the k scales over rows start..pos (0..pos
+    without `start`), softmax with l summed before the v scales fold into
+    the probabilities, f32 value sum. Returns (BH, Dh) in q's dtype."""
     kq, ks = quantize_absmax(k_new, dim=-1, qmax=127)
     vq, vs = quantize_absmax(v_new, dim=-1, qmax=127)
     k_cache[:, pos, :] = kq
@@ -102,6 +133,7 @@ def decode_self_attention_update_int8_ref(q: torch.Tensor, k_new: torch.Tensor,
     v_scale[:, pos] = vs[:, 0]
     scores = torch.einsum("gd,gsd->gs", q.float(),
                           k_cache[:, : pos + 1, :].float()) * k_scale[:, : pos + 1]
+    scores = _mask_before_start(scores, start)
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     p = p * v_scale[:, : pos + 1]
@@ -119,16 +151,15 @@ def decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
                                       ) -> torch.Tensor:
     """q/k_new/v_new (BH, Dh), q pre-scaled by Dh**-0.5; k_cache/v_cache
     (BH, S, Dh) int8 and k_scale/v_scale (BH, S) f32, all four written at
-    `pos` IN PLACE; attention over rows 0..pos with the scales folded in.
+    `pos` IN PLACE; attention over rows start..pos with the scales folded
+    in, `start` (BH,) int32 with start <= pos (rows 0..pos without it).
     Returns (BH, Dh) in q's dtype. A CUDA tensor launches the kernel (bf16
-    q/k/v; counted in `decode_self_attention_update_int8.launches`); a CPU
-    tensor takes the plain version."""
-    if start is not None:
-        raise NotImplementedError("prompt left-padding (start) is not ported")
+    q/k/v; counted in `decode_self_attention_update_int8.launches`, with
+    `start` in `.launches_start`); a CPU tensor takes the plain version."""
     pos = int(pos)
     if not q.is_cuda:
         return decode_self_attention_update_int8_ref(
-            q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pos)
+            q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pos, start)
     name = "decode_self_attention_update_int8"
     bh, dh = q.shape
     s = k_cache.shape[1]
@@ -149,14 +180,19 @@ def decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
                     "q, k/v, the caches and the scales must share a device")
     kernels.require(all(t.is_contiguous() for t in tensors), name,
                     "inputs must be contiguous")
+    start_ptr = _start_arg(name, start, q)
     out = torch.empty_like(q)
     err = kernels.lib().owc_self_attention_update_int8(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        out.data_ptr(), bh, s, pos, kernels.stream_of(q))
+        out.data_ptr(), start_ptr, bh, s, pos, kernels.stream_of(q))
     kernels.check(name, err)
-    decode_self_attention_update_int8.launches += 1
+    if start is None:
+        decode_self_attention_update_int8.launches += 1
+    else:
+        decode_self_attention_update_int8.launches_start += 1
     return out
 
 
-decode_self_attention_update_int8.launches = 0
+decode_self_attention_update_int8.launches = 0         # without start
+decode_self_attention_update_int8.launches_start = 0   # with start

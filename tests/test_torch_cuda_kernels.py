@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 edge shapes and in the dtypes each takes (chip_smoke.py covers the
 whisper-small main-path shapes): mel, int8 matmul, grouped cross-attention
-over bf16 / int8 / int4 K/V, the cross-KV transpose + int8 quantize, and
-the fp and int8 self-attention cache updates; the wrappers' refusals; and
-bf16 attention on the card against a float64 reference with f32 scores. Marked `cuda`; every test skips where no
+over bf16 / int8 / int4 K/V (1 to 8 slots and longer windows), the cross-KV
+transpose + int8 quantize, the fp and int8 self-attention cache updates
+(with and without `start`) and the encoder attention; the wrappers'
+refusals; and bf16 attention on the card against a float64 reference with
+f32 scores. Marked `cuda`; every test skips where no
 CUDA device is present. Needs no jax, so on the GPU machine run it without the JAX test
 configuration:
 
@@ -16,6 +18,8 @@ import torch
 from openai_whisper_compression_tpu_torch.audio import features
 from openai_whisper_compression_tpu_torch.audio.mel_kernel import log_mel_cuda
 from openai_whisper_compression_tpu_torch.models import whisper
+from openai_whisper_compression_tpu_torch.ops.attention import (
+    encoder_attention, encoder_attention_ref)
 from openai_whisper_compression_tpu_torch.ops.cross_attention import (
     decode_cross_attention_grouped, decode_cross_attention_grouped_ref,
     transpose_quant_kv, transpose_quant_kv_ref)
@@ -196,7 +200,9 @@ def test_log_mel(dev, dtype, b, t):
 
 
 @pytest.mark.parametrize("bh,kq,s_valid", [(12, 1, 1), (12, 3, 100),
-                                           (384, 1, 1500), (20, 4, 1500)])
+                                           (384, 1, 1500), (20, 4, 1500),
+                                           (20, 5, 1500), (192, 8, 1500),
+                                           (12, 19, 300), (7, 16, 1500)])
 def test_cross_attention_grouped(dev, bh, kq, s_valid):
     dtype = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(bh + kq)
@@ -249,18 +255,28 @@ def _quantized_kv(dev, bits, bh, s_valid, seed):
 
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("bh,kq,s_valid", [(12, 1, 1), (12, 3, 100),
-                                           (1152, 1, 1500), (20, 4, 1500)])
+                                           (1152, 1, 1500), (20, 4, 1500),
+                                           (192, 5, 1500), (20, 8, 100),
+                                           (12, 19, 1500)])
 def test_cross_attention_grouped_quantized(dev, bits, bh, kq, s_valid):
     """int8 / int4 bodies within one bf16 step of the plain version's
     largest output; poisoning the padding (codes and scales) changes no
-    output bit; each body counts its own launches."""
+    output bit; each body counts its own launches, one for every 8 slots,
+    those of more than 4 slots under `_wide`."""
     g = torch.Generator(device=dev).manual_seed(bh + kq + bits)
     q = (torch.randn(bh, kq, 64, generator=g, device=dev) * 0.125).bfloat16()
     k, v, ks, vs = _quantized_kv(dev, bits, bh, s_valid, bh + bits)
     counter = "launches_int4" if bits == 4 else "launches_int8"
-    before = getattr(decode_cross_attention_grouped, counter)
+    chunks = [min(8, kq - j) for j in range(0, kq, 8)]
+
+    def counts():
+        return (getattr(decode_cross_attention_grouped, counter),
+                getattr(decode_cross_attention_grouped, counter + "_wide"))
+
+    narrow, wide = counts()
     got = decode_cross_attention_grouped(q, k, v, ks, vs, s_valid)
-    assert getattr(decode_cross_attention_grouped, counter) == before + 1
+    assert counts() == (narrow + sum(c <= 4 for c in chunks),
+                        wide + sum(c > 4 for c in chunks))
     ref = decode_cross_attention_grouped_ref(q, k, v, ks, vs, s_valid)
     torch.testing.assert_close(got.float(), ref.float(), rtol=0,
                                atol=_tol(torch.bfloat16,
@@ -273,8 +289,17 @@ def test_cross_attention_grouped_quantized(dev, bits, bh, kq, s_valid):
                        got)
 
 
+def _mixed_start(dev, bh, pos):
+    """(BH,) int32 starts: 0, pos itself (that row attends to the fresh row
+    alone) and values between."""
+    start = torch.arange(bh, device=dev) * 3 % (pos + 1)
+    start[1] = pos
+    return start.to(torch.int32)
+
+
+@pytest.mark.parametrize("with_start", [False, True])
 @pytest.mark.parametrize("s,pos", [(64, 0), (64, 5), (64, 63), (448, 300)])
-def test_self_attention_update(dev, s, pos):
+def test_self_attention_update(dev, s, pos, with_start):
     dtype = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(s + pos)
     bh = 24
@@ -283,17 +308,25 @@ def test_self_attention_update(dev, s, pos):
     kc = torch.randn(bh, s, 64, generator=g, device=dev).to(dtype)
     vc = torch.randn(bh, s, 64, generator=g, device=dev).to(dtype)
     kr, vr = kc.clone(), vc.clone()
-    got = decode_self_attention_update(q, kn, vn, kc, vc, pos)
-    ref = decode_self_attention_update_ref(q, kn, vn, kr, vr, pos)
+    start = _mixed_start(dev, bh, pos) if with_start else None
+    counter = "launches_start" if with_start else "launches"
+    before = getattr(decode_self_attention_update, counter)
+    got = decode_self_attention_update(q, kn, vn, kc, vc, pos, start=start)
+    assert getattr(decode_self_attention_update, counter) == before + 1
+    ref = decode_self_attention_update_ref(q, kn, vn, kr, vr, pos, start=start)
+    if with_start:   # row 1 attends to the row just written only
+        assert torch.equal(got[1], vn[1])
     assert torch.equal(kc, kr) and torch.equal(vc, vr)
     torch.testing.assert_close(got.float(), ref.float(), rtol=0,
                                atol=_tol(dtype, float(ref.float().abs().max())))
 
 
+@pytest.mark.parametrize("with_start", [False, True])
 @pytest.mark.parametrize("s,pos", [(64, 0), (64, 30), (64, 63), (448, 300)])
-def test_self_attention_update_int8(dev, s, pos):
+def test_self_attention_update_int8(dev, s, pos, with_start):
     """Rows and scales written equal to the plain version's bit for bit;
-    output within one bf16 step of its largest magnitude."""
+    output within one bf16 step of its largest magnitude; with and without
+    a mixed `start`, each counted on its own."""
     g = torch.Generator(device=dev).manual_seed(s + pos + 1)
     bh = 36
     q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).bfloat16()
@@ -303,10 +336,12 @@ def test_self_attention_update_int8(dev, s, pos):
     ks, vs = torch.rand(2, bh, s, generator=g, device=dev) * 0.03 + 0.001
     bufs = [t.clone() for t in (kc, vc, ks, vs)]
     refs = [t.clone() for t in (kc, vc, ks, vs)]
-    before = decode_self_attention_update_int8.launches
-    got = decode_self_attention_update_int8(q, kn, vn, *bufs, pos)
-    assert decode_self_attention_update_int8.launches == before + 1
-    ref = decode_self_attention_update_int8_ref(q, kn, vn, *refs, pos)
+    start = _mixed_start(dev, bh, pos) if with_start else None
+    counter = "launches_start" if with_start else "launches"
+    before = getattr(decode_self_attention_update_int8, counter)
+    got = decode_self_attention_update_int8(q, kn, vn, *bufs, pos, start=start)
+    assert getattr(decode_self_attention_update_int8, counter) == before + 1
+    ref = decode_self_attention_update_int8_ref(q, kn, vn, *refs, pos, start=start)
     for a, b in zip(bufs, refs):
         assert torch.equal(a, b)
     assert not torch.equal(bufs[0][:, pos], kc[:, pos])
@@ -320,10 +355,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # head dim 32
         decode_self_attention_update(x, x, x, torch.zeros(4, 8, 32, device=dev),
                                      torch.zeros(4, 8, 32, device=dev), 1)
-    with pytest.raises(ValueError):  # 5 query slots
-        decode_cross_attention_grouped(torch.zeros(4, 5, 64, device=dev),
-                                       torch.zeros(4, 64, 128, device=dev),
-                                       torch.zeros(4, 64, 128, device=dev))
+    row = torch.zeros(4, 64, device=dev, dtype=torch.bfloat16)
+    cache = torch.zeros(4, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # an int64 start
+        decode_self_attention_update(row, row, row, cache, cache.clone(), 1,
+                                     start=torch.zeros(4, dtype=torch.long, device=dev))
+    with pytest.raises(ValueError):  # a start per batch row, not per (b, h)
+        decode_self_attention_update(row, row, row, cache, cache.clone(), 1,
+                                     start=torch.zeros(2, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):  # start on the CPU
+        decode_self_attention_update(row, row, row, cache, cache.clone(), 1,
+                                     start=torch.zeros(4, dtype=torch.int32))
     with pytest.raises(TypeError):  # the attention kernels take bf16 only
         decode_cross_attention_grouped(torch.zeros(4, 1, 64, device=dev),
                                        torch.zeros(4, 64, 128, device=dev),
@@ -418,3 +460,79 @@ def test_attention_scores_stay_f32(dev, causal):
     probs = torch.softmax(scores, dim=-1).bfloat16().double()
     ref = probs @ v64
     assert float((got - ref).abs().max()) <= 2 ** -7 * float(ref.abs().max())
+
+
+def _strided_qkv(dev, b, h, t, seed, scale=1.0):
+    """(B, H, T, 64) bf16 views of (B, T, H*64) projections, as the model's
+    `split_heads` leaves them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [whisper.split_heads((torch.randn(b, t, h * 64, generator=g, device=dev)
+                                 * (scale if i == 0 else 1.0)).bfloat16(), h)
+            for i in range(3)]
+
+
+@pytest.mark.parametrize("b,h,t", [(1, 1, 1), (2, 3, 64), (1, 2, 129), (2, 4, 256),
+                                   (1, 12, 300), (2, 12, 1500), (1, 2, 2000)])
+def test_encoder_attention(dev, b, h, t):
+    """Within one bf16 step (2**-7) of the plain version's largest output,
+    at lengths around the 64-key tile and the 128-row block, on strided
+    inputs; the output's memory is (B, T, H, 64), so merging heads is a
+    view; rows and keys past T leave no trace (NaN-free)."""
+    q, k, v = _strided_qkv(dev, b, h, t, b * h + t)
+    before = encoder_attention.launches
+    got = encoder_attention(q, k, v)
+    assert encoder_attention.launches == before + 1
+    ref = encoder_attention_ref(q, k, v)
+    assert got.shape == (b, h, t, 64) and got.dtype == torch.bfloat16
+    assert got.transpose(1, 2).is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(torch.bfloat16, float(ref.float().abs().max())))
+    # contiguous (B, H, T, 64) inputs give the same bits
+    assert torch.equal(encoder_attention(q.contiguous(), k.contiguous(),
+                                         v.contiguous()), got)
+
+
+def test_encoder_attention_peaked_scores(dev):
+    """Scores of order 30 to 45 with a few dominant keys per row (q scaled
+    by 4, a constant +30 on every score): the running maximum moves while
+    the keys stream by, and f32 scores are needed."""
+    q, k, v = _strided_qkv(dev, 1, 4, 1500, 5, scale=4.0)
+    q, k = q.clone(), k.clone()
+    q[..., 0], k[..., 0] = 8.0, 30.0
+    got, ref = encoder_attention(q, k, v), encoder_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(torch.bfloat16, float(ref.float().abs().max())))
+
+
+def test_model_attention_dispatch(dev):
+    """On the card `attention()` launches the encoder kernel for unmasked
+    bf16 calls with Tq = Tk >= 256 and for nothing else."""
+    def launched(q, k, v, mask=None):
+        before = encoder_attention.launches
+        whisper.attention(q, k, v, mask)
+        return encoder_attention.launches - before
+
+    q, k, v = _strided_qkv(dev, 1, 2, 256, 1)
+    assert launched(q, k, v) == 1
+    assert launched(q, k, v, torch.zeros(256, 256, device=dev)) == 0
+    assert launched(q.float(), k.float(), v.float()) == 0
+    assert launched(q[:, :, :255], k[:, :, :255], v[:, :, :255]) == 0
+    assert launched(q[:, :, :1], k, v) == 0
+
+
+def test_encoder_attention_rejects_what_the_kernel_does_not_take(dev):
+    bf = torch.bfloat16
+    x = torch.zeros(1, 2, 256, 64, device=dev, dtype=bf)
+    with pytest.raises(TypeError):  # f32
+        encoder_attention(x.float(), x.float(), x.float())
+    with pytest.raises(ValueError):  # head dim 32
+        encoder_attention(x[..., :32], x[..., :32], x[..., :32])
+    with pytest.raises(ValueError):  # Tq != Tk
+        encoder_attention(x[:, :, :100], x, x)
+    with pytest.raises(ValueError):  # rows at an offset that breaks 16-byte copies
+        off = torch.zeros(2 * 256 * 64 + 4, device=dev, dtype=bf)[4:].view(1, 2, 256, 64)
+        encoder_attention(x, off, x)
+    with pytest.raises(ValueError):  # a transposed head dim
+        t = torch.zeros(1, 2, 64, 256, device=dev, dtype=bf).transpose(2, 3)
+        encoder_attention(t, x, x)

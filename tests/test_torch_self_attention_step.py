@@ -79,16 +79,3 @@ def test_update_int8_plain_matches_pallas(pos, dtype):
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref[0].astype(jnp.float32)),
                                rtol=0 if dtype == "float32" else tol, atol=tol)
-
-
-def test_start_variant_is_not_ported():
-    x = torch.zeros(4, 64)
-    cache = torch.zeros(4, 8, 64)
-    with pytest.raises(NotImplementedError):
-        decode_self_attention_update(x, x, x, cache, cache.clone(), 1,
-                                     start=torch.zeros(4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        decode_self_attention_update_int8(
-            x, x, x, cache.to(torch.int8), cache.to(torch.int8),
-            torch.zeros(4, 8), torch.zeros(4, 8), 1,
-            start=torch.zeros(4, dtype=torch.int32))

@@ -136,11 +136,19 @@ def test_first_step_logits_match_jax(slice_params):
 
 
 @pytest.mark.parametrize("change", [
-    {"beam_size": 2}, {"cross_kv_pool": 2}, {"cross_kv_merge": 4},
+    {"cross_kv_pool": 2}, {"cross_kv_merge": 4},
     {"cross_pallas": False}, {"self_pallas": False}])
 def test_options_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError):
         make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**change))
+
+
+@pytest.mark.parametrize("kw", [{"sample_key": 0}, {"temperature": 0.2}])
+def test_sampling_raises(kw):
+    """Temperature sampling comes with the fallback ladder, a later slice."""
+    enc = torch.zeros(1, 64, 64)
+    with pytest.raises(NotImplementedError, match="fallback"):
+        decode.greedy_decode({}, ARCHS["test2l"], enc, DecodeConfig(), **kw)
 
 
 @pytest.mark.parametrize("kv", KV_CONFIGS)
@@ -191,7 +199,7 @@ def test_quantized_kv_state_and_logits_match_jax(slice_params, kv):
         return kvs, cache, logits
 
     j_kvs, j_cache, ref = jax_state(jp, jnp.asarray(enc))
-    t_kvs, t_cache, tokens, _, _ = decode._prepare(
+    t_kvs, t_cache, tokens, *_ = decode._prepare(
         tp, ARCHS["test2l"], torch.from_numpy(enc),
         DecodeConfig(max_new_tokens=12, **kw))
     for jk, tk in zip(j_kvs, t_kvs):
@@ -266,15 +274,11 @@ def test_int8_cache_update_matches_jax(pos, t):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_timestamps_raise():
-    with pytest.raises(NotImplementedError):
-        make_transcribe_fn(ARCHS["test2l-ts"], DecodeConfig(notimestamps=False))
-
-
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import openai_whisper_compression_tpu_torch.evaluation.harness, "
-            "openai_whisper_compression_tpu_torch.audio.mel_kernel; "
+            "openai_whisper_compression_tpu_torch.audio.mel_kernel, "
+            "openai_whisper_compression_tpu_torch.ops.attention; "
             "assert 'openai_whisper_compression_tpu' not in sys.modules; "
             "print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -285,6 +289,7 @@ def test_port_imports_without_jax():
 
 def test_cpu_wrappers_never_load_the_library(monkeypatch):
     from openai_whisper_compression_tpu_torch.audio.mel_kernel import log_mel_cuda
+    from openai_whisper_compression_tpu_torch.ops.attention import encoder_attention
     from openai_whisper_compression_tpu_torch.ops.cross_attention import (
         decode_cross_attention_grouped, transpose_quant_kv)
     from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
@@ -305,8 +310,12 @@ def test_cpu_wrappers_never_load_the_library(monkeypatch):
                 (decode_cross_attention_grouped, "launches_int8"),
                 (decode_cross_attention_grouped, "launches_int4"),
                 (transpose_quant_kv, "launches"),
+                (decode_cross_attention_grouped, "launches_int8_wide"),
                 (decode_self_attention_update, "launches"),
-                (decode_self_attention_update_int8, "launches")]
+                (decode_self_attention_update, "launches_start"),
+                (decode_self_attention_update_int8, "launches"),
+                (decode_self_attention_update_int8, "launches_start"),
+                (encoder_attention, "launches")]
     counts = [getattr(f, a) for f, a in counters]
     log_mel_cuda(torch.zeros(1, N), 80)
     int8_matmul(torch.ones(2, 64), torch.ones(64, 64, dtype=torch.int8),
@@ -320,14 +329,17 @@ def test_cpu_wrappers_never_load_the_library(monkeypatch):
                                    torch.ones(4, 64, 128), s_valid=100)
     k8, s8 = transpose_quant_kv(torch.ones(2, 100, 128), 2)
     decode_cross_attention_grouped(torch.ones(4, 3, 64), k8, k8, s8, s8, 100)
+    decode_cross_attention_grouped(torch.ones(4, 19, 64), k8, k8, s8, s8, 100)
+    encoder_attention(*torch.ones(3, 1, 2, 256, 64))
     k4 = k8[:, :32].contiguous()
     decode_cross_attention_grouped(torch.ones(4, 1, 64), k4, k4, s8, s8, 100)
     decode_self_attention_update(torch.ones(4, 64), torch.ones(4, 64),
                                  torch.ones(4, 64), torch.zeros(4, 8, 64),
-                                 torch.zeros(4, 8, 64), 3)
+                                 torch.zeros(4, 8, 64), 3,
+                                 start=torch.ones(4, dtype=torch.int32))
     decode_self_attention_update_int8(
         torch.ones(4, 64), torch.ones(4, 64), torch.ones(4, 64),
         torch.zeros(4, 8, 64, dtype=torch.int8),
         torch.zeros(4, 8, 64, dtype=torch.int8), torch.zeros(4, 8),
-        torch.zeros(4, 8), 3)
+        torch.zeros(4, 8), 3, start=torch.ones(4, dtype=torch.int32))
     assert counts == [getattr(f, a) for f, a in counters]
