@@ -1,4 +1,6 @@
-// Grouped decode cross-attention over transposed encoder K/V.
+// Decode cross-attention over transposed encoder K/V: the grouped kernel
+// (K query slots of a row share its K/V) and, further down, the one-query
+// kernel for small B*H, which splits S over several blocks.
 //
 // Replaces: openai_whisper_compression_tpu/ops/cross_attention.py
 //           decode_cross_attention_grouped, its three bodies over _beam_core:
@@ -268,6 +270,176 @@ int launch_kind(const void* q, const void* k_t, const void* v_t,
                          row_stride, S_pad, s_valid, st);
 }
 
+// ---------------------------------------------------------------------------
+// One query per (batch, head) row, S split over several blocks.
+//
+// Replaces: openai_whisper_compression_tpu/ops/cross_attention.py
+//           decode_cross_attention, its three bodies _kernel (bf16 K/V),
+//           _kernel_int8 and _kernel_int4: the decode step's cross-attention
+//           where B*H is no multiple of 16 (whisper-small at batch 1-3: 12,
+//           24, 36 rows), computing what the grouped kernel computes at one
+//           slot.
+// What bounds it on the H100: bytes, and in practice launch latency. A row
+// streams 2 x 64 x s_valid elements whatever B*H is, and with 12 rows one
+// block per row would leave 120 of the 132 SMs idle. So a block takes
+// SPLIT_CHUNKS 16-byte chunks of positions of one row (128 positions of
+// int8/int4 K/V, 64 of bf16): B*H x 12 (24 for bf16) blocks at S = 1500.
+// Design: 256 threads = 32 row groups x 8 chunks. Pass 1: each thread takes
+// its chunk of its group's stored rows (2 rows, 1 for int4, one 16-byte load
+// each), the 32 partial scores of a position are summed through shared
+// memory, scaled and masked; block reductions give the span's maximum m and
+// sum l of exp(score - m). Pass 2: the same thread layout over V, the
+// probabilities (times the v scale) from shared memory, the 8 chunk lanes of
+// a row reduced by shuffles. Each block leaves 64 unnormalised sums, m and l
+// in scratch; `cross_attn_combine_kernel` (one small block per row) rescales
+// the partial sums to the common maximum, divides by the total l and writes
+// bf16. Two launches, no atomics, so the result does not change from run to
+// run.
+constexpr int SPLIT_CHUNKS = 8;  // 16-byte chunks of positions per block
+constexpr int PART = DH + 2;     // a block's record: 64 sums, m, l
+
+template <int KIND>
+__global__ void __launch_bounds__(THREADS)
+cross_attn_split_kernel(const BF* __restrict__ q,
+                        const typename Store<KIND>::T* __restrict__ k_t,
+                        const typename Store<KIND>::T* __restrict__ v_t,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
+                        float* __restrict__ part, int S_pad, int s_valid) {
+  using St = Store<KIND>;
+  constexpr int ROWS = St::ROWS, VEC = St::VEC, DIMS = St::DIMS;
+  constexpr bool SCALED = KIND != KV_BF16;
+  constexpr int SPAN = SPLIT_CHUNKS * VEC;    // positions per block
+  constexpr int RG = THREADS / SPLIT_CHUNKS;  // row groups
+  constexpr int RPT = ROWS / RG;              // stored rows per thread
+  __shared__ float qs[DH];
+  __shared__ float partial[RG][SPAN];
+  __shared__ float ps[SPAN];
+  __shared__ float red[32];
+  const int g = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
+  const int c = tid % SPLIT_CHUNKS, rg = tid / SPLIT_CHUNKS;
+  const typename St::T* kg = k_t + (size_t)g * ROWS * S_pad;
+  const typename St::T* vg = v_t + (size_t)g * ROWS * S_pad;
+  const int nchunks = (s_valid + VEC - 1) / VEC;
+  const int s0 = (split * SPLIT_CHUNKS + c) * VEC;  // this thread's chunk
+  const bool active = split * SPLIT_CHUNKS + c < nchunks;
+
+  if (tid < DH) qs[tid] = owc_to_float(q[(size_t)g * DH + tid]);
+  __syncthreads();
+
+  {
+    float acc[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = rg * RPT + i;
+        float kv[DIMS][VEC];
+        St::load(kg + (size_t)r * S_pad + s0, kv);
+#pragma unroll
+        for (int d = 0; d < DIMS; ++d) {
+          const float qd = qs[r + d * ROWS];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[v] = fmaf(qd, kv[d][v], acc[v]);
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) partial[rg][c * VEC + v] = acc[v];
+  }
+  __syncthreads();
+
+  const int s = split * SPAN + tid;  // the position thread tid < SPAN owns
+  const bool valid = tid < SPAN && s < s_valid;
+  float x = -INFINITY;
+  if (valid) {
+    float sum = 0.0f;
+#pragma unroll 8
+    for (int r = 0; r < RG; ++r) sum += partial[r][tid];
+    x = SCALED ? sum * k_scale[(size_t)g * S_pad + s] : sum;
+  }
+  // the first chunk of every block lies below s_valid, so m is finite
+  const float m = owc_block_max(x, red);
+  const float p = valid ? expf(x - m) : 0.0f;
+  const float l = owc_block_sum(p, red);
+  // the v scale folds in after l; padding scales may hold anything
+  if (tid < SPAN)
+    ps[tid] = SCALED ? (valid ? p * v_scale[(size_t)g * S_pad + s] : 0.0f) : p;
+  __syncthreads();
+
+  float* rec = part + ((size_t)g * gridDim.y + split) * PART;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = rg * RPT + i;
+    float acc[DIMS];
+#pragma unroll
+    for (int d = 0; d < DIMS; ++d) acc[d] = 0.0f;
+    if (active) {
+      float vv[DIMS][VEC];
+      St::load(vg + (size_t)r * S_pad + s0, vv);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        if (s0 + v < s_valid) {  // padding may hold anything
+          const float pv = ps[c * VEC + v];
+#pragma unroll
+          for (int d = 0; d < DIMS; ++d) acc[d] = fmaf(pv, vv[d][v], acc[d]);
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DIMS; ++d) {
+      float tot = acc[d];  // over the row's 8 chunk lanes, neighbours in a warp
+#pragma unroll
+      for (int o = SPLIT_CHUNKS / 2; o > 0; o >>= 1)
+        tot += __shfl_xor_sync(0xffffffffu, tot, o);
+      if (c == 0) rec[r + d * ROWS] = tot;
+    }
+  }
+  if (tid == 0) {
+    rec[DH] = m;
+    rec[DH + 1] = l;
+  }
+}
+
+// out[g, d] = sum_i part[g, i, d] * exp(m_i - M) / sum_i l_i * exp(m_i - M),
+// M the largest m_i; 64 threads, one per head dim.
+__global__ void __launch_bounds__(DH)
+cross_attn_combine_kernel(const float* __restrict__ part, BF* __restrict__ out,
+                          int nsplit) {
+  const int g = blockIdx.x, d = threadIdx.x;
+  const float* rec = part + (size_t)g * nsplit * PART;
+  float big = -INFINITY;
+  for (int i = 0; i < nsplit; ++i) big = fmaxf(big, rec[i * PART + DH]);
+  float l = 0.0f, acc = 0.0f;
+  for (int i = 0; i < nsplit; ++i) {
+    const float w = expf(rec[i * PART + DH] - big);
+    l = fmaf(rec[i * PART + DH + 1], w, l);
+    acc = fmaf(rec[i * PART + d], w, acc);
+  }
+  owc_store(out + (size_t)g * DH + d, acc / l);
+}
+
+template <int KIND>
+int launch_split(const void* q, const void* k_t, const void* v_t,
+                 const void* k_scale, const void* v_scale, void* part, void* out,
+                 int BH, int nsplit, int S_pad, int s_valid, cudaStream_t st) {
+  using T = typename Store<KIND>::T;
+  const int nchunks = (s_valid + Store<KIND>::VEC - 1) / Store<KIND>::VEC;
+  if (nsplit != (nchunks + SPLIT_CHUNKS - 1) / SPLIT_CHUNKS || nsplit > 65535)
+    return (int)cudaErrorInvalidValue;
+  cross_attn_split_kernel<KIND><<<dim3(BH, nsplit), THREADS, 0, st>>>(
+      static_cast<const BF*>(q), static_cast<const T*>(k_t),
+      static_cast<const T*>(v_t), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<float*>(part), S_pad,
+      s_valid);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  cross_attn_combine_kernel<<<BH, DH, 0, st>>>(static_cast<const float*>(part),
+                                               static_cast<BF*>(out), nsplit);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q and out: KQ slots of 64 bf16 for each of BH rows, row g at element
@@ -298,6 +470,32 @@ extern "C" int owc_cross_attention_grouped(const void* q, const void* k_t,
     case KV_INT4:
       return launch_kind<KV_INT4>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
                                   row_stride, S_pad, s_valid, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One query per row: q and out (BH, 64) bf16; k_t/v_t, the scales and kind
+// as above. part: scratch of BH * nsplit * 66 floats, nsplit =
+// ceil(ceil(s_valid / VEC) / 8) with VEC the kind's positions per 16-byte
+// chunk (8 for bf16, 16 for int8/int4). Requires 1 <= s_valid <= S_pad,
+// S_pad a multiple of VEC, 16-byte aligned k_t/v_t.
+extern "C" int owc_cross_attention(const void* q, const void* k_t,
+                                   const void* v_t, const void* k_scale,
+                                   const void* v_scale, void* part, void* out,
+                                   int BH, int nsplit, int S_pad, int s_valid,
+                                   int kind, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case KV_BF16:
+      return launch_split<KV_BF16>(q, k_t, v_t, k_scale, v_scale, part, out, BH,
+                                   nsplit, S_pad, s_valid, st);
+    case KV_INT8:
+      return launch_split<KV_INT8>(q, k_t, v_t, k_scale, v_scale, part, out, BH,
+                                   nsplit, S_pad, s_valid, st);
+    case KV_INT4:
+      return launch_split<KV_INT4>(q, k_t, v_t, k_scale, v_scale, part, out, BH,
+                                   nsplit, S_pad, s_valid, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,10 +1,13 @@
 // Fused KV-cache row write + one-query decode self-attention, over an fp
-// cache and over an int8 cache with per-position scales.
+// cache and over an int8 cache with per-position scales; and the same
+// attention without the write, over a cache whose row pos the caller wrote.
 //
 // Replaces: openai_whisper_compression_tpu/ops/self_attention_step.py
 //           decode_self_attention_update (kernel bodies _kernel_upd and
-//           _kernel_upd_nostart) and decode_self_attention_update_int8
-//           (_kernel_upd_i8 and _kernel_upd_i8_nostart).
+//           _kernel_upd_nostart), decode_self_attention_update_int8
+//           (_kernel_upd_i8 and _kernel_upd_i8_nostart) and
+//           decode_self_attention (_kernel, _kernel_nostart, _kernel_int8,
+//           _kernel_int8_nostart: the WRITE = false instances below).
 // fp cache, for each (batch, head) row g of BH, with lo = start[g] (the
 // first valid cache position of a left-padded prompt), or 0 where start is
 // null:
@@ -37,7 +40,10 @@
 // path). Each warp scores a strided set of positions (lanes split the 64
 // dims, warp reduction), block reductions give the softmax, and 64 threads
 // sum the value rows (neighbouring threads read neighbouring dims:
-// coalesced).
+// coalesced). The read-only attention is the same kernel compiled without
+// the write (WRITE = false), so that on the cache an update wrote it repeats
+// that update's arithmetic operation for operation and returns its output
+// bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -45,6 +51,7 @@ namespace {
 constexpr int DH = 64, THREADS = 128;
 using T = __nv_bfloat16;
 
+template <bool WRITE>
 __global__ void __launch_bounds__(THREADS)
 self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, T* k_cache, T* v_cache,
@@ -59,8 +66,10 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   T* vg = v_cache + (size_t)g * S * DH;
 
   if (tid < DH) {
-    kg[(size_t)pos * DH + tid] = k_new[(size_t)g * DH + tid];
-    vg[(size_t)pos * DH + tid] = v_new[(size_t)g * DH + tid];
+    if (WRITE) {
+      kg[(size_t)pos * DH + tid] = k_new[(size_t)g * DH + tid];
+      vg[(size_t)pos * DH + tid] = v_new[(size_t)g * DH + tid];
+    }
     qs[tid] = owc_to_float(q[(size_t)g * DH + tid]);
   }
   __syncthreads();  // the row write lands before the block reads the cache
@@ -94,6 +103,7 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   }
 }
 
+template <bool WRITE>
 __global__ void __launch_bounds__(THREADS)
 self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                              const T* __restrict__ v_new, int8_t* k_cache,
@@ -111,7 +121,7 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
   float* ksg = k_scale + (size_t)g * S;
   float* vsg = v_scale + (size_t)g * S;
 
-  if (warp < 2) {  // warp 0 quantizes and writes the k row, warp 1 the v row
+  if (WRITE && warp < 2) {  // warp 0 quantizes and writes the k row, warp 1 the v row
     const T* src = (warp == 0 ? k_new : v_new) + (size_t)g * DH;
     const float a = owc_to_float(src[lane]), b = owc_to_float(src[lane + 32]);
     const float absmax = owc_warp_max(fmaxf(fabsf(a), fabsf(b)));
@@ -164,9 +174,23 @@ extern "C" int owc_self_attention_update(const void* q, const void* k_new,
                                          const void* start, int BH, int S,
                                          int pos, void* stream) {
   const size_t smem = (size_t)(pos + 1) * sizeof(float);
-  self_attn_update_kernel<<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  self_attn_update_kernel<true><<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<T*>(k_cache),
+      static_cast<T*>(v_cache), static_cast<T*>(out),
+      static_cast<const int*>(start), S, pos);
+  return (int)cudaGetLastError();
+}
+
+// The same attention over caches whose row pos is already written; nothing
+// is written but out. q (BH, 64), k_cache/v_cache (BH, S, 64), out (BH, 64),
+// all bf16; start as above. Requires 0 <= start[g] <= pos < S <= 12288.
+extern "C" int owc_self_attention(const void* q, void* k_cache, void* v_cache,
+                                  void* out, const void* start, int BH, int S,
+                                  int pos, void* stream) {
+  const size_t smem = (size_t)(pos + 1) * sizeof(float);
+  self_attn_update_kernel<false><<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), nullptr, nullptr, static_cast<T*>(k_cache),
       static_cast<T*>(v_cache), static_cast<T*>(out),
       static_cast<const int*>(start), S, pos);
   return (int)cudaGetLastError();
@@ -183,10 +207,29 @@ extern "C" int owc_self_attention_update_int8(const void* q, const void* k_new,
                                               const void* start, int BH, int S,
                                               int pos, void* stream) {
   const size_t smem = (size_t)(pos + 1) * sizeof(float);
-  self_attn_update_int8_kernel<<<BH, THREADS, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  self_attn_update_int8_kernel<true><<<BH, THREADS, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<int8_t*>(k_cache),
+      static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale),
+      static_cast<float*>(v_scale), static_cast<T*>(out),
+      static_cast<const int*>(start), S, pos);
+  return (int)cudaGetLastError();
+}
+
+// The same attention over an int8 cache whose row pos (codes and scales) is
+// already written; nothing is written but out. q (BH, 64) bf16,
+// k_cache/v_cache (BH, S, 64) int8, k_scale/v_scale (BH, S) f32, out
+// (BH, 64) bf16; start as above. Requires 0 <= start[g] <= pos < S <= 12288.
+extern "C" int owc_self_attention_int8(const void* q, void* k_cache,
+                                       void* v_cache, void* k_scale,
+                                       void* v_scale, void* out,
+                                       const void* start, int BH, int S,
+                                       int pos, void* stream) {
+  const size_t smem = (size_t)(pos + 1) * sizeof(float);
+  self_attn_update_int8_kernel<false><<<BH, THREADS, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), nullptr, nullptr, static_cast<int8_t*>(k_cache),
       static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale),
       static_cast<float*>(v_scale), static_cast<T*>(out),
       static_cast<const int*>(start), S, pos);

@@ -10,7 +10,7 @@ from typing import Any
 import torch
 
 from ..config import WhisperArch
-from ..quant.core import quantize_absmax
+from ..ops.qtensor import quantize_absmax
 from .whisper import _num_heads
 
 Params = dict[str, Any]

@@ -31,9 +31,9 @@ from ..ops.self_attention_step import (decode_self_attention_update,
                                        decode_self_attention_update_int8)
 from . import cache as kv_cache
 from .whisper import (NEG_INF, _num_heads, attention, cross_attention,
-                      embed_tokens, encode, grouped_cross_attention, layer_norm,
-                      merge_heads, mlp, precompute_cross_kv_t, project_out,
-                      qkv_project)
+                      cross_window_attention, embed_tokens, encode,
+                      grouped_cross_attention, layer_norm, merge_heads, mlp,
+                      precompute_cross_kv_t, project_out, qkv_project)
 
 Params = dict[str, Any]
 
@@ -162,8 +162,9 @@ def prefill(params: Params, arch: WhisperArch, tokens: torch.Tensor,
         kv_cache.update(cache[i], k, v, 0)
         x = x + linear(merge_heads(attention(q, k, v, mask)), p["o"]["w"],
                        p["o"]["b"])
-        x = x + cross_attention(layer["cross"], layer_norm(x, layer["cross_ln"]),
-                                cross_kvs[i], arch.head_dim)
+        x = x + cross_window_attention(
+            layer["cross"], layer_norm(x, layer["cross_ln"]), cross_kvs[i],
+            arch.head_dim)
         x = x + mlp(layer, layer_norm(x, layer["mlp_ln"]))
 
 

@@ -1,11 +1,12 @@
 """Decode-time fusion of the decoder self-attention q/k/v projections into
 one (d, 3·H·Dh) matmul, as the JAX package's `models/fuse.py`: dense
-weights concatenate along the output axis, and so do QTensors of one
-weight-only kind (every stored array keeps N as its last axis: data,
-scales, zeros and the double-quant scale2/offset2). Layers whose q/k/v
-cannot fuse (mixed dense and quantized, or mixed kinds) stay unfused; every
-kind the port carries fuses (the JAX package's FUSABLE_KINDS less fp8).
-Apply after quantization."""
+weights concatenate along the output axis, and so do QTensors of one kind
+(every stored array keeps N as its last axis: data, scales, zeros and the
+double-quant scale2/offset2). Layers whose q/k/v cannot fuse (mixed dense
+and quantized, or mixed kinds) stay unfused; every kind fuses, fp8 included
+(the JAX package's FUSABLE_KINDS holds them all). The fused QTensor keeps
+the first tensor's activation mode and `act_scale`, as JAX's does, so
+calibrate after fusing. Apply after quantization."""
 
 from __future__ import annotations
 

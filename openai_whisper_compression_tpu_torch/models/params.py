@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..config import WhisperArch
-from ..ops.qtensor import KINDS, QTensor
+from ..ops.qtensor import QTensor
 
 Params = dict[str, Any]
 
@@ -94,29 +94,34 @@ def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch twin in numpy
         return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":  # nor has fp8: its bytes carry over
+        return torch.from_numpy(np.array(a).view(np.uint8)).to(device).view(
+            torch.float8_e4m3fn)
     return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
 
 def from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
     """Port tree from the JAX parameter tree with numpy leaves. QTensor
     leaves arrive as objects with the JAX QTensor's fields (after
-    `jax.tree.map(np.asarray, ...)`); every field of the weight-only kinds
-    carries over, and activation-quantized leaves are refused."""
+    `jax.tree.map(np.asarray, ...)`); every field carries over, the
+    activation mode `act` and its frozen `act_scale` included. numpy has no
+    fp8 type: the data of an "fp8" leaf may arrive as ml_dtypes'
+    float8_e4m3fn or as its bytes (`np.asarray(x).view(np.uint8)`), which
+    are viewed as `torch.float8_e4m3fn`."""
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [from_numpy(v, device) for v in tree]
     if hasattr(tree, "kind") and hasattr(tree, "scale"):
-        if getattr(tree, "act", None) is not None or tree.kind not in KINDS:
-            raise NotImplementedError(
-                f"QTensor kind {tree.kind!r} with activations {tree.act}: "
-                "activation quantization and fp8 weights come with the w8a8 "
-                "kernel, a later slice of the port")
         fields = {f: _tensor(getattr(tree, f), device)
-                  for f in ("data", "scale", "zero", "scale2", "offset2")
+                  for f in ("data", "scale", "zero", "scale2", "offset2",
+                            "act_scale")
                   if getattr(tree, f, None) is not None}
+        if tree.kind == "fp8" and fields["data"].dtype == torch.uint8:
+            fields["data"] = fields["data"].view(torch.float8_e4m3fn)
         return QTensor(**fields, kind=tree.kind, bits=int(tree.bits),
-                       shape=tuple(tree.shape), block_size=int(tree.block_size))
+                       shape=tuple(tree.shape), block_size=int(tree.block_size),
+                       act=getattr(tree, "act", None))
     return _tensor(tree, device)
 
 
@@ -145,7 +150,7 @@ def tree_cast(params: Any, dtype: torch.dtype) -> Any:
 
 def size_in_mb(params: Any) -> float:
     """Stored size in MiB (quantized leaves count their packed bytes and
-    every scale, zero and offset array)."""
+    every scale, zero, offset and activation-scale array)."""
     total = sum(leaf.nbytes() if isinstance(leaf, QTensor)
                 else leaf.numel() * leaf.element_size()
                 for _, leaf in named_leaves(params))

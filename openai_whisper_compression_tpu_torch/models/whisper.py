@@ -26,11 +26,11 @@ import torch.nn.functional as F
 
 from ..config import WhisperArch
 from ..ops.attention import encoder_attention, matmul_f32
-from ..ops.cross_attention import (decode_cross_attention_grouped,
+from ..ops.cross_attention import (UNGROUPED_MODULUS, decode_cross_attention,
+                                   decode_cross_attention_grouped,
                                    transpose_kv, transpose_quant_kv, unpack4)
 from ..ops.linear import linear
-from ..ops.qtensor import QTensor
-from ..quant.core import quantize_absmax
+from ..ops.qtensor import QTensor, quantize_absmax
 from .fuse import qkv_split
 
 Params = dict[str, Any]
@@ -215,17 +215,24 @@ def precompute_cross_kv_t(params: Params, arch: WhisperArch,
 
 
 def _cross_t(p: Params, x: torch.Tensor, kv: CrossKV, head_dim: int,
-             rows: int, slots: int) -> torch.Tensor:
+             rows: int, slots: int, step: bool = False) -> torch.Tensor:
     """Cross-attention of x, `rows * slots` query vectors in (row, slot)
     order along its first two axes, over the transposed K/V of `rows` batch
     entries: the `slots` queries of a (row, head) pair share its K/V entry
-    and ride the grouped kernel's query slots. Returns x's shape."""
+    and ride the grouped kernel's query slots. step: a decode step without
+    beams (one slot), which takes the one-query function where B·H is no
+    multiple of 16, the JAX package's rule (`cross_t_apply`); few rows then,
+    and that kernel spreads each over several blocks. Returns x's shape."""
     h = _num_heads(p, head_dim)
     q = linear(x, p["q"]["w"], p["q"]["b"])                 # (.., H*Dh)
     qg = (q.reshape(rows, slots, h, head_dim).transpose(1, 2)
           .reshape(rows * h, slots, head_dim) * (head_dim ** -0.5)).to(q.dtype)
-    o = decode_cross_attention_grouped(qg.contiguous(), kv.k_t, kv.v_t,
-                                       kv.k_scale, kv.v_scale, kv.valid_len)
+    if step and kv.k_t.shape[0] % UNGROUPED_MODULUS != 0:
+        o = decode_cross_attention(qg[:, 0, :].contiguous(), kv.k_t, kv.v_t,
+                                   kv.k_scale, kv.v_scale, kv.valid_len)
+    else:
+        o = decode_cross_attention_grouped(qg.contiguous(), kv.k_t, kv.v_t,
+                                           kv.k_scale, kv.v_scale, kv.valid_len)
     o = o.reshape(rows, h, slots, head_dim).transpose(1, 2).reshape(
         *x.shape[:-1], h * head_dim)
     return linear(o.to(x.dtype), p["o"]["w"], p["o"]["b"])
@@ -233,10 +240,21 @@ def _cross_t(p: Params, x: torch.Tensor, kv: CrossKV, head_dim: int,
 
 def cross_attention(p: Params, x: torch.Tensor, kv: CrossKV,
                     head_dim: int) -> torch.Tensor:
-    """Cross-attention of x (B, P, d) over transposed K/V: P = 1 in a decode
-    step, the prompt and prefix window in prefill (the JAX package's
-    `cross_attention` and `decode._cross_window_t`): the P positions of a
-    batch row are the slots."""
+    """Decode-step cross-attention of x (B, 1, d) over transposed K/V (the
+    JAX package's `cross_attention` with a CrossKV): the grouped kernel at
+    one slot, or the one-query kernel where B·H % 16 != 0."""
+    if x.shape[1] != 1:
+        raise ValueError("cross_attention takes one decode position (B, 1, d); "
+                         f"got {tuple(x.shape)}: a window goes to "
+                         "cross_window_attention")
+    return _cross_t(p, x, kv, head_dim, x.shape[0], 1, step=True)
+
+
+def cross_window_attention(p: Params, x: torch.Tensor, kv: CrossKV,
+                           head_dim: int) -> torch.Tensor:
+    """Cross-attention of the (B, P, d) prompt and prefix window in prefill
+    (the JAX package's `decode._cross_window_t`): the P positions of a batch
+    row are the grouped kernel's slots, at every B·H."""
     return _cross_t(p, x, kv, head_dim, x.shape[0], x.shape[1])
 
 

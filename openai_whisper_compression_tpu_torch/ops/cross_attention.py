@@ -1,17 +1,19 @@
-"""Grouped decode cross-attention over transposed K/V
-(`csrc/cross_attention.cu`) and the fused cross-KV transpose + int8 quantize
-(`csrc/transpose_quant.cu`), each with its plain version: the port of the
-JAX package's `ops/cross_attention.py::decode_cross_attention_grouped` (its
-bf16, int8 and int4 K/V bodies) and `transpose_quant_kv`.
+"""Decode cross-attention over transposed K/V (`csrc/cross_attention.cu`),
+grouped and one query per row, and the fused cross-KV transpose + int8
+quantize (`csrc/transpose_quant.cu`), each with its plain version: the port
+of the JAX package's `ops/cross_attention.py::decode_cross_attention_grouped`
+and `decode_cross_attention` (the bf16, int8 and int4 K/V bodies of each)
+and `transpose_quant_kv`.
 
 K query slots per (batch, head) row share one K/V entry: K = 1 in a greedy
 decode step, the beam width in a beam-search step, the window of prompt and
 prefix positions in prefill. The kernel holds up to `MAX_SLOTS` slots, so a
 longer window runs as several launches, each over its own slots and each
-reading the K/V again (the JAX kernel takes any K in one call). The kernel
-takes any B·H, so the JAX package's ungrouped fallback for B·H % 16 != 0
-has no counterpart here. K/V storage follows the
-JAX layout: (B·H, Dh, S_pad) bf16; int8 with (B·H, 1, S_pad) f32
+reading the K/V again (the JAX kernel takes any K in one call).
+`decode_cross_attention` is the one-query function that the JAX package's
+decode step takes where B·H is no multiple of 16 (`UNGROUPED_MODULUS`): few
+rows, so its kernel splits S over several blocks of a row. K/V storage
+follows the JAX layout: (B·H, Dh, S_pad) bf16; int8 with (B·H, 1, S_pad) f32
 per-position scales; or split-half packed int4 (B·H, Dh/2, S_pad) with the
 same scales, told apart from int8 by its Dh/2 rows, as the JAX package does.
 """
@@ -21,12 +23,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..quant.core import quantize_absmax
 from . import kernels
+from .qtensor import quantize_absmax
 
 NEG_INF = -1e30
 HEAD_DIM = 64   # every Whisper size; the kernels are written for it
 MAX_SLOTS = 8   # query slots per (batch, head) row one launch holds
+UNGROUPED_MODULUS = 16  # a decode step with B*H % 16 != 0 takes the one-query kernel
+SPLIT_CHUNKS = 8   # 16-byte chunks of positions per block of the one-query kernel
 NARROW_SLOTS = 4  # up to here the kernel's 1- and 4-slot bodies, above its 8-slot body
 # K/V storage kind -> (code of csrc/cross_attention.cu, positions per
 # 16-byte load, launch counter on decode_cross_attention_grouped)
@@ -123,29 +127,16 @@ def decode_cross_attention_grouped_ref(q: torch.Tensor, k_t: torch.Tensor,
     return torch.einsum("gks,gds->gkd", p / l, v).to(q.dtype)
 
 
-def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
-                                   v_t: torch.Tensor,
-                                   k_scale: torch.Tensor | None = None,
-                                   v_scale: torch.Tensor | None = None,
-                                   s_valid: int | None = None) -> torch.Tensor:
-    """q (BH, K, Dh) pre-scaled by Dh**-0.5; k_t/v_t (BH, Dh, S_pad) bf16,
-    or int8 (Dh rows) or packed int4 (Dh/2 rows) with k_scale/v_scale
-    (BH, 1, S_pad) f32; positions >= s_valid are padding (zero probability).
-    Returns (BH, K, Dh) in q's dtype. A CUDA tensor launches the kernel,
-    once for every `MAX_SLOTS` slots of K (bf16 q; each storage kind counts
-    its launches in its own attribute: `launches` for bf16, `launches_int8`,
-    `launches_int4`, and a launch of more than `NARROW_SLOTS` slots, which
-    runs the kernel's 8-slot body, in that attribute + `_wide`); a CPU
-    tensor takes the plain version."""
-    if not q.is_cuda:
-        return decode_cross_attention_grouped_ref(q, k_t, v_t, k_scale,
-                                                  v_scale, s_valid)
-    name = "decode_cross_attention_grouped"
-    bh, kq, dh = q.shape
+def _check_kv(name: str, q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
+              k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
+              s_valid: int | None) -> tuple[str, int, int]:
+    """The checks of what both cross-attention kernels take: bf16 q of head
+    dim 64 whose first axis is B·H, K/V of one storage kind with its scales,
+    contiguous, aligned and on one device. Returns (kind, S_pad, s_valid)."""
+    bh, dh = q.shape[0], q.shape[-1]
     rows, s_pad = k_t.shape[1], k_t.shape[2]
     s_valid = s_pad if s_valid is None else s_valid
     kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
-    kernels.require(kq >= 1, name, f"at least one query slot per row, got {kq}")
     kernels.require_bf16(name, q)
     tensors = [q, k_t, v_t]
     if k_scale is None and v_scale is None:
@@ -166,7 +157,7 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
                         f"scales must be ({bh}, 1, {s_pad}), got "
                         f"{tuple(k_scale.shape)} and {tuple(v_scale.shape)}")
         tensors += [k_scale, v_scale]
-    code, vec, counter = _KINDS[kind]
+    vec = _KINDS[kind][1]
     kernels.require(k_t.shape == (bh, rows, s_pad) and v_t.shape == k_t.shape,
                     name, f"k_t/v_t must be ({bh}, {rows}, S_pad), got "
                     f"{tuple(k_t.shape)} and {tuple(v_t.shape)}")
@@ -179,6 +170,31 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
                     "inputs must be contiguous")
     kernels.require(k_t.data_ptr() % 16 == 0 and v_t.data_ptr() % 16 == 0,
                     name, "k_t/v_t must be 16-byte aligned")
+    return kind, s_pad, s_valid
+
+
+def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
+                                   v_t: torch.Tensor,
+                                   k_scale: torch.Tensor | None = None,
+                                   v_scale: torch.Tensor | None = None,
+                                   s_valid: int | None = None) -> torch.Tensor:
+    """q (BH, K, Dh) pre-scaled by Dh**-0.5; k_t/v_t (BH, Dh, S_pad) bf16,
+    or int8 (Dh rows) or packed int4 (Dh/2 rows) with k_scale/v_scale
+    (BH, 1, S_pad) f32; positions >= s_valid are padding (zero probability).
+    Returns (BH, K, Dh) in q's dtype. A CUDA tensor launches the kernel,
+    once for every `MAX_SLOTS` slots of K (bf16 q; each storage kind counts
+    its launches in its own attribute: `launches` for bf16, `launches_int8`,
+    `launches_int4`, and a launch of more than `NARROW_SLOTS` slots, which
+    runs the kernel's 8-slot body, in that attribute + `_wide`); a CPU
+    tensor takes the plain version."""
+    if not q.is_cuda:
+        return decode_cross_attention_grouped_ref(q, k_t, v_t, k_scale,
+                                                  v_scale, s_valid)
+    name = "decode_cross_attention_grouped"
+    bh, kq, dh = q.shape
+    kernels.require(kq >= 1, name, f"at least one query slot per row, got {kq}")
+    kind, s_pad, s_valid = _check_kv(name, q, k_t, v_t, k_scale, v_scale, s_valid)
+    code, _, counter = _KINDS[kind]
     kernels.require((MAX_SLOTS * dh + min(kq, MAX_SLOTS) * s_pad) * 4
                     <= 227 * 1024, name, "scores do not fit in shared memory")
     out = torch.empty_like(q)
@@ -204,3 +220,58 @@ decode_cross_attention_grouped.launches_int4 = 0   # split-half int4 K/V
 decode_cross_attention_grouped.launches_wide = 0        # bf16 K/V, 5..8 slots
 decode_cross_attention_grouped.launches_int8_wide = 0   # int8 K/V
 decode_cross_attention_grouped.launches_int4_wide = 0   # split-half int4 K/V
+
+
+def decode_cross_attention_ref(q: torch.Tensor, k_t: torch.Tensor,
+                               v_t: torch.Tensor,
+                               k_scale: torch.Tensor | None = None,
+                               v_scale: torch.Tensor | None = None,
+                               s_valid: int | None = None) -> torch.Tensor:
+    """Plain version of `decode_cross_attention`: the grouped plain version
+    at one query slot."""
+    return decode_cross_attention_grouped_ref(q[:, None, :], k_t, v_t, k_scale,
+                                              v_scale, s_valid)[:, 0, :]
+
+
+def decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
+                           v_t: torch.Tensor,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None,
+                           s_valid: int | None = None) -> torch.Tensor:
+    """q (BH, Dh) pre-scaled by Dh**-0.5, one query per (batch, head) row;
+    k_t/v_t, the scales and s_valid as `decode_cross_attention_grouped`
+    takes them. Returns (BH, Dh) in q's dtype. A CUDA tensor launches the
+    kernel, which splits S over `SPLIT_CHUNKS`-chunk blocks of each row and
+    combines their partial softmaxes (bf16 q; each storage kind counts its
+    launches in its own attribute: `launches` for bf16, `launches_int8`,
+    `launches_int4`); a CPU tensor takes the plain version."""
+    if not q.is_cuda:
+        return decode_cross_attention_ref(q, k_t, v_t, k_scale, v_scale, s_valid)
+    name = "decode_cross_attention"
+    kernels.require(q.dim() == 2, name, f"q must be (BH, Dh), got {tuple(q.shape)}")
+    kind, s_pad, s_valid = _check_kv(name, q, k_t, v_t, k_scale, v_scale, s_valid)
+    code, vec, counter = _KINDS[kind]
+    bh = q.shape[0]
+    chunks = -(-s_valid // vec)            # 16-byte chunks below s_valid
+    nsplit = -(-chunks // SPLIT_CHUNKS)    # blocks per row
+    kernels.require(1 <= bh and nsplit <= 65535, name,
+                    f"B*H {bh} must be positive and s_valid {s_valid} at most "
+                    f"{65535 * SPLIT_CHUNKS * vec}")
+    part = torch.empty((bh, nsplit, HEAD_DIM + 2), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty_like(q)
+    err = kernels.lib().owc_cross_attention(
+        q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+        k_scale.data_ptr() if kind != "bf16" else None,
+        v_scale.data_ptr() if kind != "bf16" else None,
+        part.data_ptr(), out.data_ptr(), bh, nsplit, s_pad, s_valid, code,
+        kernels.stream_of(q))
+    kernels.check(name, err)
+    setattr(decode_cross_attention, counter,
+            getattr(decode_cross_attention, counter) + 1)
+    return out
+
+
+decode_cross_attention.launches = 0        # bf16 K/V
+decode_cross_attention.launches_int8 = 0   # int8 K/V
+decode_cross_attention.launches_int4 = 0   # split-half int4 K/V

@@ -49,13 +49,17 @@ _SIGNATURES = {
     "owc_nf4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "owc_group_asym_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _P],
+    "owc_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "owc_mel_log10": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "owc_cross_attention_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _P],
+    "owc_cross_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "owc_transpose_quant_kv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "owc_self_attention_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "owc_self_attention_update_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _P],
+    "owc_self_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "owc_self_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # the 12 strides are a host array of long long
     "owc_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _F,
                               ctypes.POINTER(ctypes.c_longlong), _P],

@@ -15,8 +15,13 @@ The weight-only kinds of the JAX package's `ops/qtensor.py`, logical shape
   data (K, N) uint8 for bits 8, split-half packed nibbles (K/2, N) int8 for
   bits <= 4 (3-bit values sit in a nibble).
 
-"fp8" weights and activation quantization are a later slice (the w8a8
-kernel) and are refused.
+- "fp8": float8_e4m3fn weights (K, N) with a per-channel scale (1, N) f32
+  into the e4m3 range (largest normal 448).
+
+`act` is the activation mode of a quantized linear: None (weight-only),
+"dynamic_int8" (per-row absmax at run time), "static_int8" or "static_fp8"
+(the frozen scalar `act_scale` of a calibration pass; without one they
+scale per row at run time).
 """
 
 from __future__ import annotations
@@ -49,8 +54,10 @@ FP4_CODE = np.array(
 )
 
 CODEBOOKS = {"nf4": NF4_CODE, "fp4": FP4_CODE}
-KINDS = ("int8_pc", "int4_pack", "int2_pack", "nf4", "fp4", "group_asym")
-_TENSOR_FIELDS = ("data", "scale", "zero", "scale2", "offset2")
+KINDS = ("int8_pc", "int4_pack", "int2_pack", "nf4", "fp4", "group_asym", "fp8")
+ACT_MODES = (None, "dynamic_int8", "static_int8", "static_fp8")
+FP8_MAX = 448.0   # largest normal of float8_e4m3fn
+_TENSOR_FIELDS = ("data", "scale", "zero", "scale2", "offset2", "act_scale")
 
 
 @dataclasses.dataclass
@@ -60,16 +67,19 @@ class QTensor:
     zero: torch.Tensor | None = None
     scale2: torch.Tensor | None = None   # double-quant second-level scale
     offset2: torch.Tensor | None = None  # double-quant second-level offset
+    act_scale: torch.Tensor | None = None  # static activation scale, 0-dim f32
     kind: str = "int8_pc"
     bits: int = 8
     shape: tuple = ()
     block_size: int = 64
+    act: str | None = None   # activation mode, one of ACT_MODES
 
     def __post_init__(self):
         if self.kind not in KINDS:
-            raise NotImplementedError(
-                f"QTensor kind {self.kind!r}: the port carries {KINDS} "
-                "(fp8 weights come with the w8a8 kernel slice)")
+            raise ValueError(f"unknown QTensor kind {self.kind!r}; have {KINDS}")
+        if self.act not in ACT_MODES:
+            raise ValueError(f"unknown activation mode {self.act!r}; have "
+                             f"{ACT_MODES}")
 
     @property
     def in_dim(self) -> int:
@@ -92,7 +102,7 @@ def dequantize(q: QTensor, dtype=torch.float32) -> torch.Tensor:
     """Dense (K, N) weight in `dtype`, computed in `dtype` as the JAX
     package's reference (non-kernel) dequantization."""
     k, n = q.shape
-    if q.kind == "int8_pc":
+    if q.kind in ("int8_pc", "fp8"):
         return q.data.to(dtype) * q.scale.to(dtype)
     if q.kind in ("int4_pack", "int2_pack"):
         return unpack_int_sub8(q.data, q.bits, k).to(dtype) * q.scale.to(dtype)
@@ -161,3 +171,29 @@ def unpack_int_sub8(packed: torch.Tensor, bits: int, k: int,
             vals = torch.where(vals >= sign_bit, vals - (1 << bits), vals)
         parts.append(vals)
     return torch.cat(parts, dim=0)
+
+
+def inv_f32(c: float) -> torch.Tensor:
+    """f32(1 / c) as a 0-dim CPU tensor: it multiplies a CUDA tensor as an
+    f32 scalar, with no copy to the card (which would wait for the
+    stream). Under `jax.jit` XLA compiles a division by a constant into this
+    multiply, so the port multiplies wherever the JAX code divides by a
+    constant."""
+    return torch.tensor(1.0 / c, dtype=torch.float32)
+
+
+def absmax_scale(x: torch.Tensor, dim: int, qmax: float) -> torch.Tensor:
+    """max(absmax along `dim`, 1e-12) * f32(1 / qmax), f32 with `dim` kept
+    as size 1: the scale that maps x into [-qmax, qmax]."""
+    absmax = x.to(torch.float32).abs().amax(dim=dim, keepdim=True)
+    return torch.clamp(absmax, min=1e-12) * inv_f32(qmax)
+
+
+def quantize_absmax(x: torch.Tensor, dim: int,
+                    qmax: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax quantization along `dim` (the KV caches' scheme and
+    the dynamic int8 activations'): scale = `absmax_scale`, q = clip(round(x
+    / scale), -qmax, qmax). Returns (q int8, scale f32)."""
+    scale = absmax_scale(x, dim, qmax)
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale), -qmax, qmax)
+    return q.to(torch.int8), scale

@@ -1,4 +1,6 @@
-"""Weight-only dequant-matmuls: `csrc/quant_matmul.cu` and plain versions.
+"""Quantized-weight matmuls: the weight-only dequant-matmuls
+(`csrc/quant_matmul.cu`), the activation-quantized w8a8 matmul
+(`csrc/w8a8_matmul.cu`), and their plain versions.
 
 Each computes out (M, N) = bf16(x) @ W with f32 accumulation, output in x's
 dtype, the semantics of the JAX package's `ops/quant_matmul.py` kernels:
@@ -13,9 +15,13 @@ dtype, the semantics of the JAX package's `ops/quant_matmul.py` kernels:
   bf16((v − zero) · scale) in f32, v split-half nibbles (K/2, N) or uint8
   (K, N).
 
+`w8a8_matmul` (`w8a8_matmul_pallas`) quantizes x to int8 first, per row at
+run time or by one frozen scalar, multiplies int8 by int8 into exact int32
+sums and scales the result: out = f32(xq @ W) * sx * scale, in x's dtype.
+
 A CUDA tensor launches the kernel (and counts the launch on the wrapper);
 a CPU tensor takes the plain version, which multiplies the same bf16-rounded
-operands in f32.
+operands in f32 (the same int8 codes exactly, for `w8a8_matmul`).
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ import ctypes
 import torch
 
 from . import kernels
-from .qtensor import CODEBOOKS, codebook_select, unpack_int_sub8
+from .qtensor import (CODEBOOKS, codebook_select, quantize_absmax,
+                      unpack_int_sub8)
 
 _BM, _BN, _BK = 32, 64, 32   # output tile and stored-row depth of the kernel
 _TARGET_BLOCKS = 264         # about two blocks per H100 SM
@@ -242,6 +249,79 @@ def group_asym_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def quantize_act_int8(x: torch.Tensor, act_scale: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 codes of the activations x (..., K) and their scale
+    sx, as the JAX package's jitted `_act_quant_matmul` computes them: the
+    frozen scalar `act_scale`, or per row max(absmax, 1e-12) * f32(1 / 127)
+    (keepdim); xq = clip(round(f32(x) / sx), -127, 127), a true division
+    rounded half to even. Returns (xq int8, sx f32)."""
+    if act_scale is None:
+        return quantize_absmax(x, dim=-1, qmax=127)
+    sx = act_scale.to(torch.float32)
+    xq = torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127)
+    return xq.to(torch.int8), sx
+
+
+def w8a8_matmul_ref(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                    act_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of `w8a8_matmul`: `quantize_act_int8`, the integer
+    product summed exactly (in f64: |sums| < 2**53), rounded once to f32 as
+    an int32 converts, then (acc * sx) * scale left to right, cast to x's
+    dtype."""
+    xq, sx = quantize_act_int8(x, act_scale)
+    acc = (xq.to(torch.float64) @ w.to(torch.float64)).to(torch.float32)
+    return (acc * sx * scale.reshape(1, -1).to(torch.float32)).to(x.dtype)
+
+
+def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                act_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """x (M, K) f32/bf16 • w (K, N) int8 • scale (1, N) or (N,) f32 ->
+    (M, N) in x's dtype, x quantized to int8 per row at run time, or by the
+    frozen 0-dim f32 `act_scale`. Counts launches in `w8a8_matmul.launches`
+    (dynamic) and `.launches_static`."""
+    if not x.is_cuda:
+        return w8a8_matmul_ref(x, w, scale, act_scale)
+    name = "w8a8_matmul"
+    kernels.require(x.dim() == 2, name, f"x must be (M, K), got {tuple(x.shape)}")
+    m, k = x.shape
+    kernels.require(w.dim() == 2 and w.shape[0] == k and w.dtype == torch.int8,
+                    name, f"w must be ({k}, N) int8, got {tuple(w.shape)} {w.dtype}")
+    n = w.shape[1]
+    kernels.require(k % 16 == 0 and n % 16 == 0 and 1 <= m <= 65535 * 32, name,
+                    f"K and N must be multiples of 16 and M lie in 1..{65535 * 32} "
+                    f"(M={m}, K={k}, N={n})")
+    _colscale_ok(name, scale, n)
+    tensors = [x, w, scale]
+    if act_scale is not None:
+        kernels.require(act_scale.numel() == 1 and act_scale.dtype == torch.float32,
+                        name, "act_scale must hold one float32")
+        tensors.append(act_scale)
+    kernels.require(all(t.is_cuda and t.device == x.device for t in tensors),
+                    name, "x, the weight and the scales must share a device")
+    kernels.require(all(t.is_contiguous() for t in tensors), name,
+                    "inputs must be contiguous")
+    code = kernels.dtype_code(x, name)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    wt = torch.empty((n, k), dtype=torch.int8, device=x.device)
+    sx = (torch.empty((m,), dtype=torch.float32, device=x.device)
+          if act_scale is None else None)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    err = kernels.lib().owc_w8a8_matmul(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+        None if act_scale is None else act_scale.data_ptr(), xq.data_ptr(),
+        wt.data_ptr(), None if sx is None else sx.data_ptr(), out.data_ptr(),
+        m, n, k, code, kernels.stream_of(x))
+    kernels.check(name, err)
+    if act_scale is None:
+        w8a8_matmul.launches += 1
+    else:
+        w8a8_matmul.launches_static += 1
+    return out
+
+
+w8a8_matmul.launches = 0          # dynamic per-row scales
+w8a8_matmul.launches_static = 0   # one frozen scale
 int8_matmul.launches = 0
 int4_matmul.launches = 0
 nf4_matmul.launches = 0

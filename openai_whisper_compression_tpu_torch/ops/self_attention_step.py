@@ -3,9 +3,12 @@
 with per-position scales, each with its plain version: the port of the JAX
 package's `ops/self_attention_step.py::decode_self_attention_update` and
 `decode_self_attention_update_int8`, with and without `start`: the first
-valid cache position of each row, which masks a prompt's left padding.
+valid cache position of each row, which masks a prompt's left padding. And
+`decode_self_attention`, the same attention without the write, over a cache
+whose row `pos` the caller has written (it has no caller in the JAX package
+either: the decode step takes the update functions).
 
-Every version MUTATES its buffers: row `pos` of k_cache/v_cache (and, for
+Every update version MUTATES its buffers: row `pos` of k_cache/v_cache (and, for
 the int8 cache, position `pos` of k_scale/v_scale) is overwritten in place
 (the JAX functions donate the buffers and return the updated ones; here the
 caller keeps using its own tensors).
@@ -15,8 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from ..quant.core import quantize_absmax
 from . import kernels
+from .qtensor import quantize_absmax
 
 HEAD_DIM = 64
 
@@ -42,6 +45,13 @@ def decode_self_attention_update_ref(q: torch.Tensor, k_new: torch.Tensor,
     `start`). Returns (BH, Dh) in q's dtype."""
     k_cache[:, pos, :] = k_new.to(k_cache.dtype)
     v_cache[:, pos, :] = v_new.to(v_cache.dtype)
+    return _attend_ref(q, k_cache, v_cache, pos, start)
+
+
+def _attend_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                pos: int, start: torch.Tensor | None) -> torch.Tensor:
+    """f32 masked softmax attention of each pre-scaled query over cache rows
+    start..pos of an fp cache."""
     k = k_cache[:, : pos + 1, :].float()
     v = v_cache[:, : pos + 1, :].float()
     scores = _mask_before_start(torch.einsum("gd,gsd->gs", q.float(), k), start)
@@ -131,6 +141,15 @@ def decode_self_attention_update_int8_ref(q: torch.Tensor, k_new: torch.Tensor,
     v_cache[:, pos, :] = vq
     k_scale[:, pos] = ks[:, 0]
     v_scale[:, pos] = vs[:, 0]
+    return _attend_int8_ref(q, k_cache, v_cache, k_scale, v_scale, pos, start)
+
+
+def _attend_int8_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, k_scale: torch.Tensor,
+                     v_scale: torch.Tensor, pos: int,
+                     start: torch.Tensor | None) -> torch.Tensor:
+    """Attention over rows start..pos of an int8 cache, the scales folded
+    into scores and probabilities (the math of the JAX `_core`)."""
     scores = torch.einsum("gd,gsd->gs", q.float(),
                           k_cache[:, : pos + 1, :].float()) * k_scale[:, : pos + 1]
     scores = _mask_before_start(scores, start)
@@ -196,3 +215,85 @@ def decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
 
 decode_self_attention_update_int8.launches = 0         # without start
 decode_self_attention_update_int8.launches_start = 0   # with start
+
+
+def decode_self_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, pos: int,
+                              start: torch.Tensor | None = None,
+                              k_scale: torch.Tensor | None = None,
+                              v_scale: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Plain version of `decode_self_attention`: what the update plain
+    versions compute after their write."""
+    if k_scale is None:
+        return _attend_ref(q, k_cache, v_cache, pos, start)
+    return _attend_int8_ref(q, k_cache, v_cache, k_scale.float(),
+                            v_scale.float(), pos, start)
+
+
+def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, pos: int,
+                          start: torch.Tensor | None = None,
+                          k_scale: torch.Tensor | None = None,
+                          v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """q (BH, Dh) pre-scaled by Dh**-0.5; k_cache/v_cache (BH, S, Dh) whose
+    row `pos` already holds this step's key and value; an int8 cache passes
+    its per-position scales k_scale/v_scale (BH, S) f32, which fold into
+    scores and probabilities. Attention over rows start..pos, `start` (BH,)
+    int32 with start <= pos (rows 0..pos without it). Nothing is written.
+    Returns (BH, Dh) in q's dtype: on the cache an update function wrote,
+    that function's output bit for bit. A CUDA tensor launches the kernel
+    (bf16 q; counted in `decode_self_attention.launches` for a bf16 cache
+    and `.launches_int8` for an int8 one, with `start` in `.launches_start`
+    and `.launches_int8_start`); a CPU tensor takes the plain version."""
+    pos = int(pos)
+    if not q.is_cuda:
+        return decode_self_attention_ref(q, k_cache, v_cache, pos, start,
+                                         k_scale, v_scale)
+    name = "decode_self_attention"
+    bh, dh = q.shape
+    s = k_cache.shape[1]
+    int8 = k_scale is not None or v_scale is not None
+    tensors = [q, k_cache, v_cache]
+    kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
+    kernels.require(k_cache.shape == (bh, s, dh) and v_cache.shape
+                    == k_cache.shape, name, f"caches must be ({bh}, S, {dh})")
+    kernels.require(0 <= pos < s and s <= 12288, name,
+                    f"pos {pos} outside the {s}-row cache (at most 12288 rows)")
+    kernels.require_bf16(name, q)
+    if int8:
+        kernels.require(k_scale is not None and v_scale is not None, name,
+                        "an int8 cache needs both k_scale and v_scale")
+        kernels.require(k_scale.shape == (bh, s) and v_scale.shape == (bh, s),
+                        name, f"scales must be ({bh}, {s})")
+        kernels.require_dtype(name, torch.int8, k_cache, v_cache)
+        kernels.require_dtype(name, torch.float32, k_scale, v_scale)
+        tensors += [k_scale, v_scale]
+    else:
+        kernels.require_bf16(name, k_cache, v_cache)
+    kernels.require(len({t.device for t in tensors}) == 1, name,
+                    "q, the caches and the scales must share a device")
+    kernels.require(all(t.is_contiguous() for t in tensors), name,
+                    "inputs must be contiguous")
+    start_ptr = _start_arg(name, start, q)
+    out = torch.empty_like(q)
+    if int8:
+        err = kernels.lib().owc_self_attention_int8(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), start_ptr,
+            bh, s, pos, kernels.stream_of(q))
+    else:
+        err = kernels.lib().owc_self_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            start_ptr, bh, s, pos, kernels.stream_of(q))
+    kernels.check(name, err)
+    attr = ("launches" + ("_int8" if int8 else "")
+            + ("" if start is None else "_start"))
+    setattr(decode_self_attention, attr, getattr(decode_self_attention, attr) + 1)
+    return out
+
+
+decode_self_attention.launches = 0              # bf16 cache, without start
+decode_self_attention.launches_start = 0        # bf16 cache, with start
+decode_self_attention.launches_int8 = 0         # int8 cache, without start
+decode_self_attention.launches_int8_start = 0   # int8 cache, with start

@@ -1,11 +1,10 @@
-"""Weight quantizers: `dense (K, N) -> QTensor`, and the KV caches' absmax
-quantizer.
+"""Weight quantizers: `dense (K, N) -> QTensor`.
 
 The weight-only quantizers of the JAX package's `quant/core.py`:
 per-channel symmetric int8 / int4 / int2 (optimum-quanto's qint8/4/2),
 blockwise NF4 / FP4 with optional double-quant (bitsandbytes' Linear4bit)
-and HQQ group-wise asymmetric int3 / int4 / int8. fp8 weights are a later
-slice (with the w8a8 kernel).
+HQQ group-wise asymmetric int3 / int4 / int8, and float8_e4m3fn weights
+with a per-channel scale.
 
 Under `jax.jit` XLA compiles a division by a constant into a multiply by
 the constant's f32 reciprocal, so the port multiplies wherever the JAX code
@@ -21,14 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.qtensor import CODEBOOKS, QTensor, pack_int_sub8
-
-
-def _inv(c: float) -> torch.Tensor:
-    """f32(1 / c) as a 0-dim CPU tensor: it multiplies a CUDA tensor as an
-    f32 scalar, with no copy to the card (which would wait for the
-    stream)."""
-    return torch.tensor(1.0 / c, dtype=torch.float32)
+from ..ops.qtensor import (CODEBOOKS, FP8_MAX, QTensor, inv_f32 as _inv,
+                           pack_int_sub8)
 
 
 def quantize_int8(w: torch.Tensor) -> QTensor:
@@ -141,26 +134,28 @@ def quantize_hqq(w: torch.Tensor, bits: int = 4, group_size: int = 64,
                    bits=bits, shape=(k, n), block_size=group_size)
 
 
-def quantize_absmax(x: torch.Tensor, dim: int,
-                    qmax: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric absmax quantization along `dim` (the KV caches' scheme):
-    scale = max(absmax, 1e-12) * f32(1 / qmax), q = clip(round(x / scale),
-    -qmax, qmax). Returns (q int8, scale f32 with `dim` kept as size 1)."""
-    xf = x.to(torch.float32)
-    scale = torch.clamp(xf.abs().amax(dim=dim, keepdim=True), min=1e-12) * _inv(qmax)
-    q = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
-    return q, scale
+def quantize_fp8(w: torch.Tensor) -> QTensor:
+    """float8_e4m3fn weights with a per-output-channel scale into the e4m3
+    range: scale = max(absmax / 448, 1e-12), data = fp8(w / scale), rounded
+    to nearest even (|w / scale| never exceeds 448 by more than an f32
+    rounding, far below the 464 from which e4m3fn has no finite value)."""
+    w = w.to(torch.float32)
+    absmax = w.abs().amax(dim=0, keepdim=True)             # (1, N)
+    scale = torch.clamp(absmax * _inv(FP8_MAX), min=1e-12)
+    return QTensor(data=(w / scale).to(torch.float8_e4m3fn), scale=scale,
+                   kind="fp8", bits=8, shape=tuple(w.shape))
 
 
 QUANTIZERS = {
     "int8": quantize_int8,
     "int4": lambda w: quantize_int_sub8(w, 4),
     "int2": lambda w: quantize_int_sub8(w, 2),
-    "nf4": lambda w: quantize_nf4(w, kind="nf4"),
-    "nf4_dq": lambda w: quantize_nf4(w, kind="nf4", double_quant=True),
-    "fp4": lambda w: quantize_nf4(w, kind="fp4"),
-    "fp4_dq": lambda w: quantize_nf4(w, kind="fp4", double_quant=True),
+    "nf4": lambda w, **kw: quantize_nf4(w, kind="nf4", **kw),
+    "nf4_dq": lambda w, **kw: quantize_nf4(w, kind="nf4", double_quant=True, **kw),
+    "fp4": lambda w, **kw: quantize_nf4(w, kind="fp4", **kw),
+    "fp4_dq": lambda w, **kw: quantize_nf4(w, kind="fp4", double_quant=True, **kw),
     "hqq_int3": lambda w: quantize_hqq(w, bits=3),
     "hqq_int4": lambda w: quantize_hqq(w, bits=4),
     "hqq_int8": lambda w: quantize_hqq(w, bits=8, group_size=128),
+    "fp8": quantize_fp8,
 }

@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 edge shapes and in the dtypes each takes (chip_smoke.py covers the
 whisper-small main-path shapes): mel, int8 matmul, grouped cross-attention
-over bf16 / int8 / int4 K/V (1 to 8 slots and longer windows), the cross-KV
+over bf16 / int8 / int4 K/V (1 to 8 slots and longer windows), the
+one-query cross-attention over the same three storages, the cross-KV
 transpose + int8 quantize, the fp and int8 self-attention cache updates
-(with and without `start`) and the encoder attention; the wrappers'
+(with and without `start`), the read-only self-attention, the w8a8 matmul
+(dynamic and static) and the encoder attention; the wrappers'
 refusals; and bf16 attention on the card against a float64 reference with
 f32 scores. Marked `cuda`; every test skips where no
 CUDA device is present. Needs no jax, so on the GPU machine run it without the JAX test
@@ -21,13 +23,16 @@ from openai_whisper_compression_tpu_torch.models import whisper
 from openai_whisper_compression_tpu_torch.ops.attention import (
     encoder_attention, encoder_attention_ref)
 from openai_whisper_compression_tpu_torch.ops.cross_attention import (
-    decode_cross_attention_grouped, decode_cross_attention_grouped_ref,
+    decode_cross_attention, decode_cross_attention_grouped,
+    decode_cross_attention_grouped_ref, decode_cross_attention_ref,
     transpose_quant_kv, transpose_quant_kv_ref)
 from openai_whisper_compression_tpu_torch.ops.qtensor import effective_block_scale
 from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
     group_asym_matmul, group_asym_matmul_ref, int4_matmul, int4_matmul_ref,
-    int8_matmul, int8_matmul_ref, nf4_matmul, nf4_matmul_ref)
+    int8_matmul, int8_matmul_ref, nf4_matmul, nf4_matmul_ref, w8a8_matmul,
+    w8a8_matmul_ref)
 from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
+    decode_self_attention, decode_self_attention_ref,
     decode_self_attention_update, decode_self_attention_update_int8,
     decode_self_attention_update_int8_ref, decode_self_attention_update_ref)
 from openai_whisper_compression_tpu_torch.quant.core import (
@@ -536,3 +541,166 @@ def test_encoder_attention_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):  # a transposed head dim
         t = torch.zeros(1, 2, 64, 256, device=dev, dtype=bf).transpose(2, 3)
         encoder_attention(t, x, x)
+
+
+# (M, K, N): one row, a ragged M under one tile, the encoder's 1500 rows of
+# one utterance; K and N that are no multiples of the 64-deep K tile or the
+# 64- and 128-wide output tiles; whisper-small's fc2 depth
+W8A8_SHAPES = [(1, 64, 64), (17, 80, 48), (1500, 768, 2304), (1, 3072, 768),
+               (17, 3072, 784), (1500, 208, 144), (4200, 768, 768)]
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", W8A8_SHAPES)
+def test_w8a8_matmul(dev, dtype, m, k, n, static):
+    """Bit-equal to the plain version (integer sums have no order; the same
+    IEEE division, half-to-even rounding and left-to-right epilogue), with an
+    all-zero row and, under the static scale, values that clip at +-127;
+    both tilings (M = 4200 with N = 768 fills the card with 128 x 128
+    tiles); each body counts its own launches."""
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    q = quantize_int8(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = (torch.randn(m, k, generator=g, device=dev) * 1.7).to(dtype)
+    x[m // 2] = 0.0
+    act_scale = torch.tensor(0.031, device=dev) if static else None
+    counter = "launches_static" if static else "launches"
+    before = getattr(w8a8_matmul, counter)
+    got = w8a8_matmul(x, q.data, q.scale, act_scale)
+    assert getattr(w8a8_matmul, counter) == before + 1
+    ref = w8a8_matmul_ref(x, q.data, q.scale, act_scale)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, ref)
+    assert not got[m // 2].any()
+
+
+def test_w8a8_matmul_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(2, 64, device=dev)
+    w = torch.zeros(64, 32, dtype=torch.int8, device=dev)
+    s = torch.ones(1, 32, device=dev)
+    with pytest.raises(ValueError):   # K not a multiple of 16
+        w8a8_matmul(x[:, :40].contiguous(), w[:40].contiguous(), s)
+    with pytest.raises(ValueError):   # int4 nibbles passed as they are stored
+        w8a8_matmul(x, w[:32].contiguous(), s)
+    with pytest.raises(TypeError):    # float16 activations
+        w8a8_matmul(x.half(), w, s)
+    with pytest.raises(ValueError):   # a static scale of two values
+        w8a8_matmul(x, w, s, torch.ones(2, device=dev))
+    with pytest.raises(ValueError):   # a static scale left on the CPU
+        w8a8_matmul(x, w, s, torch.tensor(0.5))
+
+
+def _cross_kv(dev, kind, bh, s_valid, seed):
+    if kind == "bf16":
+        g = torch.Generator(device=dev).manual_seed(seed)
+        s_pad = -(-s_valid // 128) * 128
+        k, v = (torch.randn(bh, 64, s_pad, generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        return k, v, None, None
+    return _quantized_kv(dev, 4 if kind == "int4" else 8, bh, s_valid, seed)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("bh,s_valid", [(1, 1), (1, 1500), (12, 1500), (36, 1500),
+                                        (12, 100), (36, 129), (7, 1025), (50, 300)])
+def test_cross_attention_one_query(dev, kind, bh, s_valid):
+    """Each storage body within one bf16 step of the plain version's largest
+    output, and of the grouped kernel at one slot; one position, one block
+    per row, a span that ends inside a chunk, and B*H of 1, 12 and 36;
+    poisoning the padding (data and scales) changes no output bit; each body
+    counts its own launches."""
+    g = torch.Generator(device=dev).manual_seed(bh + s_valid)
+    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).bfloat16()
+    k, v, ks, vs = _cross_kv(dev, kind, bh, s_valid, bh + s_valid)
+    counter = {"bf16": "launches", "int8": "launches_int8", "int4": "launches_int4"}[kind]
+    before = getattr(decode_cross_attention, counter)
+    got = decode_cross_attention(q, k, v, ks, vs, s_valid)
+    assert getattr(decode_cross_attention, counter) == before + 1
+    ref = decode_cross_attention_ref(q, k, v, ks, vs, s_valid)
+    assert got.shape == (bh, 64) and got.dtype == torch.bfloat16
+    tol = _tol(torch.bfloat16, float(ref.float().abs().max()))
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=tol)
+    grouped = decode_cross_attention_grouped(q[:, None, :].contiguous(), k, v, ks, vs,
+                                             s_valid)[:, 0, :]
+    torch.testing.assert_close(got.float(), grouped.float(), rtol=0, atol=tol)
+    for t in (k, v):
+        t[:, :, s_valid:] = 99
+    if ks is not None:
+        for t in (ks, vs):
+            t[:, :, s_valid:] = float("inf")
+    assert torch.equal(decode_cross_attention(q, k, v, ks, vs, s_valid), got)
+
+
+def test_cross_attention_one_query_rejects_what_the_kernel_does_not_take(dev):
+    bf, i8 = torch.bfloat16, torch.int8
+    q = torch.zeros(4, 64, device=dev, dtype=bf)
+    kv = torch.zeros(4, 64, 128, device=dev, dtype=i8)
+    sc = torch.ones(4, 1, 128, device=dev)
+    with pytest.raises(ValueError):   # query slots: the grouped function's shape
+        decode_cross_attention(q[:, None, :], kv, kv, sc, sc)
+    with pytest.raises(TypeError):    # f32 q
+        decode_cross_attention(q.float(), kv, kv, sc, sc)
+    with pytest.raises(ValueError):   # a missing k scale
+        decode_cross_attention(q, kv, kv, None, sc)
+    with pytest.raises(ValueError):   # s_valid past S_pad
+        decode_cross_attention(q, kv, kv, sc, sc, 129)
+    with pytest.raises(ValueError):   # K/V of another row count
+        decode_cross_attention(q, kv[:3], kv[:3], sc, sc)
+
+
+@pytest.mark.parametrize("with_start", [False, True], ids=["nostart", "start"])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("bh,s,pos", [(1, 64, 0), (12, 64, 63), (36, 64, 30),
+                                      (24, 448, 300)])
+def test_self_attention_read_only(dev, bh, s, pos, int8, with_start):
+    """On the cache that the update kernel wrote, the read-only kernel
+    returns the update kernel's output bit for bit, writes nothing, lies
+    within one bf16 step of its plain version, and counts its four bodies
+    apart; pos 0 and pos S - 1, B*H of 1, 12 and 36."""
+    g = torch.Generator(device=dev).manual_seed(bh + s + pos)
+    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).bfloat16()
+    kn, vn = (torch.randn(2, bh, 64, generator=g, device=dev) * 2).bfloat16()
+    start = _mixed_start(dev, bh, pos) if with_start and bh > 1 else (
+        torch.zeros(bh, dtype=torch.int32, device=dev) if with_start else None)
+    if int8:
+        kc, vc = torch.randint(-127, 128, (2, bh, s, 64), generator=g, device=dev,
+                               dtype=torch.int8)
+        ks, vs = torch.rand(2, bh, s, generator=g, device=dev) * 0.03 + 0.001
+        bufs = [kc, vc, ks, vs]
+        out_upd = decode_self_attention_update_int8(q, kn, vn, *bufs, pos, start=start)
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        bufs = [torch.randn(bh, s, 64, generator=g, device=dev).bfloat16()
+                for _ in range(2)]
+        out_upd = decode_self_attention_update(q, kn, vn, *bufs, pos, start=start)
+        scales = {}
+    written = [t.clone() for t in bufs]
+    counter = "launches" + ("_int8" if int8 else "") + ("_start" if with_start else "")
+    before = getattr(decode_self_attention, counter)
+    got = decode_self_attention(q, bufs[0], bufs[1], pos, start=start, **scales)
+    assert getattr(decode_self_attention, counter) == before + 1
+    assert torch.equal(got, out_upd)
+    assert all(torch.equal(a, b) for a, b in zip(bufs, written))
+    ref = decode_self_attention_ref(q, bufs[0], bufs[1], pos, start=start, **scales)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(torch.bfloat16, float(ref.float().abs().max())))
+
+
+def test_self_attention_read_only_rejects_what_the_kernel_does_not_take(dev):
+    bf, i8 = torch.bfloat16, torch.int8
+    row = torch.zeros(4, 64, device=dev, dtype=bf)
+    cache = torch.zeros(4, 8, 64, device=dev, dtype=bf)
+    scale = torch.ones(4, 8, device=dev)
+    with pytest.raises(ValueError):   # pos past the cache
+        decode_self_attention(row, cache, cache, 8)
+    with pytest.raises(TypeError):    # a bf16 cache with scales
+        decode_self_attention(row, cache, cache, 1, k_scale=scale, v_scale=scale)
+    with pytest.raises(TypeError):    # an int8 cache without scales
+        decode_self_attention(row, cache.to(i8), cache.to(i8), 1)
+    with pytest.raises(ValueError):   # one scale only
+        decode_self_attention(row, cache.to(i8), cache.to(i8), 1, k_scale=scale)
+    with pytest.raises(TypeError):    # f32 q
+        decode_self_attention(row.float(), cache, cache, 1)
+    with pytest.raises(TypeError):    # an int64 start
+        decode_self_attention(row, cache, cache, 1,
+                              start=torch.zeros(4, dtype=torch.long, device=dev))

@@ -48,15 +48,12 @@ torch.set_num_threads(2)
 
 WEIGHT_METHODS = ["int4", "int2", "nf4", "fp4", "nf4_dq", "fp4_dq",
                   "hqq_int3", "hqq_int4", "hqq_int8"]
-# the REGISTRY entries the port carries, and those of the w8a8 slice
+# the weight-only REGISTRY entries (the activation-quantized and fp8 ones are
+# held against JAX in test_torch_actquant.py)
 PORTED = ["baseline_fp32", "baseline_bf16", "fp16", "quanto_int2",
           "quanto_int4", "quanto_int8", "hqq_int3", "hqq_int4", "hqq_int8",
           "bnb_fp4", "bnb_fp4_double_quant", "bnb_nf4", "bnb_nf4_double_quant",
           "bnb_nf4_bf16_compute"]
-NOT_PORTED = ["pytorch_dynamic_int8", "static_int8_act_int8",
-              "static_int4_act_int8", "static_int8_act_fp8",
-              "static_int4_act_fp8", "static_fp8_act_int8", "static_fp8_act_fp8",
-              "static_fp8"]
 # d_model 128 so that every projection holds whole 128-row HQQ int8 groups
 ARCH = ARCHS["test2l"].replace(d_model=128, ffn_dim=256)
 
@@ -323,19 +320,13 @@ def test_quantize_params_matches_jax(name):
     assert TP.size_in_mb(got) == JP.size_in_mb(ref)
 
 
-@pytest.mark.parametrize("name", NOT_PORTED + ["fp8"])
-def test_act_and_fp8_configs_raise(name):
-    tp = TP.from_numpy(jax.tree.map(np.asarray, _jax_params()))
-    with pytest.raises(NotImplementedError, match="w8a8|REGISTRY|carries"):
-        torch_api.quantize_params(tp, name)
-
-
 def test_registry_names_match_jax():
     assert list(torch_api.REGISTRY) == list(jax_api.REGISTRY)
-    assert sorted(n for n, c in torch_api.REGISTRY.items() if c.ported) == sorted(PORTED)
     for name, cfg in torch_api.REGISTRY.items():
         ref = jax_api.REGISTRY[name]
-        assert (cfg.method, cfg.act, cfg.dtype) == (ref.method, ref.act, ref.dtype)
+        assert (cfg.method, cfg.act, cfg.dtype, cfg.needs_calibration,
+                cfg.kwargs) == (ref.method, ref.act, ref.dtype,
+                                ref.needs_calibration, ref.kwargs)
 
 
 @pytest.mark.parametrize("method", ["int4", "nf4_dq", "hqq_int4", "hqq_int8"])
@@ -354,15 +345,6 @@ def test_from_numpy_carries_every_field(method):
     moved = got.to("cpu")
     assert len(moved._tensors()) == len(got._tensors())
     assert all(torch.equal(a, b) for a, b in zip(moved._tensors(), got._tensors()))
-
-
-def test_from_numpy_refuses_activation_quant_and_fp8():
-    q = jax_core.quantize_int8(jnp.asarray(_weight(64, 64, 4)))
-    with pytest.raises(NotImplementedError):
-        TP.from_numpy(jax.tree.map(np.asarray, dataclasses.replace(q, act="dynamic_int8")))
-    with pytest.raises(NotImplementedError):
-        TP.from_numpy(jax.tree.map(np.asarray,
-                                   jax_core.quantize_fp8(jnp.asarray(_weight(64, 64, 5)))))
 
 
 def test_tree_cast_matches_jax():
