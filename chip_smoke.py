@@ -21,13 +21,20 @@ Phase 1  each kernel against its plain PyTorch version on the card, at
          `torch._int_mm` + epilogue; the one-query cross-attention at 12 and
          36 rows over bf16, int8 and int4 K/V, also against the grouped
          kernel at one slot; the read-only self-attention bit for bit
-         against the update kernels' output), with CUDA-event times; the dequant-matmuls also beside dequant +
-         torch.matmul, the bf16 attentions beside
+         against the update kernels' output; the int8 matmul also at the
+         headline batch's M = 96 and 288; the f32 and f16 bodies of the
+         cache update, the grouped (1 and 5 slots) and the one-query
+         cross-attention at the shapes of the f32 and f16 runs), with
+         CUDA-event times; the dequant-matmuls also beside dequant +
+         torch.matmul (every storage trait at M = 32, 96, 288 and 1024: where
+         the two cross), the encoder attention beside the time its
+         exponentials alone need, the attentions over K/V in q's type beside
          `F.scaled_dot_product_attention` (a yardstick that no path of the
          port calls), and every kernel beside its bound: the larger of its
          bytes over the card's memory rate and its operations over the
          card's peak rate.
-Phase 2  decode runs at full width with seeded random bf16 weights, fused
+Phase 2  decode runs at full width with seeded random weights (bf16, but
+         for the f32 and f16 trees), fused
          decoder qkv, `make_transcribe_fn` (bf16 DFT mel, tanh encoder
          GELU, greedy 25 tokens) on seeded synthetic 30 s waveforms:
            bf16-kv      whisper-small, int8 weights, batch 32, bf16
@@ -56,22 +63,30 @@ Phase 2  decode runs at full width with seeded random bf16 weights, fused
            small-b1     int8 weights and caches at batch 1 (12 (batch, head)
                         rows): the one-query cross-attention's int8 body;
            small-b3-bf16, small-b3-int4ckv  batch 3 (36 rows), bf16 caches
-                        and int4 cross-KV: its other two bodies.
+                        and int4 cross-KV: its other two bodies;
+           small-f32    `baseline_fp32` (an f32 tree, f32 caches), batch 16:
+                        the decode kernels' f32 bodies (the encoder's
+                        attention in plain torch, as the JAX package leaves
+                        an f32 encoder to XLA);
+           small-b3-f32, small-b3-f16  `baseline_fp32` and `fp16` at batch 3:
+                        the one-query cross-attention's f32 and f16 bodies.
          bf16-kv, int8-kv and small-b1 run three batches with EOT suppressed, then
          the first batch again with EOT allowed and its embedding tied to
          a generated token, so that rows stop at different steps;
-         medium-int4 runs three batches with EOT suppressed. Then three
-         prompt-conditioned runs of whisper-small with int8 weights (a
-         16-token prompt window, prompt lengths mixed over 4..16, 25 new
+         medium-int4 runs three batches with EOT suppressed. Then four
+         prompt-conditioned runs of whisper-small, with int8 weights but for
+         the last (a 16-token prompt window, prompt lengths mixed over 4..16, 25 new
          tokens, EOT suppressed, two batches each), through
          `beam_decode` / `greedy_decode` with `prompt_tokens`:
            beam5-prompt      beam 5, int8 self-KV and cross-KV, batch 16;
            greedy-prompt-ts  bf16 caches, batch 32, timestamp rules on;
-           beam5-int4ckv     beam 5, int8 self-KV, int4 cross-KV, batch 16.
+           beam5-int4ckv     beam 5, int8 self-KV, int4 cross-KV, batch 16;
+           small-f16-beam5   `fp16` (an f16 tree, f16 caches), beam 5, batch 8.
          Every launch count is set to 0 before a run and read after it:
-         each kernel of the run's path must have launched (the encoder
-         attention layers x batches times; in the prompt runs every
-         attention kernel exactly as often as the path calls it), and no
+         each kernel of the run's path must have launched (every attention
+         kernel exactly as often as the path calls it: the encoder attention
+         layers x batches times, the cache update layers x steps, the
+         cross-attention layers x (steps + prefill launches)), and no
          other. The beam runs' output is checked against all five beams
          rescored by teacher forcing, a left-padded row against the same row
          run alone with its unpadded prompt, and the timestamp run against
@@ -87,7 +102,9 @@ Phase 3  first-step logits of 2 utterances, card (bf16, kernels) against
          cross-KV, and int4, NF4 double-quant and HQQ int4 weights with the
          int8 caches; `pytorch_dynamic_int8`, calibrated
          `static_int8_act_int8` and `static_fp8_act_fp8`; int8 weights at
-         batch 1; and the beam5-prompt configuration (prompted, five beams).
+         batch 1; the f32 and the f16 tree in their own types (bounds of
+         their own: an f32 tree differs by sum order only); and the
+         beam5-prompt configuration (prompted, five beams).
 
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
@@ -191,6 +208,31 @@ KERNELS = [
     ("decode_self_attention_int8_start", "ops.self_attention_step",
      "decode_self_attention", "launches_int8_start", "self_attention_step.cu",
      "ops/self_attention_step.py:309", "attend_int8_start"),
+    # the f32 and f16 bodies of the decode attention kernels
+    ("decode_self_attention_update_f32", "ops.self_attention_step",
+     "decode_self_attention_update", "launches_f32", "self_attention_step.cu",
+     "ops/self_attention_step.py:245", "self_f32"),
+    ("decode_self_attention_update_f16", "ops.self_attention_step",
+     "decode_self_attention_update", "launches_f16", "self_attention_step.cu",
+     "ops/self_attention_step.py:245", "self_f16"),
+    ("decode_self_attention_update_f16_start", "ops.self_attention_step",
+     "decode_self_attention_update", "launches_f16_start",
+     "self_attention_step.cu", "ops/self_attention_step.py:104", "self_f16_start"),
+    ("decode_cross_attention_grouped_f32", "ops.cross_attention",
+     "decode_cross_attention_grouped", "launches_f32", "cross_attention.cu",
+     "ops/cross_attention.py:321", "cross_f32"),
+    ("decode_cross_attention_grouped_f16", "ops.cross_attention",
+     "decode_cross_attention_grouped", "launches_f16", "cross_attention.cu",
+     "ops/cross_attention.py:321", "cross_f16"),
+    ("decode_cross_attention_grouped_f16_wide", "ops.cross_attention",
+     "decode_cross_attention_grouped", "launches_f16_wide", "cross_attention.cu",
+     "ops/cross_attention.py:321", "cross_f16_wide"),
+    ("decode_cross_attention_f32", "ops.cross_attention", "decode_cross_attention",
+     "launches_f32", "cross_attention.cu", "ops/cross_attention.py:151",
+     "cross1_f32"),
+    ("decode_cross_attention_f16", "ops.cross_attention", "decode_cross_attention",
+     "launches_f16", "cross_attention.cu", "ops/cross_attention.py:151",
+     "cross1_f16"),
 ]
 KV8 = {"kv_int8": True, "cross_kv_int8": True}
 DECODE_KERNELS = ("log_mel_cuda", "encoder_attention", "transpose_quant_kv",
@@ -239,10 +281,23 @@ RUNS = [
      SMALL_KERNELS + ("decode_cross_attention_grouped_int4",
                       "decode_cross_attention_int4",
                       "decode_self_attention_update_int8")),
+    # f32 and f16 trees (no quantized weights: no matmul kernel; an f32 or
+    # f16 encoder takes plain torch, as the JAX package leaves it to XLA):
+    # caches in the tree's own type
+    ("small-f32", ARCH, "baseline_fp32", {}, 16, 1, False,
+     ("log_mel_cuda", "decode_cross_attention_grouped_f32",
+      "decode_self_attention_update_f32")),
+    ("small-b3-f32", ARCH, "baseline_fp32", {}, 3, 1, False,
+     ("log_mel_cuda", "decode_cross_attention_grouped_f32",
+      "decode_cross_attention_f32", "decode_self_attention_update_f32")),
+    ("small-b3-f16", ARCH, "fp16", {}, 3, 1, False,
+     ("log_mel_cuda", "decode_cross_attention_grouped_f16",
+      "decode_cross_attention_f16", "decode_self_attention_update_f16")),
 ]
-# prompt-conditioned phase-2 runs of whisper-small with int8 weights: (name,
-# DecodeConfig switches, batch); two batches each, EOT suppressed, a
-# PROMPT_W-token prompt window with lengths mixed over 4..PROMPT_W
+# prompt-conditioned phase-2 runs of whisper-small: (name, DecodeConfig
+# switches, batch[, weights: int8 unless given]); two batches each, EOT
+# suppressed, a PROMPT_W-token prompt window with lengths mixed over
+# 4..PROMPT_W
 PROMPT_W = 16
 NEW_TOKENS = 25
 BEAM5 = {"beam_size": 5, "kv_int8": True, "cross_kv_int8": True}
@@ -250,6 +305,7 @@ PROMPT_RUNS = [
     ("beam5-prompt", BEAM5, 16),
     ("greedy-prompt-ts", {"notimestamps": False}, 32),
     ("beam5-int4ckv", {"beam_size": 5, "kv_int8": True, "cross_kv_int4": True}, 16),
+    ("small-f16-beam5", {"beam_size": 5}, 8, "fp16"),
 ]
 # phase-3 configurations: (name, weight quantization, DecodeConfig switches)
 LOGIT_RUNS = [("int8 bf16-kv", "int8", {}), ("int8 int8-kv", "int8", KV8),
@@ -258,7 +314,8 @@ LOGIT_RUNS = [("int8 bf16-kv", "int8", {}), ("int8 int8-kv", "int8", KV8),
               ("hqq-int4 int8-kv", "hqq_int4", KV8),
               ("w8a8-dyn int8-kv", "pytorch_dynamic_int8", KV8),
               ("w8a8-static int8-kv", "static_int8_act_int8", KV8),
-              ("fp8-fp8 int8-kv", "static_fp8_act_fp8", KV8)]
+              ("fp8-fp8 int8-kv", "static_fp8_act_fp8", KV8),
+              ("f32 f32-kv", "baseline_fp32", {}), ("f16 f16-kv", "fp16", {})]
 # phase-1 4-bit weight kinds: (label, quantize_params method, wrapper key,
 # the RUNS entry whose decoder linears give the shapes; the kinds on no
 # run's path take the run of their kernel)
@@ -280,6 +337,11 @@ MEL_ATOL = 1e-5
 #   (2**-8 to 2**-7 of the value): 2**-7 of the reference's own largest
 #   magnitude.
 BF16_REL = 2.0 ** -7
+# - f16 outputs likewise by one f16 step (2**-11 to 2**-10 of the value), f32
+#   outputs by sum order and the exponential's last bits: 2**-10 and 1e-5 of
+#   the reference's largest magnitude.
+KERNEL_REL = {torch.bfloat16: BF16_REL, torch.float16: 2.0 ** -10,
+              torch.float32: 1e-5}
 # - slice, card bf16 vs CPU f32 first-step logits: bf16 activations (2**-9
 #   relative rounding per op) through 24 residual blocks, int8 weights equal
 #   on both sides; a few percent expected, while a layout or indexing fault
@@ -298,6 +360,12 @@ LOGITS_REL_L2 = 0.1
 #   error (a wrong `act_scale`, a clip placed after the cast) then fails.
 ACT_LOGITS_REL_L2 = {"pytorch_dynamic_int8": 0.05, "static_int8_act_int8": 0.05,
                      "static_fp8_act_fp8": 0.1}
+# - an f32 tree on the card (full f32 products, TF32 off) against the same
+#   tree on the CPU differs by sum order only; an f16 tree (f16 activations,
+#   2**-11 relative rounding per op, f32 sums) by less than a bf16 one. A run
+#   on an H100 80GB HBM3 at 700 W read 8.732e-07 and 0.001288; the bounds
+#   are twice the readings, rounded up to two digits.
+TREE_LOGITS_REL_L2 = {"baseline_fp32": 1.8e-6, "fp16": 0.0026}
 # - a left-padded prompt row against the same row run alone with its
 #   unpadded prompt, both on the card in bf16: the same function, computed at
 #   another batch size and window length (other launch shapes, so bf16
@@ -328,6 +396,12 @@ def bound(moved_bytes: float, op_seconds: float) -> dict:
     byte_seconds = moved_bytes / HBM_BPS
     return {"bound_ms": 1e3 * max(byte_seconds, op_seconds),
             "bound_by": "bytes" if byte_seconds >= op_seconds else "operations"}
+
+
+def peak_flops(dtype: torch.dtype) -> float:
+    """The card's peak rate for products of `dtype`: the tensor cores' for
+    bf16 and f16, the f32 rate outside them for f32."""
+    return F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale=None,
@@ -373,22 +447,22 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def check_grouped(what: str, qg: torch.Tensor, kv: tuple, s_valid: int) -> dict:
     """The grouped cross-attention kernel on q (BH, K, 64) and kv = (k_t,
     v_t, k_scale, v_scale) against its plain version, with times, its bound
-    (the valid part of K/V and its scales read once) and, for bf16 K/V,
-    PyTorch's fused attention on the same tensors."""
+    (the valid part of K/V and its scales read once) and, for K/V in q's own
+    type, PyTorch's fused attention on the same tensors."""
     from openai_whisper_compression_tpu_torch.ops.cross_attention import (
         decode_cross_attention_grouped, decode_cross_attention_grouped_ref)
 
     bh, kq, _ = qg.shape
     got = decode_cross_attention_grouped(qg, *kv, s_valid)
     ref = decode_cross_attention_grouped_ref(qg, *kv, s_valid)
-    err, tol = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
-    check(err <= tol, f"{what}: err {err} > {tol}")
+    err, tol = max_err(got, ref), KERNEL_REL[qg.dtype] * float(ref.float().abs().max())
+    check(got.dtype == qg.dtype and err <= tol, f"{what}: err {err} > {tol}")
     t_k = cuda_ms(lambda: decode_cross_attention_grouped(qg, *kv, s_valid))
     t_p = cuda_ms(lambda: decode_cross_attention_grouped_ref(qg, *kv, s_valid))
     k_t, v_t, k_scale, _ = kv
     valid = s_valid / k_t.shape[2]
     least = bound(nbytes(qg, got) + valid * nbytes(*kv),
-                  4 * bh * kq * 64 * s_valid / BF16_FLOPS)
+                  4 * bh * kq * 64 * s_valid / peak_flops(k_t.dtype))
     t_lib = None
     if k_scale is None:
         k, v = (t[:, :, :s_valid].transpose(1, 2) for t in (k_t, v_t))
@@ -402,16 +476,17 @@ def check_grouped(what: str, qg: torch.Tensor, kv: tuple, s_valid: int) -> dict:
 
 
 def check_update(what: str, bh: int, pos: int, gen, int8: bool,
-                 start: torch.Tensor | None) -> dict:
+                 start: torch.Tensor | None, dtype=torch.bfloat16) -> dict:
     """One of the two cache-update kernels over a 64-row cache of `bh` rows
-    against its plain version: caches (codes and scales) bit for bit, the
-    output within one bf16 step; with times and its bound (the rows
-    start..pos read once, row pos written)."""
+    against its plain version, q, the fresh rows and an fp cache in `dtype`:
+    caches (codes and scales) bit for bit, the output within one step of
+    `dtype`; with times and its bound (the rows start..pos read once, row
+    pos written)."""
     from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
 
-    dev, bf16 = gen.device, torch.bfloat16
-    qf = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(bf16)
-    kn, vn = (torch.randn(2, bh, 64, generator=gen, device=dev) * 2).to(bf16)
+    dev = gen.device
+    qf = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(dtype)
+    kn, vn = (torch.randn(2, bh, 64, generator=gen, device=dev) * 2).to(dtype)
     if int8:
         fn, ref_fn = (sas.decode_self_attention_update_int8,
                       sas.decode_self_attention_update_int8_ref)
@@ -422,12 +497,12 @@ def check_update(what: str, bh: int, pos: int, gen, int8: bool,
     else:
         fn, ref_fn = (sas.decode_self_attention_update,
                       sas.decode_self_attention_update_ref)
-        bufs = [torch.randn(bh, 64, 64, generator=gen, device=dev).to(bf16)
+        bufs = [torch.randn(bh, 64, 64, generator=gen, device=dev).to(dtype)
                 for _ in range(2)]
     refs = [t.clone() for t in bufs]
     got = fn(qf, kn, vn, *bufs, pos, start=start)
     ref = ref_fn(qf, kn, vn, *refs, pos, start=start)
-    err, tol = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+    err, tol = max_err(got, ref), KERNEL_REL[dtype] * float(ref.float().abs().max())
     check(all(torch.equal(a, r) for a, r in zip(bufs, refs)),
           f"{what} pos={pos}: cache rows or scales differ")
     check(err <= tol, f"{what} pos={pos}: err {err} > {tol}")
@@ -436,7 +511,7 @@ def check_update(what: str, bh: int, pos: int, gen, int8: bool,
     rows = bh * (pos + 1) - (0 if start is None else int(start.sum()))
     per_row = sum(t[0, 0].numel() * t.element_size() for t in bufs)
     least = bound(nbytes(qf, kn, vn, got) + per_row * (rows + bh),
-                  4 * 64 * rows / BF16_FLOPS)
+                  4 * 64 * rows / peak_flops(torch.bfloat16 if int8 else dtype))
     log(f"phase1 {what} pos={pos} ({bh}, 64, 64)"
         + ("" if start is None else f" start {int(start.min())}..{int(start.max())}")
         + f": err {err:.3g} (bound {tol:.3g}) caches equal; kernel {t_k:.4f} ms "
@@ -475,12 +550,13 @@ def phase1(dev, results: dict) -> None:
         f"bound {results['mel']['bound_ms']:.4f} ms ({results['mel']['bound_by']})")
     del wav
 
-    # int8 matmul at every decoder linear shape, M = B (step) and 3B (prefill)
+    # int8 matmul at every decoder linear shape, M = a batch-32 step, and a
+    # step and the prefill of the headline batch (96, 3 x 96)
     errs, rows = [], []
     for k, n, what in ((768, 2304, "qkv"), (768, 768, "o/cross q/cross o"),
                        (768, 3072, "fc1"), (3072, 768, "fc2")):
         q = quantize_int8(torch.randn(k, n, generator=gen, device=dev) * 0.02)
-        for m in (BATCH, 3 * BATCH):
+        for m in (BATCH, HEAD_BATCH, 3 * HEAD_BATCH):
             x = torch.randn(m, k, generator=gen, device=dev).to(bf16)
             got = int8_matmul(x, q.data, q.scale)
             ref = int8_matmul_ref(x, q.data, q.scale)
@@ -497,10 +573,11 @@ def phase1(dev, results: dict) -> None:
                 f"kernel {t_k:.4f} ms plain {t_p:.4f} ms "
                 f"dequant+torch.matmul {t_d:.4f} ms least {least['bound_ms']:.5f} ms "
                 f"({least['bound_by']})")
-    qkv32 = rows[0]   # the qkv projection of a batch-32 decode step
-    results["int8_matmul"] = {"max_abs_err": max(errs), "ms": qkv32[5],
-                              "plain_ms": qkv32[6], **qkv32[8],
-                              "library_ms": qkv32[7]}
+    qkv96 = rows[1]   # the qkv projection of a decode step of the headline batch
+    check(qkv96[:4] == (HEAD_BATCH, 768, 2304, "qkv"), "not the headline's qkv")
+    results["int8_matmul"] = {"max_abs_err": max(errs), "ms": qkv96[5],
+                              "plain_ms": qkv96[6], **qkv96[8],
+                              "library_ms": qkv96[7]}
 
     # grouped cross-attention: K = 1 (a greedy step), 3 (the prefix's
     # prefill), 5 (a beam-5 step) and 8 (a full launch of a prompt window)
@@ -621,6 +698,12 @@ def phase1_attention(dev, results: dict) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     t = 1500
+    # the card's second operations bound: one exponential per score on the
+    # special-function units, 16 a clock on each SM, at the card's top clock
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, b, h in (("small", HEAD_BATCH, 12), ("medium", MEDIUM_BATCH, 16)):
         q, k, v = (split_heads(torch.randn(b, t, h * 64, generator=gen, device=dev)
                                .to(torch.bfloat16), h) for _ in range(3))
@@ -638,6 +721,7 @@ def phase1_attention(dev, results: dict) -> None:
         t_lib = cuda_ms(lambda: sdpa(q, k, v))
         flop = 4 * b * h * t * t * 64
         least = bound(4 * b * h * t * 64 * 2, flop / BF16_FLOPS)
+        ex2_ms = 1e3 * b * h * t * t / (sm_count * 16 * sm_mhz * 1e6)
         res = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least,
                "library_ms": t_lib}
         if name == "small":
@@ -645,9 +729,22 @@ def phase1_attention(dev, results: dict) -> None:
         log(f"phase1 encoder_attention {name} ({b}, {h}, {t}, 64) bf16: err "
             f"{err:.3g} (bound {tol:.3g}) kernel {t_k:.4f} ms "
             f"({flop / t_k / 1e9:.1f} TFLOP/s) plain {t_p:.4f} ms sdpa "
-            f"{t_lib:.4f} ms least {least['bound_ms']:.4f} ms ({least['bound_by']})")
+            f"{t_lib:.4f} ms least {least['bound_ms']:.4f} ms ({least['bound_by']}); "
+            f"its exponentials alone {ex2_ms:.4f} ms ({sm_count} SMs x 16 a clock "
+            f"at {sm_mhz:.0f} MHz)")
         del q, k, v, got
         torch.cuda.empty_cache()
+    # times only, at a length of whole 128-key tiles: what the ragged T = 1500
+    # costs the kernel and the library call
+    b, h, t = HEAD_BATCH, 12, 1536
+    q, k, v = (split_heads(torch.randn(b, t, h * 64, generator=gen, device=dev)
+                           .to(torch.bfloat16), h) for _ in range(3))
+    t_k, t_lib = cuda_ms(lambda: encoder_attention(q, k, v)), cuda_ms(lambda: sdpa(q, k, v))
+    flop = 4 * b * h * t * t * 64
+    log(f"phase1 encoder_attention small ({b}, {h}, {t}, 64) bf16, whole tiles: kernel "
+        f"{t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s) sdpa {t_lib:.4f} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
 
 
 def int_mm_library(x, w, scale, act_scale=None):
@@ -845,6 +942,104 @@ def phase1_small_batch(dev, results: dict) -> None:
                 + ("" if t_lib is None else f" sdpa {t_lib:.4f} ms"))
 
 
+def phase1_dtypes(dev, results: dict) -> None:
+    """The f32 and f16 bodies of the decode attention kernels against their
+    plain versions, at the shapes of the runs that launch them: the cache
+    update at 192 rows (small-f32, batch 16) and, with the mixed `start` of
+    the small-f16-beam5 run, at its 8 x 5 x 12 = 480 rows; the grouped
+    cross-attention at 1 slot over 192 rows and at 5 slots over the beam
+    run's 96 rows; the one-query cross-attention at 36 rows (batch 3). Two
+    bodies that no run launches are held and timed here only: the int8 cache
+    update under f32 and f16 q, and the read-only self-attention over an f32
+    and an f16 cache (bit for bit against the update kernel's output)."""
+    from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
+    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
+        decode_cross_attention, decode_cross_attention_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    h, s_pad, s_valid = 12, 1536, 1500
+    rows, beam_rows = 16 * h, 8 * 5 * h
+    start = (torch.arange(beam_rows, device=dev) // (5 * h) * 5 % 13).to(torch.int32)
+    for dtype, tag in ((torch.float32, "f32"), (torch.float16, "f16")):
+        results["self_" + tag] = check_update(
+            f"self_attention_update {tag}", rows, 30, gen, False, None, dtype)
+        res = check_update(f"self_attention_update {tag} start", beam_rows, 30, gen,
+                           False, start, dtype)
+        if tag == "f16":
+            results["self_f16_start"] = res
+        check_update(f"self_attention_update_int8 {tag} q", rows, 30, gen, True, None,
+                     dtype)
+        qf = (torch.randn(rows, 64, generator=gen, device=dev) * 0.125).to(dtype)
+        kn, vn = (torch.randn(2, rows, 64, generator=gen, device=dev) * 2).to(dtype)
+        kc, vc = (torch.randn(rows, 64, 64, generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+        out_upd = sas.decode_self_attention_update(qf, kn, vn, kc, vc, 30)
+        check(torch.equal(sas.decode_self_attention(qf, kc, vc, 30), out_upd),
+              f"self_attention {tag}: differs from the update kernel's output on "
+              "the cache it wrote")
+        t_k = cuda_ms(lambda: sas.decode_self_attention(qf, kc, vc, 30))
+        t_p = cuda_ms(lambda: sas.decode_self_attention_ref(qf, kc, vc, 30))
+        log(f"phase1 self_attention {tag} pos=30 ({rows}, 64, 64): equal to the "
+            f"update kernel's output bit for bit; kernel {t_k:.4f} ms plain "
+            f"{t_p:.4f} ms")
+        k_t, v_t = (torch.randn(rows, 64, s_pad, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+        for kq, bh in ((1, rows), (5, 8 * h)):
+            qg = (torch.randn(bh, kq, 64, generator=gen, device=dev) * 0.125).to(dtype)
+            res = check_grouped(f"cross_attention_grouped {tag} K={kq}", qg,
+                                (k_t[:bh], v_t[:bh], None, None), s_valid)
+            if kq == 1:
+                results["cross_" + tag] = res
+            elif tag == "f16":
+                results["cross_f16_wide"] = res
+        bh = 3 * h
+        qf = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(dtype)
+        kv = (k_t[:bh], v_t[:bh], None, None)
+        got = decode_cross_attention(qf, *kv, s_valid)
+        ref = decode_cross_attention_ref(qf, *kv, s_valid)
+        err, tol = max_err(got, ref), KERNEL_REL[dtype] * float(ref.float().abs().max())
+        check(got.shape == (bh, 64) and got.dtype == dtype and err <= tol,
+              f"cross_attention {tag} BH={bh}: err {err} > {tol}")
+        t_k = cuda_ms(lambda: decode_cross_attention(qf, *kv, s_valid))
+        t_p = cuda_ms(lambda: decode_cross_attention_ref(qf, *kv, s_valid))
+        k, v = (t[:, :, :s_valid].transpose(1, 2) for t in kv[:2])
+        t_lib = cuda_ms(lambda: sdpa(qf[:, None, :], k, v, scale=1.0))
+        least = bound(nbytes(qf, got) + s_valid / s_pad * nbytes(*kv),
+                      4 * bh * 64 * s_valid / peak_flops(dtype))
+        results["cross1_" + tag] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                                    **least, "library_ms": t_lib}
+        log(f"phase1 cross_attention {tag} BH={bh} s_valid {s_valid}: err {err:.3g} "
+            f"(bound {tol:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms least "
+            f"{least['bound_ms']:.5f} ms ({least['bound_by']}) sdpa {t_lib:.4f} ms")
+        del k_t, v_t
+
+
+def phase1_crossover(dev) -> None:
+    """Every storage trait of the dequant-matmul beside dequant +
+    torch.matmul at whisper-small's qkv (768 x 2304) and fc2 (3072 x 768),
+    M = 32, 96, 288 and 1024 (the largest M `linear` still sends to the
+    kernels): where the two cross. Times only; the checks are elsewhere."""
+    from openai_whisper_compression_tpu_torch.ops.linear import kernel_call
+    from openai_whisper_compression_tpu_torch.ops.qtensor import dequantize
+    from openai_whisper_compression_tpu_torch.quant.core import QUANTIZERS
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+    for k, n, what in ((768, 2304, "qkv"), (3072, 768, "fc2")):
+        w = torch.randn(k, n, generator=gen, device=dev) * 0.02
+        for method in ("int8", "int4", "nf4", "hqq_int4", "hqq_int8"):
+            q = QUANTIZERS[method](w)
+            fn, _, args = kernel_call(q)
+            cells = []
+            for m in (32, 96, 288, 1024):
+                x = torch.randn(m, k, generator=gen, device=dev).to(bf16)
+                t_k = cuda_ms(lambda: fn(x, *args))
+                t_d = cuda_ms(lambda: torch.matmul(x, dequantize(q, bf16)))
+                cells.append(f"M={m} {t_k:.4f} vs {t_d:.4f}")
+            log(f"phase1 crossover {method} {what} K={k} N={n}, kernel vs "
+                f"dequant+torch.matmul ms: " + "; ".join(cells))
+
+
 def linear_shapes(arch) -> tuple:
     """(K, N, what) of every decoder linear of `arch` (fused qkv)."""
     d, f = arch.d_model, arch.ffn_dim
@@ -1017,21 +1212,27 @@ def check_launches(name: str, launches: dict, path, exact: dict) -> None:
 def expected_launches(arch, path, steps: list) -> dict:
     """How often one run's path calls the kernels whose count is known
     exactly, given the decoder steps of each batch: the encoder attention
-    once per encoder layer and batch; the w8a8 matmul for every quantized
+    once per encoder layer and batch (never for an f32 or f16 tree, whose
+    path does not hold it); the w8a8 matmul for every quantized
     linear (6 an encoder layer, per decoder layer the cross K and V, 6 in
-    the prefill and 6 a step); and in a run at small batch the one-query
-    cross-attention and the cache update once per layer and step, the
-    grouped cross-attention for the prefill window alone."""
+    the prefill and 6 a step); the cache update once per layer and step; the
+    grouped cross-attention once per layer for the prefill window and once
+    per layer and step, but in a run at small batch for the prefill window
+    alone: there the one-query cross-attention takes the steps."""
     n, layers, total = len(steps), arch.decoder_layers, sum(steps)
-    exact = {"encoder_attention": arch.encoder_layers * n}
+    exact = {"encoder_attention":
+             arch.encoder_layers * n if "encoder_attention" in path else 0}
+    for k in path:
+        if k.startswith("decode_self_attention_update"):
+            exact[k] = layers * total
+        if k.startswith("decode_cross_attention_grouped"):
+            exact[k] = layers * (n + total)
     for k in path:
         if k.startswith("w8a8_matmul"):
             exact[k] = n * (6 * arch.encoder_layers + 8 * layers) + 6 * layers * total
         if k.startswith("decode_cross_attention") and "grouped" not in k:
             exact[k] = layers * total
             exact[k.replace("attention", "attention_grouped")] = layers * n
-            exact.update({u: layers * total for u in path
-                          if u.startswith("decode_self_attention_update")})
     return exact
 
 
@@ -1045,21 +1246,25 @@ def prompt_window(arch, seed: int, batch: int):
     return torch.from_numpy(prompt), torch.from_numpy(lens.astype(np.int32))
 
 
-def expected_prompt_launches(arch, cfg, p_len: int, batches: int) -> dict:
-    """How often one prompt run's path calls each attention kernel: the
-    encoder attention once per encoder layer; per decoder layer the prefill
+def expected_prompt_launches(arch, cfg, p_len: int, batches: int,
+                             dtype=torch.bfloat16) -> dict:
+    """How often one prompt run's path calls each attention kernel, the
+    tree's activations being of `dtype`: the encoder attention once per
+    encoder layer (bf16 only); per decoder layer the prefill
     window in launches of at most 8 slots and one grouped launch per step
     (of beam_size slots), one cache update per step, and the cross-KV
     quantization of K and V."""
+    fp = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}[dtype]
     cross = "decode_cross_attention_grouped" + (
-        "_int4" if cfg.cross_kv_int4 else "_int8" if cfg.cross_kv_int8 else "")
-    update = "decode_self_attention_update" + ("_int8" if cfg.kv_int8 else "")
+        "_int4" if cfg.cross_kv_int4 else "_int8" if cfg.cross_kv_int8 else fp)
+    update = "decode_self_attention_update" + ("_int8" if cfg.kv_int8 else fp)
     window = PROMPT_W + p_len - 1
     chunks = [min(8, window - j0) for j0 in range(0, window, 8)]
     wide = sum(c > 4 for c in chunks) + NEW_TOKENS * (cfg.beam_size > 4)
     narrow = sum(c <= 4 for c in chunks) + NEW_TOKENS * (cfg.beam_size <= 4)
     layers = arch.decoder_layers
-    exact = {"log_mel_cuda": 1, "encoder_attention": arch.encoder_layers,
+    exact = {"log_mel_cuda": 1, "encoder_attention":
+             arch.encoder_layers if dtype == torch.bfloat16 else 0,
              cross + "_wide": layers * wide, cross: layers * narrow,
              update + "_start": layers * NEW_TOKENS}
     if cfg.cross_kv_int8 and not cfg.cross_kv_int4:
@@ -1098,13 +1303,14 @@ def run_prompt_path(dev, arch, params, run) -> dict:
     from openai_whisper_compression_tpu_torch.models import decode
     from openai_whisper_compression_tpu_torch.models.whisper import encode
 
-    name, switches, batch = run
+    name, switches, batch, method = (*run, "int8")[:4]
+    dtype = params["encoder"]["ln"]["g"].dtype
     eot = arch.eos_token_id
     cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(eot,), **switches)
     beam = cfg.beam_size
     prefix = decode.forced_prefix(arch, cfg)
     first_gen = PROMPT_W + len(prefix)
-    log(f"phase2 {name}: {arch.name}, int8 weights, batch {batch}, prompt window "
+    log(f"phase2 {name}: {arch.name}, {method} weights, batch {batch}, prompt window "
         f"{PROMPT_W}, prefix {prefix}, {json.dumps(switches)}")
     n_batches = 2
     wavs = [torch.from_numpy(waveforms(SEED + 10 + i, batch)).to(dev)
@@ -1114,7 +1320,7 @@ def run_prompt_path(dev, arch, params, run) -> dict:
     @torch.inference_mode()
     def transcribe(wav, prompt, lens):
         mel = preprocess(wav, arch.num_mel_bins, dft_dtype=torch.bfloat16)
-        enc = encode(params, arch, mel.to(params["encoder"]["ln"]["g"].dtype), fast_gelu=True)
+        enc = encode(params, arch, mel.to(dtype), fast_gelu=True)
         fn = decode.beam_decode if beam > 1 else decode.greedy_decode
         return enc, fn(params, arch, enc, cfg, prompt_tokens=prompt, prompt_lens=lens)
 
@@ -1137,8 +1343,9 @@ def run_prompt_path(dev, arch, params, run) -> dict:
     log(f"phase2 {name} launches {json.dumps(launches)}")
     log(f"phase2 {name} peak memory {peak_mb:.1f} MiB "
         "(torch.cuda.max_memory_allocated)")
-    exact = expected_prompt_launches(arch, cfg, len(prefix), n_batches)
-    check_launches(name, launches, set(exact) | {"int8_matmul"}, exact)
+    exact = expected_prompt_launches(arch, cfg, len(prefix), n_batches, dtype)
+    check_launches(name, launches,
+                   set(exact) | ({"int8_matmul"} if method == "int8" else set()), exact)
 
     ts_begin = arch.no_timestamps_token_id + 1
     for tokens, lengths in outs:
@@ -1441,14 +1648,16 @@ def phase3(dev, params_for) -> None:
             return {name: first_step_logits(params, arch, enc, cfg).float().cpu()
                     for name, cfg in cfgs.items()}
 
-        card = logits(params, wav.to(dev), torch.bfloat16)
+        dtype = params["encoder"]["ln"]["g"].dtype   # bf16 but for the f32 and f16 trees
+        tag = str(dtype).replace("torch.", "")
+        card = logits(params, wav.to(dev), dtype)
         ref = logits(tree_to(params, "cpu", torch.float32), wav, torch.float32)
         for name in cfgs:
             c, r = card[name], ref[name]
-            limit = ACT_LOGITS_REL_L2.get(method, LOGITS_REL_L2)
+            limit = {**ACT_LOGITS_REL_L2, **TREE_LOGITS_REL_L2}.get(method, LOGITS_REL_L2)
             rel = float((c - r).norm() / r.norm())
             agree = float((c.argmax(-1) == r.argmax(-1)).float().mean())
-            log(f"phase3 {name} first-step logits card bf16 vs CPU f32: relative L2 "
+            log(f"phase3 {name} first-step logits card {tag} vs CPU f32: relative L2 "
                 f"{rel:.4g} (bound {limit}), max abs {max_err(c, r):.4g}, "
                 f"|logits| max {float(r.abs().max()):.4g}, argmax agreement "
                 f"{agree:.2f} (not checked: random weights make argmax tie-prone)")
@@ -1525,6 +1734,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase1_w8a8(dev, results)
     phase1_small_batch(dev, results)
+    phase1_dtypes(dev, results)
+    phase1_crossover(dev)
     torch.cuda.empty_cache()
     built: dict = {}
 
@@ -1543,7 +1754,8 @@ def main() -> int:
             del built[arch_name, method]
             torch.cuda.empty_cache()
     for run in PROMPT_RUNS:
-        summaries[run[0]] = run_prompt_path(dev, *params_for(ARCH, "int8"), run)
+        summaries[run[0]] = run_prompt_path(
+            dev, *params_for(ARCH, (*run, "int8")[3]), run)
     summaries["self-attn-replay"] = run_self_attention_replay(
         dev, *params_for(ARCH, "int8"))
     phase3(dev, params_for)

@@ -22,6 +22,8 @@ def log_mel_cuda(wav: torch.Tensor, n_mels: int = 80,
         return finish_log_mel(mel_log10_ref(frames, n_mels, dft_dtype))
     name = "log_mel_cuda"
     kernels.require(wav.dim() == 2, name, f"wav must be (B, T), got {tuple(wav.shape)}")
+    kernels.require(dft_dtype in (torch.float32, torch.bfloat16), name,
+                    f"the DFT runs in float32 or bfloat16, got {dft_dtype}")
     b, n_frames, _ = frames.shape
     frames = frames.to(dft_dtype).contiguous()
     cos_b, sin_b, mel_fb = torch_bases(n_mels, dft_dtype, wav.device)

@@ -1,13 +1,15 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Every kernel file exposes `extern "C"` launchers with a plain C interface:
-// raw device pointers, sizes, a dtype code where the kernel takes both f32
-// and bf16 input, and the CUDA stream, all passed from Python through ctypes. A launcher enqueues its kernel(s) on the given
-// stream, never synchronises or allocates, and returns cudaGetLastError() so
-// the Python wrapper can raise on a refused launch.
+// raw device pointers, sizes, a dtype code where the kernel takes more than
+// one element type, and the CUDA stream, all passed from Python through
+// ctypes. A launcher enqueues its kernel(s) on the given stream, never
+// synchronises or allocates, and returns cudaGetLastError() so the Python
+// wrapper can raise on a refused launch.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -15,15 +17,30 @@
 // dtype codes shared with the Python wrappers (ops/kernels.py DTYPE_CODES)
 #define OWC_F32 0
 #define OWC_BF16 1
+#define OWC_F16 2
 
 __device__ __forceinline__ float owc_to_float(float x) { return x; }
 __device__ __forceinline__ float owc_to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float owc_to_float(__half x) { return __half2float(x); }
 
 __device__ __forceinline__ void owc_store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void owc_store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void owc_store(__half* p, float x) { *p = __float2half_rn(x); }
+
+// Calls `fn(T())` with T the element type of dtype code `dtype`; false for a
+// code no kernel takes.
+template <typename F>
+bool owc_dispatch_float(int dtype, F&& fn) {
+  switch (dtype) {
+    case OWC_F32: fn(float()); return true;
+    case OWC_BF16: fn(__nv_bfloat16()); return true;
+    case OWC_F16: fn(__half()); return true;
+    default: return false;
+  }
 }
 
 // Round a float to bf16 precision and back (round to nearest even), so f32

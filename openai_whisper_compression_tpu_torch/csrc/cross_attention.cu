@@ -13,9 +13,9 @@
 //   scores[j, s] = -inf for s >= s_valid
 //   p[j, s]      = exp(scores[j, s] - max_s), l[j] = sum_s p[j, s]
 //   out[g, j, d] = sum_s p[j, s] * v_scale[g, s] * v_t[g, d, s] / l[j]
-// in f32, from bf16 q and bf16 / int8 / int4 K/V (the scales are absent, 1,
-// for bf16), output in bf16. l is summed before the v-scale fold, as in
-// _beam_core.
+// in f32, from q in f32, bf16 or f16 and K/V in q's type (no scales) or in
+// int8 / int4 with scales, output in q's type (the Pallas kernels are
+// generic in it). l is summed before the v-scale fold, as in _beam_core.
 //
 // What bounds it on the H100: device-memory bytes. Every decode step reads
 // the whole cross K/V once: BH x 64 x S_pad x 2 tensors x 2 bytes for bf16
@@ -26,8 +26,8 @@
 // tail of the last chunk is read, and masked.
 //
 // Design: one block (256 threads) per (batch, head) row. The q slots sit in
-// shared memory as f32. Pass 1: a thread per chunk of positions (8 for bf16,
-// 16 for int8 and int4: one 16-byte load) walks the stored rows of k_t
+// shared memory as f32. Pass 1: a thread per chunk of positions (one 16-byte
+// load: 4 of f32, 8 of bf16 or f16, 16 of int8 and int4) walks the stored rows of k_t
 // (neighbouring threads read neighbouring chunks, so each row read is
 // coalesced) and keeps chunk x KQ dot products in registers; scores times
 // the k scale go to shared memory. Block-wide max/sum reductions give the
@@ -43,6 +43,8 @@
 // takes any slot count; here a window longer than 8 slots is several
 // launches, each over its own slots of q and out (hence the row stride),
 // each reading K/V again.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -50,30 +52,28 @@ namespace {
 constexpr int DH = 64, THREADS = 256;
 using BF = __nv_bfloat16;
 
-// storage kinds, codes shared with ops/cross_attention.py
-enum Kind { KV_BF16 = 0, KV_INT8 = 1, KV_INT4 = 2 };
+// storage kinds, codes shared with ops/cross_attention.py: K/V in q's own
+// type, int8 with scales, split-half packed int4 with scales
+enum Kind { KV_FP = 0, KV_INT8 = 1, KV_INT4 = 2 };
 
 // How a kind stores one (64, S_pad) K or V slab: ROWS stored rows of S_pad
 // elements; one 16-byte load holds VEC consecutive positions of a row, and
 // each stored row carries DIMS head dims (row r holds dims r + i * ROWS).
-template <int KIND> struct Store;
+// Q is q's element type, which is also the stored type of the KV_FP kind.
+template <int KIND, typename Q> struct Store;
 
-template <> struct Store<KV_BF16> {
-  using T = BF;
-  static constexpr int ROWS = 64, VEC = 8, DIMS = 1;
+template <typename Q> struct Store<KV_FP, Q> {
+  using T = Q;
+  static constexpr int ROWS = 64, VEC = 16 / sizeof(Q), DIMS = 1;
   __device__ static void load(const T* p, float out[DIMS][VEC]) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[0][2 * i] = f.x;
-      out[0][2 * i + 1] = f.y;
-    }
+    for (int i = 0; i < VEC; ++i) out[0][i] = owc_to_float(e[i]);
   }
 };
 
-template <> struct Store<KV_INT8> {
+template <typename Q> struct Store<KV_INT8, Q> {
   using T = int8_t;
   static constexpr int ROWS = 64, VEC = 16, DIMS = 1;
   __device__ static void load(const T* p, float out[DIMS][VEC]) {
@@ -84,7 +84,7 @@ template <> struct Store<KV_INT8> {
   }
 };
 
-template <> struct Store<KV_INT4> {
+template <typename Q> struct Store<KV_INT4, Q> {
   using T = int8_t;
   static constexpr int ROWS = 32, VEC = 16, DIMS = 2;
   __device__ static void load(const T* p, float out[DIMS][VEC]) {
@@ -99,18 +99,18 @@ template <> struct Store<KV_INT4> {
   }
 };
 
-template <int KIND, int MAXQ>
+template <int KIND, int MAXQ, typename Q>
 __global__ void __launch_bounds__(THREADS)
-cross_attn_grouped_kernel(const BF* __restrict__ q,
-                          const typename Store<KIND>::T* __restrict__ k_t,
-                          const typename Store<KIND>::T* __restrict__ v_t,
+cross_attn_grouped_kernel(const Q* __restrict__ q,
+                          const typename Store<KIND, Q>::T* __restrict__ k_t,
+                          const typename Store<KIND, Q>::T* __restrict__ v_t,
                           const float* __restrict__ k_scale,
                           const float* __restrict__ v_scale,
-                          BF* __restrict__ out, int KQ, int row_stride,
+                          Q* __restrict__ out, int KQ, int row_stride,
                           int S_pad, int s_valid) {
-  using St = Store<KIND>;
+  using St = Store<KIND, Q>;
   constexpr int ROWS = St::ROWS, VEC = St::VEC, DIMS = St::DIMS;
-  constexpr bool SCALED = KIND != KV_BF16;
+  constexpr bool SCALED = KIND != KV_FP;
   constexpr int QG = MAXQ < 4 ? MAXQ : 4;  // slots per sweep of pass 1
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;               // [MAXQ][DH]
@@ -237,37 +237,50 @@ cross_attn_grouped_kernel(const BF* __restrict__ q,
   }
 }
 
-template <int KIND, int MAXQ>
+template <int KIND, int MAXQ, typename Q>
 int launch(const void* q, const void* k_t, const void* v_t, const void* k_scale,
            const void* v_scale, void* out, int BH, int KQ, int row_stride,
            int S_pad, int s_valid, cudaStream_t st) {
-  using T = typename Store<KIND>::T;
+  using T = typename Store<KIND, Q>::T;
   const size_t smem = (size_t)(MAXQ * DH + KQ * S_pad) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      cross_attn_grouped_kernel<KIND, MAXQ>,
+      cross_attn_grouped_kernel<KIND, MAXQ, Q>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  cross_attn_grouped_kernel<KIND, MAXQ><<<BH, THREADS, smem, st>>>(
-      static_cast<const BF*>(q), static_cast<const T*>(k_t),
+  cross_attn_grouped_kernel<KIND, MAXQ, Q><<<BH, THREADS, smem, st>>>(
+      static_cast<const Q*>(q), static_cast<const T*>(k_t),
       static_cast<const T*>(v_t), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<BF*>(out), KQ, row_stride,
+      static_cast<const float*>(v_scale), static_cast<Q*>(out), KQ, row_stride,
       S_pad, s_valid);
   return (int)cudaGetLastError();
 }
 
-template <int KIND>
-int launch_kind(const void* q, const void* k_t, const void* v_t,
-                const void* k_scale, const void* v_scale, void* out, int BH,
-                int KQ, int row_stride, int S_pad, int s_valid,
-                cudaStream_t st) {
+template <int KIND, typename Q>
+int launch_slots(const void* q, const void* k_t, const void* v_t,
+                 const void* k_scale, const void* v_scale, void* out, int BH,
+                 int KQ, int row_stride, int S_pad, int s_valid,
+                 cudaStream_t st) {
   if (KQ == 1)
-    return launch<KIND, 1>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
-                           row_stride, S_pad, s_valid, st);
+    return launch<KIND, 1, Q>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
+                              row_stride, S_pad, s_valid, st);
   if (KQ <= 4)
-    return launch<KIND, 4>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
-                           row_stride, S_pad, s_valid, st);
-  return launch<KIND, 8>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
-                         row_stride, S_pad, s_valid, st);
+    return launch<KIND, 4, Q>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
+                              row_stride, S_pad, s_valid, st);
+  return launch<KIND, 8, Q>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
+                            row_stride, S_pad, s_valid, st);
+}
+
+// Calls fn(kind tag, q type tag) for the storage kind and dtype codes;
+// false where either is unknown.
+template <typename F>
+bool dispatch(int kind, int dtype, F&& fn) {
+  return owc_dispatch_float(dtype, [&](auto qt) {
+    switch (kind) {
+      case KV_FP: fn(std::integral_constant<int, KV_FP>(), qt); break;
+      case KV_INT8: fn(std::integral_constant<int, KV_INT8>(), qt); break;
+      case KV_INT4: fn(std::integral_constant<int, KV_INT4>(), qt); break;
+    }
+  }) && kind >= KV_FP && kind <= KV_INT4;
 }
 
 // ---------------------------------------------------------------------------
@@ -283,7 +296,8 @@ int launch_kind(const void* q, const void* k_t, const void* v_t,
 // streams 2 x 64 x s_valid elements whatever B*H is, and with 12 rows one
 // block per row would leave 120 of the 132 SMs idle. So a block takes
 // SPLIT_CHUNKS 16-byte chunks of positions of one row (128 positions of
-// int8/int4 K/V, 64 of bf16): B*H x 12 (24 for bf16) blocks at S = 1500.
+// int8/int4 K/V, 64 of bf16 or f16, 32 of f32): B*H x 12 (24, 47) blocks at
+// S = 1500.
 // Design: 256 threads = 32 row groups x 8 chunks. Pass 1: each thread takes
 // its chunk of its group's stored rows (2 rows, 1 for int4, one 16-byte load
 // each), the 32 partial scores of a position are summed through shared
@@ -293,22 +307,22 @@ int launch_kind(const void* q, const void* k_t, const void* v_t,
 // a row reduced by shuffles. Each block leaves 64 unnormalised sums, m and l
 // in scratch; `cross_attn_combine_kernel` (one small block per row) rescales
 // the partial sums to the common maximum, divides by the total l and writes
-// bf16. Two launches, no atomics, so the result does not change from run to
+// q's type. Two launches, no atomics, so the result does not change from run to
 // run.
 constexpr int SPLIT_CHUNKS = 8;  // 16-byte chunks of positions per block
 constexpr int PART = DH + 2;     // a block's record: 64 sums, m, l
 
-template <int KIND>
+template <int KIND, typename Q>
 __global__ void __launch_bounds__(THREADS)
-cross_attn_split_kernel(const BF* __restrict__ q,
-                        const typename Store<KIND>::T* __restrict__ k_t,
-                        const typename Store<KIND>::T* __restrict__ v_t,
+cross_attn_split_kernel(const Q* __restrict__ q,
+                        const typename Store<KIND, Q>::T* __restrict__ k_t,
+                        const typename Store<KIND, Q>::T* __restrict__ v_t,
                         const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale,
                         float* __restrict__ part, int S_pad, int s_valid) {
-  using St = Store<KIND>;
+  using St = Store<KIND, Q>;
   constexpr int ROWS = St::ROWS, VEC = St::VEC, DIMS = St::DIMS;
-  constexpr bool SCALED = KIND != KV_BF16;
+  constexpr bool SCALED = KIND != KV_FP;
   constexpr int SPAN = SPLIT_CHUNKS * VEC;    // positions per block
   constexpr int RG = THREADS / SPLIT_CHUNKS;  // row groups
   constexpr int RPT = ROWS / RG;              // stored rows per thread
@@ -404,8 +418,9 @@ cross_attn_split_kernel(const BF* __restrict__ q,
 
 // out[g, d] = sum_i part[g, i, d] * exp(m_i - M) / sum_i l_i * exp(m_i - M),
 // M the largest m_i; 64 threads, one per head dim.
+template <typename Q>
 __global__ void __launch_bounds__(DH)
-cross_attn_combine_kernel(const float* __restrict__ part, BF* __restrict__ out,
+cross_attn_combine_kernel(const float* __restrict__ part, Q* __restrict__ out,
                           int nsplit) {
   const int g = blockIdx.x, d = threadIdx.x;
   const float* rec = part + (size_t)g * nsplit * PART;
@@ -420,83 +435,73 @@ cross_attn_combine_kernel(const float* __restrict__ part, BF* __restrict__ out,
   owc_store(out + (size_t)g * DH + d, acc / l);
 }
 
-template <int KIND>
+template <int KIND, typename Q>
 int launch_split(const void* q, const void* k_t, const void* v_t,
                  const void* k_scale, const void* v_scale, void* part, void* out,
                  int BH, int nsplit, int S_pad, int s_valid, cudaStream_t st) {
-  using T = typename Store<KIND>::T;
-  const int nchunks = (s_valid + Store<KIND>::VEC - 1) / Store<KIND>::VEC;
+  using T = typename Store<KIND, Q>::T;
+  constexpr int VEC = Store<KIND, Q>::VEC;
+  const int nchunks = (s_valid + VEC - 1) / VEC;
   if (nsplit != (nchunks + SPLIT_CHUNKS - 1) / SPLIT_CHUNKS || nsplit > 65535)
     return (int)cudaErrorInvalidValue;
-  cross_attn_split_kernel<KIND><<<dim3(BH, nsplit), THREADS, 0, st>>>(
-      static_cast<const BF*>(q), static_cast<const T*>(k_t),
+  cross_attn_split_kernel<KIND, Q><<<dim3(BH, nsplit), THREADS, 0, st>>>(
+      static_cast<const Q*>(q), static_cast<const T*>(k_t),
       static_cast<const T*>(v_t), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<float*>(part), S_pad,
       s_valid);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  cross_attn_combine_kernel<<<BH, DH, 0, st>>>(static_cast<const float*>(part),
-                                               static_cast<BF*>(out), nsplit);
+  cross_attn_combine_kernel<Q><<<BH, DH, 0, st>>>(static_cast<const float*>(part),
+                                                  static_cast<Q*>(out), nsplit);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q and out: KQ slots of 64 bf16 for each of BH rows, row g at element
+// In both entry points `dtype` is the code (common.cuh) of the element type
+// of q and out: f32, bf16 or f16.
+
+// q and out: KQ slots of 64 values for each of BH rows, row g at element
 // g * row_stride (row_stride = KQ * 64 for contiguous (BH, KQ, 64) tensors;
-// larger when the call covers some of a longer window's slots). kind 0: k_t/v_t (BH, 64,
-// S_pad) bf16, scales unused (may be null). kind 1: k_t/v_t (BH, 64, S_pad)
-// int8 with k_scale/v_scale (BH, 1, S_pad) f32. kind 2: k_t/v_t (BH, 32,
-// S_pad) split-half packed int4 with the same scales. Requires
-// 1 <= KQ <= 8, 1 <= s_valid <= S_pad, S_pad a multiple of the kind's
-// 16-byte chunk (8 positions for bf16, 16 for int8/int4), 16-byte aligned
-// k_t/v_t, and (8 * 64 + KQ * S_pad) * 4 bytes of shared memory at most
-// (227 KB is the card's limit).
+// larger when the call covers some of a longer window's slots). kind 0:
+// k_t/v_t (BH, 64, S_pad) in q's type, scales unused (may be null). kind 1:
+// k_t/v_t (BH, 64, S_pad) int8 with k_scale/v_scale (BH, 1, S_pad) f32.
+// kind 2: k_t/v_t (BH, 32, S_pad) split-half packed int4 with the same
+// scales. Requires 1 <= KQ <= 8, 1 <= s_valid <= S_pad, S_pad a multiple of
+// the kind's 16-byte chunk (4 positions of f32, 8 of bf16 or f16, 16 of
+// int8/int4), 16-byte aligned k_t/v_t, and (8 * 64 + KQ * S_pad) * 4 bytes
+// of shared memory at most (227 KB is the card's limit).
 extern "C" int owc_cross_attention_grouped(const void* q, const void* k_t,
                                            const void* v_t, const void* k_scale,
                                            const void* v_scale, void* out,
                                            int BH, int KQ, int row_stride,
                                            int S_pad, int s_valid, int kind,
-                                           void* stream) {
+                                           int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (KQ < 1 || KQ > 8) return (int)cudaErrorInvalidValue;
-  switch (kind) {
-    case KV_BF16:
-      return launch_kind<KV_BF16>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
-                                  row_stride, S_pad, s_valid, st);
-    case KV_INT8:
-      return launch_kind<KV_INT8>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
-                                  row_stride, S_pad, s_valid, st);
-    case KV_INT4:
-      return launch_kind<KV_INT4>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
-                                  row_stride, S_pad, s_valid, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  int err = 0;
+  const bool ok = dispatch(kind, dtype, [&](auto kind_tag, auto qt) {
+    err = launch_slots<decltype(kind_tag)::value, decltype(qt)>(
+        q, k_t, v_t, k_scale, v_scale, out, BH, KQ, row_stride, S_pad, s_valid, st);
+  });
+  return ok ? err : (int)cudaErrorInvalidValue;
 }
 
-// One query per row: q and out (BH, 64) bf16; k_t/v_t, the scales and kind
-// as above. part: scratch of BH * nsplit * 66 floats, nsplit =
+// One query per row: q and out (BH, 64); k_t/v_t, the scales and kind as
+// above. part: scratch of BH * nsplit * 66 floats, nsplit =
 // ceil(ceil(s_valid / VEC) / 8) with VEC the kind's positions per 16-byte
-// chunk (8 for bf16, 16 for int8/int4). Requires 1 <= s_valid <= S_pad,
-// S_pad a multiple of VEC, 16-byte aligned k_t/v_t.
+// chunk. Requires 1 <= s_valid <= S_pad, S_pad a multiple of VEC, 16-byte
+// aligned k_t/v_t.
 extern "C" int owc_cross_attention(const void* q, const void* k_t,
                                    const void* v_t, const void* k_scale,
                                    const void* v_scale, void* part, void* out,
                                    int BH, int nsplit, int S_pad, int s_valid,
-                                   int kind, void* stream) {
+                                   int kind, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case KV_BF16:
-      return launch_split<KV_BF16>(q, k_t, v_t, k_scale, v_scale, part, out, BH,
-                                   nsplit, S_pad, s_valid, st);
-    case KV_INT8:
-      return launch_split<KV_INT8>(q, k_t, v_t, k_scale, v_scale, part, out, BH,
-                                   nsplit, S_pad, s_valid, st);
-    case KV_INT4:
-      return launch_split<KV_INT4>(q, k_t, v_t, k_scale, v_scale, part, out, BH,
-                                   nsplit, S_pad, s_valid, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  int err = 0;
+  const bool ok = dispatch(kind, dtype, [&](auto kind_tag, auto qt) {
+    err = launch_split<decltype(kind_tag)::value, decltype(qt)>(
+        q, k_t, v_t, k_scale, v_scale, part, out, BH, nsplit, S_pad, s_valid, st);
+  });
+  return ok ? err : (int)cudaErrorInvalidValue;
 }

@@ -11,90 +11,237 @@
 // product, l sums the unrounded f32 values and divides after the product,
 // as the TPU kernel does. Keys at positions >= T do not exist here (the
 // TPU kernel pads T to 128 and masks them); query rows >= T are not
-// written.
+// written. The TPU kernel holds all of K/V and a (512, T_pad) f32 score
+// block of one (batch, head) in VMEM per grid step; a block here has 227 KB
+// and registers are scarcer, so the softmax is online (a running max and
+// sum per row, the output rescaled when the max grows): a probability is
+// rounded to bf16 relative to the running max and not the final one, which
+// moves the result by less than the bf16 rounding of the output itself (the
+// kernel is held to one bf16 step of the plain version's largest output).
 //
-// The TPU kernel holds all of K/V and a (512, T_pad) f32 score block of
-// one (batch, head) in VMEM per grid step. A block here has 227 KB at
-// most and registers are scarcer, so the softmax is online (a running
-// max and sum per row, the output rescaled when the max grows): a
-// probability is then rounded to bf16 relative to the running max and not
-// the final one, which moves the result by less than the bf16 rounding of
-// the output itself (the kernel is held to one bf16 step of the plain
-// version's largest output).
+// What bounds it on the H100: operations, of two kinds. One call does
+// 4 * B*H * T^2 * 64 flop on the tensor cores (6.6e11 at whisper-small,
+// batch 96: 0.67 ms at the bf16 peak) against 0.88 GB of q, k, v and out
+// (0.26 ms), and B*H * T^2 exponentials (2.6e9) on the special-function
+// units, 16 a clock an SM: 0.6-0.7 ms at the card's clock, as much again.
+// A kernel that runs the two one after the other cannot come under their
+// sum; one that overlaps them is bounded by the larger.
 //
-// What bounds it on the H100: operations. One call does 4 * B*H * T^2 * 64
-// flop (6.6e11 at whisper-small, batch 96) against 4 * B*H * T * 64 * 2
-// bytes of q, k, v and out (0.88 GB): 750 flop per byte, far above the
-// card's balance point, so the products run on the tensor cores
-// (mma.sync.m16n8k16, bf16 operands, f32 accumulators); wgmma and TMA are
-// later work. The (T, T) scores never reach device memory.
-//
-// Design: one block of 8 warps per 128 query rows of one (batch, head);
-// a warp owns 16 rows and keeps their scaled q (A fragments), the output
-// accumulators and the softmax statistics in registers. K and V stream
-// through shared memory in tiles of 64 keys, double buffered with
-// cp.async (16-byte copies; rows past T are zero filled), each tile shared
-// by the 8 warps. Shared rows are padded to 72 elements (144 bytes) so the
-// eight row addresses of an ldmatrix fall into distinct banks. S = Q K^T
-// takes its B fragments with ldmatrix from K stored [key][d]; the score
-// accumulators of two 8-key tiles, rounded to bf16, are the A fragment of
-// P V (their register layouts coincide), and V stored [key][d] gives its B
-// fragments with ldmatrix.trans. Neighbouring blocks share a (batch, head),
-// so its K/V stay in L2 while its 12 blocks run. q, k, v and out are
-// addressed through (batch, head, row) strides: the (B, T, H, 64) layout
-// that the projections leave is read in place, and out is written in that
-// layout so that merging the heads is a view.
+// Design: wgmma for both products, a TMA-fed ring of K/V tiles, and the
+// softmax of one tile run under the products of its neighbours.
+// - A block is three warpgroups: two consumers of 64 query rows each (128
+//   rows a block) and a producer. A K/V tile in shared memory is read by
+//   one wgmma per 64 query rows; the kernel this one replaced multiplied
+//   with 16-row warp-level products, read every tile once per 16 rows and
+//   was held back by shared-memory bandwidth before the tensor cores.
+// - One block an SM, walking over (batch, head, query block) items with the
+//   query block fastest, so the blocks in flight share few (batch, head)
+//   pairs and each pair's 384 KB of K/V stay in L2 while its 12 items run.
+//   The barriers and the ring live across items: the producer loads the
+//   next item's first tiles while the consumers finish this one, and the
+//   consumers fetch the next item's q into registers meanwhile.
+// - The producer's first thread keeps a ring of 4 stages filled, each a
+//   128-key K tile and V tile (32 KB), by two TMA loads a stage that signal
+//   the stage's `full` mbarrier; a consumer warp's first lane arrives on the
+//   stage's `empty` mbarrier once its warpgroup's products on that stage
+//   are done. The tensor maps describe k's and v's (B, H, T, 64) strided
+//   views in place (built by the launcher from the pointers and strides it
+//   is given; `cuTensorMapEncodeTiled` is looked up through the runtime at
+//   the first call, so the library links against the runtime only), in the
+//   128-byte swizzle that wgmma's descriptors read without bank conflicts;
+//   rows past T arrive as zeros.
+// - S = Q K^T: Q, scaled and rounded to bf16, sits in registers as the A
+//   operand (16 registers a thread: read once from device memory, so it
+//   needs no shared tile and no proxy fence); K is the B operand in its
+//   [key][d] tile (K-major). m64n128k16, four steps over d.
+// - O += P V: the score accumulators, exponentiated and rounded to bf16,
+//   are the A operand as they lie (the accumulator layout of two 8-key
+//   columns is the A fragment of 16 keys); V is the B operand read in place
+//   from its [key][d] tile through the transposed (MN-major) descriptor:
+//   no transpose pass. m64n64k16, eight steps over the keys.
+// - Hiding the exponentials: within a warpgroup the next tile's Q K^T is
+//   issued together with this tile's P V, and the softmax of the new scores
+//   runs while P V is still in flight; the two warpgroups are not in step,
+//   so one's exponentials also fall under the other's products. Passing the
+//   turn on the tensor cores back and forth between the warpgroups through
+//   named barriers, on top of that, was measured and bought nothing at
+//   T = 1500 (PERF.md), so the kernel does without.
+// - The ragged last tile (1500 = 11 x 128 + 92) is masked to -inf before
+//   the row maximum.
+// - Registers: a block of 384 threads starts with 168 a thread, and the
+//   consumers need more (64 score + 32 output + 32 probability + 2 x 16 q
+//   registers and the softmax's temporaries). The card hands registers out
+//   to four warps at a time, so a lone producer warp would cost a
+//   warpgroup's worth all the same; a whole producer warpgroup gives its
+//   registers away instead (`setmaxnreg` down to 40) and each consumer
+//   takes 232: no spills. A third consumer warpgroup (192 rows a block)
+//   leaves each 128 registers and spills.
+#include <cuda.h>
+#include <limits.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int DH = 64;        // head dim
-constexpr int BM = 128;       // query rows per block: 8 warps x 16 rows
-constexpr int BN = 64;        // keys per shared-memory tile
-constexpr int THREADS = 256;
-constexpr int LDS = DH + 8;   // shared row stride in elements (144 bytes)
+constexpr int DH = 64;             // head dim
+constexpr int WGS = 2;             // consumer warpgroups
+constexpr int BM = 64 * WGS;       // query rows per block
+constexpr int BN = 128;            // keys per stage
+constexpr int STAGES = 4;
+constexpr int CONSUMERS = 128 * WGS;  // threads of the consumer warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+constexpr int TILE_BYTES = BN * DH * 2;            // one K or V tile
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
 constexpr float LOG2E = 1.4426950408889634f;
 using BF = __nv_bfloat16;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
-// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 and receives elements [l / 4][2 * (l % 4), + 1] of each matrix.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
-// The same with each matrix transposed: elements [2 * (l % 4), + 1][l / 4].
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+// Spins until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// c (16x8 f32) += a (16x16 bf16, row major) * b (16x8 bf16, column major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// One (64, BN, 1, 1) box of a 4-D tensor map into shared memory; the
+// barrier receives the box's bytes.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
+// swizzle (1024-byte aligned): 8-row groups 1024 bytes apart (SBO); the
+// leading byte offset is not used by a tile one swizzle span wide.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;            // LBO (unused), in 16-byte units
+  d |= (uint64_t)(1024 >> 4) << 32;  // SBO
+  d |= (uint64_t)1 << 62;            // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across this point.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 128 f32) = or += a (64 x 16 bf16, registers) * B (16 x 128, a
+// K-major [n][k] shared tile). Thread t of the warpgroup holds rows
+// 16 * (t / 32) + (t % 32) / 4 (+ 8) and columns 8j + 2 * (t % 4) (+ 1) in
+// d[4j .. 4j + 3]: the warp-level m16n8 accumulator layout, 16 side by side.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64 f32) += a (64 x 16 bf16, registers) * B (16 x 64, an MN-major
+// [k][n] shared tile: the transposed-B form).
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -113,150 +260,318 @@ struct Strides {  // in elements; the head dim is contiguous
   long long b, h, t;
 };
 
-__global__ void __launch_bounds__(THREADS, 2)
-encoder_attention_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
-                         const BF* __restrict__ v, BF* __restrict__ out, int H,
-                         int T, float scale, Strides qs, Strides ks, Strides vs,
-                         Strides os) {
-  __shared__ __align__(16) BF Ks[2][BN][LDS];
-  __shared__ __align__(16) BF Vs[2][BN][LDS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int m0 = blockIdx.x * BM + warp * 16;  // this warp's first query row
-  const BF* qb = q + b * qs.b + h * qs.h;
-  const BF* kb = k + b * ks.b + h * ks.h;
-  const BF* vb = v + b * vs.b + h * vs.h;
-  BF* ob = out + b * os.b + h * os.h;
-  const int ntiles = (T + BN - 1) / BN;
+// Where the key position, the head and the batch index stand among a tensor
+// map's coordinates 1..3 (its dimensions are ordered by stride).
+struct CoordOrder {
+  int t, h, b;
+};
 
-  auto load_tile = [&](int tile, int buf) {
-    const int kv0 = tile * BN;
-    for (int c = tid; c < BN * (DH / 8); c += THREADS) {  // 16-byte chunks
-      const int row = c >> 3, col = (c & 7) * 8;
-      const int key = kv0 + row;
-      const bool ok = key < T;
-      const long long src = ok ? key : T - 1;  // a valid address; 0 bytes read
-      cp_async16(&Ks[buf][row][col], kb + src * ks.t + col, ok ? 16 : 0);
-      cp_async16(&Vs[buf][row][col], vb + src * vs.t + col, ok ? 16 : 0);
+__device__ __forceinline__ void load_kv_tile(void* dst, const CUtensorMap* map,
+                                             uint64_t* bar, CoordOrder o, int key,
+                                             int h, int b) {
+  int c[4] = {0, 0, 0, 0};
+  c[o.t] = key;
+  c[o.h] = h;
+  c[o.b] = b;
+  tma_load_4d(dst, map, bar, 0, c[1], c[2], c[3]);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+encoder_attention_kernel(const BF* __restrict__ q,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         BF* __restrict__ out, int BH, int H, int T, float scale,
+                         Strides qs, Strides os, CoordOrder ko, CoordOrder vo) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[STAGES];
+  __shared__ __align__(8) uint64_t empty_bar[STAGES];
+  // the swizzle repeats every 1024 bytes of shared address
+  unsigned char* tiles = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  const int ntiles = (T + BN - 1) / BN;
+  const int qblocks = (T + BM - 1) / BM;
+  const int items = qblocks * BH;  // (batch, head, query block), query block fastest
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], 1);   // the producer's expect_tx arrival
+      mbar_init(&empty_bar[s], 4 * WGS);  // lane 0 of each consumer warp
     }
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---- producer warpgroup: its first thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == CONSUMERS) {
+      int it = 0;  // tiles loaded so far, over all of this block's items
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        const int bh = w / qblocks, b = bh / H, h = bh % H;
+        for (int j = 0; j < ntiles; ++j, ++it) {
+          const int s = it % STAGES, round = it / STAGES;
+          mbar_wait(&empty_bar[s], (round & 1) ^ 1);  // passes on a fresh barrier
+          mbar_expect_tx(&full_bar[s], STAGE_BYTES);
+          unsigned char* stage = tiles + s * STAGE_BYTES;
+          load_kv_tile(stage, &k_map, &full_bar[s], ko, j * BN, h, b);
+          load_kv_tile(stage + TILE_BYTES, &v_map, &full_bar[s], vo, j * BN, h, b);
+        }
+      }
+    }
+  } else {
+  // ---- consumer warpgroups ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = tid >> 7, lane = tid & 31, warp_in_wg = (tid >> 5) & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row_in_block = wg * 64 + warp_in_wg * 16 + g;  // and + 8
+
+  // A fragments of item w's scaled query rows: a0 (row g, cols 2t), a1 (row
+  // g + 8), a2 (row g, cols 2t + 8), a3 (row g + 8, cols 2t + 8)
+  auto load_q = [&](uint32_t (&f)[4][4], int w) {
+    const int bh = w / qblocks, row0 = (w % qblocks) * BM + row_in_block;
+    const BF* qb = q + (bh / H) * qs.b + (bh % H) * qs.h;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + (i & 1) * 8;
+        const int col = kk * 16 + (i >> 1) * 8 + 2 * t4;
+        f[kk][i] = row < T ? load_q2(qb + row * qs.t + col, scale) : 0u;
+      }
   };
 
-  // A fragments of this warp's 16 scaled query rows: a0 (row g, cols 2t),
-  // a1 (row g + 8), a2 (row g, cols 2t + 8), a3 (row g + 8, cols 2t + 8)
-  uint32_t qf[4][4];
+  uint32_t qf[4][4], q_next[4][4];
+  float s_acc[64];  // scores of 128 keys, then their exponentials
+  float o_acc[32];
+  uint32_t p_frag[8][4];  // bf16 probabilities: the A operand of P V
+  float m_run[2], l_run[2];  // rows g and g + 8; l is this lane's share
+  int it = 0;  // tiles consumed before the current item
+
+  // Scores of the item's tile j from its stage's K tile (issue only).
+  auto issue_qk = [&](int j) {
+    const uint64_t kd = smem_desc(tiles + ((it + j) % STAGES) * STAGE_BYTES);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < 4; ++kk)  // 16 values of d are 32 bytes of a row
+      wgmma_qk(s_acc, qf[kk], kd + ((kk * 32) >> 4), kk > 0);
+  };
+  // O += P V over tile j's V tile (issue only).
+  auto issue_pv = [&](int j) {
+    const uint64_t vd =
+        smem_desc(tiles + ((it + j) % STAGES) * STAGE_BYTES + TILE_BYTES);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + g + (i & 1) * 8;
-      const int col = kk * 16 + (i >> 1) * 8 + 2 * t4;
-      qf[kk][i] = row < T ? load_q2(qb + row * qs.t + col, scale) : 0u;
+    for (int kk = 0; kk < 8; ++kk)  // 16 keys are 16 rows of 128 bytes
+      wgmma_pv(o_acc, p_frag[kk], vd + ((kk * 16 * 128) >> 4));
+  };
+  auto wait_full = [&](int j) {
+    mbar_wait(&full_bar[(it + j) % STAGES], ((it + j) / STAGES) & 1);
+  };
+  auto release = [&](int j) {  // this warp is done with tile j's stage
+    if (lane == 0) mbar_arrive(&empty_bar[(it + j) % STAGES]);
+  };
+  // The online softmax over tile j's scores: s_acc becomes exp(s - m), the
+  // running maximum and sum move on; returns what the output so far must be
+  // multiplied by (0 on an item's first tile, whose old maximum is -inf).
+  auto softmax_tile = [&](int j, float (&corr)[2]) {
+    if (j * BN + BN > T) {  // the ragged last tile: keys past T take no weight
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (j * BN + (i >> 2) * 8 + 2 * t4 + (i & 1) >= T) s_acc[i] = -INFINITY;
     }
-
-  float o[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-  float l_run[2] = {0.0f, 0.0f};            // this lane's share of the row sums
-  const bool active = m0 < T;               // the same for the whole warp
-
-  load_tile(0, 0);
-  for (int j = 0; j < ntiles; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // tile j has landed; tile j - 1's buffer is free
-    if (j + 1 < ntiles) load_tile(j + 1, (j + 1) & 1);
-    if (!active) continue;
-    const int buf = j & 1;
-
-    // S = Q K^T for 16 rows x 64 keys: s[n] is the 16x8 tile of keys 8n..
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {  // d 0..31, 32..63
-        uint32_t kf[4];
-        ldmatrix_x4(kf, &Ks[buf][n * 8 + (lane & 7)][half * 32 + (lane >> 3) * 8]);
-        mma_bf16(s[n], qf[half * 2], kf[0], kf[1]);
-        mma_bf16(s[n], qf[half * 2 + 1], kf[2], kf[3]);
-      }
-    }
-    const int kv0 = j * BN;
-    if (kv0 + BN > T) {  // the ragged last tile: keys past T take no weight
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (kv0 + n * 8 + 2 * t4 + (e & 1) >= T) s[n][e] = -INFINITY;
-    }
-
-    // online softmax over the tile; s becomes the unnormalised probabilities
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
+      float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};  // short chains
 #pragma unroll
-      for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[r], mx);  // finite: key 0 is in tile 0
-      const float corr = exp2f((m_run[r] - m_new) * LOG2E);  // 0 on tile 0
+      for (int n = 0; n < 16; ++n)
+        mx[n & 3] = fmaxf(mx[n & 3], fmaxf(s_acc[4 * n + 2 * r], s_acc[4 * n + 2 * r + 1]));
+      float m_tile = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+      m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 1));
+      m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 2));
+      const float m_new = fmaxf(m_run[r], m_tile);  // finite: key 0 is in tile 0
+      corr[r] = ex2((m_run[r] - m_new) * LOG2E);
       m_run[r] = m_new;
-      float sum = 0.0f;
+      const float ms = m_new * LOG2E;
+      float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float p0 = exp2f((s[n][2 * r] - m_new) * LOG2E);
-        const float p1 = exp2f((s[n][2 * r + 1] - m_new) * LOG2E);
-        s[n][2 * r] = p0;
-        s[n][2 * r + 1] = p1;
-        sum += p0 + p1;
+      for (int n = 0; n < 16; ++n) {
+        const float p0 = ex2(fmaf(s_acc[4 * n + 2 * r], LOG2E, -ms));
+        const float p1 = ex2(fmaf(s_acc[4 * n + 2 * r + 1], LOG2E, -ms));
+        s_acc[4 * n + 2 * r] = p0;
+        s_acc[4 * n + 2 * r + 1] = p1;
+        sum[n & 3] += p0 + p1;
       }
-      l_run[r] = l_run[r] * corr + sum;
+      l_run[r] = l_run[r] * corr[r] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+    }
+  };
+  auto rescale_and_pack = [&](const float (&corr)[2]) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[n][2 * r] *= corr;
-        o[n][2 * r + 1] *= corr;
-      }
+    for (int n = 0; n < 8; ++n) {
+      o_acc[4 * n] *= corr[0];
+      o_acc[4 * n + 1] *= corr[0];
+      o_acc[4 * n + 2] *= corr[1];
+      o_acc[4 * n + 3] *= corr[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p_frag[kk][i] = pack_bf16(s_acc[8 * kk + 2 * i], s_acc[8 * kk + 2 * i + 1]);
+  };
+  auto fence_pv_operands = [&]() {
+    reg_fence(o_acc);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) reg_fence(p_frag[kk]);
+  };
+
+  if ((int)blockIdx.x < items) load_q(q_next, blockIdx.x);
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qf[kk][i] = q_next[kk][i];
+    // the next item's q arrives while this one's tiles stream by
+    if (w + (int)gridDim.x < items) load_q(q_next, w + gridDim.x);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o_acc[i] = 0.0f;
+    m_run[0] = m_run[1] = -INFINITY;
+    l_run[0] = l_run[1] = 0.0f;
+    float corr[2];
+
+    // tile 0: scores alone
+    wait_full(0);
+    reg_fence(s_acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) reg_fence(qf[kk]);
+    wgmma_fence();
+    issue_qk(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s_acc);
+    softmax_tile(0, corr);
+    rescale_and_pack(corr);
+
+    for (int j = 1; j < ntiles; ++j) {
+      wait_full(j);
+      reg_fence(s_acc);
+      fence_pv_operands();
+      wgmma_fence();
+      issue_qk(j);
+      wgmma_commit();
+      issue_pv(j - 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the scores are there; P V of tile j - 1 still runs
+      reg_fence(s_acc);
+      softmax_tile(j, corr);
+      wgmma_wait<0>();  // P V of tile j - 1 is done: its stage is free
+      fence_pv_operands();
+      release(j - 1);
+      rescale_and_pack(corr);
     }
 
-    // O += P V: the score tiles 2kk and 2kk + 1, rounded to bf16, are the A
-    // fragment over keys 16kk..16kk + 15
+    // the last tile's P V
+    fence_pv_operands();
+    wgmma_fence();
+    issue_pv(ntiles - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(o_acc);
+    release(ntiles - 1);
+    it += ntiles;
+
+    const int bh = w / qblocks, row0 = (w % qblocks) * BM + row_in_block;
+    BF* ob = out + (bh / H) * os.b + (bh % H) * os.h;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.0f / l;
+      const int row = row0 + r * 8;
+      if (row < T) {
+        BF* orow = ob + row * os.t + 2 * t4;
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {  // output dims 16dp..16dp + 15
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, &Vs[buf][kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8]
-                                 [dp * 16 + (lane >> 4) * 8]);
-        mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(
+              o_acc[4 * n + 2 * r] * inv, o_acc[4 * n + 2 * r + 1] * inv);
       }
     }
   }
+  }  // consumer warpgroups
+}
 
-  if (!active) return;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int row = m0 + g + r * 8;
-    if (row < T) {
-      BF* orow = ob + row * os.t + 2 * t4;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-            __floats2bfloat162_rn(o[n][2 * r] / l, o[n][2 * r + 1] / l);
-    }
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so that the library needs no
+// link against libcuda.
+EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &status) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &status) != cudaSuccess)
+      return nullptr;
+#endif
+    if (status != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
   }
+  return fn;
+}
+
+// The tensor map of a bf16 (B, H, T, 64) strided view, boxes of (BN, 64)
+// at one (batch, head), 128-byte swizzle, rows past T filled with zeros.
+// The three outer dimensions are listed by ascending stride; `order` says
+// where each landed.
+bool make_kv_map(CUtensorMap* map, CoordOrder* order, const void* base, int B, int H,
+                 int T, Strides st) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  struct Dim {
+    long long stride;
+    cuuint64_t size;
+    cuuint32_t box;
+    int* where;
+  } dims[3] = {{st.t, (cuuint64_t)T, BN, &order->t},
+               {st.h, (cuuint64_t)H, 1, &order->h},
+               {st.b, (cuuint64_t)B, 1, &order->b}};
+  for (int i = 0; i < 3; ++i)  // a dimension of one element: any stride will do
+    if (dims[i].size == 1) dims[i].stride = LLONG_MAX;
+  for (int i = 0; i < 3; ++i)  // three elements: a bubble sort
+    for (int j = 0; j + 1 < 3 - i; ++j)
+      if (dims[j].stride > dims[j + 1].stride) {
+        const Dim tmp = dims[j];
+        dims[j] = dims[j + 1];
+        dims[j + 1] = tmp;
+      }
+  long long extent = DH;  // elements spanned by the dimensions so far
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i].size == 1) dims[i].stride = extent;
+    const long long span = dims[i].stride * (long long)dims[i].size;
+    if (span > extent) extent = span;
+  }
+  cuuint64_t size[4] = {DH, 0, 0, 0};
+  cuuint64_t stride_bytes[3];
+  cuuint32_t box[4] = {DH, 0, 0, 0};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    size[i + 1] = dims[i].size;
+    stride_bytes[i] = (cuuint64_t)dims[i].stride * sizeof(BF);
+    box[i + 1] = dims[i].box;
+    *dims[i].where = i + 1;
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), size,
+                stride_bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -264,8 +579,8 @@ encoder_attention_kernel(const BF* __restrict__ q, const BF* __restrict__ k,
 // q, k, v, out: bf16 (B, H, T, 64) addressed as base + b * sb + h * sh +
 // t * st + d, strides in elements, given for q, k, v and out in that order
 // as strides[12] = {sb, sh, st} x 4. k and v need 16-byte aligned rows (base
-// pointer and every stride a multiple of 8 elements), q and out 4-byte
-// aligned rows. Requires B * H <= 65535 and T >= 1.
+// pointer and every stride a multiple of 8 elements, positive strides), q
+// and out 4-byte aligned rows. Requires B * H <= 65535 and T >= 1.
 extern "C" int owc_encoder_attention(const void* q, const void* k, const void* v,
                                      void* out, int B, int H, int T, float scale,
                                      const long long* strides, void* stream) {
@@ -273,9 +588,29 @@ extern "C" int owc_encoder_attention(const void* q, const void* k, const void* v
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
-  const dim3 grid((T + BM - 1) / BM, B * H);
-  encoder_attention_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const BF*>(q), static_cast<const BF*>(k), static_cast<const BF*>(v),
-      static_cast<BF*>(out), H, T, scale, qs, ks, vs, os);
+  CUtensorMap k_map, v_map;
+  CoordOrder ko, vo;
+  if (!make_kv_map(&k_map, &ko, k, B, H, T, ks) ||
+      !make_kv_map(&v_map, &vo, v, B, H, T, vs))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(encoder_attention_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  // one block an SM, each walking over (batch, head, query block) items
+  static int sm_count = 0;
+  if (sm_count == 0) {
+    int device = 0;
+    e = cudaGetDevice(&device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long items = (long long)((T + BM - 1) / BM) * B * H;
+  const int grid = (int)(items < sm_count ? items : sm_count);
+  encoder_attention_kernel<<<grid, THREADS, SMEM_BYTES,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const BF*>(q), k_map, v_map, static_cast<BF*>(out), B * H, H, T,
+      scale, qs, os, ko, vo);
   return (int)cudaGetLastError();
 }

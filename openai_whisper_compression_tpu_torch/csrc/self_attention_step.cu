@@ -21,8 +21,11 @@
 //   p[s] = exp(scores[s] - max), l = sum_s p[s]
 //   out[g, :] = sum_s p[s] * v_scale[g, s] * vq[g, s, :] / l
 // so the fresh row attends at its quantized-then-dequantized value, as in
-// the TPU kernel. In f32, from bf16 q/k/v (and bf16 caches for the fp
-// kernel), output in bf16. The caches and scales are updated in place.
+// the TPU kernel. Arithmetic in f32; q, the fresh rows, an fp cache and the
+// output share one element type, f32, bf16 or f16 (the Pallas kernels are
+// generic in it: output in q's type, cache in its own); with an int8 cache
+// only q, the fresh rows and the output have it. The caches and scales are
+// updated in place.
 //
 // What bounds it on the H100: launch latency, then bytes. At whisper-small,
 // batch 32, a 64-slot bf16 cache is BH x 64 x 64 x 2 bytes = 3 MB per tensor
@@ -49,9 +52,8 @@
 namespace {
 
 constexpr int DH = 64, THREADS = 128;
-using T = __nv_bfloat16;
 
-template <bool WRITE>
+template <typename T, bool WRITE>
 __global__ void __launch_bounds__(THREADS)
 self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, T* k_cache, T* v_cache,
@@ -103,7 +105,7 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   }
 }
 
-template <bool WRITE>
+template <typename T, bool WRITE>
 __global__ void __launch_bounds__(THREADS)
 self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                              const T* __restrict__ v_new, int8_t* k_cache,
@@ -163,75 +165,91 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
   }
 }
 
+template <bool WRITE>
+int launch_fp(const void* q, const void* k_new, const void* v_new, void* k_cache,
+              void* v_cache, void* out, const void* start, int BH, int S, int pos,
+              int dtype, void* stream) {
+  const size_t smem = (size_t)(pos + 1) * sizeof(float);
+  const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    self_attn_update_kernel<T, WRITE>
+        <<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k_new),
+            static_cast<const T*>(v_new), static_cast<T*>(k_cache),
+            static_cast<T*>(v_cache), static_cast<T*>(out),
+            static_cast<const int*>(start), S, pos);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+template <bool WRITE>
+int launch_int8(const void* q, const void* k_new, const void* v_new, void* k_cache,
+                void* v_cache, void* k_scale, void* v_scale, void* out,
+                const void* start, int BH, int S, int pos, int dtype, void* stream) {
+  const size_t smem = (size_t)(pos + 1) * sizeof(float);
+  const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    self_attn_update_int8_kernel<T, WRITE>
+        <<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k_new),
+            static_cast<const T*>(v_new), static_cast<int8_t*>(k_cache),
+            static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale),
+            static_cast<float*>(v_scale), static_cast<T*>(out),
+            static_cast<const int*>(start), S, pos);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// In every entry point `dtype` is the code (common.cuh) of the element type
+// that q, the fresh rows, an fp cache and out share: f32, bf16 or f16.
+
 // q/k_new/v_new (BH, 64), k_cache/v_cache (BH, S, 64) updated in place,
-// out (BH, 64); all bf16. start: (BH,) int32 first attending position of
-// each row, or null for 0. Requires 0 <= start[g] <= pos < S <= 12288.
+// out (BH, 64). start: (BH,) int32 first attending position of each row, or
+// null for 0. Requires 0 <= start[g] <= pos < S <= 12288.
 extern "C" int owc_self_attention_update(const void* q, const void* k_new,
                                          const void* v_new, void* k_cache,
                                          void* v_cache, void* out,
                                          const void* start, int BH, int S,
-                                         int pos, void* stream) {
-  const size_t smem = (size_t)(pos + 1) * sizeof(float);
-  self_attn_update_kernel<true><<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<T*>(k_cache),
-      static_cast<T*>(v_cache), static_cast<T*>(out),
-      static_cast<const int*>(start), S, pos);
-  return (int)cudaGetLastError();
+                                         int pos, int dtype, void* stream) {
+  return launch_fp<true>(q, k_new, v_new, k_cache, v_cache, out, start, BH, S, pos,
+                         dtype, stream);
 }
 
 // The same attention over caches whose row pos is already written; nothing
-// is written but out. q (BH, 64), k_cache/v_cache (BH, S, 64), out (BH, 64),
-// all bf16; start as above. Requires 0 <= start[g] <= pos < S <= 12288.
+// is written but out. q (BH, 64), k_cache/v_cache (BH, S, 64), out (BH, 64);
+// start as above. Requires 0 <= start[g] <= pos < S <= 12288.
 extern "C" int owc_self_attention(const void* q, void* k_cache, void* v_cache,
                                   void* out, const void* start, int BH, int S,
-                                  int pos, void* stream) {
-  const size_t smem = (size_t)(pos + 1) * sizeof(float);
-  self_attn_update_kernel<false><<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), nullptr, nullptr, static_cast<T*>(k_cache),
-      static_cast<T*>(v_cache), static_cast<T*>(out),
-      static_cast<const int*>(start), S, pos);
-  return (int)cudaGetLastError();
+                                  int pos, int dtype, void* stream) {
+  return launch_fp<false>(q, nullptr, nullptr, k_cache, v_cache, out, start, BH, S,
+                          pos, dtype, stream);
 }
 
-// q/k_new/v_new (BH, 64) bf16; k_cache/v_cache (BH, S, 64) int8 and
+// q/k_new/v_new (BH, 64); k_cache/v_cache (BH, S, 64) int8 and
 // k_scale/v_scale (BH, S) f32, all four updated in place at row pos;
-// out (BH, 64) bf16. start: (BH,) int32 first attending position of each
-// row, or null for 0. Requires 0 <= start[g] <= pos < S <= 12288.
+// out (BH, 64). start: (BH,) int32 first attending position of each row, or
+// null for 0. Requires 0 <= start[g] <= pos < S <= 12288.
 extern "C" int owc_self_attention_update_int8(const void* q, const void* k_new,
                                               const void* v_new, void* k_cache,
                                               void* v_cache, void* k_scale,
                                               void* v_scale, void* out,
                                               const void* start, int BH, int S,
-                                              int pos, void* stream) {
-  const size_t smem = (size_t)(pos + 1) * sizeof(float);
-  self_attn_update_int8_kernel<true><<<BH, THREADS, smem,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<int8_t*>(k_cache),
-      static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale),
-      static_cast<float*>(v_scale), static_cast<T*>(out),
-      static_cast<const int*>(start), S, pos);
-  return (int)cudaGetLastError();
+                                              int pos, int dtype, void* stream) {
+  return launch_int8<true>(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, out,
+                           start, BH, S, pos, dtype, stream);
 }
 
 // The same attention over an int8 cache whose row pos (codes and scales) is
-// already written; nothing is written but out. q (BH, 64) bf16,
-// k_cache/v_cache (BH, S, 64) int8, k_scale/v_scale (BH, S) f32, out
-// (BH, 64) bf16; start as above. Requires 0 <= start[g] <= pos < S <= 12288.
+// already written; nothing is written but out. q (BH, 64), k_cache/v_cache
+// (BH, S, 64) int8, k_scale/v_scale (BH, S) f32, out (BH, 64); start as
+// above. Requires 0 <= start[g] <= pos < S <= 12288.
 extern "C" int owc_self_attention_int8(const void* q, void* k_cache,
                                        void* v_cache, void* k_scale,
                                        void* v_scale, void* out,
                                        const void* start, int BH, int S,
-                                       int pos, void* stream) {
-  const size_t smem = (size_t)(pos + 1) * sizeof(float);
-  self_attn_update_int8_kernel<false><<<BH, THREADS, smem,
-                                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), nullptr, nullptr, static_cast<int8_t*>(k_cache),
-      static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale),
-      static_cast<float*>(v_scale), static_cast<T*>(out),
-      static_cast<const int*>(start), S, pos);
-  return (int)cudaGetLastError();
+                                       int pos, int dtype, void* stream) {
+  return launch_int8<false>(q, nullptr, nullptr, k_cache, v_cache, k_scale, v_scale,
+                            out, start, BH, S, pos, dtype, stream);
 }

@@ -2,7 +2,7 @@
 //
 // Replaces: openai_whisper_compression_tpu/ops/cross_attention.py
 //           transpose_quant_kv (kernel body _tq_kernel).
-// For x (B, S, H * 64) f32 or bf16 and every (b, h, s) with s < S_pad:
+// For x (B, S, H * 64) f32, bf16 or f16 and every (b, h, s) with s < S_pad:
 //   v[d]  = x[b, s, h * 64 + d] as f32, or 0 for s >= S (padding)
 //   scale = max(max_d |v[d]|, 1e-12) * f32(1 / 127)
 //   q[(b * H + h), d, s]     = clamp(rint(v[d] / scale), -127, 127)  (int8)
@@ -71,7 +71,7 @@ transpose_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
 
 }  // namespace
 
-// x (B, S, H * 64) f32 (dtype 0) or bf16 (dtype 1); q (B * H, 64, S_pad)
+// x (B, S, H * 64) f32, bf16 or f16 (dtype code); q (B * H, 64, S_pad)
 // int8 and scales (B * H, 1, S_pad) f32, every position written. Requires
 // S <= S_pad, S_pad % 64 == 0, B <= 65535, H <= 65535 and a 4-byte aligned q.
 extern "C" int owc_transpose_quant_kv(const void* x, void* q, void* scales,
@@ -81,11 +81,11 @@ extern "C" int owc_transpose_quant_kv(const void* x, void* q, void* scales,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* qo = static_cast<int8_t*>(q);
   float* so = static_cast<float*>(scales);
-  if (dtype == OWC_BF16)
-    transpose_quant_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), qo, so, S, H, S_pad);
-  else
-    transpose_quant_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), qo, so, S, H, S_pad);
+  const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    transpose_quant_kernel<T><<<grid, THREADS, 0, st>>>(static_cast<const T*>(x), qo,
+                                                        so, S, H, S_pad);
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,7 @@
 // Replaces: openai_whisper_compression_tpu/ops/quant_matmul.py
 //           w8a8_matmul_pallas (_w8a8_kernel: dynamic per-row scale,
 //           _w8a8_static_kernel: one frozen scalar scale).
-// Computes, for x (M, K) f32 or bf16, W (K, N) int8 codes and their column
+// Computes, for x (M, K) f32, bf16 or f16, W (K, N) int8 codes and their column
 // scales sw (N,) f32:
 //   sx[m]    = max(max_k |x[m, k]|, 1e-12) * f32(1 / 127)     (dynamic)
 //            = act_scale                                       (static)
@@ -123,6 +123,9 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 // `rows` x BK bytes of a K-contiguous int8 matrix (row stride K) starting at
@@ -251,7 +254,7 @@ int launch(const void* x, const void* w, const void* sw, const void* act_scale,
 
 }  // namespace
 
-// x (M, K) f32/bf16 (dtype code), w (K, N) int8, sw (N,) f32, act_scale one
+// x (M, K) f32/bf16/f16 (dtype code), w (K, N) int8, sw (N,) f32, act_scale one
 // f32 on the device or null (dynamic per-row scales); scratch xq (M, K)
 // int8, wt (N, K) int8, sx (M,) f32 (unused with act_scale); out (M, N) in
 // x's dtype. K % 16 == 0, N % 16 == 0, xq and wt 16-byte aligned,
@@ -261,7 +264,9 @@ extern "C" int owc_w8a8_matmul(const void* x, const void* w, const void* sw,
                                void* sx, void* out, int M, int N, int K,
                                int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == OWC_BF16)
-    return launch<__nv_bfloat16>(x, w, sw, act_scale, xq, wt, sx, out, M, N, K, st);
-  return launch<float>(x, w, sw, act_scale, xq, wt, sx, out, M, N, K, st);
+  int err = 0;
+  const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
+    err = launch<decltype(tag)>(x, w, sw, act_scale, xq, wt, sx, out, M, N, K, st);
+  });
+  return ok ? err : (int)cudaErrorInvalidValue;
 }

@@ -51,6 +51,11 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
     """Full (non-causal) attention, (B, H, T, Dh) -> (B, H, T, Dh); q
     unscaled. A CUDA tensor launches the kernel (bf16, Dh = 64; counted in
     `encoder_attention.launches`); a CPU tensor takes the plain version.
+    The kernel stays bf16 only, unlike the decode kernels: the JAX package
+    reaches its Pallas kernel only past a score size that no f32 or f16
+    configuration's test reaches, and `models.whisper.attention` sends an
+    f32 or f16 encoder through plain torch, as the JAX package leaves it to
+    XLA.
 
     The kernel reads q, k and v through their (batch, head, row) strides,
     so the (B, T, H, Dh) memory that `split_heads` leaves is not copied, and
@@ -71,10 +76,11 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
                     "q, k and v must share a device")
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     for x in (q, k, v, out):
-        # 16-byte rows for the k/v copies (the 4 bytes q and out need follow)
+        # 16-byte rows for the tensor maps of k and v (the 4 bytes q and out
+        # need follow)
         kernels.require(x.stride(3) == 1 and x.data_ptr() % 16 == 0
-                        and all(s % 8 == 0 for s in x.stride()[:3]), name,
-                        "rows of 64 contiguous values at 16-byte aligned "
+                        and all(s % 8 == 0 and s >= 0 for s in x.stride()[:3]),
+                        name, "rows of 64 contiguous values at 16-byte aligned "
                         f"addresses needed, got strides {x.stride()}")
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out)
                                          for s in x.stride()[:3]))

@@ -13,9 +13,12 @@ reading the K/V again (the JAX kernel takes any K in one call).
 `decode_cross_attention` is the one-query function that the JAX package's
 decode step takes where B·H is no multiple of 16 (`UNGROUPED_MODULUS`): few
 rows, so its kernel splits S over several blocks of a row. K/V storage
-follows the JAX layout: (B·H, Dh, S_pad) bf16; int8 with (B·H, 1, S_pad) f32
-per-position scales; or split-half packed int4 (B·H, Dh/2, S_pad) with the
-same scales, told apart from int8 by its Dh/2 rows, as the JAX package does.
+follows the JAX layout: (B·H, Dh, S_pad) in q's own type (float32, bfloat16
+or float16: the Pallas kernels are generic in it; f32 arithmetic, output in
+q's type); int8 with (B·H, 1, S_pad) f32 per-position scales; or split-half
+packed int4 (B·H, Dh/2, S_pad) with the same scales, told apart from int8 by
+its Dh/2 rows, as the JAX package does. A launch over fp K/V is counted per
+type: in `launches` for bfloat16, in `launches_f32` and `launches_f16`.
 """
 
 from __future__ import annotations
@@ -33,9 +36,11 @@ UNGROUPED_MODULUS = 16  # a decode step with B*H % 16 != 0 takes the one-query k
 SPLIT_CHUNKS = 8   # 16-byte chunks of positions per block of the one-query kernel
 NARROW_SLOTS = 4  # up to here the kernel's 1- and 4-slot bodies, above its 8-slot body
 # K/V storage kind -> (code of csrc/cross_attention.cu, positions per
-# 16-byte load, launch counter on decode_cross_attention_grouped)
-_KINDS = {"bf16": (0, 8, "launches"), "int8": (1, 16, "launches_int8"),
+# 16-byte load, launch counter on the two wrappers); "fp" is K/V in q's type
+_KINDS = {"fp": (0, 8, "launches"), "fp_f32": (0, 4, "launches_f32"),
+          "fp_f16": (0, 8, "launches_f16"), "int8": (1, 16, "launches_int8"),
           "int4": (2, 16, "launches_int4")}
+_FP_KIND = {torch.bfloat16: "fp", torch.float32: "fp_f32", torch.float16: "fp_f16"}
 
 
 def pad_cross_len(s: int) -> int:
@@ -60,7 +65,7 @@ def transpose_quant_kv_ref(x: torch.Tensor, h: int
 
 def transpose_quant_kv(x: torch.Tensor, h: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, H*Dh) f32/bf16 -> ((B*H, Dh, S_pad) int8, (B*H, 1, S_pad)
+    """x (B, S, H*Dh) f32/bf16/f16 -> ((B*H, Dh, S_pad) int8, (B*H, 1, S_pad)
     f32 scales), S_pad = `pad_cross_len(S)`, padding positions quantized
     from zeros. A CUDA tensor launches the kernel (Dh = 64; counted in
     `transpose_quant_kv.launches`); a CPU tensor takes the plain version."""
@@ -130,20 +135,21 @@ def decode_cross_attention_grouped_ref(q: torch.Tensor, k_t: torch.Tensor,
 def _check_kv(name: str, q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
               k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
               s_valid: int | None) -> tuple[str, int, int]:
-    """The checks of what both cross-attention kernels take: bf16 q of head
-    dim 64 whose first axis is B·H, K/V of one storage kind with its scales,
-    contiguous, aligned and on one device. Returns (kind, S_pad, s_valid)."""
+    """The checks of what both cross-attention kernels take: q in f32, bf16
+    or f16 of head dim 64 whose first axis is B·H, K/V of one storage kind
+    (q's type without scales, or int8 / int4 with them), contiguous, aligned
+    and on one device. Returns (kind, S_pad, s_valid)."""
     bh, dh = q.shape[0], q.shape[-1]
     rows, s_pad = k_t.shape[1], k_t.shape[2]
     s_valid = s_pad if s_valid is None else s_valid
     kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
-    kernels.require_bf16(name, q)
     tensors = [q, k_t, v_t]
     if k_scale is None and v_scale is None:
-        kind = "bf16"
-        kernels.require_bf16(name, k_t, v_t)
-        kernels.require(rows == dh, name, f"bf16 k_t must have {dh} rows, got {rows}")
+        kernels.dtype_code(q, name, k_t, v_t)
+        kind = _FP_KIND[q.dtype]
+        kernels.require(rows == dh, name, f"fp k_t must have {dh} rows, got {rows}")
     else:
+        kernels.dtype_code(q, name)
         kernels.require(k_scale is not None and v_scale is not None, name,
                         "int8/int4 K/V need both k_scale and v_scale")
         kernels.require_dtype(name, torch.int8, k_t, v_t)
@@ -182,11 +188,11 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
     or int8 (Dh rows) or packed int4 (Dh/2 rows) with k_scale/v_scale
     (BH, 1, S_pad) f32; positions >= s_valid are padding (zero probability).
     Returns (BH, K, Dh) in q's dtype. A CUDA tensor launches the kernel,
-    once for every `MAX_SLOTS` slots of K (bf16 q; each storage kind counts
-    its launches in its own attribute: `launches` for bf16, `launches_int8`,
-    `launches_int4`, and a launch of more than `NARROW_SLOTS` slots, which
-    runs the kernel's 8-slot body, in that attribute + `_wide`); a CPU
-    tensor takes the plain version."""
+    once for every `MAX_SLOTS` slots of K (each storage kind counts its
+    launches in its own attribute: `launches` for bf16 K/V, `launches_f32`,
+    `launches_f16`, `launches_int8`, `launches_int4`, and a launch of more
+    than `NARROW_SLOTS` slots, which runs the kernel's 8-slot body, in that
+    attribute + `_wide`); a CPU tensor takes the plain version."""
     if not q.is_cuda:
         return decode_cross_attention_grouped_ref(q, k_t, v_t, k_scale,
                                                   v_scale, s_valid)
@@ -203,10 +209,10 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
         slots = min(MAX_SLOTS, kq - j0)
         err = kernels.lib().owc_cross_attention_grouped(
             q.data_ptr() + offset, k_t.data_ptr(), v_t.data_ptr(),
-            k_scale.data_ptr() if kind != "bf16" else None,
-            v_scale.data_ptr() if kind != "bf16" else None,
+            None if k_scale is None else k_scale.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(),
             out.data_ptr() + offset, bh, slots, kq * dh, s_pad, s_valid, code,
-            kernels.stream_of(q))
+            kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q))
         kernels.check(name, err)
         attr = counter + ("_wide" if slots > NARROW_SLOTS else "")
         setattr(decode_cross_attention_grouped, attr,
@@ -214,12 +220,9 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
     return out
 
 
-decode_cross_attention_grouped.launches = 0        # bf16 K/V, 1..4 slots
-decode_cross_attention_grouped.launches_int8 = 0   # int8 K/V
-decode_cross_attention_grouped.launches_int4 = 0   # split-half int4 K/V
-decode_cross_attention_grouped.launches_wide = 0        # bf16 K/V, 5..8 slots
-decode_cross_attention_grouped.launches_int8_wide = 0   # int8 K/V
-decode_cross_attention_grouped.launches_int4_wide = 0   # split-half int4 K/V
+for _, _, _counter in _KINDS.values():   # bf16, f32, f16, int8, int4 K/V
+    setattr(decode_cross_attention_grouped, _counter, 0)            # 1..4 slots
+    setattr(decode_cross_attention_grouped, _counter + "_wide", 0)  # 5..8 slots
 
 
 def decode_cross_attention_ref(q: torch.Tensor, k_t: torch.Tensor,
@@ -242,9 +245,10 @@ def decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
     k_t/v_t, the scales and s_valid as `decode_cross_attention_grouped`
     takes them. Returns (BH, Dh) in q's dtype. A CUDA tensor launches the
     kernel, which splits S over `SPLIT_CHUNKS`-chunk blocks of each row and
-    combines their partial softmaxes (bf16 q; each storage kind counts its
-    launches in its own attribute: `launches` for bf16, `launches_int8`,
-    `launches_int4`); a CPU tensor takes the plain version."""
+    combines their partial softmaxes (each storage kind counts its launches
+    in its own attribute: `launches` for bf16 K/V, `launches_f32`,
+    `launches_f16`, `launches_int8`, `launches_int4`); a CPU tensor takes
+    the plain version."""
     if not q.is_cuda:
         return decode_cross_attention_ref(q, k_t, v_t, k_scale, v_scale, s_valid)
     name = "decode_cross_attention"
@@ -262,16 +266,15 @@ def decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
     out = torch.empty_like(q)
     err = kernels.lib().owc_cross_attention(
         q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
-        k_scale.data_ptr() if kind != "bf16" else None,
-        v_scale.data_ptr() if kind != "bf16" else None,
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(),
         part.data_ptr(), out.data_ptr(), bh, nsplit, s_pad, s_valid, code,
-        kernels.stream_of(q))
+        kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q))
     kernels.check(name, err)
     setattr(decode_cross_attention, counter,
             getattr(decode_cross_attention, counter) + 1)
     return out
 
 
-decode_cross_attention.launches = 0        # bf16 K/V
-decode_cross_attention.launches_int8 = 0   # int8 K/V
-decode_cross_attention.launches_int4 = 0   # split-half int4 K/V
+for _, _, _counter in _KINDS.values():   # bf16, f32, f16, int8, int4 K/V
+    setattr(decode_cross_attention, _counter, 0)

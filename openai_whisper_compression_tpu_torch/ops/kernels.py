@@ -10,7 +10,7 @@ binary. Nothing here runs at import time: the CPU tests import every module
 of the port without a CUDA toolkit.
 
 Each launcher takes raw device pointers (`tensor.data_ptr()`), sizes, a
-dtype code where the kernel takes both f32 and bf16 input, and the current
+dtype code where the kernel takes more than one element type, and the current
 CUDA stream, and returns `cudaGetLastError()`; `check()` turns a nonzero
 code into an exception.
 """
@@ -38,28 +38,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # dtype codes shared with csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C launcher name -> argtypes (pointers and the stream as c_void_p, sizes as
 # c_int); every launcher returns a cudaError_t as int
 _SIGNATURES = {
-    "owc_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "owc_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "owc_nf4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "owc_group_asym_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _P],
+    "owc_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "owc_int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "owc_nf4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "owc_group_asym_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P],
     "owc_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "owc_mel_log10": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "owc_cross_attention_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _P],
-    "owc_cross_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                                    _I, _I, _I, _P],
+    "owc_cross_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P],
     "owc_transpose_quant_kv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "owc_self_attention_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "owc_self_attention_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _P],
     "owc_self_attention_update_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                       _I, _I, _P],
-    "owc_self_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "owc_self_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+                                       _I, _I, _I, _P],
+    "owc_self_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "owc_self_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # the 12 strides are a host array of long long
     "owc_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _F,
                               ctypes.POINTER(ctypes.c_longlong), _P],
@@ -154,12 +156,15 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def dtype_code(t: torch.Tensor, name: str) -> int:
-    try:
-        return DTYPE_CODES[t.dtype]
-    except KeyError:
-        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got "
-                        f"{t.dtype}") from None
+def dtype_code(t: torch.Tensor, name: str, *same: torch.Tensor) -> int:
+    """The code of t's element type, one of `DTYPE_CODES`; raises TypeError
+    on any other type, and where a tensor of `same` has another type than
+    t."""
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: the kernel takes float32, bfloat16 or "
+                        f"float16, got {t.dtype}")
+    require_dtype(name, t.dtype, *same)
+    return DTYPE_CODES[t.dtype]
 
 
 def require_bf16(name: str, *tensors: torch.Tensor) -> None:

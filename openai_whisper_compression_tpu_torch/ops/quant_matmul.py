@@ -22,6 +22,11 @@ sums and scales the result: out = f32(xq @ W) * sx * scale, in x's dtype.
 A CUDA tensor launches the kernel (and counts the launch on the wrapper);
 a CPU tensor takes the plain version, which multiplies the same bf16-rounded
 operands in f32 (the same int8 codes exactly, for `w8a8_matmul`).
+
+A weight-only kernel's block owns 64 output columns for up to 128 rows of x;
+a skinny M gives few such strips, so K is split over the blocks of a thread
+block cluster, which sum their partial tiles through shared memory in one
+launch. `_splits` is that rule.
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ from . import kernels
 from .qtensor import (CODEBOOKS, codebook_select, quantize_absmax,
                       unpack_int_sub8)
 
-_BM, _BN, _BK = 32, 64, 32   # output tile and stored-row depth of the kernel
-_TARGET_BLOCKS = 264         # about two blocks per H100 SM
+_BM, _BN, _BK = 128, 64, 32  # output tile and stored-row depth of the kernel
+_TARGET_BLOCKS = 100         # most of the H100's 132 SMs get a block
+_MAX_CLUSTER = 8             # blocks of one cluster (the portable limit)
 
 
 def _bf16_f32(t: torch.Tensor) -> torch.Tensor:
@@ -108,11 +114,14 @@ def group_asym_kernel_ok(w: torch.Tensor, k: int, block_size: int) -> bool:
 
 
 def _splits(m: int, n: int, ktiles: int) -> int:
-    """K splits so that a skinny M still puts ~2 blocks on every SM."""
+    """K splits of one output tile, i.e. the size of its thread block
+    cluster: the smallest divisor of the K tiles, at most `_MAX_CLUSTER`,
+    that puts `_TARGET_BLOCKS` blocks in flight, or the largest such divisor
+    where none does. A pure function of M, N and the K tiles."""
     tiles = (n // _BN) * (-(-m // _BM))
-    want = max(1, min(ktiles, -(-_TARGET_BLOCKS // tiles)))
-    per = -(-ktiles // want)
-    return -(-ktiles // per)
+    divisors = [s for s in range(1, _MAX_CLUSTER + 1) if ktiles % s == 0]
+    return next((s for s in divisors if tiles * s >= _TARGET_BLOCKS),
+                divisors[-1])
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, stored_rows: int,
@@ -130,23 +139,22 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, stored_rows: int,
                     name, "x, the weight and its scales must share a device")
     kernels.require(all(t.is_contiguous() for t in (x, w, *params)), name,
                     "inputs must be contiguous")
-    kernels.require(all(t.data_ptr() % 16 == 0 for t in (w, *params)), name,
-                    "weight and scales must be 16-byte aligned "
-                    "(the kernel reads them in 16-byte loads)")
+    kernels.require(all(t.data_ptr() % 16 == 0 for t in (x, w, *params)), name,
+                    "x, weight and scales must be 16-byte aligned "
+                    "(the kernel copies them in 16-byte pieces)")
     return m, n, k
 
 
 def _run(name: str, launcher: str, x: torch.Tensor, n: int, ktiles: int,
          before: tuple, after: tuple) -> torch.Tensor:
-    """Allocate the split-K workspace and the output and launch:
-    `launcher(*before, part, out, M, N, K, *after, splits, dtype, stream)`."""
+    """Allocate the output and launch (one kernel):
+    `launcher(*before, out, M, N, K, *after, splits, dtype, stream)`."""
     m, k = x.shape
+    kernels.require(1 <= m <= 65535 * _BM, name, f"M {m} outside 1..{65535 * _BM}")
     code = kernels.dtype_code(x, name)
-    splits = _splits(m, n, ktiles)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     err = getattr(kernels.lib(), launcher)(
-        *before, part.data_ptr(), out.data_ptr(), m, n, k, *after, splits, code,
+        *before, out.data_ptr(), m, n, k, *after, _splits(m, n, ktiles), code,
         kernels.stream_of(x))
     kernels.check(name, err)
     return out
@@ -168,7 +176,7 @@ def _group_ok(name: str, k: int, g: int, params: list[torch.Tensor], n: int) -> 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) f32/bf16 • w (K, N) int8 • scale (1, N) or (N,) f32 ->
+    """x (M, K) f32/bf16/f16 • w (K, N) int8 • scale (1, N) or (N,) f32 ->
     (M, N) in x's dtype; counts launches in `int8_matmul.launches`."""
     if not x.is_cuda:
         return int8_matmul_ref(x, w, scale)
@@ -184,7 +192,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
 
 def int4_matmul(x: torch.Tensor, w: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) f32/bf16 • w (K/2, N) int8 split-half signed nibbles •
+    """x (M, K) f32/bf16/f16 • w (K/2, N) int8 split-half signed nibbles •
     scale (1, N) or (N,) f32 -> (M, N) in x's dtype; counts launches in
     `int4_matmul.launches`."""
     if not x.is_cuda:
@@ -202,7 +210,7 @@ def int4_matmul(x: torch.Tensor, w: torch.Tensor,
 
 def nf4_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                kind: str, g: int) -> torch.Tensor:
-    """x (M, K) f32/bf16 • w (K/2, N) int8 split-half code indices • scale
+    """x (M, K) f32/bf16/f16 • w (K/2, N) int8 split-half code indices • scale
     (K/G, N) f32 effective block scale (double-quant already folded) ->
     (M, N) in x's dtype; `kind` "nf4" or "fp4" picks the code. Counts
     launches in `nf4_matmul.launches`."""
@@ -223,7 +231,7 @@ def nf4_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 def group_asym_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                       zero: torch.Tensor, g: int) -> torch.Tensor:
-    """x (M, K) f32/bf16 • HQQ values w, (K/2, N) int8 split-half nibbles
+    """x (M, K) f32/bf16/f16 • HQQ values w, (K/2, N) int8 split-half nibbles
     or (K, N) uint8 • scale, zero (K/G, N) f32 -> (M, N) in x's dtype.
     Counts launches in `group_asym_matmul.launches` (nibbles) and
     `.launches_u8` (uint8)."""
@@ -276,7 +284,7 @@ def w8a8_matmul_ref(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                 act_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """x (M, K) f32/bf16 • w (K, N) int8 • scale (1, N) or (N,) f32 ->
+    """x (M, K) f32/bf16/f16 • w (K, N) int8 • scale (1, N) or (N,) f32 ->
     (M, N) in x's dtype, x quantized to int8 per row at run time, or by the
     frozen 0-dim f32 `act_scale`. Counts launches in `w8a8_matmul.launches`
     (dynamic) and `.launches_static`."""

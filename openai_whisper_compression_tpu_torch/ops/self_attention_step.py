@@ -8,6 +8,12 @@ valid cache position of each row, which masks a prompt's left padding. And
 whose row `pos` the caller has written (it has no caller in the JAX package
 either: the decode step takes the update functions).
 
+On the card q, the fresh rows and an fp cache share one element type,
+float32, bfloat16 or float16 (the Pallas kernels are generic in it: f32
+arithmetic, output in q's type); with an int8 cache only q, the fresh rows
+and the output have it. A launch over an fp cache is counted per type, in
+`launches` for bfloat16 and in `launches_f32` / `launches_f16`.
+
 Every update version MUTATES its buffers: row `pos` of k_cache/v_cache (and, for
 the int8 cache, position `pos` of k_scale/v_scale) is overwritten in place
 (the JAX functions donate the buffers and return the updated ones; here the
@@ -22,6 +28,13 @@ from . import kernels
 from .qtensor import quantize_absmax
 
 HEAD_DIM = 64
+# element type of an fp cache -> what its launch counters carry after
+# `launches`
+_FP_COUNTER = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}
+
+
+def _count(fn, attr: str) -> None:
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def _mask_before_start(scores: torch.Tensor,
@@ -81,9 +94,11 @@ def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
     """q/k_new/v_new (BH, Dh), q pre-scaled by Dh**-0.5; caches (BH, S, Dh)
     written at row `pos` IN PLACE; attention over rows start..pos, `start`
     (BH,) int32 with start <= pos (rows 0..pos without it). Returns
-    (BH, Dh) in q's dtype. A CUDA tensor launches the kernel (bf16 only;
-    counted in `decode_self_attention_update.launches`, with `start` in
-    `.launches_start`); a CPU tensor takes the plain version."""
+    (BH, Dh) in q's dtype. A CUDA tensor launches the kernel (f32, bf16 or
+    f16, one type for all five tensors; counted in
+    `decode_self_attention_update.launches` for bf16, `.launches_f32`,
+    `.launches_f16`, with `start` in that attribute + `_start`); a CPU tensor
+    takes the plain version."""
     pos = int(pos)
     if not q.is_cuda:
         return decode_self_attention_update_ref(q, k_new, v_new, k_cache,
@@ -98,7 +113,7 @@ def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
                     == k_cache.shape, name, f"caches must be ({bh}, S, {dh})")
     kernels.require(0 <= pos < s and s <= 12288, name,
                     f"pos {pos} outside the {s}-row cache (at most 12288 rows)")
-    kernels.require_bf16(name, q, k_new, v_new, k_cache, v_cache)
+    code = kernels.dtype_code(q, name, k_new, v_new, k_cache, v_cache)
     kernels.require(len({t.device for t in (q, k_new, v_new, k_cache, v_cache)})
                     == 1, name, "q, k/v and the caches must share a device")
     kernels.require(all(t.is_contiguous() for t in
@@ -108,18 +123,17 @@ def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
     out = torch.empty_like(q)
     err = kernels.lib().owc_self_attention_update(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), start_ptr, bh, s, pos,
+        v_cache.data_ptr(), out.data_ptr(), start_ptr, bh, s, pos, code,
         kernels.stream_of(q))
     kernels.check(name, err)
-    if start is None:
-        decode_self_attention_update.launches += 1
-    else:
-        decode_self_attention_update.launches_start += 1
+    _count(decode_self_attention_update, "launches" + _FP_COUNTER[q.dtype]
+           + ("" if start is None else "_start"))
     return out
 
 
-decode_self_attention_update.launches = 0         # without start
-decode_self_attention_update.launches_start = 0   # with start
+for _suffix in _FP_COUNTER.values():   # bf16, f32, f16 caches
+    setattr(decode_self_attention_update, "launches" + _suffix, 0)   # without start
+    setattr(decode_self_attention_update, "launches" + _suffix + "_start", 0)
 
 
 def decode_self_attention_update_int8_ref(q: torch.Tensor, k_new: torch.Tensor,
@@ -172,9 +186,10 @@ def decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
     (BH, S, Dh) int8 and k_scale/v_scale (BH, S) f32, all four written at
     `pos` IN PLACE; attention over rows start..pos with the scales folded
     in, `start` (BH,) int32 with start <= pos (rows 0..pos without it).
-    Returns (BH, Dh) in q's dtype. A CUDA tensor launches the kernel (bf16
-    q/k/v; counted in `decode_self_attention_update_int8.launches`, with
-    `start` in `.launches_start`); a CPU tensor takes the plain version."""
+    Returns (BH, Dh) in q's dtype. A CUDA tensor launches the kernel (q, k_new
+    and v_new of one type, f32, bf16 or f16; counted in
+    `decode_self_attention_update_int8.launches`, with `start` in
+    `.launches_start`); a CPU tensor takes the plain version."""
     pos = int(pos)
     if not q.is_cuda:
         return decode_self_attention_update_int8_ref(
@@ -192,7 +207,7 @@ def decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
                     name, f"scales must be ({bh}, {s})")
     kernels.require(0 <= pos < s and s <= 12288, name,
                     f"pos {pos} outside the {s}-row cache (at most 12288 rows)")
-    kernels.require_bf16(name, q, k_new, v_new)
+    code = kernels.dtype_code(q, name, k_new, v_new)
     kernels.require_dtype(name, torch.int8, k_cache, v_cache)
     kernels.require_dtype(name, torch.float32, k_scale, v_scale)
     kernels.require(len({t.device for t in tensors}) == 1, name,
@@ -204,12 +219,10 @@ def decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
     err = kernels.lib().owc_self_attention_update_int8(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        out.data_ptr(), start_ptr, bh, s, pos, kernels.stream_of(q))
+        out.data_ptr(), start_ptr, bh, s, pos, code, kernels.stream_of(q))
     kernels.check(name, err)
-    if start is None:
-        decode_self_attention_update_int8.launches += 1
-    else:
-        decode_self_attention_update_int8.launches_start += 1
+    _count(decode_self_attention_update_int8,
+           "launches" + ("" if start is None else "_start"))
     return out
 
 
@@ -243,9 +256,10 @@ def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
     int32 with start <= pos (rows 0..pos without it). Nothing is written.
     Returns (BH, Dh) in q's dtype: on the cache an update function wrote,
     that function's output bit for bit. A CUDA tensor launches the kernel
-    (bf16 q; counted in `decode_self_attention.launches` for a bf16 cache
-    and `.launches_int8` for an int8 one, with `start` in `.launches_start`
-    and `.launches_int8_start`); a CPU tensor takes the plain version."""
+    (q f32, bf16 or f16, an fp cache in q's type; counted in
+    `decode_self_attention.launches` for a bf16 cache, `.launches_f32`,
+    `.launches_f16` and `.launches_int8` for an int8 one, with `start` in
+    that attribute + `_start`); a CPU tensor takes the plain version."""
     pos = int(pos)
     if not q.is_cuda:
         return decode_self_attention_ref(q, k_cache, v_cache, pos, start,
@@ -260,8 +274,8 @@ def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     == k_cache.shape, name, f"caches must be ({bh}, S, {dh})")
     kernels.require(0 <= pos < s and s <= 12288, name,
                     f"pos {pos} outside the {s}-row cache (at most 12288 rows)")
-    kernels.require_bf16(name, q)
     if int8:
+        code = kernels.dtype_code(q, name)
         kernels.require(k_scale is not None and v_scale is not None, name,
                         "an int8 cache needs both k_scale and v_scale")
         kernels.require(k_scale.shape == (bh, s) and v_scale.shape == (bh, s),
@@ -270,7 +284,7 @@ def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
         kernels.require_dtype(name, torch.float32, k_scale, v_scale)
         tensors += [k_scale, v_scale]
     else:
-        kernels.require_bf16(name, k_cache, v_cache)
+        code = kernels.dtype_code(q, name, k_cache, v_cache)
     kernels.require(len({t.device for t in tensors}) == 1, name,
                     "q, the caches and the scales must share a device")
     kernels.require(all(t.is_contiguous() for t in tensors), name,
@@ -281,19 +295,18 @@ def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
         err = kernels.lib().owc_self_attention_int8(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), start_ptr,
-            bh, s, pos, kernels.stream_of(q))
+            bh, s, pos, code, kernels.stream_of(q))
     else:
         err = kernels.lib().owc_self_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            start_ptr, bh, s, pos, kernels.stream_of(q))
+            start_ptr, bh, s, pos, code, kernels.stream_of(q))
     kernels.check(name, err)
-    attr = ("launches" + ("_int8" if int8 else "")
-            + ("" if start is None else "_start"))
-    setattr(decode_self_attention, attr, getattr(decode_self_attention, attr) + 1)
+    _count(decode_self_attention,
+           "launches" + ("_int8" if int8 else _FP_COUNTER[q.dtype])
+           + ("" if start is None else "_start"))
     return out
 
 
-decode_self_attention.launches = 0              # bf16 cache, without start
-decode_self_attention.launches_start = 0        # bf16 cache, with start
-decode_self_attention.launches_int8 = 0         # int8 cache, without start
-decode_self_attention.launches_int8_start = 0   # int8 cache, with start
+for _suffix in (*_FP_COUNTER.values(), "_int8"):   # bf16, f32, f16, int8 caches
+    setattr(decode_self_attention, "launches" + _suffix, 0)   # without start
+    setattr(decode_self_attention, "launches" + _suffix + "_start", 0)

@@ -5,8 +5,9 @@ over bf16 / int8 / int4 K/V (1 to 8 slots and longer windows), the
 one-query cross-attention over the same three storages, the cross-KV
 transpose + int8 quantize, the fp and int8 self-attention cache updates
 (with and without `start`), the read-only self-attention, the w8a8 matmul
-(dynamic and static) and the encoder attention; the wrappers'
-refusals; and bf16 attention on the card against a float64 reference with
+(dynamic and static) and the encoder attention; the f32 and f16 bodies of
+the decode attention kernels and of the matmuls; two runs of one matmul call
+bit for bit; the wrappers' refusals; and bf16 attention on the card against a float64 reference with
 f32 scores. Marked `cuda`; every test skips where no
 CUDA device is present. Needs no jax, so on the GPU machine run it without the JAX test
 configuration:
@@ -43,6 +44,10 @@ torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
 
 DTYPES = [torch.float32, torch.bfloat16]
+# what the matmuls, the cross-KV quantizer and the decode attentions take
+FLOATS = [torch.float32, torch.bfloat16, torch.float16]
+_IDS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+_COUNTER = {torch.float32: "_f32", torch.bfloat16: "", torch.float16: "_f16"}
 
 
 @pytest.fixture
@@ -55,11 +60,13 @@ def dev():
 
 def _tol(dtype, scale):
     """Of the reference's largest magnitude `scale`: f32 outputs differ by
-    sum-order noise (1e-5); bf16 outputs by at most one bf16 step (2**-7)."""
-    return (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
+    sum-order noise (1e-5); bf16 outputs by at most one bf16 step (2**-7),
+    f16 outputs by one f16 step (2**-10)."""
+    return {torch.float32: 1e-5, torch.bfloat16: 2 ** -7,
+            torch.float16: 2 ** -10}[dtype] * scale
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 @pytest.mark.parametrize("m,k,n", [(1, 64, 64), (33, 768, 2304),
                                    (96, 3072, 768), (200, 128, 192)])
 def test_int8_matmul(dev, dtype, m, k, n):
@@ -101,7 +108,7 @@ def _weight_and_x(dev, dtype, m, k, n, seed):
     return w, torch.randn(m, k, generator=g, device=dev).to(dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 @pytest.mark.parametrize("m,k,n", FOUR_BIT_SHAPES)
 def test_int4_matmul(dev, dtype, m, k, n):
     """Column scales of 0 and 1e-12 included (1e-12 is the quantizer's
@@ -115,7 +122,7 @@ def test_int4_matmul(dev, dtype, m, k, n):
     assert not got[:, 0].any() and not got[:, 5].any()
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 @pytest.mark.parametrize("m,k,n", FOUR_BIT_SHAPES)
 @pytest.mark.parametrize("kind,dq,block", [("nf4", False, 64), ("fp4", True, 64),
                                            ("nf4", True, 128)])
@@ -132,7 +139,7 @@ def test_nf4_matmul(dev, dtype, m, k, n, kind, dq, block):
                   x, q.data, scale, kind, block)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 @pytest.mark.parametrize("m,k,n", FOUR_BIT_SHAPES)
 @pytest.mark.parametrize("bits,group", [(3, 64), (4, 64), (4, 128), (8, 128)])
 def test_group_asym_matmul(dev, dtype, m, k, n, bits, group):
@@ -146,6 +153,56 @@ def test_group_asym_matmul(dev, dtype, m, k, n, bits, group):
     attr = "launches_u8" if bits == 8 else "launches"
     _check_kernel(group_asym_matmul, group_asym_matmul_ref,
                   (group_asym_matmul, attr), x, q.data, q.scale, q.zero, group)
+
+
+# every storage trait: (quantizer call, kernel, plain version, counter, args)
+def _trait_case(trait, w):
+    if trait == "int8":
+        q = quantize_int8(w)
+        return int8_matmul, int8_matmul_ref, "launches", (q.data, q.scale)
+    if trait == "int4":
+        q = quantize_int_sub8(w, 4)
+        return int4_matmul, int4_matmul_ref, "launches", (q.data, q.scale)
+    if trait == "nf4":
+        q = quantize_nf4(w, block_size=64, double_quant=True, kind="nf4")
+        return nf4_matmul, nf4_matmul_ref, "launches", (
+            q.data, effective_block_scale(q).contiguous(), "nf4", 64)
+    bits, attr = (4, "launches") if trait == "hqq4" else (8, "launches_u8")
+    q = quantize_hqq(w, bits=bits, group_size=128 if bits == 8 else 64)
+    return group_asym_matmul, group_asym_matmul_ref, attr, (
+        q.data, q.scale, q.zero, q.block_size)
+
+
+TRAITS = ["int8", "int4", "nf4", "hqq4", "hqq8"]
+# K -> N of a decoder linear with that depth (whisper-small qkv and fc2,
+# whisper-medium o and fc2)
+DEPTHS = {768: 2304, 1024: 1024, 3072: 768, 4096: 1024}
+
+
+@pytest.mark.parametrize("trait", TRAITS)
+@pytest.mark.parametrize("k", sorted(DEPTHS))
+@pytest.mark.parametrize("m", [1, 31, 80, 96, 288, 1024])
+def test_matmul_traits_over_m_and_k(dev, trait, k, m):
+    """Every storage trait at one row, ragged M under and over a 16-row
+    fragment, the beam runs' 80, the headline's 96 and 288, and eight
+    128-row slabs, at the four decoder depths: one launch, within one bf16
+    step of the plain version's largest output."""
+    w, x = _weight_and_x(dev, torch.bfloat16, m, k, DEPTHS[k], m + k)
+    fn, ref, attr, args = _trait_case(trait, w)
+    _check_kernel(fn, ref, (fn, attr), x, *args)
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("trait", TRAITS)
+@pytest.mark.parametrize("m,k", [(96, 768), (7, 3072), (300, 1024)])
+def test_matmul_two_runs_are_bit_equal(dev, trait, m, k, dtype):
+    """The K splits of a tile are summed in a fixed order: two runs of one
+    call give the same bits (8, 8 and 4 or 2 splits here)."""
+    w, x = _weight_and_x(dev, dtype, m, k, DEPTHS[k], m * k)
+    fn, _, _, args = _trait_case(trait, w)
+    first = fn(x, *args)
+    for _ in range(3):
+        assert torch.equal(fn(x, *args), first)
 
 
 def test_4bit_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -171,8 +228,8 @@ def test_4bit_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # nibbles at an offset that breaks 16-byte loads
         off = torch.zeros(128 * 64 + 8, dtype=torch.int8, device=dev)[8:].view(128, 64)
         int4_matmul(x, off, col)
-    with pytest.raises(TypeError):  # float16 is not a kernel dtype
-        int4_matmul(x.half(), nib, col)
+    with pytest.raises(TypeError):  # float64 is not a kernel dtype
+        int4_matmul(x.double(), nib, col)
     with pytest.raises(ValueError):  # not a codebook kind
         nf4_matmul(x, nib, grp, "int4", 64)
     with pytest.raises(ValueError):  # block scales of the wrong shape
@@ -208,14 +265,25 @@ def test_log_mel(dev, dtype, b, t):
                                            (384, 1, 1500), (20, 4, 1500),
                                            (20, 5, 1500), (192, 8, 1500),
                                            (12, 19, 300), (7, 16, 1500)])
-def test_cross_attention_grouped(dev, bh, kq, s_valid):
-    dtype = torch.bfloat16
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+def test_cross_attention_grouped(dev, bh, kq, s_valid, dtype):
     g = torch.Generator(device=dev).manual_seed(bh + kq)
     s_pad = -(-s_valid // 128) * 128
     q = (torch.randn(bh, kq, 64, generator=g, device=dev) * 0.125).to(dtype)
     k_t = torch.randn(bh, 64, s_pad, generator=g, device=dev).to(dtype)
     v_t = torch.randn(bh, 64, s_pad, generator=g, device=dev).to(dtype)
+    chunks = [min(8, kq - j) for j in range(0, kq, 8)]
+    counter = "launches" + _COUNTER[dtype]
+
+    def counts():
+        return (getattr(decode_cross_attention_grouped, counter),
+                getattr(decode_cross_attention_grouped, counter + "_wide"))
+
+    narrow, wide = counts()
     got = decode_cross_attention_grouped(q, k_t, v_t, s_valid=s_valid)
+    assert counts() == (narrow + sum(c <= 4 for c in chunks),
+                        wide + sum(c > 4 for c in chunks))
+    assert got.dtype == dtype
     ref = decode_cross_attention_grouped_ref(q, k_t, v_t, s_valid=s_valid)
     torch.testing.assert_close(got.float(), ref.float(), rtol=0,
                                atol=_tol(dtype, float(ref.float().abs().max())))
@@ -226,7 +294,7 @@ def test_cross_attention_grouped(dev, bh, kq, s_valid):
                                                       s_valid=s_valid), got)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 @pytest.mark.parametrize("b,s,h", [(2, 1500, 12), (3, 64, 2), (1, 200, 5)])
 def test_transpose_quant_kv(dev, dtype, b, s, h):
     """int8 codes and f32 scales equal to the plain version bit for bit
@@ -263,13 +331,14 @@ def _quantized_kv(dev, bits, bh, s_valid, seed):
                                            (1152, 1, 1500), (20, 4, 1500),
                                            (192, 5, 1500), (20, 8, 100),
                                            (12, 19, 1500)])
-def test_cross_attention_grouped_quantized(dev, bits, bh, kq, s_valid):
-    """int8 / int4 bodies within one bf16 step of the plain version's
-    largest output; poisoning the padding (codes and scales) changes no
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+def test_cross_attention_grouped_quantized(dev, bits, bh, kq, s_valid, dtype):
+    """int8 / int4 bodies, q in each of the three types, within one step of
+    q's type of the plain version's largest output; poisoning the padding (codes and scales) changes no
     output bit; each body counts its own launches, one for every 8 slots,
     those of more than 4 slots under `_wide`."""
     g = torch.Generator(device=dev).manual_seed(bh + kq + bits)
-    q = (torch.randn(bh, kq, 64, generator=g, device=dev) * 0.125).bfloat16()
+    q = (torch.randn(bh, kq, 64, generator=g, device=dev) * 0.125).to(dtype)
     k, v, ks, vs = _quantized_kv(dev, bits, bh, s_valid, bh + bits)
     counter = "launches_int4" if bits == 4 else "launches_int8"
     chunks = [min(8, kq - j) for j in range(0, kq, 8)]
@@ -283,9 +352,9 @@ def test_cross_attention_grouped_quantized(dev, bits, bh, kq, s_valid):
     assert counts() == (narrow + sum(c <= 4 for c in chunks),
                         wide + sum(c > 4 for c in chunks))
     ref = decode_cross_attention_grouped_ref(q, k, v, ks, vs, s_valid)
+    assert got.dtype == dtype
     torch.testing.assert_close(got.float(), ref.float(), rtol=0,
-                               atol=_tol(torch.bfloat16,
-                                         float(ref.float().abs().max())))
+                               atol=_tol(dtype, float(ref.float().abs().max())))
     for t in (k, v):
         t[:, :, s_valid:] = 99
     for t in (ks, vs):
@@ -304,8 +373,8 @@ def _mixed_start(dev, bh, pos):
 
 @pytest.mark.parametrize("with_start", [False, True])
 @pytest.mark.parametrize("s,pos", [(64, 0), (64, 5), (64, 63), (448, 300)])
-def test_self_attention_update(dev, s, pos, with_start):
-    dtype = torch.bfloat16
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+def test_self_attention_update(dev, s, pos, with_start, dtype):
     g = torch.Generator(device=dev).manual_seed(s + pos)
     bh = 24
     q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).to(dtype)
@@ -314,7 +383,7 @@ def test_self_attention_update(dev, s, pos, with_start):
     vc = torch.randn(bh, s, 64, generator=g, device=dev).to(dtype)
     kr, vr = kc.clone(), vc.clone()
     start = _mixed_start(dev, bh, pos) if with_start else None
-    counter = "launches_start" if with_start else "launches"
+    counter = "launches" + _COUNTER[dtype] + ("_start" if with_start else "")
     before = getattr(decode_self_attention_update, counter)
     got = decode_self_attention_update(q, kn, vn, kc, vc, pos, start=start)
     assert getattr(decode_self_attention_update, counter) == before + 1
@@ -328,14 +397,15 @@ def test_self_attention_update(dev, s, pos, with_start):
 
 @pytest.mark.parametrize("with_start", [False, True])
 @pytest.mark.parametrize("s,pos", [(64, 0), (64, 30), (64, 63), (448, 300)])
-def test_self_attention_update_int8(dev, s, pos, with_start):
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+def test_self_attention_update_int8(dev, s, pos, with_start, dtype):
     """Rows and scales written equal to the plain version's bit for bit;
-    output within one bf16 step of its largest magnitude; with and without
+    output within one step of q's type of its largest magnitude; with and without
     a mixed `start`, each counted on its own."""
     g = torch.Generator(device=dev).manual_seed(s + pos + 1)
     bh = 36
-    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).bfloat16()
-    kn, vn = (torch.randn(2, bh, 64, generator=g, device=dev) * 2).bfloat16()
+    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).to(dtype)
+    kn, vn = (torch.randn(2, bh, 64, generator=g, device=dev) * 2).to(dtype)
     kc, vc = torch.randint(-127, 128, (2, bh, s, 64), generator=g, device=dev,
                            dtype=torch.int8)
     ks, vs = torch.rand(2, bh, s, generator=g, device=dev) * 0.03 + 0.001
@@ -350,9 +420,9 @@ def test_self_attention_update_int8(dev, s, pos, with_start):
     for a, b in zip(bufs, refs):
         assert torch.equal(a, b)
     assert not torch.equal(bufs[0][:, pos], kc[:, pos])
+    assert got.dtype == dtype
     torch.testing.assert_close(got.float(), ref.float(), rtol=0,
-                               atol=_tol(torch.bfloat16,
-                                         float(ref.float().abs().max())))
+                               atol=_tol(dtype, float(ref.float().abs().max())))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -371,14 +441,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # start on the CPU
         decode_self_attention_update(row, row, row, cache, cache.clone(), 1,
                                      start=torch.zeros(4, dtype=torch.int32))
-    with pytest.raises(TypeError):  # the attention kernels take bf16 only
+    with pytest.raises(TypeError):  # q and fp K/V of two types
         decode_cross_attention_grouped(torch.zeros(4, 1, 64, device=dev),
-                                       torch.zeros(4, 64, 128, device=dev),
-                                       torch.zeros(4, 64, 128, device=dev))
-    with pytest.raises(TypeError):
-        decode_self_attention_update(*torch.zeros(3, 4, 64, device=dev),
-                                     torch.zeros(4, 8, 64, device=dev),
-                                     torch.zeros(4, 8, 64, device=dev), 1)
+                                       torch.zeros(4, 64, 128, device=dev).half(),
+                                       torch.zeros(4, 64, 128, device=dev).half())
+    with pytest.raises(TypeError):  # float64 is no kernel type
+        decode_cross_attention_grouped(
+            torch.zeros(4, 1, 64, device=dev, dtype=torch.float64),
+            torch.zeros(4, 64, 128, device=dev, dtype=torch.float64),
+            torch.zeros(4, 64, 128, device=dev, dtype=torch.float64))
+    with pytest.raises(TypeError):  # f32 rows over a bf16 cache
+        decode_self_attention_update(*torch.zeros(3, 4, 64, device=dev), cache,
+                                     cache.clone(), 1)
     with pytest.raises(ValueError):  # w at an offset that breaks 16-byte loads
         int8_matmul(torch.zeros(2, 64, device=dev),
                     torch.zeros(64 * 64 + 8, dtype=torch.int8,
@@ -388,8 +462,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         int8_matmul(torch.zeros(2, 64, device=dev),
                     torch.zeros(64, 96, dtype=torch.int8, device=dev),
                     torch.ones(1, 96, device=dev))
-    with pytest.raises(TypeError):  # float16 is not a kernel dtype
-        int8_matmul(torch.zeros(2, 64, device=dev, dtype=torch.float16),
+    with pytest.raises(TypeError):  # float64 is not a kernel dtype
+        int8_matmul(torch.zeros(2, 64, device=dev, dtype=torch.float64),
                     torch.zeros(64, 64, dtype=torch.int8, device=dev),
                     torch.ones(1, 64, device=dev))
 
@@ -404,8 +478,8 @@ def test_quantized_wrappers_reject_what_the_kernels_do_not_take(dev):
     sc = torch.ones(4, 1, 128, device=dev)
     with pytest.raises(ValueError):  # a missing v scale
         decode_cross_attention_grouped(q, kv, kv, sc, None)
-    with pytest.raises(TypeError):  # f32 q
-        decode_cross_attention_grouped(q.float(), kv, kv, sc, sc)
+    with pytest.raises(TypeError):  # float64 q
+        decode_cross_attention_grouped(q.double(), kv, kv, sc, sc)
     with pytest.raises(TypeError):  # bf16 K/V with scales
         decode_cross_attention_grouped(q, kv.to(bf), kv.to(bf), sc, sc)
     with pytest.raises(ValueError):  # 33 stored rows: neither Dh nor Dh/2
@@ -422,17 +496,17 @@ def test_quantized_wrappers_reject_what_the_kernels_do_not_take(dev):
         decode_cross_attention_grouped(q, kv, kv, sc[:, :, :64], sc[:, :, :64])
     with pytest.raises(ValueError):  # head dim 48
         transpose_quant_kv(torch.zeros(1, 10, 96, device=dev, dtype=bf), 2)
-    with pytest.raises(TypeError):  # float16 input
+    with pytest.raises(TypeError):  # float64 input
         transpose_quant_kv(torch.zeros(1, 10, 128, device=dev,
-                                       dtype=torch.float16), 2)
+                                       dtype=torch.float64), 2)
     row = torch.zeros(4, 64, device=dev, dtype=bf)
     cache = torch.zeros(4, 8, 64, device=dev, dtype=i8)
     scale = torch.ones(4, 8, device=dev)
     with pytest.raises(TypeError):  # a bf16 cache
         decode_self_attention_update_int8(row, row, row, cache.to(bf),
                                           cache.to(bf), scale, scale, 1)
-    with pytest.raises(TypeError):  # f32 q/k/v
-        decode_self_attention_update_int8(row.float(), row.float(), row.float(),
+    with pytest.raises(TypeError):  # q of another type than the fresh rows
+        decode_self_attention_update_int8(row.float(), row, row,
                                           cache, cache, scale, scale, 1)
     with pytest.raises(ValueError):  # pos past the cache
         decode_self_attention_update_int8(row, row, row, cache, cache, scale,
@@ -477,11 +551,14 @@ def _strided_qkv(dev, b, h, t, seed, scale=1.0):
 
 
 @pytest.mark.parametrize("b,h,t", [(1, 1, 1), (2, 3, 64), (1, 2, 129), (2, 4, 256),
-                                   (1, 12, 300), (2, 12, 1500), (1, 2, 2000)])
+                                   (1, 12, 300), (2, 12, 1500), (1, 2, 2000),
+                                   (1, 1, 1500), (1, 1, 1499), (1, 12, 257),
+                                   (1, 12, 1536), (96, 12, 256), (96, 12, 1500)])
 def test_encoder_attention(dev, b, h, t):
     """Within one bf16 step (2**-7) of the plain version's largest output,
-    at lengths around the 64-key tile and the 128-row block, on strided
-    inputs; the output's memory is (B, T, H, 64), so merging heads is a
+    at lengths around the 128-key tile and the 128-row block (whole tiles,
+    one key or row over, the ragged 1500 and 1499), at B*H of 1, 12 and
+    1152, on strided inputs; the output's memory is (B, T, H, 64), so merging heads is a
     view; rows and keys past T leave no trace (NaN-free)."""
     q, k, v = _strided_qkv(dev, b, h, t, b * h + t)
     before = encoder_attention.launches
@@ -551,7 +628,7 @@ W8A8_SHAPES = [(1, 64, 64), (17, 80, 48), (1500, 768, 2304), (1, 3072, 768),
 
 
 @pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 @pytest.mark.parametrize("m,k,n", W8A8_SHAPES)
 def test_w8a8_matmul(dev, dtype, m, k, n, static):
     """Bit-equal to the plain version (integer sums have no order; the same
@@ -582,19 +659,19 @@ def test_w8a8_matmul_rejects_what_the_kernel_does_not_take(dev):
         w8a8_matmul(x[:, :40].contiguous(), w[:40].contiguous(), s)
     with pytest.raises(ValueError):   # int4 nibbles passed as they are stored
         w8a8_matmul(x, w[:32].contiguous(), s)
-    with pytest.raises(TypeError):    # float16 activations
-        w8a8_matmul(x.half(), w, s)
+    with pytest.raises(TypeError):    # float64 activations
+        w8a8_matmul(x.double(), w, s)
     with pytest.raises(ValueError):   # a static scale of two values
         w8a8_matmul(x, w, s, torch.ones(2, device=dev))
     with pytest.raises(ValueError):   # a static scale left on the CPU
         w8a8_matmul(x, w, s, torch.tensor(0.5))
 
 
-def _cross_kv(dev, kind, bh, s_valid, seed):
-    if kind == "bf16":
+def _cross_kv(dev, kind, bh, s_valid, seed, dtype=torch.bfloat16):
+    if kind == "bf16":   # K/V in q's own type
         g = torch.Generator(device=dev).manual_seed(seed)
         s_pad = -(-s_valid // 128) * 128
-        k, v = (torch.randn(bh, 64, s_pad, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(bh, 64, s_pad, generator=g, device=dev).to(dtype)
                 for _ in range(2))
         return k, v, None, None
     return _quantized_kv(dev, 4 if kind == "int4" else 8, bh, s_valid, seed)
@@ -603,22 +680,25 @@ def _cross_kv(dev, kind, bh, s_valid, seed):
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
 @pytest.mark.parametrize("bh,s_valid", [(1, 1), (1, 1500), (12, 1500), (36, 1500),
                                         (12, 100), (36, 129), (7, 1025), (50, 300)])
-def test_cross_attention_one_query(dev, kind, bh, s_valid):
-    """Each storage body within one bf16 step of the plain version's largest
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+def test_cross_attention_one_query(dev, kind, bh, s_valid, dtype):
+    """Each storage body (kind "bf16": K/V in q's own type), q in each of the
+    three types, within one step of q's type of the plain version's largest
     output, and of the grouped kernel at one slot; one position, one block
     per row, a span that ends inside a chunk, and B*H of 1, 12 and 36;
     poisoning the padding (data and scales) changes no output bit; each body
     counts its own launches."""
     g = torch.Generator(device=dev).manual_seed(bh + s_valid)
-    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).bfloat16()
-    k, v, ks, vs = _cross_kv(dev, kind, bh, s_valid, bh + s_valid)
-    counter = {"bf16": "launches", "int8": "launches_int8", "int4": "launches_int4"}[kind]
+    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).to(dtype)
+    k, v, ks, vs = _cross_kv(dev, kind, bh, s_valid, bh + s_valid, dtype)
+    counter = {"bf16": "launches" + _COUNTER[dtype], "int8": "launches_int8",
+               "int4": "launches_int4"}[kind]
     before = getattr(decode_cross_attention, counter)
     got = decode_cross_attention(q, k, v, ks, vs, s_valid)
     assert getattr(decode_cross_attention, counter) == before + 1
     ref = decode_cross_attention_ref(q, k, v, ks, vs, s_valid)
-    assert got.shape == (bh, 64) and got.dtype == torch.bfloat16
-    tol = _tol(torch.bfloat16, float(ref.float().abs().max()))
+    assert got.shape == (bh, 64) and got.dtype == dtype
+    tol = _tol(dtype, float(ref.float().abs().max()))
     torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=tol)
     grouped = decode_cross_attention_grouped(q[:, None, :].contiguous(), k, v, ks, vs,
                                              s_valid)[:, 0, :]
@@ -638,8 +718,8 @@ def test_cross_attention_one_query_rejects_what_the_kernel_does_not_take(dev):
     sc = torch.ones(4, 1, 128, device=dev)
     with pytest.raises(ValueError):   # query slots: the grouped function's shape
         decode_cross_attention(q[:, None, :], kv, kv, sc, sc)
-    with pytest.raises(TypeError):    # f32 q
-        decode_cross_attention(q.float(), kv, kv, sc, sc)
+    with pytest.raises(TypeError):    # float64 q
+        decode_cross_attention(q.double(), kv, kv, sc, sc)
     with pytest.raises(ValueError):   # a missing k scale
         decode_cross_attention(q, kv, kv, None, sc)
     with pytest.raises(ValueError):   # s_valid past S_pad
@@ -652,14 +732,15 @@ def test_cross_attention_one_query_rejects_what_the_kernel_does_not_take(dev):
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("bh,s,pos", [(1, 64, 0), (12, 64, 63), (36, 64, 30),
                                       (24, 448, 300)])
-def test_self_attention_read_only(dev, bh, s, pos, int8, with_start):
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+def test_self_attention_read_only(dev, bh, s, pos, int8, with_start, dtype):
     """On the cache that the update kernel wrote, the read-only kernel
     returns the update kernel's output bit for bit, writes nothing, lies
     within one bf16 step of its plain version, and counts its four bodies
     apart; pos 0 and pos S - 1, B*H of 1, 12 and 36."""
     g = torch.Generator(device=dev).manual_seed(bh + s + pos)
-    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).bfloat16()
-    kn, vn = (torch.randn(2, bh, 64, generator=g, device=dev) * 2).bfloat16()
+    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).to(dtype)
+    kn, vn = (torch.randn(2, bh, 64, generator=g, device=dev) * 2).to(dtype)
     start = _mixed_start(dev, bh, pos) if with_start and bh > 1 else (
         torch.zeros(bh, dtype=torch.int32, device=dev) if with_start else None)
     if int8:
@@ -670,12 +751,13 @@ def test_self_attention_read_only(dev, bh, s, pos, int8, with_start):
         out_upd = decode_self_attention_update_int8(q, kn, vn, *bufs, pos, start=start)
         scales = {"k_scale": ks, "v_scale": vs}
     else:
-        bufs = [torch.randn(bh, s, 64, generator=g, device=dev).bfloat16()
+        bufs = [torch.randn(bh, s, 64, generator=g, device=dev).to(dtype)
                 for _ in range(2)]
         out_upd = decode_self_attention_update(q, kn, vn, *bufs, pos, start=start)
         scales = {}
     written = [t.clone() for t in bufs]
-    counter = "launches" + ("_int8" if int8 else "") + ("_start" if with_start else "")
+    counter = ("launches" + ("_int8" if int8 else _COUNTER[dtype])
+               + ("_start" if with_start else ""))
     before = getattr(decode_self_attention, counter)
     got = decode_self_attention(q, bufs[0], bufs[1], pos, start=start, **scales)
     assert getattr(decode_self_attention, counter) == before + 1
@@ -683,7 +765,7 @@ def test_self_attention_read_only(dev, bh, s, pos, int8, with_start):
     assert all(torch.equal(a, b) for a, b in zip(bufs, written))
     ref = decode_self_attention_ref(q, bufs[0], bufs[1], pos, start=start, **scales)
     torch.testing.assert_close(got.float(), ref.float(), rtol=0,
-                               atol=_tol(torch.bfloat16, float(ref.float().abs().max())))
+                               atol=_tol(dtype, float(ref.float().abs().max())))
 
 
 def test_self_attention_read_only_rejects_what_the_kernel_does_not_take(dev):
