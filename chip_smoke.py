@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py              # from the repository root
     python3 chip_smoke.py --profile    # also torch.profiler kernel tables
+                                       # of the int8-kv, small-w8a8-dyn and
+                                       # beam5-prompt runs
 
 Phase 0  prints the card and its power limit, builds the CUDA kernels from
          `openai_whisper_compression_tpu_torch/csrc` (nvcc, sm_90a, one
@@ -15,10 +17,13 @@ Phase 1  each kernel against its plain PyTorch version on the card, at
          whisper-medium's at M = 64 and 256; the encoder attention at
          whisper-small batch 96 and whisper-medium batch 64, on the strided
          layout the projections leave; the cache updates with a mixed
-         `start`; the grouped cross-attention at 5 and 8 query slots; the
+         `start`; the grouped cross-attention at 1, 3, 5 and 8 query slots
+         over 384 and 1152 rows, and at 5 slots over the beam runs' 192; the
          w8a8 matmul, dynamic and static, at whisper-small's four linears at
          M = 96 and M = 96 x 1500, bit for bit, beside quantize +
-         `torch._int_mm` + epilogue; the one-query cross-attention at 12 and
+         `torch._int_mm` + epilogue and dequant + torch.matmul, with a
+         decode-M call held to one kernel and an encoder-scale call's
+         quantize pass timed apart (torch.profiler); the one-query cross-attention at 12 and
          36 rows over bf16, int8 and int4 K/V, also against the grouped
          kernel at one slot; the read-only self-attention bit for bit
          against the update kernels' output; the int8 matmul also at the
@@ -307,6 +312,8 @@ PROMPT_RUNS = [
     ("beam5-int4ckv", {"beam_size": 5, "kv_int8": True, "cross_kv_int4": True}, 16),
     ("small-f16-beam5", {"beam_size": 5}, 8, "fp16"),
 ]
+# the runs `--profile` profiles: the headline, the w8a8 path, beam search
+PROFILED = ("int8-kv", "small-w8a8-dyn", "beam5-prompt")
 # phase-3 configurations: (name, weight quantization, DecodeConfig switches)
 LOGIT_RUNS = [("int8 bf16-kv", "int8", {}), ("int8 int8-kv", "int8", KV8),
               ("int4 int8-kv", "int4", KV8),
@@ -597,6 +604,16 @@ def phase1(dev, results: dict) -> None:
             errs.append(res["max_abs_err"])
     results["cross"]["max_abs_err"] = max(errs + [results["cross"]["max_abs_err"]])
     del k_t, v_t
+    # the same widths at the headline batch's 1152 rows, and 5 slots at the
+    # beam runs' 192, as the int8 and int4 bodies are timed
+    bh = HEAD_BATCH * 12
+    k_t, v_t = (torch.randn(bh, 64, s_pad, generator=gen, device=dev).to(bf16)
+                for _ in range(2))
+    for kq, rows in ((1, bh), (3, bh), (5, bh), (8, bh), (5, 16 * 12)):
+        qg = (torch.randn(rows, kq, 64, generator=gen, device=dev) * 0.125).to(bf16)
+        check_grouped(f"cross_attention_grouped K={kq}", qg,
+                      (k_t[:rows], v_t[:rows], None, None), s_valid)
+    del k_t, v_t
 
     # self-attention update over a 64-row bf16 cache, and with the mixed
     # `start` of the greedy-prompt-ts run (16 - prompt length: 0..12)
@@ -763,12 +780,28 @@ def phase1_w8a8(dev, results: dict) -> None:
     at M = 96 (a decode step of the small-w8a8-dyn run) and M = 96 x 1500
     (its encoder), bf16 activations, on the call `linear` makes
     (`kernel_call`): bit-equal to its plain version, with times beside the
-    plain version and quantize + `torch._int_mm` + epilogue."""
+    plain version, quantize + `torch._int_mm` + epilogue, and
+    `torch.matmul(x, dequantize(q, bf16))`, the call the weight-only path
+    makes at that M. Under torch.profiler: a decode-M call is one kernel,
+    and how an encoder-scale call's time splits between its quantize pass
+    and its GEMM."""
     from openai_whisper_compression_tpu_torch.config import ARCHS
     from openai_whisper_compression_tpu_torch.ops.linear import kernel_call
+    from openai_whisper_compression_tpu_torch.ops.qtensor import dequantize
     from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
         w8a8_matmul, w8a8_matmul_ref)
     from openai_whisper_compression_tpu_torch.quant.core import quantize_int8
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    def kernels_of(call) -> dict:
+        """Device kernel name -> (calls, device ms) of one run of `call`."""
+        call()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        return {e.key: (e.count, e.self_device_time_total / 1e3)
+                for e in device_kernels(prof.key_averages())}
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     for k, n, what in linear_shapes(ARCHS[ARCH]):
@@ -778,6 +811,8 @@ def phase1_w8a8(dev, results: dict) -> None:
             x[m // 2] = 0.0   # an all-zero row: the scale's 1e-12 floor
             # a frozen scale as a calibration would leave it: absmax / 127
             frozen = (x.abs().max().float() / 127.0).reshape(())
+            few = {"warmup": 1, "iters": 3} if m > 1024 else {}
+            t_d = cuda_ms(lambda: torch.matmul(x, dequantize(q, torch.bfloat16)), **few)
             for key, qa in (("w8a8", dataclasses.replace(q, act="dynamic_int8")),
                             ("w8a8_static", dataclasses.replace(
                                 q, act="static_int8", act_scale=frozen))):
@@ -797,7 +832,6 @@ def phase1_w8a8(dev, results: dict) -> None:
                 lib = int_mm_library(x, *args)
                 lib_err = max_err(lib, ref)
                 del ref, lib
-                few = {"warmup": 1, "iters": 3} if m > 1024 else {}
                 t_k = cuda_ms(lambda: fn(x, *args), **few)
                 t_p = cuda_ms(lambda: plain_fn(x, *args), **few)
                 t_l = cuda_ms(lambda: int_mm_library(x, *args), **few)
@@ -805,12 +839,24 @@ def phase1_w8a8(dev, results: dict) -> None:
                 if (m, what) == (HEAD_BATCH, "qkv"):
                     results[key] = {"max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
                                     **least, "library_ms": t_l}
+                    ks = kernels_of(lambda: fn(x, *args))
+                    check(sum(c for c, _ in ks.values()) == 1,
+                          f"{key} M={m}: a decode-step call enqueued {ks}, not one kernel")
+                    log(f"phase1 {key} M={m} ({what}): one kernel a call, "
+                        f"{list(ks)[0][:60]}")
                 log(f"phase1 {key} M={m} K={k} N={n} ({what}): equal to the plain "
                     f"version bit for bit; kernel {t_k:.4f} ms "
                     f"({2 * m * k * n / t_k / 1e9:.1f} TOP/s) plain {t_p:.4f} ms "
                     f"quantize+torch._int_mm+epilogue {t_l:.4f} ms (off by "
-                    f"{lib_err:.3g}) least {least['bound_ms']:.5f} ms "
-                    f"({least['bound_by']})")
+                    f"{lib_err:.3g}) dequant+torch.matmul {t_d:.4f} ms least "
+                    f"{least['bound_ms']:.5f} ms ({least['bound_by']})")
+                if m > 1024 and (key, what) == ("w8a8", "fc1"):
+                    ks = kernels_of(lambda: fn(x, *args))
+                    quant = sum(t for name, (_, t) in ks.items() if "quantize" in name)
+                    total = sum(t for _, t in ks.values())
+                    log(f"phase1 {key} M={m} ({what}) under torch.profiler: "
+                        f"quantize pass {quant:.4f} ms of {total:.4f} ms "
+                        f"({', '.join(f'{nm[:40]} {t:.4f}' for nm, (_, t) in ks.items())})")
                 del got
             del x
         torch.cuda.empty_cache()
@@ -1294,10 +1340,11 @@ def rescore(params, arch, cfg, enc, seqs, prompt, lens, first_gen: int):
     return total
 
 
-def run_prompt_path(dev, arch, params, run) -> dict:
+def run_prompt_path(dev, arch, params, run, profile: bool = False) -> dict:
     """One prompt-conditioned phase-2 run (see PROMPT_RUNS): mel, encoder,
     then `beam_decode` or `greedy_decode` with a left-padded prompt window;
-    exact launch counts, the output contract, and the run's own checks."""
+    exact launch counts, the output contract, and the run's own checks
+    (`profile`: one more batch under torch.profiler)."""
     from openai_whisper_compression_tpu_torch.audio.features import preprocess
     from openai_whisper_compression_tpu_torch.config import DecodeConfig
     from openai_whisper_compression_tpu_torch.models import decode
@@ -1427,6 +1474,8 @@ def run_prompt_path(dev, arch, params, run) -> dict:
                "rtfx_steady": batch * AUDIO_S / walls[-1],
                "peak_mib": peak_mb, "launches": launches}
     log(f"phase2 {name} batch 1 RTFx {summary['rtfx_steady']:.2f}")
+    if profile:
+        profile_batch(name, lambda: transcribe(wavs[-1], prompt, lens)[1][0].cpu())
     return summary
 
 
@@ -1530,24 +1579,33 @@ def run_path(dev, arch, params, run, profile: bool) -> dict:
         f"RTFx {summary['rtfx_steady']:.2f}")
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as tprofile
-
-        wav = wavs[-1]
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn_sup(params, wav)[0].cpu()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        dev_us = sum(e.self_device_time_total for e in events  # kernels only
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and not e.is_user_annotation)
-        log(f"profile {name}: wall {wall * 1e3:.1f} ms, summed device kernel "
-            f"time {dev_us / 1e3:.1f} ms, idle share "
-            f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}")
-        log(events.table(sort_by="self_device_time_total", row_limit=30,
-                         max_name_column_width=60))
+        profile_batch(name, lambda: fn_sup(params, wavs[-1])[0].cpu())
     return summary
+
+
+def device_kernels(events) -> list:
+    """The device-side kernel rows of a profiler's `key_averages()`."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def profile_batch(name: str, batch) -> None:
+    """One batch under torch.profiler: its wall, the summed device time of
+    its kernels, the idle share and the kernel table."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in device_kernels(events))
+    log(f"profile {name}: wall {wall * 1e3:.1f} ms, summed device kernel "
+        f"time {dev_us / 1e3:.1f} ms, idle share "
+        f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}")
+    log(events.table(sort_by="self_device_time_total", row_limit=30,
+                     max_name_column_width=60))
 
 
 @torch.inference_mode()
@@ -1698,8 +1756,8 @@ def phase3(dev, params_for) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one batch of the int8-kv, medium-int4 and "
-                         "small-w8a8-dyn runs with torch.profiler")
+                    help="profile one batch of each of the " + ", ".join(PROFILED)
+                         + " runs with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1748,14 +1806,13 @@ def main() -> int:
     for run in RUNS:
         name, arch_name, method = run[:3]
         summaries[name] = run_path(dev, *params_for(arch_name, method), run,
-                                   args.profile and name in (
-                                       "int8-kv", "medium-int4", "small-w8a8-dyn"))
+                                   args.profile and name in PROFILED)
         if arch_name != ARCH:
             del built[arch_name, method]
             torch.cuda.empty_cache()
     for run in PROMPT_RUNS:
         summaries[run[0]] = run_prompt_path(
-            dev, *params_for(ARCH, (*run, "int8")[3]), run)
+            dev, *params_for(ARCH, (*run, "int8")[3]), run, args.profile and run[0] in PROFILED)
     summaries["self-attn-replay"] = run_self_attention_replay(
         dev, *params_for(ARCH, "int8"))
     phase3(dev, params_for)

@@ -76,10 +76,9 @@
 //   registers away instead (`setmaxnreg` down to 40) and each consumer
 //   takes 232: no spills. A third consumer warpgroup (192 rows a block)
 //   leaves each 128 registers and spills.
-#include <cuda.h>
 #include <limits.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -95,80 +94,6 @@ constexpr int STAGE_BYTES = 2 * TILE_BYTES;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
 constexpr float LOG2E = 1.4426950408889634f;
 using BF = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spins until the barrier's phase of this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One (64, BN, 1, 1) box of a 4-D tensor map into shared memory; the
-// barrier receives the box's bytes.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1, int c2,
-                                            int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
-// swizzle (1024-byte aligned): 8-row groups 1024 bytes apart (SBO); the
-// leading byte offset is not used by a tile one swizzle span wide.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
-  d |= (uint64_t)1 << 16;            // LBO (unused), in 16-byte units
-  d |= (uint64_t)(1024 >> 4) << 32;  // SBO
-  d |= (uint64_t)1 << 62;            // 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // Keeps the compiler from moving reads or writes of registers that an
 // asynchronous wgmma owns across this point.
@@ -238,12 +163,6 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -298,7 +217,7 @@ encoder_attention_kernel(const BF* __restrict__ q,
       mbar_init(&full_bar[s], 1);   // the producer's expect_tx arrival
       mbar_init(&empty_bar[s], 4 * WGS);  // lane 0 of each consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -499,34 +418,6 @@ encoder_attention_kernel(const BF* __restrict__ q,
   }  // consumer warpgroups
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so that the library needs no
-// link against libcuda.
-EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &status) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &status) != cudaSuccess)
-      return nullptr;
-#endif
-    if (status != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // The tensor map of a bf16 (B, H, T, 64) strided view, boxes of (BN, 64)
 // at one (batch, head), 128-byte swizzle, rows past T filled with zeros.
 // The three outer dimensions are listed by ascending stride; `order` says
@@ -598,16 +489,11 @@ extern "C" int owc_encoder_attention(const void* q, const void* k, const void* v
                                        SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   // one block an SM, each walking over (batch, head, query block) items
-  static int sm_count = 0;
-  if (sm_count == 0) {
-    int device = 0;
-    e = cudaGetDevice(&device);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return (int)e;
-  }
+  int sms = 0;
+  e = sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
   const long long items = (long long)((T + BM - 1) / BM) * B * H;
-  const int grid = (int)(items < sm_count ? items : sm_count);
+  const int grid = (int)(items < sms ? items : sms);
   encoder_attention_kernel<<<grid, THREADS, SMEM_BYTES,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const BF*>(q), k_map, v_map, static_cast<BF*>(out), B * H, H, T,

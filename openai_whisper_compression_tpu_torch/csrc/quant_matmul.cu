@@ -52,7 +52,7 @@
 // One launch a linear.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -67,22 +67,6 @@ using BF = __nv_bfloat16;
 struct Code16 {
   float v[16];
 };
-
-// 16 bytes to the shared address `dst`; the bytes past `src_bytes` (0 or 16)
-// are zero filled and not read.
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Four 8x8 bf16 matrices, each transposed: lane l gives the address of row
 // l % 8 of matrix l / 8 and receives elements [2 * (l % 4), + 1][l / 4].

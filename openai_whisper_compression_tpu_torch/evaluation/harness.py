@@ -15,6 +15,7 @@ import torch
 from ..audio import features
 from ..config import HOP_LENGTH, DecodeConfig, WhisperArch
 from ..models.decode import beam_decode, check_supported, greedy_decode
+from ..models.params import DEFAULT_DEVICE, resolve_device
 from ..models.whisper import encode
 
 
@@ -26,10 +27,11 @@ def samples_for_arch(arch: WhisperArch) -> int:
 
 def make_transcribe_fn(arch: WhisperArch, cfg: DecodeConfig,
                        fast_mel: bool = False, fast_gelu: bool = False,
-                       device: str | torch.device = "cpu",
+                       device: str | torch.device = DEFAULT_DEVICE,
                        token_logprobs: bool = False):
     """Build fn(params, wav) -> (tokens (B, L), lengths (B,)) running on
-    `device`. fast_mel: bf16 DFT operands (f32 sums); fast_gelu:
+    `device` (the card unless the caller names another; with no card a
+    CUDA device raises here). fast_mel: bf16 DFT operands (f32 sums); fast_gelu:
     tanh-approximate GELU in the encoder MLPs; token_logprobs: append the
     greedy per-position logprob trace (B, L) to the outputs (greedy only).
     `params` must already live on `device`; `wav` (B, T) f32 may be a numpy
@@ -38,7 +40,7 @@ def make_transcribe_fn(arch: WhisperArch, cfg: DecodeConfig,
         raise ValueError("token_logprobs is only available for greedy "
                          "decoding (beam_size == 1)")
     check_supported(arch, cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     n_samples = samples_for_arch(arch)
     dft_dtype = torch.bfloat16 if fast_mel else torch.float32
 

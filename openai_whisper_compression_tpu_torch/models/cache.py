@@ -11,6 +11,7 @@ import torch
 
 from ..config import WhisperArch
 from ..ops.qtensor import quantize_absmax
+from .params import DEFAULT_DEVICE, resolve_device
 from .whisper import _num_heads
 
 Params = dict[str, Any]
@@ -18,11 +19,12 @@ Params = dict[str, Any]
 
 def init_cache(params: Params, arch: WhisperArch, batch: int,
                max_len: int | None = None, dtype=torch.float32,
-               device: str | torch.device = "cpu",
+               device: str | torch.device = DEFAULT_DEVICE,
                int8: bool = False) -> list[dict[str, torch.Tensor]]:
     """Zeroed buffers per decoder layer, head count read from each layer's
     weights: {k, v} in `dtype`, or with int8=True int8 {k, v} plus f32
     {k_scale, v_scale}."""
+    device = resolve_device(device)
     max_len = max_len or arch.max_target_positions
     cache = []
     for layer in params["decoder"]["layers"]:

@@ -292,7 +292,7 @@ def _prepare(params: Params, arch: WhisperArch, enc_out: torch.Tensor,
     if pw:
         tokens[:, :pw] = torch.as_tensor(prompt_tokens, device=device).long()
         if prompt_lens is None:
-            prompt_lens = torch.full((b,), pw)
+            prompt_lens = torch.full((b,), pw, device=device)
         start = (pw - torch.as_tensor(prompt_lens, device=device)).to(torch.int32)
     first_gen = pw + p_len
     tokens[:, pw: first_gen] = torch.tensor(prefix, dtype=torch.long, device=device)

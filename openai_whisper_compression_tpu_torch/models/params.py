@@ -32,13 +32,29 @@ def sinusoid_positions(length: int, channels: int,
     return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
 
 
+DEFAULT_DEVICE = "cuda"  # the entry points run on the card unless told otherwise
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """`device` as a torch.device. A CUDA device where torch sees no card
+    raises here, as torch raises for a CUDA tensor, so that a call naming
+    no device never falls back to the CPU; pass device="cpu" for that."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but "
+                           "torch.cuda.is_available() is False; pass "
+                           "device='cpu' to run on the CPU")
+    return device
+
+
 def init_params(arch: WhisperArch, seed: int = 0, dtype=torch.float32,
-                device: str | torch.device = "cpu") -> Params:
+                device: str | torch.device = DEFAULT_DEVICE) -> Params:
     """Random-init tree with the JAX `init_params` layout and statistics
     (normal(0, 0.02) linears/conv/embeddings/decoder positions, zero biases,
     unit layernorms, sinusoidal encoder positions). Draws come from a
     `torch.Generator` seeded with `seed` on `device`, so they are not the
     JAX draws; parity tests convert JAX's tree with `from_numpy` instead."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, ffn = arch.d_model, arch.ffn_dim
 
@@ -100,7 +116,7 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
 
-def from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
+def from_numpy(tree: Any, device: str | torch.device = DEFAULT_DEVICE) -> Any:
     """Port tree from the JAX parameter tree with numpy leaves. QTensor
     leaves arrive as objects with the JAX QTensor's fields (after
     `jax.tree.map(np.asarray, ...)`); every field carries over, the
@@ -108,6 +124,7 @@ def from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
     fp8 type: the data of an "fp8" leaf may arrive as ml_dtypes'
     float8_e4m3fn or as its bytes (`np.asarray(x).view(np.uint8)`), which
     are viewed as `torch.float8_e4m3fn`."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -34,7 +34,10 @@ HEAD_DIM = 64   # every Whisper size; the kernels are written for it
 MAX_SLOTS = 8   # query slots per (batch, head) row one launch holds
 UNGROUPED_MODULUS = 16  # a decode step with B*H % 16 != 0 takes the one-query kernel
 SPLIT_CHUNKS = 8   # 16-byte chunks of positions per block of the one-query kernel
-NARROW_SLOTS = 4  # up to here the kernel's 1- and 4-slot bodies, above its 8-slot body
+NARROW_SLOTS = 4  # launches of more slots are counted apart (`_wide`)
+GROUPED_CHUNK = 32  # positions a warp of the grouped kernel takes at a time
+_GROUPED_BLOCKS = 264  # blocks the grouped kernel wants: two an SM of the H100
+_MAX_CLUSTER = 8       # blocks of one cluster (the portable limit)
 # K/V storage kind -> (code of csrc/cross_attention.cu, positions per
 # 16-byte load, launch counter on the two wrappers); "fp" is K/V in q's type
 _KINDS = {"fp": (0, 8, "launches"), "fp_f32": (0, 4, "launches_f32"),
@@ -179,6 +182,15 @@ def _check_kv(name: str, q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
     return kind, s_pad, s_valid
 
 
+def grouped_splits(bh: int, s_valid: int) -> int:
+    """Blocks of the thread block cluster that shares one row of the grouped
+    kernel: enough for `_GROUPED_BLOCKS` blocks over B·H rows, at most
+    `_MAX_CLUSTER`, and no more than the row has 32-position chunks, so that
+    every block gets at least one."""
+    chunks = -(-s_valid // GROUPED_CHUNK)
+    return max(1, min(_MAX_CLUSTER, chunks, -(-_GROUPED_BLOCKS // bh)))
+
+
 def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
                                    v_t: torch.Tensor,
                                    k_scale: torch.Tensor | None = None,
@@ -187,12 +199,13 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
     """q (BH, K, Dh) pre-scaled by Dh**-0.5; k_t/v_t (BH, Dh, S_pad) bf16,
     or int8 (Dh rows) or packed int4 (Dh/2 rows) with k_scale/v_scale
     (BH, 1, S_pad) f32; positions >= s_valid are padding (zero probability).
-    Returns (BH, K, Dh) in q's dtype. A CUDA tensor launches the kernel,
-    once for every `MAX_SLOTS` slots of K (each storage kind counts its
+    Returns (BH, K, Dh) in q's dtype. A CUDA tensor launches the kernel
+    (S split over a cluster of `grouped_splits` blocks a row), once for
+    every `MAX_SLOTS` slots of K (each storage kind counts its
     launches in its own attribute: `launches` for bf16 K/V, `launches_f32`,
     `launches_f16`, `launches_int8`, `launches_int4`, and a launch of more
-    than `NARROW_SLOTS` slots, which runs the kernel's 8-slot body, in that
-    attribute + `_wide`); a CPU tensor takes the plain version."""
+    than `NARROW_SLOTS` slots in that attribute + `_wide`); a CPU tensor
+    takes the plain version."""
     if not q.is_cuda:
         return decode_cross_attention_grouped_ref(q, k_t, v_t, k_scale,
                                                   v_scale, s_valid)
@@ -201,8 +214,12 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
     kernels.require(kq >= 1, name, f"at least one query slot per row, got {kq}")
     kind, s_pad, s_valid = _check_kv(name, q, k_t, v_t, k_scale, v_scale, s_valid)
     code, _, counter = _KINDS[kind]
-    kernels.require((MAX_SLOTS * dh + min(kq, MAX_SLOTS) * s_pad) * 4
-                    <= 227 * 1024, name, "scores do not fit in shared memory")
+    kernels.require(1 <= bh < 2 ** 31, name, f"B*H {bh} outside 1..2**31 - 1")
+    kernels.require(q.data_ptr() % 4 == 0, name, "q must be 4-byte aligned")
+    kernels.require(k_scale is None or (k_scale.data_ptr() % 16 == 0
+                                        and v_scale.data_ptr() % 16 == 0),
+                    name, "k_scale/v_scale must be 16-byte aligned")
+    splits = grouped_splits(bh, s_valid)
     out = torch.empty_like(q)
     for j0 in range(0, kq, MAX_SLOTS):   # slots j0.. of every row, in place
         offset = j0 * dh * q.element_size()
@@ -211,7 +228,7 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
             q.data_ptr() + offset, k_t.data_ptr(), v_t.data_ptr(),
             None if k_scale is None else k_scale.data_ptr(),
             None if v_scale is None else v_scale.data_ptr(),
-            out.data_ptr() + offset, bh, slots, kq * dh, s_pad, s_valid, code,
+            out.data_ptr() + offset, bh, slots, kq * dh, s_pad, s_valid, splits, code,
             kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q))
         kernels.check(name, err)
         attr = counter + ("_wide" if slots > NARROW_SLOTS else "")

@@ -49,10 +49,10 @@ _SIGNATURES = {
     "owc_nf4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "owc_group_asym_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P],
-    "owc_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "owc_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "owc_mel_log10": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "owc_cross_attention_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _I, _P],
+                                    _I, _I, _I, _I, _P],
     "owc_cross_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P],
     "owc_transpose_quant_kv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -26,7 +26,9 @@ operands in f32 (the same int8 codes exactly, for `w8a8_matmul`).
 A weight-only kernel's block owns 64 output columns for up to 128 rows of x;
 a skinny M gives few such strips, so K is split over the blocks of a thread
 block cluster, which sum their partial tiles through shared memory in one
-launch. `_splits` is that rule.
+launch. `_splits` is that rule; `_w8a8_splits` is the w8a8 kernel's, whose
+block holds 32 rows x 128 columns and its K range of the rows as int8 codes
+up to M = `W8A8_SMALL_M` (above, a quantize pass and a wgmma GEMM).
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ from .qtensor import (CODEBOOKS, codebook_select, quantize_absmax,
 _BM, _BN, _BK = 128, 64, 32  # output tile and stored-row depth of the kernel
 _TARGET_BLOCKS = 100         # most of the H100's 132 SMs get a block
 _MAX_CLUSTER = 8             # blocks of one cluster (the portable limit)
+W8A8_SMALL_M = 1024          # w8a8: one fused launch up to here, wgmma above
+_W8A8_BK = 64                # w8a8: K depth of a stage of the fused kernel
+_W8A8_KLEN = 4096            # w8a8: longest K range a fused block holds
 
 
 def _bf16_f32(t: torch.Tensor) -> torch.Tensor:
@@ -282,12 +287,30 @@ def w8a8_matmul_ref(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return (acc * sx * scale.reshape(1, -1).to(torch.float32)).to(x.dtype)
 
 
+def _w8a8_splits(m: int, n: int, k: int) -> int | None:
+    """K splits of a w8a8 output tile at M <= `W8A8_SMALL_M`, i.e. the size
+    of its thread block cluster: the smallest divisor of the 64-row K tiles,
+    at most `_MAX_CLUSTER`, that puts `_TARGET_BLOCKS` blocks of 32 x 128
+    outputs in flight, or the largest where none does, among those whose K
+    range (held as int8 codes for 32 rows in shared memory) is at most
+    `_W8A8_KLEN` bytes; None where no split keeps it that short."""
+    ktiles = -(-k // _W8A8_BK)
+    tiles = -(-n // 128) * -(-m // 32)
+    fits = [s for s in range(1, _MAX_CLUSTER + 1)
+            if ktiles % s == 0 and ktiles // s * _W8A8_BK <= _W8A8_KLEN]
+    if not fits:
+        return None
+    return next((s for s in fits if tiles * s >= _TARGET_BLOCKS), fits[-1])
+
+
 def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                 act_scale: torch.Tensor | None = None) -> torch.Tensor:
     """x (M, K) f32/bf16/f16 • w (K, N) int8 • scale (1, N) or (N,) f32 ->
     (M, N) in x's dtype, x quantized to int8 per row at run time, or by the
-    frozen 0-dim f32 `act_scale`. Counts launches in `w8a8_matmul.launches`
-    (dynamic) and `.launches_static`."""
+    frozen 0-dim f32 `act_scale`. One kernel at M <= `W8A8_SMALL_M` (K split
+    over a cluster by `_w8a8_splits`), a quantize pass and the wgmma GEMM
+    above. Counts calls in `w8a8_matmul.launches` (dynamic) and
+    `.launches_static`."""
     if not x.is_cuda:
         return w8a8_matmul_ref(x, w, scale, act_scale)
     name = "w8a8_matmul"
@@ -296,8 +319,8 @@ def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     kernels.require(w.dim() == 2 and w.shape[0] == k and w.dtype == torch.int8,
                     name, f"w must be ({k}, N) int8, got {tuple(w.shape)} {w.dtype}")
     n = w.shape[1]
-    kernels.require(k % 16 == 0 and n % 16 == 0 and 1 <= m <= 65535 * 32, name,
-                    f"K and N must be multiples of 16 and M lie in 1..{65535 * 32} "
+    kernels.require(k % 16 == 0 and n % 16 == 0 and 1 <= m < 2 ** 31, name,
+                    f"K and N must be multiples of 16 and M positive "
                     f"(M={m}, K={k}, N={n})")
     _colscale_ok(name, scale, n)
     tensors = [x, w, scale]
@@ -309,17 +332,27 @@ def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                     name, "x, the weight and the scales must share a device")
     kernels.require(all(t.is_contiguous() for t in tensors), name,
                     "inputs must be contiguous")
+    kernels.require(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, name,
+                    "x and w must be 16-byte aligned (the kernels copy them in "
+                    "16-byte pieces)")
     code = kernels.dtype_code(x, name)
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    wt = torch.empty((n, k), dtype=torch.int8, device=x.device)
-    sx = (torch.empty((m,), dtype=torch.float32, device=x.device)
-          if act_scale is None else None)
+    xq = sx = None
+    splits = 0
+    if m <= W8A8_SMALL_M:
+        splits = _w8a8_splits(m, n, k)
+        kernels.require(splits is not None, name,
+                        f"K={k}: no split of at most {_MAX_CLUSTER} keeps a K range "
+                        f"within {_W8A8_KLEN}")
+    else:   # the quantize pass's output, read by the GEMM
+        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        if act_scale is None:
+            sx = torch.empty((m,), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     err = kernels.lib().owc_w8a8_matmul(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-        None if act_scale is None else act_scale.data_ptr(), xq.data_ptr(),
-        wt.data_ptr(), None if sx is None else sx.data_ptr(), out.data_ptr(),
-        m, n, k, code, kernels.stream_of(x))
+        None if act_scale is None else act_scale.data_ptr(),
+        None if xq is None else xq.data_ptr(), None if sx is None else sx.data_ptr(),
+        out.data_ptr(), m, n, k, splits, code, kernels.stream_of(x))
     kernels.check(name, err)
     if act_scale is None:
         w8a8_matmul.launches += 1

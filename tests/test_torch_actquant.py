@@ -49,6 +49,8 @@ from openai_whisper_compression_tpu_torch.quant import api as torch_api
 from openai_whisper_compression_tpu_torch.quant import calibrate
 from openai_whisper_compression_tpu_torch.quant import core as torch_core
 
+DEV = "cpu"  # the port's entry points default to the card
+
 torch.set_num_threads(2)
 
 ARCH = JAX_ARCHS["test2l"]
@@ -89,7 +91,7 @@ def _assert_bits(got, ref, what=""):
 
 def _carry(tree):
     """A JAX tree (QTensors included) as the port's tree."""
-    return TP.from_numpy(jax.tree.map(np.asarray, tree))
+    return TP.from_numpy(jax.tree.map(np.asarray, tree), device=DEV)
 
 
 def _x(m, k, seed, dtype, zero_row=False):
@@ -178,7 +180,7 @@ def test_from_numpy_carries_act_and_fp8(case):
     leaf = jax.tree.map(np.asarray, q)
     if case == "fp8-bytes":
         leaf = dataclasses.replace(leaf, data=np.asarray(q.data).view(np.uint8))
-    got = TP.from_numpy({"w": leaf})["w"]
+    got = TP.from_numpy({"w": leaf}, device=DEV)["w"]
     assert (got.kind, got.bits, got.shape, got.act) == (q.kind, q.bits,
                                                         tuple(q.shape), q.act)
     _assert_bits(got.data, q.data, "data")
@@ -496,7 +498,7 @@ def _torch_forward(p):
     mel, toks = _cal_inputs()
     enc = whisper.encode(p, arch, torch.from_numpy(mel))
     kvs = whisper.precompute_cross_kv_t(p, arch, enc)
-    cache = kv_cache.init_cache(p, arch, 2, 64)
+    cache = kv_cache.init_cache(p, arch, 2, 64, device=DEV)
     toks = torch.from_numpy(toks).long()
     decode.prefill(p, arch, toks[:, :3], cache, kvs)
     for pos in range(3, 6):
@@ -597,7 +599,7 @@ def test_actquant_tokens_match_jax(dense_params, calibrated, name):
         own = fuse_qkv(torch_api.quantize_params(_carry(dense_params), name))
     jt, jl = jax_make_transcribe_fn(ARCH, JaxDecodeConfig(**cfg),
                                     use_pallas_mel=True)(jp, jnp.asarray(wav))
-    fn = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**cfg))
+    fn = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**cfg), device=DEV)
     assert len(set(np.asarray(jl).tolist())) > 1   # rows stop at different steps
     for tp in (carried,) if name == "static_fp8_act_fp8" else (carried, own):
         tt, tl = fn(tp, wav)

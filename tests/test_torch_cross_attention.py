@@ -3,7 +3,8 @@ on a CPU tensor) against the JAX package's
 `decode_cross_attention_grouped` in interpret mode, at K = 1 (decode step)
 and K = 3 (prefill of whisper-small's 4-token prefix), for bf16, int8 and
 int4 K/V; and the cross-KV transpose + int8 quantize and the int4 packing
-against the JAX package's, bit for bit."""
+against the JAX package's, bit for bit; and the rule that splits a row of
+the grouped kernel over a thread block cluster."""
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +19,8 @@ from openai_whisper_compression_tpu.ops.cross_attention import (
     transpose_quant_kv as jax_transpose_quant_kv)
 from openai_whisper_compression_tpu_torch.models import whisper
 from openai_whisper_compression_tpu_torch.ops.cross_attention import (
-    decode_cross_attention_grouped, pad_cross_len, transpose_quant_kv)
+    GROUPED_CHUNK, decode_cross_attention_grouped, grouped_splits, pad_cross_len,
+    transpose_quant_kv)
 
 torch.set_num_threads(2)
 
@@ -153,3 +155,24 @@ def test_quantized_padding_gets_zero_probability(bits):
     a = decode_cross_attention_grouped(*(t(x) for x in clean), s_valid=70)
     b = decode_cross_attention_grouped(*(t(x) for x in dirty), s_valid=70)
     assert torch.equal(a, b)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("s_valid", [1, 16, 1500, 1536])
+@pytest.mark.parametrize("bh", [12, 192, 384, 1152])
+def test_grouped_split_gives_every_block_a_chunk(bh, s_valid):
+    """The cluster holds 1-8 blocks, and 2-8 wherever the rows alone leave
+    the card short of two blocks an SM and the row has two chunks to share;
+    every block of a row gets at least one 32-position chunk (the kernel's
+    own share-out, reproduced); and the grid covers the card's SMs unless
+    the split is already as wide as it may be."""
+    splits = grouped_splits(bh, s_valid)
+    chunks = -(-s_valid // GROUPED_CHUNK)
+    assert 1 <= splits <= 8
+    if bh < 2 * H100_SMS and chunks >= 2:
+        assert splits >= 2
+    shares = [(r + 1) * chunks // splits - r * chunks // splits for r in range(splits)]
+    assert sum(shares) == chunks and min(shares) >= 1
+    assert bh * splits >= H100_SMS or splits == min(8, chunks)

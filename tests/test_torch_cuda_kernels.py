@@ -294,6 +294,36 @@ def test_cross_attention_grouped(dev, bh, kq, s_valid, dtype):
                                                       s_valid=s_valid), got)
 
 
+@pytest.mark.parametrize("bh", [12, 192, 1152])
+@pytest.mark.parametrize("s_valid", [1, 15, 16, 1500, 1536])
+@pytest.mark.parametrize("kind", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+def test_cross_attention_grouped_slots(dev, kind, dtype, s_valid, bh):
+    """Every storage kind (K/V in q's type, int8, int4) under q in each of
+    the three types, at 1 to 8 slots over one K/V: within one step of q's
+    type of the plain version's largest output (1e-5 for f32), each call
+    one launch, and two runs of one call bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(bh + s_valid)
+    if kind == "fp":
+        k, v, ks, vs = _cross_kv(dev, "bf16", bh, s_valid, bh, dtype)
+        counter = "launches" + _COUNTER[dtype]
+    else:
+        k, v, ks, vs = _quantized_kv(dev, 8 if kind == "int8" else 4, bh, s_valid, bh)
+        counter = "launches_" + kind
+    for kq in range(1, 9):
+        q = (torch.randn(bh, kq, 64, generator=g, device=dev) * 0.125).to(dtype)
+        attr = counter + ("_wide" if kq > 4 else "")
+        before = getattr(decode_cross_attention_grouped, attr)
+        got = decode_cross_attention_grouped(q, k, v, ks, vs, s_valid)
+        assert getattr(decode_cross_attention_grouped, attr) == before + 1
+        ref = decode_cross_attention_grouped_ref(q, k, v, ks, vs, s_valid)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=_tol(dtype, float(ref.float().abs().max())),
+                                   msg=lambda m: f"{kq} slots: {m}")
+        assert torch.equal(decode_cross_attention_grouped(q, k, v, ks, vs, s_valid), got)
+
+
 @pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 @pytest.mark.parametrize("b,s,h", [(2, 1500, 12), (3, 64, 2), (1, 200, 5)])
 def test_transpose_quant_kv(dev, dtype, b, s, h):
@@ -494,6 +524,9 @@ def test_quantized_wrappers_reject_what_the_kernels_do_not_take(dev):
         decode_cross_attention_grouped(q, off, kv, sc, sc)
     with pytest.raises(ValueError):  # scales of the wrong shape
         decode_cross_attention_grouped(q, kv, kv, sc[:, :, :64], sc[:, :, :64])
+    with pytest.raises(ValueError):  # scales at an offset that breaks 16-byte copies
+        sc_off = torch.ones(4 * 128 + 1, device=dev)[1:].view(4, 1, 128)
+        decode_cross_attention_grouped(q, kv, kv, sc_off, sc_off)
     with pytest.raises(ValueError):  # head dim 48
         transpose_quant_kv(torch.zeros(1, 10, 96, device=dev, dtype=bf), 2)
     with pytest.raises(TypeError):  # float64 input
@@ -651,6 +684,33 @@ def test_w8a8_matmul(dev, dtype, m, k, n, static):
     assert not got[m // 2].any()
 
 
+# (K, N) of every linear of whisper-tiny, -small and -medium (fused qkv),
+# and a ragged N = 16 x 49
+W8A8_KN = [(384, 1152), (384, 384), (384, 1536), (1536, 384),
+           (768, 2304), (768, 768), (768, 3072), (3072, 768),
+           (1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024), (768, 784)]
+
+
+@pytest.mark.parametrize("m", [1, 17, 96, 288, 1025, 6000])
+@pytest.mark.parametrize("k,n", W8A8_KN)
+def test_w8a8_matmul_whisper_linears(dev, m, k, n):
+    """Both bodies (the fused one up to M = 1024, the quantize pass and the
+    wgmma GEMM above) bit-equal to the plain version, dynamic and static,
+    x in f32, bf16 and f16, and two runs of one call bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(m * 7 + k + n)
+    q = quantize_int8(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x32 = torch.randn(m, k, generator=g, device=dev) * 1.7
+    for dtype in FLOATS:
+        x = x32.to(dtype)
+        for act_scale in (None, torch.tensor(0.029, device=dev)):
+            got = w8a8_matmul(x, q.data, q.scale, act_scale)
+            ref = w8a8_matmul_ref(x, q.data, q.scale, act_scale)
+            what = f"{_IDS[dtype]} {'static' if act_scale is not None else 'dynamic'}"
+            assert got.dtype == dtype and got.shape == (m, n), what
+            assert torch.equal(got, ref), (what, float((got.float() - ref.float()).abs().max()))
+            assert torch.equal(w8a8_matmul(x, q.data, q.scale, act_scale), got), what
+
+
 def test_w8a8_matmul_rejects_what_the_kernel_does_not_take(dev):
     x = torch.zeros(2, 64, device=dev)
     w = torch.zeros(64, 32, dtype=torch.int8, device=dev)
@@ -665,6 +725,12 @@ def test_w8a8_matmul_rejects_what_the_kernel_does_not_take(dev):
         w8a8_matmul(x, w, s, torch.ones(2, device=dev))
     with pytest.raises(ValueError):   # a static scale left on the CPU
         w8a8_matmul(x, w, s, torch.tensor(0.5))
+    with pytest.raises(ValueError):   # x at an offset that breaks 16-byte loads
+        off = torch.zeros(2 * 64 + 1, device=dev)[1:].view(2, 64)
+        w8a8_matmul(off, w, s)
+    with pytest.raises(ValueError):   # a K range no split of 8 keeps in shared memory
+        big = torch.zeros(2, 64 * 67 * 2, device=dev)
+        w8a8_matmul(big, torch.zeros(64 * 67 * 2, 32, dtype=torch.int8, device=dev), s)
 
 
 def _cross_kv(dev, kind, bh, s_valid, seed, dtype=torch.bfloat16):

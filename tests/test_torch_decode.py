@@ -24,6 +24,8 @@ from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcr
 from openai_whisper_compression_tpu_torch.models import decode
 from openai_whisper_compression_tpu_torch.models.params import from_numpy
 
+DEV = "cpu"  # the port's entry points default to the card
+
 torch.set_num_threads(2)
 
 B, PW = 3, 5           # batch, prompt window
@@ -41,7 +43,7 @@ def _params(arch_name):
     embed = np.asarray(p["decoder"]["embed"]).copy()
     embed[arch.eos_token_id] = 1.3 * embed[EOT_TWIN]
     p["decoder"] = {**p["decoder"], "embed": jnp.asarray(embed)}
-    return p, from_numpy(jax.tree.map(np.asarray, p))
+    return p, from_numpy(jax.tree.map(np.asarray, p), device=DEV)
 
 
 @pytest.fixture(scope="module")
@@ -346,7 +348,7 @@ def test_transcribe_fn_with_beams_matches_jax(plain):
     cfg = dict(max_new_tokens=8, beam_size=3, kv_int8=True, cross_kv_int8=True)
     jt, jl = jax_make_transcribe_fn(JAX_ARCHS["test2l"], JaxDecodeConfig(**cfg),
                                     use_pallas_mel=True)(jp, jnp.asarray(_wav()))
-    tt, tl = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**cfg))(tp, _wav())
+    tt, tl = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**cfg), device=DEV)(tp, _wav())
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
 
@@ -358,14 +360,14 @@ def test_transcribe_fn_token_logprobs_match_jax(plain):
                                  use_pallas_mel=True, token_logprobs=True)(
         jp, jnp.asarray(_wav()))
     got = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**cfg),
-                             token_logprobs=True)(tp, _wav())
+                             token_logprobs=True, device=DEV)(tp, _wav())
     assert len(got) == len(ref) == 3
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
     np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), atol=1e-4)
     with pytest.raises(ValueError):
         make_transcribe_fn(ARCHS["test2l"], DecodeConfig(beam_size=2),
-                           token_logprobs=True)
+                           token_logprobs=True, device=DEV)
 
 
 def test_transcribe_tokens_matches_jax(plain):

@@ -47,6 +47,8 @@ from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
     decode_self_attention_update)
 from openai_whisper_compression_tpu_torch.quant.api import apply_named_config
 
+DEV = "cpu"  # the port's entry points default to the card
+
 torch.set_num_threads(2)
 
 B = 4
@@ -67,7 +69,7 @@ def trees():
     embed = np.asarray(p["decoder"]["embed"]).copy()
     embed[arch.eos_token_id] = 1.3 * embed[EOT_TWIN]
     p["decoder"] = {**p["decoder"], "embed": jnp.asarray(embed)}
-    tp = from_numpy(jax.tree.map(np.asarray, p))
+    tp = from_numpy(jax.tree.map(np.asarray, p), device=DEV)
     return {name: (jax_apply_named_config(p, name), apply_named_config(tp, name))
             for name in TREES}
 

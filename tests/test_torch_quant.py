@@ -23,6 +23,8 @@ from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
 from openai_whisper_compression_tpu_torch.quant.api import quantize_params
 from openai_whisper_compression_tpu_torch.quant.core import quantize_int8
 
+DEV = "cpu"  # the port's entry points default to the card
+
 torch.set_num_threads(2)
 
 
@@ -55,8 +57,8 @@ def test_quantize_params_and_fuse_match_jax():
     arch = ARCHS["test2l"]
     jp = JP.init_params_jit(arch, jax.random.PRNGKey(0))
     ref = jax.tree.map(np.asarray, jax_fuse_qkv(jax_quantize_params(jp, "int8")))
-    got = fuse_qkv(quantize_params(from_numpy(jax.tree.map(np.asarray, jp)), "int8"))
-    ref_leaves = dict(named_leaves(from_numpy(ref)))
+    got = fuse_qkv(quantize_params(from_numpy(jax.tree.map(np.asarray, jp), device=DEV), "int8"))
+    ref_leaves = dict(named_leaves(from_numpy(ref, device=DEV)))
     got_leaves = dict(named_leaves(got))
     assert ref_leaves.keys() == got_leaves.keys()
     for name, r in ref_leaves.items():

@@ -44,6 +44,8 @@ from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
 from openai_whisper_compression_tpu_torch.quant import api as torch_api
 from openai_whisper_compression_tpu_torch.quant import core as torch_core
 
+DEV = "cpu"  # the port's entry points default to the card
+
 torch.set_num_threads(2)
 
 WEIGHT_METHODS = ["int4", "int2", "nf4", "fp4", "nf4_dq", "fp4_dq",
@@ -140,7 +142,7 @@ def test_dequantize_matches_jax(method, dtype):
     largest weight: double-quant's multiply-add may fuse on one side); bf16
     computes in bf16 on both sides, within one bf16 step (2**-8)."""
     ref_q = jax_core.QUANTIZERS[method](jnp.asarray(_weight(256, 128, 1)))
-    got_q = TP.from_numpy(jax.tree.map(np.asarray, ref_q))
+    got_q = TP.from_numpy(jax.tree.map(np.asarray, ref_q), device=DEV)
     ref = np.asarray(JQ.dequantize(ref_q, jnp.dtype(dtype)).astype(jnp.float32))
     got = TQ.dequantize(got_q, getattr(torch, dtype)).float().numpy()
     tol = 1e-6 if dtype == "float32" else 2 ** -8
@@ -173,7 +175,7 @@ def test_plain_kernel_matches_pallas(method, k, n, dtype):
     dequantized weights, f32 sums in another order: f32 output within 1e-5
     of the largest output; bf16 output within one bf16 rounding (2**-8)."""
     ref_q = jax_core.QUANTIZERS[method](jnp.asarray(_weight(k, n, k + n)))
-    got_q = TP.from_numpy(jax.tree.map(np.asarray, ref_q))
+    got_q = TP.from_numpy(jax.tree.map(np.asarray, ref_q), device=DEV)
     tol = 1e-5 if dtype == "float32" else 2 ** -8
     for m in (1, 9, 64):
         x = np.random.default_rng(m).standard_normal((m, k)).astype(np.float32)
@@ -192,7 +194,7 @@ def test_linear_matches_jax(method):
     output (sum order)."""
     rng = np.random.default_rng(7)
     ref_q = jax_core.QUANTIZERS[method](jnp.asarray(_weight(256, 128, 2)))
-    got_q = TP.from_numpy(jax.tree.map(np.asarray, ref_q))
+    got_q = TP.from_numpy(jax.tree.map(np.asarray, ref_q), device=DEV)
     x = rng.standard_normal((2, 3, 256)).astype(np.float32)
     b = rng.standard_normal(128).astype(np.float32)
     ref = np.asarray(jax_linear(jnp.asarray(x), ref_q, jnp.asarray(b)))
@@ -249,8 +251,8 @@ def test_fuse_qkv_matches_jax(method):
     does (bit for bit), and JAX's fused tree and the port's have the same
     layers fused."""
     jq = jax_api.quantize_params(_jax_params(), method)
-    ref = TP.from_numpy(jax.tree.map(np.asarray, jax_fuse_qkv(jq)))
-    got = fuse_qkv(TP.from_numpy(jax.tree.map(np.asarray, jq)))
+    ref = TP.from_numpy(jax.tree.map(np.asarray, jax_fuse_qkv(jq)), device=DEV)
+    got = fuse_qkv(TP.from_numpy(jax.tree.map(np.asarray, jq), device=DEV))
     ref_l, got_l = _leaves(ref), _leaves(got)
     assert ref_l.keys() == got_l.keys()
     assert any(name.endswith("attn.qkv.w") for name in got_l)
@@ -269,14 +271,14 @@ def test_fuse_qkv_matches_jax(method):
             _assert_bits(g, r, name)
     # the port's own quantize + fuse agrees within the quantizers' bounds
     own = _leaves(fuse_qkv(torch_api.quantize_params(
-        TP.from_numpy(jax.tree.map(np.asarray, _jax_params())), method)))
+        TP.from_numpy(jax.tree.map(np.asarray, _jax_params()), device=DEV), method)))
     for name, r in _leaves(jax.tree.map(np.asarray, jax_fuse_qkv(jq))).items():
         if isinstance(r, JQ.QTensor):
             _assert_qtensor_close(own[name], r, method)
 
 
 def test_fuse_leaves_mixed_kinds_unfused():
-    tp = TP.from_numpy(jax.tree.map(np.asarray, _jax_params()))
+    tp = TP.from_numpy(jax.tree.map(np.asarray, _jax_params()), device=DEV)
     attn = tp["decoder"]["layers"][0]["attn"]
     attn["q"]["w"] = torch_core.quantize_int_sub8(attn["q"]["w"], 4)
     attn["k"]["w"] = torch_core.quantize_int8(attn["k"]["w"])
@@ -295,7 +297,7 @@ def test_quantize_params_matches_jax(name):
     (cast by the named configs) bit-identical; the same stored size."""
     jp = _jax_params()
     ref = jax.tree.map(np.asarray, jax_api.quantize_params(jp, name))
-    got = torch_api.quantize_params(TP.from_numpy(jax.tree.map(np.asarray, jp)), name)
+    got = torch_api.quantize_params(TP.from_numpy(jax.tree.map(np.asarray, jp), device=DEV), name)
     ref_l, got_l = _leaves(ref), _leaves(got)
     assert ref_l.keys() == got_l.keys()
     method = jax_api.REGISTRY[name].method if name in jax_api.REGISTRY else name
@@ -332,7 +334,7 @@ def test_registry_names_match_jax():
 @pytest.mark.parametrize("method", ["int4", "nf4_dq", "hqq_int4", "hqq_int8"])
 def test_from_numpy_carries_every_field(method):
     ref = jax_core.QUANTIZERS[method](jnp.asarray(_weight(256, 128, 3)))
-    got = TP.from_numpy(jax.tree.map(np.asarray, ref))
+    got = TP.from_numpy(jax.tree.map(np.asarray, ref), device=DEV)
     assert (got.kind, got.bits, got.shape, got.block_size) == (
         ref.kind, ref.bits, tuple(ref.shape), ref.block_size)
     for f in ("data", "scale", "zero", "scale2", "offset2"):
@@ -350,7 +352,7 @@ def test_from_numpy_carries_every_field(method):
 def test_tree_cast_matches_jax():
     jp = jax_api.quantize_params(_jax_params(), "int4")
     ref = jax.tree.map(np.asarray, JP.tree_cast(jp, jnp.bfloat16))
-    got = TP.tree_cast(TP.from_numpy(jax.tree.map(np.asarray, jp)), torch.bfloat16)
+    got = TP.tree_cast(TP.from_numpy(jax.tree.map(np.asarray, jp), device=DEV), torch.bfloat16)
     for name, r in _leaves(ref).items():
         g = _leaves(got)[name]
         if isinstance(r, JQ.QTensor):

@@ -37,6 +37,8 @@ from openai_whisper_compression_tpu_torch.models.params import from_numpy
 from openai_whisper_compression_tpu_torch.ops import kernels
 from openai_whisper_compression_tpu_torch.quant.api import quantize_params
 
+DEV = "cpu"  # the port's entry points default to the card
+
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -69,10 +71,10 @@ def dense_params():
 def slice_params(dense_params):
     p = dense_params
     jp = jax_fuse_qkv(jax_quantize(p, "int8"))
-    tp = from_numpy(jax.tree.map(np.asarray, jp))
+    tp = from_numpy(jax.tree.map(np.asarray, jp), device=DEV)
     # the port's own quantize + fuse gives the same tree (bytes pinned in
     # test_torch_quant.py); run the slice on the port-built one
-    tp_own = fuse_qkv(quantize_params(from_numpy(jax.tree.map(np.asarray, p)),
+    tp_own = fuse_qkv(quantize_params(from_numpy(jax.tree.map(np.asarray, p), device=DEV),
                                       "int8"))
     assert torch.equal(tp_own["decoder"]["layers"][0]["attn"]["qkv"]["w"].data,
                        tp["decoder"]["layers"][0]["attn"]["qkv"]["w"].data)
@@ -95,7 +97,7 @@ def test_transcribe_tokens_match_jax(slice_params, suppress_eot):
         use_pallas_mel=True)(jp, jnp.asarray(wav))
     tt, tl = make_transcribe_fn(ARCHS["test2l"],
                                 DecodeConfig(max_new_tokens=12,
-                                             suppress_tokens=sup))(tp, wav)
+                                             suppress_tokens=sup), device=DEV)(tp, wav)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     if not suppress_eot:  # the EOT twin makes rows stop at different steps
@@ -140,7 +142,7 @@ def test_first_step_logits_match_jax(slice_params):
     {"cross_pallas": False}, {"self_pallas": False}])
 def test_options_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError):
-        make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**change))
+        make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**change), device=DEV)
 
 
 @pytest.mark.parametrize("kw", [{"sample_key": 0}, {"temperature": 0.2}])
@@ -162,7 +164,7 @@ def test_quantized_kv_tokens_match_jax(slice_params, kv):
         ARCH, JaxDecodeConfig(max_new_tokens=12, **KV_CONFIGS[kv]),
         use_pallas_mel=True)(jp, jnp.asarray(wav))
     tt, tl = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(
-        max_new_tokens=12, **KV_CONFIGS[kv]))(tp, wav)
+        max_new_tokens=12, **KV_CONFIGS[kv]), device=DEV)(tp, wav)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
 
@@ -236,10 +238,10 @@ def test_4bit_weights_tokens_match_jax(dense_params, method):
     jp = jax_fuse_qkv(jax_quantize(dense_params, method))
     jt, jl = jax_make_transcribe_fn(ARCH, JaxDecodeConfig(**cfg),
                                     use_pallas_mel=True)(jp, jnp.asarray(wav))
-    fn = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**cfg))
-    carried = from_numpy(jax.tree.map(np.asarray, jp))
+    fn = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**cfg), device=DEV)
+    carried = from_numpy(jax.tree.map(np.asarray, jp), device=DEV)
     own = fuse_qkv(quantize_params(from_numpy(jax.tree.map(np.asarray,
-                                                           dense_params)), method))
+                                                           dense_params), device=DEV), method))
     for tp in (carried, own):
         qkv = tp["decoder"]["layers"][0]["attn"]["qkv"]["w"]
         assert qkv.kind == jp["decoder"]["layers"][0]["attn"]["qkv"]["w"].kind
@@ -261,7 +263,7 @@ def test_int8_cache_update_matches_jax(pos, t):
                                         jnp.asarray(pos))
     t_entry = kv_cache.init_cache({"decoder": {"layers": [
         {"attn": {"q": {"w": torch.zeros(64, 64)}}}]}}, ARCHS["test2l"], 2, 32,
-        int8=True)[0]
+        int8=True, device=DEV)[0]
     kv_cache.update(t_entry, torch.from_numpy(k), torch.from_numpy(v), pos)
     assert set(t_entry) == set(j_entry)
     for name in t_entry:

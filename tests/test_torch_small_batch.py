@@ -39,6 +39,8 @@ from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
     decode_self_attention, decode_self_attention_ref,
     decode_self_attention_update, decode_self_attention_update_int8)
 
+DEV = "cpu"  # the port's entry points default to the card
+
 torch.set_num_threads(2)
 
 ARCH = JAX_ARCHS["test2l"]
@@ -173,7 +175,7 @@ def test_step_dispatch_rule_matches_jax(monkeypatch, batch):
         orig = getattr(whisper, name)
         monkeypatch.setattr(whisper, name, lambda *a, _o=orig, _n=name, **k: (
             calls.append(_n), _o(*a, **k))[1])
-    tp = from_numpy(p)
+    tp = from_numpy(p, device=DEV)
     kv = whisper.precompute_cross_kv_t({"decoder": {"layers": [{"cross": tp}]}}, arch,
                                        torch.from_numpy(enc))[0]
     got = whisper.cross_attention(tp, torch.from_numpy(x), kv, dh)
@@ -340,7 +342,7 @@ def slice_params():
     embed[ARCH.eos_token_id] = 1.3 * embed[EOT_TWIN]
     p["decoder"] = {**p["decoder"], "embed": jnp.asarray(embed)}
     jp = jax_fuse_qkv(jax_quantize(p, "int8"))
-    return jp, from_numpy(jax.tree.map(np.asarray, jp))
+    return jp, from_numpy(jax.tree.map(np.asarray, jp), device=DEV)
 
 
 SMALL_KV = {"bf16": {}, "kv8-ckv8": {"kv_int8": True, "cross_kv_int8": True},
@@ -366,7 +368,7 @@ def test_small_batch_tokens_match_jax(slice_params, monkeypatch, batch, kv):
         orig = getattr(whisper, name)
         monkeypatch.setattr(whisper, name, lambda *a, _o=orig, _n=name, **k: (
             calls.append(_n), _o(*a, **k))[1])
-    tt, tl = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**cfg))(tp, wav)
+    tt, tl = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**cfg), device=DEV)(tp, wav)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     layers = ARCH.decoder_layers
