@@ -11,7 +11,11 @@ Phase 0  prints the card and its power limit, builds the CUDA kernels from
          process per source).
 Phase 1  each kernel against its plain PyTorch version on the card, at
          main-path shapes (whisper-small batch 32 for slice 1's four
-         kernels, batch 96 for the int8/int4-KV kernels; for the int4,
+         kernels, batch 96 for the int8/int4-KV kernels; the log-mel also
+         at the headline's batch 96 and with the f32 DFT at 32, the whole
+         call beside the kernel alone and beside two bounds, over the
+         filterbank's nonzeros and with it dense; the cross-KV quantizer
+         also at whisper-medium's (64, 1500, 1024); for the int4,
          NF4/FP4 and HQQ dequant-matmuls, the decoder linears of the
          phase-2 run of each kind at M = batch and 3 x batch, and
          whisper-medium's at M = 64 and 256; the encoder attention at
@@ -527,9 +531,44 @@ def check_update(what: str, bh: int, pos: int, gen, int8: bool,
             "library_ms": None}
 
 
+def check_mel(dev, gen, b: int, dtype: torch.dtype) -> dict:
+    """`log_mel_cuda` on b seeded 30 s clips against the plain pipeline,
+    within MEL_ATOL, and both against the float64 result; the whole call and
+    the kernel alone timed beside the plain version, and two bounds: over
+    the filterbank's nonzeros (what the function needs; the one the kernels
+    line carries) and with the dense 201 x 80 filterbank."""
+    from openai_whisper_compression_tpu_torch.audio import features, mel_kernel
+
+    wav = torch.randn(b, 480_000, generator=gen, device=dev) * 0.1
+    got = mel_kernel.log_mel_cuda(wav, 80, dtype)
+    ref = features.log_mel(wav, 80, dtype)
+    err = max_err(got, ref)
+    what = f"({b}, 480000) {'bf16' if dtype == torch.bfloat16 else 'f32'} DFT"
+    check(got.shape == (b, 80, 3000) and err <= MEL_ATOL, f"mel {what}: err {err}")
+    ops = mel_kernel.mel_operands(wav, 80, dtype)
+    frames = b * ops.n_frames   # re and im: 400 taps x 201 bins, in the DFT dtype
+    dft = frames * 4 * 400 * 201 / peak_flops(dtype)
+    nonzeros = int(ops.bands[:, 1].sum())
+    res = {"max_abs_err": err,
+           "ms": cuda_ms(lambda: mel_kernel.log_mel_cuda(wav, 80, dtype)),
+           "plain_ms": cuda_ms(lambda: features.log_mel(wav, 80, dtype)),
+           **bound(nbytes(wav, got), dft + frames * 2 * nonzeros / F32_FLOPS),
+           "library_ms": None}
+    kernel_ms = cuda_ms(lambda: mel_kernel.launch(ops, dtype))
+    dense = bound(nbytes(wav, got), dft + frames * 2 * 201 * 80 / F32_FLOPS)
+    exact = features.log_mel_f64(wav, 80, dtype)
+    log(f"phase1 mel {what}: from the float64 result, kernel {max_err(got, exact):.3g}, "
+        f"plain {max_err(ref, exact):.3g}")
+    del exact
+    log(f"phase1 mel {what}: err {err:.3g} (bound {MEL_ATOL:g}) whole call "
+        f"{res['ms']:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms; least {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}) over the filterbank's {nonzeros} nonzeros, "
+        f"{dense['bound_ms']:.4f} ms ({dense['bound_by']}) with it dense")
+    return res
+
+
 def phase1(dev, results: dict) -> None:
-    from openai_whisper_compression_tpu_torch.audio import features
-    from openai_whisper_compression_tpu_torch.audio.mel_kernel import log_mel_cuda
     from openai_whisper_compression_tpu_torch.ops.qtensor import dequantize
     from openai_whisper_compression_tpu_torch.ops.quant_matmul import (
         int8_matmul, int8_matmul_ref)
@@ -538,24 +577,12 @@ def phase1(dev, results: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf16 = torch.bfloat16
 
-    # mel: 32 x 30 s, bf16 DFT (fast_mel)
-    wav = torch.randn(BATCH, 480_000, generator=gen, device=dev) * 0.1
-    got = log_mel_cuda(wav, 80, bf16)
-    ref = features.log_mel(wav, 80, bf16)
-    err = max_err(got, ref)
-    check(got.shape == (BATCH, 80, 3000) and err <= MEL_ATOL,
-          f"mel err {err}")
-    frames = BATCH * 3000   # DFT in bf16 (re and im, 400 taps x 201 bins), mel in f32
-    results["mel"] = {"max_abs_err": err,
-                      "ms": cuda_ms(lambda: log_mel_cuda(wav, 80, bf16)),
-                      "plain_ms": cuda_ms(lambda: features.log_mel(wav, 80, bf16)),
-                      **bound(nbytes(wav, got), frames * 4 * 400 * 201 / BF16_FLOPS
-                              + frames * 2 * 201 * 80 / F32_FLOPS),
-                      "library_ms": None}
-    log(f"phase1 mel ({BATCH}, 480000) bf16 DFT: err {err:.3g} (bound {MEL_ATOL:g}) "
-        f"kernel {results['mel']['ms']:.4f} ms plain {results['mel']['plain_ms']:.4f} ms "
-        f"bound {results['mel']['bound_ms']:.4f} ms ({results['mel']['bound_by']})")
-    del wav
+    # mel: 32 x 30 s and the headline's 96 x 30 s with the bf16 DFT
+    # (fast_mel), 32 x 30 s with the f32 DFT
+    for b, dtype in ((BATCH, bf16), (HEAD_BATCH, bf16), (BATCH, torch.float32)):
+        res = check_mel(dev, gen, b, dtype)
+        if (b, dtype) == (BATCH, bf16):
+            results["mel"] = res
 
     # int8 matmul at every decoder linear shape, M = a batch-32 step, and a
     # step and the prefill of the headline batch (96, 3 x 96)
@@ -629,37 +656,49 @@ def phase1(dev, results: dict) -> None:
                                          gen, False, start)
 
 
+def check_tq(x: torch.Tensor, h: int) -> tuple:
+    """`transpose_quant_kv` on x (B, S, H * 64) bit for bit against its plain
+    version, timed beside it and its bound; returns the result entry, the
+    codes and the scales."""
+    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
+        transpose_quant_kv, transpose_quant_kv_ref)
+
+    q, sc = transpose_quant_kv(x, h)
+    q_ref, sc_ref = transpose_quant_kv_ref(x, h)
+    what = f"{tuple(x.shape)} bf16 -> {tuple(q.shape)} int8"
+    check(torch.equal(q, q_ref) and torch.equal(sc, sc_ref),
+          f"transpose_quant_kv {what}: codes or scales differ from the plain version")
+    res = {"max_abs_err": max(max_err(q, q_ref), max_err(sc, sc_ref)),
+           "ms": cuda_ms(lambda: transpose_quant_kv(x, h)),
+           "plain_ms": cuda_ms(lambda: transpose_quant_kv_ref(x, h)),
+           # an abs, a max, a divide and a rounding per element, f32
+           **bound(nbytes(x, q, sc), 4 * x.numel() / F32_FLOPS),
+           "library_ms": None}
+    log(f"phase1 transpose_quant_kv {what}: codes and scales equal; kernel "
+        f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms least "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return res, q, sc
+
+
 def phase1_quantized(dev, results: dict) -> None:
     """The int8/int4-KV kernels at the shapes of bench.py's batch 96."""
     from openai_whisper_compression_tpu_torch.models.whisper import _quant_kv4_t
     from openai_whisper_compression_tpu_torch.ops.cross_attention import (
-        transpose_kv, transpose_quant_kv, transpose_quant_kv_ref)
+        transpose_kv, transpose_quant_kv)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     bf16 = torch.bfloat16
     b, s, h = HEAD_BATCH, 1500, 12
     bh = b * h
 
-    # transpose + int8 quantize of a cross K and a cross V projection
+    # transpose + int8 quantize of a cross K and a cross V projection, and of
+    # whisper-medium's at its preset's batch 64 (the medium-int4 run)
     xk, xv = ((torch.randn(b, s, h * 64, generator=gen, device=dev) * 0.4).to(bf16)
               for _ in range(2))
-    k8, ks8 = transpose_quant_kv(xk, h)
-    ref_k, ref_ks = transpose_quant_kv_ref(xk, h)
-    check(torch.equal(k8, ref_k) and torch.equal(ks8, ref_ks),
-          "transpose_quant_kv: codes or scales differ from the plain version")
+    results["tq"], k8, ks8 = check_tq(xk, h)
     v8, vs8 = transpose_quant_kv(xv, h)
-    t_k = cuda_ms(lambda: transpose_quant_kv(xk, h))
-    t_p = cuda_ms(lambda: transpose_quant_kv_ref(xk, h))
-    results["tq"] = {"max_abs_err": max(max_err(k8, ref_k), max_err(ks8, ref_ks)),
-                     "ms": t_k, "plain_ms": t_p,
-                     # an abs, a max, a divide and a rounding per element, f32
-                     **bound(nbytes(xk, k8, ks8), 4 * xk.numel() / F32_FLOPS),
-                     "library_ms": None}
-    log(f"phase1 transpose_quant_kv ({b}, {s}, {h * 64}) bf16 -> ({bh}, 64, "
-        f"{k8.shape[2]}) int8: codes and scales equal; kernel {t_k:.4f} ms "
-        f"plain {t_p:.4f} ms least {results['tq']['bound_ms']:.4f} ms "
-        f"({results['tq']['bound_by']})")
-    del ref_k, ref_ks
+    check_tq((torch.randn(MEDIUM_BATCH, s, 1024, generator=gen, device=dev) * 0.4)
+             .to(bf16), 16)
     k4, ks4 = _quant_kv4_t(transpose_kv(xk, h))
     v4, vs4 = _quant_kv4_t(transpose_kv(xv, h))
     t_q4 = cuda_ms(lambda: _quant_kv4_t(transpose_kv(xk, h)))

@@ -110,6 +110,21 @@ def mel_log10_ref(frames: torch.Tensor, n_mels: int = 80,
     return torch.log10(torch.clamp(mel, min=1e-10))
 
 
+def log_mel_f64(wav: torch.Tensor, n_mels: int = 80,
+                dft_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`log_mel` on the same operands (samples and bases rounded to the DFT
+    dtype) with every product and sum in float64: the result that the f32
+    versions approximate, to measure how far each lies from it. Eight clips
+    at a time, to bound the float64 frames."""
+    cos_b, sin_b, mel_fb = (t.double() for t in torch_bases(n_mels, dft_dtype, wav.device))
+    out = []
+    for part in wav.split(8):
+        f = frame_waveform(part).to(dft_dtype).double()
+        re, im = f @ cos_b, f @ sin_b
+        out.append(torch.log10(torch.clamp((re * re + im * im) @ mel_fb, min=1e-10)))
+    return finish_log_mel(torch.cat(out))
+
+
 def finish_log_mel(log_spec: torch.Tensor) -> torch.Tensor:
     """(B, F, n_mels) log10 mel -> (B, n_mels, F - 1): drop the trailing
     frame (HF parity), clamp to max - 8 per utterance, scale (x + 4) / 4."""

@@ -83,6 +83,8 @@ def transpose_quant_kv(x: torch.Tensor, h: int
                     f"B {b} and H {h} must lie in 1..65535, S {s} >= 1")
     code = kernels.dtype_code(x, name)
     kernels.require(x.is_contiguous(), name, "x must be contiguous")
+    kernels.require(x.data_ptr() % 16 == 0, name,
+                    "x must start on a 16-byte boundary (16-byte loads)")
     s_pad = pad_cross_len(s)
     q = torch.empty((b * h, HEAD_DIM, s_pad), dtype=torch.int8, device=x.device)
     scale = torch.empty((b * h, 1, s_pad), dtype=torch.float32, device=x.device)

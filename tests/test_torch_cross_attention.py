@@ -75,14 +75,19 @@ def _proj(b, s, h, seed, dtype):
         getattr(torch, dtype))
 
 
-@pytest.mark.parametrize("s", [200, 64])
+@pytest.mark.parametrize("s,h", [pytest.param(200, 2, id="200"),
+                                 pytest.param(64, 2, id="64")]
+                         + [pytest.param(s, h, id=f"{s}-h{h}")
+                            for s in (1, 127, 128, 129, 200, 1500)
+                            for h in (1, 5, 12, 20)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_transpose_quant_kv_matches_jax(s, dtype):
+def test_transpose_quant_kv_matches_jax(s, h, dtype):
     """int8 bytes and f32 scales equal bit for bit to the Pallas kernel
     (interpret mode) and to the jitted transpose -> pad -> quantize chain
     of the JAX package's precompute (both multiply by the f32 reciprocal
-    of 127 under jit)."""
-    b, h = 3, 2
+    of 127 under jit), for S ending a 128-position tile anywhere and H up
+    to large-v3's 20."""
+    b = 3
     xj, xt = _proj(b, s, h, s, dtype)
     q, sc = transpose_quant_kv(xt, h)
     assert q.dtype == torch.int8 and sc.dtype == torch.float32

@@ -250,14 +250,24 @@ def test_4bit_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,t", [(2, 20480), (1, 480_000)])
-def test_log_mel(dev, dtype, b, t):
+@pytest.mark.parametrize("b,t,n_mels,seed", [
+    pytest.param(2, 20480, 80, 20480, id="2-20480"),
+    pytest.param(1, 480_000, 80, 480_000, id="1-480000"),
+    *(pytest.param(b, t, n, t + b, id=f"{b}-{t}-{n}")
+      for b, t, n in ((96, 480_000, 80), (2, 480_000, 128), (3, 20483, 80),
+                      (2, 20483, 128), (1, 1001, 80)))])
+def test_log_mel(dev, dtype, b, t, n_mels, seed):
     """Log-mel values of order 1: 1e-5 absolute (sum order, then log10;
-    a bf16 power spectrum or mel product would be off by 1e-4 or more)."""
-    g = torch.Generator(device=dev).manual_seed(t)
+    a bf16 power spectrum or mel product would be off by 1e-4 or more), at
+    the headline batch, at large-v3's 128 mels, and where T + 400 is no
+    multiple of 4 (the padded rows get a wider stride); one launch a call."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     wav = torch.randn(b, t, generator=g, device=dev) * 0.1
-    got = log_mel_cuda(wav, 80, dtype)
-    ref = features.log_mel(wav, 80, dtype)
+    before = log_mel_cuda.launches
+    got = log_mel_cuda(wav, n_mels, dtype)
+    assert log_mel_cuda.launches == before + 1
+    ref = features.log_mel(wav, n_mels, dtype)
+    assert got.shape == ref.shape == (b, n_mels, t // 160)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
 
 
@@ -325,10 +335,13 @@ def test_cross_attention_grouped_slots(dev, kind, dtype, s_valid, bh):
 
 
 @pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
-@pytest.mark.parametrize("b,s,h", [(2, 1500, 12), (3, 64, 2), (1, 200, 5)])
+@pytest.mark.parametrize("b,s,h", [(2, 1500, 12), (3, 64, 2), (1, 200, 5)]
+                         + [(2, s, h) for s in (1, 127, 128, 129, 1536, 3000)
+                            for h in (1, 16, 20)])
 def test_transpose_quant_kv(dev, dtype, b, s, h):
     """int8 codes and f32 scales equal to the plain version bit for bit
-    (the same f32 reciprocal, IEEE division and half-to-even rounding)."""
+    (the same f32 reciprocal, IEEE quotients and half-to-even rounding),
+    for S ending a 128-position tile anywhere and H up to large-v3's 20."""
     g = torch.Generator(device=dev).manual_seed(b * s + h)
     x = (torch.randn(b, s, h * 64, generator=g, device=dev) * 0.4).to(dtype)
     before = transpose_quant_kv.launches
@@ -336,6 +349,28 @@ def test_transpose_quant_kv(dev, dtype, b, s, h):
     assert transpose_quant_kv.launches == before + 1
     q_ref, sc_ref = transpose_quant_kv_ref(x, h)
     assert q.shape == q_ref.shape and sc.shape == sc_ref.shape
+    assert torch.equal(q, q_ref) and torch.equal(sc, sc_ref)
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("offset", [1, 4, 8])
+def test_transpose_quant_kv_offset(dev, dtype, offset):
+    """x at a storage offset of `offset` elements: where that breaks the
+    kernel's 16-byte loads the wrapper raises ValueError before any launch
+    (the plain version never runs on the card); otherwise the codes and
+    scales are right."""
+    g = torch.Generator(device=dev).manual_seed(offset)
+    flat = (torch.randn(offset + 2 * 300 * 192, generator=g, device=dev) * 0.4).to(dtype)
+    x = flat[offset:].view(2, 300, 192)
+    before = transpose_quant_kv.launches
+    if (offset * x.element_size()) % 16:
+        with pytest.raises(ValueError):
+            transpose_quant_kv(x, 3)
+        assert transpose_quant_kv.launches == before
+        return
+    q, sc = transpose_quant_kv(x, 3)
+    assert transpose_quant_kv.launches == before + 1
+    q_ref, sc_ref = transpose_quant_kv_ref(x, 3)
     assert torch.equal(q, q_ref) and torch.equal(sc, sc_ref)
 
 
