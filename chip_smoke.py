@@ -3,16 +3,17 @@
 
     python3 chip_smoke.py              # from the repository root
     python3 chip_smoke.py --profile    # also torch.profiler kernel tables
-                                       # of the int8-kv, small-w8a8-dyn and
-                                       # beam5-prompt runs
+                                       # of the int8-kv, small-w8a8-dyn,
+                                       # beam5-prompt and small-b1 runs
 
 Phase 0  prints the card and its power limit, builds the CUDA kernels from
          `openai_whisper_compression_tpu_torch/csrc` (nvcc, sm_90a, one
          process per source).
 Phase 1  each kernel against its plain PyTorch version on the card, at
          main-path shapes (whisper-small batch 32 for slice 1's four
-         kernels, batch 96 for the int8/int4-KV kernels; the log-mel also
-         at the headline's batch 96 and with the f32 DFT at 32, the whole
+         kernels, batch 96 for the int8/int4-KV kernels; the log-mel, held
+         no less exact than its plain version against the float64 log-mel,
+         also at the headline's batch 96 and with the f32 DFT at 32, the whole
          call beside the kernel alone and beside two bounds, over the
          filterbank's nonzeros and with it dense; the cross-KV quantizer
          also at whisper-medium's (64, 1500, 1024); for the int4,
@@ -34,7 +35,10 @@ Phase 1  each kernel against its plain PyTorch version on the card, at
          headline batch's M = 96 and 288; the f32 and f16 bodies of the
          cache update, the grouped (1 and 5 slots) and the one-query
          cross-attention at the shapes of the f32 and f16 runs), with
-         CUDA-event times; the dequant-matmuls also beside dequant +
+         CUDA-event times (the one-query cross-attention and the int8 cache
+         update and its read-only body also cold: rotating over copies of
+         their buffers larger than the 50 MB L2, as a decode step meets
+         them); the dequant-matmuls also beside dequant +
          torch.matmul (every storage trait at M = 32, 96, 288 and 1024: where
          the two cross), the encoder attention beside the time its
          exponentials alone need, the attentions over K/V in q's type beside
@@ -317,7 +321,7 @@ PROMPT_RUNS = [
     ("small-f16-beam5", {"beam_size": 5}, 8, "fp16"),
 ]
 # the runs `--profile` profiles: the headline, the w8a8 path, beam search
-PROFILED = ("int8-kv", "small-w8a8-dyn", "beam5-prompt")
+PROFILED = ("int8-kv", "small-w8a8-dyn", "beam5-prompt", "small-b1")
 # phase-3 configurations: (name, weight quantization, DecodeConfig switches)
 LOGIT_RUNS = [("int8 bf16-kv", "int8", {}), ("int8 int8-kv", "int8", KV8),
               ("int4 int8-kv", "int4", KV8),
@@ -339,10 +343,16 @@ FOUR_BIT = [("int4", "int4", "int4", "medium-int4"),
 
 # Tolerances, card kernel vs plain version on identical inputs (the plain
 # versions compute in f32 from the same bf16-rounded operands):
-# - mel: f32 sums in another order, then log10 and /4, on log-mel values of
-#   order 1: 1e-5 absolute (sound runs read ~1e-7; a power spectrum or mel
-#   product kept in bf16 would be off by 1e-4 or more).
-MEL_ATOL = 1e-5
+# - mel: the kernel no less exact than its plain version. Both are held
+#   against the float64 log-mel on the same operands
+#   (`features.log_mel_f64`): the kernel's largest distance from it at most
+#   the plain version's + 5e-6. Two f32 chains that sum in different orders
+#   each stray up to ~3e-5 from the exact value on rare ill-conditioned bins
+#   (an H100 80GB HBM3 at 700 W read 1.24e-5 and 1.30e-5 at batch 96, both
+#   3.08e-5 under the f32 DFT), so they cannot be held to 1e-5 of each
+#   other; a power spectrum or mel product kept in bf16 would stray 1e-4 or
+#   more further.
+MEL_EXACT_MARGIN = 5e-6
 # - bf16 outputs (int8 matmul, attention): the two sides round f32 values
 #   that differ only by sum order, so they differ by at most one bf16 step
 #   (2**-8 to 2**-7 of the value): 2**-7 of the reference's own largest
@@ -451,6 +461,35 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Bytes over which `cuda_ms_cold` rotates its copies of a call's buffers:
+# more than the H100's 50 MB L2, so that each call finds its inputs in
+# device memory, as a decode step finds its caches.
+COLD_BYTES = 64e6
+
+
+def cuda_ms_cold(fn, tensors: list, iters: int = 20) -> float:
+    """Mean device time per call of fn(*copy), rotating over as many copies
+    of `tensors` (every tensor argument of the call, made anew here) as
+    exceed COLD_BYTES together, each copy used at least once, after a spin
+    kernel as in `cuda_ms`."""
+    n = int(COLD_BYTES // max(1, nbytes(*tensors))) + 2
+    copies = [[t.clone() if isinstance(t, torch.Tensor) else t for t in tensors]
+              for _ in range(n)]
+    iters = max(iters, n)
+    for c in copies:
+        fn(*c)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for i in range(iters):
+        fn(*copies[i % n])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -519,21 +558,42 @@ def check_update(what: str, bh: int, pos: int, gen, int8: bool,
     check(err <= tol, f"{what} pos={pos}: err {err} > {tol}")
     t_k = cuda_ms(lambda: fn(qf, kn, vn, *bufs, pos, start=start))
     t_p = cuda_ms(lambda: ref_fn(qf, kn, vn, *refs, pos, start=start))
+    cold = ""
+    if int8:   # the decode step finds its cache in device memory
+        t_c = cuda_ms_cold(lambda *a: fn(*a, pos, start=start), [qf, kn, vn, *bufs])
+        cold = f" (cold {t_c:.4f} ms)"
     rows = bh * (pos + 1) - (0 if start is None else int(start.sum()))
     per_row = sum(t[0, 0].numel() * t.element_size() for t in bufs)
     least = bound(nbytes(qf, kn, vn, got) + per_row * (rows + bh),
                   4 * 64 * rows / peak_flops(torch.bfloat16 if int8 else dtype))
     log(f"phase1 {what} pos={pos} ({bh}, 64, 64)"
         + ("" if start is None else f" start {int(start.min())}..{int(start.max())}")
-        + f": err {err:.3g} (bound {tol:.3g}) caches equal; kernel {t_k:.4f} ms "
+        + f": err {err:.3g} (bound {tol:.3g}) caches equal; kernel {t_k:.4f} ms{cold} "
         f"plain {t_p:.4f} ms least {least['bound_ms']:.5f} ms ({least['bound_by']})")
     return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least,
             "library_ms": None}
 
 
+def mel_exactness(what: str, wav: torch.Tensor, got: torch.Tensor,
+                  ref: torch.Tensor, n_mels: int, dtype: torch.dtype) -> tuple:
+    """The largest distances of the kernel's log-mel `got` and the plain
+    version's `ref` from the float64 log-mel of the same operands; fails
+    unless the kernel is within MEL_EXACT_MARGIN of the plain version's."""
+    from openai_whisper_compression_tpu_torch.audio import features
+
+    exact = features.log_mel_f64(wav, n_mels, dtype)
+    err_k, err_p = (float((x.double() - exact).abs().max()) for x in (got, ref))
+    log(f"mel {what}: from the float64 log-mel, kernel {err_k:.3g}, plain {err_p:.3g} "
+        f"(the kernel may be {MEL_EXACT_MARGIN:g} further)")
+    check(err_k <= err_p + MEL_EXACT_MARGIN,
+          f"mel {what}: the kernel is {err_k} from the float64 log-mel, the plain "
+          f"version {err_p}")
+    return err_k, err_p
+
+
 def check_mel(dev, gen, b: int, dtype: torch.dtype) -> dict:
-    """`log_mel_cuda` on b seeded 30 s clips against the plain pipeline,
-    within MEL_ATOL, and both against the float64 result; the whole call and
+    """`log_mel_cuda` on b seeded 30 s clips against the plain pipeline: the
+    kernel no less exact than it against the float64 result; the whole call and
     the kernel alone timed beside the plain version, and two bounds: over
     the filterbank's nonzeros (what the function needs; the one the kernels
     line carries) and with the dense 201 x 80 filterbank."""
@@ -544,7 +604,8 @@ def check_mel(dev, gen, b: int, dtype: torch.dtype) -> dict:
     ref = features.log_mel(wav, 80, dtype)
     err = max_err(got, ref)
     what = f"({b}, 480000) {'bf16' if dtype == torch.bfloat16 else 'f32'} DFT"
-    check(got.shape == (b, 80, 3000) and err <= MEL_ATOL, f"mel {what}: err {err}")
+    check(got.shape == (b, 80, 3000), f"mel {what}: shape {tuple(got.shape)}")
+    mel_exactness(what, wav, got, ref, 80, dtype)
     ops = mel_kernel.mel_operands(wav, 80, dtype)
     frames = b * ops.n_frames   # re and im: 400 taps x 201 bins, in the DFT dtype
     dft = frames * 4 * 400 * 201 / peak_flops(dtype)
@@ -556,11 +617,7 @@ def check_mel(dev, gen, b: int, dtype: torch.dtype) -> dict:
            "library_ms": None}
     kernel_ms = cuda_ms(lambda: mel_kernel.launch(ops, dtype))
     dense = bound(nbytes(wav, got), dft + frames * 2 * 201 * 80 / F32_FLOPS)
-    exact = features.log_mel_f64(wav, 80, dtype)
-    log(f"phase1 mel {what}: from the float64 result, kernel {max_err(got, exact):.3g}, "
-        f"plain {max_err(ref, exact):.3g}")
-    del exact
-    log(f"phase1 mel {what}: err {err:.3g} (bound {MEL_ATOL:g}) whole call "
+    log(f"phase1 mel {what}: from the plain version {err:.3g}; whole call "
         f"{res['ms']:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms; least {res['bound_ms']:.4f} ms "
         f"({res['bound_by']}) over the filterbank's {nonzeros} nonzeros, "
@@ -939,6 +996,7 @@ def phase1_small_batch(dev, results: dict) -> None:
             check(err_g <= tol, f"cross_attention {what} BH={bh}: off by {err_g} "
                                 f"from the grouped kernel at one slot (> {tol})")
             t_k = cuda_ms(lambda: decode_cross_attention(qf, *kv, s))
+            t_c = cuda_ms_cold(lambda *a: decode_cross_attention(*a, s), [qf, *kv])
             t_p = cuda_ms(lambda: decode_cross_attention_ref(qf, *kv, s))
             t_g = cuda_ms(lambda: decode_cross_attention_grouped(
                 qf[:, None, :], *kv, s))
@@ -956,7 +1014,8 @@ def phase1_small_batch(dev, results: dict) -> None:
                 results[key]["max_abs_err"] = max(err, results[key]["max_abs_err"])
             log(f"phase1 cross_attention {what} BH={bh} s_valid {s}: err {err:.3g}, "
                 f"from the grouped kernel {err_g:.3g} (bound {tol:.3g}) kernel "
-                f"{t_k:.4f} ms grouped kernel {t_g:.4f} ms plain {t_p:.4f} ms least "
+                f"{t_k:.4f} ms (cold {t_c:.4f} ms) grouped kernel {t_g:.4f} ms plain "
+                f"{t_p:.4f} ms least "
                 f"{least['bound_ms']:.5f} ms ({least['bound_by']})"
                 + ("" if t_lib is None else f" sdpa {t_lib:.4f} ms"))
 
@@ -998,6 +1057,12 @@ def phase1_small_batch(dev, results: dict) -> None:
                   f"{what}: the read-only kernel wrote to the cache")
             check(err <= tol, f"{what}: err {err} > {tol}")
             t_k = cuda_ms(attend)
+            cold = ""
+            if int8:
+                t_c = cuda_ms_cold(lambda q_, *b: sas.decode_self_attention(
+                    q_, b[0], b[1], pos, start=start, k_scale=b[2], v_scale=b[3]),
+                    [qf, *bufs])
+                cold = f" (cold {t_c:.4f} ms)"
             t_p = cuda_ms(lambda: sas.decode_self_attention_ref(
                 qf, bufs[0], bufs[1], pos, start=start, **scales))
             rows = bh * (pos + 1) - (0 if start is None else int(start.sum()))
@@ -1022,7 +1087,7 @@ def phase1_small_batch(dev, results: dict) -> None:
                 "library_ms": t_lib}
             log(f"phase1 {what} pos={pos} ({bh}, 64, 64): equal to the update "
                 f"kernel's output bit for bit; err {err:.3g} (bound {tol:.3g}) kernel "
-                f"{t_k:.4f} ms plain {t_p:.4f} ms least {least['bound_ms']:.5f} ms "
+                f"{t_k:.4f} ms{cold} plain {t_p:.4f} ms least {least['bound_ms']:.5f} ms "
                 f"({least['bound_by']})"
                 + ("" if t_lib is None else f" sdpa {t_lib:.4f} ms"))
 
@@ -1086,6 +1151,7 @@ def phase1_dtypes(dev, results: dict) -> None:
         check(got.shape == (bh, 64) and got.dtype == dtype and err <= tol,
               f"cross_attention {tag} BH={bh}: err {err} > {tol}")
         t_k = cuda_ms(lambda: decode_cross_attention(qf, *kv, s_valid))
+        t_c = cuda_ms_cold(lambda *a: decode_cross_attention(*a, s_valid), [qf, *kv])
         t_p = cuda_ms(lambda: decode_cross_attention_ref(qf, *kv, s_valid))
         k, v = (t[:, :, :s_valid].transpose(1, 2) for t in kv[:2])
         t_lib = cuda_ms(lambda: sdpa(qf[:, None, :], k, v, scale=1.0))
@@ -1094,7 +1160,8 @@ def phase1_dtypes(dev, results: dict) -> None:
         results["cross1_" + tag] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                                     **least, "library_ms": t_lib}
         log(f"phase1 cross_attention {tag} BH={bh} s_valid {s_valid}: err {err:.3g} "
-            f"(bound {tol:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms least "
+            f"(bound {tol:.3g}) kernel {t_k:.4f} ms (cold {t_c:.4f} ms) plain "
+            f"{t_p:.4f} ms least "
             f"{least['bound_ms']:.5f} ms ({least['bound_by']}) sdpa {t_lib:.4f} ms")
         del k_t, v_t
 

@@ -1,6 +1,6 @@
 // Decode cross-attention over transposed encoder K/V: the grouped kernel
 // (K query slots of a row share its K/V) and, further down, the one-query
-// kernel for small B*H, which splits S over several blocks.
+// kernel for small B*H, which splits S over the blocks of a cluster.
 //
 // Replaces: openai_whisper_compression_tpu/ops/cross_attention.py
 //           decode_cross_attention_grouped, its three bodies over _beam_core:
@@ -78,7 +78,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int DH = 64, THREADS = 256;
+constexpr int DH = 64;
 using BF = __nv_bfloat16;
 
 // storage kinds, codes shared with ops/cross_attention.py: K/V in q's own
@@ -95,7 +95,9 @@ template <typename Q> struct Store<KV_FP, Q> {
   using T = Q;
   static constexpr int ROWS = 64, VEC = 16 / sizeof(Q), DIMS = 1;
   __device__ static void load(const T* p, float out[DIMS][VEC]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    decode(*reinterpret_cast<const uint4*>(p), out);
+  }
+  __device__ static void decode(const uint4& u, float out[DIMS][VEC]) {
     const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) out[0][i] = owc_to_float(e[i]);
@@ -106,10 +108,14 @@ template <typename Q> struct Store<KV_INT8, Q> {
   using T = int8_t;
   static constexpr int ROWS = 64, VEC = 16, DIMS = 1;
   __device__ static void load(const T* p, float out[DIMS][VEC]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[0][i] = (float)b[i];
+    decode(*reinterpret_cast<const uint4*>(p), out);
+  }
+  // 16 codes, exactly, by byte permutes
+  __device__ static void decode(const uint4& u, float out[DIMS][VEC]) {
+    owc_int8x4_to_float(u.x, out[0]);
+    owc_int8x4_to_float(u.y, out[0] + 4);
+    owc_int8x4_to_float(u.z, out[0] + 8);
+    owc_int8x4_to_float(u.w, out[0] + 12);
   }
 };
 
@@ -117,13 +123,15 @@ template <typename Q> struct Store<KV_INT4, Q> {
   using T = int8_t;
   static constexpr int ROWS = 32, VEC = 16, DIMS = 2;
   __device__ static void load(const T* p, float out[DIMS][VEC]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+    decode(*reinterpret_cast<const uint4*>(p), out);
+  }
+  // the signed low nibbles of 16 bytes, then the high ones, exactly
+  __device__ static void decode(const uint4& u, float out[DIMS][VEC]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const int x = b[i];                          // sign-extended byte
-      out[0][i] = (float)(((x & 15) ^ 8) - 8);     // signed low nibble
-      out[1][i] = (float)(x >> 4);                 // signed high nibble
+    for (int c = 0; c < 4; ++c) {
+      owc_int4x4_to_float(w[c], 0, out[0] + 4 * c);
+      owc_int4x4_to_float(w[c], 4, out[1] + 4 * c);
     }
   }
 };
@@ -685,7 +693,7 @@ bool dispatch(int kind, int dtype, F&& fn) {
 }
 
 // ---------------------------------------------------------------------------
-// One query per (batch, head) row, S split over several blocks.
+// One query per (batch, head) row, S split over the blocks of a cluster.
 //
 // Replaces: openai_whisper_compression_tpu/ops/cross_attention.py
 //           decode_cross_attention, its three bodies _kernel (bf16 K/V),
@@ -693,167 +701,274 @@ bool dispatch(int kind, int dtype, F&& fn) {
 //           where B*H is no multiple of 16 (whisper-small at batch 1-3: 12,
 //           24, 36 rows), computing what the grouped kernel computes at one
 //           slot.
-// What bounds it on the H100: bytes, and in practice launch latency. A row
-// streams 2 x 64 x s_valid elements whatever B*H is, and with 12 rows one
-// block per row would leave 120 of the 132 SMs idle. So a block takes
-// SPLIT_CHUNKS 16-byte chunks of positions of one row (128 positions of
-// int8/int4 K/V, 64 of bf16 or f16, 32 of f32): B*H x 12 (24, 47) blocks at
-// S = 1500.
-// Design: 256 threads = 32 row groups x 8 chunks. Pass 1: each thread takes
-// its chunk of its group's stored rows (2 rows, 1 for int4, one 16-byte load
-// each), the 32 partial scores of a position are summed through shared
-// memory, scaled and masked; block reductions give the span's maximum m and
-// sum l of exp(score - m). Pass 2: the same thread layout over V, the
-// probabilities (times the v scale) from shared memory, the 8 chunk lanes of
-// a row reduced by shuffles. Each block leaves 64 unnormalised sums, m and l
-// in scratch; `cross_attn_combine_kernel` (one small block per row) rescales
-// the partial sums to the common maximum, divides by the total l and writes
-// q's type. Two launches, no atomics, so the result does not change from run to
-// run.
-constexpr int SPLIT_CHUNKS = 8;  // 16-byte chunks of positions per block
-constexpr int PART = DH + 2;     // a block's record: 64 sums, m, l
+// What bounds it on the H100: bytes, and in practice latency. A row streams
+// 2 x 64 x s_valid elements whatever B*H is (1-5 MB at 12-36 rows), less
+// than a microsecond of the card's memory rate; what a call costs is its
+// launch and how many memory latencies it waits through in series.
+// Design: one launch, one latency.
+// - A row's positions are cut into 64-position chunks, shared out over the
+//   1-8 blocks of a thread block cluster (`one_query_splits` in the wrapper:
+//   as many blocks as the card holds at once, one an SM, since 200-243
+//   registers a thread leave room for one; a second wave costs as much as
+//   the first), and within a block a
+//   chunk's tiles (4 16-byte chunk columns: 64 positions of int8/int4, 32 of
+//   16-bit, 16 of f32 K/V) are dealt round to its 8 warps.
+// - In a tile, lane l takes chunk column l & 3 of the stored rows l >> 2,
+//   + 8, + 16, ...: 4 lanes read 64 neighbouring bytes of a row, a warp 8
+//   rows an instruction. A lane issues all of its K and V loads (and its
+//   positions' scales) at once, and the next tile's before it computes this
+//   one's, so V is in flight while the scores reduce.
+// - Scores: each lane sums its rows' products for the positions of its
+//   column; a reduce-scatter over the 8 lanes of a column
+//   (`owc_reduce_scatter8`) leaves every position's score with one lane (or
+//   two), with no shared array and no block barrier. A warp keeps an online
+//   softmax (m, l in base 2); its probabilities, times the v scale, go
+//   through 64 floats of the warp's own shared memory to the lanes that hold
+//   V, which add them into 64 dims of sums spread over the warp.
+// - The warps' (o, m, l) combine in the block, the blocks' in a fixed order
+//   through distributed shared memory after a cluster barrier: no atomics,
+//   no scratch in device memory, the same bits from run to run.
+// int8 and int4 codes turn into f32 exactly (byte permutes), so only the
+// order of the f32 sums differs from the plain version. Positions past
+// s_valid are never loaded but in the chunk column that straddles s_valid,
+// whose values there are masked out (the padding may hold anything).
+constexpr int OQ_CHUNK = 64;  // positions of a block's share (ONE_QUERY_CHUNK)
+constexpr int OQ_WARPS = 8;
+constexpr int OQ_THREADS = OQ_WARPS * 32;
+constexpr int OQ_COLS = 4;    // 16-byte chunk columns of a warp's tile
 
 template <int KIND, typename Q>
-__global__ void __launch_bounds__(THREADS)
-cross_attn_split_kernel(const Q* __restrict__ q,
-                        const typename Store<KIND, Q>::T* __restrict__ k_t,
-                        const typename Store<KIND, Q>::T* __restrict__ v_t,
-                        const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale,
-                        float* __restrict__ part, int S_pad, int s_valid) {
+__global__ void __launch_bounds__(OQ_THREADS, 1)
+cross_attn_one_query_kernel(const Q* __restrict__ q,
+                            const typename Store<KIND, Q>::T* __restrict__ k_t,
+                            const typename Store<KIND, Q>::T* __restrict__ v_t,
+                            const float* __restrict__ k_scale,
+                            const float* __restrict__ v_scale, Q* __restrict__ out,
+                            int S_pad, int s_valid) {
   using St = Store<KIND, Q>;
-  constexpr int ROWS = St::ROWS, VEC = St::VEC, DIMS = St::DIMS;
+  using T = typename St::T;
   constexpr bool SCALED = KIND != KV_FP;
-  constexpr int SPAN = SPLIT_CHUNKS * VEC;    // positions per block
-  constexpr int RG = THREADS / SPLIT_CHUNKS;  // row groups
-  constexpr int RPT = ROWS / RG;              // stored rows per thread
-  __shared__ float qs[DH];
-  __shared__ float partial[RG][SPAN];
-  __shared__ float ps[SPAN];
-  __shared__ float red[32];
-  const int g = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
-  const int c = tid % SPLIT_CHUNKS, rg = tid / SPLIT_CHUNKS;
-  const typename St::T* kg = k_t + (size_t)g * ROWS * S_pad;
-  const typename St::T* vg = v_t + (size_t)g * ROWS * S_pad;
-  const int nchunks = (s_valid + VEC - 1) / VEC;
-  const int s0 = (split * SPLIT_CHUNKS + c) * VEC;  // this thread's chunk
-  const bool active = split * SPLIT_CHUNKS + c < nchunks;
+  constexpr int VEC = St::VEC, DIMS = St::DIMS, ROWS = St::ROWS;
+  constexpr int RPL = ROWS / 8;                 // stored rows a lane reads
+  constexpr int TILE = OQ_COLS * VEC;           // positions of a warp's tile
+  constexpr int TILES = OQ_CHUNK / TILE;        // tiles a chunk
+  constexpr int NV = VEC >= 8 ? VEC / 8 : 1;    // scores a lane holds
+  __shared__ float rec[OQ_WARPS][REC];          // each warp's (o, m, l)
+  __shared__ __align__(16) float pbuf[OQ_WARPS][TILE];
+  __shared__ float brec[REC];                   // the block's (o, m, l)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int g = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = (int)cluster.block_rank(), splits = (int)cluster.num_blocks();
+  const int cc = lane & 3, rg = lane >> 2;      // chunk column, first stored row
+  const int base = owc_scatter_base<VEC>(lane); // where this lane's scores lie
+  // VEC = 4: the lanes that differ in bit 2 hold the same scores; one counts
+  const bool own = VEC >= 8 || !(lane & 4);
+  const T* kg = k_t + (size_t)g * ROWS * S_pad;
+  const T* vg = v_t + (size_t)g * ROWS * S_pad;
+  const float* ksg = SCALED ? k_scale + (size_t)g * S_pad : nullptr;
+  const float* vsg = SCALED ? v_scale + (size_t)g * S_pad : nullptr;
 
-  if (tid < DH) qs[tid] = owc_to_float(q[(size_t)g * DH + tid]);
-  __syncthreads();
+  // the block's chunks, their tiles that hold a valid position, this warp's
+  const int nch = (s_valid + OQ_CHUNK - 1) / OQ_CHUNK;
+  const int t_lo = rank * nch / splits * TILES;
+  const int t_hi = min((rank + 1) * nch / splits * TILES, (s_valid + TILE - 1) / TILE);
+  const int nj = max(0, (t_hi - t_lo - warp + OQ_WARPS - 1) / OQ_WARPS);
+  auto tile_pos = [&](int j) { return (t_lo + warp + j * OQ_WARPS) * TILE; };
 
-  {
-    float acc[VEC];
+  float qr[RPL][DIMS];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
-    if (active) {
+  for (int i = 0; i < RPL; ++i)
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = rg * RPT + i;
-        float kv[DIMS][VEC];
-        St::load(kg + (size_t)r * S_pad + s0, kv);
+    for (int d = 0; d < DIMS; ++d) qr[i][d] = owc_to_float(q[(size_t)g * DH + rg + 8 * i + d * ROWS]);
+
+  // tile j's K and V pieces of this lane (zeros for a column past s_valid)
+  // and the scales of the positions whose scores it will hold
+  auto load = [&](int j, uint4 (&kx)[RPL], uint4 (&vx)[RPL], float (&ksx)[NV],
+                  float (&vsx)[NV]) {
+    const int p0 = tile_pos(j) + cc * VEC;
+    const bool on = p0 < s_valid;
 #pragma unroll
-        for (int d = 0; d < DIMS; ++d) {
-          const float qd = qs[r + d * ROWS];
+    for (int i = 0; i < RPL; ++i) {
+      const size_t off = (size_t)(rg + 8 * i) * S_pad + p0;
+      kx[i] = on ? __ldg(reinterpret_cast<const uint4*>(kg + off)) : make_uint4(0, 0, 0, 0);
+      vx[i] = on ? __ldg(reinterpret_cast<const uint4*>(vg + off)) : make_uint4(0, 0, 0, 0);
+    }
+    if constexpr (SCALED) {
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) acc[v] = fmaf(qd, kv[d][v], acc[v]);
-        }
+      for (int e = 0; e < NV; ++e) {
+        const int p = p0 + base + e;
+        ksx[e] = p < s_valid ? __ldg(ksg + p) : 0.0f;
+        vsx[e] = p < s_valid ? __ldg(vsg + p) : 0.0f;
       }
     }
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) partial[rg][c * VEC + v] = acc[v];
-  }
-  __syncthreads();
+  };
 
-  const int s = split * SPAN + tid;  // the position thread tid < SPAN owns
-  const bool valid = tid < SPAN && s < s_valid;
-  float x = -INFINITY;
-  if (valid) {
-    float sum = 0.0f;
-#pragma unroll 8
-    for (int r = 0; r < RG; ++r) sum += partial[r][tid];
-    x = SCALED ? sum * k_scale[(size_t)g * S_pad + s] : sum;
-  }
-  // the first chunk of every block lies below s_valid, so m is finite
-  const float m = owc_block_max(x, red);
-  const float p = valid ? expf(x - m) : 0.0f;
-  const float l = owc_block_sum(p, red);
-  // the v scale folds in after l; padding scales may hold anything
-  if (tid < SPAN)
-    ps[tid] = SCALED ? (valid ? p * v_scale[(size_t)g * S_pad + s] : 0.0f) : p;
-  __syncthreads();
-
-  float* rec = part + ((size_t)g * gridDim.y + split) * PART;
+  float m_run = -INFINITY, l_run = 0.0f;
+  float acc[RPL][DIMS];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rg * RPT + i;
-    float acc[DIMS];
+  for (int i = 0; i < RPL; ++i)
 #pragma unroll
-    for (int d = 0; d < DIMS; ++d) acc[d] = 0.0f;
-    if (active) {
+    for (int d = 0; d < DIMS; ++d) acc[i][d] = 0.0f;
+  uint4 kr[RPL], vr[RPL], kn[RPL], vn[RPL];
+  float ksr[NV], vsr[NV], ksn[NV], vsn[NV];
+  if (nj > 0) load(0, kr, vr, ksr, vsr);
+#pragma unroll 1
+  for (int j = 0; j < nj; ++j) {
+    if (j + 1 < nj) load(j + 1, kn, vn, ksn, vsn);  // in flight under this tile
+    const int t0 = tile_pos(j), p0 = t0 + cc * VEC;
+    float part[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) part[v] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      float kv[DIMS][VEC];
+      St::decode(kr[i], kv);
+#pragma unroll
+      for (int d = 0; d < DIMS; ++d)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) part[v] = fmaf(qr[i][d], kv[d][v], part[v]);
+    }
+    owc_reduce_scatter8(part, lane);
+    float x[NV], mt = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < NV; ++e) {
+      const float s = SCALED ? part[e] * ksr[e] : part[e];
+      x[e] = p0 + base + e < s_valid ? s * LOG2E : -INFINITY;
+      mt = fmaxf(mt, x[e]);
+    }
+    // finite: a tile's first position is valid
+    const float mn = fmaxf(m_run, owc_warp_max(mt));
+    const float corr = ex2(m_run - mn);
+    m_run = mn;
+    float ls = 0.0f;
+    __syncwarp();  // the previous tile's probabilities have been read
+#pragma unroll
+    for (int e = 0; e < NV; ++e) {
+      const float pr = ex2(x[e] - mn);  // 0 past s_valid
+      if (own) {
+        ls += pr;
+        // the v scale folds in after l; past s_valid the scale is never read
+        pbuf[warp][cc * VEC + base + e] = SCALED ? pr * vsr[e] : pr;
+      }
+    }
+    l_run = l_run * corr + owc_warp_sum(ls);
+    __syncwarp();
+    float pv[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; v += 4) {
+      const float4 p4 = *reinterpret_cast<const float4*>(&pbuf[warp][cc * VEC + v]);
+      pv[v] = p4.x;
+      pv[v + 1] = p4.y;
+      pv[v + 2] = p4.z;
+      pv[v + 3] = p4.w;
+    }
+    const bool straddles = !SCALED && p0 + VEC > s_valid;  // fp padding may hold inf
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
       float vv[DIMS][VEC];
-      St::load(vg + (size_t)r * S_pad + s0, vv);
+      St::decode(vr[i], vv);
+      if (straddles) {
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        if (s0 + v < s_valid) {  // padding may hold anything
-          const float pv = ps[c * VEC + v];
+        for (int v = 0; v < VEC; ++v)
+          if (p0 + v >= s_valid) vv[0][v] = 0.0f;
+      }
 #pragma unroll
-          for (int d = 0; d < DIMS; ++d) acc[d] = fmaf(pv, vv[d][v], acc[d]);
-        }
+      for (int d = 0; d < DIMS; ++d) {
+        float a = acc[i][d] * corr;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) a = fmaf(pv[v], vv[d][v], a);
+        acc[i][d] = a;
       }
     }
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      kr[i] = kn[i];
+      vr[i] = vn[i];
+    }
+#pragma unroll
+    for (int e = 0; e < NV; ++e) {
+      ksr[e] = ksn[e];
+      vsr[e] = vsn[e];
+    }
+  }
+
+  // the warp's sums over its 4 chunk columns, then its record
+#pragma unroll
+  for (int i = 0; i < RPL; ++i)
 #pragma unroll
     for (int d = 0; d < DIMS; ++d) {
-      float tot = acc[d];  // over the row's 8 chunk lanes, neighbours in a warp
+      float a = acc[i][d];
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      if (cc == 0) rec[warp][rg + 8 * i + d * ROWS] = a;
+    }
+  if (lane == 0) {
+    rec[warp][DH] = m_run;
+    rec[warp][DH + 1] = l_run;
+  }
+  __syncthreads();
+  // the block's warps, in order (every block has a valid tile: m finite)
+  if (tid < DH) {
+    float big = -INFINITY;
 #pragma unroll
-      for (int o = SPLIT_CHUNKS / 2; o > 0; o >>= 1)
-        tot += __shfl_xor_sync(0xffffffffu, tot, o);
-      if (c == 0) rec[r + d * ROWS] = tot;
+    for (int w = 0; w < OQ_WARPS; ++w) big = fmaxf(big, rec[w][DH]);
+    float l = 0.0f, a = 0.0f;
+#pragma unroll
+    for (int w = 0; w < OQ_WARPS; ++w) {
+      const float m = rec[w][DH];
+      if (m == -INFINITY) continue;  // a warp that had no tile
+      const float wgt = ex2(m - big);
+      l = fmaf(rec[w][DH + 1], wgt, l);
+      a = fmaf(rec[w][tid], wgt, a);
+    }
+    brec[tid] = a;
+    if (tid == 0) {
+      brec[DH] = big;
+      brec[DH + 1] = l;
     }
   }
-  if (tid == 0) {
-    rec[DH] = m;
-    rec[DH + 1] = l;
+  // the cluster's blocks, in rank order; block r writes the dims d % splits == r
+  cluster.sync();
+  if (tid < DH && tid % splits == rank) {
+    float big = -INFINITY;
+    for (int sp = 0; sp < splits; ++sp) big = fmaxf(big, cluster.map_shared_rank(brec, sp)[DH]);
+    float l = 0.0f, a = 0.0f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* r = cluster.map_shared_rank(brec, sp);
+      const float wgt = ex2(r[DH] - big);
+      l = fmaf(r[DH + 1], wgt, l);
+      a = fmaf(r[tid], wgt, a);
+    }
+    owc_store(out + (size_t)g * DH + tid, a / l);
   }
-}
-
-// out[g, d] = sum_i part[g, i, d] * exp(m_i - M) / sum_i l_i * exp(m_i - M),
-// M the largest m_i; 64 threads, one per head dim.
-template <typename Q>
-__global__ void __launch_bounds__(DH)
-cross_attn_combine_kernel(const float* __restrict__ part, Q* __restrict__ out,
-                          int nsplit) {
-  const int g = blockIdx.x, d = threadIdx.x;
-  const float* rec = part + (size_t)g * nsplit * PART;
-  float big = -INFINITY;
-  for (int i = 0; i < nsplit; ++i) big = fmaxf(big, rec[i * PART + DH]);
-  float l = 0.0f, acc = 0.0f;
-  for (int i = 0; i < nsplit; ++i) {
-    const float w = expf(rec[i * PART + DH] - big);
-    l = fmaf(rec[i * PART + DH + 1], w, l);
-    acc = fmaf(rec[i * PART + d], w, acc);
-  }
-  owc_store(out + (size_t)g * DH + d, acc / l);
+  cluster.sync();  // no block leaves while another still reads its record
 }
 
 template <int KIND, typename Q>
-int launch_split(const void* q, const void* k_t, const void* v_t,
-                 const void* k_scale, const void* v_scale, void* part, void* out,
-                 int BH, int nsplit, int S_pad, int s_valid, cudaStream_t st) {
+int launch_one_query(const void* q, const void* k_t, const void* v_t, const void* k_scale,
+                     const void* v_scale, void* out, int BH, int splits, int S_pad,
+                     int s_valid, cudaStream_t st) {
   using T = typename Store<KIND, Q>::T;
-  constexpr int VEC = Store<KIND, Q>::VEC;
-  const int nchunks = (s_valid + VEC - 1) / VEC;
-  if (nsplit != (nchunks + SPLIT_CHUNKS - 1) / SPLIT_CHUNKS || nsplit > 65535)
+  if (splits < 1 || splits > 8 || splits > (s_valid + OQ_CHUNK - 1) / OQ_CHUNK)
     return (int)cudaErrorInvalidValue;
-  cross_attn_split_kernel<KIND, Q><<<dim3(BH, nsplit), THREADS, 0, st>>>(
-      static_cast<const Q*>(q), static_cast<const T*>(k_t),
-      static_cast<const T*>(v_t), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<float*>(part), S_pad,
-      s_valid);
-  cudaError_t e = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(BH, splits);
+  cfg.blockDim = dim3(OQ_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, cross_attn_one_query_kernel<KIND, Q>, static_cast<const Q*>(q),
+      static_cast<const T*>(k_t), static_cast<const T*>(v_t),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<Q*>(out), S_pad, s_valid);
   if (e != cudaSuccess) return (int)e;
-  cross_attn_combine_kernel<Q><<<BH, DH, 0, st>>>(static_cast<const float*>(part),
-                                                  static_cast<Q*>(out), nsplit);
   return (int)cudaGetLastError();
 }
 
@@ -892,20 +1007,20 @@ extern "C" int owc_cross_attention_grouped(const void* q, const void* k_t,
 }
 
 // One query per row: q and out (BH, 64); k_t/v_t, the scales and kind as
-// above. part: scratch of BH * nsplit * 66 floats, nsplit =
-// ceil(ceil(s_valid / VEC) / 8) with VEC the kind's positions per 16-byte
-// chunk. Requires 1 <= s_valid <= S_pad, S_pad a multiple of VEC, 16-byte
-// aligned k_t/v_t.
+// above. splits: the blocks (1..8) of the thread block cluster that shares a
+// row, each given at least one 64-position chunk of it. Requires 1 <= s_valid
+// <= S_pad, S_pad a multiple of the kind's 16-byte chunk, 16-byte aligned
+// k_t/v_t.
 extern "C" int owc_cross_attention(const void* q, const void* k_t,
                                    const void* v_t, const void* k_scale,
-                                   const void* v_scale, void* part, void* out,
-                                   int BH, int nsplit, int S_pad, int s_valid,
-                                   int kind, int dtype, void* stream) {
+                                   const void* v_scale, void* out, int BH,
+                                   int splits, int S_pad, int s_valid, int kind,
+                                   int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = 0;
   const bool ok = dispatch(kind, dtype, [&](auto kind_tag, auto qt) {
-    err = launch_split<decltype(kind_tag)::value, decltype(qt)>(
-        q, k_t, v_t, k_scale, v_scale, part, out, BH, nsplit, S_pad, s_valid, st);
+    err = launch_one_query<decltype(kind_tag)::value, decltype(qt)>(
+        q, k_t, v_t, k_scale, v_scale, out, BH, splits, S_pad, s_valid, st);
   });
   return ok ? err : (int)cudaErrorInvalidValue;
 }

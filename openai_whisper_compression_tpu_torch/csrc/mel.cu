@@ -40,11 +40,11 @@
 //   stream through a 3-stage cp.async ring in the 128-byte swizzle wgmma
 //   reads; all 333 KB of bases pass through every block, from L2.
 // - Each 16-tap step goes into a fresh accumulator, which is added into the
-//   f32 sums with round-to-nearest adds while the next step runs (two
-//   accumulators). One accumulator carried over all 400 taps lost accuracy
-//   in the tensor cores' own additions: over 92M log-mel values it read
-//   1.4e-5 from the exact (float64) result, the per-step sums 7.7e-6, the
-//   plain version's f32 chain 2.4e-5 (PERF.md).
+//   f32 sums by TwoSum, its rounding errors summed apart (`add_into`): the
+//   25 steps' sum as if rounded once. Carrying the accumulator over steps
+//   in the tensor cores loses accuracy in their own additions (over all 400
+//   taps: 1.4e-5 from the exact, float64, result; over two steps: 2.6e-5
+//   at one seed; PERF.md).
 // - Interleaved columns put re and im of one bin in a thread's accumulator
 //   pair, so the power re^2 + im^2 forms in registers (f32) and goes to a
 //   power tile in shared memory (157 bins a row for the first three
@@ -153,11 +153,20 @@ __device__ __forceinline__ void load_bases_tile(unsigned char* stage,
   }
 }
 
-// sum (+)= d, in f32 with round-to-nearest adds.
-__device__ __forceinline__ void add_into(float (&sum)[52], float (&d)[52], bool first) {
+// sum + comp += d: every add is TwoSum (Knuth), which leaves the f32 sum in
+// sum and adds its exact rounding error into comp, so that sum + comp is the
+// steps' sum as if taken exactly and rounded once. Plain f32 adds strayed up
+// to 3.05e-5 from the exact log-mel on rare ill-conditioned bins, further
+// than the plain version's f32 chain; Kahan's 4 operations an add came within
+// 1e-6 of that chain at one seed (PERF.md).
+__device__ __forceinline__ void add_into(float (&sum)[52], float (&comp)[52], float (&d)[52]) {
   reg_fence(d);
 #pragma unroll
-  for (int i = 0; i < 52; ++i) sum[i] = first ? d[i] : sum[i] + d[i];
+  for (int i = 0; i < 52; ++i) {
+    const float s = sum[i] + d[i], z = s - sum[i];
+    comp[i] += (sum[i] - (s - z)) + (d[i] - z);
+    sum[i] = s;
+  }
 }
 
 // The banded mel product and log10 of frame fr % frames: its power row is
@@ -259,8 +268,8 @@ mel_bf16_kernel(const float* __restrict__ wav, const __nv_bfloat16* __restrict__
   const uint32_t a_base = smem_u32(frames) +
       ((64 * wg + 16 * wq + (lane & 15)) * FR_STRIDE + (lane >> 4) * 8) * 2;
   const int row = 64 * wg + 16 * wq + g;  // the thread's frames: row, row + 8
-  float acc[2][52];  // two tensor-core accumulators, one in flight while the other is added
-  float sum[52];     // the quarter's f32 sums
+  float acc[52];            // a step's tensor-core accumulator
+  float sum[52], comp[52];  // the quarter's f32 sums and their rounding errors
   int t = 0;
 #pragma unroll
   for (int qn = 0; qn < QUARTERS; ++qn) {
@@ -274,38 +283,28 @@ mel_bf16_kernel(const float* __restrict__ wav, const __nv_bfloat16* __restrict__
                         t + STAGES - 1);
       cp_async_commit();
       const uint64_t bd = smem_desc(ring + (t % STAGES) * TILE_BYTES);
-      const bool first = slab == 0;
-      if (slab < SLABS - 1) {
-        // 4 steps of 16 taps, each into a fresh accumulator added into the
-        // sums while the next step runs on the tensor cores
-        uint32_t a[4][4];
+      if (slab == 0) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          ldmatrix_x4(a[kk], a_base + (slab * 64 + kk * 16) * 2);
-        reg_fence(acc[0]);
-        reg_fence(acc[1]);
-        wgmma_fence();
-        wgmma_dft(acc[0], a[0], bd, 0);
-        wgmma_commit();
+        for (int i = 0; i < 52; ++i) sum[i] = comp[i] = 0.0f;
+      }
+      // 4 steps of 16 taps (1 in the last slab), each into a fresh
+      // accumulator added into the sums; the other warpgroup's products run
+      // on the tensor cores while this one adds
+      uint32_t a[4][4];
+      const int steps = slab < SLABS - 1 ? 4 : 1;
 #pragma unroll
-        for (int kk = 1; kk < 4; ++kk) {
+      for (int kk = 0; kk < 4; ++kk)
+        if (kk < steps) ldmatrix_x4(a[kk], a_base + (slab * 64 + kk * 16) * 2);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < steps) {
+          reg_fence(acc);
           wgmma_fence();
-          wgmma_dft(acc[kk & 1], a[kk], bd + ((kk * 32) >> 4), 0);
+          wgmma_dft(acc, a[kk], bd + ((kk * 32) >> 4), 0);
           wgmma_commit();
-          wgmma_wait<1>();  // step kk - 1 is done
-          add_into(sum, acc[(kk - 1) & 1], first && kk == 1);
+          wgmma_wait<0>();
+          add_into(sum, comp, acc);
         }
-        wgmma_wait<0>();
-        add_into(sum, acc[1], false);
-      } else {  // the last 16 taps
-        uint32_t a[4];
-        ldmatrix_x4(a, a_base + slab * 64 * 2);
-        reg_fence(acc[0]);
-        wgmma_fence();
-        wgmma_dft(acc[0], a, bd, 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        add_into(sum, acc[0], false);
       }
     }
     // the quarter's power: bins QBINS * qn + 4i + t4 of frames row, row + 8
@@ -318,8 +317,11 @@ mel_bf16_kernel(const float* __restrict__ wav, const __nv_bfloat16* __restrict__
     const int s8 = qn < QUARTERS - 1 ? 8 * P1_STRIDE : 8 * P2_STRIDE;
 #pragma unroll
     for (int i = 0; i < 13; ++i) {
-      q[4 * i] = sum[4 * i] * sum[4 * i] + sum[4 * i + 1] * sum[4 * i + 1];
-      q[s8 + 4 * i] = sum[4 * i + 2] * sum[4 * i + 2] + sum[4 * i + 3] * sum[4 * i + 3];
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = sum[4 * i + e] + comp[4 * i + e];
+      q[4 * i] = v[0] * v[0] + v[1] * v[1];
+      q[s8 + 4 * i] = v[2] * v[2] + v[3] * v[3];
     }
   }
   __syncthreads();

@@ -12,7 +12,8 @@ longer window runs as several launches, each over its own slots and each
 reading the K/V again (the JAX kernel takes any K in one call).
 `decode_cross_attention` is the one-query function that the JAX package's
 decode step takes where B·H is no multiple of 16 (`UNGROUPED_MODULUS`): few
-rows, so its kernel splits S over several blocks of a row. K/V storage
+rows, so its kernel splits S over the blocks of a cluster
+(`one_query_splits`), in one launch. K/V storage
 follows the JAX layout: (B·H, Dh, S_pad) in q's own type (float32, bfloat16
 or float16: the Pallas kernels are generic in it; f32 arithmetic, output in
 q's type); int8 with (B·H, 1, S_pad) f32 per-position scales; or split-half
@@ -33,7 +34,8 @@ NEG_INF = -1e30
 HEAD_DIM = 64   # every Whisper size; the kernels are written for it
 MAX_SLOTS = 8   # query slots per (batch, head) row one launch holds
 UNGROUPED_MODULUS = 16  # a decode step with B*H % 16 != 0 takes the one-query kernel
-SPLIT_CHUNKS = 8   # 16-byte chunks of positions per block of the one-query kernel
+ONE_QUERY_CHUNK = 64  # positions the one-query kernel shares out over a cluster
+_ONE_QUERY_BLOCKS = 132  # blocks of the one-query kernel the H100 holds at once: one an SM
 NARROW_SLOTS = 4  # launches of more slots are counted apart (`_wide`)
 GROUPED_CHUNK = 32  # positions a warp of the grouped kernel takes at a time
 _GROUPED_BLOCKS = 264  # blocks the grouped kernel wants: two an SM of the H100
@@ -193,6 +195,17 @@ def grouped_splits(bh: int, s_valid: int) -> int:
     return max(1, min(_MAX_CLUSTER, chunks, -(-_GROUPED_BLOCKS // bh)))
 
 
+def one_query_splits(bh: int, s_valid: int) -> int:
+    """Blocks of the thread block cluster that shares one row of the
+    one-query kernel: as many as keep B·H rows within the
+    `_ONE_QUERY_BLOCKS` the card holds at once (a block more would start a
+    second wave, as long as the first), at most `_MAX_CLUSTER`, and no more
+    than the row has `ONE_QUERY_CHUNK`-position chunks, so that every block
+    gets at least one."""
+    chunks = -(-s_valid // ONE_QUERY_CHUNK)
+    return max(1, min(_MAX_CLUSTER, chunks, _ONE_QUERY_BLOCKS // bh))
+
+
 def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
                                    v_t: torch.Tensor,
                                    k_scale: torch.Tensor | None = None,
@@ -263,31 +276,24 @@ def decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
     """q (BH, Dh) pre-scaled by Dh**-0.5, one query per (batch, head) row;
     k_t/v_t, the scales and s_valid as `decode_cross_attention_grouped`
     takes them. Returns (BH, Dh) in q's dtype. A CUDA tensor launches the
-    kernel, which splits S over `SPLIT_CHUNKS`-chunk blocks of each row and
-    combines their partial softmaxes (each storage kind counts its launches
-    in its own attribute: `launches` for bf16 K/V, `launches_f32`,
-    `launches_f16`, `launches_int8`, `launches_int4`); a CPU tensor takes
-    the plain version."""
+    kernel once, S split over a cluster of `one_query_splits` blocks a row
+    (each storage kind counts its launches in its own attribute: `launches`
+    for bf16 K/V, `launches_f32`, `launches_f16`, `launches_int8`,
+    `launches_int4`); a CPU tensor takes the plain version."""
     if not q.is_cuda:
         return decode_cross_attention_ref(q, k_t, v_t, k_scale, v_scale, s_valid)
     name = "decode_cross_attention"
     kernels.require(q.dim() == 2, name, f"q must be (BH, Dh), got {tuple(q.shape)}")
     kind, s_pad, s_valid = _check_kv(name, q, k_t, v_t, k_scale, v_scale, s_valid)
-    code, vec, counter = _KINDS[kind]
+    code, _, counter = _KINDS[kind]
     bh = q.shape[0]
-    chunks = -(-s_valid // vec)            # 16-byte chunks below s_valid
-    nsplit = -(-chunks // SPLIT_CHUNKS)    # blocks per row
-    kernels.require(1 <= bh and nsplit <= 65535, name,
-                    f"B*H {bh} must be positive and s_valid {s_valid} at most "
-                    f"{65535 * SPLIT_CHUNKS * vec}")
-    part = torch.empty((bh, nsplit, HEAD_DIM + 2), dtype=torch.float32,
-                       device=q.device)
+    kernels.require(1 <= bh < 2 ** 31, name, f"B*H {bh} outside 1..2**31 - 1")
     out = torch.empty_like(q)
     err = kernels.lib().owc_cross_attention(
         q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
-        part.data_ptr(), out.data_ptr(), bh, nsplit, s_pad, s_valid, code,
+        out.data_ptr(), bh, one_query_splits(bh, s_valid), s_pad, s_valid, code,
         kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q))
     kernels.check(name, err)
     setattr(decode_cross_attention, counter,

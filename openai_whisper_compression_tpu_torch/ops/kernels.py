@@ -53,8 +53,7 @@ _SIGNATURES = {
     "owc_mel_log10": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "owc_cross_attention_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _P],
-    "owc_cross_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P],
+    "owc_cross_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "owc_transpose_quant_kv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "owc_self_attention_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _P],

@@ -86,6 +86,13 @@ def _start_arg(name: str, start: torch.Tensor | None, q: torch.Tensor) -> int | 
     return start.data_ptr()
 
 
+def _require_aligned_rows(name: str, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor) -> None:
+    """The int8 kernel reads and writes cache rows in 16-byte pieces."""
+    kernels.require(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0,
+                    name, "int8 caches must start on a 16-byte boundary")
+
+
 def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
                                  v_new: torch.Tensor, k_cache: torch.Tensor,
                                  v_cache: torch.Tensor, pos: int,
@@ -214,6 +221,7 @@ def decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
                     "q, k/v, the caches and the scales must share a device")
     kernels.require(all(t.is_contiguous() for t in tensors), name,
                     "inputs must be contiguous")
+    _require_aligned_rows(name, k_cache, v_cache)
     start_ptr = _start_arg(name, start, q)
     out = torch.empty_like(q)
     err = kernels.lib().owc_self_attention_update_int8(
@@ -282,6 +290,7 @@ def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
                         name, f"scales must be ({bh}, {s})")
         kernels.require_dtype(name, torch.int8, k_cache, v_cache)
         kernels.require_dtype(name, torch.float32, k_scale, v_scale)
+        _require_aligned_rows(name, k_cache, v_cache)
         tensors += [k_scale, v_scale]
     else:
         code = kernels.dtype_code(q, name, k_cache, v_cache)

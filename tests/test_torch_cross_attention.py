@@ -19,7 +19,8 @@ from openai_whisper_compression_tpu.ops.cross_attention import (
     transpose_quant_kv as jax_transpose_quant_kv)
 from openai_whisper_compression_tpu_torch.models import whisper
 from openai_whisper_compression_tpu_torch.ops.cross_attention import (
-    GROUPED_CHUNK, decode_cross_attention_grouped, grouped_splits, pad_cross_len,
+    GROUPED_CHUNK, ONE_QUERY_CHUNK, decode_cross_attention_grouped, grouped_splits,
+    one_query_splits, pad_cross_len,
     transpose_quant_kv)
 
 torch.set_num_threads(2)
@@ -181,3 +182,44 @@ def test_grouped_split_gives_every_block_a_chunk(bh, s_valid):
     shares = [(r + 1) * chunks // splits - r * chunks // splits for r in range(splits)]
     assert sum(shares) == chunks and min(shares) >= 1
     assert bh * splits >= H100_SMS or splits == min(8, chunks)
+
+
+ONE_QUERY_ROWS = [1, 12, 13, 24, 36, 50, 132, 1152]
+
+
+@pytest.mark.parametrize("s_valid", [1, 64, 65, 1500, 3000])
+@pytest.mark.parametrize("bh", ONE_QUERY_ROWS)
+def test_one_query_split_gives_every_block_a_chunk(bh, s_valid):
+    """The one-query kernel's cluster holds 1-8 blocks; every block of a row
+    gets at least one 64-position chunk, and, in the kernel's own share-out
+    of each storage's tiles (16, 32 or 64 positions), at least one tile that
+    holds a valid position, the blocks' tiles together covering the row."""
+    splits = one_query_splits(bh, s_valid)
+    chunks = -(-s_valid // ONE_QUERY_CHUNK)
+    assert 1 <= splits <= 8
+    shares = [(r + 1) * chunks // splits - r * chunks // splits for r in range(splits)]
+    assert sum(shares) == chunks and min(shares) >= 1
+    for tile in (16, 32, 64):
+        per_chunk, valid = ONE_QUERY_CHUNK // tile, -(-s_valid // tile)
+        spans = [(r * chunks // splits * per_chunk,
+                  min((r + 1) * chunks // splits * per_chunk, valid))
+                 for r in range(splits)]
+        assert all(hi > lo for lo, hi in spans)
+        assert spans[0][0] == 0 and spans[-1][1] == valid
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("s_valid", [1, 64, 65, 1500, 3000])
+@pytest.mark.parametrize("bh", ONE_QUERY_ROWS)
+def test_one_query_split_fills_one_wave(bh, s_valid):
+    """The one-query kernel holds one block an SM of the H100's 132: B*H x
+    splits stays within them (a second wave would cost as much as the
+    first) but for one block a row, and fills them as far as the cluster
+    limit and the row's chunks allow; the split does not grow as B*H
+    grows."""
+    splits = one_query_splits(bh, s_valid)
+    chunks = -(-s_valid // ONE_QUERY_CHUNK)
+    assert bh * splits <= H100_SMS or splits == 1
+    assert splits == min(8, chunks) or bh * (splits + 1) > H100_SMS
+    assert one_query_splits(bh + 1, s_valid) <= splits
+    assert one_query_splits(2 * bh, s_valid) <= splits

@@ -257,10 +257,15 @@ def test_4bit_wrappers_reject_what_the_kernels_do_not_take(dev):
       for b, t, n in ((96, 480_000, 80), (2, 480_000, 128), (3, 20483, 80),
                       (2, 20483, 128), (1, 1001, 80)))])
 def test_log_mel(dev, dtype, b, t, n_mels, seed):
-    """Log-mel values of order 1: 1e-5 absolute (sum order, then log10;
-    a bf16 power spectrum or mel product would be off by 1e-4 or more), at
-    the headline batch, at large-v3's 128 mels, and where T + 400 is no
-    multiple of 4 (the padded rows get a wider stride); one launch a call."""
+    """The kernel no less exact than its plain version: both held against
+    the float64 log-mel on the same operands (`features.log_mel_f64`), the
+    kernel's largest distance at most the plain version's + 5e-6. Two f32
+    chains that sum in different orders each stray up to ~3e-5 from the
+    exact value on rare ill-conditioned bins, so they cannot be held to 1e-5
+    of each other everywhere; a bf16 power spectrum or mel product would be
+    1e-4 or more further off. At the headline batch, at large-v3's 128 mels,
+    and where T + 400 is no multiple of 4 (the padded rows get a wider
+    stride); one launch a call."""
     g = torch.Generator(device=dev).manual_seed(seed)
     wav = torch.randn(b, t, generator=g, device=dev) * 0.1
     before = log_mel_cuda.launches
@@ -268,7 +273,11 @@ def test_log_mel(dev, dtype, b, t, n_mels, seed):
     assert log_mel_cuda.launches == before + 1
     ref = features.log_mel(wav, n_mels, dtype)
     assert got.shape == ref.shape == (b, n_mels, t // 160)
-    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    exact = features.log_mel_f64(wav, n_mels, dtype)
+    err_k, err_p = (float((x.double() - exact).abs().max()) for x in (got, ref))
+    print(f"log_mel ({b}, {t}) {n_mels} mels {dtype}: from the float64 log-mel, "
+          f"kernel {err_k:.3g}, plain {err_p:.3g}")
+    assert err_k <= err_p + 5e-6
 
 
 @pytest.mark.parametrize("bh,kq,s_valid", [(12, 1, 1), (12, 3, 100),
@@ -488,6 +497,48 @@ def test_self_attention_update_int8(dev, s, pos, with_start, dtype):
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), ref.float(), rtol=0,
                                atol=_tol(dtype, float(ref.float().abs().max())))
+
+
+@pytest.mark.parametrize("with_start", [False, True], ids=["nostart", "start"])
+@pytest.mark.parametrize("bh,s,pos", [(1152, 64, 30), (1, 64, 0), (1, 64, 63),
+                                      (13, 64, 0), (13, 64, 63), (2, 12288, 12287)])
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+def test_self_attention_int8_rows(dev, bh, s, pos, with_start, dtype):
+    """The int8 update at the headline's (1152, 64, 64) and pos 30, at one and
+    13 rows (a block's 4 warps not all used) at pos 0 and 63, and over a
+    12288-row cache (192 passes of 64 positions): codes and scales equal to
+    the plain version's, the output within one step of q's type, and the
+    read-only kernel on the cache it wrote equal to its output bit for bit;
+    each launch counted."""
+    g = torch.Generator(device=dev).manual_seed(bh + s + pos)
+    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).to(dtype)
+    kn, vn = (torch.randn(2, bh, 64, generator=g, device=dev) * 2).to(dtype)
+    kc, vc = torch.randint(-127, 128, (2, bh, s, 64), generator=g, device=dev,
+                           dtype=torch.int8)
+    ks, vs = torch.rand(2, bh, s, generator=g, device=dev) * 0.03 + 0.001
+    bufs = [t.clone() for t in (kc, vc, ks, vs)]
+    refs = [t.clone() for t in (kc, vc, ks, vs)]
+    start = None
+    if with_start:
+        start = (_mixed_start(dev, bh, pos) if bh > 1 else
+                 torch.full((1,), pos // 2, dtype=torch.int32, device=dev))
+    suffix = "_start" if with_start else ""
+    before = getattr(decode_self_attention_update_int8, "launches" + suffix)
+    got = decode_self_attention_update_int8(q, kn, vn, *bufs, pos, start=start)
+    assert getattr(decode_self_attention_update_int8, "launches" + suffix) == before + 1
+    ref = decode_self_attention_update_int8_ref(q, kn, vn, *refs, pos, start=start)
+    for a, b in zip(bufs, refs):
+        assert torch.equal(a, b)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(dtype, float(ref.float().abs().max())))
+    before = getattr(decode_self_attention, "launches_int8" + suffix)
+    again = decode_self_attention(q, bufs[0], bufs[1], pos, start=start,
+                                  k_scale=bufs[2], v_scale=bufs[3])
+    assert getattr(decode_self_attention, "launches_int8" + suffix) == before + 1
+    assert torch.equal(again, got)
+    for a, b in zip(bufs, refs):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -780,13 +831,15 @@ def _cross_kv(dev, kind, bh, s_valid, seed, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
 @pytest.mark.parametrize("bh,s_valid", [(1, 1), (1, 1500), (12, 1500), (36, 1500),
-                                        (12, 100), (36, 129), (7, 1025), (50, 300)])
+                                        (12, 100), (36, 129), (7, 1025), (50, 300),
+                                        (13, 3000), (24, 3000)])
 @pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 def test_cross_attention_one_query(dev, kind, bh, s_valid, dtype):
     """Each storage body (kind "bf16": K/V in q's own type), q in each of the
     three types, within one step of q's type of the plain version's largest
     output, and of the grouped kernel at one slot; one position, one block
-    per row, a span that ends inside a chunk, and B*H of 1, 12 and 36;
+    per row, a span that ends inside a chunk, B*H of 1, 12 and 36, and
+    s_valid 3000 (several tiles a warp, a cluster of 8 at 13 rows, of 6 at 24);
     poisoning the padding (data and scales) changes no output bit; each body
     counts its own launches."""
     g = torch.Generator(device=dev).manual_seed(bh + s_valid)
@@ -810,6 +863,19 @@ def test_cross_attention_one_query(dev, kind, bh, s_valid, dtype):
         for t in (ks, vs):
             t[:, :, s_valid:] = float("inf")
     assert torch.equal(decode_cross_attention(q, k, v, ks, vs, s_valid), got)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+def test_cross_attention_one_query_two_runs_bit_equal(dev, kind, dtype):
+    """The blocks of a cluster combine in a fixed order, with no atomics:
+    two calls on the same inputs give the same bits."""
+    bh, s_valid = 12, 1500
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).to(dtype)
+    kv = _cross_kv(dev, kind, bh, s_valid, 7, dtype)
+    first = decode_cross_attention(q, *kv, s_valid)
+    assert torch.equal(decode_cross_attention(q, *kv, s_valid), first)
 
 
 def test_cross_attention_one_query_rejects_what_the_kernel_does_not_take(dev):

@@ -11,8 +11,9 @@ running it in turns (parent, change, change, parent):
 
 Only the wrappers' public signatures are used, so a tree from before their
 redesign times too. Each result is checked against its plain version
-(log-mel within chip_smoke's MEL_ATOL, codes and scales bit for bit through
-chip_smoke's `check_tq`). Prints one JSON line: the tag, the card's name and
+(the log-mel no less exact than its plain version against the float64
+log-mel, through chip_smoke's `mel_exactness`; codes and scales bit for bit
+through chip_smoke's `check_tq`). Prints one JSON line: the tag, the card's name and
 power limit, and the device ms per call (`chip_smoke.cuda_ms`)."""
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from chip_smoke import MEL_ATOL, check, check_tq, cuda_ms, max_err  # noqa: E402
+from chip_smoke import check_tq, cuda_ms, max_err, mel_exactness  # noqa: E402
 
 
 def main() -> int:
@@ -53,9 +54,11 @@ def main() -> int:
                check=True).stdout.strip().splitlines()[0]}
     for b, dtype in ((32, torch.bfloat16), (96, torch.bfloat16), (32, torch.float32)):
         wav = torch.randn(b, 480_000, generator=gen, device=dev) * 0.1
-        err = max_err(log_mel_cuda(wav, 80, dtype), features.log_mel(wav, 80, dtype))
-        check(err <= MEL_ATOL, f"mel {b} {dtype}: err {err} > {MEL_ATOL}")
+        got, ref = log_mel_cuda(wav, 80, dtype), features.log_mel(wav, 80, dtype)
         key = f"mel_{'bf16' if dtype == torch.bfloat16 else 'f32'}_{b}"
+        res[key + "_exact_err"] = mel_exactness(key, wav, got, ref, 80, dtype)
+        err = max_err(got, ref)
+        del got, ref
         res[key + "_ms"] = cuda_ms(lambda: log_mel_cuda(wav, 80, dtype))
         res[key + "_err"] = err
         del wav
