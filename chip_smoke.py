@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py              # from the repository root
     python3 chip_smoke.py --profile    # also torch.profiler kernel tables
-                                       # of the int8-kv, small-w8a8-dyn,
-                                       # beam5-prompt and small-b1 runs
+                                       # of the bf16-kv, int8-kv,
+                                       # small-w8a8-dyn, beam5-prompt and
+                                       # small-b1 runs
 
 Phase 0  prints the card and its power limit, builds the CUDA kernels from
          `openai_whisper_compression_tpu_torch/csrc` (nvcc, sm_90a, one
@@ -22,8 +23,9 @@ Phase 1  each kernel against its plain PyTorch version on the card, at
          whisper-medium's at M = 64 and 256; the encoder attention at
          whisper-small batch 96 and whisper-medium batch 64, on the strided
          layout the projections leave; the cache updates with a mixed
-         `start`; the grouped cross-attention at 1, 3, 5 and 8 query slots
-         over 384 and 1152 rows, and at 5 slots over the beam runs' 192; the
+         `start`, the fp update also at 36 rows in each type; the grouped
+         cross-attention at 1, 3, 5 and 8 query slots over 384 and 1152
+         rows, and at 5 slots over the beam runs' 192; the
          w8a8 matmul, dynamic and static, at whisper-small's four linears at
          M = 96 and M = 96 x 1500, bit for bit, beside quantize +
          `torch._int_mm` + epilogue and dequant + torch.matmul, with a
@@ -35,9 +37,9 @@ Phase 1  each kernel against its plain PyTorch version on the card, at
          headline batch's M = 96 and 288; the f32 and f16 bodies of the
          cache update, the grouped (1 and 5 slots) and the one-query
          cross-attention at the shapes of the f32 and f16 runs), with
-         CUDA-event times (the one-query cross-attention and the int8 cache
-         update and its read-only body also cold: rotating over copies of
-         their buffers larger than the 50 MB L2, as a decode step meets
+         CUDA-event times (the one-query cross-attention and both cache
+         updates and their read-only bodies also cold: rotating over copies
+         of their buffers larger than the 50 MB L2, as a decode step meets
          them); the dequant-matmuls also beside dequant +
          torch.matmul (every storage trait at M = 32, 96, 288 and 1024: where
          the two cross), the encoder attention beside the time its
@@ -320,8 +322,9 @@ PROMPT_RUNS = [
     ("beam5-int4ckv", {"beam_size": 5, "kv_int8": True, "cross_kv_int4": True}, 16),
     ("small-f16-beam5", {"beam_size": 5}, 8, "fp16"),
 ]
-# the runs `--profile` profiles: the headline, the w8a8 path, beam search
-PROFILED = ("int8-kv", "small-w8a8-dyn", "beam5-prompt", "small-b1")
+# the runs `--profile` profiles: the fp cache update's run, the headline,
+# the w8a8 path, beam search, batch 1
+PROFILED = ("bf16-kv", "int8-kv", "small-w8a8-dyn", "beam5-prompt", "small-b1")
 # phase-3 configurations: (name, weight quantization, DecodeConfig switches)
 LOGIT_RUNS = [("int8 bf16-kv", "int8", {}), ("int8 int8-kv", "int8", KV8),
               ("int4 int8-kv", "int4", KV8),
@@ -530,8 +533,8 @@ def check_update(what: str, bh: int, pos: int, gen, int8: bool,
     """One of the two cache-update kernels over a 64-row cache of `bh` rows
     against its plain version, q, the fresh rows and an fp cache in `dtype`:
     caches (codes and scales) bit for bit, the output within one step of
-    `dtype`; with times and its bound (the rows start..pos read once, row
-    pos written)."""
+    `dtype`; with warm and cold times (`cold_ms`) and its bound (the rows
+    start..pos read once, row pos written)."""
     from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
 
     dev = gen.device
@@ -558,19 +561,18 @@ def check_update(what: str, bh: int, pos: int, gen, int8: bool,
     check(err <= tol, f"{what} pos={pos}: err {err} > {tol}")
     t_k = cuda_ms(lambda: fn(qf, kn, vn, *bufs, pos, start=start))
     t_p = cuda_ms(lambda: ref_fn(qf, kn, vn, *refs, pos, start=start))
-    cold = ""
-    if int8:   # the decode step finds its cache in device memory
-        t_c = cuda_ms_cold(lambda *a: fn(*a, pos, start=start), [qf, kn, vn, *bufs])
-        cold = f" (cold {t_c:.4f} ms)"
+    # the decode step finds its cache in device memory
+    t_c = cuda_ms_cold(lambda *a: fn(*a, pos, start=start), [qf, kn, vn, *bufs])
     rows = bh * (pos + 1) - (0 if start is None else int(start.sum()))
     per_row = sum(t[0, 0].numel() * t.element_size() for t in bufs)
     least = bound(nbytes(qf, kn, vn, got) + per_row * (rows + bh),
                   4 * 64 * rows / peak_flops(torch.bfloat16 if int8 else dtype))
     log(f"phase1 {what} pos={pos} ({bh}, 64, 64)"
         + ("" if start is None else f" start {int(start.min())}..{int(start.max())}")
-        + f": err {err:.3g} (bound {tol:.3g}) caches equal; kernel {t_k:.4f} ms{cold} "
-        f"plain {t_p:.4f} ms least {least['bound_ms']:.5f} ms ({least['bound_by']})")
-    return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least,
+        + f": err {err:.3g} (bound {tol:.3g}) caches equal; kernel {t_k:.4f} ms "
+        f"(cold {t_c:.4f} ms) plain {t_p:.4f} ms least {least['bound_ms']:.5f} ms "
+        f"({least['bound_by']})")
+    return {"max_abs_err": err, "ms": t_k, "cold_ms": t_c, "plain_ms": t_p, **least,
             "library_ms": None}
 
 
@@ -699,8 +701,10 @@ def phase1(dev, results: dict) -> None:
                       (k_t[:rows], v_t[:rows], None, None), s_valid)
     del k_t, v_t
 
-    # self-attention update over a 64-row bf16 cache, and with the mixed
-    # `start` of the greedy-prompt-ts run (16 - prompt length: 0..12)
+    # self-attention update over a 64-row bf16 cache at bf16-kv's 384 rows,
+    # and with the mixed `start` of the greedy-prompt-ts run (16 - prompt
+    # length: 0..12); at 36 rows (batch 3)
+    bh = BATCH * 12
     errs = []
     for pos in (3, 30, 63):
         res = check_update("self_attention_update", bh, pos, gen, False, None)
@@ -711,6 +715,7 @@ def phase1(dev, results: dict) -> None:
     start = (torch.arange(bh, device=dev) // 12 * 5 % 13).to(torch.int32)
     results["self_start"] = check_update("self_attention_update start", bh, 30,
                                          gen, False, start)
+    check_update("self_attention_update", 36, 30, gen, False, None)
 
 
 def check_tq(x: torch.Tensor, h: int) -> tuple:
@@ -1057,12 +1062,10 @@ def phase1_small_batch(dev, results: dict) -> None:
                   f"{what}: the read-only kernel wrote to the cache")
             check(err <= tol, f"{what}: err {err} > {tol}")
             t_k = cuda_ms(attend)
-            cold = ""
-            if int8:
-                t_c = cuda_ms_cold(lambda q_, *b: sas.decode_self_attention(
-                    q_, b[0], b[1], pos, start=start, k_scale=b[2], v_scale=b[3]),
-                    [qf, *bufs])
-                cold = f" (cold {t_c:.4f} ms)"
+            t_c = cuda_ms_cold(lambda q_, *b: sas.decode_self_attention(
+                q_, b[0], b[1], pos, start=start,
+                **({"k_scale": b[2], "v_scale": b[3]} if int8 else {})),
+                [qf, *bufs])
             t_p = cuda_ms(lambda: sas.decode_self_attention_ref(
                 qf, bufs[0], bufs[1], pos, start=start, **scales))
             rows = bh * (pos + 1) - (0 if start is None else int(start.sum()))
@@ -1083,11 +1086,12 @@ def phase1_small_batch(dev, results: dict) -> None:
                                              bufs[1][:, : pos + 1], attn_mask=mask,
                                              scale=1.0))
             results[key + ("_start" if with_start else "")] = {
-                "max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least,
-                "library_ms": t_lib}
+                "max_abs_err": err, "ms": t_k, "cold_ms": t_c, "plain_ms": t_p,
+                **least, "library_ms": t_lib}
             log(f"phase1 {what} pos={pos} ({bh}, 64, 64): equal to the update "
                 f"kernel's output bit for bit; err {err:.3g} (bound {tol:.3g}) kernel "
-                f"{t_k:.4f} ms{cold} plain {t_p:.4f} ms least {least['bound_ms']:.5f} ms "
+                f"{t_k:.4f} ms (cold {t_c:.4f} ms) plain {t_p:.4f} ms least "
+                f"{least['bound_ms']:.5f} ms "
                 f"({least['bound_by']})"
                 + ("" if t_lib is None else f" sdpa {t_lib:.4f} ms"))
 
@@ -1095,10 +1099,11 @@ def phase1_small_batch(dev, results: dict) -> None:
 def phase1_dtypes(dev, results: dict) -> None:
     """The f32 and f16 bodies of the decode attention kernels against their
     plain versions, at the shapes of the runs that launch them: the cache
-    update at 192 rows (small-f32, batch 16) and, with the mixed `start` of
-    the small-f16-beam5 run, at its 8 x 5 x 12 = 480 rows; the grouped
-    cross-attention at 1 slot over 192 rows and at 5 slots over the beam
-    run's 96 rows; the one-query cross-attention at 36 rows (batch 3). Two
+    update at 192 and 36 rows (small-f32, batch 16; batch 3) and, with the
+    mixed `start` of the small-f16-beam5 run, at its 8 x 5 x 12 = 480 rows;
+    the grouped cross-attention at 1 slot over 192 rows and at 5 slots over
+    the beam run's 96 rows; the one-query cross-attention at 36 rows (batch
+    3). Two
     bodies that no run launches are held and timed here only: the int8 cache
     update under f32 and f16 q, and the read-only self-attention over an f32
     and an f16 cache (bit for bit against the update kernel's output)."""
@@ -1117,6 +1122,7 @@ def phase1_dtypes(dev, results: dict) -> None:
                            False, start, dtype)
         if tag == "f16":
             results["self_f16_start"] = res
+        check_update(f"self_attention_update {tag}", 3 * h, 30, gen, False, None, dtype)
         check_update(f"self_attention_update_int8 {tag} q", rows, 30, gen, True, None,
                      dtype)
         qf = (torch.randn(rows, 64, generator=gen, device=dev) * 0.125).to(dtype)
@@ -1128,10 +1134,11 @@ def phase1_dtypes(dev, results: dict) -> None:
               f"self_attention {tag}: differs from the update kernel's output on "
               "the cache it wrote")
         t_k = cuda_ms(lambda: sas.decode_self_attention(qf, kc, vc, 30))
+        t_c = cuda_ms_cold(lambda *a: sas.decode_self_attention(*a, 30), [qf, kc, vc])
         t_p = cuda_ms(lambda: sas.decode_self_attention_ref(qf, kc, vc, 30))
         log(f"phase1 self_attention {tag} pos=30 ({rows}, 64, 64): equal to the "
-            f"update kernel's output bit for bit; kernel {t_k:.4f} ms plain "
-            f"{t_p:.4f} ms")
+            f"update kernel's output bit for bit; kernel {t_k:.4f} ms (cold "
+            f"{t_c:.4f} ms) plain {t_p:.4f} ms")
         k_t, v_t = (torch.randn(rows, 64, s_pad, generator=gen, device=dev).to(dtype)
                     for _ in range(2))
         for kq, bh in ((1, rows), (5, 8 * h)):

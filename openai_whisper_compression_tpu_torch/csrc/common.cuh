@@ -77,13 +77,13 @@ __device__ __forceinline__ void owc_int4x4_to_float(uint32_t w, int shift, float
   f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388616.0f;
 }
 
-// Where the sums of `owc_reduce_scatter8` land: value e of a lane's result
-// is value `owc_scatter_base<N>(lane)` + e of the N.
-template <int N>
+// Where the sums of `owc_reduce_scatter<HI, LO>` land: value e of a lane's
+// result is value `owc_scatter_base<N, HI, LO>(lane)` + e of the N.
+template <int N, int HI, int LO>
 __device__ __forceinline__ int owc_scatter_base(int lane) {
   int base = 0, n = N;
 #pragma unroll
-  for (int o = 16; o >= 4; o >>= 1) {
+  for (int o = HI; o >= LO; o >>= 1) {
     if (n > 1) {
       n /= 2;
       if (lane & o) base += n;
@@ -92,17 +92,18 @@ __device__ __forceinline__ int owc_scatter_base(int lane) {
   return base;
 }
 
-// Sums x over the 8 lanes that share lane & 3 (lanes differing in bits 2-4)
-// and keeps a share: at each of the three steps a lane sends half of its
-// values to its partner and adds the other half, so N values become
-// max(N / 8, 1) sums (N / 8 > 0: each held by one lane; N = 4: by the two
-// lanes that differ in bit 2; N = 2 or 1: by all four). 3 to 14 shuffles in
-// place of 3 N.
-template <int N>
-__device__ __forceinline__ void owc_reduce_scatter8(float (&x)[N], int lane) {
+// Sums x over the lanes that differ only in the lane bits LO..HI (powers of
+// two, HI >= LO: 2 HI / LO lanes) and keeps a share: at each step, HI down
+// to LO, a lane sends half of its values to its partner and adds the other
+// half, so N values become max(N / lanes, 1) sums, each held by one lane
+// where N >= lanes, else by the lanes that differ in the last bits only.
+// Fewer shuffles than an all-reduce of each value (3 to 14 in place of 3 N
+// over 8 lanes).
+template <int HI, int LO, int N>
+__device__ __forceinline__ void owc_reduce_scatter(float (&x)[N], int lane) {
   int n = N;
 #pragma unroll
-  for (int o = 16; o >= 4; o >>= 1) {
+  for (int o = HI; o >= LO; o >>= 1) {
     if (n > 1) {
       const int h = n / 2;
       const bool up = lane & o;
@@ -131,28 +132,4 @@ __device__ __forceinline__ float owc_warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Block-wide reductions for blockDim.x a multiple of 32 (at most 1024).
-// `scratch` holds 32 floats of shared memory; every thread gets the result.
-__device__ __forceinline__ float owc_block_max(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = owc_warp_max(v);
-  __syncthreads();  // scratch may still be read by a previous reduction
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = lane < nwarps ? scratch[lane] : -INFINITY;
-  return owc_warp_max(v);
-}
-
-__device__ __forceinline__ float owc_block_sum(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = owc_warp_sum(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = lane < nwarps ? scratch[lane] : 0.0f;
-  return owc_warp_sum(v);
 }

@@ -720,7 +720,7 @@ bool dispatch(int kind, int dtype, F&& fn) {
 //   one's, so V is in flight while the scores reduce.
 // - Scores: each lane sums its rows' products for the positions of its
 //   column; a reduce-scatter over the 8 lanes of a column
-//   (`owc_reduce_scatter8`) leaves every position's score with one lane (or
+//   (`owc_reduce_scatter`) leaves every position's score with one lane (or
 //   two), with no shared array and no block barrier. A warp keeps an online
 //   softmax (m, l in base 2); its probabilities, times the v scale, go
 //   through 64 floats of the warp's own shared memory to the lanes that hold
@@ -760,7 +760,7 @@ cross_attn_one_query_kernel(const Q* __restrict__ q,
   const int g = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rank = (int)cluster.block_rank(), splits = (int)cluster.num_blocks();
   const int cc = lane & 3, rg = lane >> 2;      // chunk column, first stored row
-  const int base = owc_scatter_base<VEC>(lane); // where this lane's scores lie
+  const int base = owc_scatter_base<VEC, 16, 4>(lane); // where this lane's scores lie
   // VEC = 4: the lanes that differ in bit 2 hold the same scores; one counts
   const bool own = VEC >= 8 || !(lane & 4);
   const T* kg = k_t + (size_t)g * ROWS * S_pad;
@@ -828,7 +828,7 @@ cross_attn_one_query_kernel(const Q* __restrict__ q,
 #pragma unroll
         for (int v = 0; v < VEC; ++v) part[v] = fmaf(qr[i][d], kv[d][v], part[v]);
     }
-    owc_reduce_scatter8(part, lane);
+    owc_reduce_scatter<16, 4>(part, lane);
     float x[NV], mt = -INFINITY;
 #pragma unroll
     for (int e = 0; e < NV; ++e) {

@@ -27,21 +27,33 @@
 // only q, the fresh rows and the output have it. The caches and scales are
 // updated in place.
 //
-// What bounds it on the H100: launch latency, then bytes. At whisper-small,
-// batch 32, a 64-slot bf16 cache is BH x 64 x 64 x 2 bytes = 3 MB per tensor
-// (half that in int8 at batch 32, 4.7 MB at batch 96), a microsecond or two
-// of device-memory time; the step is tiny, so the gain is one launch in
-// place of the separate quantize, row write, score, softmax and value
-// kernels. Only the live cache rows lo..pos are read; the start variants of
-// the TPU kernels are one null-able pointer here, not separate bodies.
+// What bounds it on the H100: bytes, then one memory latency and the
+// launch. A row reads rows start..pos of its K and V caches, 2 x 64 x (pos
+// + 1 - start) elements (3 MB in bf16 at pos 30 over 384 rows, under a
+// microsecond of the card's memory rate) and writes one row of each; what a
+// call costs beyond its launch is how many memory latencies it waits
+// through in series. So every body is one warp per row that issues a whole
+// pass's loads before any arithmetic, and the fresh rows are attended from
+// registers: no shared memory, no block barrier, one latency a pass. Only
+// the live cache rows lo..pos are read; the start variants of the TPU
+// kernels are one null-able pointer here, not separate bodies.
 //
-// Design, fp cache: one block (128 threads) per (batch, head) row, which
-// owns that row's cache slice: it writes row pos first, and __syncthreads
-// makes the write visible before any thread of the block reads the cache
-// back. Each warp scores a strided set of positions (lanes split the 64
-// dims, warp reduction), block reductions give the softmax, and 64 threads
-// sum the value rows (neighbouring threads read neighbouring dims:
-// coalesced).
+// Design, fp cache: a block of one warp per row (blocks of two and four
+// rows were no faster on the H100), a pass of FP_PASS = 32 positions. A
+// 16-byte piece holds E = 16 / sizeof(T) dims (8 in bf16 and f16, 4 in
+// f32), so one warp load brings P = 32 E / 64 positions (4, or 2 in f32).
+// Lane l holds piece l / P of q and of the positions s0 + l % P + P t of a
+// pass (t < 32 / P slots: 8, or 16 in f32) and issues the pass's K and V
+// loads together. A score is E products, then a reduce-scatter over the
+// 64 / E lanes of its position (`owc_reduce_scatter`) leaves the score of
+// position s0 + l with lane l: max and sum are one warp reduction a pass,
+// one ex2 a lane, and each lane takes its slots' probabilities back by
+// shuffles into E dims of value sums, which reduce over the P slot lanes at
+// the end (2 dims of the output a lane). The update loads the fresh rows as
+// 16-byte pieces while the pass is in flight; the lanes of slot 0 write them
+// to row pos and the slot that holds pos attends them from registers: row
+// pos is never read back. A cache longer than a pass loops with an online
+// softmax (m and l in base 2: q is scaled by log2(e) as it loads).
 // Design, int8 cache: a warp per row, 4 rows a block, no shared memory and
 // no block barrier. A lane holds 16 dims of q and 8 positions of a 64-position
 // pass; it issues the pass's 8 K and 8 V loads of 16 bytes and their scales
@@ -62,58 +74,151 @@
 
 namespace {
 
-constexpr int DH = 64, THREADS = 128;
+constexpr int DH = 64;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// fp cache: positions a pass (one a lane)
+constexpr int FP_PASS = 32;
+
+// 16 bytes of T as E floats (exact)
+template <typename T>
+struct Piece;
+template <>
+struct Piece<float> {
+  static constexpr int E = 4;
+  __device__ static void to_float(const uint4& u, float (&f)[E]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+template <>
+struct Piece<__nv_bfloat16> {
+  static constexpr int E = 8;
+  __device__ static void to_float(const uint4& u, float (&f)[E]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a bf16 is the high half of its f32
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+};
+template <>
+struct Piece<__half> {
+  static constexpr int E = 8;
+  __device__ static void to_float(const uint4& u, float (&f)[E]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __half2float(__ushort_as_half((unsigned short)(w[i] & 0xFFFFu)));
+      f[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
+    }
+  }
+};
 
 template <typename T, bool WRITE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32)
 self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, T* k_cache, T* v_cache,
                         T* __restrict__ out, const int* __restrict__ start,
                         int S, int pos) {
-  extern __shared__ __align__(16) float sc[];  // [pos + 1]
-  __shared__ float qs[DH];
-  __shared__ float red[32];
-  const int g = blockIdx.x, tid = threadIdx.x;
+  constexpr int E = Piece<T>::E;     // dims of a 16-byte piece
+  constexpr int P = 32 * E / DH;     // positions a warp load brings
+  constexpr int SLOTS = FP_PASS / P; // positions a lane holds in a pass
+  const int lane = threadIdx.x, g = blockIdx.x;
+  const int slot = lane % P, dq = lane / P;
   const int lo = start ? start[g] : 0;  // first position that attends
-  T* kg = k_cache + (size_t)g * S * DH;
-  T* vg = v_cache + (size_t)g * S * DH;
+  T* kg = k_cache + (size_t)g * S * DH + dq * E;  // this lane's piece of row 0
+  T* vg = v_cache + (size_t)g * S * DH + dq * E;
 
-  if (tid < DH) {
-    if (WRITE) {
-      kg[(size_t)pos * DH + tid] = k_new[(size_t)g * DH + tid];
-      vg[(size_t)pos * DH + tid] = v_new[(size_t)g * DH + tid];
+  // a pass's K and V pieces of this lane, all in flight together:
+  // positions s0 + slot + P t up to pos (zero past it); row pos only where
+  // this kernel does not write it
+  uint4 kr[SLOTS], vr[SLOTS];
+  auto load = [&](int s0) {
+#pragma unroll
+    for (int t = 0; t < SLOTS; ++t) {
+      const int s = s0 + slot + P * t;
+      kr[t] = vr[t] = make_uint4(0, 0, 0, 0);
+      if (s <= pos && !(WRITE && s == pos)) {
+        kr[t] = *reinterpret_cast<const uint4*>(kg + (size_t)s * DH);
+        vr[t] = *reinterpret_cast<const uint4*>(vg + (size_t)s * DH);
+      }
     }
-    qs[tid] = owc_to_float(q[(size_t)g * DH + tid]);
-  }
-  __syncthreads();  // the row write lands before the block reads the cache
+  };
+  load(lo);
 
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int s = lo + warp; s <= pos; s += THREADS / 32) {
-    const T* krow = kg + (size_t)s * DH;
-    float part = qs[lane] * owc_to_float(krow[lane]) +
-                 qs[lane + 32] * owc_to_float(krow[lane + 32]);
-    part = owc_warp_sum(part);
-    if (lane == 0) sc[s] = part;
-  }
-  __syncthreads();
+  float qr[E];
+  Piece<T>::to_float(*reinterpret_cast<const uint4*>(q + (size_t)g * DH + dq * E), qr);
+#pragma unroll
+  for (int i = 0; i < E; ++i) qr[i] *= LOG2E;  // scores in base 2
 
-  float m = -INFINITY;
-  for (int s = lo + tid; s <= pos; s += THREADS) m = fmaxf(m, sc[s]);
-  m = owc_block_max(m, red);
-  float l = 0.0f;
-  for (int s = lo + tid; s <= pos; s += THREADS) {
-    const float p = expf(sc[s] - m);
-    sc[s] = p;
-    l += p;
+  // the fresh rows: the lanes of slot 0 write them, and the slot that
+  // holds pos attends them from registers
+  uint4 kfresh = make_uint4(0, 0, 0, 0), vfresh = make_uint4(0, 0, 0, 0);
+  if (WRITE) {
+    kfresh = *reinterpret_cast<const uint4*>(k_new + (size_t)g * DH + dq * E);
+    vfresh = *reinterpret_cast<const uint4*>(v_new + (size_t)g * DH + dq * E);
+    if (slot == 0) {
+      *reinterpret_cast<uint4*>(kg + (size_t)pos * DH) = kfresh;
+      *reinterpret_cast<uint4*>(vg + (size_t)pos * DH) = vfresh;
+    }
   }
-  l = owc_block_sum(l, red);  // ends with a barrier: sc holds probabilities
 
-  if (tid < DH) {
-    float acc = 0.0f;
-    for (int s = lo; s <= pos; ++s)
-      acc = fmaf(sc[s], owc_to_float(vg[(size_t)s * DH + tid]), acc);
-    owc_store(out + (size_t)g * DH + tid, acc / l);
+  float m_run = -INFINITY, l_run = 0.0f, acc[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) acc[i] = 0.0f;
+#pragma unroll 1
+  for (int s0 = lo; s0 <= pos; s0 += FP_PASS) {
+    if (s0 != lo) load(s0);
+    if (WRITE) {
+#pragma unroll
+      for (int t = 0; t < SLOTS; ++t) {
+        if (s0 + slot + P * t == pos) {
+          kr[t] = kfresh;
+          vr[t] = vfresh;
+        }
+      }
+    }
+    // scores: E products a lane, then summed over the lanes of each
+    // position; lane l keeps the score of position s0 + l
+    float x[SLOTS];
+#pragma unroll
+    for (int t = 0; t < SLOTS; ++t) {
+      float kf[E];
+      Piece<T>::to_float(kr[t], kf);
+      float sc = 0.0f;
+#pragma unroll
+      for (int i = 0; i < E; ++i) sc = fmaf(qr[i], kf[i], sc);
+      x[t] = sc;
+    }
+    owc_reduce_scatter<16, P>(x, lane);
+    const float xs = s0 + lane <= pos ? x[0] : -INFINITY;
+    const float mn = fmaxf(m_run, owc_warp_max(xs));  // finite: s0 attends
+    const float corr = ex2(m_run - mn);
+    m_run = mn;
+    const float p = ex2(xs - mn);  // 0 past pos
+    l_run = l_run * corr + p;      // this lane's share; summed at the end
+#pragma unroll
+    for (int i = 0; i < E; ++i) acc[i] *= corr;
+#pragma unroll
+    for (int t = 0; t < SLOTS; ++t) {
+      const float pt = __shfl_sync(0xffffffffu, p, slot + P * t);
+      float vf[E];
+      Piece<T>::to_float(vr[t], vf);
+#pragma unroll
+      for (int i = 0; i < E; ++i) acc[i] = fmaf(pt, vf[i], acc[i]);
+    }
   }
+  const float l = owc_warp_sum(l_run);
+  // the value sums over the P slot lanes; each lane keeps 2 of its E dims,
+  // dims 2 lane and 2 lane + 1 of the row
+  owc_reduce_scatter<P / 2, 1>(acc, lane);
+  const int d = dq * E + owc_scatter_base<E, P / 2, 1>(lane);
+  owc_store(out + (size_t)g * DH + d, acc[0] / l);
+  owc_store(out + (size_t)g * DH + d + 1, acc[1] / l);
 }
 
 // int8 cache: a warp per (batch, head) row, I8_WARPS rows a block. Lane l
@@ -124,7 +229,6 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 constexpr int I8_WARPS = 4;
 constexpr int I8_SLOTS = 8;
 constexpr int I8_PASS = 8 * I8_SLOTS;  // positions a pass covers
-constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ void codes16(const uint4& u, float (&f)[16]) {
   owc_int8x4_to_float(u.x, f);
@@ -269,8 +373,8 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
     l_run = l_run * corr + ls;
   }
   // the value sums over the 8 slots; each lane keeps 2 of its 16 dims
-  owc_reduce_scatter8(acc, lane);
-  const int d = dq * 16 + owc_scatter_base<16>(lane);
+  owc_reduce_scatter<16, 4>(acc, lane);
+  const int d = dq * 16 + owc_scatter_base<16, 16, 4>(lane);
   owc_store(out + (size_t)g * DH + d, acc[0] / l_run);
   owc_store(out + (size_t)g * DH + d + 1, acc[1] / l_run);
 }
@@ -279,15 +383,13 @@ template <bool WRITE>
 int launch_fp(const void* q, const void* k_new, const void* v_new, void* k_cache,
               void* v_cache, void* out, const void* start, int BH, int S, int pos,
               int dtype, void* stream) {
-  const size_t smem = (size_t)(pos + 1) * sizeof(float);
   const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
     using T = decltype(tag);
-    self_attn_update_kernel<T, WRITE>
-        <<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k_new),
-            static_cast<const T*>(v_new), static_cast<T*>(k_cache),
-            static_cast<T*>(v_cache), static_cast<T*>(out),
-            static_cast<const int*>(start), S, pos);
+    self_attn_update_kernel<T, WRITE><<<BH, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k_new),
+        static_cast<const T*>(v_new), static_cast<T*>(k_cache),
+        static_cast<T*>(v_cache), static_cast<T*>(out),
+        static_cast<const int*>(start), S, pos);
   });
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }

@@ -86,11 +86,12 @@ def _start_arg(name: str, start: torch.Tensor | None, q: torch.Tensor) -> int | 
     return start.data_ptr()
 
 
-def _require_aligned_rows(name: str, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor) -> None:
-    """The int8 kernel reads and writes cache rows in 16-byte pieces."""
-    kernels.require(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0,
-                    name, "int8 caches must start on a 16-byte boundary")
+def _require_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels read and write cache rows (and the fp kernel q and the
+    fresh rows) in 16-byte pieces."""
+    kernels.require(all(t.data_ptr() % 16 == 0 for t in tensors), name,
+                    "q, the fresh rows and the caches must start on a "
+                    "16-byte boundary")
 
 
 def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
@@ -102,7 +103,7 @@ def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
     written at row `pos` IN PLACE; attention over rows start..pos, `start`
     (BH,) int32 with start <= pos (rows 0..pos without it). Returns
     (BH, Dh) in q's dtype. A CUDA tensor launches the kernel (f32, bf16 or
-    f16, one type for all five tensors; counted in
+    f16, one type for all five tensors, each on a 16-byte boundary; counted in
     `decode_self_attention_update.launches` for bf16, `.launches_f32`,
     `.launches_f16`, with `start` in that attribute + `_start`); a CPU tensor
     takes the plain version."""
@@ -126,6 +127,7 @@ def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
     kernels.require(all(t.is_contiguous() for t in
                         (q, k_new, v_new, k_cache, v_cache)), name,
                     "inputs must be contiguous")
+    _require_aligned(name, q, k_new, v_new, k_cache, v_cache)
     start_ptr = _start_arg(name, start, q)
     out = torch.empty_like(q)
     err = kernels.lib().owc_self_attention_update(
@@ -221,7 +223,7 @@ def decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
                     "q, k/v, the caches and the scales must share a device")
     kernels.require(all(t.is_contiguous() for t in tensors), name,
                     "inputs must be contiguous")
-    _require_aligned_rows(name, k_cache, v_cache)
+    _require_aligned(name, k_cache, v_cache)
     start_ptr = _start_arg(name, start, q)
     out = torch.empty_like(q)
     err = kernels.lib().owc_self_attention_update_int8(
@@ -264,7 +266,8 @@ def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
     int32 with start <= pos (rows 0..pos without it). Nothing is written.
     Returns (BH, Dh) in q's dtype: on the cache an update function wrote,
     that function's output bit for bit. A CUDA tensor launches the kernel
-    (q f32, bf16 or f16, an fp cache in q's type; counted in
+    (q f32, bf16 or f16, an fp cache in q's type, q and the caches on
+    16-byte boundaries; counted in
     `decode_self_attention.launches` for a bf16 cache, `.launches_f32`,
     `.launches_f16` and `.launches_int8` for an int8 one, with `start` in
     that attribute + `_start`); a CPU tensor takes the plain version."""
@@ -290,10 +293,11 @@ def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
                         name, f"scales must be ({bh}, {s})")
         kernels.require_dtype(name, torch.int8, k_cache, v_cache)
         kernels.require_dtype(name, torch.float32, k_scale, v_scale)
-        _require_aligned_rows(name, k_cache, v_cache)
+        _require_aligned(name, k_cache, v_cache)
         tensors += [k_scale, v_scale]
     else:
         code = kernels.dtype_code(q, name, k_cache, v_cache)
+        _require_aligned(name, q, k_cache, v_cache)
     kernels.require(len({t.device for t in tensors}) == 1, name,
                     "q, the caches and the scales must share a device")
     kernels.require(all(t.is_contiguous() for t in tensors), name,

@@ -541,6 +541,46 @@ def test_self_attention_int8_rows(dev, bh, s, pos, with_start, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("with_start", [False, True], ids=["nostart", "start"])
+@pytest.mark.parametrize("bh,s,pos", [(384, 64, 30), (1, 64, 0), (1, 64, 63),
+                                      (13, 64, 0), (13, 64, 63), (2, 12288, 12287)])
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+def test_self_attention_fp_rows(dev, bh, s, pos, with_start, dtype):
+    """The fp update at bf16-kv's (384, 64, 64) and pos 30, at one and 13
+    rows (a block's 4 warps not all used) at pos 0 and 63, and over a
+    12288-row cache (384 passes of 32 positions): caches equal to the plain
+    version's bit for bit, the output within one step of q's type (a row
+    whose start is pos returns its fresh v row exactly), and the read-only
+    kernel on the cache it wrote equal to its output bit for bit, writing
+    nothing; each launch counted."""
+    g = torch.Generator(device=dev).manual_seed(bh + s + pos + 7)
+    q = (torch.randn(bh, 64, generator=g, device=dev) * 0.125).to(dtype)
+    kn, vn = (torch.randn(2, bh, 64, generator=g, device=dev)).to(dtype)
+    bufs = [torch.randn(bh, s, 64, generator=g, device=dev).to(dtype)
+            for _ in range(2)]
+    refs = [t.clone() for t in bufs]
+    start = None
+    if with_start:
+        start = (_mixed_start(dev, bh, pos) if bh > 1 else
+                 torch.full((1,), pos // 2, dtype=torch.int32, device=dev))
+    counter = "launches" + _COUNTER[dtype] + ("_start" if with_start else "")
+    before = getattr(decode_self_attention_update, counter)
+    got = decode_self_attention_update(q, kn, vn, *bufs, pos, start=start)
+    assert getattr(decode_self_attention_update, counter) == before + 1
+    ref = decode_self_attention_update_ref(q, kn, vn, *refs, pos, start=start)
+    assert all(torch.equal(a, b) for a, b in zip(bufs, refs))
+    assert got.dtype == dtype
+    if with_start and bh > 1:   # row 1 attends to the row just written only
+        assert torch.equal(got[1], vn[1])
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(dtype, float(ref.float().abs().max())))
+    before = getattr(decode_self_attention, counter)
+    again = decode_self_attention(q, *bufs, pos, start=start)
+    assert getattr(decode_self_attention, counter) == before + 1
+    assert torch.equal(again, got)
+    assert all(torch.equal(a, b) for a, b in zip(bufs, refs))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 32, device=dev)
     with pytest.raises(ValueError):  # head dim 32
@@ -568,6 +608,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
             torch.zeros(4, 64, 128, device=dev, dtype=torch.float64))
     with pytest.raises(TypeError):  # f32 rows over a bf16 cache
         decode_self_attention_update(*torch.zeros(3, 4, 64, device=dev), cache,
+                                     cache.clone(), 1)
+    with pytest.raises(ValueError):  # a cache at an offset that breaks 16-byte loads
+        off = torch.zeros(4 * 8 * 64 + 1, device=dev, dtype=torch.bfloat16)[1:]
+        decode_self_attention_update(row, row, row, off.view(4, 8, 64),
                                      cache.clone(), 1)
     with pytest.raises(ValueError):  # w at an offset that breaks 16-byte loads
         int8_matmul(torch.zeros(2, 64, device=dev),
@@ -953,3 +997,6 @@ def test_self_attention_read_only_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError):    # an int64 start
         decode_self_attention(row, cache, cache, 1,
                               start=torch.zeros(4, dtype=torch.long, device=dev))
+    with pytest.raises(ValueError):   # q at an offset that breaks 16-byte loads
+        off = torch.zeros(4 * 64 + 1, device=dev, dtype=bf)[1:].view(4, 64)
+        decode_self_attention(off, cache, cache, 1)

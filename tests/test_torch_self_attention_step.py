@@ -18,34 +18,48 @@ from openai_whisper_compression_tpu_torch.ops.self_attention_step import (
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("pos", [0, 5, 15])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def _mixed_start(bh: int, pos: int) -> np.ndarray:
+    """(BH,) int32 starts: 0, pos itself (that row attends to the fresh row
+    alone) and values between."""
+    start = np.arange(bh) * 3 % (pos + 1)
+    start[1] = pos
+    return start.astype(np.int32)
+
+
+@pytest.mark.parametrize("pos", [0, 5, 15, 40, 79])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_update_plain_matches_pallas(pos, dtype):
-    """Caches bit-identical (the row write is a copy); output within 1e-5
-    (f32) or one bf16 rounding (2**-8) of values of order 1."""
-    bh, s, dh = 8, 16, 64
+    """Without `start` and with a mixed one (a row whose start is pos among
+    them): caches bit-identical (the row write is a copy); output within
+    1e-5 (f32), one bf16 rounding (2**-8) or one f16 step (2**-10) of values
+    of order 1. pos 40 and 79 over an 80-row cache (past a 32-position pass
+    of the kernel), the others over 16 rows."""
+    bh, s, dh = 8, 16 if pos < 16 else 80, 64
     rng = np.random.default_rng(pos)
     q = (rng.standard_normal((bh, dh)) * 0.125).astype(np.float32)
     kn, vn = (rng.standard_normal((2, bh, dh))).astype(np.float32)
     kc, vc = (rng.standard_normal((2, bh, s, dh))).astype(np.float32)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
-    ref_out, ref_k, ref_v = jax_update(
-        jnp.asarray(q, jd), jnp.asarray(kn, jd), jnp.asarray(vn, jd),
-        jnp.asarray(kc, jd), jnp.asarray(vc, jd), jnp.asarray(pos))
-    k_cache = torch.from_numpy(kc).to(td)
-    v_cache = torch.from_numpy(vc).to(td)
-    out = decode_self_attention_update(
-        torch.from_numpy(q).to(td), torch.from_numpy(kn).to(td),
-        torch.from_numpy(vn).to(td), k_cache, v_cache, pos)
-    assert out.dtype == td
-    np.testing.assert_array_equal(k_cache.float().numpy(),
-                                  np.asarray(ref_k.astype(jnp.float32)))
-    np.testing.assert_array_equal(v_cache.float().numpy(),
-                                  np.asarray(ref_v.astype(jnp.float32)))
-    tol = 1e-5 if dtype == "float32" else 2 ** -8
-    np.testing.assert_allclose(out.float().numpy(),
-                               np.asarray(ref_out.astype(jnp.float32)),
-                               rtol=tol, atol=tol)
+    tol = {"float32": 1e-5, "bfloat16": 2 ** -8, "float16": 2 ** -10}[dtype]
+    for start in (None, _mixed_start(bh, pos)):
+        ref_out, ref_k, ref_v = jax_update(
+            jnp.asarray(q, jd), jnp.asarray(kn, jd), jnp.asarray(vn, jd),
+            jnp.asarray(kc, jd), jnp.asarray(vc, jd), jnp.asarray(pos),
+            None if start is None else jnp.asarray(start))
+        k_cache = torch.from_numpy(kc).to(td)
+        v_cache = torch.from_numpy(vc).to(td)
+        out = decode_self_attention_update(
+            torch.from_numpy(q).to(td), torch.from_numpy(kn).to(td),
+            torch.from_numpy(vn).to(td), k_cache, v_cache, pos,
+            None if start is None else torch.from_numpy(start))
+        assert out.dtype == td
+        np.testing.assert_array_equal(k_cache.float().numpy(),
+                                      np.asarray(ref_k.astype(jnp.float32)))
+        np.testing.assert_array_equal(v_cache.float().numpy(),
+                                      np.asarray(ref_v.astype(jnp.float32)))
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(ref_out.astype(jnp.float32)),
+                                   rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("pos", [0, 7, 15])

@@ -3,11 +3,16 @@
 public wrappers on one CUDA card, for the package of the checkout at --root:
 the one-query cross-attention (`decode_cross_attention`: K/V in q's type,
 int8 and int4 K/V under f32, bf16 and f16 q, at 12 and 36 rows, whisper-small
-at batch 1 and 3, s_valid 1500 of 1536) and the int8 cache update
+at batch 1 and 3, s_valid 1500 of 1536), the int8 cache update
 (`decode_self_attention_update_int8`) with its read-only body (the int8
 `decode_self_attention`) over a 64-row cache at 1152 and 12 rows, pos 30,
-without and with a mixed `start`. Two checkouts are timed in one call by
-running it in turns (parent, change, change, parent):
+without and with a mixed `start`, and the fp cache update
+(`decode_self_attention_update`) with its read-only body over a 64-row
+cache, pos 30: bf16 at 384 rows (bf16-kv, batch 32) without and with
+`start`, f32 at 192 (small-f32, batch 16), f32 and f16 at 480 with `start`
+(the beam-5 prompt run's rows), f16 at 192, and 36 rows (batch 3) in each
+type. Two checkouts are timed in one call by running it in turns (parent,
+change, change, parent):
 
     python3 tools/torch_decode_ab.py --root path/to/checkout --tag parent
 
@@ -75,6 +80,19 @@ def time_cross(res: dict, gen) -> None:
                       f"{warm:.4f} ms cold {cold:.4f} ms", flush=True)
 
 
+def time_pair(res: dict, key: str, update, attend, upd_args: list,
+              att_args: list) -> None:
+    """Warm and cold times of a cache update and its read-only body."""
+    res[key + "_ms"] = cuda_ms(lambda: update(*upd_args))
+    res[key + "_cold_ms"] = cuda_ms_cold(update, upd_args)
+    res["attend" + key[4:] + "_ms"] = cuda_ms(lambda: attend(*att_args))
+    res["attend" + key[4:] + "_cold_ms"] = cuda_ms_cold(attend, att_args)
+    print(f"{res['tag']} {key}: update warm {res[key + '_ms']:.4f} ms cold "
+          f"{res[key + '_cold_ms']:.4f} ms; read-only warm "
+          f"{res['attend' + key[4:] + '_ms']:.4f} ms cold "
+          f"{res['attend' + key[4:] + '_cold_ms']:.4f} ms", flush=True)
+
+
 def time_self_int8(res: dict, gen) -> None:
     from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
 
@@ -102,6 +120,7 @@ def time_self_int8(res: dict, gen) -> None:
                                               v_scale=vs)
             check(torch.equal(again, got), f"{key}: the read-only body differs from "
                                            "the update's output")
+            print(f"{res['tag']} {key}: err {err:.3g} (bound {tol:.3g})", flush=True)
 
             def update(q_, kn_, vn_, *b):
                 return sas.decode_self_attention_update_int8(q_, kn_, vn_, *b, POS,
@@ -111,14 +130,48 @@ def time_self_int8(res: dict, gen) -> None:
                 return sas.decode_self_attention(q_, b[0], b[1], POS, start=start,
                                                  k_scale=b[2], v_scale=b[3])
 
-            res[key + "_ms"] = cuda_ms(lambda: update(q, kn, vn, *bufs))
-            res[key + "_cold_ms"] = cuda_ms_cold(update, [q, kn, vn, *bufs])
-            res["attend" + key[4:] + "_ms"] = cuda_ms(lambda: attend(q, *bufs))
-            res["attend" + key[4:] + "_cold_ms"] = cuda_ms_cold(attend, [q, *bufs])
-            print(f"{res['tag']} {key}: err {err:.3g} (bound {tol:.3g}) update warm "
-                  f"{res[key + '_ms']:.4f} ms cold {res[key + '_cold_ms']:.4f} ms; "
-                  f"read-only warm {res['attend' + key[4:] + '_ms']:.4f} ms cold "
-                  f"{res['attend' + key[4:] + '_cold_ms']:.4f} ms", flush=True)
+            time_pair(res, key, update, attend, [q, kn, vn, *bufs], [q, *bufs])
+
+
+# the fp cases: (element type, rows, with a mixed start)
+FP_CASES = [(torch.bfloat16, 32 * H, False), (torch.bfloat16, 32 * H, True),
+            (torch.float32, 16 * H, False), (torch.float32, 40 * H, True),
+            (torch.float16, 16 * H, False), (torch.float16, 40 * H, True),
+            *((dtype, 3 * H, False) for dtype in TAGS)]
+
+
+def time_self_fp(res: dict, gen) -> None:
+    from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
+
+    dev = gen.device
+    for dtype, bh, with_start in FP_CASES:
+        start = ((torch.arange(bh, device=dev) // H * 5 % 13).to(torch.int32)
+                 if with_start else None)
+        q = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(dtype)
+        kn, vn = (torch.randn(2, bh, 64, generator=gen, device=dev) * 2).to(dtype)
+        bufs = [torch.randn(bh, 64, 64, generator=gen, device=dev).to(dtype)
+                for _ in range(2)]
+        refs = [t.clone() for t in bufs]
+        got = sas.decode_self_attention_update(q, kn, vn, *bufs, POS, start=start)
+        ref = sas.decode_self_attention_update_ref(q, kn, vn, *refs, POS, start=start)
+        err = max_err(got, ref)
+        tol = KERNEL_REL[dtype] * float(ref.float().abs().max())
+        key = f"self_{TAGS[dtype]}_{bh}" + ("_start" if with_start else "")
+        check(all(torch.equal(a, b) for a, b in zip(bufs, refs)),
+              f"{key}: cache rows differ from the plain version's")
+        check(err <= tol, f"{key}: err {err} > {tol}")
+        again = sas.decode_self_attention(q, *bufs, POS, start=start)
+        check(torch.equal(again, got), f"{key}: the read-only body differs from "
+                                       "the update's output")
+        print(f"{res['tag']} {key}: err {err:.3g} (bound {tol:.3g})", flush=True)
+
+        def update(q_, kn_, vn_, *b):
+            return sas.decode_self_attention_update(q_, kn_, vn_, *b, POS, start=start)
+
+        def attend(q_, *b):
+            return sas.decode_self_attention(q_, *b, POS, start=start)
+
+        time_pair(res, key, update, attend, [q, kn, vn, *bufs], [q, *bufs])
 
 
 def main() -> int:
@@ -139,6 +192,7 @@ def main() -> int:
                check=True).stdout.strip().splitlines()[0]}
     time_cross(res, gen)
     time_self_int8(res, gen)
+    time_self_fp(res, gen)
     print(json.dumps(res), flush=True)
     return 0
 
