@@ -120,16 +120,47 @@ Phase 3  first-step logits of 2 utterances, card (bf16, kernels) against
          batch 1; the f32 and the f16 tree in their own types (bounds of
          their own: an f32 tree differs by sum order only); and the
          beam5-prompt configuration (prompted, five beams).
+Phase 4  with no other tree resident, whisper-small with int8 weights
+         through the slice-11 entry points:
+           eval-headline  `evaluate_model` at the headline decode, batch 96,
+                        `synthetic_dataset(192)`, one warmup batch,
+                        `WordTokenizer`, a `MemoryTracker`: exact launch
+                        counts, every batch's texts equal to the direct
+                        call's, RTFx, batch latency, torch's peak memory
+                        beside `analytic_hbm_mb`, WER on seeded weights;
+           forward-small  `make_calibration_fn` (batch 4, 8 teacher-forced
+                        tokens) drives `forward`; `forward`, `decode_logits`
+                        and `nll_loss` in bf16 against CPU f32;
+           unfused-int8   `cross_pallas=False, self_pallas=False` with int8
+                        caches, batch 32: no decode attention kernel, the
+                        matmul kernel as often as fused, tokens equal to the
+                        fused run's under the tie rule (`check_ties`);
+           merge-at6, pool2-ckv8, tome300-bf16  batch 32: `encode(merge_at=6)`,
+                        `cross_kv_pool=2` over int8 cross-KV, `cross_kv_merge=
+                        300` over bf16 cross-KV; the new shapes timed
+                        (T = 750; S = 750; S = 1200, the kernels line's `@`
+                        entries), rows 0-1 against the CPU f32 path under
+                        the tie rule;
+           fallback     `decode_with_fallback`, batch 32, bf16 caches, the
+                        default ladder, best_of 2, a seeded generator on the
+                        card, the logprob gate at the median of a greedy
+                        decode: the t = 0 rung bit-equal to `greedy_decode`,
+                        one seed one result, each row at the rung its gates
+                        give, rows kept at t = 0 and later;
+         in all but eval-headline every call of a kernel is held against its
+         plain version as the model makes it (`checked_kernel_calls`).
 
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
-its launch count, error, times and bound. Needs torch with CUDA, numpy and nvcc;
+its launch count, error, times and bound (and, as `name@shape`, the shapes
+only token merging gives a kernel). Needs torch with CUDA, numpy and nvcc;
 never imports jax.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1355,6 +1386,20 @@ def launch_counters() -> dict:
         for name, mod, fn, attr, *_ in KERNELS}
 
 
+def zero_launches() -> dict:
+    """Every kernel's launch count set to 0 once the card is idle; returns
+    the counters for `read_launches`."""
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    return counters
+
+
+def read_launches(counters: dict) -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+
 def check_launches(name: str, launches: dict, path, exact: dict) -> None:
     """Every kernel of `path` launched (exactly `exact[k]` times where
     given), and no kernel outside it."""
@@ -1484,11 +1529,8 @@ def run_prompt_path(dev, arch, params, run, profile: bool = False) -> dict:
         fn = decode.beam_decode if beam > 1 else decode.greedy_decode
         return enc, fn(params, arch, enc, cfg, prompt_tokens=prompt, prompt_lens=lens)
 
-    counters = launch_counters()
-    torch.cuda.synchronize()
+    counters = zero_launches()
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
     walls, outs = [], []
     for wav in wavs:
         t0 = time.perf_counter()
@@ -1498,7 +1540,7 @@ def run_prompt_path(dev, arch, params, run, profile: bool = False) -> dict:
         outs.append((tokens, lengths))
         log(f"phase2 {name} batch {len(walls) - 1}: wall {walls[-1]:.4f} s, "
             f"{batch / walls[-1]:.2f} utt/s, RTFx {batch * AUDIO_S / walls[-1]:.2f}")
-    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    launches = read_launches(counters)
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     log(f"phase2 {name} launches {json.dumps(launches)}")
     log(f"phase2 {name} peak memory {peak_mb:.1f} MiB "
@@ -1618,11 +1660,8 @@ def run_path(dev, arch, params, run, profile: bool) -> dict:
 
     fn_sup = make(suppress_tokens=(eot,))
     wavs = [torch.from_numpy(waveforms(SEED + i, batch)).to(dev) for i in range(n_sup)]
-    counters = launch_counters()
-    torch.cuda.synchronize()
+    counters = zero_launches()
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
     walls, outs = [], []
 
     def one(fn, p, wav, what):
@@ -1644,7 +1683,7 @@ def run_path(dev, arch, params, run, profile: bool) -> dict:
         log(f"phase2 {name} EOT twin: token {twin}; batch 0 emitted it first at "
             f"steps {stops} (25: never)")
         one(make(), params_eot, wavs[0], "EOT allowed")
-    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    launches = read_launches(counters)
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     log(f"phase2 {name} launches {json.dumps(launches)}")
     log(f"phase2 {name} peak memory {peak_mb:.1f} MiB "
@@ -1755,15 +1794,12 @@ def run_self_attention_replay(dev, arch, params) -> dict:
 
     wav = torch.from_numpy(waveforms(SEED, batch)).to(dev)
     prompt, lens = (t.to(dev) for t in prompt_window(arch, SEED, batch))
-    counters = launch_counters()
     originals = (decode.decode_self_attention_update,
                  decode.decode_self_attention_update_int8)
     decode.decode_self_attention_update = replayed(originals[0], False)
     decode.decode_self_attention_update_int8 = replayed(originals[1], True)
     try:
-        torch.cuda.synchronize()
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
+        counters = zero_launches()
         t0 = time.perf_counter()
         mel = preprocess(wav, arch.num_mel_bins, dft_dtype=torch.bfloat16)
         enc = encode(params, arch, mel.to(torch.bfloat16), fast_gelu=True)
@@ -1781,7 +1817,7 @@ def run_self_attention_replay(dev, arch, params) -> dict:
     finally:
         (decode.decode_self_attention_update,
          decode.decode_self_attention_update_int8) = originals
-    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    launches = read_launches(counters)
     log(f"phase2 {name} launches {json.dumps(launches)}")
     per_decode = arch.decoder_layers * NEW_TOKENS
     exact = {"log_mel_cuda": 1, "encoder_attention": arch.encoder_layers}
@@ -1794,6 +1830,638 @@ def run_self_attention_replay(dev, arch, params) -> dict:
     log(f"phase2 {name}: {4 * per_decode} read-only calls equal to the update "
         f"kernels' outputs bit for bit; wall {wall:.2f} s")
     return {"batch": batch, "walls_s": [wall], "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Slice 11: the evaluation entry point, the full-sequence decoder, the
+# unfused step, token merging and the temperature ladder
+# ---------------------------------------------------------------------------
+
+# - the tie rule: where two decodes of one utterance part, the tokens are a
+#   fault unless both lie, in a CPU f32 recompute of the logits at the first
+#   divergent position (teacher-forced on the common prefix), within
+#   TIE_REL x the RMS of the logits of the tokens not suppressed of the top
+#   logit: the per-logit share of phase 3's relative L2 bound,
+#   LOGITS_REL_L2. A layout or indexing fault moves a token far below the
+#   top.
+TIE_REL = LOGITS_REL_L2
+# - nll_loss on the card (bf16) against the CPU (f32): a mean of 32
+#   log-softmax terms of logits held to LOGITS_REL_L2; 1e-2 relative.
+NLL_REL = 1e-2
+EVAL_BATCH = HEAD_BATCH
+# merge-pool configurations at BATCH: (name, make_transcribe_fn keywords,
+# DecodeConfig switches, kernels of the path)
+MERGE_RUNS = [
+    ("merge-at6", {"merge_at": 6, "merge_factor": 2}, KV8, DECODE_KERNELS),
+    ("pool2-ckv8", {}, {"cross_kv_pool": 2, **KV8}, DECODE_KERNELS),
+    ("tome300-bf16", {}, {"cross_kv_merge": 300},
+     ("log_mel_cuda", "encoder_attention", "int8_matmul",
+      "decode_cross_attention_grouped", "decode_self_attention_update")),
+]
+# kernels-line entries for the shapes only the merge-pool runs give their
+# kernels: (entry name, the KERNELS entry, the run whose launch count it
+# reports and whose call it times, the shape key of `checked_kernel_calls`,
+# the result key)
+SHAPE_ENTRIES = [
+    ("encoder_attention@T750", "encoder_attention", "merge-at6",
+     ("encoder_attention", 750), "enc_attn_t750"),
+    ("transpose_quant_kv@S750", "transpose_quant_kv", "pool2-ckv8",
+     ("transpose_quant_kv", 750), "tq_s750"),
+    ("decode_cross_attention_grouped_int8@S750", "decode_cross_attention_grouped_int8",
+     "pool2-ckv8", ("grouped", "torch.int8", 750, 1), "cross_int8_s750"),
+    ("decode_cross_attention_grouped@S1200", "decode_cross_attention_grouped",
+     "tome300-bf16", ("grouped", "torch.bfloat16", 1200, 1), "cross_s1200"),
+]
+
+
+NEG_INF = -1e9   # the decode's additive suppression (models.whisper.NEG_INF)
+
+
+def cpu_enc(params_cpu, arch, wav: torch.Tensor, **encode_kw) -> torch.Tensor:
+    """CPU f32 encoder states of waveforms (bf16 DFT mel, tanh GELU: the
+    card runs' frontend and encoder options)."""
+    from openai_whisper_compression_tpu_torch.audio.features import preprocess
+    from openai_whisper_compression_tpu_torch.models.whisper import encode
+
+    mel = preprocess(wav.cpu(), arch.num_mel_bins, dft_dtype=torch.bfloat16)
+    return encode(params_cpu, arch, mel.float(), fast_gelu=True, **encode_kw)
+
+
+def logits_at(params_cpu, arch, cfg, enc_row: torch.Tensor, seq: torch.Tensor,
+              div: int) -> torch.Tensor:
+    """CPU f32 logits (V,) for position `div` of `seq`, teacher-forced
+    through the greedy step with cfg's caches, cross-KV and suppressions."""
+    from openai_whisper_compression_tpu_torch.models import decode
+
+    cfg1 = dataclasses.replace(cfg, beam_size=1)
+    cross_kvs, cache, _, start, fg, _ = decode._prepare(params_cpu, arch, enc_row, cfg1)
+    logits_fn, _ = decode._logits_fn(params_cpu, arch, cfg1, cross_kvs, start, fg, 1,
+                                     enc_row.device)
+    seqs = seq[None].cpu()
+    last_ts = torch.zeros(1, dtype=torch.long)
+    for pos in range(fg - 1, div):
+        logits = logits_fn(seqs, cache, pos, last_ts)
+    return logits[0].float()
+
+
+@torch.inference_mode()
+def check_ties(name: str, params_cpu, arch, cfg, wav: torch.Tensor, got: torch.Tensor,
+               want: torch.Tensor, first_gen: int, encode_kw: dict | None = None) -> int:
+    """Rows of `got` and `want` (B, L), decodes of the same waveforms `wav`,
+    equal, or parted at a proven tie (TIE_REL): returns the rows that
+    parted."""
+    rows = [r for r in range(got.shape[0]) if not torch.equal(got[r], want[r])]
+    if not rows:
+        return 0
+    enc = cpu_enc(params_cpu, arch, wav[rows], **(encode_kw or {}))
+    for i, r in enumerate(rows):
+        a, b = got[r].cpu(), want[r].cpu()
+        div = int(torch.nonzero(a != b)[0, 0])
+        check(div >= first_gen, f"{name}: row {r} parts inside its forced prefix")
+        logits = logits_at(params_cpu, arch, cfg, enc[i: i + 1], a, div)
+        top = float(logits.max())
+        gap = max(top - float(logits[int(a[div])]), top - float(logits[int(b[div])]))
+        live = logits[logits > NEG_INF / 2]   # not the suppressed tokens
+        limit = TIE_REL * float(live.pow(2).mean().sqrt())
+        log(f"{name}: row {r} parts at position {div} ({int(a[div])} vs "
+            f"{int(b[div])}): CPU f32 gap to the top logit {gap:.4g} (tie bound "
+            f"{limit:.4g})")
+        check(gap <= limit, f"{name}: row {r} parts at position {div} with a CPU "
+              f"f32 gap {gap:.4g} > {limit:.4g}: not a tie")
+    return len(rows)
+
+
+@torch.inference_mode()
+def run_eval_headline(dev, arch, params) -> dict:
+    """`evaluate_model` at bench.py's headline decode (int8 weights, fused
+    qkv, int8 self-KV and cross-KV, 25 new tokens, EOT suppressed) over
+    `synthetic_dataset(2 x 96)`: one warmup batch, then two batches of 96
+    (length-bucketed), `WordTokenizer`, a `MemoryTracker`. Exact launch
+    counts for the three batches; every batch's texts equal to the
+    tokenizer's decode of `make_transcribe_fn`'s tokens for that padded
+    batch, called directly."""
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig, EvalConfig
+    from openai_whisper_compression_tpu_torch.evaluation.data import synthetic_dataset
+    from openai_whisper_compression_tpu_torch.evaluation.harness import (
+        evaluate_model, make_transcribe_fn, samples_for_arch)
+    from openai_whisper_compression_tpu_torch.evaluation.memory import (
+        MemoryTracker, analytic_hbm_mb)
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import (
+        default_tokenizer)
+
+    name, bs = "eval-headline", EVAL_BATCH
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,),
+                       **KV8)
+    fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+    dataset = synthetic_dataset(2 * bs, seed=0)
+    tok = default_tokenizer(arch)
+    tracker = MemoryTracker(f"{arch.name}-int8")
+    log(f"phase4 {name}: {arch.name}, int8 weights, fused qkv, int8 self-KV and "
+        f"cross-KV, batch {bs}, synthetic_dataset({2 * bs}, seed=0) "
+        f"({sum(u.duration for u in dataset):.2f} s of audio), one warmup batch")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before_mib = torch.cuda.memory_allocated(dev) / 2 ** 20
+    counters = zero_launches()
+    t0 = time.perf_counter()
+    scores, records = evaluate_model(
+        params, arch, dataset, tok, eval_cfg=EvalConfig(batch_size=bs, warmup_batches=1),
+        decode_cfg=cfg, memory_tracker=tracker, transcribe_fn=fn)
+    wall = time.perf_counter() - t0
+    launches = read_launches(counters)
+    log(f"phase4 {name} launches {json.dumps(launches)}")
+    batches = 3   # the warmup and two batches of 96
+    steps = [NEW_TOKENS] * batches
+    exact = expected_launches(arch, DECODE_KERNELS, steps)
+    exact.update({"log_mel_cuda": batches, "transpose_quant_kv": 2 * arch.decoder_layers
+                  * batches, "int8_matmul": 6 * arch.decoder_layers * (NEW_TOKENS + 1)
+                  * batches})
+    check_launches(name, launches, ("int8_matmul",) + DECODE_KERNELS, exact)
+
+    # every batch's texts against the transcription function called directly
+    n = samples_for_arch(arch)
+    by_id = {r["id"]: r["hypothesis"] for r in records}
+    check(len(records) == 2 * bs and [r["id"] for r in records] == [u.uid for u in dataset],
+          f"{name}: records not in input order")
+    bucketed = sorted(dataset, key=lambda u: u.duration)
+    for bi in range(2):
+        batch = bucketed[bi * bs: (bi + 1) * bs]
+        wav = np.zeros((bs, n), np.float32)
+        for i, u in enumerate(batch):
+            wav[i, : min(len(u.audio), n)] = u.audio[:n]
+        tokens, lengths = fn(params, torch.from_numpy(wav).to(dev))
+        tokens, lengths = tokens.cpu(), lengths.cpu()
+        check(bool((lengths == 4 + NEW_TOKENS).all()), f"{name}: lengths {lengths.tolist()}")
+        for i, u in enumerate(batch):
+            text = tok.decode(tokens[i, : lengths[i]].tolist())
+            check(by_id[u.uid] == text, f"{name}: batch {bi} row {i}: evaluate_model's "
+                  f"text differs from the direct call's")
+    mem = scores["memory"]
+    peak = mem["hbm_peak_mb"]["max"]
+    analytic = analytic_hbm_mb(params, arch, bs, kv_int8=True, cross_kv_bytes=1.0,
+                               cache_len=-(-(NEW_TOKENS + 8) // 64) * 64)
+    check(not mem["hbm_analytic"] and peak > 0, f"{name}: no device memory reading")
+    check(abs(analytic - tracker.analytic_mb) < 1e-6, f"{name}: analytic model differs")
+    lat = scores["batch_latencies_s"]
+    check(scores["num_samples"] == 2 * bs and len(lat) == 2 and scores["rtfx"] > 0
+          and 0.0 <= scores["wer"] and scores["cer"] is not None,
+          f"{name}: scores {scores}")
+    log(f"phase4 {name}: RTFx {scores['rtfx']:.2f} ({scores['total_audio_duration_s']:.2f} "
+        f"s of audio in {scores['total_processing_time_s']:.4f} s), batch latency mean "
+        f"{scores['avg_latency_per_batch_s']:.4f} s (first {lat[0]:.4f} s, then "
+        f"{', '.join(f'{x:.4f}' for x in lat[1:])} s); peak memory {peak:.1f} MiB "
+        f"(torch allocator, hbm_peak_mb; {before_mib:.1f} MiB of it in use before "
+        f"the run: the weights) beside the analytic {analytic:.1f} MiB "
+        f"(analytic_hbm_mb); WER {scores['wer']:.4f} CER {scores['cer']:.4f} "
+        f"(seeded weights: these measure the harness, not the model); wall with "
+        f"warmup and bookkeeping {wall:.2f} s")
+    return {"batch": bs, "walls_s": lat, "rtfx": scores["rtfx"], "peak_mib": peak,
+            "analytic_mib": analytic, "launches": launches}
+
+
+def run_forward_small(dev, arch, params) -> dict:
+    """`make_calibration_fn` (4 utterances, 8 tokens teacher-forced from
+    `WordTokenizer`) drives `forward` on the card: exact launch counts (the
+    mel once, the encoder attention once a layer, the decoder's 72 linears
+    at M = 32 through the int8 matmul kernel), every kernel call held
+    against its plain version (`checked_kernel_calls`). Then `forward`,
+    `decode_logits` and `nll_loss` in bf16 on the card against the same
+    calls in f32 on the CPU."""
+    from openai_whisper_compression_tpu_torch.audio.features import preprocess
+    from openai_whisper_compression_tpu_torch.evaluation.data import synthetic_dataset
+    from openai_whisper_compression_tpu_torch.evaluation.harness import (
+        make_calibration_fn, samples_for_arch)
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import (
+        default_tokenizer)
+    from openai_whisper_compression_tpu_torch.models.params import tree_to
+    from openai_whisper_compression_tpu_torch.models.whisper import (
+        decode_logits, encode, forward, nll_loss)
+
+    name, b, n_tok = "forward-small", 4, 8
+    cal = synthetic_dataset(b, seed=1)
+    tok = default_tokenizer(arch)
+    log(f"phase4 {name}: {arch.name}, int8 weights, make_calibration_fn batch {b}, "
+        f"{n_tok} tokens teacher-forced")
+    run = make_calibration_fn(arch, cal, tok, batch_size=b, n_tokens=n_tok, device=dev)
+    shapes: dict = {}
+    with checked_kernel_calls(shapes) as held:
+        counters = zero_launches()
+        with torch.no_grad():
+            logits = run(params)
+        torch.cuda.synchronize()
+        launches = read_launches(counters)
+    log(f"phase4 {name} launches {json.dumps(launches)}; {held_summary(held, shapes)}")
+    check_launches(name, launches, ("log_mel_cuda", "encoder_attention", "int8_matmul"),
+                   {"log_mel_cuda": 1, "encoder_attention": arch.encoder_layers,
+                    "int8_matmul": 6 * arch.decoder_layers})
+
+    n = samples_for_arch(arch)
+    wav = np.zeros((b, n), np.float32)
+    toks = np.full((b, n_tok), arch.eos_token_id, np.int64)
+    toks[:, 0] = arch.decoder_start_token_id
+    for i, u in enumerate(cal):
+        wav[i, : min(len(u.audio), n)] = u.audio[:n]
+        ids = tok.encode(u.text)[: n_tok - 1]
+        toks[i, 1: 1 + len(ids)] = ids
+    labels = np.roll(toks, -1, axis=1)
+    lmask = np.ones((b, n_tok), np.float32)
+    lmask[:, -1] = 0.0
+
+    def calls(p, device, dtype):
+        w, t = torch.from_numpy(wav).to(device), torch.from_numpy(toks).to(device)
+        mel = preprocess(w, arch.num_mel_bins, length=n).to(dtype)
+        with torch.no_grad():
+            enc = encode(p, arch, mel)
+            return {"forward": forward(p, arch, mel, t).float().cpu(),
+                    "decode_logits": decode_logits(p, arch, t, enc).float().cpu(),
+                    "nll_loss": nll_loss(p, arch, mel, t, torch.from_numpy(labels).to(device),
+                                         torch.from_numpy(lmask).to(device)).float().cpu()}
+
+    with checked_kernel_calls({}):
+        card = calls(params, dev, torch.bfloat16)
+    check(torch.equal(card["forward"], logits.float().cpu()),
+          f"{name}: forward differs from the calibration call's logits")
+    t0 = time.perf_counter()
+    ref = calls(tree_to(params, "cpu", torch.float32), "cpu", torch.float32)
+    cpu_s = time.perf_counter() - t0
+    for k in ("forward", "decode_logits"):
+        c, r = card[k], ref[k]
+        rel = float((c - r).norm() / r.norm())
+        log(f"phase4 {name} {k} {tuple(c.shape)} card bf16 vs CPU f32: relative L2 "
+            f"{rel:.4g} (bound {LOGITS_REL_L2}), max abs {max_err(c, r):.4g}, |logits| "
+            f"max {float(r.abs().max()):.4g}")
+        check(c.shape == (b, n_tok, arch.vocab_size) and bool(torch.isfinite(c).all())
+              and rel <= LOGITS_REL_L2, f"{name}: {k} off by {rel:.4g} relative L2")
+    rel = abs(float(card["nll_loss"]) - float(ref["nll_loss"])) / abs(float(ref["nll_loss"]))
+    log(f"phase4 {name} nll_loss card bf16 {float(card['nll_loss']):.6g} vs CPU f32 "
+        f"{float(ref['nll_loss']):.6g}: relative {rel:.4g} (bound {NLL_REL}); CPU "
+        f"reference {cpu_s:.1f} s")
+    check(rel <= NLL_REL, f"{name}: nll_loss off by {rel:.4g} relative")
+    return {"batch": b, "launches": launches}
+
+
+@torch.inference_mode()
+def run_unfused_int8(dev, arch, params) -> dict:
+    """`greedy_decode` with `cross_pallas=False, self_pallas=False`, int8
+    self-KV and cross-KV, batch 32 (through `make_transcribe_fn`): no
+    attention kernel of the decode launches (rows 7, 9, 11, 13), the int8
+    matmul as often as in the fused run on the same audio, and the tokens
+    equal to the fused run's but where a CPU f32 recompute proves a tie.
+    Every kernel call of both runs is held against its plain version
+    (`checked_kernel_calls`)."""
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+    from openai_whisper_compression_tpu_torch.models.params import tree_to
+
+    name, b = "unfused-int8", BATCH
+    base = dict(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,), **KV8)
+    cfg_u = DecodeConfig(cross_pallas=False, self_pallas=False, **base)
+    wav = torch.from_numpy(waveforms(SEED, b)).to(dev)
+    log(f"phase4 {name}: {arch.name}, int8 weights, batch {b}, the unfused step over "
+        "int8 self-KV and standard-layout int8 cross-KV")
+    runs = {}
+    for what, cfg in (("fused", DecodeConfig(**base)), ("unfused", cfg_u)):
+        fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+        shapes: dict = {}
+        with checked_kernel_calls(shapes) as held:
+            counters = zero_launches()
+            t0 = time.perf_counter()
+            tokens, lengths = (x.cpu() for x in fn(params, wav))
+            wall = time.perf_counter() - t0
+            runs[what] = (tokens, lengths, read_launches(counters), wall)
+        log(f"phase4 {name} {what}: wall {wall:.4f} s (every kernel call checked), "
+            f"launches {json.dumps(runs[what][2])}; {held_summary(held, shapes)}")
+    tokens, lengths, launches, wall = runs["unfused"]
+    check_launches(name, launches, ("log_mel_cuda", "encoder_attention", "int8_matmul"),
+                   {"log_mel_cuda": 1, "encoder_attention": arch.encoder_layers,
+                    "int8_matmul": runs["fused"][2]["int8_matmul"]})
+    check(torch.equal(lengths, runs["fused"][1]) and bool((lengths == 4 + NEW_TOKENS).all()),
+          f"{name}: lengths {lengths.tolist()}")
+    parted = check_ties(name, tree_to(params, "cpu", torch.float32), arch, cfg_u, wav,
+                        tokens, runs["fused"][0], 4)
+    log(f"phase4 {name}: {b - parted} of {b} rows equal the fused run's tokens, "
+        f"{parted} part at a proven tie")
+    return {"batch": b, "walls_s": [wall], "launches": launches}
+
+
+@contextlib.contextmanager
+def checked_kernel_calls(shapes: dict):
+    """While open, the model's calls of the encoder attention, the cross-KV
+    quantizer, the two cross-attentions, `linear`'s int8 matmul and the two
+    cache updates go through shims: each call launches the kernel (counted by
+    its wrapper as always), then holds the result against the plain version
+    on the same inputs (the quantizer's codes and scales and the updates'
+    caches bit for bit, every output within KERNEL_REL of the reference's
+    largest magnitude). `shapes` gets the first call's inputs at every shape
+    of the first three (None for the others); yields the count of calls
+    held, per kernel."""
+    from openai_whisper_compression_tpu_torch.models import decode, whisper
+    from openai_whisper_compression_tpu_torch.ops import attention as att
+    from openai_whisper_compression_tpu_torch.ops import cross_attention as ca
+    from openai_whisper_compression_tpu_torch.ops import linear as lin
+    from openai_whisper_compression_tpu_torch.ops import quant_matmul as qm
+    from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
+
+    held: dict = {}
+
+    def close(what, got, ref):
+        err, tol = max_err(got, ref), KERNEL_REL[ref.dtype] * float(ref.float().abs().max())
+        check(got.dtype == ref.dtype and err <= tol, f"{what}: err {err} > {tol}")
+        kernel = what.split()[0]
+        held[kernel] = held.get(kernel, 0) + 1
+
+    def keep(key, *args):   # the first call's inputs at each shape
+        if key not in shapes:
+            shapes[key] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                for a in args)
+
+    def enc_attn(q, k, v):
+        out = att.encoder_attention(q, k, v)
+        close(f"encoder_attention {tuple(q.shape)}", out, att.encoder_attention_ref(q, k, v))
+        if ("encoder_attention", q.shape[2]) not in shapes:   # views, as the model
+            shapes["encoder_attention", q.shape[2]] = (q, k, v)   # hands them over
+        return out
+
+    def tq(x, h):
+        q, sc = ca.transpose_quant_kv(x, h)
+        q_ref, sc_ref = ca.transpose_quant_kv_ref(x, h)
+        check(torch.equal(q, q_ref) and torch.equal(sc, sc_ref),
+              f"transpose_quant_kv {tuple(x.shape)}: codes or scales differ")
+        held["transpose_quant_kv"] = held.get("transpose_quant_kv", 0) + 1
+        keep(("transpose_quant_kv", x.shape[1]), x, h)
+        return q, sc
+
+    def grouped(q, k_t, v_t, k_scale=None, v_scale=None, s_valid=None):
+        out = ca.decode_cross_attention_grouped(q, k_t, v_t, k_scale, v_scale, s_valid)
+        close(f"decode_cross_attention_grouped {tuple(k_t.shape)} s_valid {s_valid}",
+              out, ca.decode_cross_attention_grouped_ref(q, k_t, v_t, k_scale,
+                                                         v_scale, s_valid))
+        key = ("grouped", str(k_t.dtype), s_valid, q.shape[1])
+        if key not in shapes:
+            shapes[key] = (q.clone(), (k_t, v_t, k_scale, v_scale), s_valid)
+        return out
+
+    def one_query(q, k_t, v_t, k_scale=None, v_scale=None, s_valid=None):
+        out = ca.decode_cross_attention(q, k_t, v_t, k_scale, v_scale, s_valid)
+        close(f"decode_cross_attention {tuple(k_t.shape)} s_valid {s_valid}", out,
+              ca.decode_cross_attention_ref(q, k_t, v_t, k_scale, v_scale, s_valid))
+        shapes.setdefault(("one_query", str(k_t.dtype), s_valid, q.shape[0]), None)
+        return out
+
+    def int8_mm(x, w, scale):
+        out = qm.int8_matmul(x, w, scale)
+        close(f"int8_matmul M={x.shape[0]} K={x.shape[1]} N={w.shape[1]}", out,
+              qm.int8_matmul_ref(x, w, scale))
+        shapes.setdefault(("int8_matmul", *x.shape, w.shape[1]), None)
+        return out
+
+    def updating(kernel, plain, n_bufs):
+        def update(q, k_new, v_new, *rest, start=None):
+            bufs, pos = rest[:n_bufs], rest[n_bufs]
+            refs = [t.clone() for t in bufs]
+            out = kernel(q, k_new, v_new, *bufs, pos, start=start)
+            ref = plain(q, k_new, v_new, *refs, pos, start)
+            what = f"{kernel.__name__} ({q.shape[0]} rows, {q.dtype}) pos {pos}"
+            check(all(torch.equal(a, r) for a, r in zip(bufs, refs)),
+                  f"{what}: cache rows or scales differ")
+            close(what, out, ref)
+            shapes.setdefault((kernel.__name__, str(q.dtype), q.shape[0],
+                               start is not None), None)
+            return out
+        return update
+
+    patches = [(whisper, "encoder_attention", enc_attn),
+               (whisper, "transpose_quant_kv", tq),
+               (whisper, "decode_cross_attention_grouped", grouped),
+               (whisper, "decode_cross_attention", one_query),
+               (lin, "int8_matmul", int8_mm),
+               (decode, "decode_self_attention_update",
+                updating(sas.decode_self_attention_update,
+                         sas.decode_self_attention_update_ref, 2)),
+               (decode, "decode_self_attention_update_int8",
+                updating(sas.decode_self_attention_update_int8,
+                         sas.decode_self_attention_update_int8_ref, 4))]
+    originals = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    for m, n, f in patches:
+        setattr(m, n, f)
+    try:
+        yield held
+    finally:
+        for m, n, f in originals:
+            setattr(m, n, f)
+
+
+def held_summary(held: dict, shapes: dict) -> str:
+    """One log line's account of what `checked_kernel_calls` held."""
+    return (f"kernel calls held against their plain versions {json.dumps(held)} at "
+            f"shapes {sorted(map(str, shapes))}")
+
+
+def check_enc_attn_shape(what: str, q, k, v) -> dict:
+    """The encoder attention at a recorded shape against its plain version,
+    timed beside it, `sdpa` and its bound (as phase 1 at T = 1500)."""
+    from openai_whisper_compression_tpu_torch.ops.attention import (
+        encoder_attention, encoder_attention_ref)
+
+    b, h, t, _ = q.shape
+    got, ref = encoder_attention(q, k, v), encoder_attention_ref(q, k, v)
+    err, tol = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+    check(err <= tol, f"{what}: err {err} > {tol}")
+    t_k = cuda_ms(lambda: encoder_attention(q, k, v))
+    t_p = cuda_ms(lambda: encoder_attention_ref(q, k, v), warmup=1, iters=3)
+    t_lib = cuda_ms(lambda: sdpa(q, k, v))
+    least = bound(4 * b * h * t * 64 * 2, 4 * b * h * t * t * 64 / BF16_FLOPS)
+    log(f"phase4 {what} ({b}, {h}, {t}, 64) bf16: err {err:.3g} (bound {tol:.3g}) "
+        f"kernel {t_k:.4f} ms plain {t_p:.4f} ms sdpa {t_lib:.4f} ms least "
+        f"{least['bound_ms']:.4f} ms ({least['bound_by']})")
+    return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least, "library_ms": t_lib}
+
+
+@torch.inference_mode()
+def run_merge_pool(dev, arch, params, results: dict) -> dict:
+    """Token merging at batch 32 (MERGE_RUNS): the encoder's `merge_at=6`
+    (the last six layers at T = 750), `cross_kv_pool=2` with int8 cross-KV
+    (S = 750) and `cross_kv_merge=300` with bf16 cross-KV (S = 1200). Every
+    call of the encoder attention, the cross-KV quantizer and the
+    cross-attentions is held against its plain version as the model makes
+    it (`checked_kernel_calls`, the int8 matmul and the cache update too);
+    each new shape is then timed beside its plain version and bound. Exact
+    launch counts per configuration; the first rows' tokens against the CPU
+    f32 path under the tie rule."""
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+    from openai_whisper_compression_tpu_torch.models import decode
+    from openai_whisper_compression_tpu_torch.models.params import tree_to
+
+    b, n_ref = BATCH, 2
+    wav = torch.from_numpy(waveforms(SEED + 7, b)).to(dev)
+    params_cpu = tree_to(params, "cpu", torch.float32)
+    summaries = {}
+    for name, fn_kw, switches, path in MERGE_RUNS:
+        cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,),
+                           **switches)
+        log(f"phase4 {name}: {arch.name}, int8 weights, batch {b}, {json.dumps(fn_kw)} "
+            f"{json.dumps(switches)}")
+        fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev, **fn_kw)
+        shapes: dict = {}
+        with checked_kernel_calls(shapes) as held:
+            counters = zero_launches()
+            t0 = time.perf_counter()
+            tokens, lengths = (x.cpu() for x in fn(params, wav))
+            wall = time.perf_counter() - t0
+            launches = read_launches(counters)
+        log(f"phase4 {name} launches {json.dumps(launches)}; {held_summary(held, shapes)}")
+        exact = expected_launches(arch, path, [NEW_TOKENS])
+        exact["log_mel_cuda"] = 1
+        check_launches(name, launches, ("int8_matmul",) + path, exact)
+        check(bool((lengths == 4 + NEW_TOKENS).all()) and int(tokens.max()) < arch.vocab_size,
+              f"{name}: lengths {lengths.tolist()}")
+        # the first rows against the CPU f32 path, tie rule
+        enc_kw = {k: v for k, v in fn_kw.items()}
+        enc = cpu_enc(params_cpu, arch, wav[:n_ref], **enc_kw)
+        ref, _ = decode.greedy_decode(params_cpu, arch, enc, cfg)
+        parted = check_ties(name, params_cpu, arch, cfg, wav[:n_ref], tokens[:n_ref], ref,
+                            4, enc_kw)
+        log(f"phase4 {name}: wall {wall:.4f} s (every kernel call checked); rows 0-"
+            f"{n_ref - 1} against the CPU f32 path: {n_ref - parted} equal, {parted} "
+            "part at a proven tie")
+        # the new shapes this run reports, timed
+        for _, _, run, key, rkey in SHAPE_ENTRIES:
+            if run != name:
+                continue
+            check(key in shapes, f"{name}: the model never called the {key} shape")
+            if key[0] == "encoder_attention":
+                results[rkey] = check_enc_attn_shape(f"{name} encoder_attention",
+                                                     *shapes[key])
+            elif key[0] == "transpose_quant_kv":
+                results[rkey] = check_tq(*shapes[key])[0]
+            else:
+                results[rkey] = check_grouped(f"{name} grouped {key[1]}", *shapes[key])
+        summaries[name] = {"batch": b, "walls_s": [wall], "launches": launches}
+    return summaries
+
+
+def run_fallback(dev, arch, params) -> dict:
+    """`decode_with_fallback` at batch 32 with fp (bf16) caches, the default
+    ladder and best_of=2, drawing from a seeded `torch.Generator` on the
+    card. On seeded weights every row fails OpenAI's gates at every rung, so
+    the gates are set from a first greedy decode of the same audio: the
+    logprob gate at the median of its rows' mean logprobs (over the rows
+    that pass the compression gate; the compression gate is dropped where
+    fewer than two do), and rows part at t = 0 and at later rungs. Checks:
+    the t = 0 rung equals `greedy_decode` bit for bit, two calls with one
+    seed give the same result, every row keeps the rung at which it first
+    passed the gates (or the last), rows are kept at t = 0 and at a later
+    rung, the attention kernels launch exactly as the rungs' steps ask, and
+    every kernel call is held against its plain version
+    (`checked_kernel_calls`)."""
+    from openai_whisper_compression_tpu_torch.audio.features import preprocess
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import (
+        default_tokenizer)
+    from openai_whisper_compression_tpu_torch.models import decode, fallback
+    from openai_whisper_compression_tpu_torch.models.whisper import encode
+
+    name, b, best_of, seed = "fallback", BATCH, 2, SEED + 11
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS)
+    tok = default_tokenizer(arch)
+    p_len = len(decode.forced_prefix(arch, cfg))
+    eot = arch.eos_token_id
+
+    def text(toks, lens, i):
+        return tok.decode([int(x) for x in toks[i, p_len: lens[i]] if x != eot])
+
+    def encoded(wav):
+        mel = preprocess(wav, arch.num_mel_bins, dft_dtype=torch.bfloat16)
+        return encode(params, arch, mel.to(torch.bfloat16), fast_gelu=True)
+
+    rungs = []
+    real_greedy = fallback.greedy_decode
+
+    def recorded(*a, **kw):
+        out = real_greedy(*a, **kw)
+        rungs.append((kw["temperature"], *(x.cpu() for x in out)))
+        return out
+
+    shapes: dict = {}
+    fallback.greedy_decode = recorded
+    try:
+        with torch.inference_mode(), checked_kernel_calls(shapes) as held:
+            wav = torch.from_numpy(waveforms(SEED + 3, b)).to(dev)
+            # the gates, from a first greedy decode of the same audio
+            toks, lens, lps = (x.cpu().numpy() for x in decode.greedy_decode(
+                params, arch, encoded(wav), cfg, return_logprobs=True))
+            ratios = np.array([fallback.compression_ratio(text(toks, lens, i))
+                               for i in range(b)])
+            passing = ratios <= 2.4
+            ratio_gate = 2.4 if passing.sum() >= 2 else None
+            lp_gate = float(np.median(lps[passing] if ratio_gate else lps))
+            gates = {"compression_ratio_threshold": ratio_gate,
+                     "logprob_threshold": lp_gate}
+            log(f"phase4 {name}: {arch.name}, int8 weights, batch {b}, bf16 caches, "
+                f"ladder {fallback.DEFAULT_TEMPERATURES}, best_of {best_of}, seed "
+                f"{seed}; gates {json.dumps(gates)} (greedy: {int(passing.sum())} of "
+                f"{b} rows pass the compression gate at 2.4, mean logprobs "
+                f"{lps.min():.4f}..{lps.max():.4f})")
+            counters = zero_launches()
+            t0 = time.perf_counter()
+            enc = encoded(wav)
+            res = fallback.decode_with_fallback(params, arch, enc, tok.decode, cfg=cfg,
+                                                seed=seed, best_of=best_of, **gates)
+            wall = time.perf_counter() - t0
+            launches = read_launches(counters)
+            first = list(rungs)
+            again = fallback.decode_with_fallback(params, arch, enc, tok.decode, cfg=cfg,
+                                                  seed=seed, best_of=best_of, **gates)
+            greedy, g_len, g_lp = decode.greedy_decode(params, arch, enc, cfg,
+                                                       return_logprobs=True)
+    finally:
+        fallback.greedy_decode = real_greedy
+    log(f"phase4 {name} launches {json.dumps(launches)}; {held_summary(held, shapes)}")
+    temps = [t for t, *_ in first]
+    steps = [int(lens.max()) - p_len for _, _, lens, _ in first]
+    path = ("log_mel_cuda", "encoder_attention", "int8_matmul",
+            "decode_cross_attention_grouped", "decode_self_attention_update")
+    exact = expected_launches(arch, path, steps)
+    exact.update({"log_mel_cuda": 1, "encoder_attention": arch.encoder_layers})
+    check_launches(name, launches, path, exact)
+    check(temps[0] == 0.0 and torch.equal(first[0][1], greedy.cpu())
+          and torch.equal(first[0][2], g_len.cpu()) and torch.equal(first[0][3], g_lp.cpu()),
+          f"{name}: the t = 0 rung differs from greedy_decode")
+    for f in ("tokens", "lengths", "avg_logprobs", "temperatures", "texts"):
+        check(np.array_equal(np.asarray(getattr(res, f)), np.asarray(getattr(again, f))),
+              f"{name}: two calls with seed {seed} differ in {f}")
+    # the ladder replayed from the recorded rungs: each row keeps the rung at
+    # which it passed both gates, or the last one
+    pending = np.ones(b, bool)
+    want = {}
+    for t, toks, lens, lps in first:
+        n_cand = best_of if t > 0 else 1
+        check(toks.shape[0] == b * n_cand, f"{name}: rung {t} decoded {toks.shape[0]} rows")
+        sel = np.arange(b) * n_cand + lps.numpy().reshape(b, n_cand).argmax(axis=1)
+        toks, lens, lps = toks.numpy()[sel], lens.numpy()[sel], lps.numpy()[sel]
+        fails = np.zeros(b, bool)
+        for i in np.flatnonzero(pending):
+            want[i] = (t, toks[i], lens[i], lps[i])
+            fails[i] = fallback.needs_fallback(
+                float(lps[i]), fallback.compression_ratio(text(toks, lens, i)),
+                ratio_gate, lp_gate)
+        pending &= fails
+    check(not pending.any() or len(first) == len(fallback.DEFAULT_TEMPERATURES),
+          f"{name}: the ladder stopped with rows still failing")
+    for i, (t, toks, lens, lps) in want.items():
+        check(res.temperatures[i] == t and np.array_equal(res.tokens[i], toks)
+              and res.lengths[i] == lens and res.avg_logprobs[i] == lps,
+              f"{name}: row {i} kept another rung's result than the gates give")
+    counts = {t: int((res.temperatures == t).sum()) for t in temps}
+    check(counts[0.0] > 0 and counts[0.0] < b,
+          f"{name}: rows kept per rung {counts}: the gates do not part the rows")
+    log(f"phase4 {name}: {len(temps)} rungs (steps {steps}), rows kept per rung "
+        f"{counts}, mean logprob {float(res.avg_logprobs.mean()):.4f}; the t = 0 rung "
+        f"equals greedy_decode bit for bit; two calls with one seed equal; every row "
+        f"kept at the rung the gates give; wall {wall:.2f} s (every kernel call "
+        "checked)")
+    return {"batch": b, "walls_s": [wall], "launches": launches}
 
 
 @torch.inference_mode()
@@ -1929,6 +2597,17 @@ def main() -> int:
     summaries["self-attn-replay"] = run_self_attention_replay(
         dev, *params_for(ARCH, "int8"))
     phase3(dev, params_for)
+    # the slice-11 runs with no other tree resident, so that the
+    # evaluation's peak memory is its own
+    for key in [k for k in built if k != (ARCH, "int8")]:
+        del built[key]
+    torch.cuda.empty_cache()
+    small_int8 = params_for(ARCH, "int8")
+    summaries["eval-headline"] = run_eval_headline(dev, *small_int8)
+    summaries["forward-small"] = run_forward_small(dev, *small_int8)
+    summaries["unfused-int8"] = run_unfused_int8(dev, *small_int8)
+    summaries.update(run_merge_pool(dev, *small_int8, results))
+    summaries["fallback"] = run_fallback(dev, *small_int8)
 
     def launches(name):  # from the first run that launched the kernel
         return next(s["launches"][name] for s in summaries.values()
@@ -1940,6 +2619,12 @@ def main() -> int:
          **{k: results[key][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")}}
         for name, _, _, _, src, rep, key in KERNELS]}
+    entries = {e["name"]: e for e in kernels_line["kernels"]}
+    kernels_line["kernels"] += [
+        {**entries[base], "name": name, "launches": summaries[run]["launches"][base],
+         **{k: results[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}}
+        for name, base, run, _, key in SHAPE_ENTRIES]
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,17 @@
-"""Model architectures, decode settings and audio constants.
+"""Model architectures, decode and evaluation settings, audio constants.
 
 A framework-free copy of the JAX package's `config.py` (`WhisperArch`,
-`ARCHS`, `DecodeConfig`, the audio constants): importing anything from the
-JAX package runs its `__init__`, which imports jax, and the port must run
-where jax is absent. `tests/test_torch_config.py` holds the two copies equal
-field for field.
+`ARCHS`, the language tokens, `DecodeConfig`, `EvalConfig`, `RunConfig`,
+the audio constants): importing anything from the JAX package runs its
+`__init__`, which imports jax, and the port must run where jax is absent.
+`tests/test_torch_config.py` holds the two copies equal field for field.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import json
+from dataclasses import dataclass, field
 from typing import Any
 
 
@@ -122,6 +123,47 @@ ARCHS.update({
 })
 
 
+# Whisper language codes in token order: <|en|> = decoder_start + 1, ...
+# (whisper tokenizer LANGUAGES dict order; v3 vocabs append "yue").
+LANGUAGES = (
+    "en", "zh", "de", "es", "ru", "ko", "fr", "ja", "pt", "tr", "pl", "ca",
+    "nl", "ar", "sv", "it", "id", "hi", "fi", "vi", "he", "uk", "el", "ms",
+    "cs", "ro", "da", "hu", "ta", "no", "th", "ur", "hr", "bg", "lt", "la",
+    "mi", "ml", "cy", "sk", "te", "fa", "lv", "bn", "sr", "az", "sl", "kn",
+    "et", "mk", "br", "eu", "is", "hy", "ne", "mn", "bs", "kk", "sq", "sw",
+    "gl", "mr", "pa", "si", "km", "sn", "yo", "so", "af", "oc", "ka", "be",
+    "tg", "sd", "gu", "am", "yi", "lo", "uz", "fo", "ht", "ps", "tk", "nn",
+    "mt", "sa", "lb", "my", "bo", "tl", "mg", "as", "tt", "haw", "ln", "ha",
+    "ba", "jw", "su", "yue",
+)
+
+
+def language_code(arch: WhisperArch, token_id: int) -> str:
+    """Inverse of `language_token_id`: <|xx|> token id -> code."""
+    idx = int(token_id) - (arch.decoder_start_token_id + 1)
+    if not 0 <= idx < len(LANGUAGES):
+        raise ValueError(f"token {token_id} is not a language token")
+    return LANGUAGES[idx]
+
+
+def language_token_id(arch: WhisperArch, code: str | int) -> int:
+    """<|xx|> token id for a language code (an int id passes through).
+    Languages sit at [sot + 1, translate) in `LANGUAGES` order; v2-style
+    vocabs hold 99 of them, v3 adds "yue"."""
+    if isinstance(code, int):
+        return code
+    c = code.lower()
+    if c not in LANGUAGES:
+        raise ValueError(f"unknown language code {code!r}")
+    tok = arch.decoder_start_token_id + 1 + LANGUAGES.index(c)
+    if not arch.multilingual:
+        raise ValueError(f"{arch.name} is English-only")
+    if tok >= arch.task_translate_token_id:
+        raise ValueError(f"language {code!r} not in {arch.name}'s vocab "
+                         "(v2-style vocabs lack 'yue')")
+    return tok
+
+
 # Audio frontend constants (Whisper's fixed STFT/log-mel recipe).
 SAMPLE_RATE = 16_000
 N_FFT = 400
@@ -136,11 +178,14 @@ class DecodeConfig:
     """Generation settings, field for field the JAX package's (whose
     defaults keep fp caches; `bench.py` turns on `kv_int8` and
     `cross_kv_int8`). The port decodes, greedily or with `beam_size` beams,
-    through the fused kernels with fp or int8 self-KV (`kv_int8`) and fp
-    (bf16 on the card), int8 (`cross_kv_int8`) or int4 (`cross_kv_int4`,
-    which wins over int8) cross-KV; `models.decode.check_supported` raises
-    NotImplementedError for cross-KV pooling/merging and the unfused
-    (`cross_pallas`/`self_pallas` False) paths."""
+    with fp or int8 self-KV (`kv_int8`) and fp (bf16 on the card), int8
+    (`cross_kv_int8`) or int4 (`cross_kv_int4`, which wins over int8)
+    cross-KV, through the fused kernels (`self_pallas`, `cross_pallas`) or
+    the unfused step (cache write, read, masked attention in torch; the
+    standard-layout cross-KV). `cross_kv_pool` / `cross_kv_merge` shrink the
+    attended encoder states first (`models.merge`). int4 cross-KV exists in
+    the fused layout only: `models.decode.check_supported` raises
+    ValueError for it with `cross_pallas=False`, as the JAX package does."""
 
     max_new_tokens: int = 445
     beam_size: int = 1  # 1 = greedy
@@ -159,3 +204,45 @@ class DecodeConfig:
     self_pallas: bool = True
     timestamp_rules: bool = True
     max_initial_timestamp_index: int = 50
+
+
+@dataclass
+class EvalConfig:
+    """Evaluation harness settings, field for field the JAX package's.
+    normalizer: "basic" (lowercase, strip punctuation: safe for synthetic
+    token ids), "whisper" (the full OpenAI normalizer) or "none".
+    length_bucketing: sort utterances by duration before batching (records
+    come back in input order)."""
+
+    split: str = "test.clean"
+    num_samples: int = 100
+    batch_size: int = 8
+    warmup_batches: int = 1
+    compute_cer: bool = True
+    save_path: str | None = None
+    normalizer: str = "basic"
+    length_bucketing: bool = True
+
+
+@dataclass
+class RunConfig:
+    """One experiment = model + compression + eval. Serialisable to JSON
+    (the JAX package's `to_json` text for the same fields)."""
+
+    model: str = "tiny"
+    dtype: str = "float32"
+    quantization: dict[str, Any] | None = None
+    pruning: dict[str, Any] | None = None
+    recovery: dict[str, Any] | None = None
+    decode: DecodeConfig = field(default_factory=DecodeConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "RunConfig":
+        d = json.loads(s)
+        d["decode"] = DecodeConfig(**d.get("decode", {}))
+        d["eval"] = EvalConfig(**d.get("eval", {}))
+        return RunConfig(**d)

@@ -3,19 +3,25 @@
 The JAX package's `models/decode.py` as Python loops on the host: one
 batched prefill of the [prompt +] forced-prefix window, then one
 `decoder_step` per token, stopping early once every row has emitted EOT (the
-host reads one flag per step). Each decoder layer's step runs the fused
-self-attention kernel (cache row write + attention from each row's `start`;
-the int8 kernel quantizes the row too when `kv_int8` gives an int8 cache)
-and the grouped cross-attention kernel over bf16, int8 (`cross_kv_int8`) or
-int4 (`cross_kv_int4`) cross-KV, the beams of an utterance riding its query
-slots; the decode-step linears run the quantized-matmul kernels. Prompt
+host reads one flag per step). With `self_pallas` (the default) a decoder
+layer's step runs the fused self-attention kernel (cache row write +
+attention from each row's `start`; the int8 kernel quantizes the row too
+when `kv_int8` gives an int8 cache); with `cross_pallas` the grouped
+cross-attention kernel over bf16, int8 (`cross_kv_int8`) or int4
+(`cross_kv_int4`) transposed cross-KV, the beams of an utterance riding its
+query slots. The unfused step (`self_pallas=False`: `cache.update`, then
+`cache.read`, then masked attention in torch; `cross_pallas=False`: the
+standard-layout cross-KV of `precompute_cross_kv`) runs no attention
+kernel, as the JAX package leaves it to XLA. The decode-step linears run
+the quantized-matmul kernels on either path. `cross_kv_pool` /
+`cross_kv_merge` shrink the encoder states first (`models.merge`).
+Temperature sampling draws from an explicit `torch.Generator`. Prompt
 conditioning (a right-aligned, left-padded prompt window), the timestamp
 rules, beam search, language detection and the no-speech probability follow
 the JAX functions of the same names.
 
-Not in the port (NotImplementedError): temperature sampling (`sample_key`,
-with the fallback ladder of `models/fallback.py`), cross-KV pooling/merging,
-and the non-fused (cross_pallas/self_pallas False) paths.
+Refused (ValueError, as in the JAX package): int4 cross-KV without
+`cross_pallas`, which only the transposed layout packs.
 """
 
 from __future__ import annotations
@@ -30,10 +36,12 @@ from ..ops.linear import linear
 from ..ops.self_attention_step import (decode_self_attention_update,
                                        decode_self_attention_update_int8)
 from . import cache as kv_cache
-from .whisper import (NEG_INF, _num_heads, attention, cross_attention,
+from .merge import merge_encoder_tokens
+from .whisper import (NEG_INF, CrossKV, _num_heads, attention, cross_attention,
                       cross_window_attention, embed_tokens, encode,
                       grouped_cross_attention, layer_norm, merge_heads, mlp,
-                      precompute_cross_kv_t, project_out, qkv_project)
+                      precompute_cross_kv, precompute_cross_kv_t, project_out,
+                      qkv_project)
 
 Params = dict[str, Any]
 
@@ -67,25 +75,32 @@ def _suppress_bias(arch: WhisperArch, ids: tuple[int, ...]) -> np.ndarray:
 
 
 def check_supported(arch: WhisperArch, cfg: DecodeConfig) -> None:
-    """Raise NotImplementedError for every setting outside the port."""
-    unsupported = {
-        "cross-KV pooling/merging": cfg.cross_kv_pool > 1 or cfg.cross_kv_merge > 0,
-        "the unfused decode paths (cross_pallas/self_pallas False)":
-            not (cfg.cross_pallas and cfg.self_pallas),
-    }
-    for what, hit in unsupported.items():
-        if hit:
-            raise NotImplementedError(f"{what} is not ported")
+    """Raise for the one setting the decode refuses, as the JAX package
+    does: int4 cross-KV without the fused (transposed) layout."""
+    if cfg.cross_kv_int4 and not cfg.cross_pallas:
+        raise ValueError("cross_kv_int4 requires cross_pallas=True "
+                         "(only the transposed-KV layout packs nibbles)")
 
 
 # ---------------------------------------------------------------------------
 # Single decode step and batched prefill through the cache
 # ---------------------------------------------------------------------------
 
+def _step_mask(pos: int, max_len: int, start: torch.Tensor | None,
+               device) -> torch.Tensor:
+    """Additive f32 mask (B or 1, 1, 1, max_len) of the unfused step: cache
+    positions start <= idx <= pos attend."""
+    idx = torch.arange(max_len, device=device)
+    valid = (idx <= pos)[None, :]
+    if start is not None:
+        valid = valid & (idx[None, :] >= start[:, None])
+    return torch.where(valid, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
+
+
 def decoder_step(params: Params, arch: WhisperArch, tok: torch.Tensor,
                  pos: int, cache: list, cross_kvs: list,
                  start: torch.Tensor | None = None,
-                 beam: int = 1) -> torch.Tensor:
+                 beam: int = 1, self_pallas: bool = True) -> torch.Tensor:
     """tok (B,) current tokens at position `pos` (a host int). Writes cache
     row `pos` of every layer in place (quantized, with its scales, in an
     int8 cache); returns logits (B, V).
@@ -93,7 +108,11 @@ def decoder_step(params: Params, arch: WhisperArch, tok: torch.Tensor,
     start: optional (B,) int32 first valid cache position of each row (the
     left padding of a prompt window is masked out, and positions count from
     `start`). beam > 1: the rows are B/beam utterances x beam flattened
-    beams sharing cross_kvs entries of batch B/beam."""
+    beams sharing cross_kvs entries of batch B/beam. self_pallas=False: the
+    unfused self-attention (`cache.update`, `cache.read` in q's dtype,
+    masked `attention`), the JAX package's step off the TPU. cross_kvs holds
+    `CrossKV`s or standard-layout entries; the cross-attention dispatches on
+    their type."""
     dec = params["decoder"]
     b = tok.shape[0]
     dh = arch.head_dim
@@ -103,27 +122,34 @@ def decoder_step(params: Params, arch: WhisperArch, tok: torch.Tensor,
     else:
         pidx = (pos - start).clamp_min(0).long()
         x = x + dec["pos"][pidx][:, None, :].to(x.dtype)
-    start_bh = None
+    start_bh = mask = None
     for i, layer in enumerate(dec["layers"]):
         p = layer["attn"]
         h = _num_heads(p, dh)
         q, k, v = qkv_project(p, layer_norm(x, layer["attn_ln"]), h)
-        bh = b * h
-        if start is not None and (start_bh is None or start_bh.shape[0] != bh):
-            start_bh = start.repeat_interleave(h)
-        qf = (q.reshape(bh, dh) * (dh ** -0.5)).to(q.dtype)
         entry = cache[i]
         s = entry["k"].shape[2]
-        rows = (qf.contiguous(), k.reshape(bh, dh).contiguous(),
-                v.reshape(bh, dh).contiguous(), entry["k"].view(bh, s, dh),
-                entry["v"].view(bh, s, dh))
-        if "k_scale" in entry:
-            o = decode_self_attention_update_int8(
-                *rows, entry["k_scale"].view(bh, s),
-                entry["v_scale"].view(bh, s), pos, start=start_bh)
+        if not self_pallas:
+            if mask is None:
+                mask = _step_mask(pos, s, start, x.device)
+            kv_cache.update(entry, k, v, pos)
+            o = merge_heads(attention(q, *kv_cache.read(entry, q.dtype), mask))
         else:
-            o = decode_self_attention_update(*rows, pos, start=start_bh)
-        x = x + linear(o.reshape(b, 1, h * dh), p["o"]["w"], p["o"]["b"])
+            bh = b * h
+            if start is not None and (start_bh is None or start_bh.shape[0] != bh):
+                start_bh = start.repeat_interleave(h)
+            qf = (q.reshape(bh, dh) * (dh ** -0.5)).to(q.dtype)
+            rows = (qf.contiguous(), k.reshape(bh, dh).contiguous(),
+                    v.reshape(bh, dh).contiguous(), entry["k"].view(bh, s, dh),
+                    entry["v"].view(bh, s, dh))
+            if "k_scale" in entry:
+                o = decode_self_attention_update_int8(
+                    *rows, entry["k_scale"].view(bh, s),
+                    entry["v_scale"].view(bh, s), pos, start=start_bh)
+            else:
+                o = decode_self_attention_update(*rows, pos, start=start_bh)
+            o = o.reshape(b, 1, h * dh)
+        x = x + linear(o, p["o"]["w"], p["o"].get("b"))
         hs_c = layer_norm(x, layer["cross_ln"])
         if beam > 1:
             x = x + grouped_cross_attention(layer["cross"], hs_c, cross_kvs[i],
@@ -140,7 +166,9 @@ def prefill(params: Params, arch: WhisperArch, tokens: torch.Tensor,
             start: torch.Tensor | None = None) -> None:
     """Run the (B, P) [prompt +] forced-prefix window through the decoder in
     one batched pass, filling cache positions [0, P) in place. `start`:
-    optional (B,) first valid position (left-padded prompts). With an int8
+    optional (B,) first valid position (left-padded prompts). The window's
+    cross-attention takes the grouped kernel over a `CrossKV` and plain
+    torch over standard-layout cross-KV. With an int8
     cache the window attends to its exact k/v and only the cache holds the
     quantized rows, as in the JAX package."""
     dec = params["decoder"]
@@ -161,10 +189,11 @@ def prefill(params: Params, arch: WhisperArch, tokens: torch.Tensor,
                               _num_heads(p, arch.head_dim))
         kv_cache.update(cache[i], k, v, 0)
         x = x + linear(merge_heads(attention(q, k, v, mask)), p["o"]["w"],
-                       p["o"]["b"])
-        x = x + cross_window_attention(
-            layer["cross"], layer_norm(x, layer["cross_ln"]), cross_kvs[i],
-            arch.head_dim)
+                       p["o"].get("b"))
+        window = (cross_window_attention if isinstance(cross_kvs[i], CrossKV)
+                  else cross_attention)
+        x = x + window(layer["cross"], layer_norm(x, layer["cross_ln"]),
+                       cross_kvs[i], arch.head_dim)
         x = x + mlp(layer, layer_norm(x, layer["mlp_ln"]))
 
 
@@ -268,6 +297,21 @@ def _gen_lengths(tokens: torch.Tensor, p_len: int, pos: int,
     return torch.where(emitted, first_eot + 1, torch.full_like(first_eot, gen_count))
 
 
+def cross_kvs_for(params: Params, arch: WhisperArch, enc_out: torch.Tensor,
+                  cfg: DecodeConfig) -> list:
+    """The decode's per-layer cross-KV: the encoder states pooled or merged
+    as `cfg` asks (`merge_encoder_tokens`), then the transposed layout of
+    the fused kernels (`cross_pallas`) or the standard layout."""
+    check_supported(arch, cfg)
+    if cfg.cross_kv_pool > 1 or cfg.cross_kv_merge > 0:
+        enc_out = merge_encoder_tokens(enc_out, pool=cfg.cross_kv_pool,
+                                       merge_r=cfg.cross_kv_merge)
+    if cfg.cross_pallas:
+        bits = 4 if cfg.cross_kv_int4 else 8 if cfg.cross_kv_int8 else 16
+        return precompute_cross_kv_t(params, arch, enc_out, bits=bits)
+    return precompute_cross_kv(params, arch, enc_out, int8=cfg.cross_kv_int8)
+
+
 def _prepare(params: Params, arch: WhisperArch, enc_out: torch.Tensor,
              cfg: DecodeConfig, max_len: int | None = None,
              prompt_tokens: torch.Tensor | None = None,
@@ -276,14 +320,12 @@ def _prepare(params: Params, arch: WhisperArch, enc_out: torch.Tensor,
     batch B, the token buffer holding that window, each row's `start` (None
     without a prompt), the index of the first generated token, and the cache
     length."""
-    check_supported(arch, cfg)
     b, device = enc_out.shape[0], enc_out.device
     prefix = forced_prefix(arch, cfg)
     p_len = len(prefix)
     pw = 0 if prompt_tokens is None else prompt_tokens.shape[1]
     max_len = max_len or _auto_cache_len(arch, pw + p_len, cfg)
-    bits = 4 if cfg.cross_kv_int4 else 8 if cfg.cross_kv_int8 else 16
-    cross_kvs = precompute_cross_kv_t(params, arch, enc_out, bits=bits)
+    cross_kvs = cross_kvs_for(params, arch, enc_out, cfg)
     cache = kv_cache.init_cache(params, arch, b, max_len, dtype=enc_out.dtype,
                                 device=device, int8=cfg.kv_int8)
     tokens = torch.full((b, max_len), arch.eos_token_id, dtype=torch.long,
@@ -325,7 +367,8 @@ def _logits_fn(params: Params, arch: WhisperArch, cfg: DecodeConfig,
 
     def fn(tokens, cache, pos, last_ts):
         logits = decoder_step(params, arch, tokens[:, pos], pos, cache, cross_kvs,
-                              start=start, beam=beam) + sup
+                              start=start, beam=beam,
+                              self_pallas=cfg.self_pallas) + sup
         if pos == first_gen - 1:
             logits = logits + begin_sup
         if use_ts:
@@ -351,7 +394,8 @@ def first_step_logits(params: Params, arch: WhisperArch, enc_out: torch.Tensor,
     if beam > 1:
         cache, tokens, start = _tile_beams(cache, tokens, start, beam)
     return decoder_step(params, arch, tokens[:, first_gen - 1], first_gen - 1,
-                        cache, cross_kvs, start=start, beam=beam).float()
+                        cache, cross_kvs, start=start, beam=beam,
+                        self_pallas=cfg.self_pallas).float()
 
 
 # ---------------------------------------------------------------------------
@@ -362,15 +406,25 @@ def greedy_decode(params: Params, arch: WhisperArch, enc_out: torch.Tensor,
                   cfg: DecodeConfig | None = None, max_len: int | None = None,
                   prompt_tokens: torch.Tensor | None = None,
                   prompt_lens: torch.Tensor | None = None,
-                  sample_key=None, temperature: float = 0.0,
+                  generator: torch.Generator | None = None,
+                  temperature: float = 0.0,
                   return_logprobs: bool = False,
                   return_token_logprobs: bool = False):
-    """Batched greedy decode.
+    """Batched greedy decode, or temperature sampling.
 
     Optional prompt conditioning: `prompt_tokens` (B, P) holds right-aligned
     prompt ids; the left padding is masked out of attention through
     `prompt_lens` (B,). The forced prefix and the generated tokens follow at
     positions >= P.
+
+    generator + temperature > 0: each row's next token is drawn by
+    `torch.multinomial` over softmax(logits / temperature) from `generator`
+    (on enc_out's device), where the JAX function draws with
+    `jax.random.categorical` from a `sample_key`: the same distribution,
+    not the same draws. At temperature 0.0, or without a generator (as the
+    JAX function without a key), the argmax is taken exactly, bit-equal to
+    the plain greedy call. The logprobs below are those of the untempered
+    logits, as in JAX.
 
     return_logprobs=True also returns the mean logprob of each row's
     generated tokens; return_token_logprobs=True the (B, max_len) f32 trace
@@ -381,11 +435,8 @@ def greedy_decode(params: Params, arch: WhisperArch, enc_out: torch.Tensor,
     after stop; lengths (B,): valid tokens including the prompt window, the
     prefix and the final EOT[, avg_logprob (B,) f32][, token_logprobs
     (B, max_len) f32])."""
-    if sample_key is not None or temperature != 0.0:
-        raise NotImplementedError(
-            "temperature sampling is not ported: it comes with the fallback "
-            "ladder of models/fallback.py")
     cfg = cfg or DecodeConfig()
+    sample = generator is not None and float(temperature) > 0.0
     eot = arch.eos_token_id
     cross_kvs, cache, tokens, start, first_gen, max_len = _prepare(
         params, arch, enc_out, cfg, max_len, prompt_tokens, prompt_lens)
@@ -402,7 +453,11 @@ def greedy_decode(params: Params, arch: WhisperArch, enc_out: torch.Tensor,
     lp_trace = torch.zeros((b, max_len), dtype=torch.float32, device=device)
     while pos < limit - 1 and not bool(finished.all()):
         logits = logits_fn(tokens, cache, pos, last_ts)
-        nxt = torch.argmax(logits, dim=-1)
+        if sample:
+            probs = torch.softmax(logits.float() / float(temperature), dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:
+            nxt = torch.argmax(logits, dim=-1)
         nxt = torch.where(finished, torch.full_like(nxt, eot), nxt)
         if return_logprobs or return_token_logprobs:
             lp = torch.log_softmax(logits.float(), dim=-1)
@@ -540,15 +595,15 @@ def _language_token_range(arch: WhisperArch) -> tuple[int, int]:
 def _sot_step_logits(params: Params, arch: WhisperArch, enc_out: torch.Tensor,
                      max_len: int) -> torch.Tensor:
     """Logits (B, V) of one decoder step from <|startoftranscript|> over an
-    empty cache of `max_len` rows, through the fused kernels (the JAX
-    functions take the unfused path here; the function is the same)."""
+    empty cache of `max_len` rows: the unfused step over standard-layout
+    cross-KV, as the JAX functions take it."""
     b = enc_out.shape[0]
     cache = kv_cache.init_cache(params, arch, b, max_len, dtype=enc_out.dtype,
                                 device=enc_out.device)
-    cross_kvs = precompute_cross_kv_t(params, arch, enc_out)
+    cross_kvs = precompute_cross_kv(params, arch, enc_out)
     sot = torch.full((b,), arch.decoder_start_token_id, dtype=torch.long,
                      device=enc_out.device)
-    return decoder_step(params, arch, sot, 0, cache, cross_kvs)
+    return decoder_step(params, arch, sot, 0, cache, cross_kvs, self_pallas=False)
 
 
 def detect_language(params: Params, arch: WhisperArch, enc_out: torch.Tensor,

@@ -6,7 +6,8 @@ double-quant scale2/offset2). Layers whose q/k/v cannot fuse (mixed dense
 and quantized, or mixed kinds) stay unfused; every kind fuses, fp8 included
 (the JAX package's FUSABLE_KINDS holds them all). The fused QTensor keeps
 the first tensor's activation mode and `act_scale`, as JAX's does, so
-calibrate after fusing. Apply after quantization."""
+calibrate after fusing. Apply after quantization. `unfuse_qkv` is the
+inverse for dense weights."""
 
 from __future__ import annotations
 
@@ -46,8 +47,15 @@ def _fuse_attn(attn: dict) -> dict | None:
         return None
     else:
         w = torch.cat(ws, dim=1)
-    qb, vb = attn["q"]["b"], attn["v"]["b"]
-    b = torch.cat([qb, torch.zeros_like(qb), vb])  # k has no bias
+    data = w.data if isinstance(w, QTensor) else w
+    qb, vb = attn["q"].get("b"), attn["v"].get("b")
+
+    def zeros(dtype):   # an absent bias, as in the JAX package; k has none
+        return torch.zeros(data.shape[1] // 3, dtype=dtype, device=data.device)
+
+    b = torch.cat([qb if qb is not None else zeros(torch.float32),
+                   zeros(torch.float32 if qb is None else qb.dtype),
+                   vb if vb is not None else zeros(torch.float32)])
     return {"qkv": {"w": w, "b": b}, "o": attn["o"]}
 
 
@@ -59,6 +67,29 @@ def fuse_qkv(params: Any, components: tuple[str, ...] = ("decoder",)) -> Any:
             fused = _fuse_attn(layer["attn"])
             if fused is not None:
                 layer["attn"] = fused
+    return out
+
+
+def unfuse_qkv(params: Any) -> Any:
+    """Inverse of `fuse_qkv` for dense weights (dequantize first): splits
+    each fused qkv of the encoder and the decoder back into q/k/v with
+    Whisper's bias layout (k has none: its fused share is structurally
+    zero). `unfuse_qkv(fuse_qkv(p))` gives p's tensors bit for bit."""
+    out = copy_tree(params)
+    for comp in ("encoder", "decoder"):
+        for layer in out[comp]["layers"]:
+            attn = layer["attn"]
+            if "qkv" not in attn:
+                continue
+            w = attn["qkv"]["w"]
+            if isinstance(w, QTensor):
+                raise ValueError("dequantize before unfusing")
+            d = w.shape[1] // 3
+            b = attn["qkv"]["b"]
+            layer["attn"] = {"q": {"w": w[:, :d], "b": b[:d]},
+                             "k": {"w": w[:, d: 2 * d]},
+                             "v": {"w": w[:, 2 * d:], "b": b[2 * d:]},
+                             "o": attn["o"]}
     return out
 
 

@@ -14,6 +14,15 @@ the byte threshold where XLA's own fusion gives way, while eager PyTorch
 would materialise the (B, H, T, T) scores at every size. Not carried over:
 the JAX encoder's batch chunking (`_encode_batch_chunks`), which works
 around that same XLA cliff.
+
+The full-sequence decoder (`decode_logits`, `forward`, `nll_loss`: scoring,
+calibration and teacher-forced loss) reads the standard-layout cross-KV of
+`precompute_cross_kv`, (B, H, S, Dh), bf16/f32 or int8 with per-(batch,
+head, position) scales, in plain torch, as the JAX package leaves it to
+XLA; `cross_attention` and `grouped_cross_attention` dispatch on the type
+of the cross-KV entry (a `CrossKV` takes the kernels). The JAX package's
+`capture.record` activation taps (encoder layer, decoder layer, MLP) are
+not carried: they come with the data-aware quantizers.
 """
 
 from __future__ import annotations
@@ -39,8 +48,9 @@ NEG_INF = -1e9  # finite additive mask value, as in the JAX package
 
 
 def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
-    y = F.layer_norm(x.float(), (x.shape[-1],), p["g"].float(), p["b"].float(),
-                     eps)
+    b = p.get("b")
+    y = F.layer_norm(x.float(), (x.shape[-1],), p["g"].float(),
+                     None if b is None else b.float(), eps)
     return y.to(x.dtype)
 
 
@@ -73,11 +83,11 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 def qkv_project(p: Params, x: torch.Tensor, n_heads: int):
     """q/k/v projections -> (B, H, T, Dh) triple (fused qkv when present)."""
     if "qkv" in p:
-        q, k, v = qkv_split(linear(x, p["qkv"]["w"], p["qkv"]["b"]))
+        q, k, v = qkv_split(linear(x, p["qkv"]["w"], p["qkv"].get("b")))
     else:
-        q = linear(x, p["q"]["w"], p["q"]["b"])
+        q = linear(x, p["q"]["w"], p["q"].get("b"))
         k = linear(x, p["k"]["w"])
-        v = linear(x, p["v"]["w"], p["v"]["b"])
+        v = linear(x, p["v"]["w"], p["v"].get("b"))
     return split_heads(q, n_heads), split_heads(k, n_heads), split_heads(v, n_heads)
 
 
@@ -101,16 +111,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs.to(q.dtype), v)
 
 
+def _mask_heads(o: torch.Tensor, head_mask: torch.Tensor | None) -> torch.Tensor:
+    """o (B, H, T, Dh) times an (H,) head mask (head-importance analyses)."""
+    if head_mask is None:
+        return o
+    return o * head_mask[None, :, None, None].to(o.dtype)
+
+
 def self_attention(p: Params, x: torch.Tensor, head_dim: int,
-                   mask: torch.Tensor | None = None) -> torch.Tensor:
+                   mask: torch.Tensor | None = None,
+                   head_mask: torch.Tensor | None = None) -> torch.Tensor:
     q, k, v = qkv_project(p, x, _num_heads(p, head_dim))
-    o = attention(q, k, v, mask)
-    return linear(merge_heads(o), p["o"]["w"], p["o"]["b"])
+    o = _mask_heads(attention(q, k, v, mask), head_mask)
+    return linear(merge_heads(o), p["o"]["w"], p["o"].get("b"))
 
 
 def mlp(p: Params, x: torch.Tensor, fast_gelu: bool = False) -> torch.Tensor:
-    h = gelu(linear(x, p["fc1"]["w"], p["fc1"]["b"]), approximate=fast_gelu)
-    return linear(h, p["fc2"]["w"], p["fc2"]["b"])
+    h = gelu(linear(x, p["fc1"]["w"], p["fc1"].get("b")), approximate=fast_gelu)
+    # the JAX package records h here for sensitivity analyses
+    # (`capture.record("ffn_act")`); that tap comes with them
+    return linear(h, p["fc2"]["w"], p["fc2"].get("b"))
 
 
 # ---------------------------------------------------------------------------
@@ -125,14 +145,26 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def encoder_layer(p: Params, x: torch.Tensor, head_dim: int,
+                  head_mask: torch.Tensor | None = None,
                   fast_gelu: bool = False) -> torch.Tensor:
-    x = x + self_attention(p["attn"], layer_norm(x, p["attn_ln"]), head_dim)
+    # the JAX package records both layer norms' outputs here for its
+    # SmoothQuant/AWQ calibration (`capture.record`); those taps come with it
+    x = x + self_attention(p["attn"], layer_norm(x, p["attn_ln"]), head_dim,
+                           head_mask=head_mask)
     return x + mlp(p, layer_norm(x, p["mlp_ln"]), fast_gelu=fast_gelu)
 
 
 def encode(params: Params, arch: WhisperArch, mel: torch.Tensor,
+           head_masks: torch.Tensor | None = None,
+           merge_at: int | None = None, merge_factor: int = 2,
            fast_gelu: bool = False) -> torch.Tensor:
     """mel (B, n_mels, 2·T) -> encoder states (B, T, d_model).
+
+    head_masks: optional (L, H) per-layer attention-head mask.
+    merge_at / merge_factor: adjacent-token merging, the mean of each group
+    of `merge_factor` frames (a ragged tail dropped) before layer
+    `merge_at`, which shrinks the remaining layers and every cross-attention
+    by that factor (T = 750 or 500 at whisper's 1500).
     fast_gelu: tanh-approximate GELU in the encoder MLPs (the conv stem
     keeps exact erf)."""
     enc = params["encoder"]
@@ -140,8 +172,14 @@ def encode(params: Params, arch: WhisperArch, mel: torch.Tensor,
     x = gelu(_conv1d(x, enc["conv2"]["w"], enc["conv2"]["b"], stride=2))
     x = x.transpose(1, 2)
     x = x + enc["pos"][: x.shape[1]].to(x.dtype)
-    for layer in enc["layers"]:
-        x = encoder_layer(layer, x, arch.head_dim, fast_gelu=fast_gelu)
+    for i, layer in enumerate(enc["layers"]):
+        if merge_at is not None and i == merge_at:
+            b, t, d = x.shape
+            t2 = t - t % merge_factor
+            x = x[:, :t2].reshape(b, t2 // merge_factor, merge_factor, d).mean(2)
+        hm = None if head_masks is None else head_masks[i]
+        x = encoder_layer(layer, x, arch.head_dim, head_mask=hm,
+                          fast_gelu=fast_gelu)
     return layer_norm(x, enc["ln"])
 
 
@@ -200,7 +238,7 @@ def precompute_cross_kv_t(params: Params, arch: WhisperArch,
         p = layer["cross"]
         h = _num_heads(p, arch.head_dim)
         k = linear(enc_out, p["k"]["w"])
-        v = linear(enc_out, p["v"]["w"], p["v"]["b"])
+        v = linear(enc_out, p["v"]["w"], p["v"].get("b"))
         if bits == 8:
             (k_t, ks), (v_t, vs) = (transpose_quant_kv(t.contiguous(), h)
                                     for t in (k, v))
@@ -224,7 +262,7 @@ def _cross_t(p: Params, x: torch.Tensor, kv: CrossKV, head_dim: int,
     multiple of 16, the JAX package's rule (`cross_t_apply`); few rows then,
     and that kernel spreads each over several blocks. Returns x's shape."""
     h = _num_heads(p, head_dim)
-    q = linear(x, p["q"]["w"], p["q"]["b"])                 # (.., H*Dh)
+    q = linear(x, p["q"]["w"], p["q"].get("b"))             # (.., H*Dh)
     qg = (q.reshape(rows, slots, h, head_dim).transpose(1, 2)
           .reshape(rows * h, slots, head_dim) * (head_dim ** -0.5)).to(q.dtype)
     if step and kv.k_t.shape[0] % UNGROUPED_MODULUS != 0:
@@ -235,19 +273,30 @@ def _cross_t(p: Params, x: torch.Tensor, kv: CrossKV, head_dim: int,
                                            kv.k_scale, kv.v_scale, kv.valid_len)
     o = o.reshape(rows, h, slots, head_dim).transpose(1, 2).reshape(
         *x.shape[:-1], h * head_dim)
-    return linear(o.to(x.dtype), p["o"]["w"], p["o"]["b"])
+    return linear(o.to(x.dtype), p["o"]["w"], p["o"].get("b"))
 
 
-def cross_attention(p: Params, x: torch.Tensor, kv: CrossKV,
-                    head_dim: int) -> torch.Tensor:
-    """Decode-step cross-attention of x (B, 1, d) over transposed K/V (the
-    JAX package's `cross_attention` with a CrossKV): the grouped kernel at
-    one slot, or the one-query kernel where B·H % 16 != 0."""
-    if x.shape[1] != 1:
-        raise ValueError("cross_attention takes one decode position (B, 1, d); "
-                         f"got {tuple(x.shape)}: a window goes to "
-                         "cross_window_attention")
-    return _cross_t(p, x, kv, head_dim, x.shape[0], 1, step=True)
+def cross_attention(p: Params, x: torch.Tensor, kv, head_dim: int,
+                    head_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Cross-attention of x (B, L, d) over one layer's cross-KV, by its type
+    as in the JAX package: a `CrossKV` (the decode step, L = 1) takes the
+    grouped kernel at one slot, or the one-query kernel where B·H % 16 != 0;
+    a standard-layout entry of `precompute_cross_kv` takes `attention` over
+    `read_cross_kv`, at any L, with an optional (H,) head mask."""
+    if isinstance(kv, CrossKV):
+        if head_mask is not None:
+            raise ValueError("head_mask is not supported on the transposed-"
+                             "KV path; use standard-layout cross-KV "
+                             "(precompute_cross_kv / cross_pallas=False)")
+        if x.shape[1] != 1:
+            raise ValueError("cross_attention over a CrossKV takes one decode "
+                             f"position (B, 1, d); got {tuple(x.shape)}: a "
+                             "window goes to cross_window_attention")
+        return _cross_t(p, x, kv, head_dim, x.shape[0], 1, step=True)
+    q = split_heads(linear(x, p["q"]["w"], p["q"].get("b")), _num_heads(p, head_dim))
+    k, v = read_cross_kv(kv, q.dtype)                 # (B, H, S, Dh)
+    o = _mask_heads(attention(q, k, v), head_mask)
+    return linear(merge_heads(o), p["o"]["w"], p["o"].get("b"))
 
 
 def cross_window_attention(p: Params, x: torch.Tensor, kv: CrossKV,
@@ -258,13 +307,95 @@ def cross_window_attention(p: Params, x: torch.Tensor, kv: CrossKV,
     return _cross_t(p, x, kv, head_dim, x.shape[0], x.shape[1])
 
 
-def grouped_cross_attention(p: Params, x: torch.Tensor, kv: CrossKV,
-                            head_dim: int, beam: int) -> torch.Tensor:
+def grouped_cross_attention(p: Params, x: torch.Tensor, kv, head_dim: int,
+                            beam: int) -> torch.Tensor:
     """Beam-search decode step: x is (B*beam, 1, d), `beam` consecutive rows
-    sharing one K/V entry of kv, which stays at batch B (the JAX package's
-    `_grouped_cross_attention_t`): the beams are the slots, so a step reads
-    the encoder K/V once per utterance, not once per beam."""
-    return _cross_t(p, x, kv, head_dim, x.shape[0] // beam, beam)
+    sharing one K/V entry of kv, which stays at batch B, so a step reads the
+    encoder K/V once per utterance, not once per beam. A `CrossKV` takes the
+    grouped kernel with the beams as its slots (the JAX package's
+    `_grouped_cross_attention_t`); a standard-layout entry, `attention` of
+    the (B, H, beam, Dh) queries over `read_cross_kv`."""
+    if isinstance(kv, CrossKV):
+        return _cross_t(p, x, kv, head_dim, x.shape[0] // beam, beam)
+    h = _num_heads(p, head_dim)
+    q = linear(x, p["q"]["w"], p["q"].get("b"))                  # (B*K, 1, H*Dh)
+    b = x.shape[0] // beam
+    qg = q.reshape(b, beam, h, head_dim).transpose(1, 2)        # (B, H, K, Dh)
+    k, v = read_cross_kv(kv, q.dtype)                            # (B, H, S, Dh)
+    o = attention(qg, k, v).transpose(1, 2).reshape(x.shape[0], 1, h * head_dim)
+    return linear(o, p["o"]["w"], p["o"].get("b"))
+
+
+# ---------------------------------------------------------------------------
+# Decoder, full sequence: scoring, calibration, teacher-forced loss
+# ---------------------------------------------------------------------------
+
+def _quant_kv8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes of (B, H, S, Dh) with per-(batch, head, position) absmax
+    scales (B, H, S, 1) f32, bit-equal to the jitted JAX `_quant_kv8` (a
+    multiply by f32(1/127), `ops.qtensor.absmax_scale`)."""
+    return quantize_absmax(x, dim=-1, qmax=127)
+
+
+def precompute_cross_kv(params: Params, arch: WhisperArch,
+                        enc_out: torch.Tensor, int8: bool = False) -> list[tuple]:
+    """Per-layer cross-attention K/V from the encoder states, in the
+    standard (B, H, S, Dh) layout: (k, v) in the encoder's dtype, or with
+    int8=True ((k codes, k scales), (v codes, v scales)). The full-sequence
+    decoder and the unfused decode step (`cross_pallas=False`) read it
+    through `read_cross_kv`; the fused step takes `precompute_cross_kv_t`."""
+    kvs = []
+    for layer in params["decoder"]["layers"]:
+        p = layer["cross"]
+        h = _num_heads(p, arch.head_dim)
+        k = split_heads(linear(enc_out, p["k"]["w"]), h)
+        v = split_heads(linear(enc_out, p["v"]["w"], p["v"].get("b")), h)
+        kvs.append((_quant_kv8(k), _quant_kv8(v)) if int8 else (k, v))
+    return kvs
+
+
+def read_cross_kv(kv: tuple, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """(k, v) of a `precompute_cross_kv` entry in `dtype`, dequantized (code
+    x scale in f32, then rounded) if it is int8."""
+    k, v = kv
+    if isinstance(k, tuple):
+        return tuple((c.float() * s).to(dtype) for c, s in (k, v))
+    return k.to(dtype), v.to(dtype)
+
+
+def decoder_layer(p: Params, x: torch.Tensor, cross_kv, head_dim: int,
+                  self_mask: torch.Tensor | None,
+                  head_mask: torch.Tensor | None = None,
+                  cross_head_mask: torch.Tensor | None = None) -> torch.Tensor:
+    # the JAX package records the three layer norms' outputs here for its
+    # calibration (`capture.record`); those taps come with it
+    x = x + self_attention(p["attn"], layer_norm(x, p["attn_ln"]), head_dim,
+                           mask=self_mask, head_mask=head_mask)
+    x = x + cross_attention(p["cross"], layer_norm(x, p["cross_ln"]), cross_kv,
+                            head_dim, head_mask=cross_head_mask)
+    return x + mlp(p, layer_norm(x, p["mlp_ln"]))
+
+
+def decode_logits(params: Params, arch: WhisperArch, tokens: torch.Tensor,
+                  enc_out: torch.Tensor,
+                  self_head_masks: torch.Tensor | None = None,
+                  cross_head_masks: torch.Tensor | None = None) -> torch.Tensor:
+    """Teacher-forced decoder: tokens (B, L) -> logits (B, L, vocab), causal
+    self-attention, standard-layout cross-KV; optional (layers, H) head
+    masks."""
+    dec = params["decoder"]
+    l = tokens.shape[1]
+    x = embed_tokens(dec, tokens)
+    x = x + dec["pos"][:l].to(x.dtype)
+    causal = torch.triu(torch.full((l, l), NEG_INF, dtype=torch.float32,
+                                   device=x.device), diagonal=1)[None, None]
+    cross_kvs = precompute_cross_kv(params, arch, enc_out)
+    for i, layer in enumerate(dec["layers"]):
+        hm = None if self_head_masks is None else self_head_masks[i]
+        chm = None if cross_head_masks is None else cross_head_masks[i]
+        x = decoder_layer(layer, x, cross_kvs[i], arch.head_dim, causal,
+                          head_mask=hm, cross_head_mask=chm)
+    return project_out(dec, layer_norm(x, dec["ln"]))
 
 
 def embed_tokens(dec: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -274,3 +405,34 @@ def embed_tokens(dec: Params, tokens: torch.Tensor) -> torch.Tensor:
 def project_out(dec: Params, x: torch.Tensor) -> torch.Tensor:
     """Output projection tied to the token embedding."""
     return linear(x, dec["embed"].t())
+
+
+def forward(params: Params, arch: WhisperArch, mel: torch.Tensor,
+            tokens: torch.Tensor,
+            enc_head_masks: torch.Tensor | None = None,
+            dec_head_masks: torch.Tensor | None = None,
+            cross_head_masks: torch.Tensor | None = None) -> torch.Tensor:
+    """Encoder and teacher-forced decoder: mel (B, n_mels, 2·T), tokens
+    (B, L) -> logits (B, L, vocab). Optional (layers, H) head masks."""
+    enc = encode(params, arch, mel, head_masks=enc_head_masks)
+    return decode_logits(params, arch, tokens, enc,
+                         self_head_masks=dec_head_masks,
+                         cross_head_masks=cross_head_masks)
+
+
+def nll_loss(params: Params, arch: WhisperArch, mel: torch.Tensor,
+             tokens: torch.Tensor, labels: torch.Tensor,
+             label_mask: torch.Tensor | None = None,
+             enc_head_masks: torch.Tensor | None = None,
+             dec_head_masks: torch.Tensor | None = None,
+             cross_head_masks: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy of `labels` (B, L) under `forward`'s logits (in
+    f32), over the positions `label_mask` (B, L) weights when given."""
+    logits = forward(params, arch, mel, tokens, enc_head_masks,
+                     dec_head_masks, cross_head_masks).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels[..., None].long())[..., 0]
+    if label_mask is not None:
+        m = label_mask.to(nll.dtype)
+        return (nll * m).sum() / m.sum().clamp_min(1.0)
+    return nll.mean()

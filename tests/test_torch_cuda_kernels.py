@@ -1000,3 +1000,133 @@ def test_self_attention_read_only_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):   # q at an offset that breaks 16-byte loads
         off = torch.zeros(4 * 64 + 1, device=dev, dtype=bf)[1:].view(4, 64)
         decode_self_attention(off, cache, cache, 1)
+
+
+# ---------------------------------------------------------------------------
+# Lengths that token merging gives the kernels: the encoder at T = 750 or
+# 500 (`encode(merge_at=)`), cross-KV of S = 750, 500 (pooled) or 1500 - r
+# (ToMe), and short or odd spans where a cluster's blocks and warps share
+# few chunks
+# ---------------------------------------------------------------------------
+
+MERGED_S = [750, 500, 1200, 33, 1]
+
+
+@pytest.mark.parametrize("bh", [12, 36, 384])
+@pytest.mark.parametrize("s_valid", MERGED_S)
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_cross_attention_at_merged_lengths(dev, kind, s_valid, bh):
+    """Both cross-attention kernels at S_pad = pad_cross_len(s_valid): the
+    grouped one at 1, 3 and 5 slots, the one-query one (its cluster split
+    by `one_query_splits`), each within one bf16 step of its plain
+    version, finite, and blind to the padding."""
+    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
+        grouped_splits, one_query_splits, pad_cross_len)
+
+    g = torch.Generator(device=dev).manual_seed(bh + s_valid)
+    k, v, ks, vs = _cross_kv(dev, kind, bh, s_valid, bh * s_valid, torch.bfloat16)
+    assert k.shape[2] == pad_cross_len(s_valid)
+    assert 1 <= grouped_splits(bh, s_valid) <= max(1, -(-s_valid // 32))
+    assert 1 <= one_query_splits(bh, s_valid) <= max(1, -(-s_valid // 64))
+    outs = []
+    for kq in (1, 3, 5):
+        q = (torch.randn(bh, kq, 64, generator=g, device=dev) * 0.125).bfloat16()
+        got = decode_cross_attention_grouped(q, k, v, ks, vs, s_valid)
+        ref = decode_cross_attention_grouped_ref(q, k, v, ks, vs, s_valid)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=_tol(torch.bfloat16, float(ref.float().abs().max())),
+                                   msg=lambda m: f"grouped, {kq} slots: {m}")
+        outs.append((q, got))
+    q1 = outs[0][0][:, 0, :].contiguous()
+    got = decode_cross_attention(q1, k, v, ks, vs, s_valid)
+    ref = decode_cross_attention_ref(q1, k, v, ks, vs, s_valid)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(torch.bfloat16, float(ref.float().abs().max())))
+    for t in (k, v):
+        t[:, :, s_valid:] = 99 if t.dtype == torch.int8 else 100.0
+    if ks is not None:
+        for t in (ks, vs):
+            t[:, :, s_valid:] = float("inf")
+    assert torch.equal(decode_cross_attention(q1, k, v, ks, vs, s_valid), got)
+    for q, out in outs:
+        assert torch.equal(decode_cross_attention_grouped(q, k, v, ks, vs, s_valid), out)
+
+
+@pytest.mark.parametrize("b,h,t", [(32, 12, 750), (32, 12, 500), (3, 12, 750),
+                                   (2, 16, 500), (1, 1, 749), (1, 2, 501)])
+def test_encoder_attention_at_merged_lengths(dev, b, h, t):
+    """The encoder attention after `merge_at` (T = 750 and 500, ragged last
+    tiles of keys and of query rows): within one bf16 step of the plain
+    version's largest output, finite, one launch."""
+    q, k, v = _strided_qkv(dev, b, h, t, b * h + t)
+    before = encoder_attention.launches
+    got = encoder_attention(q, k, v)
+    assert encoder_attention.launches == before + 1
+    ref = encoder_attention_ref(q, k, v)
+    assert got.shape == (b, h, t, 64) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(torch.bfloat16, float(ref.float().abs().max())))
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("b,s,h", [(32, 750, 12), (32, 500, 12), (3, 1200, 12),
+                                   (64, 750, 16), (2, 33, 12)])
+def test_transpose_quant_kv_at_merged_lengths(dev, dtype, b, s, h):
+    """The cross-KV quantizer at the merged lengths (a partial last
+    128-position tile): codes and scales bit-equal to the plain version's,
+    on a fresh merged tensor as the model hands it over."""
+    from openai_whisper_compression_tpu_torch.models.merge import pool_tokens, tome_merge
+
+    g = torch.Generator(device=dev).manual_seed(b + s + h)
+    x = (torch.randn(b, 2 * s, h * 64, generator=g, device=dev) * 3).to(dtype)
+    x = pool_tokens(x, 2) if s % 3 else tome_merge(x, s)
+    assert x.shape == (b, s, h * 64) and x.is_contiguous()
+    before = transpose_quant_kv.launches
+    q, sc = transpose_quant_kv(x, h)
+    assert transpose_quant_kv.launches == before + 1
+    q_ref, sc_ref = transpose_quant_kv_ref(x, h)
+    assert torch.equal(q, q_ref) and torch.equal(sc, sc_ref)
+
+
+@pytest.mark.parametrize("switches", [
+    {"cross_kv_pool": 2, "kv_int8": True, "cross_kv_int8": True},
+    {"cross_kv_pool": 3, "cross_kv_int4": True},
+    {"cross_kv_merge": 300}, {"cross_kv_merge": 750, "cross_kv_int8": True}],
+    ids=["pool2-ckv8", "pool3-ckv4", "tome300", "tome750-ckv8"])
+@pytest.mark.parametrize("batch", [1, 3, 16])
+def test_merge_pool_path_on_the_card(dev, switches, batch):
+    """The decode after pooling or merging, through the kernels at the
+    merged lengths (the one-query kernel at batch 1 and 3, B*H % 16 != 0):
+    cross-KV as long as the merge leaves it, first-step logits within 2**-5
+    relative L2 of the same tree and inputs in f32 on the CPU, greedy tokens
+    in range, each kernel of the path launched."""
+    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
+    from openai_whisper_compression_tpu_torch.models import decode
+    from openai_whisper_compression_tpu_torch.models.params import init_params, tree_to
+    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
+        decode_cross_attention as one_query)
+
+    arch = ARCHS["tiny"].replace(d_model=128, encoder_heads=2, decoder_heads=2,
+                                 ffn_dim=256, encoder_layers=1, decoder_layers=2)
+    params = init_params(arch, 0, torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(batch)
+    enc = torch.randn(batch, 1500, 128, generator=g, device=dev).bfloat16()
+    cfg = DecodeConfig(max_new_tokens=5, **switches)
+    kvs = decode.cross_kvs_for(params, arch, enc, cfg)
+    s = (1500 - switches["cross_kv_merge"] if "cross_kv_merge" in switches
+         else -(-1500 // switches["cross_kv_pool"]))
+    assert kvs[0].valid_len == s
+    step = ("int4" if switches.get("cross_kv_int4") else
+            "int8" if switches.get("cross_kv_int8") else "")
+    attr = "launches" + ("_" + step if step else "")
+    before = getattr(one_query, attr)
+    got = decode.first_step_logits(params, arch, enc, cfg).float().cpu()
+    ref = decode.first_step_logits(tree_to(params, "cpu", torch.float32), arch,
+                                   enc.float().cpu(), cfg)
+    rel = float((got - ref).norm() / ref.norm())
+    assert rel <= 2 ** -5, rel
+    assert (getattr(one_query, attr) > before) == ((batch * 2) % 16 != 0)
+    tokens, lengths = decode.greedy_decode(params, arch, enc, cfg)
+    assert int(tokens.max()) < arch.vocab_size and bool((lengths >= 4).all())

@@ -4,9 +4,10 @@ the Pallas mel kernel (interpret mode on the CPU), with fp caches and with
 `bench.py`'s int8 self-KV / int8 cross-KV (and int4 cross-KV). Tokens and
 lengths must match exactly; the quantized cross-KV and the int8 cache's
 row quantize + write bit for bit; encoder states, the int8 cache after the
-whole prefill and first-step logits within stated bounds. Also: the port imports without jax, options outside the
-slice raise, and a CPU call to a kernel wrapper never loads the CUDA
-library."""
+whole prefill and first-step logits within stated bounds. Also: the port
+imports without jax, the options earlier slices refused (pooling, merging,
+the unfused step, sampling at temperature 0) match JAX, and a CPU call to a
+kernel wrapper never loads the CUDA library."""
 
 import subprocess
 import sys
@@ -140,17 +141,40 @@ def test_first_step_logits_match_jax(slice_params):
 @pytest.mark.parametrize("change", [
     {"cross_kv_pool": 2}, {"cross_kv_merge": 4},
     {"cross_pallas": False}, {"self_pallas": False}])
-def test_options_outside_the_slice_raise(change):
-    with pytest.raises(NotImplementedError):
-        make_transcribe_fn(ARCHS["test2l"], DecodeConfig(**change), device=DEV)
+def test_options_outside_the_slice_raise(slice_params, change):
+    """Options the earlier slices refused (pooling, ToMe merging, the
+    unfused cross-KV and self-attention) now run: the transcription's tokens
+    and lengths equal the jitted JAX function's with the same option."""
+    jp, tp = slice_params
+    wav = _wav()
+    jt, jl = jax_make_transcribe_fn(
+        ARCH, JaxDecodeConfig(max_new_tokens=12, **change),
+        use_pallas_mel=True)(jp, jnp.asarray(wav))
+    tt, tl = make_transcribe_fn(ARCHS["test2l"], DecodeConfig(max_new_tokens=12, **change),
+                                device=DEV)(tp, wav)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
 
 
-@pytest.mark.parametrize("kw", [{"sample_key": 0}, {"temperature": 0.2}])
-def test_sampling_raises(kw):
-    """Temperature sampling comes with the fallback ladder, a later slice."""
-    enc = torch.zeros(1, 64, 64)
-    with pytest.raises(NotImplementedError, match="fallback"):
-        decode.greedy_decode({}, ARCHS["test2l"], enc, DecodeConfig(), **kw)
+@pytest.mark.parametrize("kw", [{"generator": 0, "temperature": 0.0},
+                                {"temperature": 0.2}])
+def test_sampling_raises(slice_params, kw):
+    """Temperature sampling came with the fallback ladder: a generator at
+    temperature 0, or a temperature without a generator (as the JAX
+    function without a key), is the argmax, equal to the JAX greedy
+    decode's tokens and lengths."""
+    jp, tp = slice_params
+    kw = dict(kw)
+    if "generator" in kw:
+        kw["generator"] = torch.Generator().manual_seed(kw["generator"])
+    enc = np.random.default_rng(4).standard_normal((3, 64, 64)).astype(np.float32)
+    cfg = dict(max_new_tokens=12)
+    jt, jl = jax.jit(lambda p, e: jax_decode.greedy_decode(
+        p, ARCH, e, JaxDecodeConfig(**cfg)))(jp, jnp.asarray(enc))
+    tt, tl = decode.greedy_decode(tp, ARCHS["test2l"], torch.from_numpy(enc),
+                                  DecodeConfig(**cfg), **kw)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
 
 
 @pytest.mark.parametrize("kv", KV_CONFIGS)
@@ -280,13 +304,43 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import openai_whisper_compression_tpu_torch.evaluation.harness, "
             "openai_whisper_compression_tpu_torch.audio.mel_kernel, "
-            "openai_whisper_compression_tpu_torch.ops.attention; "
+            "openai_whisper_compression_tpu_torch.ops.attention, "
+            "openai_whisper_compression_tpu_torch.models.fallback, "
+            "openai_whisper_compression_tpu_torch.models.merge, "
+            "openai_whisper_compression_tpu_torch.evaluation.data, "
+            "openai_whisper_compression_tpu_torch.runtime_native; "
             "assert 'openai_whisper_compression_tpu' not in sys.modules; "
             "print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_every_port_module_imports_without_jax():
+    """Every module of the port, and `chip_smoke.py`, imports with jax
+    blocked and loads nothing of the JAX package; no source line imports
+    either."""
+    pkg = ROOT / "openai_whisper_compression_tpu_torch"
+    names = sorted("openai_whisper_compression_tpu_torch." + ".".join(
+        p.relative_to(pkg).with_suffix("").parts) for p in pkg.rglob("*.py")
+        if p.name != "__init__.py")
+    code = ("import sys, importlib; sys.modules['jax'] = None; "
+            f"[importlib.import_module(n) for n in {names!r}]; "
+            "import chip_smoke; "
+            "assert 'openai_whisper_compression_tpu' not in sys.modules; print(len(sys.modules) > 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(names) >= 27
+    sources = list(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in sources:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                mod = words[1].split(".")[0]
+                assert mod not in ("jax", "jaxlib", "openai_whisper_compression_tpu"), \
+                    f"{path.name}: {line.strip()}"
 
 
 def test_cpu_wrappers_never_load_the_library(monkeypatch):
