@@ -12,7 +12,8 @@ times one batch from the moment its waveforms are on the device to the host
 readback of its tokens and lengths, so the window holds all of the device's
 work and the host loop that drives it (the JAX package times one jitted
 call with a host readback). `make_calibration_fn` runs the teacher-forced
-`models.whisper.forward` over a fixed batch.
+`models.whisper.forward` over a fixed batch; `make_speculative_transcribe_fn`
+the speculative decode of `models.speculative` with a draft model.
 """
 
 from __future__ import annotations
@@ -126,6 +127,41 @@ def make_transcribe_fn(arch: WhisperArch, cfg: DecodeConfig,
             out = greedy_decode(params, arch, enc, cfg,
                                 return_token_logprobs=token_logprobs)
         return out + (enc,) if return_enc else out
+
+    return fn
+
+
+def make_speculative_transcribe_fn(arch_t: WhisperArch, arch_d: WhisperArch,
+                                   cfg: DecodeConfig, gamma: int = 4,
+                                   fast_mel: bool = False,
+                                   fast_gelu: bool = False,
+                                   device: str | torch.device = DEFAULT_DEVICE):
+    """Speculative transcription on `device`: fn(params_target,
+    params_draft, wav) -> (tokens, lengths), the target-only greedy output
+    (`models.speculative.speculative_decode`). Each model runs its own mel
+    (at its own `num_mel_bins`) and encoder, e.g. a whisper-tiny draft for
+    a whisper-small target. Both trees must live on `device`."""
+    from ..models.speculative import speculative_decode
+
+    check_supported(arch_t, cfg)
+    device = resolve_device(device)
+    n_samples = samples_for_arch(arch_t)
+    dft_dtype = torch.bfloat16 if fast_mel else torch.float32
+
+    def enc_of(params, arch, wav):
+        mel = features.preprocess(wav, n_mels=arch.num_mel_bins, length=n_samples,
+                                  dft_dtype=dft_dtype)
+        return encode(params, arch, mel.to(_tree_dtype(params)), fast_gelu=fast_gelu)
+
+    @torch.inference_mode()
+    def fn(params_t, params_d, wav):
+        if isinstance(wav, np.ndarray):
+            wav = torch.from_numpy(wav)
+        wav = wav.to(device=device, dtype=torch.float32)
+        tokens, lengths, _ = speculative_decode(
+            params_t, arch_t, params_d, arch_d, enc_of(params_t, arch_t, wav),
+            enc_of(params_d, arch_d, wav), cfg, gamma=gamma)
+        return tokens, lengths
 
     return fn
 

@@ -7,8 +7,9 @@ transpose + int8 quantize, the fp and int8 self-attention cache updates
 (with and without `start`), the read-only self-attention, the w8a8 matmul
 (dynamic and static) and the encoder attention; the f32 and f16 bodies of
 the decode attention kernels and of the matmuls; two runs of one matmul call
-bit for bit; the wrappers' refusals; and bf16 attention on the card against a float64 reference with
-f32 scores. Marked `cuda`; every test skips where no
+bit for bit; the wrappers' refusals; bf16 attention on the card against a float64 reference with
+f32 scores; and the callers that bring caches of other lengths (the
+speculative path's verify window and draft workspace, a prompt's `start`). Marked `cuda`; every test skips where no
 CUDA device is present. Needs no jax, so on the GPU machine run it without the JAX test
 configuration:
 
@@ -1130,3 +1131,68 @@ def test_merge_pool_path_on_the_card(dev, switches, batch):
     assert (getattr(one_query, attr) > before) == ((batch * 2) % 16 != 0)
     tokens, lengths = decode.greedy_decode(params, arch, enc, cfg)
     assert int(tokens.max()) < arch.vocab_size and bool((lengths >= 4).all())
+
+
+@pytest.mark.parametrize("switches", [{}, {"kv_int8": True, "cross_kv_int8": True}],
+                         ids=["bf16", "kv8-ckv8"])
+@pytest.mark.parametrize("batch", [3, 16])
+def test_speculative_path_on_the_card(dev, switches, batch):
+    """The callers that bring caches of other lengths to the decode kernels
+    (`models/speculative.py`): a verify window at an offset over a cache of
+    13 rows (no multiple of 64) within 2**-5 relative L2 of stepping the
+    same tokens through the fused step on the card; `speculative_decode`
+    with a layer-dropped self draft over caches of max_len + gamma + 1 = 69
+    rows and `verified_greedy_decode` with a left-padded prompt, each
+    launching the cache-update kernels (with `start` for the prompt) and
+    the cross-attention kernels, with tokens in range and every row its
+    full length (EOT suppressed)."""
+    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
+    from openai_whisper_compression_tpu_torch.models import cache as kv_cache
+    from openai_whisper_compression_tpu_torch.models import decode, speculative
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+
+    arch = ARCHS["tiny"].replace(d_model=128, encoder_heads=2, decoder_heads=2,
+                                 ffn_dim=256, encoder_layers=1, decoder_layers=2)
+    params = init_params(arch, 0, torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(batch)
+    enc = torch.randn(batch, 1500, 128, generator=g, device=dev).bfloat16()
+    cfg = DecodeConfig(max_new_tokens=12, suppress_tokens=(arch.eos_token_id,),
+                       **switches)
+    int8 = bool(switches)
+    update = (decode_self_attention_update_int8 if int8 else decode_self_attention_update)
+
+    kvs = decode.cross_kvs_for(params, arch, enc, cfg)
+    toks = torch.randint(0, 50000, (batch, 8), generator=g, device=dev)
+    caches = [kv_cache.init_cache(params, arch, batch, 13, dtype=torch.bfloat16,
+                                  device=dev, int8=int8) for _ in range(2)]
+    with torch.inference_mode():
+        steps = [decode.decoder_step(params, arch, toks[:, i], i, caches[0], kvs)
+                 for i in range(8)]
+        for i in range(3):
+            decode.decoder_step(params, arch, toks[:, i], i, caches[1], kvs)
+        window = speculative.verify_window(params, arch, toks[:, 3:], 3, caches[1], kvs)
+    ref = torch.stack(steps[3:], dim=1).float()
+    rel = float((window.float() - ref).norm() / ref.norm())
+    assert rel <= 2 ** -5, rel
+
+    draft, arch_d = speculative.self_speculative_draft(params, arch, keep_decoder=1)
+    before = update.launches
+    with torch.inference_mode():
+        tokens, lengths, rounds = speculative.speculative_decode(
+            params, arch, draft, arch_d, enc, enc, cfg, gamma=4)
+    assert update.launches > before and rounds >= 1
+    assert int(tokens.max()) < arch.vocab_size and bool((lengths == 4 + 12).all())
+
+    prompt = torch.randint(0, 50000, (batch, 8), generator=g, device=dev)
+    plen = torch.tensor([8, 3, 5] * (batch // 3) + [8] * (batch % 3), device=dev)
+    with torch.inference_mode():
+        ref_t, ref_l = decode.greedy_decode(params, arch, enc, cfg, prompt_tokens=prompt,
+                                            prompt_lens=plen)
+        before = update.launches_start
+        got_t, got_l, n_acc = speculative.verified_greedy_decode(
+            params, arch, enc, cfg, ref_t[:, 12:24], torch.full((batch,), 12, device=dev),
+            prompt_tokens=prompt, prompt_lens=plen)
+    assert int(got_t.max()) < arch.vocab_size and torch.equal(got_l, ref_l)
+    assert bool((n_acc >= 0).all()) and bool((n_acc <= 12).all())
+    # a row whose every draft token was accepted steps no further
+    assert (update.launches_start > before) == bool((n_acc < 12).any())

@@ -1,7 +1,9 @@
 """The port's entry points run on the card unless the caller names another
-device: `make_transcribe_fn`, `init_params`, `from_numpy` and `init_cache`
-default to "cuda", and where torch sees no card a call that names no device
-raises instead of quietly returning CPU tensors."""
+device: `make_transcribe_fn`, `make_speculative_transcribe_fn`,
+`init_params`, `from_numpy`, `init_cache` and the long-form functions
+(`transcribe_long`, `transcribe_seek`, `transcribe_seek_batch`) default to
+"cuda", and where torch sees no card a call that names no device raises
+instead of quietly returning CPU tensors."""
 
 from __future__ import annotations
 
@@ -12,7 +14,10 @@ import pytest
 import torch
 
 from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
-from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+from openai_whisper_compression_tpu_torch.evaluation import longform
+from openai_whisper_compression_tpu_torch.evaluation.harness import (
+    make_speculative_transcribe_fn, make_transcribe_fn)
+from openai_whisper_compression_tpu_torch.evaluation.tokenizer import WordTokenizer
 from openai_whisper_compression_tpu_torch.models.cache import init_cache
 from openai_whisper_compression_tpu_torch.models.params import (
     from_numpy, init_params, resolve_device)
@@ -20,18 +25,34 @@ from openai_whisper_compression_tpu_torch.models.params import (
 DEV = "cpu"
 ARCH = ARCHS["test2l"]
 
+TS_ARCH = ARCHS["test2l-ts"]    # test2l's shapes, with timestamp tokens
+# the entry points that hand back tensors, and the long-form ones (dicts)
 ENTRY_POINTS = {"make_transcribe_fn": make_transcribe_fn, "init_params": init_params,
-                "from_numpy": from_numpy, "init_cache": init_cache}
+                "from_numpy": from_numpy, "init_cache": init_cache,
+                "make_speculative_transcribe_fn": make_speculative_transcribe_fn}
+LONGFORM = {"transcribe_long": longform.transcribe_long,
+            "transcribe_seek": longform.transcribe_seek,
+            "transcribe_seek_batch": longform.transcribe_seek_batch}
 
 
 def _calls(params):
     """Each entry point called as a user would, with extra keywords."""
+    cfg, tok = DecodeConfig(max_new_tokens=2, notimestamps=False), WordTokenizer(1000, 897)
+    wav = np.zeros(1000, np.float32)
     return {
         "make_transcribe_fn": lambda **kw: make_transcribe_fn(
             ARCH, DecodeConfig(max_new_tokens=2), **kw),
         "init_params": lambda **kw: init_params(ARCH, 0, **kw),
         "from_numpy": lambda **kw: from_numpy({"w": np.ones((2, 3), np.float32)}, **kw),
         "init_cache": lambda **kw: init_cache(params, ARCH, 2, 8, **kw),
+        "make_speculative_transcribe_fn": lambda **kw: make_speculative_transcribe_fn(
+            ARCH, ARCH, DecodeConfig(max_new_tokens=2), gamma=2, **kw),
+        "transcribe_long": lambda **kw: longform.transcribe_long(
+            params, ARCH, wav, tok, DecodeConfig(max_new_tokens=2), batch_size=1, **kw),
+        "transcribe_seek": lambda **kw: longform.transcribe_seek(
+            params, TS_ARCH, wav, tok, cfg, **kw),
+        "transcribe_seek_batch": lambda **kw: longform.transcribe_seek_batch(
+            params, TS_ARCH, [wav], tok, cfg, batch_size=1, **kw),
     }
 
 
@@ -40,13 +61,14 @@ def params():
     return init_params(ARCH, 0, device=DEV)
 
 
-@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS) + sorted(LONGFORM))
 def test_entry_point_defaults_to_the_card(name):
-    default = inspect.signature(ENTRY_POINTS[name]).parameters["device"].default
+    fn = {**ENTRY_POINTS, **LONGFORM}[name]
+    default = inspect.signature(fn).parameters["device"].default
     assert torch.device(default).type == "cuda"
 
 
-@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS) + sorted(LONGFORM))
 def test_no_card_and_no_device_raises(name, params, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -58,6 +80,8 @@ def test_named_cpu_device_gives_cpu_tensors(name, params):
     out = _calls(params)[name](device=DEV)
     if name == "make_transcribe_fn":
         out = out(params, np.zeros((1, 480_000), np.float32))
+    if name == "make_speculative_transcribe_fn":
+        out = out(params, params, np.zeros((1, 480_000), np.float32))
     leaves = []
 
     def walk(t):
@@ -72,6 +96,13 @@ def test_named_cpu_device_gives_cpu_tensors(name, params):
 
     walk(out)
     assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
+@pytest.mark.parametrize("name", sorted(LONGFORM))
+def test_longform_on_a_named_cpu_device(name, params):
+    out = _calls(params)[name](device=DEV)
+    for res in (out if isinstance(out, list) else [out]):
+        assert isinstance(res["text"], str) and res["audio_seconds"] == 1000 / 16000.0
 
 
 def test_resolve_device_passes_a_cpu_device_through(monkeypatch):
