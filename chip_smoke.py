@@ -119,7 +119,10 @@ Phase 3  first-step logits of 2 utterances, card (bf16, kernels) against
          `static_int8_act_int8` and `static_fp8_act_fp8`; int8 weights at
          batch 1; the f32 and the f16 tree in their own types (bounds of
          their own: an f32 tree differs by sum order only); and the
-         beam5-prompt configuration (prompted, five beams).
+         beam5-prompt configuration (prompted, five beams). The CPU side
+         of phases 3-5 (these references, forward-small's, the tie proofs,
+         the alignment's) is queued (`later`) and runs on a thread beside
+         phase 6's held passes, never beside a timed pass.
 Phase 4  with no other tree resident, whisper-small with int8 weights
          through the slice-11 entry points:
            eval-headline  `evaluate_model` at the headline decode, batch 96,
@@ -148,7 +151,10 @@ Phase 4  with no other tree resident, whisper-small with int8 weights
                         one seed one result, each row at the rung its gates
                         give, rows kept at t = 0 and later;
          in all but eval-headline every call of a kernel is held against its
-         plain version as the model makes it (`checked_kernel_calls`).
+         plain version as the model makes it (`checked_kernel_calls`; each
+         held block ends with a check that every launch of the kernels it
+         shims was made inside a shim: the wrappers' counters against the
+         launches the shims saw).
 Phase 5  again with no other tree resident, whisper-small with int8 weights,
          int8 self-KV and cross-KV, through the slice-12 entry points:
            seek-small   `transcribe_seek_batch(batch_size=32,
@@ -190,11 +196,64 @@ Phase 5  again with no other tree resident, whisper-small with int8 weights,
          gives the kernels (the tiny draft's, the verify windows', the
          alignment's) timed beside their plain versions and bounds, as the
          kernels line's `name@shape` entries (P5_ENTRIES).
+Phase 6  again with no other tree resident, whisper-small with int8 weights,
+         int8 self-KV and cross-KV, through the slice-13 serving workloads;
+         each run timed and run with every kernel call held against its
+         plain version (the log-mel too: no further than the plain version +
+         MEL_EXACT_MARGIN from the float64 log-mel), the two runs' outputs
+         equal, launch counts exact in both (the CPU f32 tie proofs of
+         cb-small, then the queued proofs of phases 3-5, run on a thread
+         beside the held runs, never beside a timed one):
+           cb-small     `ContinuousBatcher` at bench.py's continuous_batching
+                        row: batch 96, 384 requests of ragged noise (1-30 s,
+                        seed 1) staged as an int16 pool by `stage()`, caps
+                        lognormal(log 32, 0.55) in 2..64, chunk 8, 24 admit
+                        lanes, prefill disaggregation, EOT allowed; wave,
+                        continuous and overlap schedulers (rtfx, occupancy,
+                        device steps, chunks, stage passes, the host-phase
+                        split), their tokens equal or parted at a proven tie
+                        (`check_ties`), the first 96 against one greedy
+                        batch at 64 tokens cut at each cap, fixed_equiv_rtfx
+                        (the fixed-token decoder at the set's mean length),
+                        a float32 pool under transfer="int16" refused;
+           stream-steady, stream-churn  `StreamingPool` at bench.py's
+                        streaming rows: 32 sessions of 32 s (bench.py: 60 s;
+                        cut so that the held pass fits, each window still
+                        sliding once; noise x 0.1, seed 0) in 0.5 s chunks,
+                        a tick a round, agreement 2,
+                        min_step 1 s, timestamps on; churn: 30 s streams, a
+                        quarter of the sessions closed and reopened every
+                        quarter of the run (aggregate_rtfx, device_rtfx, tick
+                        p50/p95, occupancy, draft_accept_rate,
+                        sessions_closed); in the held pass every synced
+                        mirror row bit-equal to its host window and zero past
+                        it, committed text never retracting, and two steady
+                        streams run alone on the pool's step: every decode
+                        equal to the pool's, or the first that parts a
+                        proven tie (CPU f32 with the streaming frontend);
+           serve-flac, serve-openloop, serve-mulaw  `TranscriptionService`
+                        at batch 32 (buckets 8, 16, 32), max_wait 5 ms,
+                        pipeline 2, bench.py's serve rows: 128 FLAC requests
+                        of 7.42 s (encoded by spawned processes while the
+                        earlier runs go), the int16 wire, closed loop, then a
+                        corrupt stream, a good one and a 65 s request;
+                        96 paced at 60% of the measured e2e_rtfx; 32 on the
+                        mu-law wire beside the float32 wire (e2e_rtfx,
+                        busy_rtfx, occupancy, latency p50/p95, buckets, the
+                        share of equal tokens); every batch equal to a
+                        direct call on its rows, every request's tokens its
+                        row's, the corrupt stream failing alone, the long
+                        request in three chunks equal to their windows';
+         then the shapes only phase 6 gives the kernels (the int8 update at
+         a second-pass position with a slot's `start` there, the grouped
+         kernel over admitted cross-KV, the 60-slot verify window, the
+         serving bucket 8 and 32) timed as the kernels line's `name@shape`
+         entries (P6_ENTRIES).
 
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
 its launch count, error, times and bound (and, as `name@shape`, the shapes
-only token merging and phase 5 give a kernel). Needs torch with CUDA, numpy and nvcc;
+only token merging and phases 5 and 6 give a kernel). Needs torch with CUDA, numpy and nvcc;
 never imports jax.
 """
 
@@ -203,6 +262,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -1433,6 +1493,8 @@ def zero_launches() -> dict:
     the counters for `read_launches`."""
     counters = launch_counters()
     torch.cuda.synchronize()
+    for ledger in _HELD_BLOCKS:     # an open held block keeps the counts so far
+        ledger.fold()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     return counters
@@ -1919,14 +1981,17 @@ SHAPE_ENTRIES = [
 NEG_INF = -1e9   # the decode's additive suppression (models.whisper.NEG_INF)
 
 
-def cpu_enc(params_cpu, arch, wav: torch.Tensor, **encode_kw) -> torch.Tensor:
-    """CPU f32 encoder states of waveforms (bf16 DFT mel, tanh GELU: the
-    card runs' frontend and encoder options)."""
+def cpu_enc(params_cpu, arch, wav: torch.Tensor, fast: bool = True,
+            **encode_kw) -> torch.Tensor:
+    """CPU f32 encoder states of waveforms: with `fast` the card runs'
+    frontend and encoder options (bf16 DFT mel, tanh GELU), without it the
+    f32 DFT and the exact GELU (the streaming step's)."""
     from openai_whisper_compression_tpu_torch.audio.features import preprocess
     from openai_whisper_compression_tpu_torch.models.whisper import encode
 
-    mel = preprocess(wav.cpu(), arch.num_mel_bins, dft_dtype=torch.bfloat16)
-    return encode(params_cpu, arch, mel.float(), fast_gelu=True, **encode_kw)
+    mel = preprocess(wav.cpu(), arch.num_mel_bins,
+                     dft_dtype=torch.bfloat16 if fast else torch.float32)
+    return encode(params_cpu, arch, mel.float(), fast_gelu=fast, **encode_kw)
 
 
 def logits_at(params_cpu, arch, cfg, enc_row: torch.Tensor, seq: torch.Tensor,
@@ -1958,19 +2023,20 @@ def logits_at(params_cpu, arch, cfg, enc_row: torch.Tensor, seq: torch.Tensor,
 def check_ties(name: str, params_cpu, arch, cfg, wav: torch.Tensor, got: torch.Tensor,
                want: torch.Tensor, first_gen: int, encode_kw: dict | None = None,
                prompt: torch.Tensor | None = None, lens: torch.Tensor | None = None,
-               encs: dict | None = None) -> int:
+               encs: dict | None = None, fast: bool = True) -> int:
     """Rows of `got` and `want` (B, L), decodes of the same waveforms `wav`
     (after the prompt window `prompt` (B, P) of lengths `lens` when given),
     equal, or parted at a proven tie (TIE_REL): returns the rows that
     parted. `encs`: CPU f32 encoder states by row of `wav`, filled and
-    reused across calls on one batch."""
+    reused across calls on one batch; `fast`: the frontend of `cpu_enc`."""
     rows = [r for r in range(got.shape[0]) if not torch.equal(got[r], want[r])]
     if not rows:
         return 0
     encs = {} if encs is None else encs
     todo = [r for r in rows if r not in encs]
     if todo:
-        for r, e in zip(todo, cpu_enc(params_cpu, arch, wav[todo], **(encode_kw or {}))):
+        for r, e in zip(todo, cpu_enc(params_cpu, arch, wav[todo], fast,
+                                      **(encode_kw or {}))):
             encs[r] = e[None]
     for r in rows:
         a, b = got[r].cpu(), want[r].cpu()
@@ -2140,22 +2206,27 @@ def run_forward_small(dev, arch, params) -> dict:
         card = calls(params, dev, torch.bfloat16)
     check(torch.equal(card["forward"], logits.float().cpu()),
           f"{name}: forward differs from the calibration call's logits")
-    t0 = time.perf_counter()
-    ref = calls(tree_to(params, "cpu", torch.float32), "cpu", torch.float32)
-    cpu_s = time.perf_counter() - t0
-    for k in ("forward", "decode_logits"):
-        c, r = card[k], ref[k]
-        rel = float((c - r).norm() / r.norm())
-        log(f"phase4 {name} {k} {tuple(c.shape)} card bf16 vs CPU f32: relative L2 "
-            f"{rel:.4g} (bound {LOGITS_REL_L2}), max abs {max_err(c, r):.4g}, |logits| "
-            f"max {float(r.abs().max()):.4g}")
-        check(c.shape == (b, n_tok, arch.vocab_size) and bool(torch.isfinite(c).all())
-              and rel <= LOGITS_REL_L2, f"{name}: {k} off by {rel:.4g} relative L2")
-    rel = abs(float(card["nll_loss"]) - float(ref["nll_loss"])) / abs(float(ref["nll_loss"]))
-    log(f"phase4 {name} nll_loss card bf16 {float(card['nll_loss']):.6g} vs CPU f32 "
-        f"{float(ref['nll_loss']):.6g}: relative {rel:.4g} (bound {NLL_REL}); CPU "
-        f"reference {cpu_s:.1f} s")
-    check(rel <= NLL_REL, f"{name}: nll_loss off by {rel:.4g} relative")
+
+    def compare(params_cpu):
+        t0 = time.perf_counter()
+        ref = calls(params_cpu, "cpu", torch.float32)
+        cpu_s = time.perf_counter() - t0
+        for k in ("forward", "decode_logits"):
+            c, r = card[k], ref[k]
+            rel = float((c - r).norm() / r.norm())
+            log(f"phase4 {name} {k} {tuple(c.shape)} card bf16 vs CPU f32: relative L2 "
+                f"{rel:.4g} (bound {LOGITS_REL_L2}), max abs {max_err(c, r):.4g}, |logits| "
+                f"max {float(r.abs().max()):.4g}")
+            check(c.shape == (b, n_tok, arch.vocab_size) and bool(torch.isfinite(c).all())
+                  and rel <= LOGITS_REL_L2, f"{name}: {k} off by {rel:.4g} relative L2")
+        rel = (abs(float(card["nll_loss"]) - float(ref["nll_loss"]))
+               / abs(float(ref["nll_loss"])))
+        log(f"phase4 {name} nll_loss card bf16 {float(card['nll_loss']):.6g} vs CPU f32 "
+            f"{float(ref['nll_loss']):.6g}: relative {rel:.4g} (bound {NLL_REL}); CPU "
+            f"reference {cpu_s:.1f} s")
+        check(rel <= NLL_REL, f"{name}: nll_loss off by {rel:.4g} relative")
+
+    later(f"phase4 {name}", functools.partial(compare, tree_to(params, "cpu", torch.float32)))
     return {"batch": b, "launches": launches}
 
 
@@ -2196,11 +2267,12 @@ def run_unfused_int8(dev, arch, params) -> dict:
                     "int8_matmul": runs["fused"][2]["int8_matmul"]})
     check(torch.equal(lengths, runs["fused"][1]) and bool((lengths == 4 + NEW_TOKENS).all()),
           f"{name}: lengths {lengths.tolist()}")
-    parted = check_ties(name, tree_to(params, "cpu", torch.float32), arch, cfg_u, wav,
-                        tokens, runs["fused"][0], 4)
-    log(f"phase4 {name}: {b - parted} of {b} rows equal the fused run's tokens, "
-        f"{parted} part at a proven tie")
-    return {"batch": b, "walls_s": [wall], "launches": launches}
+    summary = {"batch": b, "walls_s": [wall], "launches": launches}
+    later_ties(name, tree_to(params, "cpu", torch.float32), arch, cfg_u, wav, tokens,
+               runs["fused"][0], 4, summary,
+               lambda p: f"phase4 {name}: {b - p} of {b} rows equal the fused run's "
+                         f"tokens, {p} part at a proven tie", encs=SEED_ENCS)
+    return summary
 
 
 @contextlib.contextmanager
@@ -2216,17 +2288,155 @@ def patched(*triples):
             setattr(m, n, v)
 
 
+class DeferredChecks:
+    """Kernel-against-plain checks queued behind the work instead of
+    draining the device at every call. `close` (an output within KERNEL_REL
+    of its plain version's largest magnitude) and `differ` (tensors equal
+    bit for bit) queue an error and its bound on the device; `verify` reads
+    them back together, every `flush_at` checks and when asked, and fails
+    the run at the first whose error is not within its bound: a NaN error
+    or bound fails, as a per-call `check(err <= tol)` does. Small outputs
+    wait beside their plain versions and are reduced a stack of one shape
+    at a time when `stack_at` have gathered."""
+
+    def __init__(self, flush_at: int = 4096, stack_at: int = 512):
+        self.flush_at, self.stack_at = flush_at, stack_at
+        self.pending: list = []    # (errors, bounds, whats)
+        self.queued = 0            # the checks in `pending`
+        self.pairs: list = []      # (got, ref, what)
+
+    def _reduce_pairs(self) -> None:
+        groups: dict = {}
+        for item in self.pairs:
+            groups.setdefault((tuple(item[0].shape), item[0].dtype), []).append(item)
+        self.pairs.clear()
+        for items in groups.values():
+            g = torch.stack([x[0] for x in items]).float()
+            r = torch.stack([x[1] for x in items]).float()
+            dims = tuple(range(1, g.dim()))
+            self.pending.append(((g - r).abs().amax(dim=dims),
+                                 KERNEL_REL[items[0][1].dtype] * r.abs().amax(dim=dims),
+                                 [x[2] for x in items]))
+            self.queued += len(items)
+
+    def verify(self) -> None:
+        self._reduce_pairs()
+        if not self.pending:
+            return
+        errs = torch.cat([e.float() for e, _, _ in self.pending])
+        tols = torch.cat([t.float() for _, t, _ in self.pending])
+        whats = [w for _, _, ws in self.pending for w in ws]
+        self.pending.clear()
+        self.queued = 0
+        bad = (~(errs <= tols)).cpu()
+        if bool(bad.any()):
+            i = int(torch.nonzero(bad)[0, 0])
+            check(False, f"{whats[i]}: err {float(errs[i])} > {float(tols[i])}")
+
+    def _defer(self, err, tol, what) -> None:
+        self.pending.append((err.reshape(1), tol.reshape(1), [what]))
+        self.queued += 1
+        if self.queued >= self.flush_at:
+            self.verify()
+
+    def differ(self, what, tensors) -> None:
+        """Queue a check that each (a, b) of `tensors` is equal bit for bit
+        (a NaN on both sides differs)."""
+        n = sum((a != b).sum() for a, b in tensors)
+        self._defer(n, torch.zeros((), device=n.device), what)
+
+    def close(self, what, got, ref) -> None:
+        """Queue a check of `got` against its plain version `ref`."""
+        check(got.dtype == ref.dtype, f"{what}: dtype {got.dtype}, plain {ref.dtype}")
+        if got.numel() > 1 << 20:   # the encoder's: reduced at once
+            r = ref.float()
+            self._defer((got.float() - r).abs().max(), KERNEL_REL[ref.dtype] * r.abs().max(),
+                        what)
+        else:
+            self.pairs.append((got, ref, what))
+            if len(self.pairs) >= self.stack_at:
+                self._reduce_pairs()
+                if self.queued >= self.flush_at:
+                    self.verify()
+
+
+class HeldLaunches:
+    """The proof that a block held every launch of the kernels it shims.
+    `families` maps each shimmed wrapper to its counters ((entry name,
+    attribute) of KERNELS). `around(wrapper, call)` runs `call` and adds the
+    growth of the wrapper's counters during it to `seen`, returning that
+    growth; `fold()` adds every counter's growth since the last fold to
+    `total` (`zero_launches` folds the open blocks before it sets the counters
+    to 0); `check()` folds and fails the run where a counter grew by more
+    than its launches seen inside a shim (a call that reached the kernel
+    some other way), returning the launches held."""
+
+    def __init__(self, families: dict):
+        import threading
+
+        self.families = families
+        self.counters = [(w, n, a) for w, cs in families.items() for n, a in cs]
+        self.seen = {n: 0 for _, n, _ in self.counters}
+        self.total = dict(self.seen)
+        self.base = self._read()
+        self.lock = threading.RLock()   # the serving worker's calls beside the caller's
+
+    def _read(self) -> dict:
+        return {n: getattr(w, a) for w, n, a in self.counters}
+
+    def around(self, wrapper, call):
+        with self.lock:
+            cs = self.families[wrapper]
+            before = [getattr(wrapper, a) for _, a in cs]
+            out = call()
+            grown = {n: getattr(wrapper, a) - b for (n, a), b in zip(cs, before)
+                     if getattr(wrapper, a) != b}
+            for n, d in grown.items():
+                self.seen[n] += d
+        return out, grown
+
+    def fold(self) -> None:
+        with self.lock:
+            now = self._read()
+            for n, v in now.items():
+                self.total[n] += v - self.base[n]
+            self.base = {n: 0 for n in now}   # the caller sets the counters to 0 next
+
+    def check(self) -> dict:
+        now = self._read()
+        for n, v in now.items():
+            self.total[n] += v - self.base[n]
+        self.base = now
+        unheld = {n: (self.total[n], self.seen[n]) for n in self.total
+                  if self.total[n] != self.seen[n]}
+        check(not unheld, "kernel launches that no shim held, (launched, held inside "
+              f"a shim): {unheld}")
+        return {n: v for n, v in self.seen.items() if v}
+
+
+_HELD_BLOCKS: list = []    # the open checked_kernel_calls blocks' HeldLaunches
+
+
 @contextlib.contextmanager
-def checked_kernel_calls(shapes: dict, calls: dict | None = None):
+def checked_kernel_calls(shapes: dict, calls: dict | None = None, mel: bool = False):
     """While open, the model's calls of the encoder attention, the cross-KV
     quantizer, the two cross-attentions, `linear`'s int8 matmul and the two
-    cache updates go through shims: each call launches the kernel (counted by
-    its wrapper as always), then holds the result against the plain version
-    on the same inputs (the quantizer's codes and scales and the updates'
-    caches bit for bit, every output within KERNEL_REL of the reference's
-    largest magnitude). `shapes` gets the first call's inputs at every shape
-    (the one-query kernel's: None); `calls`, when given, counts the calls at
-    each shape; yields the count of calls held, per kernel."""
+    cache updates (with `mel`, the log-mel too) go through shims: each call
+    launches the kernel (counted by its wrapper as always), then holds the
+    result against the plain version on the same inputs (the quantizer's
+    codes and scales and the updates' caches bit for bit, every output
+    within KERNEL_REL of the reference's largest magnitude, the log-mel no
+    further than the plain version + MEL_EXACT_MARGIN from the float64
+    log-mel; `DeferredChecks` reads the results back together, so a failure
+    surfaces by the block's end). When the block ends, every launch of
+    these kernels while it was open must have been made inside a shim
+    (`HeldLaunches`: the wrappers' counters against the launches the shims
+    saw), so no call reached a kernel unheld. `shapes` gets the first
+    call's inputs at every shape (the one-query kernel's: None); `calls`,
+    when given, gets the launches at each shape, per KERNELS entry (a
+    grouped call launches once per chunk of at most 8 slots); yields the
+    count of calls held, per kernel."""
+    from openai_whisper_compression_tpu_torch.audio import features
     from openai_whisper_compression_tpu_torch.models import decode, whisper
     from openai_whisper_compression_tpu_torch.ops import attention as att
     from openai_whisper_compression_tpu_torch.ops import cross_attention as ca
@@ -2235,81 +2445,125 @@ def checked_kernel_calls(shapes: dict, calls: dict | None = None):
     from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
 
     held: dict = {}
+    checks = DeferredChecks()
+    wrappers = [att.encoder_attention, ca.transpose_quant_kv,
+                ca.decode_cross_attention_grouped, ca.decode_cross_attention,
+                qm.int8_matmul, sas.decode_self_attention_update,
+                sas.decode_self_attention_update_int8]
+    if mel:
+        from openai_whisper_compression_tpu_torch.audio import mel_kernel
+        wrappers.append(mel_kernel.log_mel_cuda)
+    counters = launch_counters()
+    ledger = HeldLaunches({w: [(n, a) for n, (f, a) in counters.items() if f is w]
+                           for w in wrappers})
+
+    def launch(wrapper, key, call):
+        out, grown = ledger.around(wrapper, call)
+        check(grown, f"{wrapper.__name__} at {key}: a held call launched no kernel")
+        if calls is not None and key is not None:
+            at = calls.setdefault(key, {})
+            for n, d in grown.items():
+                at[n] = at.get(n, 0) + d
+        return out
 
     def close(what, got, ref):
-        err, tol = max_err(got, ref), KERNEL_REL[ref.dtype] * float(ref.float().abs().max())
-        check(got.dtype == ref.dtype and err <= tol, f"{what}: err {err} > {tol}")
+        checks.close(what, got, ref)
         kernel = what.split()[0]
         held[kernel] = held.get(kernel, 0) + 1
 
     def keep(key, *args):   # the first call's inputs at each shape
-        if calls is not None:
-            calls[key] = calls.get(key, 0) + 1
         if key not in shapes:
             shapes[key] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
                                 for a in args)
 
     def enc_attn(q, k, v):
-        out = att.encoder_attention(q, k, v)
-        close(f"encoder_attention {tuple(q.shape)}", out, att.encoder_attention_ref(q, k, v))
         key = ("encoder_attention", q.shape[1], q.shape[2])
-        if calls is not None:
-            calls[key] = calls.get(key, 0) + 1
+        out = launch(att.encoder_attention, key, lambda: att.encoder_attention(q, k, v))
+        close(f"encoder_attention {tuple(q.shape)}", out, att.encoder_attention_ref(q, k, v))
         if key not in shapes:                   # views, as the model hands them over
             shapes[key] = (q, k, v)
         return out
 
     def tq(x, h):
-        q, sc = ca.transpose_quant_kv(x, h)
+        key = ("transpose_quant_kv", x.shape[1], x.shape[2])
+        q, sc = launch(ca.transpose_quant_kv, key, lambda: ca.transpose_quant_kv(x, h))
         q_ref, sc_ref = ca.transpose_quant_kv_ref(x, h)
-        check(torch.equal(q, q_ref) and torch.equal(sc, sc_ref),
-              f"transpose_quant_kv {tuple(x.shape)}: codes or scales differ")
+        checks.differ(f"transpose_quant_kv {tuple(x.shape)}: codes or scales differ",
+                      ((q, q_ref), (sc, sc_ref)))
         held["transpose_quant_kv"] = held.get("transpose_quant_kv", 0) + 1
-        keep(("transpose_quant_kv", x.shape[1], x.shape[2]), x, h)
+        keep(key, x, h)
         return q, sc
 
     def grouped(q, k_t, v_t, k_scale=None, v_scale=None, s_valid=None):
-        out = ca.decode_cross_attention_grouped(q, k_t, v_t, k_scale, v_scale, s_valid)
+        key = ("grouped", str(k_t.dtype), s_valid, q.shape[1], q.shape[0])
+        out = launch(ca.decode_cross_attention_grouped, key,
+                     lambda: ca.decode_cross_attention_grouped(q, k_t, v_t, k_scale,
+                                                               v_scale, s_valid))
         close(f"decode_cross_attention_grouped {tuple(k_t.shape)} s_valid {s_valid}",
               out, ca.decode_cross_attention_grouped_ref(q, k_t, v_t, k_scale,
                                                          v_scale, s_valid))
-        key = ("grouped", str(k_t.dtype), s_valid, q.shape[1], q.shape[0])
-        if calls is not None:
-            calls[key] = calls.get(key, 0) + 1
         if key not in shapes:
             shapes[key] = (q.clone(), (k_t, v_t, k_scale, v_scale), s_valid)
         return out
 
     def one_query(q, k_t, v_t, k_scale=None, v_scale=None, s_valid=None):
-        out = ca.decode_cross_attention(q, k_t, v_t, k_scale, v_scale, s_valid)
+        key = ("one_query", str(k_t.dtype), s_valid, q.shape[0])
+        out = launch(ca.decode_cross_attention, key,
+                     lambda: ca.decode_cross_attention(q, k_t, v_t, k_scale, v_scale, s_valid))
         close(f"decode_cross_attention {tuple(k_t.shape)} s_valid {s_valid}", out,
               ca.decode_cross_attention_ref(q, k_t, v_t, k_scale, v_scale, s_valid))
-        shapes.setdefault(("one_query", str(k_t.dtype), s_valid, q.shape[0]), None)
+        shapes.setdefault(key, None)
         return out
 
     def int8_mm(x, w, scale):
-        out = qm.int8_matmul(x, w, scale)
+        key = ("int8_matmul", *x.shape, w.shape[1])
+        out = launch(qm.int8_matmul, key, lambda: qm.int8_matmul(x, w, scale))
         close(f"int8_matmul M={x.shape[0]} K={x.shape[1]} N={w.shape[1]}", out,
               qm.int8_matmul_ref(x, w, scale))
-        keep(("int8_matmul", *x.shape, w.shape[1]), x, w, scale)
+        keep(key, x, w, scale)
         return out
 
     def updating(kernel, plain, n_bufs):
         def update(q, k_new, v_new, *rest, start=None):
             bufs, pos = rest[:n_bufs], rest[n_bufs]
             refs = [t.clone() for t in bufs]
-            out = kernel(q, k_new, v_new, *bufs, pos, start=start)
+            key = (kernel.__name__, str(q.dtype), q.shape[0], bufs[0].shape[1],
+                   start is not None)
+            out = launch(kernel, key, lambda: kernel(q, k_new, v_new, *bufs, pos, start=start))
             ref = plain(q, k_new, v_new, *refs, pos, start)
             what = f"{kernel.__name__} ({q.shape[0]} rows, {q.dtype}) pos {pos}"
-            check(all(torch.equal(a, r) for a, r in zip(bufs, refs)),
-                  f"{what}: cache rows or scales differ")
+            checks.differ(f"{what}: cache rows or scales differ", zip(bufs, refs))
             close(what, out, ref)
-            keep((kernel.__name__, str(q.dtype), q.shape[0], bufs[0].shape[1],
-                  start is not None), q, k_new, v_new, *refs, pos, start)
+            keep(key, q, k_new, v_new, *refs, pos, start)
             return out
         return update
 
-    patches = [(whisper, "encoder_attention", enc_attn),
+    def preprocess(wav, n_mels=80, length=480_000, dft_dtype=torch.float32):
+        # the frontend, whose `log_mel_cuda` call runs the kernel (its launch
+        # counter lives on `mel_kernel.log_mel_cuda`, which stays in place)
+        out = launch(wrappers[-1], ("log_mel_cuda", wav.shape[0]),
+                     lambda: real_pre(wav, n_mels, length, dft_dtype))
+        w = features.pad_or_trim(wav, length)
+        exact = features.log_mel_f64(w, n_mels, dft_dtype)
+        err_k, err_p = (float((x.double() - exact).abs().max()) for x in
+                        (out, features.log_mel(w, n_mels, dft_dtype)))
+        check(err_k <= err_p + MEL_EXACT_MARGIN, f"log_mel_cuda {tuple(w.shape)}: the "
+              f"kernel is {err_k} from the float64 log-mel, the plain version {err_p}")
+        held["log_mel_cuda"] = held.get("log_mel_cuda", 0) + 1
+        return out
+
+    def card_only(mod, name, shim):
+        # calls on CPU tensors (a CPU f32 recompute on another thread) pass
+        # through: they launch no kernel
+        real = getattr(mod, name)
+
+        def fn(x, *a, **kw):
+            return (shim if x.is_cuda else real)(x, *a, **kw)
+        return (mod, name, fn)
+
+    real_pre = features.preprocess
+    patches = [(features, "preprocess", preprocess)] if mel else []
+    patches += [(whisper, "encoder_attention", enc_attn),
                (whisper, "transpose_quant_kv", tq),
                (whisper, "decode_cross_attention_grouped", grouped),
                (whisper, "decode_cross_attention", one_query),
@@ -2320,8 +2574,16 @@ def checked_kernel_calls(shapes: dict, calls: dict | None = None):
                (decode, "decode_self_attention_update_int8",
                 updating(sas.decode_self_attention_update_int8,
                          sas.decode_self_attention_update_int8_ref, 4))]
-    with patched(*patches):
-        yield held
+    _HELD_BLOCKS.append(ledger)
+    try:
+        with patched(*(card_only(*p) for p in patches)):
+            yield held
+        checks.verify()
+        launched_ = ledger.check()
+    finally:
+        _HELD_BLOCKS.remove(ledger)
+    log(f"held block: {sum(launched_.values())} launches, each inside a shim "
+        f"{json.dumps(launched_)}")
 
 
 def held_summary(held: dict, shapes: dict) -> str:
@@ -2389,15 +2651,18 @@ def run_merge_pool(dev, arch, params, results: dict) -> dict:
         check_launches(name, launches, ("int8_matmul",) + path, exact)
         check(bool((lengths == 4 + NEW_TOKENS).all()) and int(tokens.max()) < arch.vocab_size,
               f"{name}: lengths {lengths.tolist()}")
-        # the first rows against the CPU f32 path, tie rule
-        enc_kw = {k: v for k, v in fn_kw.items()}
-        enc = cpu_enc(params_cpu, arch, wav[:n_ref], **enc_kw)
-        ref, _ = decode.greedy_decode(params_cpu, arch, enc, cfg)
-        parted = check_ties(name, params_cpu, arch, cfg, wav[:n_ref], tokens[:n_ref], ref,
-                            4, enc_kw)
-        log(f"phase4 {name}: wall {wall:.4f} s (every kernel call checked); rows 0-"
-            f"{n_ref - 1} against the CPU f32 path: {n_ref - parted} equal, {parted} "
-            "part at a proven tie")
+        log(f"phase4 {name}: wall {wall:.4f} s (every kernel call checked)")
+
+        def against_cpu(name, fn_kw, cfg, wav, tokens):
+            # the first rows against the CPU f32 path, tie rule
+            enc = cpu_enc(params_cpu, arch, wav, **fn_kw)
+            ref, _ = decode.greedy_decode(params_cpu, arch, enc, cfg)
+            parted = check_ties(name, params_cpu, arch, cfg, wav, tokens, ref, 4, fn_kw)
+            log(f"phase4 {name}: rows 0-{n_ref - 1} against the CPU f32 path: "
+                f"{n_ref - parted} equal, {parted} part at a proven tie")
+
+        later(f"phase4 {name}", functools.partial(against_cpu, name, dict(fn_kw), cfg,
+                                                  wav[:n_ref].cpu(), tokens[:n_ref]))
         # the new shapes this run reports, timed
         for _, _, run, key, rkey in SHAPE_ENTRIES:
             if run != name:
@@ -2911,15 +3176,20 @@ def run_seek_words(dev, arch, lf, results: dict) -> dict:
             # the alignment pass on the card against the CPU's f32 pass
             toks = torch.tensor([first[2]], device=dev)
             card = cross_attention_weights(lf, arch, toks, first[5]).float().cpu()
-            ref = cross_attention_weights(tree_to(lf, "cpu", torch.float32), arch,
-                                          toks.cpu(), first[5].float().cpu())
-            rel = float((card - ref).norm() / ref.norm())
-            log(f"phase5 {name} cross_attention_weights {tuple(card.shape)} card bf16 vs "
-                f"CPU f32 on the same tree, tokens and encoder states: relative L2 "
-                f"{rel:.4g} (bound {ALIGN_REL_L2}), max abs {max_err(card, ref):.4g}")
-            check(card.shape == ref.shape and bool(torch.isfinite(card).all())
-                  and rel <= ALIGN_REL_L2, f"{name}: alignment pass off by {rel:.4g}")
-            summary["align_rel_l2"] = rel
+
+            def align_cpu(lf_cpu, toks, enc_row):
+                ref = cross_attention_weights(lf_cpu, arch, toks, enc_row)
+                rel = float((card - ref).norm() / ref.norm())
+                log(f"phase5 {name} cross_attention_weights {tuple(card.shape)} card bf16 "
+                    f"vs CPU f32 on the same tree, tokens and encoder states: relative L2 "
+                    f"{rel:.4g} (bound {ALIGN_REL_L2}), max abs {max_err(card, ref):.4g}")
+                check(card.shape == ref.shape and bool(torch.isfinite(card).all())
+                      and rel <= ALIGN_REL_L2, f"{name}: alignment pass off by {rel:.4g}")
+                summary["align_rel_l2"] = rel
+
+            later(f"phase5 {name} alignment", functools.partial(
+                align_cpu, tree_to(lf, "cpu", torch.float32), toks.cpu(),
+                first[5].float().cpu()))
     return summary
 
 
@@ -3003,16 +3273,18 @@ def run_speculative(dev, arch, params, results: dict, encs: dict) -> dict:
         for launched in (launches, launches_h):
             check_launches(name, launched, tuple(exact), exact)
         check(torch.equal(lengths, g_len), f"{name}: lengths {lengths.tolist()}")
-        parted = check_ties(name, params_cpu, arch, cfg, wav, tokens, g_tok, 4, encs=encs)
         advanced = NEW_TOKENS              # positions the rounds moved over
-        log(f"phase5 {name}: {b - parted} of {b} rows equal greedy's tokens, {parted} "
-            f"part at a proven tie; {rounds} rounds ({steps} draft steps), "
+        log(f"phase5 {name}: {rounds} rounds ({steps} draft steps), "
             f"{advanced / rounds - 1:.2f} drafts accepted per round on average; wall "
             f"{wall:.4f} s against greedy's {g_wall:.4f} s ({g_wall / wall:.2f}x); "
             f"launches {json.dumps(launches)}")
         summaries[name] = {"rounds": rounds, "draft_steps": steps,
                            "accepted_per_round": advanced / rounds - 1, "wall_s": wall,
-                           "greedy_wall_s": g_wall, "parted": parted, "launches": launches}
+                           "greedy_wall_s": g_wall, "launches": launches}
+        later_ties(name, params_cpu, arch, cfg, wav, tokens, g_tok, 4, summaries[name],
+                   lambda p, name=name: f"phase5 {name}: {b - p} of {b} rows equal "
+                                        f"greedy's tokens, {p} part at a proven tie",
+                   encs=encs)
     del tiny
     return summaries
 
@@ -3096,8 +3368,6 @@ def run_verified(dev, arch, params, results: dict, encs: dict) -> dict:
         check_launches(name, launches, tuple(exact), exact)
         rows = slice(None) if act is None else slice(0, b - pad)
         check(torch.equal(lengths[rows], g_len[rows]), f"{name}: lengths {lengths.tolist()}")
-        parted = check_ties(name, params_cpu, arch, cfg, wav[rows], tokens[rows], g_tok[rows],
-                            fg, prompt=prompt[rows], lens=lens[rows], encs=encs)
         n0 = int(n_acc[rows].min())
         check(s <= g - n0, f"{name}: {s} sequential steps after a batch-min accept of {n0}")
         if act is not None:
@@ -3105,12 +3375,16 @@ def run_verified(dev, arch, params, results: dict, encs: dict) -> dict:
                   f"{name}: padding lanes report accepts {n_acc[b - pad:].tolist()}")
         check_ts_rows(name, arch, cfg, tokens[rows, fg:].tolist())
         log(f"phase5 {name}: {held_summary(held, shapes)}")
-        log(f"phase5 {name}: {tokens[rows].shape[0] - parted} of {tokens[rows].shape[0]} "
-            f"rows equal greedy's tokens, {parted} part at a proven tie; n_acc "
-            f"{sorted(set(n_acc.tolist()))} (batch-min {n0}), {s} sequential steps, wall "
-            f"{wall:.4f} s (every kernel call checked); launches {json.dumps(launches)}")
-        summaries[name] = {"n_acc_min": n0, "steps": s, "parted": parted, "wall_s": wall,
-                           "launches": launches}
+        log(f"phase5 {name}: n_acc {sorted(set(n_acc.tolist()))} (batch-min {n0}), {s} "
+            f"sequential steps, wall {wall:.4f} s (every kernel call checked); launches "
+            f"{json.dumps(launches)}")
+        summaries[name] = {"n_acc_min": n0, "steps": s, "wall_s": wall, "launches": launches}
+        n_rows = tokens[rows].shape[0]
+        later_ties(name, params_cpu, arch, cfg, wav[rows], tokens[rows], g_tok[rows], fg,
+                   summaries[name],
+                   lambda p, name=name, n_rows=n_rows: f"phase5 {name}: {n_rows - p} of "
+                   f"{n_rows} rows equal greedy's tokens, {p} part at a proven tie",
+                   prompt=prompt[rows], lens=lens[rows], encs=encs)
     return summaries
 
 
@@ -3154,21 +3428,22 @@ def run_longform_batched(dev, arch, params) -> dict:
 
 
 @torch.inference_mode()
-def time_p5_shape(what: str, key: tuple, args: tuple) -> dict:
-    """A kernel at a shape phase 5 gave it, on the first call's inputs,
-    against its plain version (within KERNEL_REL; caches bit for bit), timed
-    beside it, its bound and the library call where there is one."""
+def time_p5_shape(what: str, key: tuple, args: tuple, phase: str = "phase5") -> dict:
+    """A kernel at a shape phase 5 (or `phase`) gave it, on the first call's
+    inputs, against its plain version (within KERNEL_REL; caches bit for
+    bit), timed beside it, its bound and the library call where there is
+    one."""
     from openai_whisper_compression_tpu_torch.ops import quant_matmul as qm
     from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
     from openai_whisper_compression_tpu_torch.ops.qtensor import QTensor, dequantize
 
     kind = key[0]
     if kind == "encoder_attention":
-        return check_enc_attn_shape(f"phase5 {what}", *args)
+        return check_enc_attn_shape(f"{phase} {what}", *args)
     if kind == "transpose_quant_kv":
-        return check_tq(*args, phase=f"phase5 {what}")[0]
+        return check_tq(*args, phase=f"{phase} {what}")[0]
     if kind == "grouped":
-        return check_grouped(what, *args, phase="phase5")
+        return check_grouped(what, *args, phase=phase)
     if kind == "int8_matmul":
         x, w, scale = args
         got, ref = qm.int8_matmul(x, w, scale), qm.int8_matmul_ref(x, w, scale)
@@ -3180,12 +3455,13 @@ def time_p5_shape(what: str, key: tuple, args: tuple) -> dict:
         t_lib = cuda_ms(lambda: torch.matmul(x, dequantize(q, x.dtype)))
         m, k = x.shape
         least = bound(nbytes(x, w, scale, got), 2 * m * k * w.shape[1] / BF16_FLOPS)
-        log(f"phase5 {what} int8_matmul M={m} K={k} N={w.shape[1]}: err {err:.3g} "
+        log(f"{phase} {what} int8_matmul M={m} K={k} N={w.shape[1]}: err {err:.3g} "
             f"(bound {tol:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms dequant + "
             f"torch.matmul {t_lib:.4f} ms least {least['bound_ms']:.5f} ms "
             f"({least['bound_by']})")
         return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least, "library_ms": t_lib}
-    # the int8 cache update over the draft's workspace cache
+    # the int8 cache update (over the draft's workspace cache, over
+    # continuous batching's window, with the streaming prompt's start)
     q, kn, vn, kc, vc, ks, vs, pos, start = args
     refs = [t.clone() for t in (kc, vc, ks, vs)]
     got = sas.decode_self_attention_update_int8(q, kn, vn, kc, vc, ks, vs, pos, start=start)
@@ -3198,9 +3474,12 @@ def time_p5_shape(what: str, key: tuple, args: tuple) -> dict:
     t_p = cuda_ms(lambda: sas.decode_self_attention_update_int8_ref(q, kn, vn, kc, vc, ks,
                                                                     vs, pos, start))
     bh = q.shape[0]
-    least = bound(nbytes(q, kn, vn, got) + (64 + 4) * 2 * bh * (pos + 2),
-                  4 * 64 * bh * (pos + 1) / BF16_FLOPS)
-    log(f"phase5 {what} int8 update ({bh} rows, {kc.shape[1]}-row cache) pos={pos}: err "
+    rows = bh * (pos + 1) - (0 if start is None else int(start.sum()))   # start..pos
+    least = bound(nbytes(q, kn, vn, got) + (64 + 4) * 2 * (rows + bh),
+                  4 * 64 * rows / BF16_FLOPS)
+    log(f"{phase} {what} int8 update ({bh} rows, {kc.shape[1]}-row cache) pos={pos}"
+        + ("" if start is None else f" start {int(start.min())}..{int(start.max())}")
+        + f": err "
         f"{err:.3g} (bound {tol:.3g}) caches equal; kernel {t_k:.4f} ms plain {t_p:.4f} ms "
         f"least {least['bound_ms']:.5f} ms ({least['bound_by']})")
     return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least, "library_ms": None}
@@ -3209,7 +3488,7 @@ def time_p5_shape(what: str, key: tuple, args: tuple) -> dict:
 def phase5(dev, arch, params, results: dict) -> dict:
     """The slice-12 runs (module docstring), each run's seconds printed; then
     the P5_ENTRIES shapes timed. Returns the runs' summaries."""
-    summaries, encs = {}, {}
+    summaries, encs = {}, SEED_ENCS
     t0 = time.perf_counter()
     summaries["seek-small"], lf = run_seek_small(dev, arch, params)
     log(f"phase5 seek-small: {time.perf_counter() - t0:.1f} s")
@@ -3233,14 +3512,980 @@ def phase5(dev, arch, params, results: dict) -> dict:
             key = next((k for k in shapes if k[0] == "int8_matmul"
                         and k[1] == summaries[run]["align_tokens"]), None)
         check(key in shapes, f"phase5: {run} never called the {key} shape")
-        count = calls[key]
-        if key[0] == "grouped":   # launches a call: chunks of at most 8 slots
-            chunks = [min(8, key[3] - j) for j in range(0, key[3], 8)]
-            count *= sum((c > 4) == base.endswith("_wide") for c in chunks)
+        count = calls[key].get(base, 0)   # the wrapper's launches at that shape
+        check(count > 0, f"phase5: {run} never launched {base} at the {key} shape")
         results[entry] = {**time_p5_shape(f"{run} {entry}", key, shapes[key]),
                           "launches": count}
     for k in [k for k in results if k.startswith("p5_shapes_")]:
         del results[k]                      # the recorded inputs
+    return summaries
+
+
+# ---------------------------------------------------------------------------
+# Phase 6 (slice 13): continuous batching, streaming, the serving service
+# ---------------------------------------------------------------------------
+
+CB_BATCH, CB_REQUESTS, CB_TOKENS = 96, 384, 64   # bench.py's continuous_batching row
+CB_CHUNK, CB_LANES = 8, 24
+CB_SCALE = 1.0 / 32767.0     # continuous batching's int16 wire (models/continuous.py)
+# bench.py's streaming rows: 32 sessions of 60 s (steady) and 30 s (churn);
+# steady here takes 32 s, so that each session's window still slides once
+# (past 30 s) while the held passes fit the run's time
+STREAMS, STEADY_S, CHURN_S, STREAM_CHUNK_S = 32, 32.0, 30.0, 0.5
+SERVE_BATCH, SERVE_REQUESTS, UTT_S = 32, 128, 7.42   # bench.py's serve row
+OPENLOOP_REQUESTS, OPENLOOP_LOAD, MULAW_REQUESTS = 96, 0.6, 32
+LONG_S = 65.0                # one request the service splits into three windows
+FLAC_WORKERS = 3             # processes encoding the serve runs' FLAC payloads
+# kernels-line entries for the shapes phase 6 gives the kernels: (entry name,
+# the KERNELS entry, the run whose held calls at that shape it counts and
+# times, the shape key: `checked_kernel_calls`'s, or (kernel, batch) from
+# `batch_calls`, or "pass2": continuous batching's int8 update at a position
+# of the second 64-position pass with a slot's `start` in it)
+P6_ENTRIES = [
+    ("decode_self_attention_update_int8_start@cb-1152rows-pass2",
+     "decode_self_attention_update_int8_start", "cb-small", "pass2"),
+    ("decode_cross_attention_grouped_int8@cb-admitted", "decode_cross_attention_grouped_int8",
+     "cb-small", ("grouped", "torch.int8", 1500, 1, CB_BATCH * 12)),
+    ("decode_cross_attention_grouped_int8_wide@stream-60slots",
+     "decode_cross_attention_grouped_int8_wide", "stream-steady",
+     ("grouped", "torch.int8", 1500, 60, STREAMS * 12)),
+    ("decode_self_attention_update_int8_start@stream-384rows",
+     "decode_self_attention_update_int8_start", "stream-steady",
+     ("decode_self_attention_update_int8", "torch.bfloat16", STREAMS * 12, 64, True)),
+    ("int8_matmul@serve-b8-qkv-M8", "int8_matmul", "serve-flac", ("int8_matmul", 8, 768, 2304)),
+    ("decode_cross_attention_grouped_int8@serve-b8", "decode_cross_attention_grouped_int8",
+     "serve-flac", ("grouped", "torch.int8", 1500, 1, 96)),
+    ("decode_self_attention_update_int8@serve-b8", "decode_self_attention_update_int8",
+     "serve-flac", ("decode_self_attention_update_int8", "torch.bfloat16", 96, 64, False)),
+    ("log_mel_cuda@serve-b8", "log_mel_cuda", "serve-flac", ("log_mel_cuda", 8)),
+    ("encoder_attention@serve-b8", "encoder_attention", "serve-flac", ("encoder_attention", 8)),
+    ("transpose_quant_kv@serve-b8", "transpose_quant_kv", "serve-flac", ("transpose_quant_kv", 8)),
+    ("encoder_attention@serve-b32", "encoder_attention", "serve-flac",
+     ("encoder_attention", 32)),
+    ("transpose_quant_kv@serve-b32", "transpose_quant_kv", "serve-flac",
+     ("transpose_quant_kv", 32)),
+]
+
+
+def batch_calls(sink: dict, calls: dict) -> list:
+    """Patches that keep the first call's inputs of the mel (through the
+    frontend, `features.preprocess`), the encoder attention and the cross-KV
+    quantizer at each batch size in `sink` and count each kernel's launches
+    at each in `calls`, read from its wrapper's counter (their
+    `checked_kernel_calls` keys hold no batch)."""
+    from openai_whisper_compression_tpu_torch.audio import features
+    from openai_whisper_compression_tpu_torch.models import whisper
+
+    counters = launch_counters()
+
+    def wrap(mod, name, kernel):
+        real = getattr(mod, name)
+        wrapper, attr = counters[kernel]
+
+        def fn(*a, **kw):
+            key = (kernel, a[0].shape[0])
+            sink.setdefault(key, a)
+            before = getattr(wrapper, attr)
+            out = real(*a, **kw)
+            at = calls.setdefault(key, {})
+            at[kernel] = at.get(kernel, 0) + getattr(wrapper, attr) - before
+            return out
+        return (mod, name, fn)
+
+    return [wrap(features, "preprocess", "log_mel_cuda"),
+            wrap(whisper, "encoder_attention", "encoder_attention"),
+            wrap(whisper, "transpose_quant_kv", "transpose_quant_kv")]
+
+
+class Background:
+    """`fn()` on a thread of its own (CPU work that overlaps the card's);
+    `result()` joins it and re-raises what it raised."""
+
+    def __init__(self, fn):
+        import threading
+
+        self._out: dict = {}
+
+        def run():
+            try:
+                self._out["value"] = fn()
+            except BaseException as e:        # re-raised by result()
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+# CPU f32 proofs of runs on the card (tie proofs, CPU references), queued by
+# `later` and run by `run_later` on a thread beside phase 6's held passes
+LATER: list = []
+# the CPU f32 encoder states (fast frontend) of `waveforms(SEED, BATCH)` under
+# whisper-small's int8 tree, by row: the tie proofs of unfused-int8, spec-*
+# and verified-* decode that audio with that tree, and share them
+SEED_ENCS: dict = {}
+
+
+def later(label: str, fn) -> None:
+    """Queue `fn()`, a CPU f32 proof of a run on the card that logs and
+    checks, for `run_later`: it runs while the card runs phase 6's held
+    passes, so no timed pass shares the host with it; a failed check fails
+    the run when that thread is joined."""
+    LATER.append((label, fn))
+
+
+def later_ties(name: str, params_cpu, arch, cfg, wav, got, want, first_gen: int,
+               summary: dict, line, **kw) -> None:
+    """Queue `check_ties` on CPU copies of its tensors (`later`); when it
+    has run, `summary["parted"]` holds the rows that parted and `line(parted)`
+    is logged."""
+    cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+    wav, got, want = wav.cpu(), got.cpu(), want.cpu()
+
+    def proof():
+        summary["parted"] = check_ties(name, params_cpu, arch, cfg, wav, got, want,
+                                       first_gen, **cpu)
+        log(line(summary["parted"]))
+    later(name, proof)
+
+
+@torch.inference_mode()
+def run_later() -> dict:
+    """Run the queued proofs in order (on the calling thread); returns the
+    seconds of each."""
+    secs = {}
+    while LATER:
+        label, fn = LATER.pop(0)
+        t0 = time.perf_counter()
+        fn()
+        secs[label] = round(time.perf_counter() - t0, 1)
+    return secs
+
+
+def launched(launches: dict) -> dict:
+    """The kernels a run launched, with their counts (for the log)."""
+    return {k: v for k, v in launches.items() if v}
+
+
+def padded_rows(rows, length: int, eot: int) -> torch.Tensor:
+    """Token sequences as one (N, length) tensor, EOT past each row's end."""
+    out = torch.full((len(rows), length), eot, dtype=torch.long)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = torch.as_tensor(np.asarray(r, np.int64))
+    return out
+
+
+def decode_exact(arch, calls: int, windows: int, steps: int, window_chunks: list) -> dict:
+    """Exact launch counts of `calls` encodes of whisper-small with int8
+    weights and caches, `windows` windowed passes (the grouped kernel in the
+    window's chunks of at most 8 slots a layer, linears past the kernels' M)
+    and `steps` decode steps with a per-row `start` (grouped cross-attention,
+    6 int8 matmuls and the int8 update a layer)."""
+    layers = arch.decoder_layers
+    return {"log_mel_cuda": calls, "encoder_attention": arch.encoder_layers * calls,
+            "transpose_quant_kv": 2 * layers * calls,
+            "int8_matmul": 6 * layers * steps,
+            "decode_cross_attention_grouped_int8":
+                layers * (steps + windows * sum(c <= 4 for c in window_chunks)),
+            "decode_cross_attention_grouped_int8_wide":
+                layers * windows * sum(c > 4 for c in window_chunks),
+            "decode_self_attention_update_int8_start": layers * steps}
+
+
+@torch.inference_mode()
+def run_cb_small(dev, arch, params, params_cpu, results: dict, after_timed=None) -> dict:
+    """`ContinuousBatcher` at bench.py's continuous_batching row: batch 96,
+    384 requests of ragged noise (x 0.35, 1-30 s, seed 1) staged as an int16
+    pool by `stage()`, per-request caps lognormal(log 32, 0.55) in 2..64,
+    chunk 8, 24 admit lanes, prefill disaggregation, EOT allowed. The three
+    schedulers (wave, continuous, overlap), each timed, then each again with
+    every kernel call held against its plain version (tokens equal to the
+    timed run's); exact launch counts from each run's stage passes and
+    device steps; tokens of the three equal or parted at a proven tie; the
+    first 96 requests against one `make_transcribe_fn` batch at 64 tokens
+    cut at each cap (`gen_tokens_of_row`); `fixed_equiv_rtfx`: the
+    fixed-token decoder at the set's mean length (EOT suppressed), two
+    timed batches; a float32 pool under transfer="int16" refused. The
+    comparators (`cb_yardsticks`) run between the timed and the held runs,
+    the tie proofs (`cb_ties`) on a thread beside the held runs, and
+    `after_timed` is called as the held runs begin. Returns the summary and
+    `finish()`, which joins the tie proofs into it."""
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.continuous import CBStats, ContinuousBatcher
+    from openai_whisper_compression_tpu_torch.models import decode
+
+    name, b, eot = "cb-small", CB_BATCH, arch.eos_token_id
+    cfg = DecodeConfig(max_new_tokens=CB_TOKENS, **KV8)
+    rng = np.random.default_rng(1)
+    n = arch.max_source_positions * 2 * 160
+    lens = rng.integers(16000, n, CB_REQUESTS)
+    caps = np.clip(np.round(rng.lognormal(np.log(CB_TOKENS / 2), 0.55, CB_REQUESTS)),
+                   2, CB_TOKENS).astype(int).tolist()
+    wavs = [rng.standard_normal(int(ln)).astype(np.float32) * 0.35 for ln in lens]
+    durations = (lens / 16000.0).tolist()
+    cb = ContinuousBatcher(params, arch, cfg, batch=b, chunk=CB_CHUNK, admit_lanes=CB_LANES,
+                           fast_mel=True, fast_gelu=True, transfer="int16", device=dev)
+    t0 = time.perf_counter()
+    pool = cb.stage(wavs)
+    cb.warmup()
+    torch.cuda.synchronize()
+    log(f"phase6 {name}: {arch.name}, int8 weights, int8 self-KV and cross-KV, batch {b}, "
+        f"{CB_REQUESTS} requests of {lens.min() / 16000:.2f}-{lens.max() / 16000:.2f} s "
+        f"({sum(durations):.1f} s), caps {min(caps)}-{max(caps)} (mean {np.mean(caps):.2f}), "
+        f"chunk {CB_CHUNK}, {CB_LANES} admit lanes, stage_encode, int16 pool "
+        f"{tuple(pool.shape)} {pool.dtype}, cache_len {cb.plan.cache_len}; stage + warmup "
+        f"{time.perf_counter() - t0:.2f} s")
+    pool_f32 = pool.float() * CB_SCALE          # what the admits decode
+    try:
+        cb.transcribe_all(pool_f32[:4])
+        check(False, f"{name}: a float32 pool under transfer='int16' was accepted")
+    except ValueError as e:
+        log(f"phase6 {name}: a float32 pool under transfer='int16' raises: {e}")
+
+    fg = cb.plan.p_len
+    scheds = (("wave", {"wave": True}), ("continuous", {}), ("overlap", {"overlap": True}))
+    name_u = "decode_self_attention_update_int8"
+    runs, run_lens, summary = {}, {}, {}
+    for held_on in (False, True):
+        if held_on:
+            summary.update(cb_yardsticks(dev, arch, params, cfg, cb, pool_f32, caps,
+                                         durations, run_lens["wave"], results))
+            want = summary.pop("greedy_want")
+            # the CPU f32 tie proofs, then the earlier phases' queued proofs
+            # (`later`), run on a thread while the held runs go, on all but
+            # two of the cores (the held runs' host loop and the FLAC
+            # encoders keep theirs)
+            threads = torch.get_num_threads()
+            torch.set_num_threads(max(1, threads - 2))
+            ties = Background(lambda: (cb_ties(params_cpu, arch, cfg, pool_f32, runs, want,
+                                               fg, b), run_later()))
+            if after_timed is not None:
+                after_timed()
+        for what, kw in scheds:
+            stats, shapes, calls, pass2 = CBStats(), {}, {}, {}
+            cb.state = cb.fns["init"](params)     # every run from position 0
+            with (checked_kernel_calls(shapes, calls, mel=True) if held_on
+                  else contextlib.nullcontext({})) as held:
+                real_u = getattr(decode, name_u)
+
+                def rec(*a, start=None):   # an update at pass 2 with a start in it
+                    if ("args" not in pass2 and a[0].is_cuda and a[-1] >= 64
+                            and start is not None and int(start.max()) >= 64):
+                        pass2["args"] = tuple(x.clone() if isinstance(x, torch.Tensor)
+                                              else x for x in a) + (start.clone(),)
+                    return real_u(*a, start=start)
+
+                with patched((decode, name_u, rec)) if held_on else contextlib.nullcontext():
+                    counters = zero_launches()
+                    t0 = time.perf_counter()
+                    toks = cb.transcribe_all(pool, stats=stats, max_new=caps,
+                                             durations=durations, **kw)
+                    wall = time.perf_counter() - t0
+                    launches = read_launches(counters)
+            steps, passes = stats.device_steps, stats.extra["stage_passes"]
+            exact = decode_exact(arch, passes, 0, steps, [])
+            check_launches(f"{name} {what}", launches, tuple(exact), exact)
+            tokens = padded_rows(toks, fg + CB_TOKENS, eot)
+            if held_on:
+                check(torch.equal(tokens, runs[what]), f"{name} {what}: the held run's "
+                      "tokens differ from the timed run's")
+                log(f"phase6 {name} {what} held: wall {wall:.2f} s; "
+                    f"{held_summary(held, shapes)}")
+                if what == "continuous":
+                    check("args" in pass2, f"{name}: no update at pass 2 with a start there")
+                    results["p6_shapes_cb-small"] = (shapes, calls, pass2["args"],
+                                                     launches[name_u + "_start"])
+                continue
+            runs[what], run_lens[what] = tokens, [len(t) for t in toks]
+            snap = stats.snapshot()
+            summary[what] = {"rtfx": stats.rtfx, "occupancy": stats.occupancy,
+                             "device_steps": steps, "chunks": stats.chunks,
+                             "stage_passes": passes, "rebases": stats.rebases,
+                             "wall_s": wall, "gen_tokens": stats.gen_tokens,
+                             **{k: snap[k] for k in ("t_admit_s", "t_chunk_dispatch_s",
+                                                      "t_readback_s", "t_stage_s")}}
+            log(f"phase6 {name} {what}: rtfx {stats.rtfx:.2f} (audio s / wall {wall:.4f} s), "
+                f"occupancy {stats.occupancy:.4f}, device_steps {steps}, chunks "
+                f"{stats.chunks}, stage_passes {passes}, rebases {stats.rebases}, admits "
+                f"{stats.admits} in {stats.admit_passes} passes, gen_tokens "
+                f"{stats.gen_tokens}; host phases: admit {snap['t_admit_s']} s, chunk "
+                f"{snap['t_chunk_dispatch_s']} s, readback {snap['t_readback_s']} s, stage "
+                f"{snap['t_stage_s']} s; launches {json.dumps(launched(launches))}")
+            if what == "wave":
+                summary["launches"] = launches
+    summary["requests"] = CB_REQUESTS
+
+    def finish() -> None:
+        summary["parted"], secs = ties.result()
+        torch.set_num_threads(threads)
+        log(f"phase6 {name}: the earlier runs' CPU f32 proofs, seconds each: "
+            f"{json.dumps(secs)}")
+
+    return summary, finish
+
+
+@torch.inference_mode()
+def cb_yardsticks(dev, arch, params, cfg, cb, pool_f32, caps, durations, wave_lens,
+                  results: dict) -> dict:
+    """cb-small's comparators, run between its timed and its held runs:
+    one greedy batch of the first 96 requests at 64 tokens, every kernel
+    call held, cut at each request's cap (`gen_tokens_of_row`: the tokens
+    the batcher must give them); the fixed-token decoder at the wave run's
+    mean length (EOT suppressed) over two batches, timed
+    (`fixed_equiv_rtfx`) and held."""
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+    from openai_whisper_compression_tpu_torch.models.continuous import gen_tokens_of_row
+
+    name, b, eot, fg = "cb-small", CB_BATCH, arch.eos_token_id, cb.plan.p_len
+    fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+    shapes: dict = {}
+    with checked_kernel_calls(shapes, mel=True) as held:
+        g_tok, g_len = (x.cpu() for x in fn(params, pool_f32[:b]))
+    log(f"phase6 {name} greedy batch: {held_summary(held, shapes)}")
+    want = padded_rows([np.concatenate([np.asarray(cb.plan.prefix), gen_tokens_of_row(
+        g_tok[r].numpy(), 0, fg, caps[r], eot)]) for r in range(b)], fg + CB_TOKENS, eot)
+
+    mean_len = float(np.mean(wave_lens))
+    eq_tokens = max(int(round(mean_len)) - fg, 1)
+    cfg_eq = dataclasses.replace(cfg, max_new_tokens=eq_tokens, suppress_tokens=(eot,))
+    fn_eq = make_transcribe_fn(arch, cfg_eq, fast_mel=True, fast_gelu=True, device=dev)
+    fn_eq(params, pool_f32[:b])
+    torch.cuda.synchronize()
+    counters = zero_launches()
+    t0 = time.perf_counter()
+    outs = [fn_eq(params, pool_f32[k * b: (k + 1) * b])[0].cpu() for k in (1, 2)]
+    eq_wall = time.perf_counter() - t0
+    launches = read_launches(counters)
+    exact = decode_launches(arch, [eq_tokens] * 2, [b] * 2)
+    check_launches(f"{name} fixed-equiv", launches, tuple(exact), exact)
+    shapes = {}
+    with checked_kernel_calls(shapes, mel=True) as held:
+        held_eq = [fn_eq(params, pool_f32[k * b: (k + 1) * b])[0].cpu() for k in (1, 2)]
+    check(all(torch.equal(x, y) for x, y in zip(outs, held_eq)),
+          f"{name}: the fixed-equiv held calls differ from the timed ones")
+    eq_rtfx = float(sum(durations[b: 3 * b])) / eq_wall
+    log(f"phase6 {name} fixed_equiv: {eq_tokens} tokens (the wave run's mean length "
+        f"{mean_len:.2f} less the prefix), 2 batches of {b} in {eq_wall:.4f} s: "
+        f"fixed_equiv_rtfx {eq_rtfx:.2f}; held: {held_summary(held, shapes)}")
+    return {"fixed_equiv_rtfx": eq_rtfx, "fixed_equiv_tokens": eq_tokens,
+            "greedy_want": want}
+
+
+@torch.inference_mode()
+def cb_ties(params_cpu, arch, cfg, pool_f32, runs: dict, want, fg: int, b: int) -> dict:
+    """cb-small's token comparisons (`check_ties`, one CPU f32 encoder pass
+    a request, shared): continuous against wave, overlap against
+    continuous, the first 96 continuous requests against the greedy batch.
+    Returns the rows parted in each."""
+    name, encs, parted = "cb-small", {}, {}
+    for a, bname in (("continuous", "wave"), ("overlap", "continuous")):
+        parted[a] = check_ties(f"{name} {a} vs {bname}", params_cpu, arch, cfg, pool_f32,
+                               runs[a], runs[bname], fg, encs=encs)
+        log(f"phase6 {name}: {CB_REQUESTS - parted[a]} of {CB_REQUESTS} requests of "
+            f"{a} equal {bname}'s tokens, {parted[a]} part at a proven tie")
+    parted["greedy"] = check_ties(f"{name} continuous vs greedy", params_cpu, arch, cfg,
+                                  pool_f32, runs["continuous"][:b], want, fg, encs=encs)
+    log(f"phase6 {name}: {b - parted['greedy']} of {b} requests equal one greedy_decode "
+        f"batch at {CB_TOKENS} tokens cut at their caps, {parted['greedy']} part at a "
+        "proven tie")
+    return parted
+
+
+def stream_audio(seconds: float, seed: int) -> list:
+    """bench.py's streams: each of STREAMS sessions `seconds` of noise x 0.1
+    in 0.5 s chunks, from one generator."""
+    rng = np.random.default_rng(seed)
+    chunk = int(STREAM_CHUNK_S * 16000)
+    return [rng.standard_normal((int(seconds / STREAM_CHUNK_S), chunk)).astype(np.float32)
+            * 0.1 for _ in range(STREAMS)]
+
+
+def stream_pass(pool, audio: list, churn: bool, on_tick=None) -> dict:
+    """One pass of bench.py's streaming row over `pool`: sessions fed 0.5 s
+    chunks round-robin, a tick after every round; with `churn` a quarter of
+    the sessions closed (their finals kept) and new ones opened every
+    quarter of the run. Returns every tick's partials, the finals, tick
+    times, the wall and the closed count."""
+    total = len(audio[0])
+    churn_every = total // 4 if churn else 0
+    live, next_id = list(range(STREAMS)), STREAMS
+    for i in live:
+        pool.open(i)
+    ticks, tick_s, finals = [], [], {}
+    t0 = time.perf_counter()
+    for c in range(total):
+        if churn_every and c > 0 and c % churn_every == 0:
+            for _ in range(STREAMS // 4):
+                sid = live.pop(0)
+                finals[sid] = pool.close(sid)
+                pool.open(next_id)
+                live.append(next_id)
+                next_id += 1
+        for i in live:
+            pool.feed(i, audio[i % STREAMS][c])
+        tt = time.perf_counter()
+        ticks.append(pool.tick())
+        tick_s.append(time.perf_counter() - tt)
+        if on_tick is not None:
+            on_tick(ticks[-1])
+    for i in live:
+        finals[i] = pool.close(i)
+    wall = time.perf_counter() - t0
+    return {"ticks": ticks, "tick_s": tick_s, "finals": finals, "wall": wall,
+            "closed": len(finals)}
+
+
+@torch.inference_mode()
+def run_streams(dev, arch, params, params_cpu, results: dict, before_timed=None) -> dict:
+    """`StreamingPool` at bench.py's streaming rows: 32 sessions, agreement 2,
+    min_step 1 s, timestamps on, 25 tokens, int8 caches, a 32-token prompt
+    window. stream-steady: STEADY_S s streams (noise x 0.1, seed 0); stream-churn:
+    30 s streams, a quarter of the sessions closed and reopened every
+    quarter of the run, on the same pool. Each run once with every kernel
+    call held, every synced mirror row checked bit for bit against its host
+    window (zero past it, a reused row's too) and committed text never
+    retracting, then timed (after `before_timed`), its partials and finals
+    equal to the held pass's; exact
+    launch counts from the step calls, windows and decode steps each pass
+    made. After the held steady pass two of its streams run again through
+    standalone transcribers on the pool's step, held too: every decode
+    equal to the pool's and the finals equal, or the first decode where
+    they part a proven tie (CPU f32, the streaming step's f32 DFT and exact
+    GELU), where that stream's comparison ends."""
+    from openai_whisper_compression_tpu_torch import streaming
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import default_tokenizer
+    from openai_whisper_compression_tpu_torch.models import speculative
+    from openai_whisper_compression_tpu_torch.models.decode import forced_prefix
+
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, notimestamps=False, **KV8)
+    tok = default_tokenizer(arch)
+    pool = streaming.StreamingPool(params, arch, tok, cfg, max_streams=STREAMS,
+                                   agreement=2, min_step_s=1.0, device=dev)
+    fg = pool._pw + len(forced_prefix(arch, cfg))
+    window = fg + NEW_TOKENS
+    chunks = [min(8, window - j) for j in range(0, window, 8)]
+    counts = {"calls": 0, "windows": 0, "steps": 0}
+    # recorded decodes of the compared streams: sid -> [(wav, prompt, plen, tokens)]
+    rec = {"on": False, "pool": {}, "solo": {}, "closing": None}
+    real_batched, real_single, real_close = pool._batched_step, pool._single_step, pool.close
+    real_step, real_window = speculative.decoder_step, speculative.verify_window
+
+    def keep(sink, s, wav, prompt, plen, out, r=0):
+        sink[s].append((torch.as_tensor(wav[r: r + 1]).clone(), np.asarray(prompt[r: r + 1]),
+                        np.asarray(plen[r: r + 1]), out[r: r + 1, :-2].cpu()))
+
+    def batched(params_, wav, prompt, plen, draft, dlen, active):
+        counts["calls"] += 1
+        out = real_batched(params_, wav, prompt, plen, draft, dlen, active)
+        if rec["on"]:
+            for s in rec["pool"]:
+                r = pool._row_of.get(s)
+                if r is not None and bool(active[r]):
+                    keep(rec["pool"], s, wav, prompt, plen, out, r)
+        return out
+
+    def single(params_, wav, prompt, plen, draft, dlen, active):
+        counts["calls"] += 1
+        out = real_single(params_, wav, prompt, plen, draft, dlen, active)
+        if rec["on"] and rec["closing"] in rec["pool"]:      # a compared session's flush
+            keep(rec["pool"], rec["closing"], wav, prompt, plen, out)
+        return out
+
+    def close(sid):
+        rec["closing"] = sid
+        try:
+            return real_close(sid)
+        finally:
+            rec["closing"] = None
+
+    def solo_step(s):
+        def fn(params_, wav, prompt, plen, draft, dlen, active):
+            out = single(params_, wav, prompt, plen, draft, dlen, active)
+            keep(rec["solo"], s, wav, prompt, plen, out)
+            return out
+        return fn
+
+    def step(*a, **kw):
+        counts["steps"] += 1
+        return real_step(*a, **kw)
+
+    def win(*a, **kw):
+        counts["windows"] += 1
+        return real_window(*a, **kw)
+
+    def solo_compare(s: int, chunks_s, final) -> str:
+        """Stream s alone on the pool's step, every kernel call held, fed
+        as its session was; its decodes against the session's recorded ones
+        until the first that parts (a proven tie ends the comparison), else
+        the finals equal."""
+        pooled, alone = rec["pool"][s], rec["solo"][s]
+        st = streaming.StreamingTranscriber(params, arch, tok, cfg, agreement=2,
+                                            min_step_s=1.0, step_fn=solo_step(s), device=dev)
+        shapes: dict = {}
+
+        def parted() -> int | None:
+            return next((i for i, (x, y) in enumerate(zip(pooled, alone))
+                         if not torch.equal(x[3], y[3])), None)
+
+        with checked_kernel_calls(shapes, mel=True) as held:
+            for c in chunks_s:
+                st.feed(c)
+                if parted() is not None:
+                    break
+            else:
+                out = st.flush()
+        first = parted()
+        if first is None:
+            check(out == final and len(pooled) == len(alone),
+                  f"stream {s}: alone its finals differ from the pool's with every decode "
+                  f"equal ({len(pooled)} and {len(alone)} decodes)")
+            log(f"phase6 stream-steady: stream {s} alone on the pool's step: {len(alone)} "
+                f"decodes, each equal to the pool's; finals equal; {held_summary(held, shapes)}")
+            return "equal"
+        (w1, p1, l1, t1), (w2, p2, l2, t2) = pooled[first], alone[first]
+        check(torch.equal(w1.cpu(), w2.cpu()) and np.array_equal(p1, p2)
+              and np.array_equal(l1, l2), f"stream {s}: decode {first} had other inputs alone")
+        check_ties(f"stream-steady stream {s} decode {first}", params_cpu, arch, cfg,
+                   w1.float(), t1, t2, fg, prompt=torch.from_numpy(p1).long(),
+                   lens=torch.from_numpy(l1).long(), fast=False)
+        log(f"phase6 stream-steady: stream {s} alone on the pool's step parts from the "
+            f"pool at decode {first} of {len(pooled)}, at a proven tie; "
+            f"{held_summary(held, shapes)}")
+        return f"tie at decode {first}"
+
+    pool._batched_step, pool._single_step, pool.close = batched, single, close
+    # warm the batched step on a throwaway session (bench.py's warmup)
+    pool.open("warm")
+    pool.feed("warm", np.random.default_rng(9).standard_normal(32000).astype(np.float32) * 0.1)
+    pool.tick()
+    pool.close("warm")
+    summaries = {}
+    runs = (("stream-steady", STEADY_S, False), ("stream-churn", CHURN_S, True))
+    audio = {name: stream_audio(seconds, 0) for name, seconds, _ in runs}
+    passes: dict = {}
+    # the held passes first, the timed passes after `before_timed` (which
+    # waits for work that would share the host with them)
+    for held_on in (True, False):
+        if not held_on and before_timed is not None:
+            before_timed()
+        for name, seconds, churn in runs:
+            pool.reset_stats()
+            counts.update(calls=0, windows=0, steps=0)
+            shapes, kcalls, committed = {}, {}, {}
+            synced = {"rows": 0, "reused": 0}
+            if held_on and not churn:     # the compared streams' decodes
+                rec.update(on=True, pool={0: [], 1: []}, solo={0: [], 1: []})
+            real_sync = pool._sync_mirrors
+
+            def sync(rows):
+                real_sync(rows)
+                for sid, r in rows:
+                    w = pool.sessions[sid]._window()
+                    m = pool._mirror[r].cpu().numpy()
+                    check(np.array_equal(m[: len(w)], w) and not m[len(w):].any()
+                          and pool._mlen[r] == len(w),
+                          f"{name}: session {sid}'s mirror row {r} differs from its window")
+                    synced["rows"] += 1
+                    synced["reused"] += sid >= STREAMS     # a churned-in session's row
+
+            def on_tick(out):
+                for sid, o in out.items():
+                    check(o["committed"].startswith(committed.get(sid, "")),
+                          f"{name}: session {sid}'s committed text retracted")
+                    committed[sid] = o["committed"]
+
+            if held_on:
+                pool._sync_mirrors = sync
+            try:
+                with patched((speculative, "decoder_step", step),
+                             (speculative, "verify_window", win)), \
+                        (checked_kernel_calls(shapes, kcalls, mel=True) if held_on
+                         else contextlib.nullcontext({})) as held:
+                    counters = zero_launches()
+                    res = stream_pass(pool, audio[name], churn, on_tick if held_on else None)
+                    torch.cuda.synchronize()
+                    launches = read_launches(counters)
+            finally:
+                pool._sync_mirrors = real_sync
+                rec["on"] = False
+            stats = pool.stats()
+            exact = decode_exact(arch, counts["calls"], counts["windows"], counts["steps"],
+                                 chunks)
+            check_launches(f"{name}{' held' if held_on else ''}", launches, tuple(exact),
+                           exact)
+            check(counts["windows"] == 2 * counts["calls"],
+                  f"{name}: {counts['windows']} windows for {counts['calls']} step calls")
+            res.update(stats=stats, launches=launches, counts=dict(counts))
+            passes[name, held_on] = res
+            if held_on:
+                check(synced["rows"] >= stats["decodes"] and (synced["reused"] > 0) == churn,
+                      f"{name}: {synced} mirror rows checked for {stats['decodes']} decodes")
+                results[f"p6_shapes_{name}"] = (shapes, kcalls)
+                log(f"phase6 {name} held: wall {res['wall']:.2f} s; {synced['rows']} synced "
+                    f"mirror rows ({synced['reused']} of reused rows) equal to their host "
+                    f"windows and zero past them; committed text never retracted; "
+                    f"{held_summary(held, shapes)}")
+                if not churn:
+                    alone = {s: solo_compare(s, audio[name][s], res["finals"][s]) for s in (0, 1)}
+                continue
+            h = passes[name, True]
+            check(res["ticks"] == h["ticks"] and res["finals"] == h["finals"],
+                  f"{name}: the timed pass's partials or finals differ from the held pass's")
+            stats, ts = res["stats"], np.asarray(res["tick_s"]) * 1e3
+            audio_s = stats["audio_seconds"]
+            acc = (stats["draft_accepted"] / stats["draft_proposed"]
+                   if stats["draft_proposed"] else 0.0)
+            summ = {"aggregate_rtfx": audio_s / res["wall"], "device_rtfx": stats["rtfx"],
+                    "tick_p50_ms": float(np.percentile(ts, 50)),
+                    "tick_p95_ms": float(np.percentile(ts, 95)),
+                    "occupancy": stats["mean_batch_occupancy"], "draft_accept_rate": acc,
+                    "sessions_closed": res["closed"], "batched_calls": stats["batched_calls"],
+                    "step_calls": res["counts"]["calls"], "decode_steps": res["counts"]["steps"],
+                    "wall_s": res["wall"], "launches": launches}
+            if not churn:
+                summ.update({f"stream{s}_alone": v for s, v in alone.items()})
+            check(all(isinstance(f["committed"], str) and f["pending"] == ""
+                      for f in res["finals"].values()) and len(res["finals"]) == res["closed"],
+                  f"{name}: a closed session returned no finals")
+            log(f"phase6 {name}: {STREAMS} sessions x {seconds:.0f} s ({audio_s:.1f} s of "
+                f"audio) in {res['wall']:.4f} s: aggregate_rtfx {summ['aggregate_rtfx']:.2f}, "
+                f"device_rtfx {summ['device_rtfx']:.2f}, tick p50 {summ['tick_p50_ms']:.1f} "
+                f"ms p95 {summ['tick_p95_ms']:.1f} ms, occupancy {summ['occupancy']:.4f}, "
+                f"draft_accept_rate {acc:.4f}, sessions_closed {res['closed']} (each returned "
+                f"its finals), {stats['batched_calls']} batched calls, "
+                f"{res['counts']['calls']} step calls ({res['counts']['steps']} decode steps); "
+                f"partials and finals equal to the held pass's; launches "
+                f"{json.dumps(launched(launches))}")
+            summaries[name] = summ
+    pool._batched_step, pool._single_step, pool.close = real_batched, real_single, real_close
+    return summaries
+
+
+def flac_payloads(wavs: list):
+    """Start encoding `wavs` to FLAC (the serving wire's client side,
+    `audio.flac_encode.encode_waveform`, pure Python) in FLAC_WORKERS
+    spawned processes; returns (executor, futures). The caller shuts the
+    executor down."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from openai_whisper_compression_tpu_torch.audio.flac_encode import encode_waveform
+
+    ex = ProcessPoolExecutor(FLAC_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    return ex, [ex.submit(encode_waveform, w) for w in wavs]
+
+
+def serve_pass(dev, arch, params, fn, cfg, what: str, transfer: str, plan, held_on: bool,
+               direct: dict) -> dict:
+    """One `TranscriptionService` pass at batch 32 (buckets 8, 16, 32),
+    max_wait 5 ms, pipeline 2: warmup, then `plan(svc)` -> (futures, timed
+    wall) with launch counts zeroed after the warmup, the service closed in
+    any case. Every batch's wire rows and outputs are recorded; each batch's
+    tokens must equal a direct call of `fn` on the same rows (decoded as the
+    wire decodes them), each request's ids must be its row's, and launches
+    exact from the batches' buckets (25 steps each, EOT suppressed)."""
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import default_tokenizer
+    from openai_whisper_compression_tpu_torch.serving import (PCM16_WIRE_SCALE,
+                                                              TranscriptionService,
+                                                              mulaw_decode)
+
+    svc = TranscriptionService(params, arch, default_tokenizer(arch), cfg,
+                               batch_size=SERVE_BATCH, max_wait_ms=5, transcribe_fn=fn,
+                               transfer=transfer, pipeline=2, device=dev)
+    batches, shapes, kcalls, firsts, bcalls = [], {}, {}, {}, {}
+    try:
+        svc.warmup()
+        torch.cuda.synchronize()
+        real_fn, real_fin = svc._fn, svc._finalize
+
+        def fn_rec(p, wire):
+            out = real_fn(p, wire)
+            batches.append({"wire": np.array(wire), "out": out, "items": None})
+            return out
+
+        def fin_rec(entry):
+            for b_ in batches:
+                if b_["out"][0] is entry[2]:
+                    b_["items"] = [(it[2], it[4]) for it in entry[0]]
+                    b_["failed"] = set(entry[1])
+            return real_fin(entry)
+
+        svc._fn, svc._finalize = fn_rec, fin_rec
+        with (checked_kernel_calls(shapes, kcalls, mel=True) if held_on
+              else contextlib.nullcontext({})) as held, \
+                (patched(*batch_calls(firsts, bcalls)) if held_on
+                 else contextlib.nullcontext()):
+            counters = zero_launches()
+            futs, wall = plan(svc)
+            svc.close(timeout=600)
+            torch.cuda.synchronize()
+            launches = read_launches(counters)
+    finally:
+        svc.close(timeout=600)
+    check(not svc._worker.is_alive(), f"{what}: the service's worker outlived close()")
+    buckets = [b_["wire"].shape[0] for b_ in batches]
+    exact = decode_launches(arch, [NEW_TOKENS] * len(batches), buckets)
+    check_launches(what, launches, tuple(exact), exact)
+    decode_wire = {"int16": lambda w: w.float() * PCM16_WIRE_SCALE, "mulaw": mulaw_decode,
+                   "float32": lambda w: w.float()}[transfer]
+    row_ids: dict = {}
+    for b_ in batches:
+        wire = torch.from_numpy(b_["wire"]).to(dev)
+        tokens, lengths = (x.cpu() for x in b_["out"][:2])
+        key = b_["wire"].tobytes()
+        if key not in direct:
+            direct[key] = tuple(x.cpu() for x in fn(params, decode_wire(wire))[:2])
+        check(torch.equal(direct[key][0], tokens) and torch.equal(direct[key][1], lengths),
+              f"{what}: a batch's tokens differ from a direct call on its rows")
+        check(b_["items"] is not None, f"{what}: a batch was never finalized")
+        for slot, (fut, internal) in enumerate(b_["items"]):
+            ids = tokens[slot, 4: int(lengths[slot])]
+            row_ids[id(fut)] = ids[ids != arch.eos_token_id].tolist()
+    stats = svc.stats.snapshot()
+    if held_on:
+        log(f"phase6 {what} held: {held_summary(held, shapes)}")
+    return {"futs": futs, "wall": wall, "stats": stats, "buckets": buckets,
+            "launches": launches, "batches": batches, "row_ids": row_ids,
+            "shapes": (shapes, kcalls, firsts, bcalls)}
+
+
+@torch.inference_mode()
+def run_serving(dev, arch, params, flac: tuple, results: dict) -> dict:
+    """`TranscriptionService` at bench.py's serve rows, `make_transcribe_fn`
+    at the headline decode (int8 caches, 25 tokens, EOT suppressed):
+    serve-flac: 128 requests of 7.42 s (noise x 0.1, seed 0) FLAC-encoded on
+    the client, the int16 wire, closed loop, then one batch with a corrupt
+    FLAC stream, a good one and a 65 s request (three windows); serve-openloop:
+    96 of them paced at 60% of serve-flac's e2e_rtfx; serve-mulaw: 32 on the
+    mu-law wire beside the float32 wire. Each timed, then again with every
+    kernel call held; every batch equal to a direct call on its rows, every
+    request's tokens its row's, exact launch counts; the corrupt stream fails
+    only its own request; the 65 s request comes back in three chunks equal
+    to their windows' direct calls."""
+    from openai_whisper_compression_tpu_torch.audio.flac import parse_stream_info
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,), **KV8)
+    fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+    ex, pending = flac
+    wavs_all = flac_waves()
+    t0 = time.perf_counter()
+    payloads = [f.result(timeout=600) for f in pending]
+    ex.shutdown(wait=True)
+    log(f"phase6 serve: {len(payloads)} FLAC payloads ({sum(map(len, payloads)) / 1e6:.2f} MB, "
+        f"{FLAC_WORKERS} encoding processes) ready after a further "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(5)
+    long_wav = rng.standard_normal(int(LONG_S * 16000)).astype(np.float32) * 0.1
+    good = payloads[0]
+    _, off = parse_stream_info(good)
+    corrupt = good[: off + 2]
+    direct: dict = {}
+    summaries = {}
+
+    def closed_loop(svc):
+        t0 = time.perf_counter()
+        futs = [svc.submit_flac(p) for p in payloads]
+        for f in futs:
+            f.result(timeout=600)
+        wall = time.perf_counter() - t0
+        extra = [svc.submit_flac(corrupt), svc.submit_flac(good), svc.submit(long_wav)]
+        for f in extra[1:]:
+            f.result(timeout=600)
+        return futs + extra, wall
+
+    e2e = None
+    for held_on in (False, True):
+        res = serve_pass(dev, arch, params, fn, cfg, "serve-flac", "int16", closed_loop,
+                         held_on, direct)
+        futs = res["futs"]
+        *main, f_bad, f_good, f_long = futs
+        try:
+            f_bad.result(timeout=60)
+            check(False, "serve-flac: the corrupt FLAC stream did not fail")
+        except Exception as e:         # its own request only
+            check("FLAC" in str(e), f"serve-flac: the corrupt stream failed with {e!r}")
+        for f in main + [f_good]:
+            check(f.result()["tokens"] == res["row_ids"][id(f)],
+                  "serve-flac: a request's tokens are not its batch row's")
+        check(f_good.result()["tokens"] == main[0].result()["tokens"],
+              "serve-flac: the co-riding good stream differs from its first submission")
+        long_res = f_long.result()
+        windows = [it for b_ in res["batches"] for it in b_["items"] if it[1]]
+        check(long_res["num_chunks"] == 3 and len(windows) == 3
+              and long_res["tokens"] == sum((res["row_ids"][id(w[0])] for w in windows), []),
+              f"serve-flac: the {LONG_S:.0f} s request's chunks differ from their windows'")
+        st = res["stats"]
+        n_audio = len(main) * UTT_S
+        if not held_on:
+            e2e = n_audio / res["wall"]
+            summaries["serve-flac"] = {
+                "e2e_rtfx": e2e, "busy_rtfx": st["rtfx"], "occupancy": st["mean_batch_occupancy"],
+                "latency_p50_ms": st["latency_p50_ms"], "latency_p95_ms": st["latency_p95_ms"],
+                "buckets": res["buckets"], "wall_s": res["wall"], "launches": res["launches"]}
+            log(f"phase6 serve-flac: {len(main)} requests of {UTT_S} s on the FLAC wire "
+                f"(int16 to the card) in {res['wall']:.4f} s: e2e_rtfx {e2e:.2f}, busy_rtfx "
+                f"{st['rtfx']:.2f}, occupancy {st['mean_batch_occupancy']:.4f}, latency p50 "
+                f"{st['latency_p50_ms']:.1f} ms p95 {st['latency_p95_ms']:.1f} ms (the "
+                f"follow-up batch included), buckets {res['buckets']}; the corrupt stream "
+                f"failed alone; the {LONG_S:.0f} s request in 3 chunks equal to their "
+                f"windows' direct calls; launches {json.dumps(launched(res['launches']))}")
+        else:
+            results["p6_shapes_serve-flac"] = res["shapes"]
+
+    interval = UTT_S / (OPENLOOP_LOAD * e2e)
+
+    def open_loop(svc):
+        t0 = time.perf_counter()
+        futs = []
+        for i, p in enumerate(payloads[:OPENLOOP_REQUESTS]):
+            target = t0 + i * interval
+            now = time.perf_counter()
+            if target > now:
+                time.sleep(target - now)
+            futs.append(svc.submit_flac(p))
+        for f in futs:
+            f.result(timeout=600)
+        return futs, time.perf_counter() - t0
+
+    for held_on in (False, True):
+        res = serve_pass(dev, arch, params, fn, cfg, "serve-openloop", "int16", open_loop,
+                         held_on, direct)
+        for f in res["futs"]:
+            check(f.result()["tokens"] == res["row_ids"][id(f)],
+                  "serve-openloop: a request's tokens are not its batch row's")
+        if not held_on:
+            st = res["stats"]
+            summaries["serve-openloop"] = {
+                "offered_rtfx": OPENLOOP_LOAD * e2e, "latency_p50_ms": st["latency_p50_ms"],
+                "latency_p95_ms": st["latency_p95_ms"],
+                "occupancy": st["mean_batch_occupancy"], "busy_rtfx": st["rtfx"],
+                "buckets": sorted(set(res["buckets"])), "batches": len(res["buckets"]),
+                "wall_s": res["wall"], "launches": res["launches"]}
+            log(f"phase6 serve-openloop: {OPENLOOP_REQUESTS} requests offered at "
+                f"{OPENLOOP_LOAD * e2e:.2f}x real time ({OPENLOOP_LOAD:.0%} of serve-flac's "
+                f"e2e_rtfx, one every {interval * 1e3:.2f} ms) in {res['wall']:.4f} s: latency "
+                f"p50 {st['latency_p50_ms']:.1f} ms p95 {st['latency_p95_ms']:.1f} ms, "
+                f"occupancy {st['mean_batch_occupancy']:.4f}, {len(res['buckets'])} batches, "
+                f"buckets used {sorted(set(res['buckets']))}; launches "
+                f"{json.dumps(launched(res['launches']))}")
+
+    waves = wavs_all[:MULAW_REQUESTS]
+    toks = {}
+    for transfer in ("float32", "mulaw"):
+        def burst(svc):
+            t0 = time.perf_counter()
+            futs = [svc.submit(w) for w in waves]
+            for f in futs:
+                f.result(timeout=600)
+            return futs, time.perf_counter() - t0
+
+        for held_on in (False, True):
+            res = serve_pass(dev, arch, params, fn, cfg, f"serve-mulaw ({transfer} wire)",
+                             transfer, burst, held_on, direct)
+            got = [f.result()["tokens"] for f in res["futs"]]
+            check(all(g == res["row_ids"][id(f)] for g, f in zip(got, res["futs"])),
+                  f"serve-mulaw: a {transfer} request's tokens are not its batch row's")
+            if not held_on:
+                toks[transfer] = got
+                mulaw_launches = res["launches"]
+    same = sum(a == b for a, b in zip(toks["float32"], toks["mulaw"]))
+    summaries["serve-mulaw"] = {"requests": MULAW_REQUESTS, "equal_share": same / MULAW_REQUESTS,
+                                "launches": mulaw_launches}
+    log(f"phase6 serve-mulaw: {same} of {MULAW_REQUESTS} requests on the mu-law wire "
+        f"({same / MULAW_REQUESTS:.4f}) have the float32 wire's tokens (lossy by design: "
+        "no hold)")
+    return summaries
+
+
+def flac_waves() -> list:
+    """bench.py's serve requests: SERVE_REQUESTS clips of 7.42 s of noise x
+    0.1 from one generator (seed 0)."""
+    rng = np.random.default_rng(0)
+    return [rng.standard_normal(int(UTT_S * 16000)).astype(np.float32) * 0.1
+            for _ in range(SERVE_REQUESTS)]
+
+
+@torch.inference_mode()
+def time_p6_shape(dev, what: str, key, args) -> dict:
+    """A kernel at a shape phase 6 gave it, on the first held call's inputs
+    (the mel on seeded clips of that batch), against its plain version,
+    timed beside it and its bound."""
+    if key[0] == "log_mel_cuda":
+        return check_mel(dev, torch.Generator(device=dev).manual_seed(SEED), key[1],
+                         torch.bfloat16)
+    if key == "pass2":
+        return time_p5_shape(what, ("update",), args)
+    return time_p5_shape(what, key, args)
+
+
+def phase6(dev, arch, params, results: dict) -> dict:
+    """The slice-13 runs (module docstring), each run's seconds printed; then
+    the P6_ENTRIES shapes timed. Returns the runs' summaries."""
+    from openai_whisper_compression_tpu_torch.models.params import tree_to
+
+    params_cpu = tree_to(params, "cpu", torch.float32)
+    summaries = {}
+    # the serve runs' FLAC payloads encode on the host's other cores while
+    # cb-small's held runs go (after its timed runs, before its CPU f32 ties)
+    flac: list = []
+    try:
+        t0 = time.perf_counter()
+        summaries["cb-small"], finish_cb = run_cb_small(
+            dev, arch, params, params_cpu, results,
+            after_timed=lambda: flac.extend(flac_payloads(flac_waves())))
+        log(f"phase6 cb-small runs: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+
+        def before_timed():   # no CPU work beside the timed stream passes
+            t1 = time.perf_counter()
+            finish_cb()
+            log(f"phase6 cb-small tie proofs and the queued CPU proofs joined after a "
+                f"further {time.perf_counter() - t1:.1f} s")
+
+        summaries.update(run_streams(dev, arch, params, params_cpu, results, before_timed))
+        log(f"phase6 stream-steady and stream-churn: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        summaries.update(run_serving(dev, arch, params, flac, results))
+        log(f"phase6 serve-flac, serve-openloop, serve-mulaw: "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        if flac:
+            flac[0].shutdown(wait=True, cancel_futures=True)
+
+    for entry, base, run, key in P6_ENTRIES:
+        if run == "cb-small":
+            shapes, calls, pass2, n_upd = results["p6_shapes_cb-small"]
+            if key == "pass2":
+                args, count = pass2, n_upd
+            else:
+                check(key in shapes, f"phase6: {run} never called the {key} shape")
+                args, count = shapes[key], calls[key]
+        elif run.startswith("stream"):
+            shapes, calls = results[f"p6_shapes_{run}"]
+            check(key in shapes, f"phase6: {run} never called the {key} shape")
+            args, count = shapes[key], calls[key]
+        else:
+            shapes, calls, firsts, bcalls = results[f"p6_shapes_{run}"]
+            src, cnt = ((firsts, bcalls) if len(key) == 2 else (shapes, calls))
+            check(key in src, f"phase6: {run} never called the {key} shape")
+            args, count = src[key], cnt[key]
+        if key != "pass2":                # the wrapper's launches at that shape
+            count = count.get(base, 0)
+            check(count > 0, f"phase6: {run} never launched {base} at the {key} shape")
+        results[entry] = {**time_p6_shape(dev, f"{run} {entry}", key, args),
+                          "launches": count}
+    for k in [k for k in results if k.startswith("p6_shapes_")]:
+        del results[k]
     return summaries
 
 
@@ -3290,7 +4535,8 @@ def craft_ts_embeddings(params, arch, probe_mels: torch.Tensor, peak: float = 1.
 
 def phase3(dev, params_for) -> None:
     """First-step logits of 2 utterances, card bf16 vs CPU f32, for each
-    LOGIT_RUNS configuration of whisper-small."""
+    LOGIT_RUNS configuration of whisper-small (the CPU side deferred:
+    `later`)."""
     from openai_whisper_compression_tpu_torch.audio.features import preprocess
     from openai_whisper_compression_tpu_torch.config import DecodeConfig
     from openai_whisper_compression_tpu_torch.models.decode import first_step_logits
@@ -3298,22 +4544,15 @@ def phase3(dev, params_for) -> None:
     from openai_whisper_compression_tpu_torch.models.whisper import encode
 
     wav = torch.from_numpy(waveforms(SEED, 2))
-    for method in dict.fromkeys(m for _, m, _ in LOGIT_RUNS):
-        arch, params = params_for(ARCH, method)
-        cfgs = {name: DecodeConfig(max_new_tokens=25,
-                                   suppress_tokens=(arch.eos_token_id,), **switches)
-                for name, m, switches in LOGIT_RUNS if m == method}
 
-        def logits(params, wav, dtype):
-            mel = preprocess(wav, arch.num_mel_bins, dft_dtype=torch.bfloat16).to(dtype)
-            enc = encode(params, arch, mel, fast_gelu=True)
-            return {name: first_step_logits(params, arch, enc, cfg).float().cpu()
-                    for name, cfg in cfgs.items()}
+    def logits(params, arch, cfgs, wav, dtype):
+        mel = preprocess(wav, arch.num_mel_bins, dft_dtype=torch.bfloat16).to(dtype)
+        enc = encode(params, arch, mel, fast_gelu=True)
+        return {name: first_step_logits(params, arch, enc, cfg).float().cpu()
+                for name, cfg in cfgs.items()}
 
-        dtype = params["encoder"]["ln"]["g"].dtype   # bf16 but for the f32 and f16 trees
-        tag = str(dtype).replace("torch.", "")
-        card = logits(params, wav.to(dev), dtype)
-        ref = logits(tree_to(params, "cpu", torch.float32), wav, torch.float32)
+    def compare(method, arch, cfgs, tag, card, card1, params_cpu):
+        ref = logits(params_cpu, arch, cfgs, wav, torch.float32)
         for name in cfgs:
             c, r = card[name], ref[name]
             limit = {**ACT_LOGITS_REL_L2, **TREE_LOGITS_REL_L2}.get(method, LOGITS_REL_L2)
@@ -3326,13 +4565,27 @@ def phase3(dev, params_for) -> None:
             check(bool(torch.isfinite(c).all()) and c.shape == (2, arch.vocab_size),
                   f"{name}: card logits not finite or of shape {tuple(c.shape)}")
             check(rel <= limit, f"{name}: card logits off by {rel:.4g} relative L2")
-            if name == "int8 int8-kv":   # the small-b1 run's shapes: one utterance
-                c1 = logits(params, wav[:1].to(dev), torch.bfloat16)[name]
+            if name in card1:   # the small-b1 run's shapes: one utterance
+                c1 = card1[name]
                 rel1 = float((c1 - r[:1]).norm() / r[:1].norm())
                 log(f"phase3 {name} batch 1 first-step logits card bf16 vs CPU f32: "
                     f"relative L2 {rel1:.4g} (bound {LOGITS_REL_L2})")
                 check(c1.shape == (1, arch.vocab_size) and rel1 <= LOGITS_REL_L2,
                       f"{name} batch 1: card logits off by {rel1:.4g} relative L2")
+
+    for method in dict.fromkeys(m for _, m, _ in LOGIT_RUNS):
+        arch, params = params_for(ARCH, method)
+        cfgs = {name: DecodeConfig(max_new_tokens=25,
+                                   suppress_tokens=(arch.eos_token_id,), **switches)
+                for name, m, switches in LOGIT_RUNS if m == method}
+        dtype = params["encoder"]["ln"]["g"].dtype   # bf16 but for the f32 and f16 trees
+        tag = str(dtype).replace("torch.", "")
+        card = logits(params, arch, cfgs, wav.to(dev), dtype)
+        card1 = ({"int8 int8-kv": logits(params, arch, cfgs, wav[:1].to(dev), torch.bfloat16)[
+            "int8 int8-kv"]} if "int8 int8-kv" in cfgs else {})
+        later(f"phase3 {method}", functools.partial(
+            compare, method, arch, cfgs, tag, card, card1,
+            tree_to(params, "cpu", torch.float32)))
 
     # the beam5-prompt configuration: prompted, five beams per utterance
     arch, params = params_for(ARCH, "int8")
@@ -3347,14 +4600,19 @@ def phase3(dev, params_for) -> None:
                                  lens.to(wav.device)).float().cpu()
 
     c = beam_logits(params, wav.to(dev), torch.bfloat16)
-    r = beam_logits(tree_to(params, "cpu", torch.float32), wav, torch.float32)
-    rel = float((c - r).norm() / r.norm())
-    log(f"phase3 beam5-prompt first-step logits card bf16 vs CPU f32: relative L2 "
-        f"{rel:.4g} (bound {LOGITS_REL_L2}), max abs {max_err(c, r):.4g}, |logits| "
-        f"max {float(r.abs().max()):.4g}")
-    check(bool(torch.isfinite(c).all()) and c.shape == (2 * 5, arch.vocab_size),
-          f"beam5-prompt: card logits not finite or of shape {tuple(c.shape)}")
-    check(rel <= LOGITS_REL_L2, f"beam5-prompt: card logits off by {rel:.4g} relative L2")
+
+    def beam_compare(params_cpu):
+        r = beam_logits(params_cpu, wav, torch.float32)
+        rel = float((c - r).norm() / r.norm())
+        log(f"phase3 beam5-prompt first-step logits card bf16 vs CPU f32: relative L2 "
+            f"{rel:.4g} (bound {LOGITS_REL_L2}), max abs {max_err(c, r):.4g}, |logits| "
+            f"max {float(r.abs().max()):.4g}")
+        check(bool(torch.isfinite(c).all()) and c.shape == (2 * 5, arch.vocab_size),
+              f"beam5-prompt: card logits not finite or of shape {tuple(c.shape)}")
+        check(rel <= LOGITS_REL_L2, f"beam5-prompt: card logits off by {rel:.4g} relative L2")
+
+    later("phase3 beam5-prompt", functools.partial(beam_compare,
+                                                   tree_to(params, "cpu", torch.float32)))
 
 
 def main() -> int:
@@ -3389,6 +4647,14 @@ def main() -> int:
         f"{kernels.build_seconds if kernels.build_seconds is not None else 'cached'} s)")
 
     results: dict = {}
+    t_run = t_phase = time.perf_counter()
+
+    def phase_done(what: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"{what}: {now - t_phase:.1f} s (run so far {now - t_run:.1f} s)")
+        t_phase = now
+
     phase1(dev, results)
     phase1_quantized(dev, results)
     phase1_4bit(dev, results)
@@ -3399,6 +4665,7 @@ def main() -> int:
     phase1_dtypes(dev, results)
     phase1_crossover(dev)
     torch.cuda.empty_cache()
+    phase_done("phase1")
     built: dict = {}
 
     def params_for(arch_name: str, method: str):
@@ -3419,7 +4686,9 @@ def main() -> int:
             dev, *params_for(ARCH, (*run, "int8")[3]), run, args.profile and run[0] in PROFILED)
     summaries["self-attn-replay"] = run_self_attention_replay(
         dev, *params_for(ARCH, "int8"))
+    phase_done("phase2")
     phase3(dev, params_for)
+    phase_done("phase3 (its CPU f32 side queued)")
     # the slice-11 runs with no other tree resident, so that the
     # evaluation's peak memory is its own
     for key in [k for k in built if k != (ARCH, "int8")]:
@@ -3431,9 +4700,16 @@ def main() -> int:
     summaries["unfused-int8"] = run_unfused_int8(dev, *small_int8)
     summaries.update(run_merge_pool(dev, *small_int8, results))
     summaries["fallback"] = run_fallback(dev, *small_int8)
+    phase_done("phase4")
     # the slice-12 runs, again with no other tree resident
     torch.cuda.empty_cache()
     summaries.update(phase5(dev, *small_int8, results))
+    phase_done("phase5")
+    # the slice-13 runs, again with no other tree resident
+    torch.cuda.empty_cache()
+    summaries.update(phase6(dev, *small_int8, results))
+    phase_done("phase6")
+    check(not LATER, f"CPU proofs never run: {[label for label, _ in LATER]}")
 
     def launches(name):  # from the first run that launched the kernel
         return next(s["launches"][name] for s in summaries.values()
@@ -3455,7 +4731,7 @@ def main() -> int:
         {**entries[base], "name": name,
          **{k: results[name][k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")}}
-        for name, base, _, _ in P5_ENTRIES]
+        for name, base, _, _ in P5_ENTRIES + P6_ENTRIES]
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -117,10 +117,15 @@ def decoder_step(params: Params, arch: WhisperArch, tok: torch.Tensor,
     b = tok.shape[0]
     dh = arch.head_dim
     x = embed_tokens(dec, tok)[:, None, :]
+    # a position past the table reads its last row, as JAX's clamped
+    # gather does (continuous batching's idle slots run past it; their
+    # logits are discarded)
+    last = dec["pos"].shape[0] - 1
     if start is None:
-        x = x + dec["pos"][pos: pos + 1][None].to(x.dtype)
+        p0 = min(pos, last)
+        x = x + dec["pos"][p0: p0 + 1][None].to(x.dtype)
     else:
-        pidx = (pos - start).clamp_min(0).long()
+        pidx = (pos - start).clamp(0, last).long()
         x = x + dec["pos"][pidx][:, None, :].to(x.dtype)
     start_bh = mask = None
     for i, layer in enumerate(dec["layers"]):

@@ -1,7 +1,8 @@
 """ctypes bindings for the native C++ runtime (runtime/src/owc_runtime.cpp).
 
 A framework-free copy of the JAX package's `runtime_native.py`: host-side
-batch assembly and FLAC decoding. Builds the shared library
+batch assembly (with FLAC requests decoded in the loader's worker pool and
+per-slot decode-failure flags, the serving wire) and FLAC decoding. Builds the shared library
 with `make` into the git-ignored `runtime/build/` on first use (a C ABI
 and ctypes, no pybind11). Every entry point has a numpy fallback so the
 package works without a toolchain.
@@ -47,6 +48,15 @@ def _lib() -> ctypes.CDLL | None:
     lib.owc_loader_flush.restype = ctypes.POINTER(ctypes.c_float)
     lib.owc_loader_flush.argtypes = [ctypes.c_void_p]
     if hasattr(lib, "owc_flac_open"):  # .so may predate the FLAC decoder
+        lib.owc_loader_submit_flac.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+        lib.owc_loader_take_errors.restype = ctypes.c_int
+        lib.owc_loader_take_errors.argtypes = [ctypes.c_void_p]
+        if hasattr(lib, "owc_loader_error_slots"):
+            lib.owc_loader_error_slots.restype = ctypes.c_int
+            lib.owc_loader_error_slots.argtypes = [
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)]
         lib.owc_flac_open.restype = ctypes.c_void_p
         lib.owc_flac_open.argtypes = [ctypes.POINTER(ctypes.c_uint8),
                                       ctypes.c_int64]
@@ -109,21 +119,66 @@ class BatchLoader:
             self._buf[slot, :n] = x[:n]
             self._buf[slot, n:] = 0
 
+    def submit_flac(self, slot: int, data: bytes):
+        """Submit a FLAC-encoded utterance: decode + downmix + resample run
+        inside the worker pool (a batch of files decodes in parallel).
+        Decode failures surface at flush(); without the native decoder the
+        pure-Python one raises here."""
+        if self._h is not None and hasattr(self._lib, "owc_flac_open"):
+            buf = np.frombuffer(data, np.uint8)
+            self._keepalive.append(buf)  # alive until flush
+            self._lib.owc_loader_submit_flac(
+                self._h, slot,
+                buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), buf.size)
+        else:
+            samples, sr, bits = flac_decode(data)
+            wav = samples.astype(np.float32) / float(1 << (bits - 1))
+            wav = wav.mean(axis=1) if wav.shape[1] > 1 else wav[:, 0]
+            self.submit(slot, wav, sample_rate=sr)
+
     def clear(self, slot: int):
         if self._h is not None:
             self._lib.owc_loader_clear(self._h, slot)
         else:
             self._buf[slot] = 0
 
-    def flush(self) -> np.ndarray:
-        """Wait for all jobs; return the assembled batch (copied out)."""
+    def flush(self, raise_on_error: bool = True) -> np.ndarray:
+        """Wait for all jobs; return the assembled batch (copied out).
+
+        raise_on_error=True: RuntimeError if any submit_flac decode failed.
+        raise_on_error=False: failed slots come back zeroed and their
+        indices from `take_error_slots()`, so one corrupt stream fails only
+        its own request, not its co-riding batch."""
         if self._h is not None:
             ptr = self._lib.owc_loader_flush(self._h)
             self._keepalive.clear()
+            self._error_slots: list[int] = []
+            if hasattr(self._lib, "owc_loader_error_slots"):
+                flags = np.zeros(self.batch, np.int32)
+                n_err = self._lib.owc_loader_error_slots(
+                    self._h, flags.ctypes.data_as(
+                        ctypes.POINTER(ctypes.c_int32)))
+                self._error_slots = np.flatnonzero(flags).tolist()
+            elif hasattr(self._lib, "owc_loader_take_errors"):
+                n_err = self._lib.owc_loader_take_errors(self._h)
+            else:
+                n_err = 0
+            if n_err and raise_on_error:
+                raise RuntimeError(
+                    f"BatchLoader: {n_err} FLAC decode failure(s) in "
+                    f"this batch (slots zeroed)")
             arr = np.ctypeslib.as_array(
                 ptr, shape=(self.batch, self.n_samples))
             return np.array(arr)  # copy: front buffer is reused next flush
+        self._error_slots = []
         return self._buf.copy()
+
+    def take_error_slots(self) -> list[int]:
+        """Slot indices whose FLAC decode failed in the batch returned by
+        the last flush() (empty when the library predates per-slot flags)."""
+        out = getattr(self, "_error_slots", [])
+        self._error_slots = []
+        return out
 
     def __del__(self):
         if getattr(self, "_h", None) is not None and self._lib is not None:
@@ -134,13 +189,18 @@ class BatchLoader:
 # FLAC decode
 # ---------------------------------------------------------------------------
 
+def flac_native_available() -> bool:
+    lib = _lib()
+    return lib is not None and hasattr(lib, "owc_flac_open")
+
+
 def flac_decode(data: bytes) -> tuple[np.ndarray, int, int]:
     """Decode a FLAC stream → (int32 samples shaped (n, channels),
     sample_rate, bits_per_sample). Native C++ decoder when built
     (runtime/src/owc_flac.cpp), pure-Python `audio.flac` otherwise —
     bit-identical outputs (pinned by tests/test_flac.py)."""
-    lib = _lib()
-    if lib is not None and hasattr(lib, "owc_flac_open"):
+    if flac_native_available():
+        lib = _lib()
         buf = np.frombuffer(data, np.uint8)
         h = lib.owc_flac_open(
             buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), buf.size)

@@ -9,7 +9,11 @@ transpose + int8 quantize, the fp and int8 self-attention cache updates
 the decode attention kernels and of the matmuls; two runs of one matmul call
 bit for bit; the wrappers' refusals; bf16 attention on the card against a float64 reference with
 f32 scores; and the callers that bring caches of other lengths (the
-speculative path's verify window and draft workspace, a prompt's `start`). Marked `cuda`; every test skips where no
+speculative path's verify window and draft workspace, a prompt's `start`);
+the serving workloads' callers (continuous batching's per-slot `start` over
+a 128-row window after admits and a rebase, the streaming pool at partial
+occupancy, a serving bucket of 8) with every kernel call held against its
+plain version (`chip_smoke.checked_kernel_calls`). Marked `cuda`; every test skips where no
 CUDA device is present. Needs no jax, so on the GPU machine run it without the JAX test
 configuration:
 
@@ -1196,3 +1200,184 @@ def test_speculative_path_on_the_card(dev, switches, batch):
     assert bool((n_acc >= 0).all()) and bool((n_acc <= 12).all())
     # a row whose every draft token was accepted steps no further
     assert (update.launches_start > before) == bool((n_acc < 12).any())
+
+
+def _serving_arch_params(dev):
+    """A narrow two-layer whisper (d_model 128, 2 heads of 64) with int8
+    weights and fused qkv, bf16, on the card: the serving tests' model."""
+    from openai_whisper_compression_tpu_torch.config import ARCHS
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+    from openai_whisper_compression_tpu_torch.quant.api import quantize_params
+
+    arch = ARCHS["tiny"].replace(d_model=128, encoder_heads=2, decoder_heads=2,
+                                 ffn_dim=256, encoder_layers=1, decoder_layers=2)
+    return arch, fuse_qkv(quantize_params(init_params(arch, 0, torch.bfloat16, dev), "int8"))
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("kv_int8", [True, False], ids=["kv8", "kv-bf16"])
+def test_continuous_batching_step_on_the_card(dev, kv_int8):
+    """Continuous batching's caller of the decode kernels: 8 slots (16
+    (batch, head) rows, the grouped cross-attention) over a 128-row window,
+    int8 cross-KV written by `admit` and `admit_from_stage` row copies, the
+    cache updates with a per-slot `start`: at positions in both 64-position
+    passes, with `start` in the second pass, then after a rebase. Every
+    kernel call is held against its plain version on its inputs (caches
+    bit for bit); the staged rows land in their slots bit for bit."""
+    import numpy as np
+
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.models import decode
+    from openai_whisper_compression_tpu_torch.models.continuous import make_cb_fns
+
+    cs = _chip_smoke()
+    arch, params = _serving_arch_params(dev)
+    cfg = DecodeConfig(max_new_tokens=64, suppress_tokens=(arch.eos_token_id,),
+                       kv_int8=kv_int8, cross_kv_int8=True)
+    plan, fns = make_cb_fns(arch, cfg, 8, chunk=8, admit_lanes=4, fast_gelu=True, device=dev)
+    assert plan.cache_len == 128
+    g = torch.Generator(device=dev).manual_seed(3)
+    wav = torch.randn(8, plan.n_samples, generator=g, device=dev) * 0.1
+    lanes, mask, caps = np.arange(4), np.ones(4, bool), np.full(4, 64)
+    name = "decode_self_attention_update_int8" if kv_int8 else "decode_self_attention_update"
+    seen, phase = [], ["admit"]
+    shapes: dict = {}
+    with cs.checked_kernel_calls(shapes) as held:
+        inner = getattr(decode, name)
+
+        def recorded(*a, start=None):
+            seen.append((phase[0], int(a[-1]), int(start.min()), int(start.max())))
+            return inner(*a, start=start)
+
+        with cs.patched((decode, name, recorded)):
+            state = fns["init"](params)
+            state = fns["admit"](params, state, wav[:4], lanes, mask, caps)
+            for _ in range(5):
+                state, _ = fns["chunk"](params, state)
+            state = fns["admit"](params, state, wav[4:], lanes + 4, mask, caps)
+            for _ in range(4):
+                state, _ = fns["chunk"](params, state)
+            assert state["pos"] == 72 and state["finished"][:4].all()
+            stage = fns["encode_stage"](params, wav[:4])
+            state = fns["admit_from_stage"](state, stage, lanes, lanes, mask, caps)
+            h = state["cross"][0].k_t.shape[0] // 8
+            for kv, skv in zip(state["cross"], stage):
+                assert torch.equal(kv.k_t[: 4 * h], skv.k_t[: 4 * h])
+                assert torch.equal(kv.v_scale[: 4 * h], skv.v_scale[: 4 * h])
+            phase[0] = "pass2"
+            for _ in range(2):
+                state, _ = fns["chunk"](params, state)
+            state = fns["rebase"](state, 40)
+            assert state["pos"] == 48 and state["start"].tolist() == [32] * 4 + [0] * 4
+            phase[0] = "rebased"
+            for _ in range(3):
+                state, sync = fns["chunk"](params, state)
+    assert any(p < 64 for _, p, _, _ in seen)
+    assert any(ph == "pass2" and p >= 64 and hi >= 64 for ph, p, _, hi in seen)
+    assert any(ph == "rebased" and p >= 64 for ph, p, _, _ in seen)
+    assert held[name] == len(seen) == 2 * (9 * 8 + 2 * 8 + 3 * 8)
+    assert held["decode_cross_attention_grouped"] == len(seen)
+    assert held["int8_matmul"] == 6 * len(seen) and held["encoder_attention"] == 4
+    tokens = sync[1 + 16:].reshape(8, plan.cache_len)
+    assert int(tokens.max()) < arch.vocab_size
+
+
+def test_streaming_pool_at_partial_occupancy_on_the_card(dev):
+    """The streaming pool's caller: 2 sessions in a 4-row pool (the others
+    padding lanes), timestamps on, int8 caches: the mirror rows equal the
+    host windows bit for bit, every kernel call of the batched step (mel,
+    encoder attention, cross-KV quantizer, the verify window's grouped
+    calls, the steps' one-query cross-attention and cache updates with a
+    prompt's `start`) held against its plain version, and the partials
+    well-formed."""
+    import numpy as np
+
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import default_tokenizer
+    from openai_whisper_compression_tpu_torch.streaming import StreamingPool
+
+    cs = _chip_smoke()
+    arch, params = _serving_arch_params(dev)
+    cfg = DecodeConfig(max_new_tokens=8, notimestamps=False, kv_int8=True, cross_kv_int8=True)
+    pool = StreamingPool(params, arch, default_tokenizer(arch), cfg, max_streams=4,
+                         min_step_s=0.5, prompt_window=16, device=dev)
+    rng = np.random.default_rng(0)
+    shapes: dict = {}
+    with cs.checked_kernel_calls(shapes) as held:
+        for sid in "ab":
+            pool.open(sid)
+        for _ in range(3):
+            for sid in "ab":
+                pool.feed(sid, (rng.standard_normal(8000) * 0.1).astype(np.float32))
+            out = pool.tick()
+            mirror = pool._mirror.cpu().numpy()
+            for sid in "ab":
+                win = pool.sessions[sid]._window()
+                r = pool._row_of[sid]
+                assert np.array_equal(mirror[r, : len(win)], win)
+                assert not mirror[r, len(win):].any()
+        finals = [pool.close(sid) for sid in "ab"]
+    assert pool.stats()["mean_batch_occupancy"] == 0.5
+    assert held["encoder_attention"] >= 3 and held["decode_cross_attention_grouped"] > 0
+    assert held["decode_self_attention_update_int8"] > 0
+    assert all(isinstance(o["committed"], str) for o in list(out.values()) + finals)
+
+
+def test_serving_bucket_of_8_on_the_card(dev):
+    """A partial batch of 3 requests at batch size 32 rides the 8-row
+    bucket; every kernel call held against its plain version; each
+    result's tokens equal a direct `make_transcribe_fn` call on the same
+    8 loader rows; the service closes and its worker ends."""
+    import numpy as np
+
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import default_tokenizer
+    from openai_whisper_compression_tpu_torch.serving import TranscriptionService
+
+    cs = _chip_smoke()
+    arch, params = _serving_arch_params(dev)
+    cfg = DecodeConfig(max_new_tokens=6, suppress_tokens=(arch.eos_token_id,),
+                       kv_int8=True, cross_kv_int8=True)
+    fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+    svc = TranscriptionService(params, arch, default_tokenizer(arch), cfg, batch_size=32,
+                               max_wait_ms=500, transcribe_fn=fn, transfer="int16",
+                               device=dev)
+    wires = []
+    real = svc._fn
+
+    def recorded(p, wire):
+        wires.append(np.array(wire))
+        return real(p, wire)
+
+    svc._fn = recorded
+    rng = np.random.default_rng(1)
+    wavs = [(rng.standard_normal(16000 * (k + 2)) * 0.1).astype(np.float32) for k in range(3)]
+    shapes: dict = {}
+    try:
+        with cs.checked_kernel_calls(shapes) as held:
+            res = [f.result(timeout=300) for f in [svc.submit(w) for w in wavs]]
+    finally:
+        svc.close(timeout=300)
+    assert not svc._worker.is_alive()
+    assert [w.shape for w in wires] == [(8, 480000)]
+    assert held["encoder_attention"] == 1 and held["decode_cross_attention_grouped"] > 0
+    want = np.zeros((8, 480000), np.int16)
+    for i, w in enumerate(wavs):
+        want[i, : len(w)] = np.clip(np.round(w * 32768.0), -32768, 32767)
+    assert np.array_equal(wires[0], want)
+    toks, lens = fn(params, torch.from_numpy(want).to(dev).float() * (1.0 / 32768.0))
+    toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
+    for i, r in enumerate(res):
+        ids = toks[i, 4: lens[i]]
+        assert r["tokens"] == ids[ids != arch.eos_token_id].tolist()

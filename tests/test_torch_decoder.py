@@ -328,3 +328,38 @@ def test_biases_may_be_absent(trees):
     got = decode.greedy_decode(fuse_qkv(strip(tp, False)), T_ARCH, enc, cfg)
     assert got[0].shape[0] == 3
 
+
+
+@pytest.mark.parametrize("self_pallas", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("start", [None, (0, 30)], ids=["nostart", "start"])
+def test_decoder_step_past_the_position_table_matches_jax(trees, start, self_pallas):
+    """A step whose position (pos - start, or pos without `start`) lies past
+    test2l's 32-row position table reads the table's last row, as JAX's
+    clamped gather and dynamic slice do: continuous batching's idle slots
+    get there. Logits within LOGITS_ATOL of jitted JAX's; the cache row
+    written at `pos` equal to JAX's to 1e-6."""
+    jp, tp = trees["f32"]
+    pos, max_len, b = 40, 64, 2
+    assert pos - (start or (0,))[0] >= T_ARCH.max_target_positions
+    from openai_whisper_compression_tpu.models import cache as jax_cache
+    from openai_whisper_compression_tpu_torch.models import cache as kv_cache
+
+    enc = _enc(5, b=b)
+    tok = np.asarray([611, 7], np.int32)
+    st = None if start is None else np.asarray(start, np.int32)
+
+    def jax_step(p, e, t, s):
+        kv = jax_whisper.precompute_cross_kv(p, ARCH, e)
+        c = jax_cache.init_cache(p, ARCH, b, max_len)
+        return jax_decode.decoder_step(p, ARCH, t, pos, c, kv, max_len, start=s)
+
+    ref_logits, ref_cache = jax.jit(jax_step)(jp, jnp.asarray(enc), jnp.asarray(tok), _j(st))
+    kv = whisper.precompute_cross_kv(tp, T_ARCH, torch.from_numpy(enc))
+    cache = kv_cache.init_cache(tp, T_ARCH, b, max_len, device=DEV)
+    with torch.inference_mode():
+        got = decode.decoder_step(tp, T_ARCH, torch.from_numpy(tok).long(), pos, cache, kv,
+                                  start=_t(st), self_pallas=self_pallas)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_logits), atol=LOGITS_ATOL, rtol=0)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache[0][name][:, :, pos].numpy(),
+                                   np.asarray(ref_cache[0][name])[:, :, pos], atol=1e-5, rtol=0)

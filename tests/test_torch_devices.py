@@ -2,8 +2,10 @@
 device: `make_transcribe_fn`, `make_speculative_transcribe_fn`,
 `init_params`, `from_numpy`, `init_cache` and the long-form functions
 (`transcribe_long`, `transcribe_seek`, `transcribe_seek_batch`) default to
-"cuda", and where torch sees no card a call that names no device raises
-instead of quietly returning CPU tensors."""
+"cuda", and so do the serving workloads (`make_cb_fns`,
+`ContinuousBatcher`, `StreamingTranscriber`, `StreamingPool`,
+`TranscriptionService`); where torch sees no card a call that names no
+device raises instead of quietly returning CPU tensors."""
 
 from __future__ import annotations
 
@@ -13,12 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from openai_whisper_compression_tpu_torch import serving, streaming
 from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
+from openai_whisper_compression_tpu_torch.continuous import ContinuousBatcher
 from openai_whisper_compression_tpu_torch.evaluation import longform
 from openai_whisper_compression_tpu_torch.evaluation.harness import (
     make_speculative_transcribe_fn, make_transcribe_fn)
 from openai_whisper_compression_tpu_torch.evaluation.tokenizer import WordTokenizer
 from openai_whisper_compression_tpu_torch.models.cache import init_cache
+from openai_whisper_compression_tpu_torch.models.continuous import make_cb_fns
 from openai_whisper_compression_tpu_torch.models.params import (
     from_numpy, init_params, resolve_device)
 
@@ -33,6 +38,11 @@ ENTRY_POINTS = {"make_transcribe_fn": make_transcribe_fn, "init_params": init_pa
 LONGFORM = {"transcribe_long": longform.transcribe_long,
             "transcribe_seek": longform.transcribe_seek,
             "transcribe_seek_batch": longform.transcribe_seek_batch}
+# the serving workloads: constructors and a builder
+SERVING = {"make_cb_fns": make_cb_fns, "ContinuousBatcher": ContinuousBatcher,
+           "StreamingTranscriber": streaming.StreamingTranscriber,
+           "StreamingPool": streaming.StreamingPool,
+           "TranscriptionService": serving.TranscriptionService}
 
 
 def _calls(params):
@@ -53,6 +63,16 @@ def _calls(params):
             params, TS_ARCH, wav, tok, cfg, **kw),
         "transcribe_seek_batch": lambda **kw: longform.transcribe_seek_batch(
             params, TS_ARCH, [wav], tok, cfg, batch_size=1, **kw),
+        "make_cb_fns": lambda **kw: make_cb_fns(ARCH, DecodeConfig(max_new_tokens=2), 2,
+                                                chunk=2, **kw),
+        "ContinuousBatcher": lambda **kw: ContinuousBatcher(
+            params, ARCH, DecodeConfig(max_new_tokens=2), batch=2, chunk=2, **kw),
+        "StreamingTranscriber": lambda **kw: streaming.StreamingTranscriber(
+            params, TS_ARCH, tok, cfg, **kw),
+        "StreamingPool": lambda **kw: streaming.StreamingPool(
+            params, TS_ARCH, tok, cfg, max_streams=2, **kw),
+        "TranscriptionService": lambda **kw: serving.TranscriptionService(
+            params, ARCH, tok, DecodeConfig(max_new_tokens=2), batch_size=2, **kw),
     }
 
 
@@ -61,14 +81,14 @@ def params():
     return init_params(ARCH, 0, device=DEV)
 
 
-@pytest.mark.parametrize("name", sorted(ENTRY_POINTS) + sorted(LONGFORM))
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS) + sorted(LONGFORM) + sorted(SERVING))
 def test_entry_point_defaults_to_the_card(name):
-    fn = {**ENTRY_POINTS, **LONGFORM}[name]
+    fn = {**ENTRY_POINTS, **LONGFORM, **SERVING}[name]
     default = inspect.signature(fn).parameters["device"].default
     assert torch.device(default).type == "cuda"
 
 
-@pytest.mark.parametrize("name", sorted(ENTRY_POINTS) + sorted(LONGFORM))
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS) + sorted(LONGFORM) + sorted(SERVING))
 def test_no_card_and_no_device_raises(name, params, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -110,3 +130,32 @@ def test_resolve_device_passes_a_cpu_device_through(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError):
         resolve_device(torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("name", sorted(SERVING))
+def test_serving_workloads_on_a_named_cpu_device(name, params):
+    """Each serving entry point runs on a named CPU device: its state, its
+    mirror or its results on the CPU."""
+    out = _calls(params)[name](device=DEV)
+    wav = np.zeros(4000, np.float32)
+    if name == "make_cb_fns":
+        _, fns = out
+        state = fns["init"](params)
+        assert all(t.device.type == "cpu" for t in
+                   (state["tokens"], state["start"], state["cross"][0].k_t))
+    elif name == "ContinuousBatcher":
+        (tokens,) = out.transcribe_all([wav])
+        assert isinstance(tokens, np.ndarray) and len(tokens) >= 1
+    elif name == "StreamingTranscriber":
+        assert isinstance(out.flush()["committed"], str)
+    elif name == "StreamingPool":
+        assert out._mirror.device.type == "cpu"
+        out.open("a")
+        out.feed("a", wav)
+        assert isinstance(out.close("a")["committed"], str)
+    else:
+        try:
+            res = out.transcribe(wav, timeout=300)
+        finally:
+            out.close(timeout=300)
+        assert not out._worker.is_alive() and isinstance(res["text"], str)
