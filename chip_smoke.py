@@ -131,7 +131,7 @@ Phase 4  with no other tree resident, whisper-small with int8 weights
                         counts, every batch's texts equal to the direct
                         call's, RTFx, batch latency, torch's peak memory
                         beside `analytic_hbm_mb`, WER on seeded weights;
-           forward-small  `make_calibration_fn` (batch 4, 8 teacher-forced
+           forward-small  `make_calibration_fn` (batch 2, 8 teacher-forced
                         tokens) drives `forward`; `forward`, `decode_logits`
                         and `nll_loss` in bf16 against CPU f32;
            unfused-int8   `cross_pallas=False, self_pallas=False` with int8
@@ -142,8 +142,8 @@ Phase 4  with no other tree resident, whisper-small with int8 weights
                         `cross_kv_pool=2` over int8 cross-KV, `cross_kv_merge=
                         300` over bf16 cross-KV; the new shapes timed
                         (T = 750; S = 750; S = 1200, the kernels line's `@`
-                        entries), rows 0-1 against the CPU f32 path under
-                        the tie rule;
+                        entries), row 0 against the CPU f32 path under the
+                        tie rule;
            fallback     `decode_with_fallback`, batch 32, bf16 caches, the
                         default ladder, best_of 2, a seeded generator on the
                         card, the logprob gate at the median of a greedy
@@ -196,8 +196,30 @@ Phase 5  again with no other tree resident, whisper-small with int8 weights,
          gives the kernels (the tiny draft's, the verify windows', the
          alignment's) timed beside their plain versions and bounds, as the
          kernels line's `name@shape` entries (P5_ENTRIES).
-Phase 6  again with no other tree resident, whisper-small with int8 weights,
-         int8 self-KV and cross-KV, through the slice-13 serving workloads;
+Phase 7, timed part  the presets of `sweep/presets.py` at full width and
+         depth, seeded (bf16 but for the f32 and f16 presets), int8 trees
+         with fused decoder qkv, 25 tokens, EOT suppressed, three batches
+         timed (rtfx as bench.py --presets counts it: batch x 7.42 s of
+         audio over the mean of the two steady walls), exact launch counts
+         from the tree's layers:
+           largev3_s50_int8_ckv4  whisper-large-v3 (128 mels) after
+                        `largev3_structured50_int8`'s transform (10 of 20
+                        heads in every attention, FFN 5120 -> 2560, int8),
+                        int8 self-KV, int4 cross-KV, batch 48;
+           turbo_int8   whisper-large-v3-turbo (32 encoder, 4 decoder
+                        layers), int8, int8 self-KV and cross-KV, batch 64;
+           tiny_fp32_greedy  the f32 tree, batch 16;
+           small_fp16_beam5_longform  the f16 tree, beam 5, through the
+                        package's `transcribe` over 8 seeded 30 s clips
+                        joined into 240 s, batch_size 8 (its rtfx: 240 s
+                        over the wall);
+         bench.py's small_int8 and medium_int4_kv8 rows are phase 2's
+         int8-kv and medium-int4 runs. Each row prints rtfx, ms_per_batch,
+         params_mb (`size_in_mb`), the seconds to build and transform the
+         tree and `model_gflops`. The trees stay resident through phase 6.
+Phase 6  again with whisper-small, int8 weights (phase 7's trees resident
+         beside it; no memory is measured here), int8 self-KV and cross-KV,
+         through the slice-13 serving workloads;
          each run timed and run with every kernel call held against its
          plain version (the log-mel too: no further than the plain version +
          MEL_EXACT_MARGIN from the float64 log-mel), the two runs' outputs
@@ -212,7 +234,7 @@ Phase 6  again with no other tree resident, whisper-small with int8 weights,
                         continuous and overlap schedulers (rtfx, occupancy,
                         device steps, chunks, stage passes, the host-phase
                         split), their tokens equal or parted at a proven tie
-                        (`check_ties`), the first 96 against one greedy
+                        (`check_ties`), the first 48 against one greedy
                         batch at 64 tokens cut at each cap, fixed_equiv_rtfx
                         (the fixed-token decoder at the set's mean length),
                         a float32 pool under transfer="int16" refused;
@@ -225,7 +247,10 @@ Phase 6  again with no other tree resident, whisper-small with int8 weights,
                         quarter of the sessions closed and reopened every
                         quarter of the run (aggregate_rtfx, device_rtfx, tick
                         p50/p95, occupancy, draft_accept_rate,
-                        sessions_closed); in the held pass every synced
+                        sessions_closed); churn's held pass replays the first
+                        31 of its 60 rounds (two churns), its partials and
+                        the churned sessions' finals equal to the timed
+                        pass's; in the held pass every synced
                         mirror row bit-equal to its host window and zero past
                         it, committed text never retracting, and two steady
                         streams run alone on the pool's step: every decode
@@ -249,12 +274,30 @@ Phase 6  again with no other tree resident, whisper-small with int8 weights,
          kernel over admitted cross-KV, the 60-slot verify window, the
          serving bucket 8 and 32) timed as the kernels line's `name@shape`
          entries (P6_ENTRIES).
+Phase 7, held part  run inside phase 6, after its held stream passes and
+         before the queued CPU proofs are joined (beside them; nothing of it
+         is timed): each preset run again with every kernel call held
+         (`checked_kernel_calls(mel=True)`), outputs equal to the timed
+         run's, launch counts exact; largev3 and turbo's first 4 rows
+         recomputed in f32 on the card through the plain versions (TF32
+         off; `plain_kernels`), tokens equal or parted at a tie proven in
+         that recompute; tiny's and the f16 preset's CPU f32 references
+         queued (`later`: tiny's first 4 rows, tie rule; the f16 preset's
+         first-step logits of 2 chunks); tiny's `transcribe(timestamps=True)`
+         over a seeded 60 s stream (the f32-DFT log-mel at batch 1, held to
+         the float64 bound); the f16 preset's chunk texts equal to a direct
+         `make_transcribe_fn` call's; `model_agreement` at 8 clips for
+         largev3_structured50_int8 and medium_int4_kv8 against their
+         uncompressed bf16 trees of the same seed (seeded weights: the
+         numbers show the harness at scale, not accuracy); then the shapes
+         only phase 7 gives the kernels timed (P7_ENTRIES).
 
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
 its launch count, error, times and bound (and, as `name@shape`, the shapes
-only token merging and phases 5 and 6 give a kernel). Needs torch with CUDA, numpy and nvcc;
-never imports jax.
+only token merging and phases 5, 6 and 7 give a kernel); the preset rows
+are logged as one `phase7 presets {...}` line after phase 6. Needs torch
+with CUDA, numpy and nvcc; never imports jax.
 """
 
 from __future__ import annotations
@@ -726,8 +769,8 @@ def mel_exactness(what: str, wav: torch.Tensor, got: torch.Tensor,
     return err_k, err_p
 
 
-def check_mel(dev, gen, b: int, dtype: torch.dtype) -> dict:
-    """`log_mel_cuda` on b seeded 30 s clips against the plain pipeline: the
+def check_mel(dev, gen, b: int, dtype: torch.dtype, n_mels: int = 80) -> dict:
+    """`log_mel_cuda` on b seeded 30 s clips (n_mels mels) against the plain pipeline: the
     kernel no less exact than it against the float64 result; the whole call and
     the kernel alone timed beside the plain version, and two bounds: over
     the filterbank's nonzeros (what the function needs; the one the kernels
@@ -735,23 +778,24 @@ def check_mel(dev, gen, b: int, dtype: torch.dtype) -> dict:
     from openai_whisper_compression_tpu_torch.audio import features, mel_kernel
 
     wav = torch.randn(b, 480_000, generator=gen, device=dev) * 0.1
-    got = mel_kernel.log_mel_cuda(wav, 80, dtype)
-    ref = features.log_mel(wav, 80, dtype)
+    got = mel_kernel.log_mel_cuda(wav, n_mels, dtype)
+    ref = features.log_mel(wav, n_mels, dtype)
     err = max_err(got, ref)
-    what = f"({b}, 480000) {'bf16' if dtype == torch.bfloat16 else 'f32'} DFT"
-    check(got.shape == (b, 80, 3000), f"mel {what}: shape {tuple(got.shape)}")
-    mel_exactness(what, wav, got, ref, 80, dtype)
-    ops = mel_kernel.mel_operands(wav, 80, dtype)
+    what = (f"({b}, 480000) {'bf16' if dtype == torch.bfloat16 else 'f32'} DFT"
+            + ("" if n_mels == 80 else f", {n_mels} mels"))
+    check(got.shape == (b, n_mels, 3000), f"mel {what}: shape {tuple(got.shape)}")
+    mel_exactness(what, wav, got, ref, n_mels, dtype)
+    ops = mel_kernel.mel_operands(wav, n_mels, dtype)
     frames = b * ops.n_frames   # re and im: 400 taps x 201 bins, in the DFT dtype
     dft = frames * 4 * 400 * 201 / peak_flops(dtype)
     nonzeros = int(ops.bands[:, 1].sum())
     res = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: mel_kernel.log_mel_cuda(wav, 80, dtype)),
-           "plain_ms": cuda_ms(lambda: features.log_mel(wav, 80, dtype)),
+           "ms": cuda_ms(lambda: mel_kernel.log_mel_cuda(wav, n_mels, dtype)),
+           "plain_ms": cuda_ms(lambda: features.log_mel(wav, n_mels, dtype)),
            **bound(nbytes(wav, got), dft + frames * 2 * nonzeros / F32_FLOPS),
            "library_ms": None}
     kernel_ms = cuda_ms(lambda: mel_kernel.launch(ops, dtype))
-    dense = bound(nbytes(wav, got), dft + frames * 2 * 201 * 80 / F32_FLOPS)
+    dense = bound(nbytes(wav, got), dft + frames * 2 * 201 * n_mels / F32_FLOPS)
     log(f"phase1 mel {what}: from the plain version {err:.3g}; whole call "
         f"{res['ms']:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms; least {res['bound_ms']:.4f} ms "
@@ -1517,7 +1561,7 @@ def check_launches(name: str, launches: dict, path, exact: dict) -> None:
             check(count == 0, f"{name}: kernel {k} launched outside its path")
 
 
-def expected_launches(arch, path, steps: list) -> dict:
+def expected_launches(arch, path, steps: list, layers: tuple | None = None) -> dict:
     """How often one run's path calls the kernels whose count is known
     exactly, given the decoder steps of each batch: the encoder attention
     once per encoder layer and batch (never for an f32 or f16 tree, whose
@@ -1526,10 +1570,12 @@ def expected_launches(arch, path, steps: list) -> dict:
     the prefill and 6 a step); the cache update once per layer and step; the
     grouped cross-attention once per layer for the prefill window and once
     per layer and step, but in a run at small batch for the prefill window
-    alone: there the one-query cross-attention takes the steps."""
-    n, layers, total = len(steps), arch.decoder_layers, sum(steps)
-    exact = {"encoder_attention":
-             arch.encoder_layers * n if "encoder_attention" in path else 0}
+    alone: there the one-query cross-attention takes the steps. `layers`:
+    the (encoder, decoder) layer counts as the tree holds them, else the
+    arch's."""
+    enc_layers, layers = layers or (arch.encoder_layers, arch.decoder_layers)
+    n, total = len(steps), sum(steps)
+    exact = {"encoder_attention": enc_layers * n if "encoder_attention" in path else 0}
     for k in path:
         if k.startswith("decode_self_attention_update"):
             exact[k] = layers * total
@@ -1537,7 +1583,7 @@ def expected_launches(arch, path, steps: list) -> dict:
             exact[k] = layers * (n + total)
     for k in path:
         if k.startswith("w8a8_matmul"):
-            exact[k] = n * (6 * arch.encoder_layers + 8 * layers) + 6 * layers * total
+            exact[k] = n * (6 * enc_layers + 8 * layers) + 6 * layers * total
         if k.startswith("decode_cross_attention") and "grouped" not in k:
             exact[k] = layers * total
             exact[k.replace("attention", "attention_grouped")] = layers * n
@@ -1981,69 +2027,95 @@ SHAPE_ENTRIES = [
 NEG_INF = -1e9   # the decode's additive suppression (models.whisper.NEG_INF)
 
 
-def cpu_enc(params_cpu, arch, wav: torch.Tensor, fast: bool = True,
+def cpu_enc(params_cpu, arch, wav: torch.Tensor, fast: bool = True, device="cpu",
             **encode_kw) -> torch.Tensor:
-    """CPU f32 encoder states of waveforms: with `fast` the card runs'
-    frontend and encoder options (bf16 DFT mel, tanh GELU), without it the
-    f32 DFT and the exact GELU (the streaming step's)."""
+    """f32 encoder states of waveforms, on the CPU (or `device`, where the
+    tree lives): with `fast` the card runs' frontend and encoder options
+    (bf16 DFT mel, tanh GELU), without it the f32 DFT and the exact GELU
+    (the streaming step's)."""
     from openai_whisper_compression_tpu_torch.audio.features import preprocess
+    from openai_whisper_compression_tpu_torch.evaluation.harness import samples_for_arch
     from openai_whisper_compression_tpu_torch.models.whisper import encode
 
-    mel = preprocess(wav.cpu(), arch.num_mel_bins,
+    mel = preprocess(wav.to(device), arch.num_mel_bins, length=samples_for_arch(arch),
                      dft_dtype=torch.bfloat16 if fast else torch.float32)
     return encode(params_cpu, arch, mel.float(), fast_gelu=fast, **encode_kw)
 
 
-def logits_at(params_cpu, arch, cfg, enc_row: torch.Tensor, seq: torch.Tensor,
-              div: int, prompt: torch.Tensor | None = None,
-              lens: torch.Tensor | None = None) -> torch.Tensor:
-    """CPU f32 logits (V,) for position `div` of `seq`, teacher-forced
-    through the greedy step with cfg's caches, cross-KV, suppressions and
-    timestamp rules (the last timestamp of the forced tokens carried as
-    greedy carries it), after the prompt window `prompt` (1, P) of length
-    `lens` (1,) when given."""
-    from openai_whisper_compression_tpu_torch.models import decode
+class TeacherForced:
+    """One row teacher-forced through the greedy step with cfg's caches,
+    cross-KV, suppressions and timestamp rules (the last timestamp of the
+    forced tokens carried as greedy carries it), after the prompt window
+    `prompt` (1, P) of length `lens` (1,) when given, along `seq`, in f32
+    on the device the tree and `enc_row` live on. `at(div)` steps on as far
+    as position `div` and returns its logits (V,); every position's logits
+    are kept, so later calls for the same row cost only the steps past the
+    last. The logits at `div` depend on seq[:div] alone, so one walk along
+    a reference row serves every row that agrees with it before `div`."""
 
-    cfg1 = dataclasses.replace(cfg, beam_size=1)
-    cross_kvs, cache, _, start, fg, _ = decode._prepare(params_cpu, arch, enc_row, cfg1,
-                                                        None, prompt, lens)
-    logits_fn, _ = decode._logits_fn(params_cpu, arch, cfg1, cross_kvs, start, fg, 1,
-                                     enc_row.device)
-    seqs = seq[None].cpu()
-    ts_begin = arch.no_timestamps_token_id + 1
-    last_ts = torch.zeros(1, dtype=torch.long)
-    for pos in range(fg - 1, div):
-        logits = logits_fn(seqs, cache, pos, last_ts)
-        if int(seqs[0, pos + 1]) >= ts_begin:
-            last_ts = seqs[0, pos + 1: pos + 2].clone()
-    return logits[0].float()
+    def __init__(self, params, arch, cfg, enc_row: torch.Tensor, seq: torch.Tensor,
+                 prompt: torch.Tensor | None = None, lens: torch.Tensor | None = None):
+        from openai_whisper_compression_tpu_torch.models import decode
+
+        cfg1 = dataclasses.replace(cfg, beam_size=1)
+        dev = enc_row.device
+        self.cross_kvs, self.cache, _, start, self.fg, _ = decode._prepare(
+            params, arch, enc_row, cfg1, None,
+            None if prompt is None else prompt.to(dev), None if lens is None else lens.to(dev))
+        self.fn, _ = decode._logits_fn(params, arch, cfg1, self.cross_kvs, start, self.fg,
+                                       1, dev)
+        self.seq = seq.cpu()
+        self.seqs = seq[None].to(dev)
+        self.ts_begin = arch.no_timestamps_token_id + 1
+        self.last_ts = torch.zeros(1, dtype=torch.long, device=dev)
+        self.pos, self.logits = self.fg - 1, {}
+
+    def at(self, div: int) -> torch.Tensor:
+        while self.pos < div:
+            pos = self.pos
+            self.logits[pos + 1] = self.fn(self.seqs, self.cache, pos, self.last_ts)[0].float()
+            if int(self.seq[pos + 1]) >= self.ts_begin:
+                self.last_ts = self.seqs[0, pos + 1: pos + 2].clone()
+            self.pos += 1
+        return self.logits[div]
+
 
 
 @torch.inference_mode()
 def check_ties(name: str, params_cpu, arch, cfg, wav: torch.Tensor, got: torch.Tensor,
                want: torch.Tensor, first_gen: int, encode_kw: dict | None = None,
                prompt: torch.Tensor | None = None, lens: torch.Tensor | None = None,
-               encs: dict | None = None, fast: bool = True) -> int:
+               encs: dict | None = None, fast: bool = True, walks: dict | None = None,
+               device="cpu") -> int:
     """Rows of `got` and `want` (B, L), decodes of the same waveforms `wav`
     (after the prompt window `prompt` (B, P) of lengths `lens` when given),
-    equal, or parted at a proven tie (TIE_REL): returns the rows that
-    parted. `encs`: CPU f32 encoder states by row of `wav`, filled and
-    reused across calls on one batch; `fast`: the frontend of `cpu_enc`."""
+    equal, or parted at a proven tie (TIE_REL) in an f32 recompute on the
+    CPU (or on `device`, where `params_cpu` lives): returns the rows that
+    parted. `encs`: f32 encoder states by row of `wav`, filled and reused
+    across calls on one batch; `fast`: the frontend of `cpu_enc`. `walks`:
+    the rows' teacher-forced walks along `want` (`TeacherForced`), shared by
+    calls that hold different decodes against the same `want`, tree, cfg
+    and prompt window; a parted row's prefix before `div` is want's, so the
+    walk along want gives its logits there."""
     rows = [r for r in range(got.shape[0]) if not torch.equal(got[r], want[r])]
     if not rows:
         return 0
     encs = {} if encs is None else encs
+    walks = {} if walks is None else walks
     todo = [r for r in rows if r not in encs]
     if todo:
-        for r, e in zip(todo, cpu_enc(params_cpu, arch, wav[todo], fast,
+        for r, e in zip(todo, cpu_enc(params_cpu, arch, wav[todo], fast, device=device,
                                       **(encode_kw or {}))):
             encs[r] = e[None]
     for r in rows:
         a, b = got[r].cpu(), want[r].cpu()
         div = int(torch.nonzero(a != b)[0, 0])
         check(div >= first_gen, f"{name}: row {r} parts inside its forced prefix")
-        pr = None if prompt is None else (prompt[r: r + 1].cpu(), lens[r: r + 1].cpu())
-        logits = logits_at(params_cpu, arch, cfg, encs[r], a, div, *(pr or ()))
+        if r not in walks:
+            pr = None if prompt is None else (prompt[r: r + 1], lens[r: r + 1])
+            walks[r] = TeacherForced(params_cpu, arch, cfg, encs[r], b, *(pr or ()))
+        check(torch.equal(walks[r].seq, b), f"{name}: row {r}'s walk follows another row")
+        logits = walks[r].at(div)
         top = float(logits.max())
         gap = max(top - float(logits[int(a[div])]), top - float(logits[int(b[div])]))
         live = logits[logits > NEG_INF / 2]   # not the suppressed tokens
@@ -2162,7 +2234,7 @@ def run_forward_small(dev, arch, params) -> dict:
     from openai_whisper_compression_tpu_torch.models.whisper import (
         decode_logits, encode, forward, nll_loss)
 
-    name, b, n_tok = "forward-small", 4, 8
+    name, b, n_tok = "forward-small", 2, 8
     cal = synthetic_dataset(b, seed=1)
     tok = default_tokenizer(arch)
     log(f"phase4 {name}: {arch.name}, int8 weights, make_calibration_fn batch {b}, "
@@ -2628,7 +2700,7 @@ def run_merge_pool(dev, arch, params, results: dict) -> dict:
     from openai_whisper_compression_tpu_torch.models import decode
     from openai_whisper_compression_tpu_torch.models.params import tree_to
 
-    b, n_ref = BATCH, 2
+    b, n_ref = BATCH, 1
     wav = torch.from_numpy(waveforms(SEED + 7, b)).to(dev)
     params_cpu = tree_to(params, "cpu", torch.float32)
     summaries = {}
@@ -2658,7 +2730,7 @@ def run_merge_pool(dev, arch, params, results: dict) -> dict:
             enc = cpu_enc(params_cpu, arch, wav, **fn_kw)
             ref, _ = decode.greedy_decode(params_cpu, arch, enc, cfg)
             parted = check_ties(name, params_cpu, arch, cfg, wav, tokens, ref, 4, fn_kw)
-            log(f"phase4 {name}: rows 0-{n_ref - 1} against the CPU f32 path: "
+            log(f"phase4 {name}: the first {n_ref} row(s) against the CPU f32 path: "
                 f"{n_ref - parted} equal, {parted} part at a proven tie")
 
         later(f"phase4 {name}", functools.partial(against_cpu, name, dict(fn_kw), cfg,
@@ -3221,7 +3293,7 @@ def run_speculative(dev, arch, params, results: dict, encs: dict) -> dict:
     log(f"phase5 spec: target greedy at batch {b}: wall {g_wall:.4f} s")
     params_cpu = tree_to(params, "cpu", torch.float32)
     tiny_arch, tiny = make_params(dev, "tiny", "int8")
-    summaries = {}
+    summaries, walks = {}, {}   # both runs are held against g_tok: one walk a row
     for name, (arch_d, draft) in (
             ("spec-tiny", (tiny_arch, tiny)),
             ("spec-self", speculative.self_speculative_draft(params, arch, keep_decoder=2)[::-1])):
@@ -3284,7 +3356,7 @@ def run_speculative(dev, arch, params, results: dict, encs: dict) -> dict:
         later_ties(name, params_cpu, arch, cfg, wav, tokens, g_tok, 4, summaries[name],
                    lambda p, name=name: f"phase5 {name}: {b - p} of {b} rows equal "
                                         f"greedy's tokens, {p} part at a proven tie",
-                   encs=encs)
+                   encs=encs, walks=walks)
     del tiny
     return summaries
 
@@ -3338,7 +3410,7 @@ def run_verified(dev, arch, params, results: dict, encs: dict) -> dict:
     real_step = speculative.decoder_step
     window = fg + g
     chunks = [min(8, window - j0) for j0 in range(0, window, 8)]
-    summaries = {}
+    summaries, walks = {}, {}   # every form is held against g_tok: one walk a row
     for name, (e, draft, dlen, act) in forms.items():
         steps = [0]
 
@@ -3384,7 +3456,7 @@ def run_verified(dev, arch, params, results: dict, encs: dict) -> dict:
                    summaries[name],
                    lambda p, name=name, n_rows=n_rows: f"phase5 {name}: {n_rows - p} of "
                    f"{n_rows} rows equal greedy's tokens, {p} part at a proven tie",
-                   prompt=prompt[rows], lens=lens[rows], encs=encs)
+                   prompt=prompt[rows], lens=lens[rows], encs=encs, walks=walks)
     return summaries
 
 
@@ -3526,12 +3598,17 @@ def phase5(dev, arch, params, results: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 CB_BATCH, CB_REQUESTS, CB_TOKENS = 96, 384, 64   # bench.py's continuous_batching row
+CB_GREEDY_ROWS = 48   # the first requests held against one greedy batch (`cb_yardsticks`)
 CB_CHUNK, CB_LANES = 8, 24
 CB_SCALE = 1.0 / 32767.0     # continuous batching's int16 wire (models/continuous.py)
 # bench.py's streaming rows: 32 sessions of 60 s (steady) and 30 s (churn);
 # steady here takes 32 s, so that each session's window still slides once
 # (past 30 s) while the held passes fit the run's time
 STREAMS, STEADY_S, CHURN_S, STREAM_CHUNK_S = 32, 32.0, 30.0, 0.5
+# the held churn pass replays the first 31 of the timed pass's 60 rounds: two
+# of its three churns (at rounds 15 and 30), every kernel call held, its
+# partials and the churned sessions' finals equal to the timed pass's
+HELD_CHURN_ROUNDS = 31
 SERVE_BATCH, SERVE_REQUESTS, UTT_S = 32, 128, 7.42   # bench.py's serve row
 OPENLOOP_REQUESTS, OPENLOOP_LOAD, MULAW_REQUESTS = 96, 0.6, 32
 LONG_S = 65.0                # one request the service splits into three windows
@@ -3707,7 +3784,7 @@ def run_cb_small(dev, arch, params, params_cpu, results: dict, after_timed=None)
     every kernel call held against its plain version (tokens equal to the
     timed run's); exact launch counts from each run's stage passes and
     device steps; tokens of the three equal or parted at a proven tie; the
-    first 96 requests against one `make_transcribe_fn` batch at 64 tokens
+    first CB_GREEDY_ROWS requests against one `make_transcribe_fn` batch at 64 tokens
     cut at each cap (`gen_tokens_of_row`); `fixed_equiv_rtfx`: the
     fixed-token decoder at the set's mean length (EOT suppressed), two
     timed batches; a float32 pool under transfer="int16" refused. The
@@ -3763,7 +3840,7 @@ def run_cb_small(dev, arch, params, params_cpu, results: dict, after_timed=None)
             threads = torch.get_num_threads()
             torch.set_num_threads(max(1, threads - 2))
             ties = Background(lambda: (cb_ties(params_cpu, arch, cfg, pool_f32, runs, want,
-                                               fg, b), run_later()))
+                                               fg), run_later()))
             if after_timed is not None:
                 after_timed()
         for what, kw in scheds:
@@ -3833,7 +3910,7 @@ def run_cb_small(dev, arch, params, params_cpu, results: dict, after_timed=None)
 def cb_yardsticks(dev, arch, params, cfg, cb, pool_f32, caps, durations, wave_lens,
                   results: dict) -> dict:
     """cb-small's comparators, run between its timed and its held runs:
-    one greedy batch of the first 96 requests at 64 tokens, every kernel
+    one greedy batch of the first CB_GREEDY_ROWS requests at 64 tokens, every kernel
     call held, cut at each request's cap (`gen_tokens_of_row`: the tokens
     the batcher must give them); the fixed-token decoder at the wave run's
     mean length (EOT suppressed) over two batches, timed
@@ -3845,10 +3922,11 @@ def cb_yardsticks(dev, arch, params, cfg, cb, pool_f32, caps, durations, wave_le
     fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
     shapes: dict = {}
     with checked_kernel_calls(shapes, mel=True) as held:
-        g_tok, g_len = (x.cpu() for x in fn(params, pool_f32[:b]))
+        g_tok, g_len = (x.cpu() for x in fn(params, pool_f32[:CB_GREEDY_ROWS]))
     log(f"phase6 {name} greedy batch: {held_summary(held, shapes)}")
     want = padded_rows([np.concatenate([np.asarray(cb.plan.prefix), gen_tokens_of_row(
-        g_tok[r].numpy(), 0, fg, caps[r], eot)]) for r in range(b)], fg + CB_TOKENS, eot)
+        g_tok[r].numpy(), 0, fg, caps[r], eot)]) for r in range(CB_GREEDY_ROWS)],
+        fg + CB_TOKENS, eot)
 
     mean_len = float(np.mean(wave_lens))
     eq_tokens = max(int(round(mean_len)) - fg, 1)
@@ -3877,10 +3955,10 @@ def cb_yardsticks(dev, arch, params, cfg, cb, pool_f32, caps, durations, wave_le
 
 
 @torch.inference_mode()
-def cb_ties(params_cpu, arch, cfg, pool_f32, runs: dict, want, fg: int, b: int) -> dict:
+def cb_ties(params_cpu, arch, cfg, pool_f32, runs: dict, want, fg: int) -> dict:
     """cb-small's token comparisons (`check_ties`, one CPU f32 encoder pass
     a request, shared): continuous against wave, overlap against
-    continuous, the first 96 continuous requests against the greedy batch.
+    continuous, the first CB_GREEDY_ROWS continuous requests against the greedy batch.
     Returns the rows parted in each."""
     name, encs, parted = "cb-small", {}, {}
     for a, bname in (("continuous", "wave"), ("overlap", "continuous")):
@@ -3888,9 +3966,10 @@ def cb_ties(params_cpu, arch, cfg, pool_f32, runs: dict, want, fg: int, b: int) 
                                runs[a], runs[bname], fg, encs=encs)
         log(f"phase6 {name}: {CB_REQUESTS - parted[a]} of {CB_REQUESTS} requests of "
             f"{a} equal {bname}'s tokens, {parted[a]} part at a proven tie")
+    g = CB_GREEDY_ROWS
     parted["greedy"] = check_ties(f"{name} continuous vs greedy", params_cpu, arch, cfg,
-                                  pool_f32, runs["continuous"][:b], want, fg, encs=encs)
-    log(f"phase6 {name}: {b - parted['greedy']} of {b} requests equal one greedy_decode "
+                                  pool_f32, runs["continuous"][:g], want, fg, encs=encs)
+    log(f"phase6 {name}: {g - parted['greedy']} of {g} requests equal one greedy_decode "
         f"batch at {CB_TOKENS} tokens cut at their caps, {parted['greedy']} part at a "
         "proven tie")
     return parted
@@ -3905,24 +3984,28 @@ def stream_audio(seconds: float, seed: int) -> list:
             * 0.1 for _ in range(STREAMS)]
 
 
-def stream_pass(pool, audio: list, churn: bool, on_tick=None) -> dict:
+def stream_pass(pool, audio: list, churn: bool, on_tick=None,
+                rounds: int | None = None) -> dict:
     """One pass of bench.py's streaming row over `pool`: sessions fed 0.5 s
     chunks round-robin, a tick after every round; with `churn` a quarter of
     the sessions closed (their finals kept) and new ones opened every
-    quarter of the run. Returns every tick's partials, the finals, tick
+    quarter of the run. `rounds`: stop after that many rounds (the churn
+    schedule stays the whole run's) and close the live sessions. Returns
+    every tick's partials, the finals, the sessions the churn closed, tick
     times, the wall and the closed count."""
     total = len(audio[0])
     churn_every = total // 4 if churn else 0
     live, next_id = list(range(STREAMS)), STREAMS
     for i in live:
         pool.open(i)
-    ticks, tick_s, finals = [], [], {}
+    ticks, tick_s, finals, churned = [], [], {}, []
     t0 = time.perf_counter()
-    for c in range(total):
+    for c in range(total if rounds is None else min(rounds, total)):
         if churn_every and c > 0 and c % churn_every == 0:
             for _ in range(STREAMS // 4):
                 sid = live.pop(0)
                 finals[sid] = pool.close(sid)
+                churned.append(sid)
                 pool.open(next_id)
                 live.append(next_id)
                 next_id += 1
@@ -3936,8 +4019,8 @@ def stream_pass(pool, audio: list, churn: bool, on_tick=None) -> dict:
     for i in live:
         finals[i] = pool.close(i)
     wall = time.perf_counter() - t0
-    return {"ticks": ticks, "tick_s": tick_s, "finals": finals, "wall": wall,
-            "closed": len(finals)}
+    return {"ticks": ticks, "tick_s": tick_s, "finals": finals, "churned": churned,
+            "wall": wall, "closed": len(finals)}
 
 
 @torch.inference_mode()
@@ -4108,7 +4191,8 @@ def run_streams(dev, arch, params, params_cpu, results: dict, before_timed=None)
                         (checked_kernel_calls(shapes, kcalls, mel=True) if held_on
                          else contextlib.nullcontext({})) as held:
                     counters = zero_launches()
-                    res = stream_pass(pool, audio[name], churn, on_tick if held_on else None)
+                    res = stream_pass(pool, audio[name], churn, on_tick if held_on else None,
+                                      HELD_CHURN_ROUNDS if held_on and churn else None)
                     torch.cuda.synchronize()
                     launches = read_launches(counters)
             finally:
@@ -4127,7 +4211,8 @@ def run_streams(dev, arch, params, params_cpu, results: dict, before_timed=None)
                 check(synced["rows"] >= stats["decodes"] and (synced["reused"] > 0) == churn,
                       f"{name}: {synced} mirror rows checked for {stats['decodes']} decodes")
                 results[f"p6_shapes_{name}"] = (shapes, kcalls)
-                log(f"phase6 {name} held: wall {res['wall']:.2f} s; {synced['rows']} synced "
+                log(f"phase6 {name} held ({len(res['ticks'])} of {len(audio[name][0])} "
+                    f"rounds): wall {res['wall']:.2f} s; {synced['rows']} synced "
                     f"mirror rows ({synced['reused']} of reused rows) equal to their host "
                     f"windows and zero past them; committed text never retracted; "
                     f"{held_summary(held, shapes)}")
@@ -4135,7 +4220,11 @@ def run_streams(dev, arch, params, params_cpu, results: dict, before_timed=None)
                     alone = {s: solo_compare(s, audio[name][s], res["finals"][s]) for s in (0, 1)}
                 continue
             h = passes[name, True]
-            check(res["ticks"] == h["ticks"] and res["finals"] == h["finals"],
+            same = (res["ticks"][: len(h["ticks"])] == h["ticks"] if churn
+                    else res["ticks"] == h["ticks"])
+            for sid in (h["churned"] if churn else res["finals"]):
+                same = same and res["finals"][sid] == h["finals"][sid]
+            check(same and (churn or res["finals"] == h["finals"]),
                   f"{name}: the timed pass's partials or finals differ from the held pass's")
             stats, ts = res["stats"], np.asarray(res["tick_s"]) * 1e3
             audio_s = stats["audio_seconds"]
@@ -4160,7 +4249,9 @@ def run_streams(dev, arch, params, params_cpu, results: dict, before_timed=None)
                 f"draft_accept_rate {acc:.4f}, sessions_closed {res['closed']} (each returned "
                 f"its finals), {stats['batched_calls']} batched calls, "
                 f"{res['counts']['calls']} step calls ({res['counts']['steps']} decode steps); "
-                f"partials and finals equal to the held pass's; launches "
+                f"partials and finals equal to the held pass's"
+                + (f" (its {len(h['ticks'])} rounds and {len(h['churned'])} churned "
+                   "sessions)" if churn else "") + "; launches "
                 f"{json.dumps(launched(launches))}")
             summaries[name] = summ
     pool._batched_step, pool._single_step, pool.close = real_batched, real_single, real_close
@@ -4426,9 +4517,11 @@ def time_p6_shape(dev, what: str, key, args) -> dict:
     return time_p5_shape(what, key, args)
 
 
-def phase6(dev, arch, params, results: dict) -> dict:
+def phase6(dev, arch, params, results: dict, between=None) -> dict:
     """The slice-13 runs (module docstring), each run's seconds printed; then
-    the P6_ENTRIES shapes timed. Returns the runs' summaries."""
+    the P6_ENTRIES shapes timed. `between()` runs after the held stream
+    passes, beside the queued CPU proofs, before they are joined (phase 7's
+    held part). Returns the runs' summaries."""
     from openai_whisper_compression_tpu_torch.models.params import tree_to
 
     params_cpu = tree_to(params, "cpu", torch.float32)
@@ -4446,6 +4539,11 @@ def phase6(dev, arch, params, results: dict) -> dict:
         t0 = time.perf_counter()
 
         def before_timed():   # no CPU work beside the timed stream passes
+            if between is not None:
+                t1 = time.perf_counter()
+                between()
+                log(f"phase7 held part, beside the queued CPU proofs: "
+                    f"{time.perf_counter() - t1:.1f} s")
             t1 = time.perf_counter()
             finish_cb()
             log(f"phase6 cb-small tie proofs and the queued CPU proofs joined after a "
@@ -4487,6 +4585,464 @@ def phase6(dev, arch, params, results: dict) -> dict:
     for k in [k for k in results if k.startswith("p6_shapes_")]:
         del results[k]
     return summaries
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the presets (`sweep/presets.py`) on the card
+# ---------------------------------------------------------------------------
+
+PRESET_UTT_S = 7.42          # bench.py --presets' audio per utterance (AVG_UTT_SECONDS)
+PRESET_TS_S = 60.0           # tiny_fp32_greedy's timestamped stream
+LONGFORM_CLIPS = 8           # small_fp16_beam5_longform: 8 x 30 s joined, batch_size 8
+AGREE_CLIPS = 8              # model_agreement's clips
+REF_ROWS = 4                 # rows of a preset recomputed in f32 (card or CPU)
+# the presets phase 7 runs: (row name, the preset, the model it builds, batch,
+# DecodeConfig switches of the run, the kernels of its path). The largev3
+# and turbo rows are bench.py --presets' (bench.py:818-826); tiny and the
+# f16 long-form one only BASELINE_PRESETS has. bench.py's small_int8 and
+# medium_int4_kv8 rows are phase 2's int8-kv and medium-int4 runs.
+P7_RUNS = [
+    ("largev3_s50_int8_ckv4", "largev3_structured50_int8", "large-v3", 48,
+     {"kv_int8": True, "cross_kv_int4": True},
+     ("log_mel_cuda", "encoder_attention", "int8_matmul",
+      "decode_cross_attention_grouped_int4", "decode_self_attention_update_int8")),
+    ("turbo_int8", "turbo_int8", "large-v3-turbo", 64, KV8, ("int8_matmul",) + DECODE_KERNELS),
+    ("tiny_fp32_greedy", "tiny_fp32_greedy", "tiny", 16, {},
+     ("log_mel_cuda", "decode_cross_attention_grouped_f32", "decode_self_attention_update_f32")),
+    ("small_fp16_beam5_longform", "small_fp16_beam5_longform", "small", LONGFORM_CLIPS,
+     {"beam_size": 5},
+     ("log_mel_cuda", "decode_cross_attention_grouped_f16",
+      "decode_cross_attention_grouped_f16_wide", "decode_self_attention_update_f16")),
+]
+# kernels-line entries for the shapes only phase 7 gives the kernels: (entry
+# name, the KERNELS entry, the run whose held calls at that shape it counts
+# and times, the shape key of `checked_kernel_calls`, None matching any value)
+P7_ENTRIES = [
+    ("encoder_attention@largev3-s50-10heads", "encoder_attention", "largev3_s50_int8_ckv4",
+     ("encoder_attention", 10, 1500)),
+    ("encoder_attention@turbo-20heads", "encoder_attention", "turbo_int8",
+     ("encoder_attention", 20, 1500)),
+    ("log_mel_cuda@128mels-b48", "log_mel_cuda", "largev3_s50_int8_ckv4", ("log_mel_cuda", 48)),
+    ("log_mel_cuda@128mels-b64", "log_mel_cuda", "turbo_int8", ("log_mel_cuda", 64)),
+    ("int8_matmul@largev3-s50-o-K640", "int8_matmul", "largev3_s50_int8_ckv4",
+     ("int8_matmul", 48, 640, 1280)),
+    ("int8_matmul@largev3-s50-fc2-K2560", "int8_matmul", "largev3_s50_int8_ckv4",
+     ("int8_matmul", 48, 2560, 1280)),
+    ("transpose_quant_kv@turbo-1280", "transpose_quant_kv", "turbo_int8",
+     ("transpose_quant_kv", 1500, 1280)),
+    ("decode_cross_attention_grouped_int4@largev3-s50-480rows",
+     "decode_cross_attention_grouped_int4", "largev3_s50_int8_ckv4",
+     ("grouped", None, 1500, 1, 480)),
+    ("decode_self_attention_update_int8@largev3-s50-480rows",
+     "decode_self_attention_update_int8", "largev3_s50_int8_ckv4",
+     ("decode_self_attention_update_int8", "torch.bfloat16", 480, None, False)),
+    ("decode_self_attention_update_int8@turbo-1280rows", "decode_self_attention_update_int8",
+     "turbo_int8", ("decode_self_attention_update_int8", "torch.bfloat16", 1280, None, False)),
+    ("log_mel_cuda@f32-b8", "log_mel_cuda", "small_fp16_beam5_longform", ("log_mel_cuda", 8)),
+    ("log_mel_cuda@f32-b1", "log_mel_cuda", "tiny_fp32_greedy ts", ("log_mel_cuda", 1)),
+]
+
+
+def preset_of(name: str):
+    """The `sweep.presets` preset of a P7_RUNS row; turbo_int8 (a bench.py
+    row, not a preset of the module) is int8 weights on large-v3-turbo."""
+    from openai_whisper_compression_tpu_torch.sweep.presets import PRESETS, Preset, _quant
+
+    if name == "turbo_int8":
+        return Preset("turbo_int8", "large-v3-turbo", "bfloat16", _quant("int8"), decode=KV8)
+    return PRESETS[name]
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """While open, every kernel wrapper the model calls is replaced by its
+    plain PyTorch version, on the card too: the whole-model f32 reference of
+    a full-width preset (TF32 off) runs on the card instead of the CPU. A
+    CPU tensor meets the plain version either way."""
+    from openai_whisper_compression_tpu_torch.audio import features, mel_kernel
+    from openai_whisper_compression_tpu_torch.models import decode, whisper
+    from openai_whisper_compression_tpu_torch.ops import attention as att
+    from openai_whisper_compression_tpu_torch.ops import cross_attention as ca
+    from openai_whisper_compression_tpu_torch.ops import linear as lin
+    from openai_whisper_compression_tpu_torch.ops import quant_matmul as qm
+    from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
+
+    def update(plain):
+        return lambda q, k, v, *rest, start=None: plain(q, k, v, *rest, start)
+
+    with patched((mel_kernel, "log_mel_cuda",
+                  lambda wav, n_mels=80, dft_dtype=torch.float32:
+                  features.log_mel(wav, n_mels, dft_dtype)),
+                 (whisper, "encoder_attention", att.encoder_attention_ref),
+                 (whisper, "transpose_quant_kv", ca.transpose_quant_kv_ref),
+                 (whisper, "decode_cross_attention_grouped",
+                  ca.decode_cross_attention_grouped_ref),
+                 (whisper, "decode_cross_attention", ca.decode_cross_attention_ref),
+                 (lin, "int8_matmul", qm.int8_matmul_ref),
+                 (lin, "int4_matmul", qm.int4_matmul_ref),
+                 (lin, "nf4_matmul", qm.nf4_matmul_ref),
+                 (lin, "group_asym_matmul", qm.group_asym_matmul_ref),
+                 (lin, "w8a8_matmul", qm.w8a8_matmul_ref),
+                 (decode, "decode_self_attention_update",
+                  update(sas.decode_self_attention_update_ref)),
+                 (decode, "decode_self_attention_update_int8",
+                  update(sas.decode_self_attention_update_int8_ref))):
+        yield
+
+
+def preset_row(name: str, batch: int, walls: list, audio_per_batch: float, params,
+               arch, build_s: float) -> dict:
+    """A preset row as bench.py --presets reports it: rtfx (audio over the
+    mean steady wall), ms_per_batch, params_mb (`size_in_mb`), the seconds
+    to build and transform the tree, and `model_gflops`."""
+    from openai_whisper_compression_tpu_torch.models.params import size_in_mb
+    from openai_whisper_compression_tpu_torch.prune.flops import model_gflops
+
+    wall = sum(walls) / len(walls)
+    row = {"rtfx": audio_per_batch / wall, "ms_per_batch": 1e3 * wall, "batch": batch,
+           "model": arch.name, "params_mb": size_in_mb(params), "build_s": build_s,
+           "gflops": model_gflops(params, arch)}
+    log(f"phase7 preset {name}: rtfx {row['rtfx']:.2f} ({audio_per_batch:.2f} s of audio a "
+        f"batch over {wall:.4f} s), ms_per_batch {row['ms_per_batch']:.1f}, batch {batch}, "
+        f"params_mb {row['params_mb']:.1f}, build and transform {build_s:.2f} s, "
+        f"model_gflops {json.dumps({k: round(v, 2) for k, v in row['gflops'].items()})}")
+    return row
+
+
+@torch.inference_mode()
+def phase7_timed(dev, summaries: dict) -> dict:
+    """Phase 7's timed part, before phase 6 (no CPU work beside it): each
+    P7_RUNS preset built (seeded, in its dtype, transformed; int8 trees with
+    fused decoder qkv, as bench.py builds them), a cold and two steady
+    batches timed (tiny and the bench rows through `make_transcribe_fn`
+    with the bf16 DFT mel and tanh GELU, 25 tokens, EOT suppressed; the f16
+    long-form preset through the package's `transcribe` over 240 s at
+    batch_size 8, beam 5), exact launch counts from the tree's layers;
+    bench.py's small_int8 and medium_int4_kv8 rows from phase 2's int8-kv
+    and medium-int4 runs. The CPU f32 references of tiny and the f16 preset
+    are queued (`later`). Returns the state `phase7_held` needs."""
+    from openai_whisper_compression_tpu_torch import transcribe
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import default_tokenizer
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+
+    rows = {}
+    for row, run in (("small_int8", "int8-kv"), ("medium_int4_kv8", "medium-int4")):
+        s = summaries[run]
+        rows[row] = {"rtfx": s["batch"] * PRESET_UTT_S / (1e-3 * s["ms_per_batch"]),
+                     "ms_per_batch": s["ms_per_batch"], "batch": s["batch"],
+                     "params_mb": s["weights_mib"], "build_s": s["build_s"],
+                     "gflops": s["gflops"], "from": f"phase 2 {run}"}
+        log(f"phase7 preset {row} (phase 2's {run} run): rtfx {rows[row]['rtfx']:.2f}, "
+            f"ms_per_batch {s['ms_per_batch']:.1f}, batch {s['batch']}, params_mb "
+            f"{s['weights_mib']:.1f}, build and transform {s['build_s']:.2f} s, model_gflops "
+            f"{json.dumps({k: round(v, 2) for k, v in s['gflops'].items()})}")
+    state = {"rows": rows, "runs": {}}
+    for name, preset_name, model, batch, switches, path in P7_RUNS:
+        t0 = time.perf_counter()
+        params, arch, _ = preset_of(preset_name).build(seed=SEED, device=dev)
+        if preset_name in ("largev3_structured50_int8", "turbo_int8"):
+            params = fuse_qkv(params)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(arch.name == model, f"{name}: built {arch.name}")
+        enc_l, dec_l = len(params["encoder"]["layers"]), len(params["decoder"]["layers"])
+        cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,),
+                           **switches)
+        longform = preset_name == "small_fp16_beam5_longform"
+        if longform:
+            wav = np.concatenate(list(waveforms(SEED + 7, LONGFORM_CLIPS)))
+            tok = default_tokenizer(arch)
+            fn = make_transcribe_fn(arch, cfg, device=dev)   # transcribe_long's own
+
+            def call(w):
+                return transcribe(params, arch, w, tok, cfg, batch_size=LONGFORM_CLIPS,
+                                  device=dev)
+            wavs = [wav] * 3
+        else:
+            fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+
+            def call(w):
+                toks, lens = fn(params, w)
+                return toks.cpu(), lens.cpu()    # the timing fence
+            wavs = [torch.from_numpy(waveforms(SEED + i, batch)).to(dev) for i in range(3)]
+        walls, outs = [], []
+        counters = zero_launches()
+        for w in wavs:
+            t1 = time.perf_counter()
+            outs.append(call(w))
+            walls.append(time.perf_counter() - t1)
+        launches = read_launches(counters)
+        if longform:
+            exact = {"log_mel_cuda": 3, "decode_cross_attention_grouped_f16": 3 * dec_l,
+                     "decode_cross_attention_grouped_f16_wide": 3 * dec_l * NEW_TOKENS,
+                     "decode_self_attention_update_f16": 3 * dec_l * NEW_TOKENS}
+            check(all(o == outs[0] for o in outs) and outs[0]["num_chunks"] == LONGFORM_CLIPS,
+                  f"{name}: the three transcribe calls differ")
+            audio = outs[0]["audio_seconds"]
+        else:
+            exact = expected_launches(arch, path, [NEW_TOKENS] * 3, layers=(enc_l, dec_l))
+            exact["log_mel_cuda"] = 3
+            if "int8_matmul" in path:   # 6 decoder linears a layer: the prefill and each step
+                exact["int8_matmul"] = 6 * dec_l * (NEW_TOKENS + 1) * 3
+            for toks, lens in outs:
+                check(toks.shape[0] == batch and bool((lens == 4 + NEW_TOKENS).all())
+                      and int(toks.max()) < arch.vocab_size,
+                      f"{name}: tokens {tuple(toks.shape)} or lengths {lens.tolist()}")
+            audio = batch * PRESET_UTT_S
+        log(f"phase7 {name}: {arch.name} ({enc_l} encoder and {dec_l} decoder layers, "
+            f"{arch.num_mel_bins} mels), {preset_name}, batch {batch}, "
+            f"{json.dumps(switches)}: walls {[round(x, 4) for x in walls]} s; launches "
+            f"{json.dumps(launched(launches))}")
+        check_launches(name, launches, path, exact)
+        rows[name] = preset_row(name, batch, walls[1:], audio, params, arch, build_s)
+        state["runs"][name] = {"params": params, "arch": arch, "cfg": cfg, "wav": wavs[0],
+                               "out": outs[0], "fn": fn, "path": path, "exact": exact}
+        if preset_name == "tiny_fp32_greedy":
+            queue_tiny_reference(name, params, arch, cfg, wavs[0], outs[0][0])
+        if longform:
+            queue_f16_reference(name, params, arch, cfg, wavs[0])
+    return state
+
+
+def queue_tiny_reference(name, params, arch, cfg, wav, tokens) -> None:
+    """Queue (`later`) the tiny f32 tree's CPU f32 decode of the first
+    REF_ROWS rows (same frontend and GELU): the card's tokens equal or
+    parted at a proven tie."""
+    from openai_whisper_compression_tpu_torch.models import decode
+    from openai_whisper_compression_tpu_torch.models.params import tree_to
+
+    params_cpu = tree_to(params, "cpu", torch.float32)
+    wav, got = wav[:REF_ROWS].cpu(), tokens[:REF_ROWS].cpu()
+
+    def proof():
+        encs = {}
+        enc = cpu_enc(params_cpu, arch, wav)
+        ref, _ = decode.greedy_decode(params_cpu, arch, enc, cfg)
+        for r in range(REF_ROWS):
+            encs[r] = enc[r: r + 1]
+        parted = check_ties(f"phase7 {name} card f32 vs CPU f32", params_cpu, arch, cfg,
+                            wav, got, ref, 4, encs=encs)
+        log(f"phase7 {name}: {REF_ROWS - parted} of {REF_ROWS} rows equal the CPU f32 "
+            f"decode, {parted} part at a proven tie")
+    later(f"phase7 {name}", proof)
+
+
+def queue_f16_reference(name, params, arch, cfg, wav) -> None:
+    """Queue (`later`) the f16 long-form preset's first-step logits of its
+    first two chunks (the f32 DFT mel of `transcribe`'s path, beam 5) on the
+    card in f16 against the CPU in f32, within TREE_LOGITS_REL_L2."""
+    from openai_whisper_compression_tpu_torch.audio.features import preprocess
+    from openai_whisper_compression_tpu_torch.evaluation.harness import samples_for_arch
+    from openai_whisper_compression_tpu_torch.models.decode import first_step_logits
+    from openai_whisper_compression_tpu_torch.models.params import tree_to
+    from openai_whisper_compression_tpu_torch.models.whisper import encode
+
+    n = samples_for_arch(arch)
+    clips = torch.from_numpy(np.stack([wav[:n], wav[n: 2 * n]]))
+
+    def logits(p, dtype):
+        mel = preprocess(clips.to(p["encoder"]["ln"]["g"].device), arch.num_mel_bins,
+                         length=n)
+        return first_step_logits(p, arch, encode(p, arch, mel.to(dtype)), cfg).float().cpu()
+
+    with torch.inference_mode():
+        card = logits(params, torch.float16)
+    params_cpu = tree_to(params, "cpu", torch.float32)
+
+    def compare():
+        ref = logits(params_cpu, torch.float32)
+        rel = float((card - ref).norm() / ref.norm())
+        log(f"phase7 {name} first-step logits card f16 vs CPU f32 (2 chunks, beam 5): "
+            f"relative L2 {rel:.4g} (bound {TREE_LOGITS_REL_L2['fp16']})")
+        check(bool(torch.isfinite(card).all()) and card.shape == (2 * 5, arch.vocab_size)
+              and rel <= TREE_LOGITS_REL_L2["fp16"],
+              f"{name}: card logits {tuple(card.shape)} off by {rel:.4g} relative L2")
+    later(f"phase7 {name}", compare)
+
+
+def find_key(shapes: dict, pattern: tuple, calls: dict, base: str):
+    """The recorded shape key that matches `pattern` (None matching any
+    value) and at which `base` launched: exactly one must."""
+    keys = [k for k in {**calls, **shapes} if isinstance(k, tuple) and len(k) == len(pattern)
+            and all(p is None or p == v for p, v in zip(pattern, k))
+            and calls.get(k, {}).get(base, 0) > 0]
+    check(len(keys) == 1, f"shape keys matching {pattern} that launched {base}: {keys}")
+    return keys[0]
+
+
+@torch.inference_mode()
+def phase7_held(dev, state: dict, results: dict) -> dict:
+    """Phase 7's held part, run inside phase 6 beside the queued CPU proofs
+    (no pass of it is timed): each P7_RUNS run again with every kernel call
+    held against its plain version (`checked_kernel_calls(mel=True)`),
+    outputs equal to the timed run's, launch counts exact; for largev3 and
+    turbo the first REF_ROWS rows recomputed in f32 on the card through the
+    plain versions (TF32 off), tokens equal or parted at a tie proven in
+    that recompute; tiny's `transcribe(timestamps=True)` over a seeded 60 s
+    stream (the f32-DFT log-mel at batch 1, held to the float64 bound);
+    `model_agreement` at AGREE_CLIPS clips for largev3_structured50_int8
+    and medium_int4_kv8 against their uncompressed bf16 trees of the same
+    seed; then the P7_ENTRIES shapes timed. Returns the rows."""
+    from openai_whisper_compression_tpu_torch import transcribe
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import default_tokenizer
+
+    recorded = {}
+    for name, preset_name, _, batch, _, path in P7_RUNS:
+        run = state["runs"][name]
+        params, arch, cfg, wav = run["params"], run["arch"], run["cfg"], run["wav"]
+        shapes, calls = {}, {}
+        with checked_kernel_calls(shapes, calls, mel=True) as held:
+            counters = zero_launches()
+            t0 = time.perf_counter()
+            if preset_name == "small_fp16_beam5_longform":
+                out = transcribe(params, arch, wav, default_tokenizer(arch), cfg,
+                                 batch_size=LONGFORM_CLIPS, device=dev)
+            else:
+                out = tuple(x.cpu() for x in run["fn"](params, wav))
+            wall = time.perf_counter() - t0
+            launches = read_launches(counters)
+        exact = {k: v // 3 for k, v in run["exact"].items()}
+        check_launches(f"{name} held", launches, path, exact)
+        same = (out == run["out"] if isinstance(out, dict)
+                else all(torch.equal(a, b) for a, b in zip(out, run["out"])))
+        check(same, f"{name}: the held run's output differs from the timed run's")
+        log(f"phase7 {name} held: wall {wall:.2f} s, output equal to the timed run's; "
+            f"{held_summary(held, shapes)}")
+        recorded[name] = (shapes, calls)
+        if preset_name == "small_fp16_beam5_longform":
+            from openai_whisper_compression_tpu_torch.evaluation import longform
+            from openai_whisper_compression_tpu_torch.evaluation.harness import (
+                samples_for_arch)
+
+            tok, n = default_tokenizer(arch), samples_for_arch(arch)
+            chunks, texts = longform.chunk_waveform(wav, n), []
+            for i in range(0, len(chunks), LONGFORM_CLIPS):   # transcribe_long's batches
+                buf = np.zeros((LONGFORM_CLIPS, n), np.float32)
+                for j, c in enumerate(chunks[i: i + LONGFORM_CLIPS]):
+                    buf[j, : len(c)] = c
+                tokens, lengths = (x.cpu() for x in run["fn"](params, torch.from_numpy(buf)))
+                texts += [tok.decode(tokens[j, : lengths[j]].tolist())
+                          for j in range(len(chunks[i: i + LONGFORM_CLIPS]))]
+            check(out["chunks"] == texts, f"{name}: chunk texts differ from the direct call's")
+            log(f"phase7 {name}: {len(texts)} chunk texts equal the direct "
+                "make_transcribe_fn call's")
+        if preset_name in ("largev3_structured50_int8", "turbo_int8"):
+            card_f32_reference(name, params, arch, cfg, wav, out[0])
+        if preset_name == "tiny_fp32_greedy":
+            recorded[name + " ts"] = tiny_timestamps(dev, name, params, arch)
+    for preset_name in ("largev3_structured50_int8", "medium_int4_kv8"):
+        agreement_at_scale(dev, preset_name)
+    for entry, base, run, prefix in P7_ENTRIES:
+        shapes, calls = recorded[run]
+        key = find_key(shapes, prefix, calls, base)
+        count = calls[key].get(base, 0)
+        check(count > 0, f"phase7: {run} never launched {base} at the {key} shape")
+        what = f"{run} {entry}"
+        if key[0] == "log_mel_cuda":    # seeded clips at that batch, the run's DFT and mels
+            res = check_mel(dev, torch.Generator(device=dev).manual_seed(SEED), key[1],
+                            torch.float32 if "f32" in entry else torch.bfloat16,
+                            n_mels=128 if run in ("largev3_s50_int8_ckv4", "turbo_int8")
+                            else 80)
+        else:
+            res = time_p5_shape(what, key, shapes[key], phase="phase7")
+        results[entry] = {**res, "launches": count}
+    return state["rows"]
+
+
+@torch.inference_mode()
+def card_f32_reference(name: str, params, arch, cfg, wav, tokens) -> None:
+    """The first REF_ROWS rows of a full-width preset recomputed in f32 on
+    the card through the plain versions (TF32 off: `main` sets it), with the
+    same frontend (bf16 DFT) and GELU: the card's bf16 tokens equal, or
+    parted at a tie proven in that f32 recompute. No kernel launches."""
+    from openai_whisper_compression_tpu_torch.models import decode
+    from openai_whisper_compression_tpu_torch.models.params import tree_to
+
+    dev = wav.device
+    t0 = time.perf_counter()
+    params32 = tree_to(params, dev, torch.float32)
+    counters = zero_launches()
+    with plain_kernels():
+        enc = cpu_enc(params32, arch, wav[:REF_ROWS], device=dev)
+        ref, _ = decode.greedy_decode(params32, arch, enc, cfg)
+        encs = {r: enc[r: r + 1] for r in range(REF_ROWS)}
+        parted = check_ties(f"phase7 {name} card bf16 vs card f32", params32, arch, cfg,
+                            wav[:REF_ROWS], tokens[:REF_ROWS], ref.cpu(), 4, encs=encs,
+                            device=dev)
+    launches = read_launches(counters)
+    check(not any(launches.values()), f"{name}: the f32 reference launched "
+          f"{launched(launches)}")
+    log(f"phase7 {name}: {REF_ROWS - parted} of {REF_ROWS} rows equal the card f32 "
+        f"recompute through the plain versions, {parted} part at a tie proven there "
+        f"({time.perf_counter() - t0:.1f} s, no kernel launched)")
+    del params32
+    torch.cuda.empty_cache()
+
+
+@torch.inference_mode()
+def tiny_timestamps(dev, name: str, params, arch) -> tuple:
+    """tiny_fp32_greedy's `transcribe(timestamps=True)` over one seeded 60 s
+    stream: one window at a time, so the f32-DFT log-mel runs at batch 1,
+    every call held (the log-mel no further than the plain version +
+    MEL_EXACT_MARGIN from the float64 log-mel); a log-mel launch a window."""
+    from openai_whisper_compression_tpu_torch import transcribe
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+
+    wav = np.random.default_rng(11).standard_normal(int(PRESET_TS_S * 16000)).astype(
+        np.float32) * 0.1
+    shapes, calls = {}, {}
+    with checked_kernel_calls(shapes, calls, mel=True) as held:
+        counters = zero_launches()
+        res = transcribe(params, arch, wav, decode_cfg=DecodeConfig(max_new_tokens=NEW_TOKENS),
+                         timestamps=True, device=dev)
+        launches = read_launches(counters)
+    windows = res.get("num_windows", len(calls))
+    check(isinstance(res["text"], str) and isinstance(res["segments"], list)
+          and launches["log_mel_cuda"] == windows >= 2
+          and launches["decode_self_attention_update_f32"] > 0,
+          f"{name} timestamps: {windows} windows, launches {launched(launches)}")
+    log(f"phase7 {name} transcribe(timestamps=True) over {PRESET_TS_S:.0f} s: {windows} "
+        f"windows, {len(res['segments'])} segments; every log-mel at batch 1 (f32 DFT) "
+        f"held to the float64 bound; {held_summary(held, shapes)}; launches "
+        f"{json.dumps(launched(launches))}")
+    return shapes, calls
+
+
+@torch.inference_mode()
+def agreement_at_scale(dev, preset_name: str) -> None:
+    """`model_agreement` at AGREE_CLIPS seeded clips: the preset's tree
+    (fused qkv, its decode switches on the compressed side) against the
+    uncompressed bf16 tree of the same seed. Seeded weights: the numbers
+    show that the harness runs at scale, not how accurate the preset is."""
+    from openai_whisper_compression_tpu_torch.audio.features import preprocess
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.agreement import model_agreement
+    from openai_whisper_compression_tpu_torch.evaluation.harness import samples_for_arch
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+
+    t0 = time.perf_counter()
+    preset = preset_of(preset_name)
+    comp, arch, pcfg = preset.build(seed=SEED, device=dev)
+    comp = fuse_qkv(comp)
+    base = init_params(arch, SEED, torch.bfloat16, device=dev)
+    wav = torch.from_numpy(waveforms(SEED + 9, AGREE_CLIPS)).to(dev)
+    mels = preprocess(wav, arch.num_mel_bins, length=samples_for_arch(arch),
+                      dft_dtype=torch.bfloat16).bfloat16()
+    cfg = DecodeConfig(max_new_tokens=16, suppress_tokens=(arch.eos_token_id,))
+    res = model_agreement(base, comp, arch, mels, cfg,
+                          comp_cfg=dataclasses.replace(cfg, **preset.decode))
+    check(all(np.isfinite(v) for v in res.values()) and 0 <= res["token_agreement"] <= 1,
+          f"{preset_name} agreement: {res}")
+    log(f"phase7 agreement {preset_name} vs its bf16 tree ({AGREE_CLIPS} clips, 16 tokens, "
+        f"seeded weights: shows the harness at scale, not the preset's accuracy): "
+        f"token_agreement {res['token_agreement']:.4f}, top1_agreement "
+        f"{res['top1_agreement']:.4f}, mean_kl {res['mean_kl']:.4g}, logit_rel_err "
+        f"{res['logit_rel_err']:.4g} ({time.perf_counter() - t0:.1f} s)")
+    del comp, base
+    torch.cuda.empty_cache()
 
 
 @torch.inference_mode()
@@ -4667,10 +5223,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("phase1")
     built: dict = {}
+    build_s: dict = {}
 
     def params_for(arch_name: str, method: str):
         if (arch_name, method) not in built:
+            t0 = time.perf_counter()
             built[arch_name, method] = make_params(dev, arch_name, method)
+            torch.cuda.synchronize()
+            build_s[arch_name, method] = time.perf_counter() - t0
         return built[arch_name, method]
 
     summaries = {}
@@ -4678,6 +5238,14 @@ def main() -> int:
         name, arch_name, method = run[:3]
         summaries[name] = run_path(dev, *params_for(arch_name, method), run,
                                    args.profile and name in PROFILED)
+        if name in ("int8-kv", "medium-int4"):    # bench.py --presets' rows (phase 7)
+            from openai_whisper_compression_tpu_torch.prune.flops import model_gflops
+
+            steady = summaries[name]["walls_s"][1:3]
+            summaries[name].update(
+                ms_per_batch=1e3 * sum(steady) / len(steady),
+                build_s=build_s[arch_name, method],
+                gflops=model_gflops(built[arch_name, method][1], built[arch_name, method][0]))
         if arch_name != ARCH:
             del built[arch_name, method]
             torch.cuda.empty_cache()
@@ -4705,11 +5273,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     summaries.update(phase5(dev, *small_int8, results))
     phase_done("phase5")
-    # the slice-13 runs, again with no other tree resident
+    # the presets' timed runs; their held part runs inside phase 6, beside
+    # the queued CPU proofs
     torch.cuda.empty_cache()
-    summaries.update(phase6(dev, *small_int8, results))
-    phase_done("phase6")
+    p7 = phase7_timed(dev, summaries)
+    phase_done("phase7 timed part")
+    rows = {}
+    summaries.update(phase6(dev, *small_int8, results,
+                            between=lambda: rows.update(phase7_held(dev, p7, results))))
+    phase_done("phase6 (with phase 7's held part)")
     check(not LATER, f"CPU proofs never run: {[label for label, _ in LATER]}")
+    check(set(rows) == {"small_int8", "medium_int4_kv8"} | {r[0] for r in P7_RUNS},
+          f"phase 7 rows: {sorted(rows)}")
+    log("phase7 presets " + json.dumps(
+        {k: {f: (round(v, 4) if isinstance(v, float) else v) for f, v in r.items()
+             if f != "gflops"} | {"total_gflops": round(r["gflops"]["total_gflops"], 2)}
+         for k, r in rows.items()}))
+    del p7
 
     def launches(name):  # from the first run that launched the kernel
         return next(s["launches"][name] for s in summaries.values()
@@ -4731,7 +5311,7 @@ def main() -> int:
         {**entries[base], "name": name,
          **{k: results[name][k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")}}
-        for name, base, _, _ in P5_ENTRIES + P6_ENTRIES]
+        for name, base, _, _ in P5_ENTRIES + P6_ENTRIES + P7_ENTRIES]
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -52,11 +52,20 @@
 //   frames fall on 32 banks).
 // - The banded mel product runs on CUDA cores with a lane per frame, in
 //   f32, two mels at a time; the rows leave through the freed frame tile.
-// f32 body (fast_mel=False): f32 FMAs on CUDA cores (TF32 would round the
-// samples to 10 bits). A block takes 32 frames of one clip, whose 5,360
-// samples sit in shared memory as they lie in the waveform; a thread per bin
-// sums the 32 frames' re and im in registers over the 400 taps, reading its
-// cos/sin pair as one 8-byte load; the same banded mel product follows.
+// f32 body (fast_mel=False): the f32 samples and bases (TF32 would round
+// the samples to 10 bits), their products and sums in f64 on CUDA cores. A
+// block takes 32 frames of one clip, whose 5,360 samples sit in shared memory
+// as they lie in the waveform, widened to f64 once; a thread per bin sums the
+// 32 frames' re and im over the 400 taps in f64 registers (each product of
+// two f32 values is exact in f64), reading its cos/sin pair as one 8-byte
+// load, and rounds them to f32 at the end; the same banded mel product
+// follows. A bin whose 400 products nearly cancel (a power ~1e-4 of its
+// frame's typical one: thousands of them in a batch of noise) keeps its
+// relative accuracy so. One f32 FMA chain over the 400 taps put a streaming
+// flush window's log-mel 1.35e-5 from the float64 result where the plain
+// version (cuBLAS) was 2.4e-6 from it; 4-tap f32 chains added by TwoSum
+// still left 1.40e-5 against the plain version's 5.3e-6 at 8 clips of noise,
+// and Dot2 sums in f32 (TwoProduct and TwoSum a tap) cost 2.5x this body.
 #include "hopper.cuh"
 
 namespace {
@@ -337,26 +346,27 @@ mel_bf16_kernel(const float* __restrict__ wav, const __nv_bfloat16* __restrict__
 constexpr int FM = 32;                         // frames a block
 constexpr int F_THREADS = 224;                 // a thread a bin (7 warps)
 constexpr int F_SPAN = (FM - 1) * HOP + NFFT;  // samples a block reads
-constexpr int F_SMEM_BYTES = (F_SPAN + FM * NFREQ) * 4;
-static_assert(FM * 129 <= F_SPAN, "the output tile must fit where the samples were");
+constexpr int F_SMEM_BYTES = F_SPAN * 8 + FM * NFREQ * 4;
+static_assert(FM * 129 <= 2 * F_SPAN, "the output tile must fit where the samples were");
 
 __global__ void __launch_bounds__(F_THREADS)
 mel_f32_kernel(const float* __restrict__ wav, const float* __restrict__ bases,
                const int* __restrict__ bands, const float* __restrict__ weights,
                float* __restrict__ out, int stride, int n_frames, int n_mels,
                int band_w) {
-  extern __shared__ __align__(16) float fsm[];
-  float* seg = fsm;               // the block's samples as they lie
-  float* pw = fsm + F_SPAN;       // [FM][NFREQ] power spectrum
+  extern __shared__ __align__(16) double fsm64[];
+  double* seg = fsm64;                                       // the block's samples as they lie
+  float* pw = reinterpret_cast<float*>(fsm64 + F_SPAN);     // [FM][NFREQ] power spectrum
   const int tid = threadIdx.x, b = blockIdx.y, r0 = blockIdx.x * FM;
   {
     const float* row = wav + (size_t)b * stride;
     const int s0 = r0 * HOP;
     for (int c = tid; c < F_SPAN / 4; c += F_THREADS) {
       const int s = s0 + 4 * c;
-      reinterpret_cast<float4*>(seg)[c] =
-          s < stride ? __ldg(reinterpret_cast<const float4*>(row + s))
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 v = s < stride ? __ldg(reinterpret_cast<const float4*>(row + s))
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<double2*>(seg)[2 * c] = make_double2(v.x, v.y);
+      reinterpret_cast<double2*>(seg)[2 * c + 1] = make_double2(v.z, v.w);
     }
   }
   __syncthreads();
@@ -364,31 +374,39 @@ mel_f32_kernel(const float* __restrict__ wav, const float* __restrict__ bases,
   const int f = tid;
   if (f < NFREQ) {
     const float2* cs2 = reinterpret_cast<const float2*>(bases) + f;
-    float re[FM], im[FM];
+    double re[FM], im[FM];
 #pragma unroll
-    for (int r = 0; r < FM; ++r) re[r] = im[r] = 0.0f;
+    for (int r = 0; r < FM; ++r) re[r] = im[r] = 0.0;
     for (int t = 0; t < NFFT; t += 4) {
-      float2 cs[4];
+      double c[4], s[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) cs[u] = __ldg(cs2 + (t + u) * (NCOL / 2));
+      for (int u = 0; u < 4; ++u) {
+        const float2 cs = __ldg(cs2 + (t + u) * (NCOL / 2));
+        c[u] = cs.x;
+        s[u] = cs.y;
+      }
 #pragma unroll
       for (int r = 0; r < FM; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(seg + r * HOP + t);
-        re[r] = fmaf(x.x, cs[0].x, re[r]);
-        im[r] = fmaf(x.x, cs[0].y, im[r]);
-        re[r] = fmaf(x.y, cs[1].x, re[r]);
-        im[r] = fmaf(x.y, cs[1].y, im[r]);
-        re[r] = fmaf(x.z, cs[2].x, re[r]);
-        im[r] = fmaf(x.z, cs[2].y, im[r]);
-        re[r] = fmaf(x.w, cs[3].x, re[r]);
-        im[r] = fmaf(x.w, cs[3].y, im[r]);
+        const double2 x01 = *reinterpret_cast<const double2*>(seg + r * HOP + t);
+        const double2 x23 = *reinterpret_cast<const double2*>(seg + r * HOP + t + 2);
+        re[r] = fma(x01.x, c[0], re[r]);
+        im[r] = fma(x01.x, s[0], im[r]);
+        re[r] = fma(x01.y, c[1], re[r]);
+        im[r] = fma(x01.y, s[1], im[r]);
+        re[r] = fma(x23.x, c[2], re[r]);
+        im[r] = fma(x23.x, s[2], im[r]);
+        re[r] = fma(x23.y, c[3], re[r]);
+        im[r] = fma(x23.y, s[3], im[r]);
       }
     }
 #pragma unroll
-    for (int r = 0; r < FM; ++r) pw[r * NFREQ + f] = re[r] * re[r] + im[r] * im[r];
+    for (int r = 0; r < FM; ++r) {
+      const float a = __double2float_rn(re[r]), b = __double2float_rn(im[r]);
+      pw[r * NFREQ + f] = a * a + b * b;
+    }
   }
   __syncthreads();
-  float* st = seg;  // the samples are no longer needed
+  float* st = reinterpret_cast<float*>(seg);  // the samples are no longer needed
   mel_bands(pw, NFREQ, NFREQ, pw, NFREQ, st, FM, F_THREADS, bands, weights, n_mels,
             band_w);
   __syncthreads();

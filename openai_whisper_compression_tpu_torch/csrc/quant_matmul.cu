@@ -50,6 +50,18 @@
 // workspace in device memory: the result does not change from run to run),
 // applies the column scale where the storage has one, casts and writes.
 // One launch a linear.
+//
+// Ragged widths (any N, any K the storage allows: K even for the nibble
+// kinds, a whole number of groups for the grouped ones) take a second
+// instantiation of the kernel (RAGGED), so that whole tiles run the code
+// above unchanged: the last N tile and the last K tile are predicated.
+// Loads past N, past the stored rows or past M fill zeros (x past K is
+// zero, so the dequantized W there never counts; its bytes and group
+// parameters read as zeros too), and stores past N are skipped. Where the
+// rows of x or W do not start on 16-byte boundaries (K or N not a multiple
+// of the 16-byte piece), the tile is copied element by element instead of
+// by cp.async, the column scale and the group parameters are read one float
+// at a time and the output is written one element at a time.
 #include <cooperative_groups.h>
 
 #include "hopper.cuh"
@@ -123,16 +135,29 @@ __device__ __forceinline__ void store4(__half* p, float4 v) {
                                             *reinterpret_cast<const uint32_t*>(&hi));
 }
 
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(BF* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store1(__half* p, float v) { *p = __float2half_rn(v); }
+
 // Byte i of the 8 stored bytes.
 __device__ __forceinline__ uint32_t byte_of(uint2 raw, int i) {
   return ((i < 4 ? raw.x : raw.y) >> (8 * (i & 3))) & 0xFFu;
 }
 
-__device__ __forceinline__ void load8f(const float* p, float (&f)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+// The 8 floats of columns n .. n + 7 of a row of N: two 16-byte loads (in a
+// ragged call, where all 8 lie inside N and the row starts 16-byte aligned:
+// N % 4 == 0, n a multiple of 8), else one at a time, 0 past N.
+template <bool RAGGED>
+__device__ __forceinline__ void load8f(const float* p, float (&f)[8], int n, int N) {
+  if (!RAGGED || (n + 8 <= N && (N & 3) == 0)) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = n + i < N ? __ldg(p + i) : 0.0f;
+  }
 }
 
 // A trait names the stored bytes (`bytes()`: rows of N bytes), loads what
@@ -146,6 +171,7 @@ struct Int8W {
   using Params = NoParams;
   const int8_t* w;
   __device__ const uint8_t* bytes() const { return reinterpret_cast<const uint8_t*>(w); }
+  template <bool RAGGED>
   __device__ void params(Params&, int, int, int, int) const {}
   __device__ void dequant(uint2 raw, const Params&, const float*,
                           uint4 (&out)[HALVES]) const {
@@ -161,6 +187,7 @@ struct Int4W {
   using Params = NoParams;
   const int8_t* w;
   __device__ const uint8_t* bytes() const { return reinterpret_cast<const uint8_t*>(w); }
+  template <bool RAGGED>
   __device__ void params(Params&, int, int, int, int) const {}
   __device__ void dequant(uint2 raw, const Params&, const float*,
                           uint4 (&out)[HALVES]) const {
@@ -191,9 +218,11 @@ struct Codebook4W {
   const float* scale;  // (K/G, N) effective block scale
   int G;
   __device__ const uint8_t* bytes() const { return reinterpret_cast<const uint8_t*>(w); }
+  template <bool RAGGED>
   __device__ void params(Params& p, int r, int n, int N, int K) const {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) load8f(group_row(scale, h * (K / 2) + r, G, N, n), p.s[h]);
+    for (int h = 0; h < 2; ++h)
+      load8f<RAGGED>(group_row(scale, h * (K / 2) + r, G, N, n), p.s[h], n, N);
   }
   __device__ void dequant(uint2 raw, const Params& p, const float* code,
                           uint4 (&out)[HALVES]) const {
@@ -220,12 +249,13 @@ struct AsymW {
   const float* zero;
   int G;
   __device__ const uint8_t* bytes() const { return w; }
+  template <bool RAGGED>
   __device__ void params(Params& p, int r, int n, int N, int K) const {
 #pragma unroll
     for (int h = 0; h < HALVES; ++h) {
       const int k = h * (K / HALVES) + r;
-      load8f(group_row(scale, k, G, N, n), p.s[h]);
-      load8f(group_row(zero, k, G, N, n), p.z[h]);
+      load8f<RAGGED>(group_row(scale, k, G, N, n), p.s[h], n, N);
+      load8f<RAGGED>(group_row(zero, k, G, N, n), p.z[h], n, N);
     }
   }
   __device__ void dequant(uint2 raw, const Params& p, const float*,
@@ -258,7 +288,7 @@ constexpr int smem_bytes(int xrows) {
   return NS * stage_bytes<T, W>(xrows) + 2 * W::HALVES * BK * WD_STRIDE * (int)sizeof(BF);
 }
 
-template <typename T, typename W>
+template <typename T, typename W, bool RAGGED>
 __global__ void __launch_bounds__(THREADS)
 qmm_kernel(const T* __restrict__ x, W wt, Code16 code_arg,
            const float* __restrict__ colscale, T* __restrict__ out, int M, int N,
@@ -275,6 +305,10 @@ qmm_kernel(const T* __restrict__ x, W wt, Code16 code_arg,
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int kh = K / H;  // stored rows
   const int kt_begin = blockIdx.z * tiles_per_split, nt = tiles_per_split;
+  // whole 16-byte pieces by cp.async where every row of x and of the stored
+  // W starts on a 16-byte boundary (always, but in a ragged call); else
+  // element by element
+  const bool xvec = !RAGGED || kh % EPC == 0, wvec = !RAGGED || N % 16 == 0;
   const int x_bytes = xrows * XS * (int)sizeof(T);
   const int stage = x_bytes + BK * BN;
   BF* wd = reinterpret_cast<BF*>(smem + NS * stage);
@@ -297,16 +331,42 @@ qmm_kernel(const T* __restrict__ x, W wt, Code16 code_arg,
   auto load_tile = [&](int t) {
     if (t < nt) {
       const unsigned base = (t % NS) * stage;
+      const int kcol = (kt_begin + t) * BK + xcol;  // this thread's first column in its half
 #pragma unroll
       for (int i = 0; i < NCH; ++i) {
         const int row = xrow0 + i * RS;
         if (row < xrows) {
-          const bool ok = m0 + row < M;  // rows past M are zero filled
-          cp_async16(base + xdst + i * RS * XS * (int)sizeof(T),
-                     ok ? xsrc + i * xstep + (size_t)t * BK : x, ok ? 16 : 0);
+          const unsigned dst = base + xdst + i * RS * XS * (int)sizeof(T);
+          if (xvec) {
+            // rows past M, columns past K: zeros
+            const bool ok = m0 + row < M && (!RAGGED || kcol < kh);
+            cp_async16(dst, ok ? xsrc + i * xstep + (size_t)t * BK : x, ok ? 16 : 0);
+          } else {
+            alignas(16) T v[EPC];
+            const T* src = x + (size_t)(m0 + row) * K + xh * kh;
+#pragma unroll
+            for (int e = 0; e < EPC; ++e)
+              v[e] = m0 + row < M && kcol + e < kh ? src[kcol + e] : T(0.0f);
+            *reinterpret_cast<uint4*>(smem + (dst - smem_base)) =
+                *reinterpret_cast<const uint4*>(v);
+          }
         }
       }
-      if (tid < BK * BN / 16) cp_async16(base + wdst, wsrc + (size_t)t * BK * N, 16);
+      if (tid < BK * BN / 16) {
+        const int r = (kt_begin + t) * BK + (tid >> 2), c = n0 + (tid & 3) * 16;
+        if (wvec) {
+          const bool ok = !RAGGED || (r < kh && c < N);
+          cp_async16(base + wdst, ok ? wsrc + (size_t)t * BK * N : wt.bytes(), ok ? 16 : 0);
+        } else {
+          uint32_t v[4] = {0u, 0u, 0u, 0u};
+          const uint8_t* src = wt.bytes() + (size_t)r * N;
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            if (r < kh && c + i < N) v[i / 4] |= (uint32_t)src[c + i] << (8 * (i % 4));
+          *reinterpret_cast<uint4*>(smem + (base + wdst - smem_base)) =
+              make_uint4(v[0], v[1], v[2], v[3]);
+        }
+      }
     }
     cp_async_commit();
   };
@@ -315,14 +375,20 @@ qmm_kernel(const T* __restrict__ x, W wt, Code16 code_arg,
   const int dr = tid >> 3, dc = (tid & 7) * 8;
   typename W::Params prm;
   auto fetch_params = [&](int t) {
-    if (t < nt) wt.params(prm, (kt_begin + t) * BK + dr, n0 + dc, N, K);
+    if (t < nt && (!RAGGED || (kt_begin + t) * BK + dr < kh))
+      wt.template params<RAGGED>(prm, (kt_begin + t) * BK + dr, n0 + dc, N, K);
   };
   auto dequant_tile = [&](int t) {
     if (t < nt) {
       const uint2 raw = *reinterpret_cast<const uint2*>(
           smem + (t % NS) * stage + x_bytes + dr * BN + dc);
       uint4 o[H];
-      wt.dequant(raw, prm, code, o);
+      if (!RAGGED || (kt_begin + t) * BK + dr < kh) {
+        wt.dequant(raw, prm, code, o);
+      } else {  // past the stored rows: zeros (x is zero there too)
+#pragma unroll
+        for (int h = 0; h < H; ++h) o[h] = make_uint4(0u, 0u, 0u, 0u);
+      }
       BF* dst = wd + (t & 1) * KT * WD_STRIDE;
 #pragma unroll
       for (int h = 0; h < H; ++h)
@@ -401,35 +467,42 @@ qmm_kernel(const T* __restrict__ x, W wt, Code16 code_arg,
       s.z += v.z;
       s.w += v.w;
     }
-    const int m = m0 + row;
-    if (m < M) {
-      if (colscale != nullptr) {
-        const float4 cs = __ldg(reinterpret_cast<const float4*>(colscale + n0 + c4));
-        s.x *= cs.x;
-        s.y *= cs.y;
-        s.z *= cs.z;
-        s.w *= cs.w;
+    const int m = m0 + row, ncols = N - (n0 + c4);  // columns left in the row
+    if (m < M && (!RAGGED || ncols > 0)) {
+      if (!RAGGED || (ncols >= 4 && (N & 3) == 0)) {
+        if (colscale != nullptr) {
+          const float4 cs = __ldg(reinterpret_cast<const float4*>(colscale + n0 + c4));
+          s.x *= cs.x;
+          s.y *= cs.y;
+          s.z *= cs.z;
+          s.w *= cs.w;
+        }
+        store4(out + (size_t)m * N + n0 + c4, s);
+      } else {  // the ragged edge, or rows that do not start 16-byte aligned
+        const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < ncols)
+            store1(out + (size_t)m * N + n0 + c4 + j,
+                   colscale != nullptr ? v[j] * __ldg(colscale + n0 + c4 + j) : v[j]);
       }
-      store4(out + (size_t)m * N + n0 + c4, s);
     }
   }
   cluster.sync();  // no block leaves while another still reads its tile
 }
 
-template <typename T, typename W>
+template <typename T, typename W, bool RAGGED>
 int launch_t(const void* x, const W& wt, const Code16& code, const void* colscale,
              void* out, int M, int N, int K, int splits, cudaStream_t st) {
-  const int ktiles = K / W::HALVES / BK;
-  if (M < 1 || splits < 1 || splits > 8 || ktiles % splits != 0)
-    return (int)cudaErrorInvalidValue;
+  const int ktiles = (K / W::HALVES + BK - 1) / BK;
   const int xrows = M >= BM ? BM : (M + 15) / 16 * 16;
   const int smem = smem_bytes<T, W>(xrows);
-  cudaError_t e = cudaFuncSetAttribute(qmm_kernel<T, W>,
+  cudaError_t e = cudaFuncSetAttribute(qmm_kernel<T, W, RAGGED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes<T, W>(BM));
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(N / BN, (M + BM - 1) / BM, splits);
+  cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -440,7 +513,7 @@ int launch_t(const void* x, const W& wt, const Code16& code, const void* colscal
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, qmm_kernel<T, W>, static_cast<const T*>(x), wt, code,
+  e = cudaLaunchKernelEx(&cfg, qmm_kernel<T, W, RAGGED>, static_cast<const T*>(x), wt, code,
                          static_cast<const float*>(colscale), static_cast<T*>(out), M,
                          N, K, xrows, ktiles / splits);
   if (e != cudaSuccess) return (int)e;
@@ -451,21 +524,30 @@ template <typename W>
 int launch(const void* x, const W& wt, const Code16& code, const void* colscale,
            void* out, int M, int N, int K, int splits, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || N < 1 || K < W::HALVES || K % W::HALVES != 0 || splits < 1 || splits > 8 ||
+      (K / W::HALVES + BK - 1) / BK % splits != 0)
+    return (int)cudaErrorInvalidValue;
+  // whole 64-column and 32-stored-row tiles, or the predicated instantiation
+  const bool ragged = N % BN != 0 || (K / W::HALVES) % BK != 0;
   int err = 0;
   const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
-    err = launch_t<decltype(tag)>(x, wt, code, colscale, out, M, N, K, splits, st);
+    err = ragged ? launch_t<decltype(tag), W, true>(x, wt, code, colscale, out, M, N, K,
+                                                    splits, st)
+                 : launch_t<decltype(tag), W, false>(x, wt, code, colscale, out, M, N, K,
+                                                     splits, st);
   });
   return ok ? err : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Common arguments: x (M, K) f32/bf16/f16, out (M, N) in x's dtype; N % 64
-// == 0; x and every weight, scale and zero array 16-byte aligned with its
-// last axis contiguous; splits (1..8) divides the K tiles of 32 stored rows
-// and is the size of the thread block cluster that shares one output tile.
+// Common arguments: x (M, K) f32/bf16/f16, out (M, N) in x's dtype; any N;
+// x and every weight, scale and zero array starting 16-byte aligned,
+// contiguous; splits (1..8) divides the K tiles of 32 stored rows (the last
+// may be partial) and is the size of the thread block cluster that shares
+// one output tile.
 
-// w (K, N) int8, scale (N,) f32. K % 32 == 0.
+// w (K, N) int8, scale (N,) f32.
 extern "C" int owc_int8_matmul(const void* x, const void* w, const void* scale,
                                void* out, int M, int N, int K, int splits,
                                int dtype, void* stream) {
@@ -473,7 +555,7 @@ extern "C" int owc_int8_matmul(const void* x, const void* w, const void* scale,
                 N, K, splits, dtype, stream);
 }
 
-// w (K/2, N) int8 split-half signed nibbles, scale (N,) f32. K % 64 == 0.
+// w (K/2, N) int8 split-half signed nibbles, scale (N,) f32. K even.
 extern "C" int owc_int4_matmul(const void* x, const void* w, const void* scale,
                                void* out, int M, int N, int K, int splits,
                                int dtype, void* stream) {
@@ -482,7 +564,7 @@ extern "C" int owc_int4_matmul(const void* x, const void* w, const void* scale,
 }
 
 // w (K/2, N) int8 split-half unsigned code indices, code (16,) f32 on the
-// host, scale (K/G, N) f32 effective block scale. K % 64 == 0, K % G == 0.
+// host, scale (K/G, N) f32 effective block scale. K even, K % G == 0.
 extern "C" int owc_nf4_matmul(const void* x, const void* w, const float* code,
                               const void* scale, void* out, int M, int N, int K,
                               int G, int splits, int dtype, void* stream) {
@@ -493,9 +575,8 @@ extern "C" int owc_nf4_matmul(const void* x, const void* w, const float* code,
   return launch(x, wt, c, nullptr, out, M, N, K, splits, dtype, stream);
 }
 
-// w (K/2, N) split-half unsigned nibbles (packed != 0, K % 64 == 0) or (K, N)
-// uint8 values (packed == 0, K % 32 == 0); scale, zero (K/G, N) f32;
-// K % G == 0.
+// w (K/2, N) split-half unsigned nibbles (packed != 0, K even) or (K, N)
+// uint8 values (packed == 0); scale, zero (K/G, N) f32; K % G == 0.
 extern "C" int owc_group_asym_matmul(const void* x, const void* w,
                                      const void* scale, const void* zero,
                                      void* out, int M, int N, int K, int G,

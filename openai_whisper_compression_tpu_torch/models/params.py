@@ -165,13 +165,24 @@ def tree_cast(params: Any, dtype: torch.dtype) -> Any:
     return params.to(dtype)
 
 
-def size_in_mb(params: Any) -> float:
-    """Stored size in MiB (quantized leaves count their packed bytes and
+def leaf_count(params: Any) -> int:
+    """Total logical parameter count (a quantized leaf counts its logical
+    (K, N) size)."""
+    return sum(math.prod(leaf.shape) if isinstance(leaf, QTensor) else leaf.numel()
+               for _, leaf in named_leaves(params) if leaf is not None)
+
+
+def size_in_bytes(params: Any) -> int:
+    """Stored size in bytes (quantized leaves count their packed bytes and
     every scale, zero, offset and activation-scale array)."""
-    total = sum(leaf.nbytes() if isinstance(leaf, QTensor)
-                else leaf.numel() * leaf.element_size()
-                for _, leaf in named_leaves(params))
-    return total / 2 ** 20
+    return sum(leaf.nbytes() if isinstance(leaf, QTensor)
+               else leaf.numel() * leaf.element_size()
+               for _, leaf in named_leaves(params) if leaf is not None)
+
+
+def size_in_mb(params: Any) -> float:
+    """`size_in_bytes` in MiB."""
+    return size_in_bytes(params) / 2 ** 20
 
 
 def copy_tree(params: Any) -> Any:
@@ -196,6 +207,14 @@ def named_leaves(params: Params, prefix: str = "") -> list[tuple[str, Any]]:
     else:
         out.append((prefix[:-1], params))
     return out
+
+
+def get_leaf(params: Params, name: str):
+    """The leaf at dotted name `name` (as `named_leaves` names it)."""
+    node = params
+    for part in name.split("."):
+        node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
+    return node
 
 
 def set_leaf(params: Params, name: str, value) -> None:

@@ -123,23 +123,27 @@ def _splits(m: int, n: int, ktiles: int) -> int:
     cluster: the smallest divisor of the K tiles, at most `_MAX_CLUSTER`,
     that puts `_TARGET_BLOCKS` blocks in flight, or the largest such divisor
     where none does. A pure function of M, N and the K tiles."""
-    tiles = (n // _BN) * (-(-m // _BM))
+    tiles = -(-n // _BN) * (-(-m // _BM))
     divisors = [s for s in range(1, _MAX_CLUSTER + 1) if ktiles % s == 0]
     return next((s for s in divisors if tiles * s >= _TARGET_BLOCKS),
                 divisors[-1])
 
 
+def _ktiles(stored_rows: int) -> int:
+    """K tiles of `_BK` stored rows, the last one partial where K is ragged."""
+    return -(-stored_rows // _BK)
+
+
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, stored_rows: int,
            params: list[torch.Tensor]) -> tuple[int, int, int]:
-    """Raise on what the kernel does not take; return (M, N, K)."""
+    """Raise on what the kernel does not take; return (M, N, K). Any N and
+    any K the storage holds: the kernel predicates its last N and K tiles."""
     kernels.require(x.dim() == 2, name, f"x must be (M, K), got {tuple(x.shape)}")
     m, k = x.shape
-    kernels.require(w.dim() == 2 and w.shape[0] == stored_rows, name,
-                    f"w {tuple(w.shape)} does not match x {tuple(x.shape)}")
+    kernels.require(w.dim() == 2 and w.shape[0] == stored_rows and stored_rows > 0,
+                    name, f"w {tuple(w.shape)} does not match x {tuple(x.shape)}")
     n = w.shape[1]
-    kernels.require(stored_rows % _BK == 0 and n % _BN == 0, name,
-                    f"stored rows % {_BK} and N % {_BN} must be 0 "
-                    f"(rows={stored_rows}, N={n})")
+    kernels.require(n > 0, name, "N must be positive")
     kernels.require(all(t.is_cuda and t.device == x.device for t in (w, *params)),
                     name, "x, the weight and its scales must share a device")
     kernels.require(all(t.is_contiguous() for t in (x, w, *params)), name,
@@ -189,7 +193,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
     m, n, k = _check(name, x, w, x.shape[-1], [scale])
     kernels.require(w.dtype == torch.int8, name, f"w must be int8, got {w.dtype}")
     _colscale_ok(name, scale, n)
-    out = _run(name, "owc_int8_matmul", x, n, k // _BK,
+    out = _run(name, "owc_int8_matmul", x, n, _ktiles(k),
                (x.data_ptr(), w.data_ptr(), scale.data_ptr()), ())
     int8_matmul.launches += 1
     return out
@@ -207,7 +211,7 @@ def int4_matmul(x: torch.Tensor, w: torch.Tensor,
     kernels.require(k % 2 == 0 and w.dtype == torch.int8, name,
                     f"w must be int8 nibbles of an even K, got {w.dtype}, K={k}")
     _colscale_ok(name, scale, n)
-    out = _run(name, "owc_int4_matmul", x, n, k // 2 // _BK,
+    out = _run(name, "owc_int4_matmul", x, n, _ktiles(k // 2),
                (x.data_ptr(), w.data_ptr(), scale.data_ptr()), ())
     int4_matmul.launches += 1
     return out
@@ -228,7 +232,7 @@ def nf4_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                     f"w must be int8 nibbles of an even K, got {w.dtype}, K={k}")
     _group_ok(name, k, g, [scale], n)
     code = (ctypes.c_float * 16)(*CODEBOOKS[kind].tolist())
-    out = _run(name, "owc_nf4_matmul", x, n, k // 2 // _BK,
+    out = _run(name, "owc_nf4_matmul", x, n, _ktiles(k // 2),
                (x.data_ptr(), w.data_ptr(), code, scale.data_ptr()), (g,))
     nf4_matmul.launches += 1
     return out
@@ -252,7 +256,7 @@ def group_asym_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     kernels.require(k % 2 == 0 or not packed, name, f"K={k} must be even")
     _group_ok(name, k, g, [scale, zero], n)
     out = _run(name, "owc_group_asym_matmul", x, n,
-               (k // 2 if packed else k) // _BK,
+               _ktiles(k // 2 if packed else k),
                (x.data_ptr(), w.data_ptr(), scale.data_ptr(), zero.data_ptr()),
                (g, int(packed)))
     if packed:

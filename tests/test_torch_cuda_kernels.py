@@ -197,6 +197,48 @@ def test_matmul_traits_over_m_and_k(dev, trait, k, m):
     _check_kernel(fn, ref, (fn, attr), x, *args)
 
 
+# ragged widths per storage trait, (M, K, N): K and N off every tile (a
+# structured-pruned FFN of whisper-small keeps 922 of 3072 units), N a
+# multiple of 16 but not of 64, N a multiple of 4 only, odd widths; the
+# grouped kinds with groups of 16 (8 for uint8 HQQ) so that K can be ragged
+RAGGED = {"int8": [(1, 922, 768), (96, 768, 922), (5, 33, 33), (40, 648, 100),
+                   (7, 256, 96), (130, 640, 1920)],
+          "int4": [(1, 922, 768), (96, 768, 922), (5, 34, 33), (40, 648, 100),
+                   (7, 256, 96), (130, 640, 1920)],
+          "nf4": [(1, 656, 768), (96, 768, 922), (5, 48, 33), (40, 656, 100),
+                  (7, 256, 96), (130, 640, 1920)],
+          "hqq4": [(1, 656, 768), (96, 768, 922), (5, 48, 33), (40, 656, 100),
+                   (7, 256, 96), (130, 640, 1920)],
+          "hqq8": [(1, 648, 768), (96, 768, 922), (5, 40, 33), (40, 648, 100),
+                   (7, 256, 96), (130, 640, 1920)]}
+
+
+def _ragged_case(trait, w):
+    """`_trait_case` with groups small enough for a ragged K."""
+    if trait == "nf4":
+        q = quantize_nf4(w, block_size=16, double_quant=True, kind="nf4")
+        return nf4_matmul, nf4_matmul_ref, "launches", (
+            q.data, effective_block_scale(q).contiguous(), "nf4", 16)
+    if trait in ("hqq4", "hqq8"):
+        bits, attr = (4, "launches") if trait == "hqq4" else (8, "launches_u8")
+        q = quantize_hqq(w, bits=bits, group_size=16 if bits == 4 else 8)
+        return group_asym_matmul, group_asym_matmul_ref, attr, (
+            q.data, q.scale, q.zero, q.block_size)
+    return _trait_case(trait, w)
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("trait", TRAITS)
+def test_matmul_traits_at_ragged_widths(dev, trait, case, dtype):
+    """Every storage trait at widths off the 64-column and 32-row tiles: one
+    launch, within the tolerance of the plain version's largest output."""
+    m, k, n = RAGGED[trait][case]
+    w, x = _weight_and_x(dev, dtype, m, k, n, m + k + n)
+    fn, ref, attr, args = _ragged_case(trait, w)
+    _check_kernel(fn, ref, (fn, attr), x, *args)
+
+
 @pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 @pytest.mark.parametrize("trait", TRAITS)
 @pytest.mark.parametrize("m,k", [(96, 768), (7, 3072), (300, 1024)])
@@ -213,7 +255,9 @@ def test_matmul_two_runs_are_bit_equal(dev, trait, m, k, dtype):
 def test_4bit_wrappers_reject_what_the_kernels_do_not_take(dev):
     """The int4, NF4 and group-asym wrappers raise on every shape, type and
     pointer their kernels do not take; none reroutes to its plain
-    version."""
+    version. An N that is no multiple of 64 and a K/2 that is no multiple
+    of 32 are taken (the kernel predicates its last tiles): they compute,
+    in one launch, what the plain version does."""
     x = torch.zeros(2, 256, device=dev)
     nib = torch.zeros(128, 64, dtype=torch.int8, device=dev)
     col = torch.ones(1, 64, device=dev)
@@ -222,12 +266,13 @@ def test_4bit_wrappers_reject_what_the_kernels_do_not_take(dev):
         int4_matmul(x, torch.zeros(256, 64, dtype=torch.int8, device=dev), col)
     with pytest.raises(ValueError):  # uint8 nibbles
         int4_matmul(x, nib.view(torch.uint8), col)
-    with pytest.raises(ValueError):  # N not a multiple of 64
-        int4_matmul(x, torch.zeros(128, 96, dtype=torch.int8, device=dev),
-                    torch.ones(1, 96, device=dev))
-    with pytest.raises(ValueError):  # K/2 not a multiple of 32
-        int4_matmul(torch.zeros(2, 96, device=dev),
-                    torch.zeros(48, 64, dtype=torch.int8, device=dev), col)
+    g = torch.Generator(device=dev).manual_seed(96)
+    x96 = torch.randn(2, 96, generator=g, device=dev)
+    for xs, ws, cs in ((x, (128, 96), (1, 96)), (x96, (48, 64), (1, 64))):
+        # N not a multiple of 64; K/2 not a multiple of 32: both computed
+        wq = torch.randint(-128, 128, ws, generator=g, device=dev).to(torch.int8)
+        _check_kernel(int4_matmul, int4_matmul_ref, (int4_matmul, "launches"),
+                      xs, wq, torch.rand(cs, generator=g, device=dev) * 0.01)
     with pytest.raises(ValueError):  # a column scale short of N
         int4_matmul(x, nib, col[:, :32])
     with pytest.raises(ValueError):  # nibbles at an offset that breaks 16-byte loads
@@ -281,6 +326,38 @@ def test_log_mel(dev, dtype, b, t, n_mels, seed):
     exact = features.log_mel_f64(wav, n_mels, dtype)
     err_k, err_p = (float((x.double() - exact).abs().max()) for x in (got, ref))
     print(f"log_mel ({b}, {t}) {n_mels} mels {dtype}: from the float64 log-mel, "
+          f"kernel {err_k:.3g}, plain {err_p:.3g}")
+    assert err_k <= err_p + 5e-6
+
+
+def _quiet_windows(b: int, kind: str, seed: int):
+    """Seeded 30 s windows of the kinds a streaming flush or a quiet stream
+    gives the f32-DFT log-mel: `tail<s>` is s seconds of noise x 0.1 and
+    then zeros, `quiet<a>` noise x a throughout."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    wav = rng.standard_normal((b, 480_000)).astype(np.float32)
+    if kind.startswith("tail"):
+        wav[:, int(float(kind[4:]) * 16000):] = 0.0
+        wav *= 0.1
+    else:
+        wav *= float(kind[5:])
+    return torch.from_numpy(wav)
+
+
+@pytest.mark.parametrize("kind", ["tail0.5", "tail2", "tail5", "quiet1e-2", "quiet1e-4"])
+@pytest.mark.parametrize("b", [1, 32])
+def test_log_mel_f32_on_tail_and_quiet_windows(dev, b, kind):
+    """The f32-DFT body at batch 1 and 32 on windows of a streaming flush's
+    kind (a few seconds of audio, then zeros) and on near-silent audio: no
+    further from the float64 log-mel than the plain version + 5e-6."""
+    wav = _quiet_windows(b, kind, b * 7 + len(kind)).to(dev)
+    got = log_mel_cuda(wav, 80, torch.float32)
+    ref = features.log_mel(wav, 80, torch.float32)
+    exact = features.log_mel_f64(wav, 80, torch.float32)
+    err_k, err_p = (float((x.double() - exact).abs().max()) for x in (got, ref))
+    print(f"log_mel f32 ({b}, 480000) {kind}: from the float64 log-mel, "
           f"kernel {err_k:.3g}, plain {err_p:.3g}")
     assert err_k <= err_p + 5e-6
 
@@ -623,10 +700,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                     torch.zeros(64 * 64 + 8, dtype=torch.int8,
                                 device=dev)[8:].view(64, 64),
                     torch.ones(1, 64, device=dev))
-    with pytest.raises(ValueError):  # N not a multiple of 64
-        int8_matmul(torch.zeros(2, 64, device=dev),
-                    torch.zeros(64, 96, dtype=torch.int8, device=dev),
-                    torch.ones(1, 96, device=dev))
+    # N not a multiple of 64: computed (the kernel predicates its last tile)
+    g = torch.Generator(device=dev).manual_seed(64)
+    _check_kernel(int8_matmul, int8_matmul_ref, (int8_matmul, "launches"),
+                  torch.randn(2, 64, generator=g, device=dev),
+                  torch.randint(-128, 128, (64, 96), generator=g,
+                                device=dev).to(torch.int8),
+                  torch.rand(1, 96, generator=g, device=dev) * 0.01)
     with pytest.raises(TypeError):  # float64 is not a kernel dtype
         int8_matmul(torch.zeros(2, 64, device=dev, dtype=torch.float64),
                     torch.zeros(64, 64, dtype=torch.int8, device=dev),
@@ -1381,3 +1461,49 @@ def test_serving_bucket_of_8_on_the_card(dev):
     for i, r in enumerate(res):
         ids = toks[i, 4: lens[i]]
         assert r["tokens"] == ids[ids != arch.eos_token_id].tolist()
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("model", ["large-v3", "small"])
+def test_pruned_model_decodes_on_the_card(dev, model, batch):
+    """Two layers at the model's width after `prune_heads_by_l1(0.5)` and
+    `shrink_ffn(0.3)` (whisper-small keeps 922 FFN units, a ragged width;
+    large-v3 1536), int8 weights, fused qkv, int8 self-KV and cross-KV:
+    every kernel call held against its plain version, no wrapper raising;
+    the pruned head count picks the cross-attention (batch 1: B·H of 10 or
+    6, the one-query kernel; batch 8: 80 or 48, the grouped one)."""
+    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+    from openai_whisper_compression_tpu_torch.prune.structured import (
+        prune_heads_by_l1, shrink_ffn)
+    from openai_whisper_compression_tpu_torch.quant.api import quantize_params
+
+    cs = _chip_smoke()
+    arch = ARCHS[model].replace(encoder_layers=2, decoder_layers=2)
+    params = prune_heads_by_l1(init_params(arch, 0, torch.bfloat16, dev), arch, 0.5)
+    for comp in ("encoder", "decoder"):
+        for li in range(2):
+            params = shrink_ffn(params, comp, li, 0.3)
+    params = fuse_qkv(quantize_params(params, "int8"))
+    ffn, heads = round(0.3 * arch.ffn_dim), arch.decoder_heads // 2
+    assert params["decoder"]["layers"][0]["fc1"]["w"].shape == (arch.d_model, ffn)
+    cfg = DecodeConfig(max_new_tokens=3, suppress_tokens=(arch.eos_token_id,),
+                       kv_int8=True, cross_kv_int8=True)
+    fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(batch)
+    wav = torch.randn(batch, 480_000, generator=g, device=dev) * 0.1
+    shapes: dict = {}
+    with cs.checked_kernel_calls(shapes) as held:
+        toks, lens = fn(params, wav)
+    assert toks.shape[0] == batch and bool((lens == 4 + 3).all())
+    assert held["encoder_attention"] == 2 and held["transpose_quant_kv"] == 2 * 2  # K, V
+    assert any(k[0] == "int8_matmul" and k[-1] == ffn for k in shapes)
+    assert any(k[0] == "int8_matmul" and k[2] == ffn for k in shapes)
+    assert any(k[0] == "encoder_attention" and k[1] == heads for k in shapes)
+    if batch * heads % 16:
+        assert held["decode_cross_attention"] == 2 * 3   # layers x steps
+    else:
+        assert "decode_cross_attention" not in held
+    assert held["decode_cross_attention_grouped"] > 0

@@ -4,8 +4,9 @@ device: `make_transcribe_fn`, `make_speculative_transcribe_fn`,
 (`transcribe_long`, `transcribe_seek`, `transcribe_seek_batch`) default to
 "cuda", and so do the serving workloads (`make_cb_fns`,
 `ContinuousBatcher`, `StreamingTranscriber`, `StreamingPool`,
-`TranscriptionService`); where torch sees no card a call that names no
-device raises instead of quietly returning CPU tensors."""
+`TranscriptionService`), and so do the package API (`load_model`,
+`transcribe`) and `Preset.build`; where torch sees no card a call that
+names no device raises instead of quietly returning CPU tensors."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from openai_whisper_compression_tpu_torch import serving, streaming
+from openai_whisper_compression_tpu_torch import load_model, serving, streaming, transcribe
 from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
 from openai_whisper_compression_tpu_torch.continuous import ContinuousBatcher
 from openai_whisper_compression_tpu_torch.evaluation import longform
@@ -26,6 +27,7 @@ from openai_whisper_compression_tpu_torch.models.cache import init_cache
 from openai_whisper_compression_tpu_torch.models.continuous import make_cb_fns
 from openai_whisper_compression_tpu_torch.models.params import (
     from_numpy, init_params, resolve_device)
+from openai_whisper_compression_tpu_torch.sweep.presets import PRESETS
 
 DEV = "cpu"
 ARCH = ARCHS["test2l"]
@@ -34,8 +36,9 @@ TS_ARCH = ARCHS["test2l-ts"]    # test2l's shapes, with timestamp tokens
 # the entry points that hand back tensors, and the long-form ones (dicts)
 ENTRY_POINTS = {"make_transcribe_fn": make_transcribe_fn, "init_params": init_params,
                 "from_numpy": from_numpy, "init_cache": init_cache,
-                "make_speculative_transcribe_fn": make_speculative_transcribe_fn}
-LONGFORM = {"transcribe_long": longform.transcribe_long,
+                "make_speculative_transcribe_fn": make_speculative_transcribe_fn,
+                "load_model": load_model, "Preset.build": PRESETS["small_int8"].build}
+LONGFORM = {"transcribe": transcribe, "transcribe_long": longform.transcribe_long,
             "transcribe_seek": longform.transcribe_seek,
             "transcribe_seek_batch": longform.transcribe_seek_batch}
 # the serving workloads: constructors and a builder
@@ -57,6 +60,10 @@ def _calls(params):
         "init_cache": lambda **kw: init_cache(params, ARCH, 2, 8, **kw),
         "make_speculative_transcribe_fn": lambda **kw: make_speculative_transcribe_fn(
             ARCH, ARCH, DecodeConfig(max_new_tokens=2), gamma=2, **kw),
+        "load_model": lambda **kw: load_model("test2l", **kw),
+        "Preset.build": lambda **kw: PRESETS["small_int8"].build(arch_override="test2l", **kw),
+        "transcribe": lambda **kw: transcribe(
+            params, ARCH, wav, tok, DecodeConfig(max_new_tokens=2), batch_size=1, **kw),
         "transcribe_long": lambda **kw: longform.transcribe_long(
             params, ARCH, wav, tok, DecodeConfig(max_new_tokens=2), batch_size=1, **kw),
         "transcribe_seek": lambda **kw: longform.transcribe_seek(

@@ -318,12 +318,13 @@ def test_port_imports_without_jax():
 
 
 def test_every_port_module_imports_without_jax():
-    """Every module of the port, and `chip_smoke.py`, imports with jax
-    blocked and loads nothing of the JAX package; no source line imports
-    either."""
+    """Every module of the port, the package itself (its `__init__` holds
+    the package API), and `chip_smoke.py` import with jax blocked and load
+    nothing of the JAX package; no source line imports either."""
     pkg = ROOT / "openai_whisper_compression_tpu_torch"
-    names = sorted("openai_whisper_compression_tpu_torch." + ".".join(
-        p.relative_to(pkg).with_suffix("").parts) for p in pkg.rglob("*.py")
+    names = ["openai_whisper_compression_tpu_torch"] + sorted(
+        "openai_whisper_compression_tpu_torch." + ".".join(
+            p.relative_to(pkg).with_suffix("").parts) for p in pkg.rglob("*.py")
         if p.name != "__init__.py")
     code = ("import sys, importlib; sys.modules['jax'] = None; "
             f"[importlib.import_module(n) for n in {names!r}]; "
