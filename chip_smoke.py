@@ -292,10 +292,40 @@ Phase 7, held part  run inside phase 6, after its held stream passes and
          numbers show the harness at scale, not accuracy); then the shapes
          only phase 7 gives the kernels timed (P7_ENTRIES).
 
+Phase 8  (slice 15, after phase 7's timed part, before phase 6) the
+         training side at whisper-small's full width and depth, seeded
+         bf16 weights, each quantized tree (decoder qkv fused) decoded as
+         one held batch (`p8_decode`: int8 caches, 25 tokens, EOT
+         suppressed, `checked_kernel_calls(mel=True)`, exact
+         launch counts, no activation record made, the first 4 rows
+         against an f32 recompute on the card under the tie rule):
+           gptq-small   `make_calibration_fn` over 4 seeded 30 s clips, then
+                        `quantize_data_aware("gptq_int4")` on the card:
+                        Hessian and solve seconds, the median GPTQ / RTN
+                        objective under each Hessian (<= 1);
+           awq-nf4-small  AWQ's statistics and alpha search on the card,
+                        NF4 weights;
+           smooth-w8a8-small  `smoothquant_w8a8`, batch 96, w8a8 at every
+                        linear;
+           prune-w8a8-small  `activation_guided_ffn_prune(0.3)` (FFN 922)
+                        then `smoothquant_w8a8`: the ragged w8a8 kernel at
+                        decode M and encoder M;
+           mixed-small  Fisher scores of the f32 tree into
+                        `generate_quant_config(6.0)`, int4 and int8 leaves
+                        in one tree;
+           qat-small    `qat_distill(int4, steps=3, batch=2, seq_len=8,
+                        compute_dtype=f32)`: per-step loss and seconds,
+                        peak memory;
+         each run's seconds printed. The card-vs-CPU f32 proofs run at 2
+         layers of full width, queued (`later`): encoder layer 0's fc2
+         GPTQ solve, the first 2 layers' AWQ alphas, their Fisher scores,
+         and QAT's step-0 loss and gradient on the same batch and teacher
+         logits. Then the ragged w8a8 shapes timed (P8_ENTRIES).
+
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
 its launch count, error, times and bound (and, as `name@shape`, the shapes
-only token merging and phases 5, 6 and 7 give a kernel); the preset rows
+only token merging and phases 5, 6, 7 and 8 give a kernel); the preset rows
 are logged as one `phase7 presets {...}` line after phase 6. Needs torch
 with CUDA, numpy and nvcc; never imports jax.
 """
@@ -2492,8 +2522,9 @@ _HELD_BLOCKS: list = []    # the open checked_kernel_calls blocks' HeldLaunches
 @contextlib.contextmanager
 def checked_kernel_calls(shapes: dict, calls: dict | None = None, mel: bool = False):
     """While open, the model's calls of the encoder attention, the cross-KV
-    quantizer, the two cross-attentions, `linear`'s int8 matmul and the two
-    cache updates (with `mel`, the log-mel too) go through shims: each call
+    quantizer, the two cross-attentions, `linear`'s int8, int4, NF4/FP4 and
+    w8a8 matmuls (the w8a8 bit for bit) and the two cache updates (with
+    `mel`, the log-mel too) go through shims: each call
     launches the kernel (counted by its wrapper as always), then holds the
     result against the plain version on the same inputs (the quantizer's
     codes and scales and the updates' caches bit for bit, every output
@@ -2520,9 +2551,9 @@ def checked_kernel_calls(shapes: dict, calls: dict | None = None, mel: bool = Fa
     checks = DeferredChecks()
     wrappers = [att.encoder_attention, ca.transpose_quant_kv,
                 ca.decode_cross_attention_grouped, ca.decode_cross_attention,
-                qm.int8_matmul, sas.decode_self_attention_update,
-                sas.decode_self_attention_update_int8]
-    if mel:
+                qm.int8_matmul, qm.int4_matmul, qm.nf4_matmul, qm.w8a8_matmul,
+                sas.decode_self_attention_update, sas.decode_self_attention_update_int8]
+    if mel:   # last: the frontend's shim launches through wrappers[-1]
         from openai_whisper_compression_tpu_torch.audio import mel_kernel
         wrappers.append(mel_kernel.log_mel_cuda)
     counters = launch_counters()
@@ -2587,12 +2618,24 @@ def checked_kernel_calls(shapes: dict, calls: dict | None = None, mel: bool = Fa
         shapes.setdefault(key, None)
         return out
 
-    def int8_mm(x, w, scale):
-        key = ("int8_matmul", *x.shape, w.shape[1])
-        out = launch(qm.int8_matmul, key, lambda: qm.int8_matmul(x, w, scale))
-        close(f"int8_matmul M={x.shape[0]} K={x.shape[1]} N={w.shape[1]}", out,
-              qm.int8_matmul_ref(x, w, scale))
-        keep(key, x, w, scale)
+    def weight_only(kernel, plain):   # the int8, int4 and NF4/FP4 matmuls
+        def mm(x, w, *args):
+            key = (kernel.__name__, *x.shape, w.shape[1])
+            out = launch(kernel, key, lambda: kernel(x, w, *args))
+            close(f"{kernel.__name__} M={x.shape[0]} K={x.shape[1]} N={w.shape[1]}", out,
+                  plain(x, w, *args))
+            keep(key, x, w, *args)
+            return out
+        return mm
+
+    def w8a8_mm(x, w, scale, act_scale=None):
+        key = ("w8a8_matmul", *x.shape, w.shape[1], act_scale is not None)
+        out = launch(qm.w8a8_matmul, key, lambda: qm.w8a8_matmul(x, w, scale, act_scale))
+        checks.differ(f"w8a8_matmul M={x.shape[0]} K={x.shape[1]} N={w.shape[1]}: differs "
+                      "from its plain version", ((out, qm.w8a8_matmul_ref(x, w, scale,
+                                                                          act_scale)),))
+        held["w8a8_matmul"] = held.get("w8a8_matmul", 0) + 1
+        keep(key, x, w, scale, act_scale)
         return out
 
     def updating(kernel, plain, n_bufs):
@@ -2639,7 +2682,10 @@ def checked_kernel_calls(shapes: dict, calls: dict | None = None, mel: bool = Fa
                (whisper, "transpose_quant_kv", tq),
                (whisper, "decode_cross_attention_grouped", grouped),
                (whisper, "decode_cross_attention", one_query),
-               (lin, "int8_matmul", int8_mm),
+               (lin, "int8_matmul", weight_only(qm.int8_matmul, qm.int8_matmul_ref)),
+               (lin, "int4_matmul", weight_only(qm.int4_matmul, qm.int4_matmul_ref)),
+               (lin, "nf4_matmul", weight_only(qm.nf4_matmul, qm.nf4_matmul_ref)),
+               (lin, "w8a8_matmul", w8a8_mm),
                (decode, "decode_self_attention_update",
                 updating(sas.decode_self_attention_update,
                          sas.decode_self_attention_update_ref, 2)),
@@ -4952,7 +4998,8 @@ def phase7_held(dev, state: dict, results: dict) -> dict:
 
 
 @torch.inference_mode()
-def card_f32_reference(name: str, params, arch, cfg, wav, tokens) -> None:
+def card_f32_reference(name: str, params, arch, cfg, wav, tokens,
+                       phase: str = "phase7") -> None:
     """The first REF_ROWS rows of a full-width preset recomputed in f32 on
     the card through the plain versions (TF32 off: `main` sets it), with the
     same frontend (bf16 DFT) and GELU: the card's bf16 tokens equal, or
@@ -4968,13 +5015,13 @@ def card_f32_reference(name: str, params, arch, cfg, wav, tokens) -> None:
         enc = cpu_enc(params32, arch, wav[:REF_ROWS], device=dev)
         ref, _ = decode.greedy_decode(params32, arch, enc, cfg)
         encs = {r: enc[r: r + 1] for r in range(REF_ROWS)}
-        parted = check_ties(f"phase7 {name} card bf16 vs card f32", params32, arch, cfg,
+        parted = check_ties(f"{phase} {name} card bf16 vs card f32", params32, arch, cfg,
                             wav[:REF_ROWS], tokens[:REF_ROWS], ref.cpu(), 4, encs=encs,
                             device=dev)
     launches = read_launches(counters)
     check(not any(launches.values()), f"{name}: the f32 reference launched "
           f"{launched(launches)}")
-    log(f"phase7 {name}: {REF_ROWS - parted} of {REF_ROWS} rows equal the card f32 "
+    log(f"{phase} {name}: {REF_ROWS - parted} of {REF_ROWS} rows equal the card f32 "
         f"recompute through the plain versions, {parted} part at a tie proven there "
         f"({time.perf_counter() - t0:.1f} s, no kernel launched)")
     del params32
@@ -5043,6 +5090,502 @@ def agreement_at_scale(dev, preset_name: str) -> None:
         f"{res['logit_rel_err']:.4g} ({time.perf_counter() - t0:.1f} s)")
     del comp, base
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 8 (slice 15): data-aware quantization, distillation, QAT and
+# sensitivity on the card
+# ---------------------------------------------------------------------------
+
+P8_BATCH = 32                # one held batch of each run
+P8_W8A8_BATCH = 96           # smooth-w8a8-small: the small-w8a8-dyn run's batch
+P8_CLIPS = 4                 # make_calibration_fn's seeded 30 s clips
+P8_KEEP = 0.3                # activation_guided_ffn_prune: 3072 -> 922 units
+P8_QAT_STEPS = 3
+P8_PROOF_LAYERS = 2          # the card-vs-CPU f32 proofs' depth (full width)
+# - the CPU f32 proofs of phase 8 (f32 on both sides, TF32 off; sums in
+#   other orders through 2 layers and the backward): the QAT loss within
+#   1e-4 relative or 1e-5 absolute (the KL of a student that is its teacher
+#   but for int4 rounding is small, ~1e-3, and the logits' f32 sum-order
+#   noise, ~1e-5 at logits of order 1-10, moves it by ~(p - q)·dz, a few
+#   1e-6), its gradient and the Fisher scores within 1e-3 relative (each
+#   leaf's L2 for the gradient); AWQ's alphas equal or a tie within 1e-6
+#   relative. The card's GPTQ row loop equals the CPU's bit for bit on the
+#   same factor (`run_gptq`).
+P8_LOSS_REL, P8_LOSS_ABS, P8_GRAD_REL, P8_FISHER_REL, P8_TIE_REL = (
+    1e-4, 1e-5, 1e-3, 1e-3, 1e-6)
+# kernels-line entries for the ragged w8a8 shapes only phase 8 gives the
+# kernel (whisper-small's FFN of 922 units after activation_guided_ffn_prune):
+# (entry name, KERNELS entry, phase-8 run, `checked_kernel_calls` key)
+P8_ENTRIES = [
+    (f"w8a8_matmul@ffn922-fc1-M{P8_BATCH}", "w8a8_matmul", "prune-w8a8-small",
+     ("w8a8_matmul", P8_BATCH, 768, 922, False)),
+    (f"w8a8_matmul@ffn922-fc2-M{P8_BATCH}", "w8a8_matmul", "prune-w8a8-small",
+     ("w8a8_matmul", P8_BATCH, 922, 768, False)),
+    (f"w8a8_matmul@ffn922-fc1-M{P8_BATCH * 1500}", "w8a8_matmul", "prune-w8a8-small",
+     ("w8a8_matmul", P8_BATCH * 1500, 768, 922, False)),
+    (f"w8a8_matmul@ffn922-fc2-M{P8_BATCH * 1500}", "w8a8_matmul", "prune-w8a8-small",
+     ("w8a8_matmul", P8_BATCH * 1500, 922, 768, False)),
+]
+_MATMUL_OF_KIND = {"int8_pc": "int8_matmul", "int4_pack": "int4_matmul",
+                   "nf4": "nf4_matmul"}
+
+
+def p8_clips(arch):
+    """The calibration set: P8_CLIPS seeded 30 s clips (`waveforms`) as
+    utterances with seeded reference texts."""
+    from openai_whisper_compression_tpu_torch.evaluation.data import Utterance
+
+    wav = waveforms(SEED + 80, P8_CLIPS)
+    words = ["the", "quick", "brown", "fox", "jumps", "over", "a", "lazy", "dog"]
+    return [Utterance(audio=w, text=" ".join(words[i:] + words[:i]), duration=AUDIO_S,
+                      uid=f"p8-{i}") for i, w in enumerate(wav)]
+
+
+def cut_layers(params, arch, n: int):
+    """The first `n` encoder and decoder layers of a tree (leaves shared),
+    with its arch: the full-width, shallow tree of the CPU f32 proofs."""
+    from openai_whisper_compression_tpu_torch.models.params import copy_tree
+
+    out = copy_tree(params)
+    for comp in ("encoder", "decoder"):
+        out[comp]["layers"] = out[comp]["layers"][:n]
+    return out, arch.replace(encoder_layers=n, decoder_layers=n)
+
+
+def p8_exact(arch, params, batch: int, path) -> dict:
+    """Exact launches of one batch through `make_transcribe_fn` with int8
+    caches, 25 tokens: `expected_launches` for the attention kernels and the
+    w8a8 matmul, the mel once, the cross-KV quantizer for K and V of each
+    decoder layer, and each weight-only kernel once for each decoder linear
+    of its kind at the prefill and every step (the cross K and V and every
+    encoder linear run at encoder M, above the kernels' threshold)."""
+    from openai_whisper_compression_tpu_torch.models.params import named_leaves
+    from openai_whisper_compression_tpu_torch.ops.qtensor import QTensor
+
+    exact = expected_launches(arch, path, [NEW_TOKENS])
+    exact.update({"log_mel_cuda": 1, "transpose_quant_kv": 2 * arch.decoder_layers})
+    for name, leaf in named_leaves(params["decoder"]):
+        if (isinstance(leaf, QTensor) and leaf.act is None and name.endswith(".w")
+                and not name.endswith(("cross.k.w", "cross.v.w"))):
+            k = _MATMUL_OF_KIND[leaf.kind]
+            exact[k] = exact.get(k, 0) + NEW_TOKENS + 1
+    return exact
+
+
+def p8_decode(dev, name: str, arch, params, batch: int, path, seed: int) -> dict:
+    """One held batch (`checked_kernel_calls(mel=True)`): seeded
+    30 s clips through `make_transcribe_fn` (bf16 DFT mel, tanh GELU, int8
+    self-KV and cross-KV, greedy 25 tokens, EOT suppressed), every kernel
+    call held against its plain version, launch counts exact, no activation
+    record made (`capture.record` is never called outside a capture); then
+    the first REF_ROWS rows recomputed in f32 on the card through the plain
+    versions, tokens equal or parted at a proven tie."""
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+    from openai_whisper_compression_tpu_torch.utils import capture
+
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,), **KV8)
+    fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+    wav = torch.from_numpy(waveforms(seed, batch)).to(dev)
+    records = []
+    shapes: dict = {}
+    calls: dict = {}
+    t0 = time.perf_counter()
+    with patched((capture, "record", lambda *a: records.append(a[0]))), \
+            checked_kernel_calls(shapes, calls, mel=True) as held:
+        counters = zero_launches()
+        with torch.inference_mode():
+            toks, lens = fn(params, wav)
+        toks, lens = toks.cpu(), lens.cpu()
+        launches = read_launches(counters)
+    secs = time.perf_counter() - t0
+    check(not records, f"{name}: a decode made activation records {records[:3]}")
+    check(toks.shape[0] == batch and bool((lens == 4 + NEW_TOKENS).all())
+          and int(toks.max()) < arch.vocab_size,
+          f"{name}: tokens {tuple(toks.shape)} or lengths {lens.tolist()}")
+    exact = p8_exact(arch, params, batch, path)
+    log(f"phase8 {name}: held batch of {batch} in {secs:.2f} s; launches "
+        f"{json.dumps(launched(launches))}; {held_summary(held, shapes)}")
+    check_launches(name, launches, path, exact)
+    card_f32_reference(name, params, arch, cfg, wav, toks, phase="phase8")
+    return {"launches": launches, "shapes": shapes, "calls": calls, "held_s": secs}
+
+
+def gptq_objective(w, q, h) -> float:
+    """tr((W - Ŵ)^T H (W - Ŵ)) of an int4 or int8 QTensor `q` of w, in f32."""
+    from openai_whisper_compression_tpu_torch.ops.qtensor import dequantize
+
+    e = w.float() - dequantize(q, torch.float32)
+    return float(torch.einsum("ij,ik,kj->", e, h, e))
+
+
+def run_gptq(dev, arch, run_cal) -> dict:
+    """gptq-small: `quantize_data_aware("gptq_int4")` on the card (Hessians
+    from `make_calibration_fn`'s pass, the solve of 192 weights), timed in
+    its two parts; the median over the weights of the GPTQ / round-to-
+    nearest objective under each Hessian must be <= 1. The card's solve of
+    encoder layer 0's fc2 (K = 3072) is held against the CPU's (queued): the
+    row loop bit for bit on the card's factor, the factors' difference and
+    the codes over each reported, both below round-to-nearest."""
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.models.params import init_params, named_leaves
+    from openai_whisper_compression_tpu_torch.quant import gptq
+    from openai_whisper_compression_tpu_torch.quant.api import quantize_data_aware
+    from openai_whisper_compression_tpu_torch.ops.qtensor import QTensor, pack_int_sub8
+    from openai_whisper_compression_tpu_torch.quant.core import quantize_int_sub8
+
+    params = init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev)
+    kept, t = {}, {}
+    real = gptq.collect_hessians
+
+    def timed_hessians(*a, **kw):
+        t0 = time.perf_counter()
+        kept.update(real(*a, **kw))
+        torch.cuda.synchronize()
+        t["hessians_s"] = time.perf_counter() - t0
+        t["solve_from"] = time.perf_counter()
+        return kept
+
+    t0 = time.perf_counter()
+    with patched((gptq, "collect_hessians", timed_hessians)):
+        q = quantize_data_aware(params, arch, "gptq_int4", run_cal)
+    torch.cuda.synchronize()
+    t["solve_s"] = time.perf_counter() - t.pop("solve_from")
+    total = time.perf_counter() - t0
+    leaves = dict(named_leaves(params))
+    ratios = []
+    for name, leaf in named_leaves(q):
+        if name in kept:
+            h = kept[name]
+            check(leaf.kind == "int4_pack", f"gptq-small: {name} is {leaf.kind}")
+            ratios.append(gptq_objective(leaves[name], leaf, h)
+                          / gptq_objective(leaves[name], quantize_int_sub8(leaves[name], 4), h))
+    med = float(np.median(ratios))
+    log(f"phase8 gptq-small: {len(kept)} Hessians in {t['hessians_s']:.2f} s, {len(ratios)} "
+        f"solves in {t['solve_s']:.2f} s ({total:.2f} s in all); GPTQ / RTN objective median "
+        f"{med:.4f}, min {min(ratios):.4f}, max {max(ratios):.4f}")
+    check(len(ratios) == 6 * arch.encoder_layers + 10 * arch.decoder_layers and med <= 1.0,
+          f"gptq-small: {len(ratios)} weights, objective ratio median {med}")
+    name = "encoder.layers.0.fc2.w"
+    w, h = leaves[name].float(), kept[name]
+    qc, sc, _ = gptq.gptq_solve(w, h, bits=4)
+    uc, _ = gptq._factor(h, 0.01)
+    w_cpu, h_cpu, u_cpu = w.cpu(), h.cpu(), uc.cpu()
+    qc, sc = qc.cpu(), sc.cpu()
+
+    def proof():
+        # the row loop is plain IEEE arithmetic: the CPU's on the card's
+        # factor gives the card's codes bit for bit; the factor itself
+        # (an f32 inverse of an ill-conditioned matrix) is LAPACK's or
+        # cuSOLVER's, and codes solved over either are GPTQ solutions of the
+        # same problem, each below round-to-nearest's objective
+        same = gptq._quantize_rows(w_cpu, sc, u_cpu, 7)
+        qp, sp, okp = gptq.gptq_solve(w_cpu, h_cpu, bits=4)
+        up, _ = gptq._factor(h_cpu, 0.01)
+        diff = (qc.int() - qp.int()).abs()
+        rtn = quantize_int_sub8(w_cpu, 4)
+        objs = [gptq_objective(w_cpu, QTensor(data=pack_int_sub8(q.int(), 4), scale=s,
+                                               kind="int4_pack", bits=4, shape=tuple(w.shape)),
+                               h_cpu) for q, s in ((qc, sc), (qp, sp))]
+        o_rtn = gptq_objective(w_cpu, rtn, h_cpu)
+        log(f"phase8 gptq-small {name}: the CPU's row loop on the card's factor gives the "
+            f"card's codes {'bit for bit' if torch.equal(same, qc) else 'NOT'}; the f32 "
+            f"factors differ by {float((u_cpu - up).norm() / up.norm()):.3g} relative, "
+            f"and {int((diff > 0).sum())} of {diff.numel()} codes solved over them (most "
+            f"{int(diff.max())}); objective card {objs[0]:.6g}, CPU {objs[1]:.6g}, RTN {o_rtn:.6g}")
+        check(torch.equal(same, qc) and torch.equal(sc, sp) and bool(okp)
+              and max(objs) < o_rtn, f"gptq-small: the card's solve of {name} is not the CPU's")
+    later("phase8 gptq-small", proof)
+    return {"params": fuse_qkv(q), "quantize_s": total, **t, "objective_median": med}
+
+
+def run_awq(dev, arch, run_cal) -> dict:
+    """awq-nf4-small: AWQ's statistics and alpha search on the card, NF4
+    weights; the search of the first P8_PROOF_LAYERS layers' sites on the
+    CPU on the same statistics and weights (queued): alphas equal, or the
+    two candidates' errors a tie."""
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.models.params import init_params, tree_to
+    from openai_whisper_compression_tpu_torch.quant import smooth
+    from openai_whisper_compression_tpu_torch.quant.api import quantize_params
+
+    params = init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    stats = smooth.collect_ln_stats(params, arch, run_cal)
+    t_stats = time.perf_counter() - t0
+    smoothed, alphas = smooth.awq_search(params, arch, stats=stats, method="nf4")
+    q = quantize_params(smoothed, "nf4")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    log(f"phase8 awq-nf4-small: statistics of {len(stats)} sites in {t_stats:.2f} s, search "
+        f"and NF4 in {total - t_stats:.2f} s; alphas {json.dumps(alphas)}")
+    cut, arch2 = cut_layers(params, arch, P8_PROOF_LAYERS)
+    cut = tree_to(cut, "cpu", torch.bfloat16)
+    keys = smooth._site_keys(P8_PROOF_LAYERS, P8_PROOF_LAYERS)
+
+    def proof():
+        _, cpu_alphas = smooth.awq_search(cut, arch2, stats={k: stats[k] for k in keys},
+                                          method="nf4")
+        ties = 0
+        for key in keys:
+            if cpu_alphas[key] != alphas[key]:
+                quantizer = smooth._resolve_quantizer("nf4")
+                site = next(s for s in smooth._sites(cut) if s[0] == key)
+                ws = [c["w"].float() for c in site[2]]
+                x = torch.from_numpy(stats[key]["rows"])
+                ax = np.maximum(stats[key]["amax"], 1e-8)
+                errs = []
+                for a in (alphas[key], cpu_alphas[key]):
+                    s = ax ** a
+                    s = smooth._safe_scale(s / np.exp(np.mean(np.log(np.maximum(s, 1e-8)))))
+                    errs.append(smooth._site_quant_error(x, ws, [x @ w for w in ws], s,
+                                                         quantizer))
+                log(f"phase8 awq-nf4-small {key}: card alpha {alphas[key]} vs CPU "
+                    f"{cpu_alphas[key]}, CPU errors {errs}")
+                check(abs(errs[0] - errs[1]) <= P8_TIE_REL * max(errs),
+                      f"awq-nf4-small {key}: alphas differ and are no tie")
+                ties += 1
+        log(f"phase8 awq-nf4-small: the first {len(keys)} sites' alphas on the CPU equal the "
+            f"card's at {len(keys) - ties}, a tie at {ties}")
+    later("phase8 awq-nf4-small", proof)
+    return {"params": fuse_qkv(q), "quantize_s": total}
+
+
+def run_smooth_w8a8(dev, arch, run_cal, prune: bool) -> dict:
+    """smooth-w8a8-small: `quantize_data_aware("smoothquant_w8a8")`, w8a8 at
+    every linear. prune-w8a8-small: `activation_guided_ffn_prune(0.3)` first
+    (FFN 3072 -> 922 units: the ragged w8a8 kernel at decode and encoder M)."""
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+    from openai_whisper_compression_tpu_torch.quant.api import quantize_data_aware
+    from openai_whisper_compression_tpu_torch.sensitivity.activation import (
+        activation_guided_ffn_prune)
+    from openai_whisper_compression_tpu_torch.sensitivity.gradient import (
+        make_synthetic_batches)
+
+    params = init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    if prune:
+        batches = make_synthetic_batches(arch, n_batches=1, batch=2, seq=8, seed=SEED)
+        params = activation_guided_ffn_prune(params, arch, batches, keep_fraction=P8_KEEP)
+        ffn = params["encoder"]["layers"][0]["fc1"]["w"].shape[1]
+        check(ffn == round(P8_KEEP * arch.ffn_dim), f"prune-w8a8-small: FFN {ffn}")
+    q = quantize_data_aware(params, arch, "smoothquant_w8a8", run_cal)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    ffn = params["encoder"]["layers"][0]["fc1"]["w"].shape[1]
+    log(f"phase8 {'prune' if prune else 'smooth'}-w8a8-small: "
+        f"{f'activation-guided FFN prune to {ffn} units, ' if prune else ''}SmoothQuant "
+        f"statistics, fold and w8a8 in {total:.2f} s")
+    return {"params": fuse_qkv(q), "quantize_s": total}
+
+
+def run_mixed(dev, arch) -> dict:
+    """mixed-small: Fisher scores of the f32 tree on the card into
+    `generate_quant_config(6.0)` over int4/int8, applied to the bf16 tree
+    (int4 and int8 leaves in one tree). The scores of the first
+    P8_PROOF_LAYERS layers (cut tree, full width) on the card against the
+    CPU's (queued)."""
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.models.params import (init_params, tree_cast,
+                                                                     tree_to)
+    from openai_whisper_compression_tpu_torch.quant.mixed import (apply_quant_config,
+                                                                  generate_quant_config)
+    from openai_whisper_compression_tpu_torch.sensitivity.gradient import (
+        compute_fisher_sensitivity, make_synthetic_batches)
+
+    params = init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev)
+    batches = make_synthetic_batches(arch, n_batches=1, batch=2, seq=8, seed=SEED)
+    t0 = time.perf_counter()
+    scores = compute_fisher_sensitivity(tree_cast(params, torch.float32), arch, batches)
+    t_fisher = time.perf_counter() - t0
+    cfg = generate_quant_config(params, scores, 6.0)
+    q = apply_quant_config(params, cfg)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    log(f"phase8 mixed-small: Fisher scores of {len(scores)} leaves in {t_fisher:.2f} s, "
+        f"config and quantize in {total - t_fisher:.2f} s: avg_bits {cfg['avg_bits']}, "
+        f"counts {json.dumps(cfg['counts'])}")
+    check(cfg["avg_bits"] <= 6.0 and all(v > 0 for v in cfg["counts"].values()),
+          f"mixed-small: config {cfg['avg_bits']} {cfg['counts']}")
+    cut, arch2 = cut_layers(tree_cast(params, torch.float32), arch, P8_PROOF_LAYERS)
+    card = compute_fisher_sensitivity(cut, arch2, batches)
+    cut_cpu = tree_to(cut, "cpu", torch.float32)
+
+    def proof():
+        with torch.inference_mode(False):
+            ref = compute_fisher_sensitivity(cut_cpu, arch2, batches)
+        rel = {k: abs(card[k] - v) / v for k, v in ref.items() if v > 0}
+        worst = max(rel, key=rel.get)
+        log(f"phase8 mixed-small: {P8_PROOF_LAYERS}-layer Fisher scores card vs CPU f32 over "
+            f"{len(ref)} leaves: worst relative {rel[worst]:.3g} ({worst}; bound "
+            f"{P8_FISHER_REL})")
+        check(set(card) == set(ref) and all(card[k] > 0 for k in rel)
+              and rel[worst] <= P8_FISHER_REL, f"mixed-small: Fisher scores off at {worst}")
+    later("phase8 mixed-small", proof)
+    return {"params": fuse_qkv(q), "quantize_s": total, "config": cfg}
+
+
+def run_qat(dev, arch) -> dict:
+    """qat-small: `qat_distill(int4, steps=3, batch=2, seq_len=8,
+    compute_dtype=f32)` of the seeded bf16 tree toward itself: the loss and
+    seconds of each step and the peak memory. Step 0's loss and gradient of
+    the first P8_PROOF_LAYERS layers (cut tree, full width) on the card,
+    held against a CPU f32 recompute on the same batch and teacher logits
+    (queued)."""
+    from openai_whisper_compression_tpu_torch import distill
+    from openai_whisper_compression_tpu_torch.evaluation.harness import samples_for_arch
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.models.params import (
+        copy_tree, init_params, named_leaves, set_leaf, tree_to)
+    from openai_whisper_compression_tpu_torch.quant.qat import make_ste_transform, qat_distill
+
+    params = init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev)
+    stamps = []
+    real = distill.kl_loss
+
+    def stamped(*a, **kw):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return real(*a, **kw)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with patched((distill, "kl_loss", stamped)):
+        q, history = qat_distill(params, params, arch, method="int4", steps=P8_QAT_STEPS,
+                                 batch=2, seq_len=8, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    step_s = [b - a for a, b in zip(stamps, stamps[1:] + [time.perf_counter()])]
+    log(f"phase8 qat-small: {P8_QAT_STEPS} steps, losses {[round(x, 6) for x in history]}, "
+        f"seconds a step {[round(x, 3) for x in step_s]} (with the final int4 quantize: "
+        f"{total:.2f} s in all), peak {peak:.1f} MiB")
+    check(len(history) == P8_QAT_STEPS and all(np.isfinite(history)),
+          f"qat-small: losses {history}")
+
+    cut, arch2 = cut_layers(params, arch, P8_PROOF_LAYERS)
+    rng = np.random.default_rng(SEED)
+    mel, tokens = distill._synthetic_batch(rng, arch2, 2, 8, samples_for_arch(arch2), dev)
+    with torch.no_grad():
+        t_logits = distill.decode_logits(cut, arch2, tokens, distill.encode(cut, arch2, mel))
+
+    def loss_and_grads(tree, batch):
+        leaves = {n: t.detach().float().clone().requires_grad_(True)
+                  for n, t in named_leaves(tree)}
+        student = copy_tree(tree)
+        for n, t in leaves.items():
+            set_leaf(student, n, t)
+        with torch.enable_grad():
+            loss = distill.kl_loss(make_ste_transform(student, "int4")(student),
+                                   batch[2], arch2, batch[0], batch[1])
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return float(loss.detach()), {n: g.cpu() for n, g in zip(leaves, grads)}
+
+    card_loss, card_grads = loss_and_grads(cut, (mel, tokens, t_logits))
+    cut_cpu = tree_to(cut, "cpu", torch.float32)
+    batch_cpu = (mel.cpu(), tokens.cpu(), t_logits.cpu())
+
+    def proof():
+        with torch.inference_mode(False):
+            ref_loss, ref_grads = loss_and_grads(cut_cpu, batch_cpu)
+        rel_loss = abs(card_loss - ref_loss) / abs(ref_loss)
+        loss_ok = abs(card_loss - ref_loss) <= max(P8_LOSS_REL * abs(ref_loss), P8_LOSS_ABS)
+        rel = {n: float((card_grads[n] - g).norm() / g.norm()) for n, g in ref_grads.items()
+               if bool(g.abs().sum() > 0)}
+        zero = [n for n, g in ref_grads.items() if not bool(g.abs().sum() > 0)]
+        worst = max(rel, key=rel.get)
+        log(f"phase8 qat-small step 0 at {P8_PROOF_LAYERS} layers: loss card {card_loss:.6g} "
+            f"vs CPU f32 {ref_loss:.6g} (relative {rel_loss:.3g}, bound {P8_LOSS_REL} or "
+            f"{P8_LOSS_ABS} absolute); "
+            f"gradient of {len(rel)} leaves, worst relative L2 {rel[worst]:.3g} ({worst}; "
+            f"bound {P8_GRAD_REL}); {len(zero)} leaves with a zero gradient on both")
+        check(loss_ok and rel[worst] <= P8_GRAD_REL
+              and all(not bool(card_grads[n].abs().sum() > 0) for n in zero)
+              and all(bool(card_grads[n].abs().sum() > 0) for n in rel),
+              f"qat-small: step 0 off (loss {rel_loss:.3g}, gradient {rel[worst]:.3g} at {worst})")
+    later("phase8 qat-small", proof)
+    return {"params": fuse_qkv(q), "quantize_s": total, "losses": history, "step_s": step_s,
+            "peak_mib": peak}
+
+
+def time_w8a8_shape(what: str, args: tuple) -> dict:
+    """The w8a8 matmul at a shape phase 8 gave it (the first held call's
+    inputs): bit-equal to its plain version, timed beside it, quantize +
+    `torch._int_mm` + epilogue where cuBLASLt takes the widths (else no
+    library time), and its bound."""
+    from openai_whisper_compression_tpu_torch.ops import quant_matmul as qm
+
+    x, w, scale, act_scale = args
+    m, k = x.shape
+    n = w.shape[1]
+    got = qm.w8a8_matmul(x, w, scale, act_scale)
+    check(torch.equal(got, qm.w8a8_matmul_ref(x, w, scale, act_scale)),
+          f"{what}: differs from the plain version")
+    few = {"warmup": 1, "iters": 3} if m > 1024 else {}
+    t_k = cuda_ms(lambda: qm.w8a8_matmul(x, w, scale, act_scale), **few)
+    t_p = cuda_ms(lambda: qm.w8a8_matmul_ref(x, w, scale, act_scale), **few)
+    try:
+        int_mm_library(x, w, scale, act_scale)
+        t_l = cuda_ms(lambda: int_mm_library(x, w, scale, act_scale), **few)
+    except RuntimeError as e:   # cuBLASLt's int8 product wants K and N in multiples
+        log(f"phase8 {what}: torch._int_mm refuses M={m} K={k} N={n} ({str(e)[:80]})")
+        t_l = None
+    least = bound(nbytes(x, w, scale, got), 2 * m * k * n / INT8_OPS)
+    log(f"phase8 {what} w8a8_matmul M={m} K={k} N={n}: equal to the plain version bit for "
+        f"bit; kernel {t_k:.4f} ms plain {t_p:.4f} ms quantize+torch._int_mm+epilogue "
+        f"{'n/a' if t_l is None else f'{t_l:.4f} ms'} least {least['bound_ms']:.5f} ms "
+        f"({least['bound_by']})")
+    return {"max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p, **least, "library_ms": t_l}
+
+
+def phase8(dev, results: dict) -> dict:
+    """Phase 8 (slice 15): the data-aware quantizers, distillation with QAT
+    and the sensitivity scorers on the card at whisper-small's full width
+    and depth, seeded; each quantized tree decoded as one held batch
+    (`p8_decode`). The card-vs-CPU f32 proofs run at P8_PROOF_LAYERS layers,
+    queued (`later`). Returns the runs' summaries."""
+    from openai_whisper_compression_tpu_torch.config import ARCHS
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_calibration_fn
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import default_tokenizer
+
+    arch = ARCHS[ARCH]
+    run_cal = make_calibration_fn(arch, p8_clips(arch), default_tokenizer(arch),
+                                  batch_size=P8_CLIPS, n_tokens=8, device=dev)
+    mm8 = ("log_mel_cuda", "encoder_attention", "transpose_quant_kv",
+           "decode_cross_attention_grouped_int8", "decode_self_attention_update_int8")
+    runs = [
+        ("gptq-small", lambda: run_gptq(dev, arch, run_cal), P8_BATCH, mm8 + ("int4_matmul",)),
+        ("awq-nf4-small", lambda: run_awq(dev, arch, run_cal), P8_BATCH, mm8 + ("nf4_matmul",)),
+        ("smooth-w8a8-small", lambda: run_smooth_w8a8(dev, arch, run_cal, False),
+         P8_W8A8_BATCH, mm8 + ("w8a8_matmul",)),
+        ("prune-w8a8-small", lambda: run_smooth_w8a8(dev, arch, run_cal, True), P8_BATCH,
+         mm8 + ("w8a8_matmul",)),
+        ("mixed-small", lambda: run_mixed(dev, arch), P8_BATCH,
+         mm8 + ("int4_matmul", "int8_matmul")),
+        ("qat-small", lambda: run_qat(dev, arch), P8_BATCH, mm8 + ("int4_matmul",)),
+    ]
+    summaries = {}
+    for i, (name, build, batch, path) in enumerate(runs):
+        t0 = time.perf_counter()
+        built = build()
+        params = built.pop("params")
+        summaries[name] = {**built, **p8_decode(dev, name, arch, params, batch, path,
+                                                SEED + 81 + i)}
+        summaries[name]["batch"] = batch
+        del params
+        torch.cuda.empty_cache()
+        log(f"phase8 {name}: {time.perf_counter() - t0:.1f} s in all")
+    calls = summaries["prune-w8a8-small"]["calls"]
+    shapes = summaries["prune-w8a8-small"]["shapes"]
+    for entry, _, run, key in P8_ENTRIES:
+        check(key in shapes, f"{run}: the w8a8 kernel never ran at {key}")
+        results[entry] = {**time_w8a8_shape(entry, shapes[key]),
+                          "launches": calls[key]["w8a8_matmul"]}
+    for s in summaries.values():
+        del s["shapes"], s["calls"]
+    return summaries
 
 
 @torch.inference_mode()
@@ -5278,6 +5821,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     p7 = phase7_timed(dev, summaries)
     phase_done("phase7 timed part")
+    # the slice-15 runs; their CPU f32 proofs join the queue that runs
+    # inside phase 6
+    torch.cuda.empty_cache()
+    summaries.update(phase8(dev, results))
+    phase_done("phase8")
     rows = {}
     summaries.update(phase6(dev, *small_int8, results,
                             between=lambda: rows.update(phase7_held(dev, p7, results))))
@@ -5311,7 +5859,7 @@ def main() -> int:
         {**entries[base], "name": name,
          **{k: results[name][k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")}}
-        for name, base, _, _ in P5_ENTRIES + P6_ENTRIES + P7_ENTRIES]
+        for name, base, _, _ in P5_ENTRIES + P6_ENTRIES + P7_ENTRIES + P8_ENTRIES]
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -112,6 +112,7 @@ def log_mel_cuda(wav: torch.Tensor, n_mels: int = 80,
     if not wav.is_cuda:
         return finish_log_mel(mel_log10_ref(frame_waveform(wav), n_mels, dft_dtype))
     name = "log_mel_cuda"
+    kernels.refuse_grad(name, wav)
     kernels.require(wav.dim() == 2 and 1 <= wav.shape[0] <= 65535, name,
                     f"wav must be (B, T) with B <= 65535, got {tuple(wav.shape)}")
     kernels.require(wav.shape[1] > N_FFT // 2, name,

@@ -81,6 +81,18 @@
 //   KB) in shared memory and walks m-tiles: a stage brings only xq's 16 KB,
 //   by TMA, and the producer warpgroup has nothing to turn around after the
 //   start.
+//
+// Ragged widths (K or N not a multiple of 16, e.g. an FFN of 922 units after
+// activation-guided pruning) run a second instantiation of every body
+// (RAGGED): x is read an element at a time where its rows are not 16-byte
+// aligned or end inside a chunk of 8, W's stored bytes one at a time where
+// its rows are not (N % 16 for the cp.async chunks, N % 4 for the 4-byte
+// words of the large path), outputs one at a time where a pair or a group of
+// 4 would cross the row's end or an alignment. The quantize pass writes xq
+// with its rows padded with zeros to Kp = K rounded up to 16, so its tensor
+// map keeps the 16-byte row stride TMA needs. Whole-tile shapes run the
+// aligned instantiation, the code as it was. The integer sums are the same
+// either way, so both stay bit-equal to the plain version.
 #include <cooperative_groups.h>
 
 #include "hopper.cuh"
@@ -117,6 +129,34 @@ __device__ __forceinline__ void load8(const T* p, float (&f)[8]) {
   const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
   for (int i = 0; i < 8; ++i) f[i] = owc_to_float(e[i]);
+}
+
+// x[k .. k + 7] of a row of K as f32, 0 past K: the 16-byte loads of
+// `load8` where `vec` (K % 8 == 0: rows 16-byte aligned, no chunk crosses K)
+// or the call is aligned, else one value at a time.
+template <bool RAGGED, typename T>
+__device__ __forceinline__ void load8x(const T* row, int k, int K, bool vec, float (&f)[8]) {
+  if (k >= K) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = 0.0f;
+  } else if (!RAGGED || vec) {
+    load8(row + k, f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = k + i < K ? owc_to_float(row[k + i]) : 0.0f;
+  }
+}
+
+// Bytes n .. n + 4 * WORDS - 1 of the stored row `src` of N as words, low
+// byte first, 0 past N (the ragged path's loads of W).
+template <int WORDS>
+__device__ __forceinline__ void load_bytes(const int8_t* src, int n, int N,
+                                           uint32_t (&v)[WORDS]) {
+#pragma unroll
+  for (int b = 0; b < 4 * WORDS; ++b) {
+    if (b % 4 == 0) v[b / 4] = 0u;
+    if (n + b < N) v[b / 4] |= (uint32_t)(uint8_t)__ldg(src + n + b) << (8 * (b % 4));
+  }
 }
 
 // The 8 int8 codes of 8 values under `scale`, packed low byte first.
@@ -174,7 +214,7 @@ inline int s_smem_bytes(int klen) {
   return S_NS * S_STAGE + S_BM * (klen + 16);
 }
 
-template <typename T>
+template <typename T, bool RAGGED>
 __global__ void __launch_bounds__(S_THREADS)
 w8a8_small(const T* __restrict__ x, const int8_t* __restrict__ w,
            const float* __restrict__ sw, const float* __restrict__ act_scale,
@@ -190,6 +230,8 @@ w8a8_small(const T* __restrict__ x, const int8_t* __restrict__ w,
   const int AS = klen + 16;  // slab row stride: a fragment load hits 32 banks
   int8_t* slab = reinterpret_cast<int8_t*>(smem + S_NS * S_STAGE);
   const unsigned ring = smem_u32(smem);
+  // ragged: which pieces may still move 16 bytes (or 4 outputs) at a time
+  const bool xvec = K % 8 == 0, wvec = N % 16 == 0, ovec = N % 4 == 0;
 
   // W tile t (64 stored rows x 128 columns) into stage t % S_NS; rows past K
   // and columns past N are zero filled; a group is committed either way
@@ -200,8 +242,15 @@ w8a8_small(const T* __restrict__ x, const int8_t* __restrict__ w,
         const int c = tid + i * S_THREADS, r = c >> 3, ch = c & 7;
         const int k = kb + t * S_BK + r, n = n0 + ch * 16;
         const bool ok = k < K && n < N;
-        cp_async16(ring + (t % S_NS) * S_STAGE + s_chunk(r, ch),
-                   ok ? w + (size_t)k * N + n : w, ok ? 16 : 0);
+        if (!RAGGED || wvec) {
+          cp_async16(ring + (t % S_NS) * S_STAGE + s_chunk(r, ch),
+                     ok ? w + (size_t)k * N + n : w, ok ? 16 : 0);
+        } else {  // rows not 16-byte aligned: a byte at a time, stored plainly
+          uint32_t v[4];
+          load_bytes<4>(w + (size_t)k * N, n, ok ? N : n, v);
+          *reinterpret_cast<uint4*>(smem + (t % S_NS) * S_STAGE + s_chunk(r, ch)) =
+              make_uint4(v[0], v[1], v[2], v[3]);
+        }
       }
     }
     cp_async_commit();
@@ -224,7 +273,7 @@ w8a8_small(const T* __restrict__ x, const int8_t* __restrict__ w,
       const int r = e / cpr, k = kb + (e % cpr) * 8;
       if (m0 + r < M && k < K) {
         float f[8];
-        load8(x + (size_t)(m0 + r) * K + k, f);
+        load8x<RAGGED>(x + (size_t)(m0 + r) * K, k, K, xvec, f);
         atomicMax(reinterpret_cast<int*>(&amax[r]), __float_as_int(absmax8(f, 0.0f)));
       }
     }
@@ -248,7 +297,7 @@ w8a8_small(const T* __restrict__ x, const int8_t* __restrict__ w,
     uint2 q = make_uint2(0u, 0u);
     if (m0 + r < M && k < K) {
       float f[8];
-      load8(x + (size_t)(m0 + r) * K + k, f);
+      load8x<RAGGED>(x + (size_t)(m0 + r) * K, k, K, xvec, f);
       q = quant8(f, sxs[r]);
     }
     *reinterpret_cast<uint2*>(slab + r * AS + c * 8) = q;
@@ -311,7 +360,7 @@ w8a8_small(const T* __restrict__ x, const int8_t* __restrict__ w,
   for (int e = rank + splits * tid; e < S_BM * (S_BN / 4); e += splits * S_THREADS) {
     const int row = e / (S_BN / 4), c4 = (e % (S_BN / 4)) * 4;
     const int m = m0 + row, n = n0 + c4;
-    if (m >= M || n >= N) continue;  // N % 16 == 0: n + 3 < N too
+    if (m >= M || n >= N) continue;  // aligned (N % 16 == 0): n + 3 < N too
     int4 s = make_int4(0, 0, 0, 0);
     for (int sp = 0; sp < splits; ++sp) {
       const int4 v = *reinterpret_cast<const int4*>(cluster.map_shared_rank(part, sp)
@@ -323,20 +372,27 @@ w8a8_small(const T* __restrict__ x, const int8_t* __restrict__ w,
     }
     const float sc = sxs[row];
     T* o = out + (size_t)m * N + n;
-    store2(o, dequant(s.x, sc, sw[n]), dequant(s.y, sc, sw[n + 1]));
-    store2(o + 2, dequant(s.z, sc, sw[n + 2]), dequant(s.w, sc, sw[n + 3]));
+    if (!RAGGED || ovec) {
+      store2(o, dequant(s.x, sc, sw[n]), dequant(s.y, sc, sw[n + 1]));
+      store2(o + 2, dequant(s.z, sc, sw[n + 2]), dequant(s.w, sc, sw[n + 3]));
+    } else {
+      const int v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (n + i < N) owc_store(o + i, dequant(v[i], sc, sw[n + i]));
+    }
   }
   cluster.sync();  // no block leaves while another still reads its shared memory
 }
 
-template <typename T>
+template <typename T, bool RAGGED>
 int launch_small(const void* x, const void* w, const void* sw, const void* act_scale,
                  void* out, int M, int N, int K, int splits, cudaStream_t st) {
   const int ktiles = (K + S_BK - 1) / S_BK;
   if (splits < 1 || splits > 8 || ktiles % splits != 0) return (int)cudaErrorInvalidValue;
   const int tps = ktiles / splits;
   const int smem = s_smem_bytes(tps * S_BK);
-  cudaError_t e = cudaFuncSetAttribute(w8a8_small<T>,
+  cudaError_t e = cudaFuncSetAttribute(w8a8_small<T, RAGGED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
@@ -351,7 +407,7 @@ int launch_small(const void* x, const void* w, const void* sw, const void* act_s
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, w8a8_small<T>, static_cast<const T*>(x),
+  e = cudaLaunchKernelEx(&cfg, w8a8_small<T, RAGGED>, static_cast<const T*>(x),
                          static_cast<const int8_t*>(w), static_cast<const float*>(sw),
                          static_cast<const float*>(act_scale), static_cast<T*>(out), M,
                          N, K, tps);
@@ -363,11 +419,12 @@ int launch_small(const void* x, const void* w, const void* sw, const void* act_s
 
 constexpr int Q_THREADS = 256;  // a warp per row
 
-// Row m of x to int8 codes in xq (and, dynamic, its scale in sx).
-template <typename T>
+// Row m of x to int8 codes in row m of xq, Kp codes a row (K, then zeros
+// to Kp), and, dynamic, its scale in sx.
+template <typename T, bool RAGGED>
 __global__ void __launch_bounds__(Q_THREADS)
 w8a8_quantize(const T* __restrict__ x, const float* __restrict__ act_scale,
-              int8_t* __restrict__ xq, float* __restrict__ sx, int M, int K) {
+              int8_t* __restrict__ xq, float* __restrict__ sx, int M, int K, int Kp) {
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * (Q_THREADS / 32) + (threadIdx.x >> 5);
   if (m >= M) return;
@@ -377,7 +434,7 @@ w8a8_quantize(const T* __restrict__ x, const float* __restrict__ act_scale,
     float a = 0.0f;
     for (int k = lane * 8; k < K; k += 32 * 8) {
       float f[8];
-      load8(row + k, f);
+      load8x<RAGGED>(row, k, K, K % 8 == 0, f);
       a = absmax8(f, a);
     }
     scale = fmaxf(owc_warp_max(a), 1e-12f) * (1.0f / 127.0f);
@@ -385,10 +442,10 @@ w8a8_quantize(const T* __restrict__ x, const float* __restrict__ act_scale,
   } else {
     scale = *act_scale;
   }
-  for (int k = lane * 8; k < K; k += 32 * 8) {
+  for (int k = lane * 8; k < Kp; k += 32 * 8) {
     float f[8];
-    load8(row + k, f);
-    *reinterpret_cast<uint2*>(xq + (size_t)m * K + k) = quant8(f, scale);
+    load8x<RAGGED>(row, k, K, K % 8 == 0, f);
+    *reinterpret_cast<uint2*>(xq + (size_t)m * Kp + k) = quant8(f, scale);
   }
 }
 
@@ -447,7 +504,7 @@ __device__ __forceinline__ void reg_fence(int (&r)[N]) {
 
 // The epilogue of a consumer thread's 64 x 128 accumulators: rows m0 and
 // m0 + 8, columns n0 + 8j (+1), scaled and stored in x's type.
-template <typename T>
+template <typename T, bool RAGGED>
 __device__ __forceinline__ void store_tile(const int (&acc)[64], int m0, int n0,
                                            const float* __restrict__ sx, int sx_stride,
                                            const float* __restrict__ sw,
@@ -461,15 +518,22 @@ __device__ __forceinline__ void store_tile(const int (&acc)[64], int m0, int n0,
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int n = n0 + 8 * j;
-      if (n < N)  // N is even: n + 1 < N too
-        store2(orow + n, dequant(acc[4 * j + 2 * h], s, __ldg(sw + n)),
-               dequant(acc[4 * j + 2 * h + 1], s, __ldg(sw + n + 1)));
+      if (!RAGGED || N % 2 == 0) {
+        if (n < N)  // N is even: n + 1 < N too
+          store2(orow + n, dequant(acc[4 * j + 2 * h], s, __ldg(sw + n)),
+                 dequant(acc[4 * j + 2 * h + 1], s, __ldg(sw + n + 1)));
+      } else {  // odd N: no pair is aligned
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (n + i < N)
+            owc_store(orow + n + i, dequant(acc[4 * j + 2 * h + i], s, __ldg(sw + n + i)));
+      }
     }
   }
 }
 
 // out (M, N) = (f32(xq (M, K) . W (K, N)) * sx[m * sx_stride]) * sw[n]
-template <typename T>
+template <typename T, bool RAGGED>
 __global__ void __launch_bounds__(G_THREADS, 1)
 w8a8_gemm(const __grid_constant__ CUtensorMap xq_map, const int8_t* __restrict__ w,
           const float* __restrict__ sx, int sx_stride, const float* __restrict__ sw,
@@ -514,8 +578,15 @@ w8a8_gemm(const __grid_constant__ CUtensorMap xq_map, const int8_t* __restrict__
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
           const bool ok = k0 + i < K && n < N;
-          cp_async4(raw + (it % G_RAW) * G_TILE + i * 128,
-                    ok ? w + (size_t)(k0 + i) * N + n : w, ok ? 4 : 0);
+          const unsigned dst = raw + (it % G_RAW) * G_TILE + i * 128;
+          if (!RAGGED || N % 4 == 0) {
+            cp_async4(dst, ok ? w + (size_t)(k0 + i) * N + n : w, ok ? 4 : 0);
+          } else {  // rows not 4-byte aligned: bytes, stored plainly (the
+                    // lane reads back only its own words)
+            uint32_t v[1];
+            load_bytes<1>(w + (size_t)(k0 + i) * N, n, ok ? N : n, v);
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(v[0]));
+          }
         }
       }
       cp_async_commit();
@@ -585,7 +656,7 @@ w8a8_gemm(const __grid_constant__ CUtensorMap xq_map, const int8_t* __restrict__
       reg_fence(acc);
       if (lane == 0) mbar_arrive(&empty_bar[(it - 1) % G_STAGES]);
 
-      store_tile(acc, (tile / tiles_n) * G_BM + wg * 64 + warp_in_wg * 16 + g,
+      store_tile<T, RAGGED>(acc, (tile / tiles_n) * G_BM + wg * 64 + warp_in_wg * 16 + g,
                  (tile % tiles_n) * G_BN + 2 * t4, sx, sx_stride, sw, out, M, N);
     }
   }
@@ -599,7 +670,7 @@ w8a8_gemm(const __grid_constant__ CUtensorMap xq_map, const int8_t* __restrict__
 constexpr int P_KMAX = 1024, P_THREADS = 384, P_MAX_STAGES = 8;
 constexpr int P_SMEM = 227 * 1024 - 1024;  // the card's 227 KB less room for the barriers
 
-template <typename T>
+template <typename T, bool RAGGED>
 __global__ void __launch_bounds__(P_THREADS, 1)
 w8a8_gemm_panel(const __grid_constant__ CUtensorMap xq_map, const int8_t* __restrict__ w,
                 const float* __restrict__ sx, int sx_stride, const float* __restrict__ sw,
@@ -637,10 +708,17 @@ w8a8_gemm_panel(const __grid_constant__ CUtensorMap xq_map, const int8_t* __rest
       const int k0 = k16 * 16, n = n_base + nq * 4;
       uint32_t r[16];
 #pragma unroll
-      for (int i = 0; i < 16; ++i)
-        r[i] = (k0 + i < K && n < N)
-                   ? __ldg(reinterpret_cast<const uint32_t*>(w + (size_t)(k0 + i) * N + n))
-                   : 0u;
+      for (int i = 0; i < 16; ++i) {
+        const bool ok = k0 + i < K && n < N;
+        if (!RAGGED || N % 4 == 0) {
+          r[i] = ok ? __ldg(reinterpret_cast<const uint32_t*>(w + (size_t)(k0 + i) * N + n))
+                    : 0u;
+        } else {  // rows not 4-byte aligned: bytes
+          uint32_t v[1];
+          load_bytes<1>(w + (size_t)(k0 + i) * N, n, ok ? N : n, v);
+          r[i] = v[0];
+        }
+      }
       uint32_t o[4][4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -695,7 +773,7 @@ w8a8_gemm_panel(const __grid_constant__ CUtensorMap xq_map, const int8_t* __rest
       wgmma_wait<0>();
       reg_fence(acc);
       if (lane == 0) mbar_arrive(&empty_bar[(it - 1) % stages]);
-      store_tile(acc, mt * G_BM + wg * 64 + warp_in_wg * 16 + g, nt * G_BN + 2 * t4, sx,
+      store_tile<T, RAGGED>(acc, mt * G_BM + wg * 64 + warp_in_wg * 16 + g, nt * G_BN + 2 * t4, sx,
                  sx_stride, sw, out, M, N);
     }
   }
@@ -716,16 +794,18 @@ bool make_xq_map(CUtensorMap* map, const void* xq, int M, int K) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T>
+template <typename T, bool RAGGED>
 int launch_large(const void* x, const void* w, const void* sw, const void* act_scale,
                  void* xq, void* sx, void* out, int M, int N, int K, cudaStream_t st) {
-  w8a8_quantize<T><<<(M + Q_THREADS / 32 - 1) / (Q_THREADS / 32), Q_THREADS, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(act_scale),
-      static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K);
+  const int Kp = (K + 15) / 16 * 16;  // xq's row: a 16-byte stride for TMA
+  w8a8_quantize<T, RAGGED><<<(M + Q_THREADS / 32 - 1) / (Q_THREADS / 32), Q_THREADS, 0,
+                             st>>>(static_cast<const T*>(x),
+                                   static_cast<const float*>(act_scale),
+                                   static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K, Kp);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   CUtensorMap map;
-  if (!make_xq_map(&map, xq, M, K)) return (int)cudaErrorInvalidValue;
+  if (!make_xq_map(&map, xq, M, Kp)) return (int)cudaErrorInvalidValue;
   int sms = 0;
   e = sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
@@ -736,19 +816,19 @@ int launch_large(const void* x, const void* w, const void* sw, const void* act_s
     const int stages = min(P_MAX_STAGES, (P_SMEM - 1024 - panel) / G_TILE);
     const int per_n = max(1, min(tiles_m, sms / tiles_n));
     const int smem = panel + stages * G_TILE + 1024;
-    e = cudaFuncSetAttribute(w8a8_gemm_panel<T>,
+    e = cudaFuncSetAttribute(w8a8_gemm_panel<T, RAGGED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    w8a8_gemm_panel<T><<<tiles_n * per_n, P_THREADS, smem, st>>>(
+    w8a8_gemm_panel<T, RAGGED><<<tiles_n * per_n, P_THREADS, smem, st>>>(
         map, static_cast<const int8_t*>(w), scales, act_scale ? 0 : 1,
         static_cast<const float*>(sw), static_cast<T*>(out), M, N, K, stages);
     return (int)cudaGetLastError();
   }
-  e = cudaFuncSetAttribute(w8a8_gemm<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(w8a8_gemm<T, RAGGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            G_SMEM);
   if (e != cudaSuccess) return (int)e;
   const int tiles = tiles_m * tiles_n;
-  w8a8_gemm<T><<<tiles < sms ? tiles : sms, G_THREADS, G_SMEM, st>>>(
+  w8a8_gemm<T, RAGGED><<<tiles < sms ? tiles : sms, G_THREADS, G_SMEM, st>>>(
       map, static_cast<const int8_t*>(w), scales, act_scale ? 0 : 1,
       static_cast<const float*>(sw), static_cast<T*>(out), M, N, K);
   return (int)cudaGetLastError();
@@ -758,24 +838,31 @@ int launch_large(const void* x, const void* w, const void* sw, const void* act_s
 
 // x (M, K) f32/bf16/f16 (dtype code), w (K, N) int8, sw (N,) f32, act_scale
 // one f32 on the device or null (dynamic per-row scales); out (M, N) in x's
-// dtype. K % 16 == 0, N % 16 == 0, x and w 16-byte aligned.
+// dtype. Any K and N (K or N off 16 takes the RAGGED instantiation); x and
+// w 16-byte aligned.
 // M <= 1024: one kernel; `splits` (1..8, dividing ceil(K / 64)) is the size
 // of the thread block cluster that shares a tile's K, and the K range of a
 // split, ceil(K / 64) / splits * 64 bytes, is held in shared memory for 32
 // rows (at most 4096). xq and sx are unused (may be null).
-// M > 1024: two kernels; scratch xq (M, K) int8 (16-byte aligned) and, for
+// M > 1024: two kernels; scratch xq (M, Kp) int8, Kp = K rounded up to 16
+// (16-byte aligned), and, for
 // dynamic scales, sx (M,) f32; `splits` is unused.
 extern "C" int owc_w8a8_matmul(const void* x, const void* w, const void* sw,
                                const void* act_scale, void* xq, void* sx, void* out,
                                int M, int N, int K, int splits, int dtype,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || K % 16 != 0 || N % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const bool ragged = K % 16 != 0 || N % 16 != 0;
   int err = 0;
   const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
     using T = decltype(tag);
-    err = M <= 1024 ? launch_small<T>(x, w, sw, act_scale, out, M, N, K, splits, st)
-                    : launch_large<T>(x, w, sw, act_scale, xq, sx, out, M, N, K, st);
+    if (ragged)
+      err = M <= 1024 ? launch_small<T, true>(x, w, sw, act_scale, out, M, N, K, splits, st)
+                      : launch_large<T, true>(x, w, sw, act_scale, xq, sx, out, M, N, K, st);
+    else
+      err = M <= 1024 ? launch_small<T, false>(x, w, sw, act_scale, out, M, N, K, splits, st)
+                      : launch_large<T, false>(x, w, sw, act_scale, xq, sx, out, M, N, K, st);
   });
   return ok ? err : (int)cudaErrorInvalidValue;
 }

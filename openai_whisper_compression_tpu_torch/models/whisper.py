@@ -20,9 +20,15 @@ calibration and teacher-forced loss) reads the standard-layout cross-KV of
 `precompute_cross_kv`, (B, H, S, Dh), bf16/f32 or int8 with per-(batch,
 head, position) scales, in plain torch, as the JAX package leaves it to
 XLA; `cross_attention` and `grouped_cross_attention` dispatch on the type
-of the cross-KV entry (a `CrossKV` takes the kernels). The JAX package's
-`capture.record` activation taps (encoder layer, decoder layer, MLP) are
-not carried: they come with the data-aware quantizers.
+of the cross-KV entry (a `CrossKV` takes the kernels). The activation taps
+of `utils.capture` sit where the JAX package's do (the MLP's post-GELU
+activations; the layer norms' outputs of every encoder and decoder layer,
+in its order), for SmoothQuant/AWQ calibration and activation statistics.
+
+No kernel has a backward: every wrapper refuses an input that needs a
+gradient (`ops.kernels.refuse_grad`), and `attention` sends such a call to
+its plain branch, as the JAX package's `jax.grad` always runs through XLA's
+einsum (its Pallas attention has no VJP).
 """
 
 from __future__ import annotations
@@ -35,11 +41,13 @@ import torch.nn.functional as F
 
 from ..config import WhisperArch
 from ..ops.attention import encoder_attention, matmul_f32
+from ..ops.kernels import needs_grad
 from ..ops.cross_attention import (UNGROUPED_MODULUS, decode_cross_attention,
                                    decode_cross_attention_grouped,
                                    transpose_kv, transpose_quant_kv, unpack4)
 from ..ops.linear import linear
-from ..ops.qtensor import QTensor, quantize_absmax
+from ..ops.qtensor import QTensor, dequantize, quantize_absmax
+from ..utils import capture
 from .fuse import qkv_split
 
 Params = dict[str, Any]
@@ -95,13 +103,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor | None = None) -> torch.Tensor:
     """Scaled dot-product attention over (B, H, T, Dh), as the JAX
     package's. On the card, an unmasked bf16 call with Tq = Tk >= 256 (the
-    encoder's) goes to the fused `encoder_attention` kernel. Everything else
-    (the masked prefill window, f32, short contexts, the CPU) is plain
-    torch: f32 scores (plus an optional additive f32 mask), f32 softmax,
-    probabilities in q's dtype, matmul."""
+    encoder's) goes to the fused `encoder_attention` kernel unless it needs
+    a gradient: the kernel has no backward, and the JAX package's gradient
+    too runs through its einsum path, never its Pallas kernel. Everything
+    else (a call that needs a gradient, the masked prefill window, f32,
+    short contexts, the CPU) is plain torch: f32 scores (plus an optional
+    additive f32 mask), f32 softmax, probabilities in q's dtype, matmul."""
     dh = q.shape[-1]
     if (mask is None and q.is_cuda and q.dtype == torch.bfloat16
-            and q.shape[2] == k.shape[2] >= 256):
+            and q.shape[2] == k.shape[2] >= 256 and not needs_grad(q, k, v)):
         return encoder_attention(q, k, v)
     scores = matmul_f32(q * (dh ** -0.5), k.transpose(-1, -2))
     if mask is not None:
@@ -128,8 +138,8 @@ def self_attention(p: Params, x: torch.Tensor, head_dim: int,
 
 def mlp(p: Params, x: torch.Tensor, fast_gelu: bool = False) -> torch.Tensor:
     h = gelu(linear(x, p["fc1"]["w"], p["fc1"].get("b")), approximate=fast_gelu)
-    # the JAX package records h here for sensitivity analyses
-    # (`capture.record("ffn_act")`); that tap comes with them
+    if capture.active():  # activation statistics (sensitivity/activation.py)
+        capture.record("ffn_act", h)
     return linear(h, p["fc2"]["w"], p["fc2"].get("b"))
 
 
@@ -147,11 +157,13 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def encoder_layer(p: Params, x: torch.Tensor, head_dim: int,
                   head_mask: torch.Tensor | None = None,
                   fast_gelu: bool = False) -> torch.Tensor:
-    # the JAX package records both layer norms' outputs here for its
-    # SmoothQuant/AWQ calibration (`capture.record`); those taps come with it
-    x = x + self_attention(p["attn"], layer_norm(x, p["attn_ln"]), head_dim,
-                           head_mask=head_mask)
-    return x + mlp(p, layer_norm(x, p["mlp_ln"]), fast_gelu=fast_gelu)
+    ln_a = layer_norm(x, p["attn_ln"])
+    x = x + self_attention(p["attn"], ln_a, head_dim, head_mask=head_mask)
+    ln_m = layer_norm(x, p["mlp_ln"])
+    if capture.active():  # SmoothQuant/AWQ calibration (quant/smooth.py)
+        capture.record("attn_ln_out", ln_a)
+        capture.record("mlp_ln_out", ln_m)
+    return x + mlp(p, ln_m, fast_gelu=fast_gelu)
 
 
 def encode(params: Params, arch: WhisperArch, mel: torch.Tensor,
@@ -367,13 +379,20 @@ def decoder_layer(p: Params, x: torch.Tensor, cross_kv, head_dim: int,
                   self_mask: torch.Tensor | None,
                   head_mask: torch.Tensor | None = None,
                   cross_head_mask: torch.Tensor | None = None) -> torch.Tensor:
-    # the JAX package records the three layer norms' outputs here for its
-    # calibration (`capture.record`); those taps come with it
-    x = x + self_attention(p["attn"], layer_norm(x, p["attn_ln"]), head_dim,
-                           mask=self_mask, head_mask=head_mask)
-    x = x + cross_attention(p["cross"], layer_norm(x, p["cross_ln"]), cross_kv,
-                            head_dim, head_mask=cross_head_mask)
-    return x + mlp(p, layer_norm(x, p["mlp_ln"]))
+    ln_a = layer_norm(x, p["attn_ln"])
+    if capture.active():  # SmoothQuant/AWQ calibration (quant/smooth.py)
+        capture.record("attn_ln_out", ln_a)
+    x = x + self_attention(p["attn"], ln_a, head_dim, mask=self_mask,
+                           head_mask=head_mask)
+    ln_c = layer_norm(x, p["cross_ln"])
+    if capture.active():
+        capture.record("cross_ln_out", ln_c)
+    x = x + cross_attention(p["cross"], ln_c, cross_kv, head_dim,
+                            head_mask=cross_head_mask)
+    ln_m = layer_norm(x, p["mlp_ln"])
+    if capture.active():
+        capture.record("mlp_ln_out", ln_m)
+    return x + mlp(p, ln_m)
 
 
 def decode_logits(params: Params, arch: WhisperArch, tokens: torch.Tensor,
@@ -399,12 +418,22 @@ def decode_logits(params: Params, arch: WhisperArch, tokens: torch.Tensor,
 
 
 def embed_tokens(dec: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return dec["embed"][tokens]
+    """Token-embedding lookup; a quantized (`include_embed`) table is
+    dequantized to f32 first, as the JAX package's."""
+    embed = dec["embed"]
+    if isinstance(embed, QTensor):
+        embed = dequantize(embed, torch.float32)
+    return embed[tokens]
 
 
 def project_out(dec: Params, x: torch.Tensor) -> torch.Tensor:
-    """Output projection tied to the token embedding."""
-    return linear(x, dec["embed"].t())
+    """Output projection tied to the token embedding; a quantized table is
+    dequantized to x's dtype (embedding quantization saves storage, not
+    matmul time)."""
+    embed = dec["embed"]
+    if isinstance(embed, QTensor):
+        embed = dequantize(embed, x.dtype)
+    return linear(x, embed.t())
 
 
 def forward(params: Params, arch: WhisperArch, mel: torch.Tensor,

@@ -26,8 +26,11 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched a @ b over (..., M, K) x (..., K, N) with an f32 result:
     products of the inputs summed in f32 and never rounded to bf16, as a JAX
     einsum with `preferred_element_type=f32`. On the card, bf16 inputs take
-    cuBLAS's bf16 GEMM with an f32 output; elsewhere they are widened."""
-    if a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
+    cuBLAS's bf16 GEMM with an f32 output; elsewhere they are widened, and
+    so are inputs that need a gradient (that `bmm` overload has no
+    derivative): bf16 products are exact in f32 either way."""
+    if (a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16
+            and not kernels.needs_grad(a, b)):
         out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
                         out_dtype=torch.float32)
         return out.reshape(*a.shape[:-1], b.shape[-1])
@@ -64,6 +67,7 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
     if not q.is_cuda:
         return encoder_attention_ref(q, k, v)
     name = "encoder_attention"
+    kernels.refuse_grad(name, q, k, v)
     kernels.require(q.dim() == 4 and q.shape == k.shape == v.shape, name,
                     f"q, k and v must share one (B, H, T, Dh) shape, got "
                     f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

@@ -77,6 +77,7 @@ def transpose_quant_kv(x: torch.Tensor, h: int
     if not x.is_cuda:
         return transpose_quant_kv_ref(x, h)
     name = "transpose_quant_kv"
+    kernels.refuse_grad(name, x)
     kernels.require(x.dim() == 3 and h >= 1 and x.shape[2] == h * HEAD_DIM,
                     name, f"x must be (B, S, {h} * {HEAD_DIM}), got "
                     f"{tuple(x.shape)}")
@@ -225,6 +226,7 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
         return decode_cross_attention_grouped_ref(q, k_t, v_t, k_scale,
                                                   v_scale, s_valid)
     name = "decode_cross_attention_grouped"
+    kernels.refuse_grad(name, q, k_t, v_t, k_scale, v_scale)
     bh, kq, dh = q.shape
     kernels.require(kq >= 1, name, f"at least one query slot per row, got {kq}")
     kind, s_pad, s_valid = _check_kv(name, q, k_t, v_t, k_scale, v_scale, s_valid)
@@ -283,6 +285,7 @@ def decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
     if not q.is_cuda:
         return decode_cross_attention_ref(q, k_t, v_t, k_scale, v_scale, s_valid)
     name = "decode_cross_attention"
+    kernels.refuse_grad(name, q, k_t, v_t, k_scale, v_scale)
     kernels.require(q.dim() == 2, name, f"q must be (BH, Dh), got {tuple(q.shape)}")
     kind, s_pad, s_valid = _check_kv(name, q, k_t, v_t, k_scale, v_scale, s_valid)
     code, _, counter = _KINDS[kind]

@@ -182,3 +182,25 @@ def require(cond: bool, name: str, what: str) -> None:
     """Raise ValueError unless `cond` (input checks before a launch)."""
     if not cond:
         raise ValueError(f"{name}: {what}")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record an op on these inputs: grad mode is on
+    and a tensor among them requires grad (None and non-tensors pass)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a launch would cut the autograd graph. A kernel writes its
+    output through ctypes into a fresh tensor that has no `grad_fn`, and no
+    kernel has a backward (nor has any Pallas kernel of the JAX package a
+    VJP), so a gradient through it would be silently zero. Every wrapper
+    calls this before it launches; calls under `torch.no_grad()` or
+    `torch.inference_mode()`, and on tensors that do not require grad, pass."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel's output has no "
+            "autograd history (the kernel has no backward); call it under "
+            "torch.no_grad(), or take the plain path (the wrapper's `_ref` "
+            "version, or the CPU) where a gradient is needed")

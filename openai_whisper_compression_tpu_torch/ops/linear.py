@@ -45,9 +45,17 @@ from .quant_matmul import (blockwise4_kernel_ok, group_asym_kernel_ok,
 # kinds (PERF.md); no per-kind threshold yet.
 KERNEL_M_THRESHOLD = 1024
 
+# Eager activation tap (the GPTQ Hessian collection of `quant.gptq`): None
+# in production; when set, every `linear` call reports (w, x) to
+# `_TAP.observe` before it multiplies, so the collector can accumulate
+# X^T X per weight, keyed by the weight's identity.
+_TAP = None
+
 
 def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
     """y = x @ w + b. x: (..., K); w: (K, N) tensor or QTensor."""
+    if _TAP is not None:
+        _TAP.observe(w, x)
     if isinstance(w, QTensor):
         y = _quantized_matmul(x, w)
     else:

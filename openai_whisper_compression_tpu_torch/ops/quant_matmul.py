@@ -190,6 +190,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
     if not x.is_cuda:
         return int8_matmul_ref(x, w, scale)
     name = "int8_matmul"
+    kernels.refuse_grad(name, x, w, scale)
     m, n, k = _check(name, x, w, x.shape[-1], [scale])
     kernels.require(w.dtype == torch.int8, name, f"w must be int8, got {w.dtype}")
     _colscale_ok(name, scale, n)
@@ -207,6 +208,7 @@ def int4_matmul(x: torch.Tensor, w: torch.Tensor,
     if not x.is_cuda:
         return int4_matmul_ref(x, w, scale)
     name = "int4_matmul"
+    kernels.refuse_grad(name, x, w, scale)
     m, n, k = _check(name, x, w, x.shape[-1] // 2, [scale])
     kernels.require(k % 2 == 0 and w.dtype == torch.int8, name,
                     f"w must be int8 nibbles of an even K, got {w.dtype}, K={k}")
@@ -226,6 +228,7 @@ def nf4_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if not x.is_cuda:
         return nf4_matmul_ref(x, w, scale, kind, g)
     name = "nf4_matmul"
+    kernels.refuse_grad(name, x, w, scale)
     kernels.require(kind in CODEBOOKS, name, f"kind must be nf4 or fp4, got {kind!r}")
     m, n, k = _check(name, x, w, x.shape[-1] // 2, [scale])
     kernels.require(k % 2 == 0 and w.dtype == torch.int8, name,
@@ -247,6 +250,7 @@ def group_asym_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if not x.is_cuda:
         return group_asym_matmul_ref(x, w, scale, zero, g)
     name = "group_asym_matmul"
+    kernels.refuse_grad(name, x, w, scale, zero)
     k = x.shape[-1]
     packed = w.dim() == 2 and group_asym_packed(w, k)
     kernels.require(w.dtype == (torch.int8 if packed else torch.uint8), name,
@@ -313,19 +317,20 @@ def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     (M, N) in x's dtype, x quantized to int8 per row at run time, or by the
     frozen 0-dim f32 `act_scale`. One kernel at M <= `W8A8_SMALL_M` (K split
     over a cluster by `_w8a8_splits`), a quantize pass and the wgmma GEMM
-    above. Counts calls in `w8a8_matmul.launches` (dynamic) and
+    above. Any K and N: widths off 16 take the kernels' ragged
+    instantiation. Counts calls in `w8a8_matmul.launches` (dynamic) and
     `.launches_static`."""
     if not x.is_cuda:
         return w8a8_matmul_ref(x, w, scale, act_scale)
     name = "w8a8_matmul"
+    kernels.refuse_grad(name, x, w, scale, act_scale)
     kernels.require(x.dim() == 2, name, f"x must be (M, K), got {tuple(x.shape)}")
     m, k = x.shape
     kernels.require(w.dim() == 2 and w.shape[0] == k and w.dtype == torch.int8,
                     name, f"w must be ({k}, N) int8, got {tuple(w.shape)} {w.dtype}")
     n = w.shape[1]
-    kernels.require(k % 16 == 0 and n % 16 == 0 and 1 <= m < 2 ** 31, name,
-                    f"K and N must be multiples of 16 and M positive "
-                    f"(M={m}, K={k}, N={n})")
+    kernels.require(k >= 1 and n >= 1 and 1 <= m < 2 ** 31, name,
+                    f"M, K and N must be positive (M={m}, K={k}, N={n})")
     _colscale_ok(name, scale, n)
     tensors = [x, w, scale]
     if act_scale is not None:
@@ -347,8 +352,9 @@ def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         kernels.require(splits is not None, name,
                         f"K={k}: no split of at most {_MAX_CLUSTER} keeps a K range "
                         f"within {_W8A8_KLEN}")
-    else:   # the quantize pass's output, read by the GEMM
-        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    else:   # the quantize pass's output, read by the GEMM through a tensor
+        # map whose rows must be 16-byte strides: K padded with zero codes
+        xq = torch.empty((m, -(-k // 16) * 16), dtype=torch.int8, device=x.device)
         if act_scale is None:
             sx = torch.empty((m,), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)

@@ -112,6 +112,7 @@ def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
         return decode_self_attention_update_ref(q, k_new, v_new, k_cache,
                                                 v_cache, pos, start)
     name = "decode_self_attention_update"
+    kernels.refuse_grad(name, q, k_new, v_new, k_cache, v_cache)
     bh, dh = q.shape
     s = k_cache.shape[1]
     kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
@@ -204,6 +205,7 @@ def decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
         return decode_self_attention_update_int8_ref(
             q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pos, start)
     name = "decode_self_attention_update_int8"
+    kernels.refuse_grad(name, q, k_new, v_new, k_cache, v_cache, k_scale, v_scale)
     bh, dh = q.shape
     s = k_cache.shape[1]
     tensors = (q, k_new, v_new, k_cache, v_cache, k_scale, v_scale)
@@ -276,6 +278,7 @@ def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_self_attention_ref(q, k_cache, v_cache, pos, start,
                                          k_scale, v_scale)
     name = "decode_self_attention"
+    kernels.refuse_grad(name, q, k_cache, v_cache, k_scale, v_scale)
     bh, dh = q.shape
     s = k_cache.shape[1]
     int8 = k_scale is not None or v_scale is not None

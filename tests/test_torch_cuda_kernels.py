@@ -13,7 +13,10 @@ speculative path's verify window and draft workspace, a prompt's `start`);
 the serving workloads' callers (continuous batching's per-slot `start` over
 a 128-row window after admits and a rebase, the streaming pool at partial
 occupancy, a serving bucket of 8) with every kernel call held against its
-plain version (`chip_smoke.checked_kernel_calls`). Marked `cuda`; every test skips where no
+plain version (`chip_smoke.checked_kernel_calls`); the w8a8 matmul at ragged
+widths; every wrapper's refusal of inputs that need a gradient, the model's
+plain attention under grad, a bf16 `nll_loss` gradient against CPU f32, and
+the GPTQ solve against the CPU's. Marked `cuda`; every test skips where no
 CUDA device is present. Needs no jax, so on the GPU machine run it without the JAX test
 configuration:
 
@@ -930,8 +933,6 @@ def test_w8a8_matmul_rejects_what_the_kernel_does_not_take(dev):
     x = torch.zeros(2, 64, device=dev)
     w = torch.zeros(64, 32, dtype=torch.int8, device=dev)
     s = torch.ones(1, 32, device=dev)
-    with pytest.raises(ValueError):   # K not a multiple of 16
-        w8a8_matmul(x[:, :40].contiguous(), w[:40].contiguous(), s)
     with pytest.raises(ValueError):   # int4 nibbles passed as they are stored
         w8a8_matmul(x, w[:32].contiguous(), s)
     with pytest.raises(TypeError):    # float64 activations
@@ -946,6 +947,200 @@ def test_w8a8_matmul_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):   # a K range no split of 8 keeps in shared memory
         big = torch.zeros(2, 64 * 67 * 2, device=dev)
         w8a8_matmul(big, torch.zeros(64 * 67 * 2, 32, dtype=torch.int8, device=dev), s)
+
+
+# widths the kernels' ragged instantiation serves: whisper-small's FFN of 922
+# units after `activation_guided_ffn_prune(0.3)`, odd, 8 past a multiple of
+# 16, 4 past one, and a whole multiple of 16 beside them
+W8A8_RAGGED = [922, 33, 648, 100, 96]
+
+
+@pytest.mark.parametrize("m", [8, 96, 3000])
+@pytest.mark.parametrize("n", W8A8_RAGGED)
+@pytest.mark.parametrize("k", W8A8_RAGGED)
+def test_w8a8_matmul_at_ragged_widths(dev, k, n, m):
+    """Any K and N: dynamic and static, int8 and w4a8 codes (int4 unpacked
+    to int8, as `ops.linear.kernel_call` passes them; K even), x in f32,
+    bf16 and f16, bit-equal to the plain version at decode M (one launch)
+    and at the encoder's 2 x 1500 rows (the quantize pass writing xq over
+    K padded to 16, then the GEMM)."""
+    from openai_whisper_compression_tpu_torch.ops.qtensor import unpack_int_sub8
+
+    g = torch.Generator(device=dev).manual_seed(m * 7 + k * 3 + n)
+    w = torch.randn(k, n, generator=g, device=dev) * 0.02
+    codes = [("int8", quantize_int8(w))]
+    if k % 2 == 0:
+        q4 = quantize_int_sub8(w, 4)
+        codes.append(("w4a8", (unpack_int_sub8(q4.data, 4, k).to(torch.int8), q4.scale)))
+    x32 = torch.randn(m, k, generator=g, device=dev) * 1.7
+    x32[m // 2] = 0.0
+    for kind, q in codes:
+        data, scale = (q.data, q.scale) if kind == "int8" else q
+        for dtype in FLOATS:
+            x = x32.to(dtype)
+            for act_scale in (None, torch.tensor(0.029, device=dev)):
+                got = w8a8_matmul(x, data, scale, act_scale)
+                ref = w8a8_matmul_ref(x, data, scale, act_scale)
+                what = f"{kind} {_IDS[dtype]} {'static' if act_scale is not None else 'dynamic'}"
+                assert got.dtype == dtype and got.shape == (m, n), what
+                assert torch.equal(got, ref), (what, float((got.float() - ref.float()).abs().max()))
+
+
+def _grad_inputs(dev):
+    """(name, call, inputs) of every kernel wrapper at a small shape it
+    takes; `call(*inputs)` launches it."""
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def r(*shape, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * 0.5).to(dtype)
+
+    q8 = quantize_int8(torch.randn(64, 64, generator=g, device=dev) * 0.02)
+    q4 = quantize_int_sub8(torch.randn(256, 64, generator=g, device=dev) * 0.02, 4)
+    nf = quantize_nf4(torch.randn(256, 64, generator=g, device=dev) * 0.02)
+    hq = quantize_hqq(torch.randn(256, 64, generator=g, device=dev) * 0.02, bits=4)
+    k_t, v_t = r(12, 64, 128), r(12, 64, 128)
+    kc, vc = r(12, 64, 64), r(12, 64, 64)
+    kc8 = torch.zeros(12, 64, 64, dtype=torch.int8, device=dev)
+    ks8 = torch.ones(12, 64, device=dev)
+    return [
+        ("log_mel_cuda", lambda w: log_mel_cuda(w), [r(1, 4000, dtype=torch.float32)]),
+        ("int8_matmul", lambda x: int8_matmul(x, q8.data, q8.scale), [r(4, 64)]),
+        ("int4_matmul", lambda x: int4_matmul(x, q4.data, q4.scale), [r(4, 256)]),
+        ("nf4_matmul", lambda x: nf4_matmul(x, nf.data, effective_block_scale(nf), "nf4",
+                                            nf.block_size), [r(4, 256)]),
+        ("group_asym_matmul", lambda x: group_asym_matmul(x, hq.data, hq.scale, hq.zero,
+                                                          hq.block_size), [r(4, 256)]),
+        ("w8a8_matmul", lambda x: w8a8_matmul(x, q8.data, q8.scale), [r(4, 64)]),
+        ("transpose_quant_kv", lambda x: transpose_quant_kv(x, 2), [r(1, 100, 128)]),
+        ("decode_cross_attention_grouped",
+         lambda q: decode_cross_attention_grouped(q, k_t, v_t, None, None, 100),
+         [r(12, 1, 64)]),
+        ("decode_cross_attention",
+         lambda q: decode_cross_attention(q, k_t, v_t, None, None, 100), [r(12, 64)]),
+        ("decode_self_attention_update",
+         lambda q, kn: decode_self_attention_update(q, kn, r(12, 64), kc, vc, 3),
+         [r(12, 64), r(12, 64)]),
+        ("decode_self_attention_update_int8",
+         lambda q: decode_self_attention_update_int8(q, r(12, 64), r(12, 64), kc8,
+                                                     kc8.clone(), ks8, ks8.clone(), 3),
+         [r(12, 64)]),
+        ("decode_self_attention", lambda q: decode_self_attention(q, kc, vc, 3), [r(12, 64)]),
+        ("encoder_attention", lambda q: encoder_attention(q, q, q), [r(1, 2, 256, 64)]),
+    ]
+
+
+def test_every_kernel_wrapper_refuses_inputs_that_need_a_gradient(dev):
+    """No kernel has a backward, and a launch writes a tensor with no
+    autograd history: each wrapper raises (naming itself) on an input that
+    requires grad while grad mode is on, and launches under no_grad and
+    on inputs that do not require grad."""
+    cases = _grad_inputs(dev)
+    assert len(cases) == 13
+    for name, call, inputs in cases:
+        with pytest.raises(RuntimeError, match=name):
+            call(*[t.clone().requires_grad_(True) for t in inputs])
+        with torch.no_grad():
+            call(*[t.clone().requires_grad_(True) for t in inputs])
+        out = call(*inputs)
+        assert out is not None and not (out[0] if isinstance(out, tuple) else out).requires_grad
+
+
+def test_attention_takes_the_plain_branch_under_grad(dev):
+    """`models.whisper.attention` sends an encoder-shaped bf16 call that
+    needs a gradient to its plain branch (no launch), which gives q, k and
+    v a gradient; the same call under no_grad launches the kernel."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = ((torch.randn(1, 2, 256, 64, generator=g, device=dev) * 0.5)
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    before = encoder_attention.launches
+    out = whisper.attention(q, k, v)
+    assert encoder_attention.launches == before
+    out.float().square().sum().backward()
+    assert all(t.grad is not None and bool(t.grad.abs().sum() > 0) for t in (q, k, v))
+    with torch.no_grad():
+        whisper.attention(q, k, v)
+    assert encoder_attention.launches == before + 1
+
+
+# bound of a bf16 card gradient against CPU f32 of the same (bf16) weights:
+# relative L2 per leaf (the forward's bf16 roundings, ~2**-8 each, compound
+# through two layers and the backward)
+GRAD_REL = 0.05
+
+
+def test_nll_loss_gradient_of_a_bf16_tree_on_the_card(dev):
+    """`nll_loss` of a 2-layer whisper-small bf16 tree (full width) on the
+    card: every leaf whose CPU f32 gradient is non-zero has a non-zero
+    gradient, each within GRAD_REL (relative L2) of the CPU's. Before the
+    guard, the encoder attention kernel cut the graph: the conv stem, the
+    positions and the layers below its last call got zero or None."""
+    import numpy as np
+
+    from openai_whisper_compression_tpu_torch.config import ARCHS
+    from openai_whisper_compression_tpu_torch.models.params import (
+        init_params, named_leaves, tree_to)
+    from openai_whisper_compression_tpu_torch.sensitivity.gradient import _batch_stats
+
+    arch = ARCHS["small"].replace(encoder_layers=2, decoder_layers=2)
+    params = init_params(arch, 0, torch.bfloat16, dev)
+    rng = np.random.default_rng(0)
+    mel = rng.standard_normal((1, 80, 3000)).astype(np.float32)
+    toks = rng.integers(0, arch.vocab_size, (1, 8))
+    labels = rng.integers(0, arch.vocab_size, (1, 8))
+
+    def grads(tree, device):
+        leaves = {n: t.detach().requires_grad_(True) for n, t in named_leaves(tree)}
+        from openai_whisper_compression_tpu_torch.models.params import copy_tree, set_leaf
+        t = copy_tree(tree)
+        for n, leaf in leaves.items():
+            set_leaf(t, n, leaf)
+        loss = whisper.nll_loss(t, arch, torch.as_tensor(mel, device=device).to(
+            next(iter(leaves.values())).dtype), torch.as_tensor(toks, device=device),
+            torch.as_tensor(labels, device=device))
+        gs = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        return {n: (torch.zeros_like(l) if gr is None else gr).float().cpu()
+                for (n, l), gr in zip(leaves.items(), gs)}
+
+    before = encoder_attention.launches
+    got = grads(params, dev)
+    assert encoder_attention.launches == before   # the plain branch served the grad
+    want = grads(tree_to(params, "cpu", torch.float32), "cpu")
+    assert set(got) == set(want)
+    for n, w in want.items():
+        if bool(w.abs().sum() > 0):
+            assert bool(got[n].abs().sum() > 0), f"{n}: zero on the card"
+            rel = float((got[n] - w).norm() / w.norm())
+            assert rel <= GRAD_REL, (n, rel)
+    assert _batch_stats(params, arch, mel, toks, labels, 1.0)  # the scorer runs too
+
+
+def test_gptq_solve_on_the_card(dev):
+    """`gptq_solve` on the card against the port's CPU solve of the same
+    weight and Hessian: scales bit-equal, at most 0.1% of the codes differ
+    and those by one step (f32 updates summed on other units), the GPTQ
+    objective within 1e-4 relative."""
+    import numpy as np
+
+    from openai_whisper_compression_tpu_torch.quant.gptq import gptq_solve
+
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy((rng.standard_normal((768, 768)) * 0.02).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2048, 768)).astype(np.float32))
+    h = x.t() @ x
+    q_c, s_c, ok_c = gptq_solve(w, h, bits=4)
+    q_g, s_g, ok_g = gptq_solve(w.to(dev), h.to(dev), bits=4)
+    assert bool(ok_c) and bool(ok_g)
+    assert torch.equal(s_g.cpu(), s_c)
+    diff = (q_g.cpu().int() - q_c.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+
+    def objective(q, s):
+        e = w - q.float() * s
+        return float(torch.einsum("ij,ik,kj->", e, h, e))
+
+    o_c, o_g = objective(q_c, s_c), objective(q_g.cpu(), s_g.cpu())
+    assert abs(o_g - o_c) <= 1e-4 * o_c, (o_g, o_c)
 
 
 def _cross_kv(dev, kind, bh, s_valid, seed, dtype=torch.bfloat16):
