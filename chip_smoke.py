@@ -300,7 +300,8 @@ Phase 8  (slice 15, after phase 7's timed part, before phase 6) the
          launch counts, no activation record made, the first 4 rows
          against an f32 recompute on the card under the tie rule):
            gptq-small   `make_calibration_fn` over 4 seeded 30 s clips, then
-                        `quantize_data_aware("gptq_int4")` on the card:
+                        `quantize_data_aware("gptq_int4")` on the card, over
+                        the first 3 encoder and decoder layers (full width):
                         Hessian and solve seconds, the median GPTQ / RTN
                         objective under each Hessian (<= 1);
            awq-nf4-small  AWQ's statistics and alpha search on the card,
@@ -322,10 +323,45 @@ Phase 8  (slice 15, after phase 7's timed part, before phase 6) the
          and QAT's step-0 loss and gradient on the same batch and teacher
          logits. Then the ragged w8a8 shapes timed (P8_ENTRIES).
 
+Phase 9  (slice 16, after phase 8, before phase 6) storage, checkpoint
+         conversion and the compression sweeps at whisper-small's full
+         width and depth, seeded; batch 32, 25 tokens, EOT suppressed, int8
+         caches unless said otherwise; every block's launch counts exact,
+         read from what it ran (`recorded_paths`: each card log-mel, encoder
+         pass, greedy decode with its steps, teacher-forced pass):
+           storage-small  phase 2's int8 tree through `save_npz` and
+                        `save_gzip`, an NF4 tree through gzip, an f32 tree
+                        pruned 80% by `prune_global_l1` through
+                        `save_sparse_zip` (how many leaves the sparse branch
+                        carried); each read back onto the card, every leaf
+                        bit-equal and contiguous, one held batch whose
+                        tokens equal the in-memory tree's from this run;
+                        write s, read s, file MB, and which sparse codec
+                        served (native or numpy);
+           hf-small     the seeded bf16 tree as an HF-named two-shard
+                        safetensors snapshot (`write_safetensors`, the
+                        config.json and generation_config.json written here),
+                        `load_model(hf=dir, dtype=bf16)`: ARCHS["small"]'s
+                        dimensions, every leaf bit-equal, one held batch
+                        with bf16 caches, the in-memory tree's tokens;
+           sweep-small  `run_sweep` over baseline_bf16, quanto_int8,
+                        quanto_int4 and l1_global_50pct on
+                        `synthetic_dataset(32)` with `default_tokenizer`
+                        through `evaluate_model`, every kernel call held,
+                        interrupted when its third config starts, then
+                        resumed: configs 1-2 skipped;
+           curve        `run_curve` over the int8, heads50+int8 and
+                        declayers-25%+int8 rungs, recover_steps 0: a timed
+                        pass (iters 3), then a held pass (iters 1) whose
+                        points equal it but for rtfx; each point's rtfx,
+                        size_mb, hbm_mb and token_agreement printed;
+         each part's seconds printed, then the shapes only phase 9 gives
+         the kernels timed (P9_ENTRIES).
+
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
 its launch count, error, times and bound (and, as `name@shape`, the shapes
-only token merging and phases 5, 6, 7 and 8 give a kernel); the preset rows
+only token merging and phases 5, 6, 7, 8 and 9 give a kernel); the preset rows
 are logged as one `phase7 presets {...}` line after phase 6. Needs torch
 with CUDA, numpy and nvcc; never imports jax.
 """
@@ -934,7 +970,7 @@ def check_tq(x: torch.Tensor, h: int, phase: str = "phase1") -> tuple:
 
     q, sc = transpose_quant_kv(x, h)
     q_ref, sc_ref = transpose_quant_kv_ref(x, h)
-    what = f"{tuple(x.shape)} bf16 -> {tuple(q.shape)} int8"
+    what = f"{tuple(x.shape)} {str(x.dtype).removeprefix('torch.')} -> {tuple(q.shape)} int8"
     check(torch.equal(q, q_ref) and torch.equal(sc, sc_ref),
           f"transpose_quant_kv {what}: codes or scales differ from the plain version")
     res = {"max_abs_err": max(max_err(q, q_ref), max_err(sc, sc_ref)),
@@ -5103,6 +5139,10 @@ P8_CLIPS = 4                 # make_calibration_fn's seeded 30 s clips
 P8_KEEP = 0.3                # activation_guided_ffn_prune: 3072 -> 922 units
 P8_QAT_STEPS = 3
 P8_PROOF_LAYERS = 2          # the card-vs-CPU f32 proofs' depth (full width)
+# gptq-small's depth (full width): its solve, a host loop over K rows, took
+# 42.5-52.3 s at 12 layers on an H100 80GB HBM3 at 700 W; three quarters of
+# that time went to phase 9 (slice 16)
+P8_GPTQ_LAYERS = 3
 # - the CPU f32 proofs of phase 8 (f32 on both sides, TF32 off; sums in
 #   other orders through 2 layers and the backward): the QAT loss within
 #   1e-4 relative or 1e-5 absolute (the KL of a student that is its teacher
@@ -5128,7 +5168,7 @@ P8_ENTRIES = [
      ("w8a8_matmul", P8_BATCH * 1500, 922, 768, False)),
 ]
 _MATMUL_OF_KIND = {"int8_pc": "int8_matmul", "int4_pack": "int4_matmul",
-                   "nf4": "nf4_matmul"}
+                   "nf4": "nf4_matmul", "fp4": "nf4_matmul"}
 
 
 def p8_clips(arch):
@@ -5160,16 +5200,10 @@ def p8_exact(arch, params, batch: int, path) -> dict:
     decoder layer, and each weight-only kernel once for each decoder linear
     of its kind at the prefill and every step (the cross K and V and every
     encoder linear run at encoder M, above the kernels' threshold)."""
-    from openai_whisper_compression_tpu_torch.models.params import named_leaves
-    from openai_whisper_compression_tpu_torch.ops.qtensor import QTensor
-
     exact = expected_launches(arch, path, [NEW_TOKENS])
     exact.update({"log_mel_cuda": 1, "transpose_quant_kv": 2 * arch.decoder_layers})
-    for name, leaf in named_leaves(params["decoder"]):
-        if (isinstance(leaf, QTensor) and leaf.act is None and name.endswith(".w")
-                and not name.endswith(("cross.k.w", "cross.v.w"))):
-            k = _MATMUL_OF_KIND[leaf.kind]
-            exact[k] = exact.get(k, 0) + NEW_TOKENS + 1
+    for k in decoder_matmuls(params):
+        exact[k] = exact.get(k, 0) + NEW_TOKENS + 1
     return exact
 
 
@@ -5221,8 +5255,9 @@ def gptq_objective(w, q, h) -> float:
 
 
 def run_gptq(dev, arch, run_cal) -> dict:
-    """gptq-small: `quantize_data_aware("gptq_int4")` on the card (Hessians
-    from `make_calibration_fn`'s pass, the solve of 192 weights), timed in
+    """gptq-small: `quantize_data_aware("gptq_int4")` on the card over the
+    first P8_GPTQ_LAYERS encoder and decoder layers at full width (Hessians
+    from `make_calibration_fn`'s pass, the solve of 48 weights), timed in
     its two parts; the median over the weights of the GPTQ / round-to-
     nearest objective under each Hessian must be <= 1. The card's solve of
     encoder layer 0's fc2 (K = 3072) is held against the CPU's (queued): the
@@ -5235,7 +5270,8 @@ def run_gptq(dev, arch, run_cal) -> dict:
     from openai_whisper_compression_tpu_torch.ops.qtensor import QTensor, pack_int_sub8
     from openai_whisper_compression_tpu_torch.quant.core import quantize_int_sub8
 
-    params = init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev)
+    params, arch = cut_layers(init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev),
+                              arch, P8_GPTQ_LAYERS)
     kept, t = {}, {}
     real = gptq.collect_hessians
 
@@ -5297,7 +5333,8 @@ def run_gptq(dev, arch, run_cal) -> dict:
         check(torch.equal(same, qc) and torch.equal(sc, sp) and bool(okp)
               and max(objs) < o_rtn, f"gptq-small: the card's solve of {name} is not the CPU's")
     later("phase8 gptq-small", proof)
-    return {"params": fuse_qkv(q), "quantize_s": total, **t, "objective_median": med}
+    return {"params": fuse_qkv(q), "arch": arch, "quantize_s": total, **t,
+            "objective_median": med}
 
 
 def run_awq(dev, arch, run_cal) -> dict:
@@ -5570,8 +5607,8 @@ def phase8(dev, results: dict) -> dict:
     for i, (name, build, batch, path) in enumerate(runs):
         t0 = time.perf_counter()
         built = build()
-        params = built.pop("params")
-        summaries[name] = {**built, **p8_decode(dev, name, arch, params, batch, path,
+        params, run_arch = built.pop("params"), built.pop("arch", arch)
+        summaries[name] = {**built, **p8_decode(dev, name, run_arch, params, batch, path,
                                                 SEED + 81 + i)}
         summaries[name]["batch"] = batch
         del params
@@ -5585,6 +5622,513 @@ def phase8(dev, results: dict) -> dict:
                           "launches": calls[key]["w8a8_matmul"]}
     for s in summaries.values():
         del s["shapes"], s["calls"]
+    return summaries
+
+
+# ---------------------------------------------------------------------------
+# Phase 9 (slice 16): storage formats, checkpoint conversion, the sweeps
+# ---------------------------------------------------------------------------
+
+P9_BATCH = 32
+P9_PRUNE = 0.8      # storage-small's f32 tree, pruned by prune_global_l1
+P9_SPARSE_AT = 0.7  # save_sparse_zip's default threshold
+P9_SWEEP = ("baseline_bf16", "quanto_int8", "quanto_int4", "l1_global_50pct")
+P9_INTERRUPT_AFTER = 2   # the sweep is interrupted when its third config starts
+P9_UTTS = 32             # the sweep's synthetic utterances: one batch
+P9_RUNGS = ("int8", "heads50+int8", "declayers-25%+int8")
+P9_CURVE_ITERS = 3
+P9_AGREE = 8             # run_curve's agreement_samples
+# kernels-line entries for the shapes only phase 9 gives the kernels: (entry
+# name, the KERNELS entry, the run whose held calls at that shape it counts
+# and times, the `checked_kernel_calls` shape key)
+P9_ENTRIES = [
+    ("transpose_quant_kv@f32-small", "transpose_quant_kv", "sparse-f32",
+     ("transpose_quant_kv", 1500, 768)),
+    ("decode_cross_attention_grouped_int8@f32q-384rows", "decode_cross_attention_grouped_int8",
+     "sparse-f32", ("grouped", "torch.int8", 1500, 1, P9_BATCH * 12)),
+    ("decode_self_attention_update_int8@f32q-384rows", "decode_self_attention_update_int8",
+     "sparse-f32", ("decode_self_attention_update_int8", "torch.float32", P9_BATCH * 12, 64,
+                    False)),
+    ("encoder_attention@small-heads50", "encoder_attention", "curve",
+     ("encoder_attention", 6, 1500)),
+    ("int8_matmul@heads50-q-M32", "int8_matmul", "curve", ("int8_matmul", P9_BATCH, 768, 384)),
+    ("decode_cross_attention_grouped_int8@heads50-192rows", "decode_cross_attention_grouped_int8",
+     "curve", ("grouped", "torch.int8", 1500, 1, P9_BATCH * 6)),
+]
+_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}
+
+
+def recorded_paths(sink: list) -> list:
+    """Patches (for `patched`) that record what a block ran, so that its
+    exact launch counts follow from the record (`recorded_launches`): every
+    log-mel on the card (`features.preprocess`), every encoder pass (the
+    encode of `make_transcribe_fn` and of `model_agreement`), every greedy
+    decode (its tree, batch, decoder steps and prefix) and every
+    teacher-forced `decode_logits` of `model_agreement`."""
+    from openai_whisper_compression_tpu_torch.audio import features
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation import agreement, harness
+    from openai_whisper_compression_tpu_torch.models import decode
+
+    def wrap(mod, name, note):
+        real = getattr(mod, name)
+
+        def fn(*a, **kw):
+            out = real(*a, **kw)
+            note(out, *a, **kw)
+            return out
+        return (mod, name, fn)
+
+    def mel(out, wav, *a, **kw):
+        if wav.is_cuda:
+            sink.append(("mel",))
+
+    def enc(out, params, arch, mel, *a, **kw):
+        sink.append(("encode", params, mel.dtype, mel.shape[-1] // 2))
+
+    def greedy(out, params, arch, enc_out, cfg=None, *a, **kw):
+        cfg = cfg or DecodeConfig()
+        check(kw.get("prompt_tokens") is None, "phase9: a prompted decode is not recorded")
+        first_gen = len(decode.forced_prefix(arch, cfg))
+        sink.append(("greedy", params, arch, cfg, enc_out.shape[0],
+                     int(out[1].max()) - first_gen, first_gen, enc_out.dtype))
+
+    def logits(out, params, arch, tokens, *a, **kw):
+        sink.append(("logits", params, tokens.numel()))
+
+    return [wrap(features, "preprocess", mel), wrap(harness, "encode", enc),
+            wrap(agreement, "encode", enc), wrap(harness, "greedy_decode", greedy),
+            wrap(decode, "greedy_decode", greedy), wrap(agreement, "decode_logits", logits)]
+
+
+def decoder_matmuls(params) -> list:
+    """The weight-only kernel of each quantized decoder linear that runs at
+    decode M (every one but the cross K and V, which run at encoder M)."""
+    from openai_whisper_compression_tpu_torch.models.params import named_leaves
+    from openai_whisper_compression_tpu_torch.ops.qtensor import QTensor
+
+    out = []
+    for name, leaf in named_leaves(params["decoder"]):
+        if (isinstance(leaf, QTensor) and leaf.act is None and name.endswith(".w")
+                and not name.endswith(("cross.k.w", "cross.v.w"))):
+            check(leaf.kind in _MATMUL_OF_KIND, f"no launch rule for a {leaf.kind} linear")
+            out.append(_MATMUL_OF_KIND[leaf.kind])
+    return out
+
+
+def recorded_launches(records: list) -> dict:
+    """Exact launch counts of what `recorded_paths` recorded: the mel once a
+    card call; the encoder attention once an encoder layer of a bf16 pass;
+    each quantized decoder linear's kernel once a teacher-forced pass, and
+    once for the prefill and every step of a greedy decode (M = rows x
+    window, at most 1024); per decode, the cross-KV quantizer for K and V
+    of each layer under int8 cross-KV, the grouped cross-attention a layer
+    for the prefill window and a layer and step (the one-query kernel for
+    the steps where B·H % 16 != 0), the cache update a layer and step."""
+    from openai_whisper_compression_tpu_torch.ops.linear import KERNEL_M_THRESHOLD
+
+    exact: dict = {}
+
+    def add(k, n):
+        exact[k] = exact.get(k, 0) + n
+
+    for r in records:
+        if r[0] == "mel":
+            add("log_mel_cuda", 1)
+        elif r[0] == "encode":
+            _, params, dtype, t = r
+            if dtype == torch.bfloat16 and t >= 256:
+                add("encoder_attention", len(params["encoder"]["layers"]))
+        elif r[0] == "logits":
+            if r[2] <= KERNEL_M_THRESHOLD:
+                for k in decoder_matmuls(r[1]):
+                    add(k, 1)
+        else:
+            _, params, arch, cfg, b, steps, first_gen, dtype = r
+            layers = len(params["decoder"]["layers"])
+            # the heads the weights hold (physical head pruning narrows them)
+            heads = params["decoder"]["layers"][0]["cross"]["q"]["w"].shape[1] // arch.head_dim
+            sfx = _SUFFIX[dtype]
+            if cfg.cross_kv_int8:
+                cross = "decode_cross_attention_grouped_int8"
+                add("transpose_quant_kv", 2 * layers)
+            else:
+                cross = "decode_cross_attention_grouped" + sfx
+            check(first_gen > 1 and first_gen - 1 <= 8, f"phase9: a prefix of {first_gen}")
+            add(cross, layers)
+            add(cross if b * heads % 16 == 0 else cross.replace("_grouped", ""), layers * steps)
+            add("decode_self_attention_update_int8" if cfg.kv_int8
+                else "decode_self_attention_update" + sfx, layers * steps)
+            for k in decoder_matmuls(params):
+                add(k, steps + (b * (first_gen - 1) <= KERNEL_M_THRESHOLD))
+    return exact
+
+
+@contextlib.contextmanager
+def counted(name: str, held: bool, shapes: dict | None = None, calls: dict | None = None):
+    """A block whose launch counts must be exactly those of what it ran
+    (`recorded_paths`, `recorded_launches`), every kernel call held against
+    its plain version where `held` (`checked_kernel_calls(mel=True)`).
+    Yields a dict that gets "launches" and "seconds" when the block ends."""
+    records: list = []
+    box: dict = {}
+    hold = (checked_kernel_calls({} if shapes is None else shapes, calls, mel=True) if held
+            else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with hold, patched(*recorded_paths(records)):
+        counters = zero_launches()
+        yield box
+        torch.cuda.synchronize()
+        box["launches"] = read_launches(counters)
+    box["seconds"] = time.perf_counter() - t0
+    exact = recorded_launches(records)
+    check_launches(name, box["launches"], tuple(k for k, v in exact.items() if v), exact)
+
+
+def p9_decode(dev, name: str, arch, params, cfg, wav, held: bool, shapes=None, calls=None):
+    """One batch of `make_transcribe_fn` (bf16 DFT mel, tanh GELU) with exact
+    launch counts, held or not: (tokens, lengths, the block's box)."""
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+
+    fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+    with counted(name, held, shapes, calls) as box, torch.inference_mode():
+        toks, lens = fn(params, wav)
+        toks, lens = toks.cpu(), lens.cpu()
+    check(toks.shape[0] == wav.shape[0] and bool((lens == 4 + NEW_TOKENS).all()),
+          f"{name}: tokens {tuple(toks.shape)} lengths {lens.tolist()}")
+    return toks, lens, box
+
+
+def contiguous_on_card(params) -> bool:
+    """Every tensor of the tree (every QTensor field) contiguous on the card."""
+    from openai_whisper_compression_tpu_torch.models.params import named_leaves
+    from openai_whisper_compression_tpu_torch.ops.qtensor import QTensor
+
+    return all(t.is_cuda and t.is_contiguous() for _, leaf in named_leaves(params)
+               for t in (leaf._tensors() if isinstance(leaf, QTensor) else [leaf]))
+
+
+def p9_through(dev, name: str, arch, params, ref, fmt: str, tmp: str, cfg, wav, want,
+               results: dict) -> dict:
+    """`params` written in `fmt` and read back onto the card: every leaf
+    bit-equal to `ref` (the tree before saving, on the card or the host) and
+    contiguous on the card, then one held decode whose tokens equal `want`
+    (the in-memory tree's from this run). Logs write s, read s, file MB."""
+    import os
+
+    from openai_whisper_compression_tpu_torch.storage import formats
+
+    save, load = formats.FORMATS[fmt]
+    path = os.path.join(tmp, f"{name}.{fmt}")
+    t0 = time.perf_counter()
+    stats = save(params, path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load(path, device=dev)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    os.remove(path)
+    bad = formats.trees_equal(loaded, ref)
+    check(not bad, f"{name} {fmt}: leaves differ after the round trip: {bad[:5]}")
+    check(contiguous_on_card(loaded), f"{name} {fmt}: a reloaded leaf is not contiguous "
+          "on the card")
+    shapes, calls = {}, {}
+    toks, _, box = p9_decode(dev, f"{name}-{fmt}", arch, loaded, cfg, wav, True, shapes, calls)
+    check(torch.equal(toks, want), f"{name} {fmt}: the reloaded tree's tokens differ from "
+          "the in-memory tree's")
+    extra = "".join(f", {k.replace('_', ' ')} {v}" for k, v in stats.items()
+                    if k in ("sparse_tensors", "dense_tensors", "raw_mb"))
+    log(f"phase9 storage-small {name} {fmt}: write {write_s:.2f} s, read {read_s:.2f} s, "
+        f"{stats['file_mb']:.1f} MB{extra}; every leaf bit-equal; held batch of "
+        f"{wav.shape[0]} in {box['seconds']:.2f} s, tokens equal the in-memory tree's; "
+        f"launches {json.dumps(launched(box['launches']))}")
+    results[f"p9_shapes_{name}"] = (shapes, calls)
+    del loaded
+    torch.cuda.empty_cache()
+    return {"write_s": write_s, "read_s": read_s, "file_mb": stats["file_mb"],
+            "launches": box["launches"], **{k: v for k, v in stats.items() if k != "file_mb"}}
+
+
+def run_storage_small(dev, arch, int8_params, tmp: str, results: dict) -> dict:
+    """storage-small: phase 2's int8 whisper-small tree through npz and gzip,
+    an NF4 tree through gzip, an f32 tree pruned 80% (global L1) through the
+    sparse zip; each read back onto the card, bit-equal, decoded as one held
+    batch to the in-memory tree's tokens (int8 caches, 25 tokens, EOT
+    suppressed)."""
+    from openai_whisper_compression_tpu_torch import runtime_native
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.models.params import (init_params, named_leaves,
+                                                                    tree_to)
+    from openai_whisper_compression_tpu_torch.prune.magnitude import prune_global_l1
+
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,), **KV8)
+    wav = torch.from_numpy(waveforms(SEED + 90, P9_BATCH)).to(dev)
+    log(f"phase9 storage-small: the sparse codec runs "
+        f"{'natively (runtime/build/libowcruntime.so)' if runtime_native.available() else 'the numpy fallback'}")
+    out = {}
+    want, _, box = p9_decode(dev, "int8-in-memory", arch, int8_params, cfg, wav, False)
+    out["int8-in-memory"] = {"launches": box["launches"]}
+    for fmt in ("npz", "gzip"):
+        out[f"int8-{fmt}"] = p9_through(dev, "int8", arch, int8_params, int8_params, fmt, tmp,
+                                        cfg, wav, want, results)
+    _, nf4 = make_params(dev, ARCH, "nf4")
+    want, _, _ = p9_decode(dev, "nf4-in-memory", arch, nf4, cfg, wav, False)
+    host = tree_to(nf4, "cpu", torch.bfloat16)
+    del nf4
+    torch.cuda.empty_cache()
+    out["nf4-gzip"] = p9_through(dev, "nf4", arch, host, host, "gzip", tmp, cfg, wav, want,
+                                 results)
+    del host
+    pruned = prune_global_l1(init_params(arch, seed=SEED, dtype=torch.float32, device=dev),
+                             P9_PRUNE)
+    want, _, _ = p9_decode(dev, "sparse-f32-in-memory", arch, pruned, cfg, wav, False)
+    host = tree_to(pruned, "cpu", torch.float32)
+    del pruned
+    torch.cuda.empty_cache()
+    over = sum(1 for _, t in named_leaves(host)
+               if t.dtype == torch.float32 and float((t == 0).float().mean()) > P9_SPARSE_AT)
+    res = p9_through(dev, "sparse-f32", arch, host, host, "sparse_zip", tmp, cfg, wav, want,
+                     results)
+    log(f"phase9 storage-small sparse-f32: {res['sparse_tensors']} leaves stored sparse "
+        f"(sparsity above {P9_SPARSE_AT}; {over} expected), {res['dense_tensors']} dense")
+    check(res["sparse_tensors"] == over > 0, f"sparse-f32: {res['sparse_tensors']} leaves "
+          f"stored sparse, {over} above the threshold")
+    out["sparse-f32-sparse_zip"] = res
+    return out
+
+
+def run_hf_small(dev, arch, dense, tmp: str, results: dict) -> dict:
+    """hf-small: the seeded bf16 whisper-small tree as an HF-named state dict
+    (`to_hf_state_dict`) in a two-shard safetensors snapshot with the
+    config.json and generation_config.json written here; `load_model(hf=dir,
+    dtype=bf16)` onto the card: ARCHS["small"]'s dimensions, every leaf
+    bit-equal and contiguous, one held batch with bf16 caches, tokens equal
+    to the in-memory tree's."""
+    import os
+
+    from openai_whisper_compression_tpu_torch import load_model
+    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
+    from openai_whisper_compression_tpu_torch.models.convert import (to_hf_state_dict,
+                                                                     write_safetensors)
+    from openai_whisper_compression_tpu_torch.storage import formats
+
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,))
+    wav = torch.from_numpy(waveforms(SEED + 91, P9_BATCH)).to(dev)
+    want, _, _ = p9_decode(dev, "hf-in-memory", arch, dense, cfg, wav, False)
+    snap = os.path.join(tmp, "whisper-small-snapshot")
+    os.makedirs(snap)
+    t0 = time.perf_counter()
+    sd = to_hf_state_dict(dense)
+    keys = list(sd)
+    shards = {"model-00001-of-00002.safetensors": keys[: len(keys) // 2],
+              "model-00002-of-00002.safetensors": keys[len(keys) // 2:]}
+    weight_map = {}
+    for fname, ks in shards.items():
+        write_safetensors({k: sd[k] for k in ks}, os.path.join(snap, fname))
+        weight_map.update({k: fname for k in ks})
+    total = sum(v.numel() * v.element_size() for v in sd.values())
+    with open(os.path.join(snap, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    a = ARCHS[ARCH]
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump({"vocab_size": a.vocab_size, "num_mel_bins": a.num_mel_bins,
+                   "d_model": a.d_model, "encoder_layers": a.encoder_layers,
+                   "encoder_attention_heads": a.encoder_heads,
+                   "decoder_layers": a.decoder_layers,
+                   "decoder_attention_heads": a.decoder_heads,
+                   "encoder_ffn_dim": a.ffn_dim, "decoder_ffn_dim": a.ffn_dim,
+                   "max_source_positions": a.max_source_positions,
+                   "max_target_positions": a.max_target_positions,
+                   "eos_token_id": a.eos_token_id, "pad_token_id": a.eos_token_id,
+                   "bos_token_id": a.eos_token_id,
+                   "decoder_start_token_id": a.decoder_start_token_id}, f)
+    heads = [[5, 3], [7, 0], [9, 11], [10, 4]]
+    with open(os.path.join(snap, "generation_config.json"), "w") as f:
+        json.dump({"alignment_heads": heads,
+                   "no_timestamps_token_id": a.no_timestamps_token_id}, f)
+    write_s = time.perf_counter() - t0
+    mb = sum(os.path.getsize(os.path.join(snap, n)) for n in os.listdir(snap)) / 2 ** 20
+    del sd
+    t0 = time.perf_counter()
+    params, got = load_model(hf=snap, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    dims = ("vocab_size", "num_mel_bins", "d_model", "encoder_layers", "encoder_heads",
+            "decoder_layers", "decoder_heads", "ffn_dim", "max_source_positions",
+            "max_target_positions", "eos_token_id", "decoder_start_token_id",
+            "no_timestamps_token_id", "multilingual")
+    check(all(getattr(got, f) == getattr(a, f) for f in dims)
+          and got.alignment_heads == tuple(map(tuple, heads)),
+          f"hf-small: the loaded arch {got} is not ARCHS['small']'s")
+    bad = formats.trees_equal(params, dense)
+    check(not bad, f"hf-small: leaves differ from the tree written: {bad[:5]}")
+    check(contiguous_on_card(params), "hf-small: a loaded leaf is not contiguous on the card")
+    toks, _, box = p9_decode(dev, "hf-small", got, params, cfg, wav, True)
+    check(torch.equal(toks, want), "hf-small: the loaded tree's tokens differ from the "
+          "in-memory tree's")
+    log(f"phase9 hf-small: {len(keys)} tensors in 2 safetensors shards, {mb:.1f} MB, "
+        f"written in {write_s:.2f} s; load_model(hf=, dtype=bf16) {read_s:.2f} s; "
+        f"ARCHS['small']'s dimensions, alignment heads {heads}; every leaf bit-equal; held "
+        f"batch of {P9_BATCH} (bf16 caches) in {box['seconds']:.2f} s, tokens equal the "
+        f"in-memory tree's; launches {json.dumps(launched(box['launches']))}")
+    import shutil
+
+    shutil.rmtree(snap)
+    del params
+    torch.cuda.empty_cache()
+    return {"write_s": write_s, "read_s": read_s, "file_mb": mb, "launches": box["launches"]}
+
+
+def run_sweep_small(dev, arch, dense, tmp: str) -> dict:
+    """sweep-small: `run_sweep` over baseline_bf16, quanto_int8, quanto_int4
+    and l1_global_50pct on `synthetic_dataset(32)` with `default_tokenizer`
+    (batch 32, int8 caches, 25 tokens, EOT suppressed, no warmup), every
+    kernel call held, launch counts exact; interrupted when the third config
+    starts (a KeyboardInterrupt, which the driver does not isolate), then
+    resumed: the resumed run applies configs 3-4 only and returns all four."""
+    import os
+
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig, EvalConfig
+    from openai_whisper_compression_tpu_torch.evaluation.data import synthetic_dataset
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import default_tokenizer
+    from openai_whisper_compression_tpu_torch.sweep import configs, driver
+
+    by_name = {c["name"]: c for c in configs.quant_sweep() + configs.unstructured_l1_sweep()}
+    applied: list = []
+
+    def tracked(cfg, interrupt: bool):
+        def apply(p, a):
+            applied.append(cfg["name"])
+            if interrupt:
+                raise KeyboardInterrupt(f"interrupted at {cfg['name']}")
+            return cfg["apply"](p, a)
+        return {**cfg, "apply": apply}
+
+    datasets = {"test_clean": synthetic_dataset(P9_UTTS, seed=0)}
+    kw = dict(eval_cfg=EvalConfig(batch_size=P9_BATCH, warmup_batches=0),
+              decode_cfg=DecodeConfig(max_new_tokens=NEW_TOKENS,
+                                      suppress_tokens=(arch.eos_token_id,), **KV8),
+              save_path=os.path.join(tmp, "sweep"), device=dev)
+    tok = default_tokenizer(arch)
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)   # the evaluations' peak, not an earlier phase's
+    with counted("sweep-small interrupted", True) as box:
+        try:
+            driver.run_sweep(dense, arch, [tracked(by_name[n], i == P9_INTERRUPT_AFTER)
+                                           for i, n in enumerate(P9_SWEEP)],
+                             datasets, tok, **kw)
+            check(False, "sweep-small: the interrupt did not stop the sweep")
+        except KeyboardInterrupt:
+            pass
+    with open(os.path.join(kw["save_path"], "all_results.json")) as f:
+        saved = json.load(f)
+    check(applied == list(P9_SWEEP[:P9_INTERRUPT_AFTER + 1])
+          and set(saved) == set(P9_SWEEP[:P9_INTERRUPT_AFTER]) | {"_meta"}
+          and not any("error" in saved[n] for n in P9_SWEEP[:P9_INTERRUPT_AFTER]),
+          f"sweep-small: applied {applied}, flushed {sorted(saved)}")
+    out["sweep-interrupted"] = {"launches": box["launches"]}
+    log(f"phase9 sweep-small: interrupted at {P9_SWEEP[P9_INTERRUPT_AFTER]} after "
+        f"{box['seconds']:.2f} s; all_results.json holds {sorted(k for k in saved if k[0] != '_')}")
+    applied.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counted("sweep-small resumed", True) as box:
+        res = driver.run_sweep(dense, arch, [tracked(by_name[n], False) for n in P9_SWEEP],
+                               datasets, tok, **kw)
+    check(applied == list(P9_SWEEP[P9_INTERRUPT_AFTER:]),
+          f"sweep-small: the resumed run applied {applied}")
+    check(list(res) == list(P9_SWEEP) and not any("error" in r for r in res.values()),
+          f"sweep-small: results {json.dumps(res, default=str)[:400]}")
+    sizes = [res[n]["model_size_mb"] for n in P9_SWEEP]
+    # global L1 prunes the linear weights alone, ~87% of whisper-small's values
+    check(sizes[1] < sizes[0] and sizes[2] < sizes[1]
+          and 0.3 < res["l1_global_50pct"]["sparsity"] < 0.5,
+          f"sweep-small: sizes {sizes}, sparsity {res['l1_global_50pct']['sparsity']}")
+    out["sweep-resumed"] = {"launches": box["launches"]}
+    log(f"phase9 sweep-small: resumed in {box['seconds']:.2f} s (every kernel call held), "
+        f"applied {applied} only; launches {json.dumps(launched(box['launches']))}")
+    driver.summarize(res)   # the driver's table, on stdout
+    for n in P9_SWEEP:
+        s = res[n]["splits"]["test_clean"]
+        vs = s.get("wer_vs_baseline")
+        log(f"phase9 sweep-small {n}: size {res[n]['model_size_mb']:.1f} MiB, sparsity "
+            f"{res[n]['sparsity']:.4f}, {res[n]['gflops']:.2f} GFLOPs, WER {s['wer']:.4f}, "
+            f"wer_vs_baseline {'-' if vs is None else f'{vs:.4f}'}, rtfx {s['rtfx']:.2f} "
+            f"(a held pass), peak {s['memory']['hbm_peak_mb']['max']:.1f} MiB (the allocator's "
+            f"since its sweep run began, the resident trees of phases 2 and 7 included)")
+    return out
+
+
+def run_curve_small(dev, arch, dense, results: dict) -> dict:
+    """The curve: `run_curve` over the int8, heads50+int8 and
+    declayers-25%+int8 rungs (`ladder` cut to them), batch 32, int8 caches,
+    25 tokens, recover_steps 0: a timed pass (iters 3; launch counts exact),
+    then a held pass (iters 1, every kernel call held, counts exact) whose
+    points equal the timed pass's in every field but rtfx."""
+    from openai_whisper_compression_tpu_torch.sweep import curve
+
+    real = curve.ladder
+    kw = dict(quant="int8", batch=P9_BATCH, tokens=NEW_TOKENS, agreement_samples=P9_AGREE,
+              recover_steps=0, progress=lambda m: log(f"phase9 {m.lstrip('# ')}"))
+    cut = (curve, "ladder", lambda quant: [r for r in real(quant) if r[0] in P9_RUNGS])
+    with patched(cut), counted("curve timed", False) as box:
+        points = curve.run_curve(dense, arch, iters=P9_CURVE_ITERS, **kw)
+    shapes, calls = {}, {}
+    with patched(cut), counted("curve held", True, shapes, calls) as held:
+        again = curve.run_curve(dense, arch, iters=1, **kw)
+    check([p["name"] for p in points] == list(P9_RUNGS)
+          and not any("error" in p for p in points + again),
+          f"curve: points {points}, held {again}")
+    for p, q in zip(points, again):
+        check({k: v for k, v in p.items() if k != "rtfx"}
+              == {k: v for k, v in q.items() if k != "rtfx"},
+              f"curve: the held pass's {q} differs from the timed pass's {p}")
+        log(f"phase9 curve {p['name']}: rtfx {p['rtfx']} (timed pass, {P9_CURVE_ITERS} "
+            f"batches of {P9_BATCH}, median), size_mb {p['size_mb']}, hbm_mb {p['hbm_mb']}, "
+            f"token_agreement {p['token_agreement']}, top1 {p['top1_agreement']}, mean_kl "
+            f"{p['mean_kl']}, params_m {p['params_m']}")
+    log(f"phase9 curve: timed pass {box['seconds']:.1f} s, held pass {held['seconds']:.1f} s; "
+        f"launches {json.dumps(launched(held['launches']))}")
+    results["p9_shapes_curve"] = (shapes, calls)
+    return {"curve": {"points": points, "launches": box["launches"]},
+            "curve-held": {"launches": held["launches"]}}
+
+
+def phase9(dev, arch, int8_params, results: dict) -> dict:
+    """Phase 9 (slice 16): storage-small, hf-small, sweep-small and the
+    curve at whisper-small's full width and depth (module docstring); each
+    part's seconds printed; then the P9_ENTRIES shapes timed. Returns the
+    runs' summaries."""
+    import tempfile
+
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+
+    summaries = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-p9-") as tmp:
+        t0 = time.perf_counter()
+        summaries.update(run_storage_small(dev, arch, int8_params, tmp, results))
+        log(f"phase9 storage-small: {time.perf_counter() - t0:.1f} s")
+        dense = init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev)
+        t0 = time.perf_counter()
+        summaries["hf-small"] = run_hf_small(dev, arch, dense, tmp, results)
+        log(f"phase9 hf-small: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        summaries.update(run_sweep_small(dev, arch, dense, tmp))
+        log(f"phase9 sweep-small: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        summaries.update(run_curve_small(dev, arch, dense, results))
+        log(f"phase9 curve: {time.perf_counter() - t0:.1f} s")
+        del dense
+        torch.cuda.empty_cache()
+    for entry, base, run, key in P9_ENTRIES:
+        shapes, calls = results[f"p9_shapes_{run}"]
+        check(key in shapes, f"phase9: {run} never called the {key} shape")
+        count = calls[key].get(base, 0)
+        check(count > 0, f"phase9: {run} never launched {base} at the {key} shape")
+        results[entry] = {**time_p5_shape(f"{run} {entry}", key, shapes[key], phase="phase9"),
+                          "launches": count}
+    for k in [k for k in results if k.startswith("p9_shapes_")]:
+        del results[k]
     return summaries
 
 
@@ -5826,6 +6370,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     summaries.update(phase8(dev, results))
     phase_done("phase8")
+    # the slice-16 runs: storage, checkpoint conversion, the sweeps
+    torch.cuda.empty_cache()
+    summaries.update(phase9(dev, *small_int8, results))
+    phase_done("phase9")
     rows = {}
     summaries.update(phase6(dev, *small_int8, results,
                             between=lambda: rows.update(phase7_held(dev, p7, results))))
@@ -5859,7 +6407,8 @@ def main() -> int:
         {**entries[base], "name": name,
          **{k: results[name][k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")}}
-        for name, base, _, _ in P5_ENTRIES + P6_ENTRIES + P7_ENTRIES + P8_ENTRIES]
+        for name, base, _, _ in P5_ENTRIES + P6_ENTRIES + P7_ENTRIES + P8_ENTRIES
+        + P9_ENTRIES]
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

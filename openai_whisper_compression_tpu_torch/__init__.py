@@ -29,21 +29,29 @@ _DEFAULT_DEVICE = "cuda"   # models.params.DEFAULT_DEVICE, without importing tor
 
 def load_model(name_or_arch: str = "tiny", dtype: Any = None, seed: int = 0,
                hf: str | None = None, device: Any = _DEFAULT_DEVICE):
-    """(params, arch): seeded random weights of the named architecture on
-    `device` (float32 unless `dtype` says otherwise; `init_params`'
-    generator). `hf` would load a Hugging Face checkpoint, which needs the
-    checkpoint converter (`models/convert.py`) the port does not have yet:
-    it raises ValueError and fetches nothing."""
+    """(params, arch) on `device`, float32 unless `dtype` says otherwise.
+    `hf` loads real weights: a local path (an HF snapshot or export
+    directory, an OpenAI `.pt`, a bare state dict or safetensors file), or
+    a model name found in the local npz cache or a mounted HF hub cache
+    (`models.convert.load_hf_model`; nothing is downloaded). Otherwise the
+    named architecture with seeded random weights (`init_params`'
+    generator)."""
+    import os
+
     import torch
 
+    dtype = dtype or torch.float32
+    if hf:
+        from .models.convert import load_checkpoint, load_hf_model
+
+        if os.path.exists(hf):
+            params, arch = load_checkpoint(hf, dtype, device)
+            return params, arch.replace(name=hf)
+        return load_hf_model(hf, dtype=dtype, device=device)
     from .models.params import init_params
 
-    if hf:
-        raise ValueError(f"load_model(hf={hf!r}): loading a Hugging Face checkpoint "
-                         "needs models/convert.py, which is not ported yet "
-                         "(ROADMAP queue 1, item 15)")
     arch = ARCHS[name_or_arch]
-    return init_params(arch, seed, dtype=dtype or torch.float32, device=device), arch
+    return init_params(arch, seed, dtype=dtype, device=device), arch
 
 
 def transcribe(params, arch, audio, tokenizer=None, decode_cfg=None,

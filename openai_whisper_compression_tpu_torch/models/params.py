@@ -142,9 +142,10 @@ def from_numpy(tree: Any, device: str | torch.device = DEFAULT_DEVICE) -> Any:
     return _tensor(tree, device)
 
 
-def tree_to(params: Any, device: str | torch.device, dtype: torch.dtype) -> Any:
-    """Move every leaf to `device`, casting dense floating leaves to `dtype`
-    (QTensor data and scales keep their types)."""
+def tree_to(params: Any, device: str | torch.device,
+            dtype: torch.dtype | None = None) -> Any:
+    """Move every leaf to `device`, casting dense leaves to `dtype` where one
+    is given (QTensor data and scales keep their types)."""
     if isinstance(params, dict):
         return {k: tree_to(v, device, dtype) for k, v in params.items()}
     if isinstance(params, list):
@@ -183,6 +184,23 @@ def size_in_bytes(params: Any) -> int:
 def size_in_mb(params: Any) -> float:
     """`size_in_bytes` in MiB."""
     return size_in_bytes(params) / 2 ** 20
+
+
+def disk_size_in_mb(params: Any, compressed: bool = False) -> float:
+    """Serialized size in MiB: the stored bytes (`size_in_mb`), or with
+    `compressed` the size of the tree's npz-deflate file
+    (`storage.formats.save_npz`, written to a temporary directory)."""
+    if not compressed:
+        return size_in_mb(params)
+    import os
+    import tempfile
+
+    from ..storage.formats import save_npz
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "m.npz")
+        save_npz(params, path)
+        return os.path.getsize(path) / 2 ** 20
 
 
 def copy_tree(params: Any) -> Any:

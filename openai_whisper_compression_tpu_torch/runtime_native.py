@@ -2,7 +2,8 @@
 
 A framework-free copy of the JAX package's `runtime_native.py`: host-side
 batch assembly (with FLAC requests decoded in the loader's worker pool and
-per-slot decode-failure flags, the serving wire) and FLAC decoding. Builds the shared library
+per-slot decode-failure flags, the serving wire), FLAC decoding and the
+sparse codec of the sparse-zip storage format. Builds the shared library
 with `make` into the git-ignored `runtime/build/` on first use (a C ABI
 and ctypes, no pybind11). Every entry point has a numpy fallback so the
 package works without a toolchain.
@@ -47,6 +48,18 @@ def _lib() -> ctypes.CDLL | None:
     lib.owc_loader_clear.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.owc_loader_flush.restype = ctypes.POINTER(ctypes.c_float)
     lib.owc_loader_flush.argtypes = [ctypes.c_void_p]
+    lib.owc_nnz.restype = ctypes.c_int64
+    lib.owc_nnz.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+                            ctypes.c_int]
+    lib.owc_sparse_encode.restype = ctypes.c_int64
+    lib.owc_sparse_encode.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int]
+    lib.owc_sparse_decode.argtypes = [
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.c_int]
     if hasattr(lib, "owc_flac_open"):  # .so may predate the FLAC decoder
         lib.owc_loader_submit_flac.argtypes = [
             ctypes.c_void_p, ctypes.c_int,
@@ -77,6 +90,10 @@ def available() -> bool:
 
 def _fptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _iptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
 
 # ---------------------------------------------------------------------------
@@ -223,3 +240,44 @@ def flac_decode(data: bytes) -> tuple[np.ndarray, int, int]:
 
     samples, info = decode_flac(data)
     return samples, info.sample_rate, info.bits_per_sample
+
+
+# ---------------------------------------------------------------------------
+# Sparse codec
+# ---------------------------------------------------------------------------
+
+def sparse_encode(data: np.ndarray,
+                  n_threads: int = 4) -> tuple[np.ndarray, np.ndarray]:
+    """-> (flat int64 indices, float32 values) of the nonzeros, in index
+    order (threaded native extraction when the library is built)."""
+    flat = np.ascontiguousarray(data.reshape(-1), np.float32)
+    lib = _lib()
+    if lib is None:
+        nz = np.nonzero(flat)[0].astype(np.int64)
+        return nz, flat[nz]
+    nnz = lib.owc_nnz(_fptr(flat), flat.size, n_threads)
+    idx = np.empty(nnz, np.int64)
+    val = np.empty(nnz, np.float32)
+    written = lib.owc_sparse_encode(_fptr(flat), flat.size, _iptr(idx),
+                                    _fptr(val), n_threads)
+    if written != nnz:
+        raise RuntimeError(f"owc_sparse_encode wrote {written} of {nnz} nonzeros")
+    return idx, val
+
+
+def sparse_decode(idx: np.ndarray, val: np.ndarray, shape: tuple,
+                  n_threads: int = 4) -> np.ndarray:
+    """Dense float32 array of `shape` with `val` at the flat `idx`, zeros
+    elsewhere (the inverse of `sparse_encode`)."""
+    n = int(np.prod(shape))
+    lib = _lib()
+    if lib is None:
+        out = np.zeros(n, np.float32)
+        out[idx] = val
+        return out.reshape(shape)
+    out = np.empty(n, np.float32)
+    idx = np.ascontiguousarray(idx, np.int64)
+    val = np.ascontiguousarray(val, np.float32)
+    lib.owc_sparse_decode(_iptr(idx), _fptr(val), idx.size, _fptr(out), n,
+                          n_threads)
+    return out.reshape(shape)

@@ -1702,3 +1702,107 @@ def test_pruned_model_decodes_on_the_card(dev, model, batch):
     else:
         assert "decode_cross_attention" not in held
     assert held["decode_cross_attention_grouped"] > 0
+
+
+def _small2(dev, dtype=torch.bfloat16):
+    """whisper-small at full width, 2 encoder and 2 decoder layers, seeded."""
+    from openai_whisper_compression_tpu_torch.config import ARCHS
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+
+    arch = ARCHS["small"].replace(encoder_layers=2, decoder_layers=2)
+    return arch, init_params(arch, 0, dtype, dev)
+
+
+@pytest.mark.parametrize("fmt", ["npz", "gzip", "sparse_zip"])
+def test_storage_roundtrip_decodes_on_the_card(dev, tmp_path, fmt):
+    """A whisper-small int8 tree (2 layers of full width, fused qkv) saved
+    from the card and read back onto it through each format: every leaf
+    bit-equal and contiguous on the card, and a decode with every kernel
+    call held (int8 caches, 4 tokens, EOT suppressed) gives the in-memory
+    tree's tokens."""
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.quant.api import quantize_params
+    from openai_whisper_compression_tpu_torch.storage import formats
+
+    cs = _chip_smoke()
+    arch, params = _small2(dev)
+    params = fuse_qkv(quantize_params(params, "int8"))
+    cfg = DecodeConfig(max_new_tokens=4, suppress_tokens=(arch.eos_token_id,),
+                       kv_int8=True, cross_kv_int8=True)
+    fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    wav = torch.randn(8, 480_000, generator=g, device=dev) * 0.1
+    want, _ = fn(params, wav)
+    save, load = formats.FORMATS[fmt]
+    save(params, str(tmp_path / f"m.{fmt}"))
+    loaded = load(str(tmp_path / f"m.{fmt}"), device=dev)
+    assert formats.trees_equal(loaded, params) == []
+    assert cs.contiguous_on_card(loaded)
+    shapes: dict = {}
+    with cs.checked_kernel_calls(shapes, mel=True) as held:
+        got, lens = fn(loaded, wav)
+    assert torch.equal(got, want) and bool((lens == 4 + 4).all())
+    assert held["int8_matmul"] > 0 and held["decode_self_attention_update_int8"] > 0
+
+
+def test_bf16_safetensors_snapshot_feeds_every_kernel(dev, tmp_path):
+    """A bf16 safetensors snapshot (2 shards, config.json) of whisper-small
+    at 2 layers of full width, loaded onto the card by `load_model(hf=)`:
+    every leaf contiguous on the card and bit-equal to the tree written; the
+    tree, and its int8, int4, NF4, HQQ and w8a8 quantizations, decode with
+    every kernel call held (bf16 and int8 caches, batch 8 and batch 1), so
+    that every kernel wrapper takes what the loader gives it."""
+    import json
+
+    from openai_whisper_compression_tpu_torch import load_model
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+    from openai_whisper_compression_tpu_torch.models.convert import (to_hf_state_dict,
+                                                                     write_safetensors)
+    from openai_whisper_compression_tpu_torch.quant.api import quantize_params
+    from openai_whisper_compression_tpu_torch.storage import formats
+
+    cs = _chip_smoke()
+    arch, params = _small2(dev)
+    sd = to_hf_state_dict(params)
+    keys = list(sd)
+    for i, ks in enumerate((keys[: len(keys) // 2], keys[len(keys) // 2:])):
+        write_safetensors({k: sd[k] for k in ks}, str(tmp_path / f"model-{i}.safetensors"))
+    with open(tmp_path / "model.safetensors.index.json", "w") as f:
+        json.dump({"weight_map": {k: f"model-{i}.safetensors" for i, ks in enumerate(
+            (keys[: len(keys) // 2], keys[len(keys) // 2:])) for k in ks}}, f)
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump({"vocab_size": arch.vocab_size, "num_mel_bins": arch.num_mel_bins,
+                   "d_model": arch.d_model, "encoder_layers": 2,
+                   "encoder_attention_heads": arch.encoder_heads, "decoder_layers": 2,
+                   "decoder_attention_heads": arch.decoder_heads,
+                   "encoder_ffn_dim": arch.ffn_dim, "decoder_ffn_dim": arch.ffn_dim,
+                   "max_source_positions": arch.max_source_positions,
+                   "max_target_positions": arch.max_target_positions,
+                   "eos_token_id": arch.eos_token_id,
+                   "decoder_start_token_id": arch.decoder_start_token_id}, f)
+    loaded, got = load_model(hf=str(tmp_path), dtype=torch.bfloat16, device=dev)
+    assert (got.d_model, got.decoder_layers, got.decoder_heads) == (768, 2, 12)
+    assert formats.trees_equal(loaded, params) == []
+    assert cs.contiguous_on_card(loaded)
+    g = torch.Generator(device=dev).manual_seed(6)
+    wav = torch.randn(8, 480_000, generator=g, device=dev) * 0.1
+    kv8 = dict(kv_int8=True, cross_kv_int8=True)
+    held_all: dict = {}
+    for method, switches, rows in [(None, {}, 8), (None, kv8, 8), (None, kv8, 1),
+                                   ("int8", kv8, 8), ("int4", kv8, 8), ("nf4", kv8, 8),
+                                   ("hqq_int4", kv8, 8), ("pytorch_dynamic_int8", kv8, 8)]:
+        tree = loaded if method is None else quantize_params(loaded, method)
+        cfg = DecodeConfig(max_new_tokens=3, suppress_tokens=(got.eos_token_id,), **switches)
+        fn = make_transcribe_fn(got, cfg, fast_mel=True, fast_gelu=True, device=dev)
+        with cs.checked_kernel_calls({}, mel=True) as held:
+            toks, lens = fn(tree, wav[:rows])
+        assert bool((lens == 4 + 3).all())
+        for k, v in held.items():
+            held_all[k] = held_all.get(k, 0) + v
+    assert {"log_mel_cuda", "encoder_attention", "transpose_quant_kv",
+            "decode_cross_attention_grouped", "decode_cross_attention",
+            "decode_self_attention_update", "decode_self_attention_update_int8",
+            "int8_matmul", "int4_matmul", "nf4_matmul", "w8a8_matmul"} <= set(held_all)

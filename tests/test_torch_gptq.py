@@ -16,7 +16,12 @@ weight. The GPTQ objective tr((W - Ŵ)^T H (W - Ŵ)) is never above JAX's by
 more than 1e-4 relative (where codes differ, the port's was lower, up to
 8.7%), equal to it within 1e-4 where the codes are equal, and below
 round-to-nearest's. A Hessian whose Cholesky fails falls back to JAX's RTN
-bit for bit (an eager true division there)."""
+bit for bit (an eager true division there). The row loop alone is held
+bit for bit: fed the factor U that JAX's solve computes, the port's
+`_quantize_rows` gives JAX's codes at every width and bit count, so the
+flips above come from the f32 inverse alone."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -159,6 +164,65 @@ def test_solve_matches_jax_at_width(k, n, bits):
     x[:, 5] = 0.0
     n, most, size = _check_solve(w, x.T @ x, bits)
     assert most <= 1 and n <= CODE_FLIPS * size, (n, most)
+
+
+@jax.jit
+def _jax_factor(hessian, damp=0.01):
+    """U as JAX's `gptq_solve` computes it (damping, dead dims pinned,
+    `jnp.linalg.inv`, symmetrised, `jnp.linalg.cholesky(...).T`)."""
+    k = hessian.shape[0]
+    h = hessian.astype(jnp.float32)
+    diag = jnp.diag(h)
+    mean_diag = jnp.maximum(jnp.mean(diag), 1e-8)
+    h = h + jnp.eye(k, dtype=jnp.float32) * (damp * mean_diag)
+    h = jnp.where(jnp.eye(k, dtype=bool) & (diag <= 0)[None, :].T, mean_diag, h)
+    hinv = jnp.linalg.inv(h)
+    return jnp.linalg.cholesky((hinv + hinv.T) * 0.5).T
+
+
+def _loop_on_jax_factor(w, h, bits):
+    """(the port's row loop on JAX's U, JAX's solve) codes of one weight."""
+    jq, js, jok = jax_gptq.gptq_solve(jnp.asarray(w), jnp.asarray(h), bits=bits)
+    assert bool(jok)
+    u = torch.from_numpy(np.asarray(_jax_factor(jnp.asarray(h))))
+    tq = gptq._quantize_rows(torch.from_numpy(np.asarray(w)),
+                             torch.from_numpy(np.asarray(js)), u, 2 ** (bits - 1) - 1)
+    return tq.numpy(), np.asarray(jq)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_row_loop_equals_jax_on_jax_factor_test2l(trees, hessians, bits):
+    """The port's row loop, given the factor JAX's solve computes, gives
+    JAX's codes bit for bit on every linear of test2l under its own
+    (ill-conditioned) Hessians: the solve's code flips (`CODE_FLIPS`) come
+    from the f32 inverse alone, not from the loop."""
+    jp, _ = trees
+    jh, _ = hessians
+    leaves = dict(JP.named_leaves(jp))
+    for name, h in jh.items():
+        got, want = _loop_on_jax_factor(np.asarray(leaves[name]), h, bits)
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@functools.lru_cache(maxsize=1)
+def _small_problem(k, n):
+    """A seeded (K, N) weight and a Hessian of 4096 seeded rows with a dead
+    input dim (never activated)."""
+    rng = np.random.default_rng(k + n)
+    w = (rng.standard_normal((k, n)) * 0.02).astype(np.float32)
+    x = rng.standard_normal((4096, k)).astype(np.float32)
+    x[:, 5] = 0.0
+    return w, x.T @ x
+
+
+@pytest.mark.parametrize("k,n,bits", [(768, 768, 2), (768, 768, 4), (768, 768, 8),
+                                      (768, 3072, 2), (768, 3072, 4), (768, 3072, 8),
+                                      (3072, 768, 4)])
+def test_row_loop_equals_jax_on_jax_factor_small(k, n, bits):
+    """The same at whisper-small's linear widths (qkv / out and fc1 at each
+    bit width, fc2's K = 3072 at 4 bits)."""
+    got, want = _loop_on_jax_factor(*_small_problem(k, n), bits)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_nan_hessian_falls_back_to_jax_rtn():

@@ -13,7 +13,8 @@ carried over by `from_numpy`):
 - the package API: `transcribe` (chunked, and `timestamps=True`) with
   result dicts equal to JAX's (floats within 1e-5), `quantize` and `prune`
   (global L1 and a recipe) trees equal, `load_model` shapes and its refusal
-  of `hf=`."""
+  of an `hf=` name found in neither checkpoint cache (nothing is fetched;
+  `tests/test_torch_convert.py` holds the loads)."""
 
 import dataclasses
 
@@ -243,7 +244,7 @@ def test_prune_matches_jax(trees):
     assert callable(pkg.prune) and pkg._prune_pkg.__name__.endswith(".prune")
 
 
-def test_load_model_matches_jax_layout():
+def test_load_model_matches_jax_layout(tmp_path, monkeypatch):
     params, arch = pkg.load_model("test2l", seed=3, device=DEV)
     jparams, j_arch = jax_pkg.load_model("test2l", seed=3)
     assert arch == ARCH and j_arch == J_ARCH
@@ -253,5 +254,9 @@ def test_load_model_matches_jax_layout():
     assert all(dt == torch.float32 for _, dt in got.values())
     bf, _ = pkg.load_model("test2l", dtype=torch.bfloat16, device=DEV)
     assert bf["decoder"]["embed"].dtype == torch.bfloat16
-    with pytest.raises(ValueError, match="convert"):
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
+    monkeypatch.setenv("WHISPER_TPU_CACHE", str(tmp_path / "npz"))
+    monkeypatch.delenv("HF_HOME", raising=False)
+    with pytest.raises(FileNotFoundError, match="neither checkpoint cache"):
         pkg.load_model("tiny", hf="openai/whisper-tiny", device=DEV)
