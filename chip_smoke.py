@@ -358,10 +358,38 @@ Phase 9  (slice 16, after phase 8, before phase 6) storage, checkpoint
          each part's seconds printed, then the shapes only phase 9 gives
          the kernels timed (P9_ENTRIES).
 
+Phase 10 (slice 17, last) the CLI and the parallel paths at whisper-small's
+         full width and depth, seeded, every kernel call held against its
+         plain version (`checked_kernel_calls`) and the launches counted:
+           cli-*        `cli.main([...])` in process, on the card by default:
+                        `transcribe` of a 60 s WAV writing every format
+                        (bf16 tree, batch 2), `evaluate --quant quanto_int8
+                        --kv-int8` over `synthetic_dataset(32)`, `compress
+                        --quant quanto_int8 --format gzip --verify`, `export
+                        --load` of it to safetensors, `transcribe --weights`
+                        of the export, `agreement --quant quanto_int8` over
+                        8 clips, `analyze`; each result equal to the package
+                        API's on the same inputs;
+           dp-nccl-world1  `make_dp_transcribe` on a world of one under NCCL,
+                        batch 96, int8 caches: tokens equal
+                        `make_transcribe_fn`'s, launch counts exact;
+           tp2, tp2-b3, dp2  a two-process group on the one card (gloo:
+                        NCCL refuses two ranks on one device):
+                        `make_tp_decoder` at tp = 2 (int8, qkv unfused,
+                        int8 cross-KV, fp self-KV) at batch 32 (the grouped
+                        cross-attention over 6 local heads) and 3 (the
+                        one-query kernel), then `make_dp_transcribe` at dp =
+                        2 over the headline batch of 96; tokens equal the
+                        tp = 1 twin's (the same code on a world of one) and
+                        `make_transcribe_fn`'s, or part at a top-2 tie proven
+                        in an f32 recompute on the card (`check_ties` under
+                        `plain_kernels`); rank 0 then times the shard-local
+                        shapes (P10_ENTRIES).
+
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
 its launch count, error, times and bound (and, as `name@shape`, the shapes
-only token merging and phases 5, 6, 7, 8 and 9 give a kernel); the preset rows
+only token merging and phases 5, 6, 7, 8, 9 and 10 give a kernel); the preset rows
 are logged as one `phase7 presets {...}` line after phase 6. Needs torch
 with CUDA, numpy and nvcc; never imports jax.
 """
@@ -5725,7 +5753,9 @@ def recorded_launches(records: list) -> dict:
     of each layer under int8 cross-KV, the grouped cross-attention a layer
     for the prefill window and a layer and step (the one-query kernel for
     the steps where B·H % 16 != 0), the cache update a layer and step."""
-    from openai_whisper_compression_tpu_torch.ops.linear import KERNEL_M_THRESHOLD
+    from openai_whisper_compression_tpu_torch.ops.linear import kernel_m_threshold
+
+    threshold = kernel_m_threshold()
 
     exact: dict = {}
 
@@ -5740,7 +5770,7 @@ def recorded_launches(records: list) -> dict:
             if dtype == torch.bfloat16 and t >= 256:
                 add("encoder_attention", len(params["encoder"]["layers"]))
         elif r[0] == "logits":
-            if r[2] <= KERNEL_M_THRESHOLD:
+            if r[2] <= threshold:
                 for k in decoder_matmuls(r[1]):
                     add(k, 1)
         else:
@@ -5760,7 +5790,7 @@ def recorded_launches(records: list) -> dict:
             add("decode_self_attention_update_int8" if cfg.kv_int8
                 else "decode_self_attention_update" + sfx, layers * steps)
             for k in decoder_matmuls(params):
-                add(k, steps + (b * (first_gen - 1) <= KERNEL_M_THRESHOLD))
+                add(k, steps + (b * (first_gen - 1) <= threshold))
     return exact
 
 
@@ -6258,6 +6288,418 @@ def phase3(dev, params_for) -> None:
                                                    tree_to(params, "cpu", torch.float32)))
 
 
+P10_TP_BATCH = 32     # TP decoder: 32 x 6 local heads = 192 rows, the grouped kernel
+P10_TP_FEW = 3        # 3 x 6 = 18 rows: the one-query kernel
+P10_DP_BATCH = 96     # DP transcription, the headline's batch
+P10_CLI_SAMPLES = 32
+P10_AGREE = 8
+P10_WORLD_TIMEOUT_S = 600.0
+P10_ENTRIES = [
+    ("int8_matmul@tp2-qkv-N384", "int8_matmul", ("int8_matmul", P10_TP_BATCH, 768, 384)),
+    ("int8_matmul@tp2-o-K384", "int8_matmul", ("int8_matmul", P10_TP_BATCH, 384, 768)),
+    ("int8_matmul@tp2-fc1-N1536", "int8_matmul", ("int8_matmul", P10_TP_BATCH, 768, 1536)),
+    ("int8_matmul@tp2-fc2-K1536", "int8_matmul", ("int8_matmul", P10_TP_BATCH, 1536, 768)),
+    ("encoder_attention@tp2-6heads", "encoder_attention", ("encoder_attention", 6, 1500)),
+    ("transpose_quant_kv@tp2-6heads", "transpose_quant_kv", ("transpose_quant_kv", 1500, 384)),
+    ("decode_cross_attention_grouped_int8@tp2-192rows", "decode_cross_attention_grouped_int8",
+     ("grouped", "torch.int8", 1500, 1, P10_TP_BATCH * 6)),
+]
+
+
+def p10_tp_cfg(arch):
+    """The TP decoder's configuration: 25 tokens, EOT suppressed, int8
+    cross-KV (`transpose_quant_kv` on the local heads); its self-KV is fp,
+    as the JAX function's."""
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+
+    return DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,),
+                        cross_kv_int8=True)
+
+
+def p10_tree(dev):
+    """The TP runs' tree: seeded bf16 whisper-small, int8 weights, qkv left
+    unfused (a fused qkv is replicated under TP, as in the JAX package)."""
+    from openai_whisper_compression_tpu_torch.config import ARCHS
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+    from openai_whisper_compression_tpu_torch.quant.api import quantize_params
+
+    arch = ARCHS[ARCH]
+    return arch, quantize_params(init_params(arch, seed=SEED, dtype=torch.bfloat16,
+                                             device=dev), "int8")
+
+
+def tree_digest(params) -> list:
+    """One f64 sum and one abs-sum per tensor of the tree, in order (the
+    two-process group's ranks hold the parent's tree)."""
+    from openai_whisper_compression_tpu_torch.models.params import named_leaves
+    from openai_whisper_compression_tpu_torch.ops.qtensor import QTensor
+
+    out = []
+    for _, leaf in named_leaves(params):
+        for t in (leaf._tensors() if isinstance(leaf, QTensor) else [leaf]):
+            d = t.double() if t.is_floating_point() else t.to(torch.float64)
+            out.append((float(d.sum()), float(d.abs().sum())))
+    return out
+
+
+def p10_mels(dev, arch, seed: int, batch: int) -> torch.Tensor:
+    """f32-DFT log-mels of a seeded batch, in bf16 (the TP runs' input: the
+    TP encoder keeps the exact GELU, so the tie proofs' `cpu_enc(fast=False)`
+    is its f32 twin)."""
+    from openai_whisper_compression_tpu_torch.audio import features
+
+    wav = torch.from_numpy(waveforms(seed, batch)).to(dev)
+    return features.preprocess(wav, arch.num_mel_bins).to(torch.bfloat16), wav
+
+
+def p10_world() -> dict:
+    """One rank of the two-process group on the one card (gloo: NCCL
+    refuses two ranks on one device): `make_tp_decoder` at tp = 2 over
+    batches of 32 and 3, then `make_dp_transcribe` at dp = 2 over the
+    headline batch of 96, each held (`checked_kernel_calls`: every
+    shard-local launch against its plain version), the launches counted;
+    rank 0 then times the shard-local shapes (P10_ENTRIES). Returns numpy
+    results."""
+    import torch.distributed as dist
+
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import samples_for_arch
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.ops import kernels
+    from openai_whisper_compression_tpu_torch.parallel import mesh as mesh_lib
+    from openai_whisper_compression_tpu_torch.parallel import steps, tp_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kernels.lib()
+    rank = dist.get_rank()
+    arch, tree = p10_tree(dev)
+    out = {"digest": tree_digest(tree), "backend": dist.get_backend()}
+    tp_mesh = mesh_lib.make_mesh(dp=1, tp=2, device=dev)
+    fn, place = tp_forward.make_tp_decoder(arch, tp_mesh, tree, p10_tp_cfg(arch))
+    local = place(tree)
+    out["local_shapes"] = {
+        "q": tuple(local["decoder"]["layers"][0]["cross"]["q"]["w"].data.shape),
+        "o": tuple(local["decoder"]["layers"][0]["cross"]["o"]["w"].data.shape),
+        "fc1": tuple(local["decoder"]["layers"][0]["fc1"]["w"].data.shape),
+        "fc2": tuple(local["decoder"]["layers"][0]["fc2"]["w"].data.shape)}
+    shapes, calls = {}, {}
+    for name, seed, batch in (("tp2", SEED + 110, P10_TP_BATCH),
+                              ("tp2-b3", SEED + 111, P10_TP_FEW)):
+        mel, _ = p10_mels(dev, arch, seed, batch)
+        t0 = time.perf_counter()
+        with checked_kernel_calls(shapes, calls) as held:
+            counters = zero_launches()
+            toks, lens = fn(local, mel)
+            torch.cuda.synchronize()
+            launches = read_launches(counters)
+        out[name] = {"tokens": toks.cpu().numpy(), "lengths": lens.cpu().numpy(),
+                     "launches": launches, "held": dict(held),
+                     "seconds": time.perf_counter() - t0}
+    del local
+    dp_mesh = mesh_lib.make_mesh(dp=2, tp=1, device=dev)
+    fused = fuse_qkv(tree)
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,), **KV8)
+    dfn, dplace = steps.make_dp_transcribe(arch, dp_mesh, cfg, fast_mel=True, fast_gelu=True)
+    wav_dp = waveforms(SEED + 112, P10_DP_BATCH)
+    check(wav_dp.shape[1] == samples_for_arch(arch), "p10_world: wav width")
+    rows = dplace(torch.from_numpy(wav_dp))
+    t0 = time.perf_counter()
+    with checked_kernel_calls({}, mel=True) as held:
+        counters = zero_launches()
+        toks, lens = dfn(fused, rows)
+        torch.cuda.synchronize()
+        launches = read_launches(counters)
+    seconds = time.perf_counter() - t0
+    out["dp2"] = {"tokens": mesh_lib.gather_batch(toks, dp_mesh).cpu().numpy(),
+                  "lengths": mesh_lib.gather_batch(lens, dp_mesh).cpu().numpy(),
+                  "rows": tuple(rows.shape), "launches": launches, "held": dict(held),
+                  "seconds": seconds}
+    out["staged"] = dict(mesh_lib.STAGED)
+    dist.barrier()
+    if rank == 0:   # the card is rank 0's alone from here
+        timed = {}
+        for entry, base, key in P10_ENTRIES:
+            check(key in shapes, f"phase10: the TP decoder never called the {key} shape")
+            count = calls[key].get(base, 0)
+            check(count > 0, f"phase10: the TP decoder never launched {base} at {key}")
+            timed[entry] = {**time_p5_shape(f"tp2 {entry}", key, shapes[key],
+                                            phase="phase10"), "launches": count}
+        out["timed"] = timed
+    dist.barrier()
+    return out
+
+
+def run_cli_small(dev, tmp: str) -> dict:
+    """The CLI in process (`cli.main([...])`, the card by default), on
+    whisper-small with seeded weights, every call held
+    (`checked_kernel_calls(mel=True)`: each launch inside a shim, held
+    against its plain version) and its launches counted: `transcribe` of a
+    60 s WAV (two 30 s windows, batch 2, bf16 tree) writing every format;
+    `evaluate --quant quanto_int8 --kv-int8` on `synthetic_dataset(32)`;
+    `compress --quant quanto_int8 --format gzip --verify`, `export --load` of that file
+    to safetensors, and `transcribe --weights` of the export; `agreement
+    --quant quanto_int8` over 8 utterances; `analyze`. Each result equals
+    the package API's on the same inputs (texts, WER/CER, agreement
+    metrics, the analysis)."""
+    import os
+    import wave
+
+    from openai_whisper_compression_tpu_torch import cli
+    from openai_whisper_compression_tpu_torch import transcribe as api_transcribe
+    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig, EvalConfig
+    from openai_whisper_compression_tpu_torch.evaluation.agreement import model_agreement
+    from openai_whisper_compression_tpu_torch.evaluation.data import (prepare_datasets,
+                                                                      read_audio_file,
+                                                                      synthetic_dataset)
+    from openai_whisper_compression_tpu_torch.evaluation.harness import (evaluate_model,
+                                                                         samples_for_arch)
+    from openai_whisper_compression_tpu_torch.evaluation.tokenizer import default_tokenizer
+    from openai_whisper_compression_tpu_torch.models.convert import load_checkpoint
+    from openai_whisper_compression_tpu_torch.models.params import init_params, tree_cast
+    from openai_whisper_compression_tpu_torch.quant.api import (apply_named_config,
+                                                                dequantize_params)
+    from openai_whisper_compression_tpu_torch.sensitivity import architecture
+    from openai_whisper_compression_tpu_torch.storage import formats
+
+    arch = ARCHS[ARCH]
+    out = {}
+    common = ["--model", ARCH, "--dtype", "bfloat16", "--seed", str(SEED)]
+
+    def held_cli(name: str, argv: list, must: tuple):
+        t0 = time.perf_counter()
+        with checked_kernel_calls({}, mel=True) as held:
+            counters = zero_launches()
+            res = cli.main(argv)
+            torch.cuda.synchronize()
+            launches = read_launches(counters)
+        secs = time.perf_counter() - t0
+        missing = [k for k in must if not launches[k]]
+        check(not missing, f"phase10 {name}: kernels of its path never launched: {missing}")
+        out[name] = {"launches": launches, "seconds": secs}
+        log(f"phase10 {name}: `cli {' '.join(a for a in argv if not a.startswith(tmp))}` "
+            f"held in {secs:.2f} s; launches {json.dumps(launched(launches))}")
+        return res
+
+    # transcribe: a 60 s 16-bit WAV, every output format
+    wav = np.concatenate(list(waveforms(SEED + 120, 2)))
+    path = os.path.join(tmp, "long.wav")
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes((np.clip(wav, -1, 1) * 32767).astype("<i2").tobytes())
+    res = held_cli("cli-transcribe", ["transcribe", *common, "--audio", path,
+                                      "--max-new-tokens", str(NEW_TOKENS), "--batch-size", "2",
+                                      "-f", "all", "-o", os.path.join(tmp, "out")],
+                   ("log_mel_cuda", "encoder_attention", "decode_cross_attention_grouped",
+                    "decode_cross_attention", "decode_self_attention_update"))
+    dense = init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev)
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, beam_size=1, notimestamps=True,
+                       kv_int8=False)
+    want = api_transcribe(dense, arch, read_audio_file(path), decode_cfg=cfg, batch_size=2,
+                          device=dev)
+    check(res["text"] == want["text"] and res["num_chunks"] == want["num_chunks"] == 2,
+          f"cli-transcribe: text {res['text'][:80]!r} != the API's {want['text'][:80]!r}")
+    written = sorted(os.listdir(os.path.join(tmp, "out")))
+    check(written == [f"long.{e}" for e in ("json", "srt", "tsv", "txt", "vtt")],
+          f"cli-transcribe: wrote {written}")
+    with open(os.path.join(tmp, "out", "long.txt")) as f:
+        check(f.read().strip() == res["text"].strip(), "cli-transcribe: long.txt differs")
+    # evaluate, int8 weights and caches
+    scores = held_cli("cli-evaluate", ["evaluate", *common, "--quant", "quanto_int8",
+                                       "--kv-int8", "--samples", str(P10_CLI_SAMPLES),
+                                       "--batch-size", str(P10_CLI_SAMPLES),
+                                       "--max-new-tokens", str(NEW_TOKENS)],
+                      ("log_mel_cuda", "encoder_attention", "int8_matmul",
+                       "decode_self_attention_update_int8"))
+    q8 = apply_named_config(dense, "quanto_int8")
+    ds = prepare_datasets(num_cal=4, num_test=P10_CLI_SAMPLES, seed=SEED)
+    direct, _ = evaluate_model(
+        q8, arch, ds["test_clean"], default_tokenizer(arch),
+        EvalConfig(batch_size=P10_CLI_SAMPLES, split="test_clean", normalizer="basic"),
+        DecodeConfig(max_new_tokens=NEW_TOKENS, notimestamps=True, kv_int8=True),
+        device=dev)
+    check(all(scores[k] == direct[k] for k in ("wer", "cer", "num_samples")),
+          f"cli-evaluate: {[scores[k] for k in ('wer', 'cer')]} != the API's "
+          f"{[direct[k] for k in ('wer', 'cer')]}")
+    # compress, export, reload
+    zpath, spath = os.path.join(tmp, "small.gz"), os.path.join(tmp, "small.safetensors")
+    held_cli("cli-compress", ["compress", *common, "--quant", "quanto_int8", "--save", zpath,
+                              "--format", "gzip", "--verify"], ())
+    held_cli("cli-export", ["export", "--model", ARCH, "--load", zpath, "--out", spath], ())
+    res = held_cli("cli-reload", ["transcribe", "--weights", spath, "--dtype", "bfloat16",
+                                  "--audio", path, "--max-new-tokens", str(NEW_TOKENS),
+                                  "--batch-size", "2"],
+                   ("log_mel_cuda", "encoder_attention", "decode_self_attention_update"))
+    stored = tree_cast(dequantize_params(formats.load_gzip(zpath, device=dev)),
+                       torch.bfloat16)
+    _, arch2 = load_checkpoint(spath, torch.bfloat16, "cpu")
+    check(all(getattr(arch2, f) == getattr(arch, f) for f in (
+        "vocab_size", "d_model", "encoder_layers", "decoder_layers", "encoder_heads",
+        "decoder_heads", "ffn_dim", "eos_token_id", "decoder_start_token_id",
+        "no_timestamps_token_id")), f"cli-reload: the export's arch {arch2}")
+    want = api_transcribe(stored, arch2, read_audio_file(path), decode_cfg=cfg, batch_size=2,
+                          device=dev)
+    check(res["text"] == want["text"], "cli-reload: the export's transcript differs from "
+          "the stored tree's")
+    out["cli-export"]["file_mb"] = os.path.getsize(spath) / 2 ** 20
+    os.remove(spath)
+    del stored
+    # agreement, int8 against the dense tree
+    res = held_cli("cli-agreement", ["agreement", *common, "--quant", "quanto_int8",
+                                     "--samples", str(P10_AGREE)],
+                   ("log_mel_cuda", "encoder_attention", "int8_matmul"))
+    n = samples_for_arch(arch)
+    buf = np.zeros((P10_AGREE, n), np.float32)
+    for i, u in enumerate(synthetic_dataset(P10_AGREE, seed=SEED)):
+        buf[i, : min(len(u.audio), n)] = u.audio[:n]
+    from openai_whisper_compression_tpu_torch.audio import features
+
+    mels = features.preprocess(torch.from_numpy(buf).to(dev), arch.num_mel_bins,
+                               length=n).to(torch.bfloat16)
+    want = model_agreement(dense, q8, arch, mels)
+    check(res == want, f"cli-agreement: {res} != the API's {want}")
+    res = held_cli("cli-analyze", ["analyze", "--model", ARCH], ())
+    check(res == architecture.analyze_model(init_params(arch, seed=SEED, device=dev)),
+          "cli-analyze: the table differs from analyze_model's")
+    del dense, q8
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_parallel_small(dev, tmp: str, int8_params) -> dict:
+    """DP at world size 1 under NCCL, the TP and DP references, then the
+    two-process gloo group on the one card (`p10_world`); its tokens equal
+    the single-process runs' or part at a proven top-2 tie (`check_ties`, an
+    f32 recompute on the card with every kernel's plain version)."""
+    import os
+
+    import torch.distributed as dist
+
+    from openai_whisper_compression_tpu_torch.config import DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+    from openai_whisper_compression_tpu_torch.models.decode import forced_prefix
+    from openai_whisper_compression_tpu_torch.models.params import tree_cast
+    from openai_whisper_compression_tpu_torch.parallel import mesh as mesh_lib
+    from openai_whisper_compression_tpu_torch.parallel import multihost, steps, tp_forward
+
+    arch, tree = p10_tree(dev)
+    out = {}
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,), **KV8)
+    wav_dp = waveforms(SEED + 112, P10_DP_BATCH)
+    ref_fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+    with torch.inference_mode():
+        dp_ref, dp_ref_len = (t.cpu() for t in ref_fn(int8_params, wav_dp))
+    # world size 1 under NCCL
+    info = multihost.initialize(None, 1, 0, "nccl", timeout_s=120.0,
+                                init_method=f"file://{os.path.join(tmp, 'nccl-store')}")
+    check(info["backend"] == "nccl", f"phase10: world of 1 on {info['backend']}")
+    try:
+        mesh1 = mesh_lib.make_mesh(dp=1, tp=1, device=dev)
+        fn, place = steps.make_dp_transcribe(arch, mesh1, cfg, fast_mel=True, fast_gelu=True)
+        with counted("dp-nccl-world1", True) as box:
+            toks, lens = fn(int8_params, place(torch.from_numpy(wav_dp)))
+            toks, lens = toks.cpu(), lens.cpu()
+        check(torch.equal(toks, dp_ref) and torch.equal(lens, dp_ref_len),
+              "dp-nccl-world1: tokens differ from make_transcribe_fn's")
+        out["dp-nccl-world1"] = {"launches": box["launches"]}
+        log(f"phase10 dp-nccl-world1: make_dp_transcribe on a world of 1 (NCCL), batch "
+            f"{P10_DP_BATCH}, held in {box['seconds']:.2f} s, tokens equal "
+            f"make_transcribe_fn's; launches {json.dumps(launched(box['launches']))}")
+        # the TP decoder's single-process twin (tp = 1: every head local)
+        tfn, tplace = tp_forward.make_tp_decoder(arch, mesh1, tree, p10_tp_cfg(arch))
+        refs = {}
+        for name, seed, batch in (("tp2", SEED + 110, P10_TP_BATCH),
+                                  ("tp2-b3", SEED + 111, P10_TP_FEW)):
+            mel, wav = p10_mels(dev, arch, seed, batch)
+            toks, lens = tfn(tree, mel)
+            refs[name] = (toks.cpu(), lens.cpu(), wav)
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    ranks = multihost.run_world(p10_world, 2, backend="gloo",
+                                timeout_s=P10_WORLD_TIMEOUT_S, threads=2)
+    world_s = time.perf_counter() - t0
+    digest = tree_digest(tree)
+    for r, res in enumerate(ranks):
+        check(res["digest"] == digest, f"phase10: rank {r}'s tree differs from this one's")
+        check(res["backend"] == "gloo", f"phase10: rank {r} on {res['backend']}")
+        check(res["local_shapes"] == {"q": (768, 384), "o": (384, 768), "fc1": (768, 1536),
+                                      "fc2": (1536, 768)},
+              f"phase10: rank {r}'s shard shapes {res['local_shapes']}")
+    f32 = tree_cast(tree, torch.float32)
+    tp_cfg = p10_tp_cfg(arch)
+    with plain_kernels():
+        for name in ("tp2", "tp2-b3"):
+            want, want_len, wav = refs[name]
+            parted = 0
+            for r, res in enumerate(ranks):
+                got = torch.from_numpy(res[name]["tokens"])
+                check(torch.equal(got, torch.from_numpy(ranks[0][name]["tokens"])),
+                      f"{name}: the two TP ranks' tokens differ")
+                parted = check_ties(f"phase10 {name}", f32, arch, tp_cfg, wav.cpu(), got,
+                                    want, len(forced_prefix(arch, tp_cfg)), fast=False,
+                                    device=dev)
+            res = ranks[0][name]
+            path = ("int8_matmul", "encoder_attention", "transpose_quant_kv",
+                    "decode_cross_attention_grouped_int8" if name == "tp2"
+                    else "decode_cross_attention_int8")
+            for r in ranks:
+                missing = [k for k in path if not r[name]["launches"][k]]
+                check(not missing, f"phase10 {name}: a rank never launched {missing}")
+            out[name] = {"launches": res["launches"], "parted": parted}
+            log(f"phase10 {name}: make_tp_decoder at tp = 2 on one card (two processes, "
+                f"gloo), batch {want.shape[0]} ({want.shape[0] * 6} local (batch, head) "
+                f"rows), held in {res['seconds']:.2f} s; tokens equal the tp = 1 run's"
+                + (f" but for {parted} rows parted at proven ties" if parted else "")
+                + f"; rank 0's launches {json.dumps(launched(res['launches']))}")
+        got = torch.from_numpy(ranks[0]["dp2"]["tokens"])
+        check(all(np.array_equal(r["dp2"]["tokens"], ranks[0]["dp2"]["tokens"])
+                  for r in ranks), "dp2: the ranks' gathered tokens differ")
+        parted = check_ties("phase10 dp2", tree_cast(int8_params, torch.float32),
+                            arch, cfg, torch.from_numpy(wav_dp), got, dp_ref,
+                            len(forced_prefix(arch, cfg)), device=dev)
+    res = ranks[0]["dp2"]
+    for r in ranks:
+        missing = [k for k in ("log_mel_cuda", "encoder_attention", "int8_matmul",
+                               "transpose_quant_kv", "decode_cross_attention_grouped_int8",
+                               "decode_self_attention_update_int8") if not r["dp2"]["launches"][k]]
+        check(not missing, f"phase10 dp2: a rank never launched {missing}")
+    out["dp2"] = {"launches": res["launches"], "parted": parted}
+    log(f"phase10 dp2: make_dp_transcribe at dp = 2 on one card, {res['rows'][0]} rows a "
+        f"rank, held in {res['seconds']:.2f} s; gathered tokens equal make_transcribe_fn's "
+        f"at batch {P10_DP_BATCH}" + (f" but for {parted} rows at proven ties" if parted
+                                      else "")
+        + f"; collectives staged through the host: {json.dumps(ranks[0]['staged'])}")
+    log(f"phase10 two-process group: {world_s:.1f} s from spawn to the last rank's return")
+    out["timed"] = ranks[0]["timed"]
+    return out
+
+
+def phase10(dev, int8_params, results: dict) -> dict:
+    """Phase 10 (slice 17): the CLI in process, then the parallel paths
+    (module docstring); P10_ENTRIES' shapes, timed by rank 0 of the
+    two-process group, join `results`. Returns the runs' summaries."""
+    import tempfile
+
+    summaries = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-p10-") as tmp:
+        t0 = time.perf_counter()
+        summaries.update(run_cli_small(dev, tmp))
+        log(f"phase10 cli: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        par = run_parallel_small(dev, tmp, int8_params)
+        log(f"phase10 parallel: {time.perf_counter() - t0:.1f} s")
+    for entry, *_ in P10_ENTRIES:
+        results[entry] = par["timed"][entry]
+    del par["timed"]
+    summaries.update(par)
+    return summaries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6378,6 +6820,10 @@ def main() -> int:
     summaries.update(phase6(dev, *small_int8, results,
                             between=lambda: rows.update(phase7_held(dev, p7, results))))
     phase_done("phase6 (with phase 7's held part)")
+    # the slice-17 runs: the CLI, DP and TP
+    torch.cuda.empty_cache()
+    summaries.update(phase10(dev, small_int8[1], results))
+    phase_done("phase10")
     check(not LATER, f"CPU proofs never run: {[label for label, _ in LATER]}")
     check(set(rows) == {"small_int8", "medium_int4_kv8"} | {r[0] for r in P7_RUNS},
           f"phase 7 rows: {sorted(rows)}")
@@ -6409,6 +6855,11 @@ def main() -> int:
                                           "bound_ms", "bound_by", "library_ms")}}
         for name, base, _, _ in P5_ENTRIES + P6_ENTRIES + P7_ENTRIES + P8_ENTRIES
         + P9_ENTRIES]
+    kernels_line["kernels"] += [
+        {**entries[base], "name": name,
+         **{k: results[name][k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms")}}
+        for name, base, _ in P10_ENTRIES]
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -58,11 +58,34 @@ def kl_loss(student: Params, teacher_logits: torch.Tensor, arch: WhisperArch,
             temperature: float = 2.0) -> torch.Tensor:
     """Mean KL(teacher || student) over all positions at `temperature`,
     times temperature²."""
-    s_logits = decode_logits(student, arch, tokens, encode(student, arch, mel)).float()
-    t = temperature
+    return _kl(decode_logits(student, arch, tokens, encode(student, arch, mel)),
+               teacher_logits, temperature)
+
+
+def _kl(s_logits: torch.Tensor, teacher_logits: torch.Tensor,
+        t: float) -> torch.Tensor:
     p = torch.log_softmax(teacher_logits.float() / t, dim=-1)
-    q = torch.log_softmax(s_logits / t, dim=-1)
+    q = torch.log_softmax(s_logits.float() / t, dim=-1)
     return torch.mean(torch.sum(torch.exp(p) * (p - q), dim=-1)) * (t * t)
+
+
+def _gathered(tree: Params, mesh) -> Params:
+    """The whole tree from this rank's shard, differentiably (each split
+    leaf all-gathered, its gradient reduce-scattered back): the input of a
+    `param_transform` that must see whole weights (a per-column quantizer
+    over a row-split weight)."""
+    from .parallel import mesh as mesh_lib
+    from .parallel.tp_forward import gather_leaf
+
+    def gather(x, spec):
+        if x is None:
+            return None
+        for dim, ax in enumerate(spec):
+            if ax is not None and dim < x.dim():
+                x = gather_leaf(x, mesh, ax, dim)
+        return x
+
+    return mesh_lib._map2(gather, tree, mesh_lib.param_specs(tree))
 
 
 def _synthetic_batch(rng: np.random.Generator, arch: WhisperArch, batch: int,
@@ -100,18 +123,37 @@ def distill(student: Params, teacher: Params, arch: WhisperArch,
     compute_dtype: the dtype the optimisation runs in (floating leaves cast
     at entry, back at exit), e.g. torch.float32 for a bf16 model, whose
     AdamW steps at lr ~1e-4 sit below bf16's resolution.
-    mesh: the JAX package's data/tensor-parallel placement; not ported yet
-    (ROADMAP queue 1 item 17).
+    mesh: a `parallel.mesh.Mesh` (('dp', 'tp') axes, every rank calling
+    with the same arguments): student, teacher and masks are placed with
+    `shard_params`, each batch is split over 'dp' (`batch` must divide by
+    it), both forwards are tensor-parallel (`tp_forward.forward_local`), a
+    `param_transform` sees the whole (gathered) weights, the gradients and
+    the reported loss are averaged over 'dp', and every rank returns the
+    whole recovered tree.
 
     Returns (recovered student, per-step loss history). Quantized leaves
     are refused: dequantize first."""
-    if mesh is not None:
-        raise NotImplementedError("distill(mesh=...): the sharded step waits for "
-                                  "ROADMAP queue 1 item 17 (parallelism)")
-    leaves = named_leaves(student)
-    if any(isinstance(leaf, QTensor) for _, leaf in leaves):
+    if any(isinstance(leaf, QTensor) for _, leaf in named_leaves(student)):
         raise ValueError("student has quantized leaves; distill the dense "
                          "(or dequantized fake-quant) model, then requantize")
+    rows = None
+    if mesh is not None:
+        from .parallel import mesh as mesh_lib
+        from .parallel.tp_forward import forward_local
+
+        student = mesh_lib.shard_params(student, mesh)
+        teacher = None if teacher is None else mesh_lib.shard_params(teacher, mesh)
+        if sparsity_ref is not None:
+            sparsity_ref = mesh_lib.shard_params(sparsity_ref, mesh)
+        rows = mesh_lib.batch_sharding(mesh)
+        dp = mesh.shape.get("dp", 1)
+
+        def logits_fn(p, mel, tokens):
+            return forward_local(p, arch, mel, tokens, mesh)
+    else:
+        def logits_fn(p, mel, tokens):
+            return decode_logits(p, arch, tokens, encode(p, arch, mel))
+    leaves = named_leaves(student)
     device = student["encoder"]["ln"]["g"].device
     n_samples = samples_for_arch(arch)
     floating = [(n, t) for n, t in leaves
@@ -141,14 +183,26 @@ def distill(student: Params, teacher: Params, arch: WhisperArch,
             tokens = torch.as_tensor(tokens, device=device).long()
         else:
             mel, tokens = _synthetic_batch(rng, arch, batch, seq_len, n_samples, device)
+        if rows is not None:
+            mel, tokens = rows(mel), rows(tokens)
+            t_logits = None if t_logits is None else rows(t_logits)
         if t_logits is None:
             with torch.no_grad():
-                t_logits = decode_logits(teacher, arch, tokens, encode(teacher, arch, mel))
-        s = param_transform(tree) if param_transform is not None else tree
-        loss = kl_loss(s, t_logits.detach(), arch, mel, tokens, temperature)
+                t_logits = logits_fn(teacher, mel, tokens)
+        if param_transform is None:
+            s = tree
+        elif mesh is None:
+            s = param_transform(tree)
+        else:
+            s = mesh_lib.shard_params(param_transform(_gathered(tree, mesh)), mesh)
+        loss = _kl(logits_fn(s, mel, tokens), t_logits.detach(), temperature)
         opt.zero_grad(set_to_none=False)
         loss.backward()
         with torch.no_grad():
+            if mesh is not None and dp > 1:
+                for t in latent.values():
+                    t.grad.copy_(mesh_lib.all_reduce(t.grad, mesh, "dp") / dp)
+                loss = mesh_lib.all_reduce(loss.detach(), mesh, "dp") / dp
             for n, m in masks.items():
                 latent[n].grad.masked_fill_(~m, 0)
             opt.step()
@@ -158,6 +212,8 @@ def distill(student: Params, teacher: Params, arch: WhisperArch,
     out = copy_tree(student)
     for n, t in latent.items():
         set_leaf(out, n, t.detach().to(orig_dtypes[n]))
+    if mesh is not None:
+        out = mesh_lib.unshard_params(out, mesh)
     return out, history
 
 

@@ -1,7 +1,7 @@
 """Dense / quantized linear contraction: the single matmul entry point.
 
 Dispatch follows the JAX package's `ops/linear.py`: when the activations
-live on the card and have at most `KERNEL_M_THRESHOLD` rows (the decode-step
+live on the card and have at most `kernel_m_threshold()` rows (the decode-step
 and prefill linears), a weight of kind
 - int8_pc goes through `int8_matmul`,
 - int4_pack through `int4_matmul`,
@@ -39,11 +39,18 @@ from .quant_matmul import (blockwise4_kernel_ok, group_asym_kernel_ok,
                            nf4_matmul, nf4_matmul_ref, quantize_act_int8,
                            w8a8_matmul, w8a8_matmul_ref)
 
-# The JAX package's default crossover (ops/linear.py PALLAS_M_DEFAULT),
-# measured on a TPU. On the H100 the kernels tie dequant + cuBLAS between
+# Below this many activation rows a quantized linear on the card launches its
+# kernel; above it (encoder-scale M) it dequantizes and calls torch.matmul.
+# Resolution order, as the JAX package's `pallas_m_threshold`:
+# OWC_KERNEL_M_THRESHOLD > KERNEL_M_TABLE[torch.cuda.get_device_name()] >
+# KERNEL_M_DEFAULT. The default is the JAX package's (PALLAS_M_DEFAULT,
+# measured on a TPU). On the H100 the kernels tie dequant + cuBLAS between
 # M=32 and 96 for int8, near 96 for uint8 HQQ and near 200 for the 4-bit
-# kinds (PERF.md); no per-kind threshold yet.
-KERNEL_M_THRESHOLD = 1024
+# kinds (PERF.md); the table stays empty until a per-device threshold is
+# chosen from `measure_kernel_crossover()`.
+KERNEL_M_DEFAULT = 1024
+KERNEL_M_TABLE: dict[str, int] = {}
+_resolved_threshold: int | None = None
 
 # Eager activation tap (the GPTQ Hessian collection of `quant.gptq`): None
 # in production; when set, every `linear` call reports (w, x) to
@@ -63,6 +70,67 @@ def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def kernel_m_threshold() -> int:
+    """The kernel-vs-matmul crossover of this process, resolved once."""
+    global _resolved_threshold
+    if _resolved_threshold is None:
+        import os
+
+        env = os.environ.get("OWC_KERNEL_M_THRESHOLD")
+        if env:
+            _resolved_threshold = int(env)
+        else:
+            name = (torch.cuda.get_device_name()
+                    if torch.cuda.is_available() else "")
+            _resolved_threshold = KERNEL_M_TABLE.get(name, KERNEL_M_DEFAULT)
+    return _resolved_threshold
+
+
+def measure_kernel_crossover(k: int = 768, n: int = 3072,
+                             candidates: tuple[int, ...] = (
+                                 64, 128, 256, 512, 1024, 2048, 4096),
+                             iters: int = 10) -> int:
+    """The largest M (of `candidates`, ascending, stopping at the first
+    loss) at which the int8 kernel (`int8_matmul`) is no slower than
+    dequantize + `torch.matmul` on the card, for bf16 activations (the
+    model path's) times a (k, n) int8 weight; installed as this process's
+    threshold and returned. Each side is timed with CUDA events over
+    `iters` back-to-back calls after one warm call. Needs the card."""
+    from ..models.params import resolve_device
+    from .qtensor import quantize_absmax
+
+    global _resolved_threshold
+    dev = resolve_device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    w = (torch.randn(k, n, generator=gen) * 0.02).to(dev)
+    q, s = quantize_absmax(w, 0, 127)
+
+    def timeit(f, x):
+        f(x)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(iters):
+            f(x)
+        t1.record()
+        t1.synchronize()
+        return t0.elapsed_time(t1) / iters
+
+    best = candidates[0]
+    with torch.inference_mode():
+        for m in candidates:
+            x = torch.randn(m, k, generator=gen).to(dev, torch.bfloat16)
+            t_kernel = timeit(lambda x: int8_matmul(x, q, s), x)
+            t_plain = timeit(lambda x: torch.matmul(
+                x, q.to(torch.bfloat16) * s.to(torch.bfloat16)), x)
+            if t_kernel <= t_plain:
+                best = m
+            else:
+                break
+    _resolved_threshold = best
+    return best
 
 
 def kernel_call(q: QTensor):
@@ -96,7 +164,7 @@ def _quantized_matmul(x: torch.Tensor, q: QTensor) -> torch.Tensor:
     if q.act is not None:
         return _act_quant_matmul(x, q)
     m = math.prod(x.shape[:-1])
-    if x.is_cuda and m <= KERNEL_M_THRESHOLD:
+    if x.is_cuda and m <= kernel_m_threshold():
         call = kernel_call(q)
         if call is not None:
             kernel, _, args = call

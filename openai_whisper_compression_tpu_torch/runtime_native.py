@@ -4,9 +4,10 @@ A framework-free copy of the JAX package's `runtime_native.py`: host-side
 batch assembly (with FLAC requests decoded in the loader's worker pool and
 per-slot decode-failure flags, the serving wire), FLAC decoding and the
 sparse codec of the sparse-zip storage format. Builds the shared library
-with `make` into the git-ignored `runtime/build/` on first use (a C ABI
-and ctypes, no pybind11). Every entry point has a numpy fallback so the
-package works without a toolchain.
+with g++ into the git-ignored `runtime/build/` on first use, under a file
+lock and by an atomic rename (`build`; a C ABI and ctypes, no pybind11).
+Every entry point has a numpy fallback so the package works without a
+toolchain.
 """
 
 from __future__ import annotations
@@ -14,29 +15,78 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-from functools import lru_cache
 
 import numpy as np
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _LIB_PATH = os.path.join(_REPO_ROOT, "runtime", "build", "libowcruntime.so")
+_SRCS = ("src/owc_runtime.cpp", "src/owc_flac.cpp")
+_loaded: ctypes.CDLL | None = None
+_build_failed = False
 
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL | None:
-    if not os.path.exists(_LIB_PATH):
-        mk = os.path.join(_REPO_ROOT, "runtime")
-        if not os.path.exists(os.path.join(mk, "Makefile")):
-            return None
-        try:
-            subprocess.run(["make", "-C", mk], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
+def _open(path: str) -> ctypes.CDLL | None:
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
+        return ctypes.CDLL(path)
     except OSError:
         return None
+
+
+def build() -> bool:
+    """Build `runtime/build/libowcruntime.so` unless a loadable one is in
+    place; True when one is. Processes that start at once (pytest workers,
+    spawned ranks) serialise on an exclusive lock in `runtime/build/`;
+    g++ writes a private file (the Makefile's flags) that `os.replace`
+    moves into place, so no loader ever opens a half-written library, and
+    a partial file another builder left behind is replaced."""
+    import fcntl
+    import tempfile
+
+    root = os.path.join(_REPO_ROOT, "runtime")
+    if not all(os.path.exists(os.path.join(root, s)) for s in _SRCS):
+        return False
+    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+    with open(os.path.join(os.path.dirname(_LIB_PATH), ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(_LIB_PATH) and _open(_LIB_PATH) is not None:
+            return True
+        fd, tmp = tempfile.mkstemp(suffix=".so",
+                                   dir=os.path.dirname(_LIB_PATH))
+        os.close(fd)
+        flags = os.environ.get("CXXFLAGS",
+                               "-O3 -march=native -fPIC -std=c++17 -Wall")
+        cmd = ([os.environ.get("CXX", "g++")] + flags.split()
+               + ["-shared", "-pthread", "-o", tmp]
+               + [os.path.join(root, s) for s in _SRCS])
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+            os.chmod(tmp, 0o755)
+            os.replace(tmp, _LIB_PATH)
+        except Exception:
+            return False
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return True
+
+
+def _lib() -> ctypes.CDLL | None:
+    """The library, loaded once. A library that is missing or does not
+    load is (re)built under `build`'s lock; only a failed build is
+    remembered, never a load that raced another process's build."""
+    global _loaded, _build_failed
+    if _loaded is not None:
+        return _loaded
+    lib = _open(_LIB_PATH) if os.path.exists(_LIB_PATH) else None
+    if lib is None:
+        if _build_failed:
+            return None
+        if not build():
+            _build_failed = True
+            return None
+        lib = _open(_LIB_PATH)
+        if lib is None:
+            return None
 
     lib.owc_loader_create.restype = ctypes.c_void_p
     lib.owc_loader_create.argtypes = [ctypes.c_int, ctypes.c_int64,
@@ -81,6 +131,7 @@ def _lib() -> ctypes.CDLL | None:
         lib.owc_flac_data.restype = ctypes.POINTER(ctypes.c_int32)
         lib.owc_flac_data.argtypes = [ctypes.c_void_p]
         lib.owc_flac_close.argtypes = [ctypes.c_void_p]
+    _loaded = lib
     return lib
 
 

@@ -1806,3 +1806,40 @@ def test_bf16_safetensors_snapshot_feeds_every_kernel(dev, tmp_path):
             "decode_cross_attention_grouped", "decode_cross_attention",
             "decode_self_attention_update", "decode_self_attention_update_int8",
             "int8_matmul", "int4_matmul", "nf4_matmul", "w8a8_matmul"} <= set(held_all)
+
+
+# The tensor-parallel decoder's shard-local shapes (parallel/tp_forward.py at
+# tp = 2 on whisper-small): 6 of 12 heads; the int8 matmul on column splits
+# (q/k/v and cross q: N = 384; fc1: N = 1536) and row splits (o: K = 384;
+# fc2: K = 1536) at decode M = 32 and 3.
+TP_MATMULS = [(m, k, n) for m in (32, 3)
+              for k, n in ((768, 384), (384, 768), (768, 1536), (1536, 768))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=_IDS.get)
+@pytest.mark.parametrize("m,k,n", TP_MATMULS)
+def test_int8_matmul_at_tp_shard_shapes(dev, dtype, m, k, n):
+    test_int8_matmul(dev, dtype, m, k, n)
+
+
+@pytest.mark.parametrize("b", [2, 32])
+def test_encoder_attention_on_tp_local_heads(dev, b):
+    test_encoder_attention(dev, b, 6, 1500)
+
+
+@pytest.mark.parametrize("b", [3, 32])
+def test_transpose_quant_kv_on_tp_local_heads(dev, b):
+    test_transpose_quant_kv(dev, torch.bfloat16, b, 1500, 6)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_grouped_cross_attention_on_tp_local_heads(dev, bits):
+    """32 rows x 6 local heads = 192 (batch, head) rows, one slot."""
+    test_cross_attention_grouped_quantized(dev, bits, 32 * 6, 1, 1500, torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_one_query_cross_attention_on_tp_local_heads(dev, kind):
+    """3 rows x 6 local heads = 18 rows, no multiple of 16: the one-query
+    kernel the TP decoder takes there."""
+    test_cross_attention_one_query(dev, kind, 3 * 6, 1500, torch.bfloat16)

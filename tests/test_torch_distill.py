@@ -124,7 +124,7 @@ def test_distill_matches_jax(trees, distilled):
 def test_distill_options(trees):
     """batch_fn with precomputed teacher logits (no teacher forward),
     compute_dtype f32 for a bf16 student (returned in bf16), sparsity_ref,
-    and the refusals: a quantized student, a mesh."""
+    and the refusal of a quantized student."""
     jt, js, tt, ts = trees
     rng = np.random.default_rng(1)
     mel = rng.standard_normal((2, 80, 128)).astype(np.float32)
@@ -142,8 +142,6 @@ def test_distill_options(trees):
     assert all(t.dtype == torch.bfloat16 for _, t in P.named_leaves(half)) and len(hist) == 1
     with pytest.raises(ValueError, match="quantized leaves"):
         distill.distill(api.quantize_params(ts, "int8"), tt, ARCH, steps=1)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        distill.distill(ts, tt, ARCH, steps=1, mesh=object())
 
 
 @pytest.mark.parametrize("method", ["int8", "int4", "nf4", "hqq_int4", "quanto_int2"])
@@ -215,3 +213,52 @@ def test_fake_quant_recovery_runs(trees):
                                            J_ARCH, steps=1)
     kinds = [(n, l.kind) for n, l in P.named_leaves(got) if isinstance(l, QTensor)]
     assert kinds == [(n, l.kind) for n, l in JP.named_leaves(want) if hasattr(l, "kind")]
+
+
+# --------------------------------------------------- distill(mesh=): dp x tp
+
+@pytest.fixture(scope="module")
+def mesh_runs(trees):
+    """`distill(mesh=)` at dp = 2 x tp = 2: JAX's on four devices of the
+    virtual mesh, the port's in one world of 4 gloo ranks (spawned once;
+    `torch_parallel_worlds.distill_world`): a recovery run of the pruned
+    student (its zeros kept) and an STE int4 QAT run of the teacher."""
+    import sys
+
+    from openai_whisper_compression_tpu.parallel import mesh as jax_mesh
+    from openai_whisper_compression_tpu_torch.parallel.multihost import run_world
+
+    sys.path.insert(0, __file__.rsplit("/", 1)[0])
+    import torch_parallel_worlds as worlds
+
+    jt, js, tt, ts = trees
+    mesh = jax_mesh.make_mesh(dp=2, tp=2, devices=jax.devices()[:4])
+    kw = dict(steps=2, lr=1e-3, batch=2, seq_len=4, mesh=mesh)
+    jax_runs = {
+        "recovery": jax_distill.distill(js, jt, J_ARCH, preserve_sparsity=True, **kw),
+        "qat": jax_distill.distill(jt, jt, J_ARCH, preserve_sparsity=False,
+                                   param_transform=jax_qat.make_ste_transform(jt, "int4"),
+                                   **kw)}
+    port = run_world(worlds.distill_world, 4, {"student": ts, "teacher": tt})
+    return jax_runs, port
+
+
+@pytest.mark.parametrize("run", ["recovery", "qat"])
+def test_distill_mesh_matches_jax(trees, mesh_runs, run):
+    """Losses of 2 sharded steps within the single-device tolerances above
+    (gloo's sums and XLA's add in other orders, ~1e-7 more), the whole
+    trees every rank returns within PARAM_RTOL of JAX's, the same on every
+    rank; the recovery run keeps the pruned zeros."""
+    (jout, jh) = mesh_runs[0][run]
+    jout = jax.tree.map(np.asarray, jout)
+    first = mesh_runs[1][0][run][0]
+    for rank in mesh_runs[1]:
+        got, hist = rank[run]
+        np.testing.assert_allclose(hist, jh, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+        _assert_params_close(P.from_numpy(got, device=DEV), jout)
+        np.testing.assert_array_equal(got["encoder"]["layers"][1]["fc2"]["w"],
+                                      first["encoder"]["layers"][1]["fc2"]["w"])
+    if run == "recovery":
+        before = trees[3]["encoder"]["layers"][0]["fc1"]["w"].numpy()
+        after = first["encoder"]["layers"][0]["fc1"]["w"]
+        assert (before == 0).any() and (after[before == 0] == 0).all()

@@ -105,3 +105,39 @@ def test_linear_cpu_takes_the_dequant_path():
                                                .float(), q.data, q.scale),
                                x.reshape(6, 64).to(torch.bfloat16).float()
                                @ dequantize(q), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["default", "table", "environment"])
+def test_kernel_m_threshold_resolution_order_matches_jax(monkeypatch, case):
+    """`kernel_m_threshold()` resolves as the JAX package's
+    `pallas_m_threshold()`: the environment, then a table keyed by the
+    device's name (torch.cuda.get_device_name / jax device_kind), then the
+    default of 1024; once resolved it stays for the process."""
+    from openai_whisper_compression_tpu.ops import linear as JL
+    from openai_whisper_compression_tpu_torch.ops import linear as L
+
+    for mod in (L, JL):
+        monkeypatch.setattr(mod, "_resolved_threshold", None)
+    for var in ("OWC_KERNEL_M_THRESHOLD", "OWC_PALLAS_M_THRESHOLD"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "NVIDIA H100 80GB HBM3")
+    if case in ("table", "environment"):
+        monkeypatch.setitem(L.KERNEL_M_TABLE, "NVIDIA H100 80GB HBM3", 96)
+        monkeypatch.setitem(JL.PALLAS_M_TABLE, jax.devices()[0].device_kind, 96)
+    if case == "environment":
+        monkeypatch.setenv("OWC_KERNEL_M_THRESHOLD", "4096")
+        monkeypatch.setenv("OWC_PALLAS_M_THRESHOLD", "4096")
+    want = {"default": 1024, "table": 96, "environment": 4096}[case]
+    assert L.kernel_m_threshold() == JL.pallas_m_threshold() == want
+    assert L.KERNEL_M_DEFAULT == JL.PALLAS_M_DEFAULT == 1024
+    monkeypatch.setenv("OWC_KERNEL_M_THRESHOLD", "8")
+    monkeypatch.setenv("OWC_PALLAS_M_THRESHOLD", "8")
+    assert L.kernel_m_threshold() == JL.pallas_m_threshold() == want
+
+
+def test_measure_kernel_crossover_needs_the_card():
+    from openai_whisper_compression_tpu_torch.ops.linear import measure_kernel_crossover
+
+    with pytest.raises(RuntimeError):
+        measure_kernel_crossover(candidates=(64,), iters=1)

@@ -281,7 +281,24 @@ def test_flac_encode_bytes_equal_jax():
     assert encode_waveform(wav) == jax_fe.encode_waveform(wav)
 
 
-def test_loader_flac_wire_matches_jax():
+@pytest.fixture(scope="module")
+def native_library():
+    """A finished native library before either package's loader is asked
+    (as in tests/test_torch_storage.py: the reference's in-place `make` can
+    race a loader in another process, which then remembers the failure)."""
+    import time
+
+    from openai_whisper_compression_tpu import runtime_native as jax_rn
+
+    built = runtime_native.build()
+    for _ in range(120):
+        jax_rn._lib.cache_clear()
+        if not built or jax_rn._lib() is not None:
+            break
+        time.sleep(0.5)
+
+
+def test_loader_flac_wire_matches_jax(native_library):
     """`BatchLoader.submit_flac` + `flush(raise_on_error=False)` +
     `take_error_slots`: rows equal to the JAX package's loader, a corrupt
     stream's slot flagged and zeroed, `flush()` raising on it by default;

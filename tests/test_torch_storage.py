@@ -21,6 +21,7 @@ Every tolerance here is zero."""
 
 import dataclasses
 import json
+import time
 import zipfile
 
 import jax
@@ -316,8 +317,25 @@ def test_gzip_of_several_members_loads_in_jax(tmp_path):
 
 # ------------------------------------------------------------------ the codec
 
+@pytest.fixture(scope="module")
+def native_library():
+    """A finished native library before either package's loader is first
+    asked in this file. The reference's loader runs `make`, which writes the
+    library in place, so a loader that starts meanwhile in another process
+    can open a half-written file and remember the failure for good. The
+    port's locked build (`runtime_native.build`) puts a whole library in
+    place; the reference's remembered load is then dropped and retried
+    until a build some other process started has finished too."""
+    built = rn.build()
+    for _ in range(120):
+        jax_rn._lib.cache_clear()
+        if not built or jax_rn._lib() is not None:
+            break
+        time.sleep(0.5)
+
+
 @pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
-def test_sparse_codec_matches_jax(monkeypatch, native):
+def test_sparse_codec_matches_jax(monkeypatch, native, native_library):
     rng = np.random.default_rng(5)
     x = rng.standard_normal((37, 53)).astype(np.float32)
     x[rng.random(x.shape) < 0.8] = 0.0
