@@ -47,7 +47,20 @@ Phase 1  each kernel against its plain PyTorch version on the card, at
          `F.scaled_dot_product_attention` (a yardstick that no path of the
          port calls), and every kernel beside its bound: the larger of its
          bytes over the card's memory rate and its operations over the
-         card's peak rate.
+         card's peak rate. Then (slice 18, `phase1_head_dims`) the attention
+         kernels at head dims 16, 32 and 128, whisper-small's width of 768
+         cut into 48, 24 and 6 heads: the cross-KV quantizer at (32, 1500,
+         768) in bf16 and f32 (bit for bit), the encoder attention at (8, H,
+         1500, Dh), the grouped cross-attention over batch 32's rows (1 and
+         5 slots over bf16 K/V, 1 slot over f32, f16, int8 and int4), the
+         one-query kernel over batch 3's rows in the same five kinds, both
+         cache updates at pos 30 of a 64-row cache (fp in bf16, f32 and f16,
+         int8 under bf16 q, each also with a mixed `start`) and the read-only
+         attention bit for bit against them; one call a wrapper on strided
+         or offset views (q a slice of a fused projection, K/V, scales and
+         caches at offsets or as prefix views); both updates over a
+         16384-row cache; each held against its plain version, each
+         launch counted.
 Phase 2  decode runs at full width with seeded random weights (bf16, but
          for the f32 and f16 trees), fused
          decoder qkv, `make_transcribe_fn` (bf16 DFT mel, tanh encoder
@@ -248,7 +261,7 @@ Phase 6  again with whisper-small, int8 weights (phase 7's trees resident
                         quarter of the run (aggregate_rtfx, device_rtfx, tick
                         p50/p95, occupancy, draft_accept_rate,
                         sessions_closed); churn's held pass replays the first
-                        31 of its 60 rounds (two churns), its partials and
+                        20 of its 60 rounds (one churn), its partials and
                         the churned sessions' finals equal to the timed
                         pass's; in the held pass every synced
                         mirror row bit-equal to its host window and zero past
@@ -386,10 +399,21 @@ Phase 10 (slice 17, last) the CLI and the parallel paths at whisper-small's
                         `plain_kernels`); rank 0 then times the shard-local
                         shapes (P10_ENTRIES).
 
+Phase 11 (slice 18, last) the five examples of `examples_torch/` on the
+         card at their defaults (the head-dim-16 test models, f32 trees),
+         each `main(["--device", "cuda"])` inside `checked_kernel_calls(mel=
+         True)`: compress_store_serve, qat_recovery, serving_and_speculative,
+         streaming_live, timestamps_and_profiling; then `make_transcribe_fn`
+         on test2l's bf16 tree over fp, int8 and int4-cross caches at batch
+         4 (16 rows: the grouped kernel) and 3 (12: the one-query kernel),
+         held; every decode kernel of head dim 16 launched; the shapes
+         timed as the kernels line's `name@test2l-...` entries
+         (P11_BASES).
+
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
 its launch count, error, times and bound (and, as `name@shape`, the shapes
-only token merging and phases 5, 6, 7, 8, 9 and 10 give a kernel); the preset rows
+only token merging and phases 5, 6, 7, 8, 9, 10 and 11 give a kernel); the preset rows
 are logged as one `phase7 presets {...}` line after phase 6. Needs torch
 with CUDA, numpy and nvcc; never imports jax.
 """
@@ -426,7 +450,7 @@ KERNELS = [
     ("int8_matmul", "ops.quant_matmul", "int8_matmul", "launches",
      "quant_matmul.cu", "ops/quant_matmul.py:55", "int8_matmul"),
     ("decode_cross_attention_grouped", "ops.cross_attention",
-     "decode_cross_attention_grouped", "launches", "cross_attention.cu",
+     "decode_cross_attention_grouped", "launches", "cross_attention.cuh",
      "ops/cross_attention.py:321", "cross"),
     ("decode_self_attention_update", "ops.self_attention_step",
      "decode_self_attention_update", "launches", "self_attention_step.cu",
@@ -434,10 +458,10 @@ KERNELS = [
     ("transpose_quant_kv", "ops.cross_attention", "transpose_quant_kv",
      "launches", "transpose_quant.cu", "ops/cross_attention.py:248", "tq"),
     ("decode_cross_attention_grouped_int8", "ops.cross_attention",
-     "decode_cross_attention_grouped", "launches_int8", "cross_attention.cu",
+     "decode_cross_attention_grouped", "launches_int8", "cross_attention.cuh",
      "ops/cross_attention.py:306", "cross_int8"),
     ("decode_cross_attention_grouped_int4", "ops.cross_attention",
-     "decode_cross_attention_grouped", "launches_int4", "cross_attention.cu",
+     "decode_cross_attention_grouped", "launches_int4", "cross_attention.cuh",
      "ops/cross_attention.py:313", "cross_int4"),
     ("decode_self_attention_update_int8", "ops.self_attention_step",
      "decode_self_attention_update_int8", "launches", "self_attention_step.cu",
@@ -460,25 +484,25 @@ KERNELS = [
      "self_attention_step.cu", "ops/self_attention_step.py:164",
      "self_int8_start"),
     ("decode_cross_attention_grouped_wide", "ops.cross_attention",
-     "decode_cross_attention_grouped", "launches_wide", "cross_attention.cu",
+     "decode_cross_attention_grouped", "launches_wide", "cross_attention.cuh",
      "ops/cross_attention.py:321", "cross_wide"),
     ("decode_cross_attention_grouped_int8_wide", "ops.cross_attention",
      "decode_cross_attention_grouped", "launches_int8_wide",
-     "cross_attention.cu", "ops/cross_attention.py:306", "cross_int8_wide"),
+     "cross_attention.cuh", "ops/cross_attention.py:306", "cross_int8_wide"),
     ("decode_cross_attention_grouped_int4_wide", "ops.cross_attention",
      "decode_cross_attention_grouped", "launches_int4_wide",
-     "cross_attention.cu", "ops/cross_attention.py:313", "cross_int4_wide"),
+     "cross_attention.cuh", "ops/cross_attention.py:313", "cross_int4_wide"),
     ("w8a8_matmul", "ops.quant_matmul", "w8a8_matmul", "launches",
      "w8a8_matmul.cu", "ops/quant_matmul.py:341", "w8a8"),
     ("w8a8_matmul_static", "ops.quant_matmul", "w8a8_matmul", "launches_static",
      "w8a8_matmul.cu", "ops/quant_matmul.py:330", "w8a8_static"),
     ("decode_cross_attention", "ops.cross_attention", "decode_cross_attention",
-     "launches", "cross_attention.cu", "ops/cross_attention.py:151", "cross1"),
+     "launches", "cross_attention.cuh", "ops/cross_attention.py:151", "cross1"),
     ("decode_cross_attention_int8", "ops.cross_attention",
-     "decode_cross_attention", "launches_int8", "cross_attention.cu",
+     "decode_cross_attention", "launches_int8", "cross_attention.cuh",
      "ops/cross_attention.py:99", "cross1_int8"),
     ("decode_cross_attention_int4", "ops.cross_attention",
-     "decode_cross_attention", "launches_int4", "cross_attention.cu",
+     "decode_cross_attention", "launches_int4", "cross_attention.cuh",
      "ops/cross_attention.py:133", "cross1_int4"),
     ("decode_self_attention", "ops.self_attention_step", "decode_self_attention",
      "launches", "self_attention_step.cu", "ops/self_attention_step.py:320",
@@ -502,20 +526,30 @@ KERNELS = [
     ("decode_self_attention_update_f16_start", "ops.self_attention_step",
      "decode_self_attention_update", "launches_f16_start",
      "self_attention_step.cu", "ops/self_attention_step.py:104", "self_f16_start"),
+    # f32 q and cache with `start`: the streaming prompt window and the
+    # timestamped long-form's at head dim 16 (phase 11)
+    ("decode_self_attention_update_f32_start", "ops.self_attention_step",
+     "decode_self_attention_update", "launches_f32_start",
+     "self_attention_step.cu", "ops/self_attention_step.py:104", "self_f32_start"),
     ("decode_cross_attention_grouped_f32", "ops.cross_attention",
-     "decode_cross_attention_grouped", "launches_f32", "cross_attention.cu",
+     "decode_cross_attention_grouped", "launches_f32", "cross_attention.cuh",
      "ops/cross_attention.py:321", "cross_f32"),
     ("decode_cross_attention_grouped_f16", "ops.cross_attention",
-     "decode_cross_attention_grouped", "launches_f16", "cross_attention.cu",
+     "decode_cross_attention_grouped", "launches_f16", "cross_attention.cuh",
      "ops/cross_attention.py:321", "cross_f16"),
     ("decode_cross_attention_grouped_f16_wide", "ops.cross_attention",
-     "decode_cross_attention_grouped", "launches_f16_wide", "cross_attention.cu",
+     "decode_cross_attention_grouped", "launches_f16_wide", "cross_attention.cuh",
      "ops/cross_attention.py:321", "cross_f16_wide"),
+    # f32 q over 5-8 slots: the streaming pool's prompt window at head dim 16
+    # (phase 11)
+    ("decode_cross_attention_grouped_f32_wide", "ops.cross_attention",
+     "decode_cross_attention_grouped", "launches_f32_wide", "cross_attention.cuh",
+     "ops/cross_attention.py:321", "cross_f32_wide"),
     ("decode_cross_attention_f32", "ops.cross_attention", "decode_cross_attention",
-     "launches_f32", "cross_attention.cu", "ops/cross_attention.py:151",
+     "launches_f32", "cross_attention.cuh", "ops/cross_attention.py:151",
      "cross1_f32"),
     ("decode_cross_attention_f16", "ops.cross_attention", "decode_cross_attention",
-     "launches_f16", "cross_attention.cu", "ops/cross_attention.py:151",
+     "launches_f16", "cross_attention.cuh", "ops/cross_attention.py:151",
      "cross1_f16"),
 ]
 KV8 = {"kv_int8": True, "cross_kv_int8": True}
@@ -775,7 +809,7 @@ def check_grouped(what: str, qg: torch.Tensor, kv: tuple, s_valid: int,
     from openai_whisper_compression_tpu_torch.ops.cross_attention import (
         decode_cross_attention_grouped, decode_cross_attention_grouped_ref)
 
-    bh, kq, _ = qg.shape
+    bh, kq, dh = qg.shape
     got = decode_cross_attention_grouped(qg, *kv, s_valid)
     ref = decode_cross_attention_grouped_ref(qg, *kv, s_valid)
     err, tol = max_err(got, ref), KERNEL_REL[qg.dtype] * float(ref.float().abs().max())
@@ -785,7 +819,7 @@ def check_grouped(what: str, qg: torch.Tensor, kv: tuple, s_valid: int,
     k_t, v_t, k_scale, _ = kv
     valid = s_valid / k_t.shape[2]
     least = bound(nbytes(qg, got) + valid * nbytes(*kv),
-                  4 * bh * kq * 64 * s_valid / peak_flops(k_t.dtype))
+                  4 * bh * kq * dh * s_valid / peak_flops(k_t.dtype))
     t_lib = None
     if k_scale is None:
         k, v = (t[:, :, :s_valid].transpose(1, 2) for t in (k_t, v_t))
@@ -799,31 +833,38 @@ def check_grouped(what: str, qg: torch.Tensor, kv: tuple, s_valid: int,
 
 
 def check_update(what: str, bh: int, pos: int, gen, int8: bool,
-                 start: torch.Tensor | None, dtype=torch.bfloat16) -> dict:
-    """One of the two cache-update kernels over a 64-row cache of `bh` rows
-    against its plain version, q, the fresh rows and an fp cache in `dtype`:
-    caches (codes and scales) bit for bit, the output within one step of
-    `dtype`; with warm and cold times (`cold_ms`) and its bound (the rows
-    start..pos read once, row pos written)."""
+                 start: torch.Tensor | None, dtype=torch.bfloat16, dh: int = 64,
+                 s: int = 64, phase: str = "phase1") -> dict:
+    """One of the two cache-update kernels over an `s`-row cache of `bh` rows
+    of head dim `dh` against its plain version, q, the fresh rows and an fp
+    cache in `dtype`: caches (codes and scales) bit for bit, the output
+    within one step of `dtype`, one launch counted; with warm and cold times
+    (`cold_ms`) and its bound (the rows start..pos read once, row pos
+    written)."""
     from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
 
     dev = gen.device
-    qf = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(dtype)
-    kn, vn = (torch.randn(2, bh, 64, generator=gen, device=dev) * 2).to(dtype)
+    qf = (torch.randn(bh, dh, generator=gen, device=dev) * dh ** -0.5).to(dtype)
+    kn, vn = (torch.randn(2, bh, dh, generator=gen, device=dev) * 2).to(dtype)
     if int8:
         fn, ref_fn = (sas.decode_self_attention_update_int8,
                       sas.decode_self_attention_update_int8_ref)
-        kc, vc = torch.randint(-127, 128, (2, bh, 64, 64), generator=gen,
+        kc, vc = torch.randint(-127, 128, (2, bh, s, dh), generator=gen,
                                device=dev, dtype=torch.int8)
-        ks, vs = torch.rand(2, bh, 64, generator=gen, device=dev) * 0.03 + 1e-3
+        ks, vs = torch.rand(2, bh, s, generator=gen, device=dev) * 0.03 + 1e-3
         bufs = [kc, vc, ks, vs]
+        attr = "launches"
     else:
         fn, ref_fn = (sas.decode_self_attention_update,
                       sas.decode_self_attention_update_ref)
-        bufs = [torch.randn(bh, 64, 64, generator=gen, device=dev).to(dtype)
+        bufs = [torch.randn(bh, s, dh, generator=gen, device=dev).to(dtype)
                 for _ in range(2)]
+        attr = "launches" + _SUFFIX[dtype]
+    attr += "" if start is None else "_start"
     refs = [t.clone() for t in bufs]
+    before = getattr(fn, attr)
     got = fn(qf, kn, vn, *bufs, pos, start=start)
+    check(getattr(fn, attr) == before + 1, f"{what}: {attr} did not count one launch")
     ref = ref_fn(qf, kn, vn, *refs, pos, start=start)
     err, tol = max_err(got, ref), KERNEL_REL[dtype] * float(ref.float().abs().max())
     check(all(torch.equal(a, r) for a, r in zip(bufs, refs)),
@@ -836,8 +877,8 @@ def check_update(what: str, bh: int, pos: int, gen, int8: bool,
     rows = bh * (pos + 1) - (0 if start is None else int(start.sum()))
     per_row = sum(t[0, 0].numel() * t.element_size() for t in bufs)
     least = bound(nbytes(qf, kn, vn, got) + per_row * (rows + bh),
-                  4 * 64 * rows / peak_flops(torch.bfloat16 if int8 else dtype))
-    log(f"phase1 {what} pos={pos} ({bh}, 64, 64)"
+                  4 * dh * rows / peak_flops(torch.bfloat16 if int8 else dtype))
+    log(f"{phase} {what} pos={pos} ({bh}, {s}, {dh})"
         + ("" if start is None else f" start {int(start.min())}..{int(start.max())}")
         + f": err {err:.3g} (bound {tol:.3g}) caches equal; kernel {t_k:.4f} ms "
         f"(cold {t_c:.4f} ms) plain {t_p:.4f} ms least {least['bound_ms']:.5f} ms "
@@ -1389,10 +1430,8 @@ def phase1_dtypes(dev, results: dict) -> None:
     for dtype, tag in ((torch.float32, "f32"), (torch.float16, "f16")):
         results["self_" + tag] = check_update(
             f"self_attention_update {tag}", rows, 30, gen, False, None, dtype)
-        res = check_update(f"self_attention_update {tag} start", beam_rows, 30, gen,
-                           False, start, dtype)
-        if tag == "f16":
-            results["self_f16_start"] = res
+        results[f"self_{tag}_start"] = check_update(
+            f"self_attention_update {tag} start", beam_rows, 30, gen, False, start, dtype)
         check_update(f"self_attention_update {tag}", 3 * h, 30, gen, False, None, dtype)
         check_update(f"self_attention_update_int8 {tag} q", rows, 30, gen, True, None,
                      dtype)
@@ -1416,10 +1455,7 @@ def phase1_dtypes(dev, results: dict) -> None:
             qg = (torch.randn(bh, kq, 64, generator=gen, device=dev) * 0.125).to(dtype)
             res = check_grouped(f"cross_attention_grouped {tag} K={kq}", qg,
                                 (k_t[:bh], v_t[:bh], None, None), s_valid)
-            if kq == 1:
-                results["cross_" + tag] = res
-            elif tag == "f16":
-                results["cross_f16_wide"] = res
+            results["cross_" + tag + ("" if kq == 1 else "_wide")] = res
         bh = 3 * h
         qf = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(dtype)
         kv = (k_t[:bh], v_t[:bh], None, None)
@@ -2599,7 +2635,7 @@ def checked_kernel_calls(shapes: dict, calls: dict | None = None, mel: bool = Fa
     these kernels while it was open must have been made inside a shim
     (`HeldLaunches`: the wrappers' counters against the launches the shims
     saw), so no call reached a kernel unheld. `shapes` gets the first
-    call's inputs at every shape (the one-query kernel's: None); `calls`,
+    call's inputs at every shape; `calls`,
     when given, gets the launches at each shape, per KERNELS entry (a
     grouped call launches once per chunk of at most 8 slots); yields the
     count of calls held, per kernel."""
@@ -2679,7 +2715,8 @@ def checked_kernel_calls(shapes: dict, calls: dict | None = None, mel: bool = Fa
                      lambda: ca.decode_cross_attention(q, k_t, v_t, k_scale, v_scale, s_valid))
         close(f"decode_cross_attention {tuple(k_t.shape)} s_valid {s_valid}", out,
               ca.decode_cross_attention_ref(q, k_t, v_t, k_scale, v_scale, s_valid))
-        shapes.setdefault(key, None)
+        if key not in shapes:
+            shapes[key] = (q.clone(), (k_t, v_t, k_scale, v_scale), s_valid)
         return out
 
     def weight_only(kernel, plain):   # the int8, int4 and NF4/FP4 matmuls
@@ -2780,15 +2817,17 @@ def check_enc_attn_shape(what: str, q, k, v) -> dict:
     from openai_whisper_compression_tpu_torch.ops.attention import (
         encoder_attention, encoder_attention_ref)
 
-    b, h, t, _ = q.shape
+    b, h, t, dh = q.shape
+    before = encoder_attention.launches
     got, ref = encoder_attention(q, k, v), encoder_attention_ref(q, k, v)
+    check(encoder_attention.launches == before + 1, f"{what}: no launch counted")
     err, tol = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
     check(err <= tol, f"{what}: err {err} > {tol}")
     t_k = cuda_ms(lambda: encoder_attention(q, k, v))
     t_p = cuda_ms(lambda: encoder_attention_ref(q, k, v), warmup=1, iters=3)
     t_lib = cuda_ms(lambda: sdpa(q, k, v))
-    least = bound(4 * b * h * t * 64 * 2, 4 * b * h * t * t * 64 / BF16_FLOPS)
-    log(f"{what} ({b}, {h}, {t}, 64) bf16: err {err:.3g} (bound {tol:.3g}) "
+    least = bound(4 * b * h * t * dh * 2, 4 * b * h * t * t * dh / BF16_FLOPS)
+    log(f"{what} ({b}, {h}, {t}, {dh}) bf16: err {err:.3g} (bound {tol:.3g}) "
         f"kernel {t_k:.4f} ms plain {t_p:.4f} ms sdpa {t_lib:.4f} ms least "
         f"{least['bound_ms']:.4f} ms ({least['bound_by']})")
     return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least, "library_ms": t_lib}
@@ -3655,10 +3694,10 @@ def time_p5_shape(what: str, key: tuple, args: tuple, phase: str = "phase5") -> 
                                                                 pos, start=start))
     t_p = cuda_ms(lambda: sas.decode_self_attention_update_int8_ref(q, kn, vn, kc, vc, ks,
                                                                     vs, pos, start))
-    bh = q.shape[0]
+    bh, dh = q.shape
     rows = bh * (pos + 1) - (0 if start is None else int(start.sum()))   # start..pos
-    least = bound(nbytes(q, kn, vn, got) + (64 + 4) * 2 * (rows + bh),
-                  4 * 64 * rows / BF16_FLOPS)
+    least = bound(nbytes(q, kn, vn, got) + (dh + 4) * 2 * (rows + bh),
+                  4 * dh * rows / BF16_FLOPS)
     log(f"{phase} {what} int8 update ({bh} rows, {kc.shape[1]}-row cache) pos={pos}"
         + ("" if start is None else f" start {int(start.min())}..{int(start.max())}")
         + f": err "
@@ -3715,10 +3754,11 @@ CB_SCALE = 1.0 / 32767.0     # continuous batching's int16 wire (models/continuo
 # steady here takes 32 s, so that each session's window still slides once
 # (past 30 s) while the held passes fit the run's time
 STREAMS, STEADY_S, CHURN_S, STREAM_CHUNK_S = 32, 32.0, 30.0, 0.5
-# the held churn pass replays the first 31 of the timed pass's 60 rounds: two
-# of its three churns (at rounds 15 and 30), every kernel call held, its
-# partials and the churned sessions' finals equal to the timed pass's
-HELD_CHURN_ROUNDS = 31
+# the held churn pass replays the first 20 of the timed pass's 60 rounds: the
+# first of its three churns (at round 15) and 5 rounds of the sessions it
+# opened, every kernel call held, its partials and the churned sessions'
+# finals equal to the timed pass's
+HELD_CHURN_ROUNDS = 20
 SERVE_BATCH, SERVE_REQUESTS, UTT_S = 32, 128, 7.42   # bench.py's serve row
 OPENLOOP_REQUESTS, OPENLOOP_LOAD, MULAW_REQUESTS = 96, 0.6, 32
 LONG_S = 65.0                # one request the service splits into three windows
@@ -6700,6 +6740,421 @@ def phase10(dev, int8_params, results: dict) -> dict:
     return summaries
 
 
+# ---------------------------------------------------------------------------
+# Slice 18: the attention kernels at every head dim (phase 1), the examples
+# on the card (phase 11)
+# ---------------------------------------------------------------------------
+
+OTHER_DIMS = (16, 32, 128)    # the head dims besides every Whisper size's 64
+WIDTH = 768                   # whisper-small's d_model, cut into 768 / Dh heads
+LONG_CACHE = 16384            # the cache rows phase 1 holds (the cap was 12288)
+P11_EXAMPLES = ("compress_store_serve", "qat_recovery", "serving_and_speculative",
+                "streaming_live", "timestamps_and_profiling")
+# the decode runs after the examples: test2l's bf16 tree over each cache
+# kind at batch 4 (16 rows: the grouped kernel) and 3 (12: one-query)
+P11_RUNS = [("test2l-bf16-kv", {}), ("test2l-int8-kv", KV8),
+            ("test2l-int4-ckv", {"kv_int8": True, "cross_kv_int4": True})]
+P11_BATCHES = (4, 3)
+# the kernels head dim 16 reaches on phase 11's path, each timed at the
+# first shape it met there (the kernels line's `name@test2l-<rows>rows`)
+P11_BASES = ("decode_cross_attention_f32", "decode_cross_attention_grouped_f32",
+             "decode_cross_attention_grouped_f32_wide", "decode_self_attention_update_f32",
+             "decode_self_attention_update_f32_start", "decode_cross_attention",
+             "decode_cross_attention_grouped", "decode_self_attention_update",
+             "transpose_quant_kv", "decode_cross_attention_int8",
+             "decode_cross_attention_grouped_int8", "decode_cross_attention_int4",
+             "decode_cross_attention_grouped_int4", "decode_self_attention_update_int8")
+
+
+def quantized_cross_kv(gen, bh: int, dh: int, s_pad: int, bits: int) -> tuple:
+    """(k_t, v_t, k_scale, v_scale) of `bits` 8 or 4 (split-half int4),
+    quantized by the plain quantizers from seeded values."""
+    from openai_whisper_compression_tpu_torch.models.whisper import _quant_kv4_t
+    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
+        transpose_quant_kv_ref)
+
+    out = []
+    for _ in range(2):
+        x = torch.randn(1, s_pad, bh * dh, generator=gen, device=gen.device) * 0.4
+        data, scale = transpose_quant_kv_ref(x, bh)
+        if bits == 4:
+            data, scale = _quant_kv4_t(data.float() * scale)
+        out.append((data, scale))
+    (k, ks), (v, vs) = out
+    return k, v, ks, vs
+
+
+def check_one_query(what: str, q: torch.Tensor, kv: tuple, s_valid: int,
+                    phase: str = "phase1") -> dict:
+    """The one-query cross-attention on q (BH, Dh) and kv = (k_t, v_t,
+    k_scale, v_scale) against its plain version (within one step of q's
+    type), one launch counted, timed warm and beside its bound and, for K/V
+    in q's type, `sdpa`."""
+    from openai_whisper_compression_tpu_torch.ops.cross_attention import (
+        _FP_KIND, _KINDS, decode_cross_attention, decode_cross_attention_ref)
+
+    bh, dh = q.shape
+    k_t = kv[0]
+    kind = _FP_KIND[q.dtype] if kv[2] is None else (
+        "int8" if k_t.shape[1] == dh else "int4")
+    attr = _KINDS[kind][2]
+    before = getattr(decode_cross_attention, attr)
+    got = decode_cross_attention(q, *kv, s_valid)
+    check(getattr(decode_cross_attention, attr) == before + 1,
+          f"{what}: {attr} did not count one launch")
+    ref = decode_cross_attention_ref(q, *kv, s_valid)
+    err, tol = max_err(got, ref), KERNEL_REL[q.dtype] * float(ref.float().abs().max())
+    check(got.shape == (bh, dh) and err <= tol, f"{what}: err {err} > {tol}")
+    t_k = cuda_ms(lambda: decode_cross_attention(q, *kv, s_valid))
+    t_p = cuda_ms(lambda: decode_cross_attention_ref(q, *kv, s_valid))
+    least = bound(nbytes(q, got) + s_valid / k_t.shape[2] * nbytes(*kv),
+                  4 * bh * dh * s_valid / peak_flops(q.dtype))
+    t_lib = None
+    if kv[2] is None:
+        k, v = (t[:, :, :s_valid].transpose(1, 2) for t in kv[:2])
+        t_lib = cuda_ms(lambda: sdpa(q[:, None, :], k, v, scale=1.0))
+    log(f"{phase} {what} {tuple(k_t.shape)} s_valid {s_valid}: err {err:.3g} (bound "
+        f"{tol:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms least {least['bound_ms']:.5f} "
+        f"ms ({least['bound_by']})" + ("" if t_lib is None else f" sdpa {t_lib:.4f} ms"))
+    return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least, "library_ms": t_lib}
+
+
+def check_read_only(what: str, bh: int, dh: int, gen, int8: bool) -> None:
+    """The read-only self-attention at head dim dh, pos 30 of a 64-row
+    cache (bf16 q), bit for bit against the update kernel's output on the
+    cache it wrote, writing nothing, one launch counted; timed."""
+    from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
+
+    dev = gen.device
+    q = (torch.randn(bh, dh, generator=gen, device=dev) * dh ** -0.5).bfloat16()
+    kn, vn = (torch.randn(2, bh, dh, generator=gen, device=dev) * 2).bfloat16()
+    if int8:
+        bufs = [*torch.randint(-127, 128, (2, bh, 64, dh), generator=gen, device=dev,
+                               dtype=torch.int8),
+                *(torch.rand(2, bh, 64, generator=gen, device=dev) * 0.03 + 1e-3)]
+        upd, scales = sas.decode_self_attention_update_int8, {}
+    else:
+        bufs = [torch.randn(bh, 64, dh, generator=gen, device=dev).bfloat16()
+                for _ in range(2)]
+        upd = sas.decode_self_attention_update
+    out = upd(q, kn, vn, *bufs, 30)
+    written = [t.clone() for t in bufs]
+    scales = {"k_scale": bufs[2], "v_scale": bufs[3]} if int8 else {}
+    attr = "launches_int8" if int8 else "launches"
+    before = getattr(sas.decode_self_attention, attr)
+    got = sas.decode_self_attention(q, bufs[0], bufs[1], 30, **scales)
+    check(getattr(sas.decode_self_attention, attr) == before + 1,
+          f"{what}: {attr} did not count one launch")
+    check(torch.equal(got, out) and all(torch.equal(a, b) for a, b in zip(bufs, written)),
+          f"{what}: differs from the update kernel's output, or wrote to the cache")
+    t_k = cuda_ms(lambda: sas.decode_self_attention(q, bufs[0], bufs[1], 30, **scales))
+    t_p = cuda_ms(lambda: sas.decode_self_attention_ref(q, bufs[0], bufs[1], 30, **scales))
+    log(f"phase1 {what} pos=30 ({bh}, 64, {dh}): equal to the update kernel's output bit "
+        f"for bit; kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+
+
+def phase1_head_dims(dev, results: dict) -> None:
+    """The attention kernels at head dims 16, 32 and 128 (module docstring,
+    phase 1), then one strided or offset call a wrapper and both updates
+    over a LONG_CACHE-row cache; the results go to `results["dh<Dh> ..."]`, read
+    by the log and PERF.md, not by the kernels line."""
+    from openai_whisper_compression_tpu_torch.models.whisper import split_heads
+    from openai_whisper_compression_tpu_torch.ops import cross_attention as ca
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    bf16, s_pad, s_valid = torch.bfloat16, 1536, 1500
+    for dh in OTHER_DIMS:
+        h = WIDTH // dh
+        tag = f"dh{dh}"
+        for dtype in (bf16, torch.float32):
+            x = (torch.randn(BATCH, s_valid, WIDTH, generator=gen, device=dev) * 0.4).to(dtype)
+            before = ca.transpose_quant_kv.launches
+            results[f"{tag} transpose_quant_kv {dtype}"] = check_tq(x, h, f"phase1 {tag}")[0]
+            check(ca.transpose_quant_kv.launches > before, f"{tag}: tq launch not counted")
+            del x
+        q, k, v = (split_heads((torch.randn(8, s_valid, WIDTH, generator=gen, device=dev)
+                                ).to(bf16), h) for _ in range(3))
+        results[f"{tag} encoder_attention"] = check_enc_attn_shape(
+            f"phase1 {tag} encoder_attention", q, k, v)
+        del q, k, v
+        torch.cuda.empty_cache()
+        bh = BATCH * h
+        fp = {dt: tuple(torch.randn(bh, dh, s_pad, generator=gen, device=dev).to(dt)
+                        for _ in range(2)) + (None, None)
+              for dt in (bf16, torch.float32, torch.float16)}
+        kvq = {bits: quantized_cross_kv(gen, bh, dh, s_pad, bits) for bits in (8, 4)}
+        for name, kv, dtype, kq in (("bf16", fp[bf16], bf16, 1), ("bf16", fp[bf16], bf16, 5),
+                                    ("f32", fp[torch.float32], torch.float32, 1),
+                                    ("f16", fp[torch.float16], torch.float16, 1),
+                                    ("int8", kvq[8], bf16, 1), ("int4", kvq[4], bf16, 1)):
+            qg = (torch.randn(bh, kq, dh, generator=gen, device=dev) * dh ** -0.5).to(dtype)
+            attr = {"bf16": "launches", "f32": "launches_f32", "f16": "launches_f16",
+                    "int8": "launches_int8", "int4": "launches_int4"}[name]
+            attr += "_wide" if kq > 4 else ""
+            before = getattr(ca.decode_cross_attention_grouped, attr)
+            results[f"{tag} grouped {name} K={kq}"] = check_grouped(
+                f"{tag} cross_attention_grouped {name} K={kq}", qg, kv, s_valid)
+            check(getattr(ca.decode_cross_attention_grouped, attr) > before,
+                  f"{tag} grouped {name}: {attr} did not count")
+        rows = 3 * h
+        for name, kv, dtype in (("bf16", fp[bf16], bf16), ("f32", fp[torch.float32],
+                                                            torch.float32),
+                                ("f16", fp[torch.float16], torch.float16),
+                                ("int8", kvq[8], bf16), ("int4", kvq[4], bf16)):
+            q1 = (torch.randn(rows, dh, generator=gen, device=dev) * dh ** -0.5).to(dtype)
+            results[f"{tag} one_query {name}"] = check_one_query(
+                f"{tag} cross_attention {name} BH={rows}", q1,
+                tuple(t[:rows] if t is not None else None for t in kv), s_valid)
+        del fp, kvq
+        start = (torch.arange(bh, device=dev) // h * 5 % 13).to(torch.int32)
+        for dtype in (bf16, torch.float32, torch.float16):
+            results[f"{tag} self_update {dtype}"] = check_update(
+                f"{tag} self_attention_update {dtype}", bh, 30, gen, False, None, dtype, dh)
+        results[f"{tag} self_update start"] = check_update(
+            f"{tag} self_attention_update start", bh, 30, gen, False, start, bf16, dh)
+        results[f"{tag} self_update_int8"] = check_update(
+            f"{tag} self_attention_update_int8", bh, 30, gen, True, None, bf16, dh)
+        results[f"{tag} self_update_int8 start"] = check_update(
+            f"{tag} self_attention_update_int8 start", bh, 30, gen, True, start, bf16, dh)
+        for int8 in (False, True):
+            check_read_only(f"{tag} self_attention{'_int8' if int8 else ''}", bh, dh, gen,
+                            int8)
+        torch.cuda.empty_cache()
+    phase1_views(dev, gen, results)
+    for int8 in (False, True):
+        results[f"long self_update{'_int8' if int8 else ''}"] = check_update(
+            f"self_attention_update{'_int8' if int8 else ''} S={LONG_CACHE}", BATCH * 12,
+            LONG_CACHE - 1, gen, int8, None, bf16, 64, LONG_CACHE)
+    torch.cuda.empty_cache()
+
+
+def phase1_views(dev, gen, results: dict) -> None:
+    """One call a wrapper on the views a caller may hand it (head dim 64,
+    whisper-small's batch-32 rows): q as a slice of a fused (BH, 3 x 64)
+    projection (both cross-attentions, both updates), K/V and scales at
+    storage offsets that break 16-byte loads, the cross-KV projection's k
+    half, the encoder's k at an offset, caches as prefix views of longer
+    buffers (written through copies): each against its plain version (caches
+    and codes bit for bit), one launch counted, timed beside the same call on
+    contiguous inputs (what the copies cost)."""
+    from openai_whisper_compression_tpu_torch.models.whisper import split_heads
+    from openai_whisper_compression_tpu_torch.ops import attention as att
+    from openai_whisper_compression_tpu_torch.ops import cross_attention as ca
+    from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
+
+    bf16, h, s_pad, s_valid = torch.bfloat16, 12, 1536, 1500
+    bh = BATCH * h
+
+    def offset(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        return flat[1:].view(t.shape).copy_(t)
+
+    def held(what, wrapper, attr, call, plain, contiguous, equal=()):
+        before = getattr(wrapper, attr)
+        got = call()
+        check(getattr(wrapper, attr) == before + 1, f"views {what}: {attr} not counted")
+        ref = plain()
+        outs = got if isinstance(got, tuple) else (got,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        for a, b in zip(outs, refs):
+            if a.dtype in (torch.int8, torch.float32) and what.startswith("transpose"):
+                check(torch.equal(a, b), f"views {what}: codes or scales differ")
+            else:
+                err, tol = max_err(a, b), KERNEL_REL[a.dtype] * float(b.float().abs().max())
+                check(err <= tol, f"views {what}: err {err} > {tol}")
+        for a, b in equal:
+            check(torch.equal(a, b), f"views {what}: caches differ from the plain version's")
+        t_v, t_c = cuda_ms(call), cuda_ms(contiguous)
+        results[f"views {what}"] = {"ms": t_v, "contiguous_ms": t_c}
+        log(f"phase1 views {what}: held; kernel {t_v:.4f} ms, on contiguous inputs "
+            f"{t_c:.4f} ms")
+
+    fused = (torch.randn(bh, 3, 64, generator=gen, device=dev) * 0.125).to(bf16)
+    k_t, v_t = (torch.randn(bh, 64, s_pad, generator=gen, device=dev).to(bf16)
+                for _ in range(2))
+    k8 = quantized_cross_kv(gen, bh, 64, s_pad, 8)
+    k8o = tuple(offset(t) for t in k8)
+    q1 = fused[:, 1]
+    held("decode_cross_attention q slice, int8 K/V and scales at offsets",
+         ca.decode_cross_attention, "launches_int8",
+         lambda: ca.decode_cross_attention(q1, *k8o, s_valid),
+         lambda: ca.decode_cross_attention_ref(q1, *k8o, s_valid),
+         lambda: ca.decode_cross_attention(q1.contiguous(), *k8, s_valid))
+    qg = fused[:, 1:]
+    k_o = offset(k_t)
+    held("decode_cross_attention_grouped 2-slot q slice, bf16 K at an offset",
+         ca.decode_cross_attention_grouped, "launches",
+         lambda: ca.decode_cross_attention_grouped(qg, k_o, v_t, s_valid=s_valid),
+         lambda: ca.decode_cross_attention_grouped_ref(qg, k_o, v_t, s_valid=s_valid),
+         lambda: ca.decode_cross_attention_grouped(qg.contiguous(), k_t, v_t,
+                                                   s_valid=s_valid))
+    del k_t, v_t, k8, k8o, k_o
+    proj = (torch.randn(BATCH, s_valid, 2 * 768, generator=gen, device=dev) * 0.4).to(bf16)
+    x = proj[..., :768]
+    held("transpose_quant_kv k half of a fused K/V projection", ca.transpose_quant_kv,
+         "launches", lambda: ca.transpose_quant_kv(x, h),
+         lambda: ca.transpose_quant_kv_ref(x, h),
+         lambda: ca.transpose_quant_kv(x.contiguous(), h))
+    del proj, x
+    q, k, v = (split_heads(torch.randn(8, s_valid, 768, generator=gen, device=dev).to(bf16),
+                           h) for _ in range(3))
+    k_off = offset(k.contiguous())
+    held("encoder_attention k at an offset", att.encoder_attention, "launches",
+         lambda: att.encoder_attention(q, k_off, v),
+         lambda: att.encoder_attention_ref(q, k_off, v),
+         lambda: att.encoder_attention(q, k, v))
+    del q, k, v, k_off
+    rows = (torch.randn(bh, 3 * 64, generator=gen, device=dev) * 0.5).to(bf16)
+    qf, kn, vn = (rows[:, i * 64: (i + 1) * 64] for i in range(3))
+    for int8 in (False, True):
+        if int8:
+            big = [*torch.randint(-127, 128, (2, bh, 80, 64), generator=gen, device=dev,
+                                  dtype=torch.int8),
+                   *(torch.rand(2, bh, 80, generator=gen, device=dev) * 0.03 + 1e-3)]
+            upd, plain = (sas.decode_self_attention_update_int8,
+                          sas.decode_self_attention_update_int8_ref)
+        else:
+            big = [torch.randn(bh, 80, 64, generator=gen, device=dev).to(bf16)
+                   for _ in range(2)]
+            upd, plain = sas.decode_self_attention_update, sas.decode_self_attention_update_ref
+        views = [t[:, :64] for t in big]
+        refs = [t.contiguous() for t in views]
+        tails = [t[:, 64:].clone() for t in big]
+        held(f"self_attention_update{'_int8' if int8 else ''} q/k/v slices, prefix-view caches",
+             upd, "launches", lambda: upd(qf, kn, vn, *views, 30),
+             lambda: plain(qf, kn, vn, *refs, 30, None),
+             lambda: upd(qf.contiguous(), kn.contiguous(), vn.contiguous(), *refs, 30),
+             equal=list(zip(views, refs)))
+        check(all(torch.equal(t[:, 64:], tail) for t, tail in zip(big, tails)),
+              "views: an update wrote past its prefix view")
+        scales = {"k_scale": views[2], "v_scale": views[3]} if int8 else {}
+        held(f"self_attention{'_int8' if int8 else ''} on prefix-view caches",
+             sas.decode_self_attention, "launches_int8" if int8 else "launches",
+             lambda: sas.decode_self_attention(qf, views[0], views[1], 30, **scales),
+             lambda: sas.decode_self_attention_ref(qf, views[0], views[1], 30, **scales),
+             lambda: sas.decode_self_attention(qf.contiguous(), refs[0], refs[1], 30,
+                                               **({"k_scale": refs[2], "v_scale": refs[3]}
+                                                  if int8 else {})))
+
+
+def time_p11_shape(what: str, key: tuple, args: tuple) -> dict:
+    """A kernel at a shape phase 11 gave it, on the first call's inputs,
+    against its plain version, timed beside it and its bound."""
+    from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
+
+    kind = key[0]
+    if kind == "one_query":
+        q, kv, s_valid = args
+        return check_one_query(what, q, kv, s_valid, phase="phase11")
+    if kind == "decode_self_attention_update":
+        q, kn, vn, kc, vc, pos, start = args
+        refs = [t.clone() for t in (kc, vc)]
+        got = sas.decode_self_attention_update(q, kn, vn, kc, vc, pos, start=start)
+        ref = sas.decode_self_attention_update_ref(q, kn, vn, *refs, pos, start)
+        err, tol = max_err(got, ref), KERNEL_REL[q.dtype] * float(ref.float().abs().max())
+        check(all(torch.equal(a, r) for a, r in zip((kc, vc), refs)) and err <= tol,
+              f"{what}: caches differ or err {err} > {tol}")
+        t_k = cuda_ms(lambda: sas.decode_self_attention_update(q, kn, vn, kc, vc, pos,
+                                                               start=start))
+        t_p = cuda_ms(lambda: sas.decode_self_attention_update_ref(q, kn, vn, kc, vc, pos,
+                                                                   start))
+        bh, dh = q.shape
+        rows = bh * (pos + 1) - (0 if start is None else int(start.sum()))
+        per_row = 2 * dh * kc.element_size()
+        least = bound(nbytes(q, kn, vn, got) + per_row * (rows + bh),
+                      4 * dh * rows / peak_flops(q.dtype))
+        log(f"phase11 {what} fp update ({bh} rows, {kc.shape[1]}-row cache, {q.dtype}) "
+            f"pos={pos}: err {err:.3g} (bound {tol:.3g}) caches equal; kernel {t_k:.4f} ms "
+            f"plain {t_p:.4f} ms least {least['bound_ms']:.5f} ms ({least['bound_by']})")
+        return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least, "library_ms": None}
+    return time_p5_shape(what, key, args, phase="phase11")
+
+
+@torch.inference_mode()
+def run_p11_decodes(dev, shapes: dict, calls: dict) -> dict:
+    """P11_RUNS at P11_BATCHES, held, on test2l's seeded bf16 tree: tokens
+    and lengths of the expected shapes, finite; the launches of each run."""
+    import numpy as np
+
+    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import (
+        make_transcribe_fn, samples_for_arch)
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+
+    arch = ARCHS["test2l"]
+    params = init_params(arch, SEED, torch.bfloat16, dev)
+    out = {}
+    for name, switches in P11_RUNS:
+        cfg = DecodeConfig(max_new_tokens=8, language_token_id=None, task_token_id=None,
+                           **switches)
+        fn = make_transcribe_fn(arch, cfg, device=dev)
+        counters = zero_launches()
+        for b in P11_BATCHES:
+            wav = (np.random.default_rng(b).standard_normal((b, samples_for_arch(arch)))
+                   * 0.1).astype(np.float32)
+            with checked_kernel_calls(shapes, calls, mel=True):
+                toks, lens = fn(params, wav)
+            check(toks.shape[0] == b and bool((lens > 0).all()),
+                  f"phase11 {name} batch {b}: tokens {tuple(toks.shape)}")
+        out[name] = {"launches": read_launches(counters)}
+        log(f"phase11 {name}: launches {json.dumps(launched(out[name]['launches']))}")
+    return out
+
+
+def phase11(dev, results: dict) -> dict:
+    """Phase 11 (slice 18): the examples on the card, held, then P11_RUNS;
+    every kernel of P11_BASES launched; the P11 shapes timed into `results`
+    as `name@test2l-<rows>rows`. Returns the runs' summaries."""
+    import importlib
+    import io
+
+    summaries, shapes, calls = {}, {}, {}
+    for name in P11_EXAMPLES:
+        mod = importlib.import_module(f"examples_torch.{name}")
+        t0 = time.perf_counter()
+        counters = zero_launches()
+        buf = io.StringIO()
+        with checked_kernel_calls(shapes, calls, mel=True) as held_:
+            with contextlib.redirect_stdout(buf):
+                got = mod.main(["--device", str(dev)])
+        printed = buf.getvalue()
+        summaries[name] = {"launches": read_launches(counters)}
+        tail = printed.strip().splitlines()[-1] if printed.strip() else ""
+        log(f"phase11 {name}: {time.perf_counter() - t0:.1f} s, {len(printed.splitlines())} "
+            f"lines printed (last: {tail!r}); {held_summary(held_, {})}; launches "
+            f"{json.dumps(launched(summaries[name]['launches']))}")
+        if name == "compress_store_serve":
+            check(got["roundtrip_ok"] and got["num_chunks"] >= 1,
+                  f"phase11 {name}: {got}")
+        elif name == "qat_recovery":
+            check(printed.rstrip().endswith("OK"), f"phase11 {name}: no OK line")
+        elif name == "serving_and_speculative":
+            log(f"phase11 {name}: speculative == greedy: {got['speculative_exact']}")
+            check(len(got["requests"]) == 3, f"phase11 {name}: {got['requests']}")
+        elif name == "streaming_live":
+            check(len(got["ticks"]) == len(got["single"]) > 0, f"phase11 {name}")
+        else:
+            plotted = ("matplotlib is not installed" in printed) or ("Plot saved" in printed)
+            check(got["num_windows"] > 0 and plotted, f"phase11 {name}: {got['num_windows']} "
+                  "windows, or no plot line")
+    summaries.update(run_p11_decodes(dev, shapes, calls))
+    total = {k: sum(s["launches"][k] for s in summaries.values()) for k in P11_BASES}
+    log(f"phase11 head-dim-16 launches {json.dumps(total)}")
+    for base in P11_BASES:
+        check(total[base] > 0, f"phase11: {base} was never launched at head dim 16")
+        key = next(k for k in shapes if calls.get(k, {}).get(base, 0) > 0)
+        if key[0] == "transpose_quant_kv":
+            entry = f"{base}@test2l-{key[1]}x{key[2]}"
+        else:   # the updates' keys hold the rows third, the cross-attentions' last
+            rows = key[2] if key[0].startswith("decode_self") else key[-1]
+            entry = f"{base}@test2l-{rows}rows" + (
+                f"-{key[3]}slots" if key[0] == "grouped" and key[3] > 1 else "")
+        with torch.inference_mode():   # the recorded inputs are inference tensors
+            results[entry] = {**time_p11_shape(entry, key, shapes[key]),
+                              "launches": total[base], "base": base}
+    return summaries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6750,6 +7205,7 @@ def main() -> int:
     phase1_dtypes(dev, results)
     phase1_crossover(dev)
     torch.cuda.empty_cache()
+    phase1_head_dims(dev, results)
     phase_done("phase1")
     built: dict = {}
     build_s: dict = {}
@@ -6824,6 +7280,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     summaries.update(phase10(dev, small_int8[1], results))
     phase_done("phase10")
+    # the slice-18 runs: the examples at head dim 16
+    del small_int8
+    built.clear()
+    torch.cuda.empty_cache()
+    summaries.update(phase11(dev, results))
+    phase_done("phase11")
     check(not LATER, f"CPU proofs never run: {[label for label, _ in LATER]}")
     check(set(rows) == {"small_int8", "medium_int4_kv8"} | {r[0] for r in P7_RUNS},
           f"phase 7 rows: {sorted(rows)}")
@@ -6860,6 +7322,11 @@ def main() -> int:
          **{k: results[name][k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")}}
         for name, base, _ in P10_ENTRIES]
+    kernels_line["kernels"] += [
+        {**entries[r["base"]], "name": name,
+         **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}}
+        for name, r in results.items() if "@test2l-" in name]
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

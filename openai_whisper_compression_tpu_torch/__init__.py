@@ -35,7 +35,9 @@ def load_model(name_or_arch: str = "tiny", dtype: Any = None, seed: int = 0,
     a model name found in the local npz cache or a mounted HF hub cache
     (`models.convert.load_hf_model`; nothing is downloaded). Otherwise the
     named architecture with seeded random weights (`init_params`'
-    generator)."""
+    generator), its dict keys in the sorted order the JAX package's jitted
+    init returns them in (leaf listings that break ties by tree order then
+    print as JAX's do)."""
     import os
 
     import torch
@@ -48,10 +50,10 @@ def load_model(name_or_arch: str = "tiny", dtype: Any = None, seed: int = 0,
             params, arch = load_checkpoint(hf, dtype, device)
             return params, arch.replace(name=hf)
         return load_hf_model(hf, dtype=dtype, device=device)
-    from .models.params import init_params
+    from .models.params import init_params, sorted_keys
 
     arch = ARCHS[name_or_arch]
-    return init_params(arch, seed, dtype=dtype, device=device), arch
+    return sorted_keys(init_params(arch, seed, dtype=dtype, device=device)), arch
 
 
 def transcribe(params, arch, audio, tokenizer=None, decode_cfg=None,

@@ -24,6 +24,12 @@ import os
 
 import torch
 
+# The kernel library's on-disk cache (utils/compile_cache.py; opt out with
+# OWC_NO_COMPILE_CACHE=1), as the JAX CLI enables XLA's at import.
+from .utils.compile_cache import enable_persistent_compilation_cache  # noqa: E402
+
+enable_persistent_compilation_cache()
+
 
 def _device(args):
     return getattr(args, "device", "cuda")

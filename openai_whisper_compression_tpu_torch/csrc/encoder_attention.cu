@@ -76,24 +76,43 @@
 //   registers away instead (`setmaxnreg` down to 40) and each consumer
 //   takes 232: no spills. A third consumer warpgroup (192 rows a block)
 //   leaves each 128 registers and spills.
+// - Head dims: the kernel is a template on DH, 16, 32, 64 or 128 (the TPU
+//   kernel takes any; every Whisper size has 64). A tile row is DH bf16
+//   values, 32, 64 or 128 bytes, in the swizzle of its own width (32, 64 or
+//   128 bytes), which the wgmma descriptors name; S = Q K^T takes DH / 16
+//   k steps, O += P V is m64nDHk16. At DH = 128 a row (256 bytes) is wider
+//   than the widest swizzle, so each K or V tile is two 64-dim halves,
+//   loaded by two TMA boxes, and P V runs one m64n64k16 a half; and since
+//   64 more output and 16 more q registers a thread would not fit, a stage
+//   holds 64 keys (m64n64k16 scores) in place of 128. The numbers above
+//   are DH = 64's.
 #include <limits.h>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int DH = 64;             // head dim
 constexpr int WGS = 2;             // consumer warpgroups
 constexpr int BM = 64 * WGS;       // query rows per block
-constexpr int BN = 128;            // keys per stage
 constexpr int STAGES = 4;
 constexpr int CONSUMERS = 128 * WGS;  // threads of the consumer warpgroups
 constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
-constexpr int TILE_BYTES = BN * DH * 2;            // one K or V tile
-constexpr int STAGE_BYTES = 2 * TILE_BYTES;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
 constexpr float LOG2E = 1.4426950408889634f;
 using BF = __nv_bfloat16;
+
+// The tiles of head dim DH: BN keys a stage, each K or V tile HALVES
+// [BN][HD] halves of ROWB-byte rows in the ROWB-byte swizzle.
+template <int DH>
+struct Geo {
+  static constexpr int BN = DH == 128 ? 64 : 128;   // keys per stage
+  static constexpr int HALVES = DH == 128 ? 2 : 1;
+  static constexpr int HD = DH / HALVES;            // dims of a half
+  static constexpr int ROWB = HD * 2;               // bytes of a half's row
+  static constexpr int HALF_BYTES = BN * ROWB;
+  static constexpr int TILE_BYTES = BN * DH * 2;    // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+};
 
 // Keeps the compiler from moving reads or writes of registers that an
 // asynchronous wgmma owns across this point.
@@ -163,6 +182,76 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 64 f32) = or += a * B (16 x 64, a K-major [n][k] tile): the
+// scores of 64 keys (DH = 128).
+__device__ __forceinline__ void wgmma_qk64(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32 f32) += a * B (16 x 32, an MN-major [k][n] tile): P V at DH = 32.
+__device__ __forceinline__ void wgmma_pv32(float (&d)[16], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 16 f32) += a * B (16 x 16, an MN-major [k][n] tile): P V at DH = 16.
+__device__ __forceinline__ void wgmma_pv16(float (&d)[8], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The wgmma descriptor of a tile of ROWB-byte rows in the ROWB-byte
+// swizzle (1024-byte aligned): 8-row groups 8 ROWB bytes apart (SBO).
+// ROWB = 128 is `smem_desc`.
+template <int ROWB>
+__device__ __forceinline__ uint64_t tile_desc(const void* p) {
+  if constexpr (ROWB == 128) {
+    return smem_desc(p);
+  } else {
+    uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+    d |= (uint64_t)1 << 16;                       // LBO (unused), in 16-byte units
+    d |= (uint64_t)((8 * ROWB) >> 4) << 32;       // SBO
+    d |= (uint64_t)(ROWB == 64 ? 2 : 3) << 62;    // 64- or 32-byte swizzle
+    return d;
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -187,20 +276,27 @@ struct CoordOrder {
 
 __device__ __forceinline__ void load_kv_tile(void* dst, const CUtensorMap* map,
                                              uint64_t* bar, CoordOrder o, int key,
-                                             int h, int b) {
+                                             int h, int b, int d0 = 0) {
   int c[4] = {0, 0, 0, 0};
   c[o.t] = key;
   c[o.h] = h;
   c[o.b] = b;
-  tma_load_4d(dst, map, bar, 0, c[1], c[2], c[3]);
+  tma_load_4d(dst, map, bar, d0, c[1], c[2], c[3]);
 }
 
+template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
 encoder_attention_kernel(const BF* __restrict__ q,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
                          BF* __restrict__ out, int BH, int H, int T, float scale,
                          Strides qs, Strides os, CoordOrder ko, CoordOrder vo) {
+  using G = Geo<DH>;
+  constexpr int BN = G::BN, TILE_BYTES = G::TILE_BYTES, STAGE_BYTES = G::STAGE_BYTES;
+  constexpr int KS = DH / 16;   // k steps of S = Q K^T
+  constexpr int NS = BN / 8;    // 8-key score columns
+  constexpr int PK = BN / 16;   // k steps of O += P V
+  constexpr int NO = DH / 8;    // 8-dim output columns
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[STAGES];
   __shared__ __align__(8) uint64_t empty_bar[STAGES];
@@ -233,8 +329,13 @@ encoder_attention_kernel(const BF* __restrict__ q,
           mbar_wait(&empty_bar[s], (round & 1) ^ 1);  // passes on a fresh barrier
           mbar_expect_tx(&full_bar[s], STAGE_BYTES);
           unsigned char* stage = tiles + s * STAGE_BYTES;
-          load_kv_tile(stage, &k_map, &full_bar[s], ko, j * BN, h, b);
-          load_kv_tile(stage + TILE_BYTES, &v_map, &full_bar[s], vo, j * BN, h, b);
+#pragma unroll
+          for (int hf = 0; hf < G::HALVES; ++hf) {
+            load_kv_tile(stage + hf * G::HALF_BYTES, &k_map, &full_bar[s], ko, j * BN, h,
+                         b, hf * G::HD);
+            load_kv_tile(stage + TILE_BYTES + hf * G::HALF_BYTES, &v_map, &full_bar[s], vo,
+                         j * BN, h, b, hf * G::HD);
+          }
         }
       }
     }
@@ -247,11 +348,11 @@ encoder_attention_kernel(const BF* __restrict__ q,
 
   // A fragments of item w's scaled query rows: a0 (row g, cols 2t), a1 (row
   // g + 8), a2 (row g, cols 2t + 8), a3 (row g + 8, cols 2t + 8)
-  auto load_q = [&](uint32_t (&f)[4][4], int w) {
+  auto load_q = [&](uint32_t (&f)[KS][4], int w) {
     const int bh = w / qblocks, row0 = (w % qblocks) * BM + row_in_block;
     const BF* qb = q + (bh / H) * qs.b + (bh % H) * qs.h;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = row0 + (i & 1) * 8;
@@ -260,27 +361,45 @@ encoder_attention_kernel(const BF* __restrict__ q,
       }
   };
 
-  uint32_t qf[4][4], q_next[4][4];
-  float s_acc[64];  // scores of 128 keys, then their exponentials
-  float o_acc[32];
-  uint32_t p_frag[8][4];  // bf16 probabilities: the A operand of P V
+  uint32_t qf[KS][4], q_next[KS][4];
+  float s_acc[BN / 2];  // scores of BN keys, then their exponentials
+  float o_acc[DH / 2];
+  uint32_t p_frag[PK][4];  // bf16 probabilities: the A operand of P V
   float m_run[2], l_run[2];  // rows g and g + 8; l is this lane's share
   int it = 0;  // tiles consumed before the current item
 
   // Scores of the item's tile j from its stage's K tile (issue only).
   auto issue_qk = [&](int j) {
-    const uint64_t kd = smem_desc(tiles + ((it + j) % STAGES) * STAGE_BYTES);
+    unsigned char* kt = tiles + ((it + j) % STAGES) * STAGE_BYTES;
+    constexpr int PER = G::HD / 16;  // k steps a half
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // 16 values of d are 32 bytes of a row
-      wgmma_qk(s_acc, qf[kk], kd + ((kk * 32) >> 4), kk > 0);
+    for (int kk = 0; kk < KS; ++kk) {  // 16 values of d are 32 bytes of a row
+      const uint64_t kd = tile_desc<G::ROWB>(kt + (kk / PER) * G::HALF_BYTES);
+      if constexpr (BN == 128)
+        wgmma_qk(s_acc, qf[kk], kd + (((kk % PER) * 32) >> 4), kk > 0);
+      else
+        wgmma_qk64(s_acc, qf[kk], kd + (((kk % PER) * 32) >> 4), kk > 0);
+    }
   };
   // O += P V over tile j's V tile (issue only).
   auto issue_pv = [&](int j) {
-    const uint64_t vd =
-        smem_desc(tiles + ((it + j) % STAGES) * STAGE_BYTES + TILE_BYTES);
+    unsigned char* vt = tiles + ((it + j) % STAGES) * STAGE_BYTES + TILE_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)  // 16 keys are 16 rows of 128 bytes
-      wgmma_pv(o_acc, p_frag[kk], vd + ((kk * 16 * 128) >> 4));
+    for (int hf = 0; hf < G::HALVES; ++hf) {
+      const uint64_t vd = tile_desc<G::ROWB>(vt + hf * G::HALF_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < PK; ++kk) {  // 16 keys are 16 rows
+        const uint64_t d = vd + ((kk * 16 * G::ROWB) >> 4);
+        if constexpr (DH == 64)
+          wgmma_pv(o_acc, p_frag[kk], d);
+        else if constexpr (G::HD == 64)  // DH = 128: half hf's 64 output dims
+          wgmma_pv(*reinterpret_cast<float(*)[32]>(o_acc + 32 * hf), p_frag[kk], d);
+        else if constexpr (G::HD == 32)
+          wgmma_pv32(o_acc, p_frag[kk], d);
+        else
+          wgmma_pv16(o_acc, p_frag[kk], d);
+      }
+    }
   };
   auto wait_full = [&](int j) {
     mbar_wait(&full_bar[(it + j) % STAGES], ((it + j) / STAGES) & 1);
@@ -294,14 +413,14 @@ encoder_attention_kernel(const BF* __restrict__ q,
   auto softmax_tile = [&](int j, float (&corr)[2]) {
     if (j * BN + BN > T) {  // the ragged last tile: keys past T take no weight
 #pragma unroll
-      for (int i = 0; i < 64; ++i)
+      for (int i = 0; i < BN / 2; ++i)
         if (j * BN + (i >> 2) * 8 + 2 * t4 + (i & 1) >= T) s_acc[i] = -INFINITY;
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};  // short chains
 #pragma unroll
-      for (int n = 0; n < 16; ++n)
+      for (int n = 0; n < NS; ++n)
         mx[n & 3] = fmaxf(mx[n & 3], fmaxf(s_acc[4 * n + 2 * r], s_acc[4 * n + 2 * r + 1]));
       float m_tile = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
       m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 1));
@@ -312,7 +431,7 @@ encoder_attention_kernel(const BF* __restrict__ q,
       const float ms = m_new * LOG2E;
       float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < NS; ++n) {
         const float p0 = ex2(fmaf(s_acc[4 * n + 2 * r], LOG2E, -ms));
         const float p1 = ex2(fmaf(s_acc[4 * n + 2 * r + 1], LOG2E, -ms));
         s_acc[4 * n + 2 * r] = p0;
@@ -324,14 +443,14 @@ encoder_attention_kernel(const BF* __restrict__ q,
   };
   auto rescale_and_pack = [&](const float (&corr)[2]) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NO; ++n) {
       o_acc[4 * n] *= corr[0];
       o_acc[4 * n + 1] *= corr[0];
       o_acc[4 * n + 2] *= corr[1];
       o_acc[4 * n + 3] *= corr[1];
     }
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < PK; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         p_frag[kk][i] = pack_bf16(s_acc[8 * kk + 2 * i], s_acc[8 * kk + 2 * i + 1]);
@@ -339,19 +458,19 @@ encoder_attention_kernel(const BF* __restrict__ q,
   auto fence_pv_operands = [&]() {
     reg_fence(o_acc);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) reg_fence(p_frag[kk]);
+    for (int kk = 0; kk < PK; ++kk) reg_fence(p_frag[kk]);
   };
 
   if ((int)blockIdx.x < items) load_q(q_next, blockIdx.x);
   for (int w = blockIdx.x; w < items; w += gridDim.x) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) qf[kk][i] = q_next[kk][i];
     // the next item's q arrives while this one's tiles stream by
     if (w + (int)gridDim.x < items) load_q(q_next, w + gridDim.x);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o_acc[i] = 0.0f;
+    for (int i = 0; i < DH / 2; ++i) o_acc[i] = 0.0f;
     m_run[0] = m_run[1] = -INFINITY;
     l_run[0] = l_run[1] = 0.0f;
     float corr[2];
@@ -360,7 +479,7 @@ encoder_attention_kernel(const BF* __restrict__ q,
     wait_full(0);
     reg_fence(s_acc);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) reg_fence(qf[kk]);
+    for (int kk = 0; kk < KS; ++kk) reg_fence(qf[kk]);
     wgmma_fence();
     issue_qk(0);
     wgmma_commit();
@@ -409,7 +528,7 @@ encoder_attention_kernel(const BF* __restrict__ q,
       if (row < T) {
         BF* orow = ob + row * os.t + 2 * t4;
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < NO; ++n)
           *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(
               o_acc[4 * n + 2 * r] * inv, o_acc[4 * n + 2 * r + 1] * inv);
       }
@@ -418,12 +537,15 @@ encoder_attention_kernel(const BF* __restrict__ q,
   }  // consumer warpgroups
 }
 
-// The tensor map of a bf16 (B, H, T, 64) strided view, boxes of (BN, 64)
-// at one (batch, head), 128-byte swizzle, rows past T filled with zeros.
-// The three outer dimensions are listed by ascending stride; `order` says
-// where each landed.
+// The tensor map of a bf16 (B, H, T, DH) strided view, boxes of (BN, HD)
+// at one (batch, head) in the ROWB-byte swizzle, rows past T filled with
+// zeros. The three outer dimensions are listed by ascending stride; `order`
+// says where each landed.
+template <int DH>
 bool make_kv_map(CUtensorMap* map, CoordOrder* order, const void* base, int B, int H,
                  int T, Strides st) {
+  using G = Geo<DH>;
+  constexpr int BN = G::BN;
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
   struct Dim {
@@ -451,7 +573,7 @@ bool make_kv_map(CUtensorMap* map, CoordOrder* order, const void* base, int B, i
   }
   cuuint64_t size[4] = {DH, 0, 0, 0};
   cuuint64_t stride_bytes[3];
-  cuuint32_t box[4] = {DH, 0, 0, 0};
+  cuuint32_t box[4] = {G::HD, 0, 0, 0};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   for (int i = 0; i < 3; ++i) {
     size[i + 1] = dims[i].size;
@@ -459,34 +581,31 @@ bool make_kv_map(CUtensorMap* map, CoordOrder* order, const void* base, int B, i
     box[i + 1] = dims[i].box;
     *dims[i].where = i + 1;
   }
+  const CUtensorMapSwizzle swizzle = G::ROWB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : G::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                     : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), size,
-                stride_bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                stride_bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-}  // namespace
-
-// q, k, v, out: bf16 (B, H, T, 64) addressed as base + b * sb + h * sh +
-// t * st + d, strides in elements, given for q, k, v and out in that order
-// as strides[12] = {sb, sh, st} x 4. k and v need 16-byte aligned rows (base
-// pointer and every stride a multiple of 8 elements, positive strides), q
-// and out 4-byte aligned rows. Requires B * H <= 65535 and T >= 1.
-extern "C" int owc_encoder_attention(const void* q, const void* k, const void* v,
-                                     void* out, int B, int H, int T, float scale,
-                                     const long long* strides, void* stream) {
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int T,
+           float scale, const long long* strides, cudaStream_t stream) {
+  using G = Geo<DH>;
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
   CUtensorMap k_map, v_map;
   CoordOrder ko, vo;
-  if (!make_kv_map(&k_map, &ko, k, B, H, T, ks) ||
-      !make_kv_map(&v_map, &vo, v, B, H, T, vs))
+  if (!make_kv_map<DH>(&k_map, &ko, k, B, H, T, ks) ||
+      !make_kv_map<DH>(&v_map, &vo, v, B, H, T, vs))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(encoder_attention_kernel,
+  cudaError_t e = cudaFuncSetAttribute(encoder_attention_kernel<DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       SMEM_BYTES);
+                                       G::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   // one block an SM, each walking over (batch, head, query block) items
   int sms = 0;
@@ -494,9 +613,29 @@ extern "C" int owc_encoder_attention(const void* q, const void* k, const void* v
   if (e != cudaSuccess) return (int)e;
   const long long items = (long long)((T + BM - 1) / BM) * B * H;
   const int grid = (int)(items < sms ? items : sms);
-  encoder_attention_kernel<<<grid, THREADS, SMEM_BYTES,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const BF*>(q), k_map, v_map, static_cast<BF*>(out), B * H, H, T,
-      scale, qs, os, ko, vo);
+  encoder_attention_kernel<DH><<<grid, THREADS, G::SMEM_BYTES, stream>>>(
+      static_cast<const BF*>(q), k_map, v_map, static_cast<BF*>(out), B * H, H, T, scale,
+      qs, os, ko, vo);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, out: bf16 (B, H, T, dh) addressed as base + b * sb + h * sh +
+// t * st + d, strides in elements, given for q, k, v and out in that order
+// as strides[12] = {sb, sh, st} x 4; dh 16, 32, 64 or 128. k and v need
+// 16-byte aligned rows (base pointer and every stride a multiple of 8
+// elements, positive strides), q and out 4-byte aligned rows. Requires
+// B * H <= 65535 and T >= 1.
+extern "C" int owc_encoder_attention(const void* q, const void* k, const void* v,
+                                     void* out, int B, int H, int T, int dh, float scale,
+                                     const long long* strides, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16: return launch<16>(q, k, v, out, B, H, T, scale, strides, st);
+    case 32: return launch<32>(q, k, v, out, B, H, T, scale, strides, st);
+    case 64: return launch<64>(q, k, v, out, B, H, T, scale, strides, st);
+    case 128: return launch<128>(q, k, v, out, B, H, T, scale, strides, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -70,11 +70,26 @@
 // (WRITE = false), which reads row pos from memory, so that on the cache an
 // update wrote it repeats that update's arithmetic operation for operation
 // and returns its output bit for bit.
+// Head dims: both templates take DH = 16, 32, 64 or 128 (the TPU kernels
+// take any; every Whisper size has 64, the test models 16). The numbers
+// above are DH = 64's. fp cache: a 16-byte piece still holds E dims, so a
+// row is DQ = DH / E pieces, a warp load brings P = 32 / DQ positions (16 in
+// bf16 at DH = 16, 1 in f32 at DH = 128) and a lane holds DQ slots of a
+// 32-position pass; at DH = 128 in f32 (32 slots) the pass's V loads wait
+// until its scores are made, so that K and V do not hold 256 registers at
+// once. int8 cache: a position is DQ = DH / 16 lanes of 16 dims, a warp load
+// brings 32 / DQ positions and a pass 8 times that (256 at DH = 16, 32 at
+// DH = 128); a fresh row is quantized DH / 32 dims a lane (one dim on half
+// the lanes at DH = 16).
+// Long caches: positions and offsets are computed in 64 bits where they
+// meet a row's S, so S is bounded only by a pass's position staying inside
+// an int: S <= 2^31 - 257.
+#include <type_traits>
+
 #include "hopper.cuh"  // ex2
 
 namespace {
 
-constexpr int DH = 64;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // fp cache: positions a pass (one a lane)
@@ -118,7 +133,7 @@ struct Piece<__half> {
   }
 };
 
-template <typename T, bool WRITE>
+template <typename T, bool WRITE, int DH>
 __global__ void __launch_bounds__(32)
 self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, T* k_cache, T* v_cache,
@@ -127,6 +142,12 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   constexpr int E = Piece<T>::E;     // dims of a 16-byte piece
   constexpr int P = 32 * E / DH;     // positions a warp load brings
   constexpr int SLOTS = FP_PASS / P; // positions a lane holds in a pass
+  // K and V of a pass in flight together but where 32 slots of each would
+  // take 256 registers (f32, DH = 128): there V follows the scores
+  constexpr bool KV_TOGETHER = SLOTS <= 16;
+  // output dims a lane writes, and whether it owns them (at P > E the
+  // lanes that differ in their low P / E bits hold the same sums)
+  constexpr int VPL = E >= P ? E / P : 1;
   const int lane = threadIdx.x, g = blockIdx.x;
   const int slot = lane % P, dq = lane / P;
   const int lo = start ? start[g] : 0;  // first position that attends
@@ -137,6 +158,15 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   // positions s0 + slot + P t up to pos (zero past it); row pos only where
   // this kernel does not write it
   uint4 kr[SLOTS], vr[SLOTS];
+  auto load_one = [&](int s0, uint4 (&r)[SLOTS], const T* base) {
+#pragma unroll
+    for (int t = 0; t < SLOTS; ++t) {
+      const int s = s0 + slot + P * t;
+      r[t] = make_uint4(0, 0, 0, 0);
+      if (s <= pos && !(WRITE && s == pos))
+        r[t] = *reinterpret_cast<const uint4*>(base + (size_t)s * DH);
+    }
+  };
   auto load = [&](int s0) {
 #pragma unroll
     for (int t = 0; t < SLOTS; ++t) {
@@ -144,7 +174,7 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
       kr[t] = vr[t] = make_uint4(0, 0, 0, 0);
       if (s <= pos && !(WRITE && s == pos)) {
         kr[t] = *reinterpret_cast<const uint4*>(kg + (size_t)s * DH);
-        vr[t] = *reinterpret_cast<const uint4*>(vg + (size_t)s * DH);
+        if (KV_TOGETHER) vr[t] = *reinterpret_cast<const uint4*>(vg + (size_t)s * DH);
       }
     }
   };
@@ -195,6 +225,14 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
       x[t] = sc;
     }
     owc_reduce_scatter<16, P>(x, lane);
+    if constexpr (!KV_TOGETHER) {
+      load_one(s0, vr, vg);
+      if (WRITE) {
+#pragma unroll
+        for (int t = 0; t < SLOTS; ++t)
+          if (s0 + slot + P * t == pos) vr[t] = vfresh;
+      }
+    }
     const float xs = s0 + lane <= pos ? x[0] : -INFINITY;
     const float mn = fmaxf(m_run, owc_warp_max(xs));  // finite: s0 attends
     const float corr = ex2(m_run - mn);
@@ -213,22 +251,25 @@ self_attn_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     }
   }
   const float l = owc_warp_sum(l_run);
-  // the value sums over the P slot lanes; each lane keeps 2 of its E dims,
-  // dims 2 lane and 2 lane + 1 of the row
+  // the value sums over the P slot lanes; each lane keeps VPL of its E dims
+  // (2 at DH = 64: dims 2 lane and 2 lane + 1 of the row)
   owc_reduce_scatter<P / 2, 1>(acc, lane);
   const int d = dq * E + owc_scatter_base<E, P / 2, 1>(lane);
-  owc_store(out + (size_t)g * DH + d, acc[0] / l);
-  owc_store(out + (size_t)g * DH + d + 1, acc[1] / l);
+  if (E >= P || (lane & (P / E - 1)) == 0) {
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) owc_store(out + (size_t)g * DH + d + i, acc[i] / l);
+  }
 }
 
-// int8 cache: a warp per (batch, head) row, I8_WARPS rows a block. Lane l
-// holds dims 16 (l & 3) .. + 15 and the positions lo + (l >> 2) + 8 t of a
-// pass (t < I8_SLOTS): a 64-byte cache row is 4 lanes' 16-byte pieces, so
-// one warp load brings 8 positions, and a lane issues all of a pass's K and
-// V loads and scales together: one memory latency a 64-position pass.
+// int8 cache: a warp per (batch, head) row, I8_WARPS rows a block. At DH =
+// 64 lane l holds dims 16 (l & 3) .. + 15 and the positions lo + (l >> 2) +
+// 8 t of a pass (t < I8_SLOTS): a 64-byte cache row is 4 lanes' 16-byte
+// pieces, so one warp load brings 8 positions, and a lane issues all of a
+// pass's K and V loads and scales together: one memory latency a 64-position
+// pass. Generally a row is DQ = DH / 16 lanes and a warp load brings 32 / DQ
+// positions.
 constexpr int I8_WARPS = 4;
 constexpr int I8_SLOTS = 8;
-constexpr int I8_PASS = 8 * I8_SLOTS;  // positions a pass covers
 
 __device__ __forceinline__ void codes16(const uint4& u, float (&f)[16]) {
   owc_int8x4_to_float(u.x, f);
@@ -237,17 +278,24 @@ __device__ __forceinline__ void codes16(const uint4& u, float (&f)[16]) {
   owc_int8x4_to_float(u.w, f + 12);
 }
 
-template <typename T, bool WRITE>
+template <typename T, bool WRITE, int DH>
 __global__ void __launch_bounds__(I8_WARPS * 32)
 self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                              const T* __restrict__ v_new, int8_t* k_cache,
                              int8_t* v_cache, float* k_scale, float* v_scale,
                              T* __restrict__ out, const int* __restrict__ start,
                              int BH, int S, int pos) {
+  constexpr int DQ = DH / 16;          // lanes of a position
+  constexpr int PW = 32 / DQ;          // positions a warp load brings
+  constexpr int I8_PASS = PW * I8_SLOTS;  // positions a pass covers
+  constexpr int FD = DH >= 32 ? DH / 32 : 1;  // fresh dims a lane quantizes
+  // value sums a lane keeps: 16 over the PW slot lanes (at DH = 16 each sum
+  // is held by two lanes, which differ in bit 0)
+  constexpr int VPL = 16 >= PW ? 16 / PW : 1;
   const int lane = threadIdx.x & 31;
   const int g = blockIdx.x * I8_WARPS + (threadIdx.x >> 5);
   if (g >= BH) return;  // a whole warp: no barrier below spans warps
-  const int dq = lane & 3, slot = lane >> 2;
+  const int dq = lane % DQ, slot = lane / DQ;
   const int lo = start ? start[g] : 0;  // first position that attends
   int8_t* kg = k_cache + (size_t)g * S * DH;
   int8_t* vg = v_cache + (size_t)g * S * DH;
@@ -266,7 +314,7 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
   auto load = [&](int s0) {
 #pragma unroll
     for (int t = 0; t < I8_SLOTS; ++t) {
-      const int s = s0 + slot + 8 * t;
+      const int s = s0 + slot + PW * t;
       kr[t] = vr[t] = make_uint4(0, 0, 0, 0);
       ks[t] = vs[t] = 0.0f;
       if (s <= pos && !(WRITE && s == pos)) {
@@ -289,18 +337,35 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
   float ksf = 0.0f, vsf = 0.0f;
   if (WRITE) {
     auto quant = [&](const T* src, uint4& codes, float& scale) {
-      const float x0 = owc_to_float(src[(size_t)g * DH + 2 * lane]);
-      const float x1 = owc_to_float(src[(size_t)g * DH + 2 * lane + 1]);
-      const float a = owc_warp_max(fmaxf(fabsf(x0), fabsf(x1)));
+      // this lane's FD dims FD lane .. (none past DH: lanes 16-31 at DH = 16)
+      float x[FD];
+      float a = 0.0f;
+#pragma unroll
+      for (int i = 0; i < FD; ++i) {
+        x[i] = FD * lane + i < DH ? owc_to_float(src[(size_t)g * DH + FD * lane + i]) : 0.0f;
+        a = fmaxf(a, fabsf(x[i]));
+      }
+      a = owc_warp_max(a);
       scale = fmaxf(a, 1e-12f) * (1.0f / 127.0f);
-      const uint32_t pair = ((uint32_t)owc_quant_int8(x0, scale) & 0xFFu) |
-                            (((uint32_t)owc_quant_int8(x1, scale) & 0xFFu) << 8);
+      uint32_t part = 0;  // the FD codes, byte i = dim FD lane + i
+#pragma unroll
+      for (int i = 0; i < FD; ++i)
+        part |= ((uint32_t)owc_quant_int8(x[i], scale) & 0xFFu) << (8 * i);
       uint32_t w[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {  // dims dq * 16 + 4 i .. + 3
-        const uint32_t lo = __shfl_sync(0xffffffffu, pair, dq * 8 + 2 * i);
-        const uint32_t hi = __shfl_sync(0xffffffffu, pair, dq * 8 + 2 * i + 1);
-        w[i] = lo | (hi << 16);
+        if constexpr (FD == 2) {
+          const uint32_t lo = __shfl_sync(0xffffffffu, part, dq * 8 + 2 * i);
+          const uint32_t hi = __shfl_sync(0xffffffffu, part, dq * 8 + 2 * i + 1);
+          w[i] = lo | (hi << 16);
+        } else if constexpr (FD == 4) {
+          w[i] = __shfl_sync(0xffffffffu, part, dq * 4 + i);
+        } else {
+          w[i] = 0;
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            w[i] |= __shfl_sync(0xffffffffu, part, dq * 16 + 4 * i + k) << (8 * k);
+        }
       }
       codes = make_uint4(w[0], w[1], w[2], w[3]);
     };
@@ -325,7 +390,7 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
     if (WRITE) {
 #pragma unroll
       for (int t = 0; t < I8_SLOTS; ++t) {
-        if (s0 + slot + 8 * t == pos) {
+        if (s0 + slot + PW * t == pos) {
           kr[t] = kfresh;
           vr[t] = vfresh;
           ks[t] = ksf;
@@ -333,7 +398,7 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
         }
       }
     }
-    // scores: 16 dims a lane, summed over the 4 lanes of a position
+    // scores: 16 dims a lane, summed over the DQ lanes of a position
     float x[I8_SLOTS], mt = -INFINITY;
 #pragma unroll
     for (int t = 0; t < I8_SLOTS; ++t) {
@@ -341,16 +406,15 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
       codes16(kr[t], kf);
 #pragma unroll
       for (int i = 0; i < 16; ++i) sc = fmaf(qr[i], kf[i], sc);
-      sc += __shfl_xor_sync(0xffffffffu, sc, 1);
-      sc += __shfl_xor_sync(0xffffffffu, sc, 2);
-      x[t] = s0 + slot + 8 * t <= pos ? sc * ks[t] * LOG2E : -INFINITY;
+#pragma unroll
+      for (int o = 1; o < DQ; o <<= 1) sc += __shfl_xor_sync(0xffffffffu, sc, o);
+      x[t] = s0 + slot + PW * t <= pos ? sc * ks[t] * LOG2E : -INFINITY;
       mt = fmaxf(mt, x[t]);
     }
-    // over the 8 position slots (the 4 lanes of a slot agree already);
+    // over the PW position slots (the DQ lanes of a slot agree already);
     // finite, since position s0 attends
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 8));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
+#pragma unroll
+    for (int o = DQ; o < 32; o <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
     const float mn = fmaxf(m_run, mt);
     const float corr = ex2(m_run - mn);
     m_run = mn;
@@ -367,29 +431,53 @@ self_attn_update_int8_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
 #pragma unroll
       for (int i = 0; i < 16; ++i) acc[i] = fmaf(pv, vf[i], acc[i]);
     }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 4);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 8);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 16);
+#pragma unroll
+    for (int o = DQ; o < 32; o <<= 1) ls += __shfl_xor_sync(0xffffffffu, ls, o);
     l_run = l_run * corr + ls;
   }
-  // the value sums over the 8 slots; each lane keeps 2 of its 16 dims
-  owc_reduce_scatter<16, 4>(acc, lane);
-  const int d = dq * 16 + owc_scatter_base<16, 16, 4>(lane);
-  owc_store(out + (size_t)g * DH + d, acc[0] / l_run);
-  owc_store(out + (size_t)g * DH + d + 1, acc[1] / l_run);
+  // the value sums over the PW slots; each lane keeps VPL of its 16 dims
+  // (2 at DH = 64)
+  owc_reduce_scatter<16, DQ>(acc, lane);
+  const int d = dq * 16 + owc_scatter_base<16, 16, DQ>(lane);
+  if (16 >= PW || (lane & DQ) == 0) {
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) owc_store(out + (size_t)g * DH + d + i, acc[i] / l_run);
+  }
 }
+
+// Calls fn(T(), DH tag) for the dtype code and head dim; false where
+// either is unknown.
+template <typename F>
+bool dispatch(int dtype, int dh, F&& fn) {
+  bool known = true;
+  const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
+    switch (dh) {
+      case 16: fn(tag, std::integral_constant<int, 16>()); break;
+      case 32: fn(tag, std::integral_constant<int, 32>()); break;
+      case 64: fn(tag, std::integral_constant<int, 64>()); break;
+      case 128: fn(tag, std::integral_constant<int, 128>()); break;
+      default: known = false;
+    }
+  });
+  return ok && known;
+}
+
+// the caches' limits (the header's "Long caches")
+bool sizes_ok(int S, int pos) { return pos >= 0 && pos < S && S <= 2147483391; }
 
 template <bool WRITE>
 int launch_fp(const void* q, const void* k_new, const void* v_new, void* k_cache,
               void* v_cache, void* out, const void* start, int BH, int S, int pos,
-              int dtype, void* stream) {
-  const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
+              int dtype, int dh, void* stream) {
+  if (!sizes_ok(S, pos)) return (int)cudaErrorInvalidValue;
+  const bool ok = dispatch(dtype, dh, [&](auto tag, auto dh_tag) {
     using T = decltype(tag);
-    self_attn_update_kernel<T, WRITE><<<BH, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k_new),
-        static_cast<const T*>(v_new), static_cast<T*>(k_cache),
-        static_cast<T*>(v_cache), static_cast<T*>(out),
-        static_cast<const int*>(start), S, pos);
+    self_attn_update_kernel<T, WRITE, decltype(dh_tag)::value>
+        <<<BH, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k_new),
+            static_cast<const T*>(v_new), static_cast<T*>(k_cache),
+            static_cast<T*>(v_cache), static_cast<T*>(out),
+            static_cast<const int*>(start), S, pos);
   });
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
@@ -397,11 +485,13 @@ int launch_fp(const void* q, const void* k_new, const void* v_new, void* k_cache
 template <bool WRITE>
 int launch_int8(const void* q, const void* k_new, const void* v_new, void* k_cache,
                 void* v_cache, void* k_scale, void* v_scale, void* out,
-                const void* start, int BH, int S, int pos, int dtype, void* stream) {
+                const void* start, int BH, int S, int pos, int dtype, int dh,
+                void* stream) {
+  if (!sizes_ok(S, pos)) return (int)cudaErrorInvalidValue;
   const int blocks = (BH + I8_WARPS - 1) / I8_WARPS;
-  const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
+  const bool ok = dispatch(dtype, dh, [&](auto tag, auto dh_tag) {
     using T = decltype(tag);
-    self_attn_update_int8_kernel<T, WRITE>
+    self_attn_update_int8_kernel<T, WRITE, decltype(dh_tag)::value>
         <<<blocks, I8_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const T*>(q), static_cast<const T*>(k_new),
             static_cast<const T*>(v_new), static_cast<int8_t*>(k_cache),
@@ -415,53 +505,55 @@ int launch_int8(const void* q, const void* k_new, const void* v_new, void* k_cac
 }  // namespace
 
 // In every entry point `dtype` is the code (common.cuh) of the element type
-// that q, the fresh rows, an fp cache and out share: f32, bf16 or f16.
+// that q, the fresh rows, an fp cache and out share: f32, bf16 or f16, and
+// `dh` the head dim: 16, 32, 64 or 128.
 
-// q/k_new/v_new (BH, 64), k_cache/v_cache (BH, S, 64) updated in place,
-// out (BH, 64). start: (BH,) int32 first attending position of each row, or
-// null for 0. Requires 0 <= start[g] <= pos < S <= 12288.
+// q/k_new/v_new (BH, dh), k_cache/v_cache (BH, S, dh) updated in place,
+// out (BH, dh). start: (BH,) int32 first attending position of each row, or
+// null for 0. Requires 0 <= start[g] <= pos < S <= 2^31 - 257.
 extern "C" int owc_self_attention_update(const void* q, const void* k_new,
                                          const void* v_new, void* k_cache,
                                          void* v_cache, void* out,
                                          const void* start, int BH, int S,
-                                         int pos, int dtype, void* stream) {
+                                         int pos, int dtype, int dh, void* stream) {
   return launch_fp<true>(q, k_new, v_new, k_cache, v_cache, out, start, BH, S, pos,
-                         dtype, stream);
+                         dtype, dh, stream);
 }
 
 // The same attention over caches whose row pos is already written; nothing
-// is written but out. q (BH, 64), k_cache/v_cache (BH, S, 64), out (BH, 64);
-// start as above. Requires 0 <= start[g] <= pos < S <= 12288.
+// is written but out. q (BH, dh), k_cache/v_cache (BH, S, dh), out (BH, dh);
+// start as above. Requires 0 <= start[g] <= pos < S <= 2^31 - 257.
 extern "C" int owc_self_attention(const void* q, void* k_cache, void* v_cache,
                                   void* out, const void* start, int BH, int S,
-                                  int pos, int dtype, void* stream) {
+                                  int pos, int dtype, int dh, void* stream) {
   return launch_fp<false>(q, nullptr, nullptr, k_cache, v_cache, out, start, BH, S,
-                          pos, dtype, stream);
+                          pos, dtype, dh, stream);
 }
 
-// q/k_new/v_new (BH, 64); k_cache/v_cache (BH, S, 64) int8 and
+// q/k_new/v_new (BH, dh); k_cache/v_cache (BH, S, dh) int8 and
 // k_scale/v_scale (BH, S) f32, all four updated in place at row pos;
-// out (BH, 64). start: (BH,) int32 first attending position of each row, or
-// null for 0. Requires 0 <= start[g] <= pos < S <= 12288.
+// out (BH, dh). start: (BH,) int32 first attending position of each row, or
+// null for 0. Requires 0 <= start[g] <= pos < S <= 2^31 - 257.
 extern "C" int owc_self_attention_update_int8(const void* q, const void* k_new,
                                               const void* v_new, void* k_cache,
                                               void* v_cache, void* k_scale,
                                               void* v_scale, void* out,
                                               const void* start, int BH, int S,
-                                              int pos, int dtype, void* stream) {
+                                              int pos, int dtype, int dh,
+                                              void* stream) {
   return launch_int8<true>(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, out,
-                           start, BH, S, pos, dtype, stream);
+                           start, BH, S, pos, dtype, dh, stream);
 }
 
 // The same attention over an int8 cache whose row pos (codes and scales) is
-// already written; nothing is written but out. q (BH, 64), k_cache/v_cache
-// (BH, S, 64) int8, k_scale/v_scale (BH, S) f32, out (BH, 64); start as
-// above. Requires 0 <= start[g] <= pos < S <= 12288.
+// already written; nothing is written but out. q (BH, dh), k_cache/v_cache
+// (BH, S, dh) int8, k_scale/v_scale (BH, S) f32, out (BH, dh); start as
+// above. Requires 0 <= start[g] <= pos < S <= 2^31 - 257.
 extern "C" int owc_self_attention_int8(const void* q, void* k_cache,
                                        void* v_cache, void* k_scale,
                                        void* v_scale, void* out,
                                        const void* start, int BH, int S,
-                                       int pos, int dtype, void* stream) {
+                                       int pos, int dtype, int dh, void* stream) {
   return launch_int8<false>(q, nullptr, nullptr, k_cache, v_cache, k_scale, v_scale,
-                            out, start, BH, S, pos, dtype, stream);
+                            out, start, BH, S, pos, dtype, dh, stream);
 }

@@ -2,8 +2,8 @@
 //
 // Replaces: openai_whisper_compression_tpu/ops/cross_attention.py
 //           transpose_quant_kv (kernel body _tq_kernel).
-// For x (B, S, H * 64) f32, bf16 or f16 and every (b, h, s) with s < S_pad:
-//   v[d]  = x[b, s, h * 64 + d] as f32, or 0 for s >= S (padding)
+// For x (B, S, H * Dh) f32, bf16 or f16 and every (b, h, s) with s < S_pad:
+//   v[d]  = x[b, s, h * Dh + d] as f32, or 0 for s >= S (padding)
 //   scale = max(max_d |v[d]|, 1e-12) * f32(1 / 127)
 //   q[(b * H + h), d, s]     = clamp(rint(v[d] / scale), -127, 127)  (int8)
 //   scales[(b * H + h), 0, s] = scale                                 (f32)
@@ -20,14 +20,20 @@
 // row in half-lines, and an IEEE division per element (a ~20-instruction
 // subroutine) made it instruction-bound.
 //
-// Design: one block (8 warps) per (b, h, tile of 128 positions); several
-// blocks an SM, so one block's loads run under another's stores.
+// Design: one block (8 warps at Dh = 64) per (b, h, tile of 128 positions);
+// several blocks an SM, so one block's loads run under another's stores.
 // - Loads: 16 bytes a lane. A position's 64 dims are 128 contiguous bytes in
 //   bf16 or f16 (8 lanes) or 256 in f32 (16 lanes); each lane loads the same
 //   16 bytes of 4 neighbouring positions, so a warp step brings whole lines
 //   and every lane ends up holding 4 positions of the same dims.
 // - Scales: a position's absmax is the lane's own maximum, then a shuffle
 //   over the 8 (16) lanes of the position: no shared memory, no barrier.
+// - Head dims: the kernel is a template on Dh (16, 32, 64 or 128; every
+//   Whisper size has 64, the test models 16). A position takes Dh / 8 lanes
+//   in bf16 or f16 and Dh / 4 in f32; a warp covers 16 positions, or, where
+//   a warp step's lane groups cover more (Dh = 16 and 32), that many, and
+//   the block has as many warps as its 128 positions need (2 at Dh = 16 in
+//   bf16).
 // - Codes: v * (1 / scale) rounds to the same integer as the IEEE quotient
 //   v / scale unless it lies within 2^-10 of a half-integer (the product is
 //   within 2^-22 relative of the quotient, far less than that margin at
@@ -39,13 +45,26 @@
 //   fall on 32 banks (f32 input: 16, two lanes a bank) and a row reads back
 //   as whole 16-byte chunks. After one barrier each row of 128 codes leaves
 //   as a whole 128-byte line (8 lanes, 16 bytes each).
-// Any S and H work (S_pad is a multiple of 128); the head dim is 64.
+// Any S and H work (S_pad is a multiple of 128).
 #include "common.cuh"
 
 namespace {
 
-constexpr int DH = 64, TS = 128, THREADS = 256;
+constexpr int TS = 128;
 constexpr int CHUNKS = TS / 16;  // 16-byte chunks of a code row
+
+// How a block of head dim DH over elements of T is cut: lanes a position,
+// the positions a warp covers, the warps a block.
+template <typename T, int DH>
+struct Cut {
+  static constexpr int V = 16 / sizeof(T);  // elements a 16-byte load holds: 8 or 4
+  static constexpr int L = DH / V;          // lanes a position
+  static constexpr int Q = 32 / L;          // lane groups a warp step
+  static constexpr int STEPS = 16 / (4 * Q) > 1 ? 16 / (4 * Q) : 1;
+  static constexpr int PW = 4 * Q * STEPS;  // positions a warp covers
+  static constexpr int THREADS = 32 * TS / PW;
+  static_assert(L >= 1 && L <= 32 && TS % PW == 0, "head dim");
+};
 
 __device__ __forceinline__ void unpack(const uint4& r, float (&v)[4]) {
   v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
@@ -85,14 +104,13 @@ __device__ __forceinline__ int tile_word(int row, int word) {
   return row * (TS / 4) + ((((word >> 2) ^ (row >> 3)) & (CHUNKS - 1)) << 2) + (word & 3);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int DH>
+__global__ void __launch_bounds__(Cut<T, DH>::THREADS)
 transpose_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                        float* __restrict__ scales, int S, int H, int S_pad) {
-  constexpr int V = 16 / sizeof(T);  // elements a 16-byte load holds: 8 or 4
-  constexpr int L = DH / V;          // lanes a position: 8 or 16
-  constexpr int Q = 32 / L;          // lane groups a warp step: 4 or 2
-  constexpr int STEPS = 16 / (4 * Q);  // steps for a warp's 16 positions
+  using C = Cut<T, DH>;
+  constexpr int V = C::V, L = C::L, Q = C::Q, STEPS = C::STEPS, PW = C::PW;
+  constexpr int THREADS = C::THREADS;
   __shared__ __align__(16) uint32_t tile[DH * TS / 4];
   const int s_base = blockIdx.x * TS, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -106,14 +124,14 @@ transpose_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   for (int st = 0; st < STEPS; ++st)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int s = s_base + 16 * warp + 4 * (st * Q + grp) + i;
+      const int s = s_base + PW * warp + 4 * (st * Q + grp) + i;
       raw[st][i] = s < S ? __ldg(reinterpret_cast<const uint4*>(xb + (size_t)s * D))
                          : make_uint4(0, 0, 0, 0);
     }
 
 #pragma unroll
   for (int st = 0; st < STEPS; ++st) {
-    const int p0 = 16 * warp + 4 * (st * Q + grp);  // the lane's first position
+    const int p0 = PW * warp + 4 * (st * Q + grp);  // the lane's first position
     float v[4][V], sc[4], rc[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -150,25 +168,38 @@ transpose_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   }
 }
 
+template <typename T, int DH>
+void launch(const void* x, int8_t* q, float* scales, int B, int S, int H, int S_pad,
+            cudaStream_t st) {
+  const dim3 grid(S_pad / TS, H, B);
+  transpose_quant_kernel<T, DH><<<grid, Cut<T, DH>::THREADS, 0, st>>>(
+      static_cast<const T*>(x), q, scales, S, H, S_pad);
+}
+
 }  // namespace
 
-// x (B, S, H * 64) f32, bf16 or f16 (dtype code), 16-byte aligned; q
-// (B * H, 64, S_pad) int8 and scales (B * H, 1, S_pad) f32, 16-byte
-// aligned, every position written. Requires S <= S_pad, S_pad % 128 == 0,
-// B <= 65535 and H <= 65535.
+// x (B, S, H * dh) f32, bf16 or f16 (dtype code), 16-byte aligned; q
+// (B * H, dh, S_pad) int8 and scales (B * H, 1, S_pad) f32, 16-byte
+// aligned, every position written. dh: 16, 32, 64 or 128. Requires S <=
+// S_pad, S_pad % 128 == 0, B <= 65535 and H <= 65535.
 extern "C" int owc_transpose_quant_kv(const void* x, void* q, void* scales,
                                       int B, int S, int H, int S_pad, int dtype,
-                                      void* stream) {
+                                      int dh, void* stream) {
   if (S_pad % TS != 0 || S > S_pad) return (int)cudaErrorInvalidValue;
-  const dim3 grid(S_pad / TS, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* qo = static_cast<int8_t*>(q);
   float* so = static_cast<float*>(scales);
+  bool known = true;
   const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
     using T = decltype(tag);
-    transpose_quant_kernel<T><<<grid, THREADS, 0, st>>>(static_cast<const T*>(x), qo,
-                                                        so, S, H, S_pad);
+    switch (dh) {
+      case 16: launch<T, 16>(x, qo, so, B, S, H, S_pad, st); break;
+      case 32: launch<T, 32>(x, qo, so, B, S, H, S_pad, st); break;
+      case 64: launch<T, 64>(x, qo, so, B, S, H, S_pad, st); break;
+      case 128: launch<T, 128>(x, qo, so, B, S, H, S_pad, st); break;
+      default: known = false;
+    }
   });
-  if (!ok) return (int)cudaErrorInvalidValue;
+  if (!ok || !known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

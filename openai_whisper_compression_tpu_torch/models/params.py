@@ -155,6 +155,17 @@ def tree_to(params: Any, device: str | torch.device,
     return params.to(device=device, dtype=dtype)
 
 
+def sorted_keys(params: Any) -> Any:
+    """The tree with every dict's keys in sorted order: the order in which
+    JAX's pytree flattening, and so a jitted function's output (the JAX
+    package's `init_params_jit`), holds them. Leaves are not copied."""
+    if isinstance(params, dict):
+        return {k: sorted_keys(params[k]) for k in sorted(params)}
+    if isinstance(params, list):
+        return [sorted_keys(v) for v in params]
+    return params
+
+
 def tree_cast(params: Any, dtype: torch.dtype) -> Any:
     """Cast floating leaves to `dtype` (QTensors and integer leaves stay)."""
     if isinstance(params, dict):

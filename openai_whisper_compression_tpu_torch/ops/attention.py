@@ -19,8 +19,6 @@ import torch
 
 from . import kernels
 
-HEAD_DIM = 64   # every Whisper size; the kernel is written for it
-
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched a @ b over (..., M, K) x (..., K, N) with an f32 result:
@@ -52,8 +50,10 @@ def encoder_attention_ref(q: torch.Tensor, k: torch.Tensor,
 def encoder_attention(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
     """Full (non-causal) attention, (B, H, T, Dh) -> (B, H, T, Dh); q
-    unscaled. A CUDA tensor launches the kernel (bf16, Dh = 64; counted in
-    `encoder_attention.launches`); a CPU tensor takes the plain version.
+    unscaled (the kernel multiplies it by Dh**-0.5). A CUDA tensor launches
+    the kernel (bf16, Dh one of `kernels.HEAD_DIMS`: 16, 32, 64 or 128;
+    counted in `encoder_attention.launches`); a CPU tensor takes the plain
+    version.
     The kernel stays bf16 only, unlike the decode kernels: the JAX package
     reaches its Pallas kernel only past a score size that no f32 or f16
     configuration's test reaches, and `models.whisper.attention` sends an
@@ -63,33 +63,39 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
     The kernel reads q, k and v through their (batch, head, row) strides,
     so the (B, T, H, Dh) memory that `split_heads` leaves is not copied, and
     it writes the output in that same layout (returned as its (B, H, T, Dh)
-    view), so that `merge_heads` of the result is a view too."""
+    view), so that `merge_heads` of the result is a view too. An input
+    whose rows are not contiguous, or do not start on 16-byte boundaries, is
+    copied to a contiguous buffer first."""
     if not q.is_cuda:
         return encoder_attention_ref(q, k, v)
+    return _launch_encoder_attention(q, k, v)
+
+
+def _launch_encoder_attention(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> torch.Tensor:
+    """The card path of `encoder_attention`: its checks, then the launch. The
+    CPU tests call it directly, with a recording stand-in for the kernel
+    library."""
     name = "encoder_attention"
     kernels.refuse_grad(name, q, k, v)
     kernels.require(q.dim() == 4 and q.shape == k.shape == v.shape, name,
                     f"q, k and v must share one (B, H, T, Dh) shape, got "
                     f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, t, dh = q.shape
-    kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
+    kernels.require_head_dim(name, dh)
     kernels.require(t >= 1 and 1 <= b * h <= 65535, name,
                     f"T {t} must be >= 1 and B*H {b * h} lie in 1..65535")
     kernels.require_bf16(name, q, k, v)
     kernels.require(len({x.device for x in (q, k, v)}) == 1, name,
                     "q, k and v must share a device")
+    # 16-byte rows for the tensor maps of k and v (the 4 bytes q and out
+    # need follow); a view without them is read through a contiguous copy
+    q, k, v = (x if _rows_aligned(x) else kernels.aligned(x) for x in (q, k, v))
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
-    for x in (q, k, v, out):
-        # 16-byte rows for the tensor maps of k and v (the 4 bytes q and out
-        # need follow)
-        kernels.require(x.stride(3) == 1 and x.data_ptr() % 16 == 0
-                        and all(s % 8 == 0 and s >= 0 for s in x.stride()[:3]),
-                        name, "rows of 64 contiguous values at 16-byte aligned "
-                        f"addresses needed, got strides {x.stride()}")
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out)
                                          for s in x.stride()[:3]))
     err = kernels.lib().owc_encoder_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t, dh,
         dh ** -0.5, strides, kernels.stream_of(q))
     kernels.check(name, err)
     encoder_attention.launches += 1
@@ -97,3 +103,11 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 encoder_attention.launches = 0
+
+
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """Whether the kernel reads x in place: rows of contiguous values at
+    16-byte aligned addresses, non-negative strides in multiples of 8
+    elements (a contiguous copy of any view has them)."""
+    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
+            and all(s % 8 == 0 and s >= 0 for s in x.stride()[:3]))

@@ -13,13 +13,18 @@ reading the K/V again (the JAX kernel takes any K in one call).
 `decode_cross_attention` is the one-query function that the JAX package's
 decode step takes where B·H is no multiple of 16 (`UNGROUPED_MODULUS`): few
 rows, so its kernel splits S over the blocks of a cluster
-(`one_query_splits`), in one launch. K/V storage
+(`one_query_splits`), in one launch. Every kernel takes
+the head dims of `kernels.HEAD_DIMS` (16, 32, 64, 128; each body a template
+on it) and raises on any other. K/V storage
 follows the JAX layout: (B·H, Dh, S_pad) in q's own type (float32, bfloat16
 or float16: the Pallas kernels are generic in it; f32 arithmetic, output in
 q's type); int8 with (B·H, 1, S_pad) f32 per-position scales; or split-half
 packed int4 (B·H, Dh/2, S_pad) with the same scales, told apart from int8 by
 its Dh/2 rows, as the JAX package does. A launch over fp K/V is counted per
 type: in `launches` for bfloat16, in `launches_f32` and `launches_f16`.
+The wrappers take any strided or offset view of their inputs (all read
+only): one the kernels cannot read in place is copied to a contiguous,
+aligned buffer first (`kernels.aligned`).
 """
 
 from __future__ import annotations
@@ -31,7 +36,6 @@ from . import kernels
 from .qtensor import quantize_absmax
 
 NEG_INF = -1e30
-HEAD_DIM = 64   # every Whisper size; the kernels are written for it
 MAX_SLOTS = 8   # query slots per (batch, head) row one launch holds
 UNGROUPED_MODULUS = 16  # a decode step with B*H % 16 != 0 takes the one-query kernel
 ONE_QUERY_CHUNK = 64  # positions the one-query kernel shares out over a cluster
@@ -72,27 +76,36 @@ def transpose_quant_kv(x: torch.Tensor, h: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, H*Dh) f32/bf16/f16 -> ((B*H, Dh, S_pad) int8, (B*H, 1, S_pad)
     f32 scales), S_pad = `pad_cross_len(S)`, padding positions quantized
-    from zeros. A CUDA tensor launches the kernel (Dh = 64; counted in
-    `transpose_quant_kv.launches`); a CPU tensor takes the plain version."""
+    from zeros. A CUDA tensor launches the kernel (Dh one of
+    `kernels.HEAD_DIMS`; counted in `transpose_quant_kv.launches`); an x that
+    is not contiguous or not 16-byte aligned is copied first. A CPU tensor
+    takes the plain version."""
     if not x.is_cuda:
         return transpose_quant_kv_ref(x, h)
+    return _launch_transpose_quant_kv(x, h)
+
+
+def _launch_transpose_quant_kv(x: torch.Tensor, h: int
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The card path of `transpose_quant_kv`: its checks, then the launch. The
+    CPU tests call it directly, with a recording stand-in for the kernel
+    library."""
     name = "transpose_quant_kv"
     kernels.refuse_grad(name, x)
-    kernels.require(x.dim() == 3 and h >= 1 and x.shape[2] == h * HEAD_DIM,
-                    name, f"x must be (B, S, {h} * {HEAD_DIM}), got "
-                    f"{tuple(x.shape)}")
-    b, s, _ = x.shape
+    kernels.require(x.dim() == 3 and h >= 1 and x.shape[2] % h == 0, name,
+                    f"x must be (B, S, {h} * Dh), got {tuple(x.shape)}")
+    b, s, d = x.shape
+    dh = d // h
+    kernels.require_head_dim(name, dh)
     kernels.require(1 <= b <= 65535 and h <= 65535 and s >= 1, name,
                     f"B {b} and H {h} must lie in 1..65535, S {s} >= 1")
     code = kernels.dtype_code(x, name)
-    kernels.require(x.is_contiguous(), name, "x must be contiguous")
-    kernels.require(x.data_ptr() % 16 == 0, name,
-                    "x must start on a 16-byte boundary (16-byte loads)")
+    x = kernels.aligned(x)   # the kernel reads rows of x in 16-byte pieces
     s_pad = pad_cross_len(s)
-    q = torch.empty((b * h, HEAD_DIM, s_pad), dtype=torch.int8, device=x.device)
+    q = torch.empty((b * h, dh, s_pad), dtype=torch.int8, device=x.device)
     scale = torch.empty((b * h, 1, s_pad), dtype=torch.float32, device=x.device)
     err = kernels.lib().owc_transpose_quant_kv(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), b, s, h, s_pad, code,
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), b, s, h, s_pad, code, dh,
         kernels.stream_of(x))
     kernels.check(name, err)
     transpose_quant_kv.launches += 1
@@ -144,13 +157,14 @@ def _check_kv(name: str, q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
               k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
               s_valid: int | None) -> tuple[str, int, int]:
     """The checks of what both cross-attention kernels take: q in f32, bf16
-    or f16 of head dim 64 whose first axis is B·H, K/V of one storage kind
-    (q's type without scales, or int8 / int4 with them), contiguous, aligned
-    and on one device. Returns (kind, S_pad, s_valid)."""
+    or f16 of a head dim in `kernels.HEAD_DIMS` whose first axis is B·H, K/V
+    of one storage kind (q's type without scales, or int8 / int4 with them)
+    on one device. Returns (kind, S_pad, s_valid); the caller reads the
+    tensors through `kernels.aligned`."""
     bh, dh = q.shape[0], q.shape[-1]
     rows, s_pad = k_t.shape[1], k_t.shape[2]
     s_valid = s_pad if s_valid is None else s_valid
-    kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
+    kernels.require_head_dim(name, dh)
     tensors = [q, k_t, v_t]
     if k_scale is None and v_scale is None:
         kernels.dtype_code(q, name, k_t, v_t)
@@ -180,10 +194,6 @@ def _check_kv(name: str, q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
                     f"multiple of {vec} ({kind} K/V)")
     kernels.require(len({t.device for t in tensors}) == 1, name,
                     "q, the K/V and their scales must share a device")
-    kernels.require(all(t.is_contiguous() for t in tensors), name,
-                    "inputs must be contiguous")
-    kernels.require(k_t.data_ptr() % 16 == 0 and v_t.data_ptr() % 16 == 0,
-                    name, "k_t/v_t must be 16-byte aligned")
     return kind, s_pad, s_valid
 
 
@@ -225,6 +235,17 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
     if not q.is_cuda:
         return decode_cross_attention_grouped_ref(q, k_t, v_t, k_scale,
                                                   v_scale, s_valid)
+    return _launch_decode_cross_attention_grouped(q, k_t, v_t, k_scale, v_scale, s_valid)
+
+
+def _launch_decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
+                                           v_t: torch.Tensor,
+                                           k_scale: torch.Tensor | None = None,
+                                           v_scale: torch.Tensor | None = None,
+                                           s_valid: int | None = None) -> torch.Tensor:
+    """The card path of `decode_cross_attention_grouped`: its checks, then the
+    launch. The CPU tests call it directly, with a recording stand-in for
+    the kernel library."""
     name = "decode_cross_attention_grouped"
     kernels.refuse_grad(name, q, k_t, v_t, k_scale, v_scale)
     bh, kq, dh = q.shape
@@ -232,10 +253,7 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
     kind, s_pad, s_valid = _check_kv(name, q, k_t, v_t, k_scale, v_scale, s_valid)
     code, _, counter = _KINDS[kind]
     kernels.require(1 <= bh < 2 ** 31, name, f"B*H {bh} outside 1..2**31 - 1")
-    kernels.require(q.data_ptr() % 4 == 0, name, "q must be 4-byte aligned")
-    kernels.require(k_scale is None or (k_scale.data_ptr() % 16 == 0
-                                        and v_scale.data_ptr() % 16 == 0),
-                    name, "k_scale/v_scale must be 16-byte aligned")
+    q, k_t, v_t, k_scale, v_scale = map(kernels.aligned, (q, k_t, v_t, k_scale, v_scale))
     splits = grouped_splits(bh, s_valid)
     out = torch.empty_like(q)
     for j0 in range(0, kq, MAX_SLOTS):   # slots j0.. of every row, in place
@@ -246,7 +264,7 @@ def decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
             None if k_scale is None else k_scale.data_ptr(),
             None if v_scale is None else v_scale.data_ptr(),
             out.data_ptr() + offset, bh, slots, kq * dh, s_pad, s_valid, splits, code,
-            kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q))
+            kernels.DTYPE_CODES[q.dtype], dh, kernels.stream_of(q))
         kernels.check(name, err)
         attr = counter + ("_wide" if slots > NARROW_SLOTS else "")
         setattr(decode_cross_attention_grouped, attr,
@@ -284,20 +302,32 @@ def decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
     `launches_int4`); a CPU tensor takes the plain version."""
     if not q.is_cuda:
         return decode_cross_attention_ref(q, k_t, v_t, k_scale, v_scale, s_valid)
+    return _launch_decode_cross_attention(q, k_t, v_t, k_scale, v_scale, s_valid)
+
+
+def _launch_decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
+                                   v_t: torch.Tensor,
+                                   k_scale: torch.Tensor | None = None,
+                                   v_scale: torch.Tensor | None = None,
+                                   s_valid: int | None = None) -> torch.Tensor:
+    """The card path of `decode_cross_attention`: its checks, then the launch.
+    The CPU tests call it directly, with a recording stand-in for the kernel
+    library."""
     name = "decode_cross_attention"
     kernels.refuse_grad(name, q, k_t, v_t, k_scale, v_scale)
     kernels.require(q.dim() == 2, name, f"q must be (BH, Dh), got {tuple(q.shape)}")
     kind, s_pad, s_valid = _check_kv(name, q, k_t, v_t, k_scale, v_scale, s_valid)
     code, _, counter = _KINDS[kind]
-    bh = q.shape[0]
+    bh, dh = q.shape
     kernels.require(1 <= bh < 2 ** 31, name, f"B*H {bh} outside 1..2**31 - 1")
+    q, k_t, v_t, k_scale, v_scale = map(kernels.aligned, (q, k_t, v_t, k_scale, v_scale))
     out = torch.empty_like(q)
     err = kernels.lib().owc_cross_attention(
         q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         out.data_ptr(), bh, one_query_splits(bh, s_valid), s_pad, s_valid, code,
-        kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q))
+        kernels.DTYPE_CODES[q.dtype], dh, kernels.stream_of(q))
     kernels.check(name, err)
     setattr(decode_cross_attention, counter,
             getattr(decode_cross_attention, counter) + 1)

@@ -51,20 +51,29 @@ _SIGNATURES = {
                               _P],
     "owc_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "owc_mel_log10": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # the attention launchers take the head dim (one of HEAD_DIMS) last
+    # before the stream
     "owc_cross_attention_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _P],
-    "owc_cross_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "owc_transpose_quant_kv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+                                    _I, _I, _I, _I, _I, _P],
+    "owc_cross_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
+    "owc_transpose_quant_kv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "owc_self_attention_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _P],
+                                  _I, _P],
     "owc_self_attention_update_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                       _I, _I, _I, _P],
-    "owc_self_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "owc_self_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # the 12 strides are a host array of long long
-    "owc_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _F,
+                                       _I, _I, _I, _I, _P],
+    "owc_self_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "owc_self_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _P],
+    # B, H, T, the head dim, the scale; the 12 strides are a host array of
+    # long long
+    "owc_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F,
                               ctypes.POINTER(ctypes.c_longlong), _P],
 }
+
+# head dims the attention kernels are built for (each body a template on
+# it): every Whisper size has 64, the test models 16
+HEAD_DIMS = (16, 32, 64, 128)
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of this process's build
@@ -182,6 +191,25 @@ def require(cond: bool, name: str, what: str) -> None:
     """Raise ValueError unless `cond` (input checks before a launch)."""
     if not cond:
         raise ValueError(f"{name}: {what}")
+
+
+def require_head_dim(name: str, dh: int) -> None:
+    """Raise ValueError unless the attention kernels are built for head dim
+    `dh` (`HEAD_DIMS`)."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim must be one of "
+                         f"{', '.join(map(str, HEAD_DIMS[:-1]))} or "
+                         f"{HEAD_DIMS[-1]}, got {dh}")
+
+
+def aligned(t: torch.Tensor | None) -> torch.Tensor | None:
+    """t itself where it is contiguous and starts on a 16-byte boundary (the
+    kernels read 16-byte pieces of their rows), else a contiguous copy in a
+    fresh, aligned buffer: the wrappers take any strided or offset view of a
+    tensor they only read. None passes."""
+    if t is None or (t.is_contiguous() and t.data_ptr() % 16 == 0):
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
 
 
 def needs_grad(*tensors) -> bool:

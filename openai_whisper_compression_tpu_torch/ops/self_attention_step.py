@@ -18,6 +18,15 @@ Every update version MUTATES its buffers: row `pos` of k_cache/v_cache (and, for
 the int8 cache, position `pos` of k_scale/v_scale) is overwritten in place
 (the JAX functions donate the buffers and return the updated ones; here the
 caller keeps using its own tensors).
+
+The kernels take the head dims of `kernels.HEAD_DIMS` (16, 32, 64, 128)
+and caches of up to `MAX_CACHE_ROWS` positions. Their wrappers take any
+strided or offset view where the JAX functions take an array: q and the
+fresh rows, and the caches the read-only version reads, are copied to a
+contiguous, aligned buffer where the kernel cannot read them in place; a
+cache (or scale row) that an update writes and that is not contiguous or
+not 16-byte aligned is updated in a contiguous copy, whose row `pos` is
+then copied back into it.
 """
 
 from __future__ import annotations
@@ -27,7 +36,9 @@ import torch
 from . import kernels
 from .qtensor import quantize_absmax
 
-HEAD_DIM = 64
+# The kernels' position arithmetic is 32-bit: a pass's last position (up to
+# 255 past `pos`) must stay inside an int; offsets that meet S are 64-bit.
+MAX_CACHE_ROWS = 2 ** 31 - 257
 # element type of an fp cache -> what its launch counters carry after
 # `launches`
 _FP_COUNTER = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}
@@ -86,12 +97,37 @@ def _start_arg(name: str, start: torch.Tensor | None, q: torch.Tensor) -> int | 
     return start.data_ptr()
 
 
-def _require_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels read and write cache rows (and the fp kernel q and the
-    fresh rows) in 16-byte pieces."""
-    kernels.require(all(t.data_ptr() % 16 == 0 for t in tensors), name,
-                    "q, the fresh rows and the caches must start on a "
-                    "16-byte boundary")
+def _check_sizes(name: str, q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, pos: int) -> tuple[int, int, int]:
+    """(BH, Dh, S) after the checks every version makes: q (BH, Dh) of a
+    head dim the kernels take, caches (BH, S, Dh) of at most MAX_CACHE_ROWS
+    rows with pos among them."""
+    kernels.require(q.dim() == 2, name, f"q must be (BH, Dh), got {tuple(q.shape)}")
+    bh, dh = q.shape
+    s = k_cache.shape[1]
+    kernels.require_head_dim(name, dh)
+    kernels.require(k_cache.shape == (bh, s, dh) and v_cache.shape
+                    == k_cache.shape, name, f"caches must be ({bh}, S, {dh})")
+    kernels.require(0 <= pos < s <= MAX_CACHE_ROWS, name,
+                    f"pos {pos} outside the {s}-row cache (at most "
+                    f"{MAX_CACHE_ROWS} rows)")
+    return bh, dh, s
+
+
+def _in_place(bufs: tuple) -> list:
+    """The buffers a kernel writes: each one itself where it is contiguous
+    and 16-byte aligned, else a contiguous copy (`_write_back` copies its
+    row pos back)."""
+    return [t if t.is_contiguous() and t.data_ptr() % 16 == 0 else
+            torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+            for t in bufs]
+
+
+def _write_back(bufs: tuple, work: list, pos: int) -> None:
+    """Row pos of every copy `_in_place` made, into the caller's buffer."""
+    for t, w in zip(bufs, work):
+        if w is not t:
+            t[:, pos].copy_(w[:, pos])
 
 
 def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
@@ -103,7 +139,7 @@ def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
     written at row `pos` IN PLACE; attention over rows start..pos, `start`
     (BH,) int32 with start <= pos (rows 0..pos without it). Returns
     (BH, Dh) in q's dtype. A CUDA tensor launches the kernel (f32, bf16 or
-    f16, one type for all five tensors, each on a 16-byte boundary; counted in
+    f16, one type for all five tensors; counted in
     `decode_self_attention_update.launches` for bf16, `.launches_f32`,
     `.launches_f16`, with `start` in that attribute + `_start`); a CPU tensor
     takes the plain version."""
@@ -111,31 +147,35 @@ def decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
     if not q.is_cuda:
         return decode_self_attention_update_ref(q, k_new, v_new, k_cache,
                                                 v_cache, pos, start)
+    return _launch_decode_self_attention_update(q, k_new, v_new, k_cache, v_cache, pos, start)
+
+
+def _launch_decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
+                                         v_new: torch.Tensor, k_cache: torch.Tensor,
+                                         v_cache: torch.Tensor, pos: int,
+                                         start: torch.Tensor | None = None
+                                         ) -> torch.Tensor:
+    """The card path of `decode_self_attention_update`: its checks, then the
+    launch. The CPU tests call it directly, with a recording stand-in for
+    the kernel library."""
     name = "decode_self_attention_update"
     kernels.refuse_grad(name, q, k_new, v_new, k_cache, v_cache)
-    bh, dh = q.shape
-    s = k_cache.shape[1]
-    kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
+    bh, dh, s = _check_sizes(name, q, k_cache, v_cache, pos)
     kernels.require(k_new.shape == q.shape and v_new.shape == q.shape, name,
                     "q, k_new and v_new must have one shape")
-    kernels.require(k_cache.shape == (bh, s, dh) and v_cache.shape
-                    == k_cache.shape, name, f"caches must be ({bh}, S, {dh})")
-    kernels.require(0 <= pos < s and s <= 12288, name,
-                    f"pos {pos} outside the {s}-row cache (at most 12288 rows)")
     code = kernels.dtype_code(q, name, k_new, v_new, k_cache, v_cache)
     kernels.require(len({t.device for t in (q, k_new, v_new, k_cache, v_cache)})
                     == 1, name, "q, k/v and the caches must share a device")
-    kernels.require(all(t.is_contiguous() for t in
-                        (q, k_new, v_new, k_cache, v_cache)), name,
-                    "inputs must be contiguous")
-    _require_aligned(name, q, k_new, v_new, k_cache, v_cache)
     start_ptr = _start_arg(name, start, q)
+    q, k_new, v_new = map(kernels.aligned, (q, k_new, v_new))
+    work = _in_place((k_cache, v_cache))
     out = torch.empty_like(q)
     err = kernels.lib().owc_self_attention_update(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), start_ptr, bh, s, pos, code,
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), work[0].data_ptr(),
+        work[1].data_ptr(), out.data_ptr(), start_ptr, bh, s, pos, code, dh,
         kernels.stream_of(q))
     kernels.check(name, err)
+    _write_back((k_cache, v_cache), work, pos)
     _count(decode_self_attention_update, "launches" + _FP_COUNTER[q.dtype]
            + ("" if start is None else "_start"))
     return out
@@ -204,35 +244,45 @@ def decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
     if not q.is_cuda:
         return decode_self_attention_update_int8_ref(
             q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pos, start)
+    return _launch_decode_self_attention_update_int8(q, k_new, v_new, k_cache, v_cache,
+                                                     k_scale, v_scale, pos, start)
+
+
+def _launch_decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tensor,
+                                              v_new: torch.Tensor,
+                                              k_cache: torch.Tensor,
+                                              v_cache: torch.Tensor,
+                                              k_scale: torch.Tensor,
+                                              v_scale: torch.Tensor, pos: int,
+                                              start: torch.Tensor | None = None
+                                              ) -> torch.Tensor:
+    """The card path of `decode_self_attention_update_int8`: its checks, then
+    the launch. The CPU tests call it directly, with a recording stand-in
+    for the kernel library."""
     name = "decode_self_attention_update_int8"
     kernels.refuse_grad(name, q, k_new, v_new, k_cache, v_cache, k_scale, v_scale)
-    bh, dh = q.shape
-    s = k_cache.shape[1]
+    bh, dh, s = _check_sizes(name, q, k_cache, v_cache, pos)
     tensors = (q, k_new, v_new, k_cache, v_cache, k_scale, v_scale)
-    kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
     kernels.require(k_new.shape == q.shape and v_new.shape == q.shape, name,
                     "q, k_new and v_new must have one shape")
-    kernels.require(k_cache.shape == (bh, s, dh) and v_cache.shape
-                    == k_cache.shape, name, f"caches must be ({bh}, S, {dh})")
     kernels.require(k_scale.shape == (bh, s) and v_scale.shape == (bh, s),
                     name, f"scales must be ({bh}, {s})")
-    kernels.require(0 <= pos < s and s <= 12288, name,
-                    f"pos {pos} outside the {s}-row cache (at most 12288 rows)")
     code = kernels.dtype_code(q, name, k_new, v_new)
     kernels.require_dtype(name, torch.int8, k_cache, v_cache)
     kernels.require_dtype(name, torch.float32, k_scale, v_scale)
     kernels.require(len({t.device for t in tensors}) == 1, name,
                     "q, k/v, the caches and the scales must share a device")
-    kernels.require(all(t.is_contiguous() for t in tensors), name,
-                    "inputs must be contiguous")
-    _require_aligned(name, k_cache, v_cache)
     start_ptr = _start_arg(name, start, q)
+    q, k_new, v_new = map(kernels.aligned, (q, k_new, v_new))
+    bufs = (k_cache, v_cache, k_scale, v_scale)
+    work = _in_place(bufs)
     out = torch.empty_like(q)
     err = kernels.lib().owc_self_attention_update_int8(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        out.data_ptr(), start_ptr, bh, s, pos, code, kernels.stream_of(q))
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        *(t.data_ptr() for t in work), out.data_ptr(), start_ptr, bh, s, pos,
+        code, dh, kernels.stream_of(q))
     kernels.check(name, err)
+    _write_back(bufs, work, pos)
     _count(decode_self_attention_update_int8,
            "launches" + ("" if start is None else "_start"))
     return out
@@ -268,8 +318,7 @@ def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
     int32 with start <= pos (rows 0..pos without it). Nothing is written.
     Returns (BH, Dh) in q's dtype: on the cache an update function wrote,
     that function's output bit for bit. A CUDA tensor launches the kernel
-    (q f32, bf16 or f16, an fp cache in q's type, q and the caches on
-    16-byte boundaries; counted in
+    (q f32, bf16 or f16, an fp cache in q's type; counted in
     `decode_self_attention.launches` for a bf16 cache, `.launches_f32`,
     `.launches_f16` and `.launches_int8` for an int8 one, with `start` in
     that attribute + `_start`); a CPU tensor takes the plain version."""
@@ -277,17 +326,22 @@ def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if not q.is_cuda:
         return decode_self_attention_ref(q, k_cache, v_cache, pos, start,
                                          k_scale, v_scale)
+    return _launch_decode_self_attention(q, k_cache, v_cache, pos, start, k_scale, v_scale)
+
+
+def _launch_decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor, pos: int,
+                                  start: torch.Tensor | None = None,
+                                  k_scale: torch.Tensor | None = None,
+                                  v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The card path of `decode_self_attention`: its checks, then the launch.
+    The CPU tests call it directly, with a recording stand-in for the kernel
+    library."""
     name = "decode_self_attention"
     kernels.refuse_grad(name, q, k_cache, v_cache, k_scale, v_scale)
-    bh, dh = q.shape
-    s = k_cache.shape[1]
+    bh, dh, s = _check_sizes(name, q, k_cache, v_cache, pos)
     int8 = k_scale is not None or v_scale is not None
     tensors = [q, k_cache, v_cache]
-    kernels.require(dh == HEAD_DIM, name, f"head dim must be {HEAD_DIM}, got {dh}")
-    kernels.require(k_cache.shape == (bh, s, dh) and v_cache.shape
-                    == k_cache.shape, name, f"caches must be ({bh}, S, {dh})")
-    kernels.require(0 <= pos < s and s <= 12288, name,
-                    f"pos {pos} outside the {s}-row cache (at most 12288 rows)")
     if int8:
         code = kernels.dtype_code(q, name)
         kernels.require(k_scale is not None and v_scale is not None, name,
@@ -296,26 +350,24 @@ def decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
                         name, f"scales must be ({bh}, {s})")
         kernels.require_dtype(name, torch.int8, k_cache, v_cache)
         kernels.require_dtype(name, torch.float32, k_scale, v_scale)
-        _require_aligned(name, k_cache, v_cache)
         tensors += [k_scale, v_scale]
     else:
         code = kernels.dtype_code(q, name, k_cache, v_cache)
-        _require_aligned(name, q, k_cache, v_cache)
     kernels.require(len({t.device for t in tensors}) == 1, name,
                     "q, the caches and the scales must share a device")
-    kernels.require(all(t.is_contiguous() for t in tensors), name,
-                    "inputs must be contiguous")
     start_ptr = _start_arg(name, start, q)
+    q, k_cache, v_cache, k_scale, v_scale = map(
+        kernels.aligned, (q, k_cache, v_cache, k_scale, v_scale))
     out = torch.empty_like(q)
     if int8:
         err = kernels.lib().owc_self_attention_int8(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), start_ptr,
-            bh, s, pos, code, kernels.stream_of(q))
+            bh, s, pos, code, dh, kernels.stream_of(q))
     else:
         err = kernels.lib().owc_self_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            start_ptr, bh, s, pos, code, kernels.stream_of(q))
+            start_ptr, bh, s, pos, code, dh, kernels.stream_of(q))
     kernels.check(name, err)
     _count(decode_self_attention,
            "launches" + ("_int8" if int8 else _FP_COUNTER[q.dtype])

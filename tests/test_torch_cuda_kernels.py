@@ -450,18 +450,13 @@ def test_transpose_quant_kv(dev, dtype, b, s, h):
 @pytest.mark.parametrize("offset", [1, 4, 8])
 def test_transpose_quant_kv_offset(dev, dtype, offset):
     """x at a storage offset of `offset` elements: where that breaks the
-    kernel's 16-byte loads the wrapper raises ValueError before any launch
-    (the plain version never runs on the card); otherwise the codes and
-    scales are right."""
+    kernel's 16-byte loads the wrapper reads it through an aligned copy (the
+    plain version never runs on the card); either way one launch, and the
+    codes and scales are right."""
     g = torch.Generator(device=dev).manual_seed(offset)
     flat = (torch.randn(offset + 2 * 300 * 192, generator=g, device=dev) * 0.4).to(dtype)
     x = flat[offset:].view(2, 300, 192)
     before = transpose_quant_kv.launches
-    if (offset * x.element_size()) % 16:
-        with pytest.raises(ValueError):
-            transpose_quant_kv(x, 3)
-        assert transpose_quant_kv.launches == before
-        return
     q, sc = transpose_quant_kv(x, 3)
     assert transpose_quant_kv.launches == before + 1
     q_ref, sc_ref = transpose_quant_kv_ref(x, 3)
@@ -586,12 +581,14 @@ def test_self_attention_update_int8(dev, s, pos, with_start, dtype):
 
 @pytest.mark.parametrize("with_start", [False, True], ids=["nostart", "start"])
 @pytest.mark.parametrize("bh,s,pos", [(1152, 64, 30), (1, 64, 0), (1, 64, 63),
-                                      (13, 64, 0), (13, 64, 63), (2, 12288, 12287)])
+                                      (13, 64, 0), (13, 64, 63), (2, 12288, 12287),
+                                      (2, 16384, 16383)])
 @pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 def test_self_attention_int8_rows(dev, bh, s, pos, with_start, dtype):
     """The int8 update at the headline's (1152, 64, 64) and pos 30, at one and
-    13 rows (a block's 4 warps not all used) at pos 0 and 63, and over a
-    12288-row cache (192 passes of 64 positions): codes and scales equal to
+    13 rows (a block's 4 warps not all used) at pos 0 and 63, and over
+    12288- and 16384-row caches (192 and 256 passes of 64 positions; the cap
+    of 12288 rows is gone): codes and scales equal to
     the plain version's, the output within one step of q's type, and the
     read-only kernel on the cache it wrote equal to its output bit for bit;
     each launch counted."""
@@ -628,12 +625,14 @@ def test_self_attention_int8_rows(dev, bh, s, pos, with_start, dtype):
 
 @pytest.mark.parametrize("with_start", [False, True], ids=["nostart", "start"])
 @pytest.mark.parametrize("bh,s,pos", [(384, 64, 30), (1, 64, 0), (1, 64, 63),
-                                      (13, 64, 0), (13, 64, 63), (2, 12288, 12287)])
+                                      (13, 64, 0), (13, 64, 63), (2, 12288, 12287),
+                                      (2, 16384, 16383)])
 @pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 def test_self_attention_fp_rows(dev, bh, s, pos, with_start, dtype):
     """The fp update at bf16-kv's (384, 64, 64) and pos 30, at one and 13
-    rows (a block's 4 warps not all used) at pos 0 and 63, and over a
-    12288-row cache (384 passes of 32 positions): caches equal to the plain
+    rows (a block's 4 warps not all used) at pos 0 and 63, and over 12288-
+    and 16384-row caches (384 and 512 passes of 32 positions; the cap of
+    12288 rows is gone): caches equal to the plain
     version's bit for bit, the output within one step of q's type (a row
     whose start is pos returns its fresh v row exactly), and the read-only
     kernel on the cache it wrote equal to its output bit for bit, writing
@@ -667,10 +666,10 @@ def test_self_attention_fp_rows(dev, bh, s, pos, with_start, dtype):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
-    x = torch.zeros(4, 32, device=dev)
-    with pytest.raises(ValueError):  # head dim 32
-        decode_self_attention_update(x, x, x, torch.zeros(4, 8, 32, device=dev),
-                                     torch.zeros(4, 8, 32, device=dev), 1)
+    x = torch.zeros(4, 48, device=dev)
+    with pytest.raises(ValueError, match="16, 32, 64 or 128"):  # head dim 48
+        decode_self_attention_update(x, x, x, torch.zeros(4, 8, 48, device=dev),
+                                     torch.zeros(4, 8, 48, device=dev), 1)
     row = torch.zeros(4, 64, device=dev, dtype=torch.bfloat16)
     cache = torch.zeros(4, 8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(TypeError):  # an int64 start
@@ -693,10 +692,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
             torch.zeros(4, 64, 128, device=dev, dtype=torch.float64))
     with pytest.raises(TypeError):  # f32 rows over a bf16 cache
         decode_self_attention_update(*torch.zeros(3, 4, 64, device=dev), cache,
-                                     cache.clone(), 1)
-    with pytest.raises(ValueError):  # a cache at an offset that breaks 16-byte loads
-        off = torch.zeros(4 * 8 * 64 + 1, device=dev, dtype=torch.bfloat16)[1:]
-        decode_self_attention_update(row, row, row, off.view(4, 8, 64),
                                      cache.clone(), 1)
     with pytest.raises(ValueError):  # w at an offset that breaks 16-byte loads
         int8_matmul(torch.zeros(2, 64, device=dev),
@@ -737,16 +732,13 @@ def test_quantized_wrappers_reject_what_the_kernels_do_not_take(dev):
         kv8 = torch.zeros(4, 64, 136, device=dev, dtype=i8)
         sc8 = torch.ones(4, 1, 136, device=dev)
         decode_cross_attention_grouped(q, kv8, kv8, sc8, sc8, 130)
-    with pytest.raises(ValueError):  # K/V at an offset that breaks 16-byte loads
-        off = torch.zeros(4 * 64 * 128 + 8, device=dev, dtype=i8)[8:].view(4, 64, 128)
-        decode_cross_attention_grouped(q, off, kv, sc, sc)
     with pytest.raises(ValueError):  # scales of the wrong shape
         decode_cross_attention_grouped(q, kv, kv, sc[:, :, :64], sc[:, :, :64])
-    with pytest.raises(ValueError):  # scales at an offset that breaks 16-byte copies
-        sc_off = torch.ones(4 * 128 + 1, device=dev)[1:].view(4, 1, 128)
-        decode_cross_attention_grouped(q, kv, kv, sc_off, sc_off)
-    with pytest.raises(ValueError):  # head dim 48
+    with pytest.raises(ValueError, match="16, 32, 64 or 128"):  # head dim 48
         transpose_quant_kv(torch.zeros(1, 10, 96, device=dev, dtype=bf), 2)
+    with pytest.raises(ValueError, match="16, 32, 64 or 128"):  # head dim 48
+        decode_cross_attention_grouped(torch.zeros(4, 1, 48, device=dev, dtype=bf),
+                                       *torch.zeros(2, 4, 48, 128, device=dev, dtype=bf))
     with pytest.raises(TypeError):  # float64 input
         transpose_quant_kv(torch.zeros(1, 10, 128, device=dev,
                                        dtype=torch.float64), 2)
@@ -859,16 +851,10 @@ def test_encoder_attention_rejects_what_the_kernel_does_not_take(dev):
     x = torch.zeros(1, 2, 256, 64, device=dev, dtype=bf)
     with pytest.raises(TypeError):  # f32
         encoder_attention(x.float(), x.float(), x.float())
-    with pytest.raises(ValueError):  # head dim 32
-        encoder_attention(x[..., :32], x[..., :32], x[..., :32])
+    with pytest.raises(ValueError, match="16, 32, 64 or 128"):  # head dim 48
+        encoder_attention(x[..., :48], x[..., :48], x[..., :48])
     with pytest.raises(ValueError):  # Tq != Tk
         encoder_attention(x[:, :, :100], x, x)
-    with pytest.raises(ValueError):  # rows at an offset that breaks 16-byte copies
-        off = torch.zeros(2 * 256 * 64 + 4, device=dev, dtype=bf)[4:].view(1, 2, 256, 64)
-        encoder_attention(x, off, x)
-    with pytest.raises(ValueError):  # a transposed head dim
-        t = torch.zeros(1, 2, 64, 256, device=dev, dtype=bf).transpose(2, 3)
-        encoder_attention(t, x, x)
 
 
 # (M, K, N): one row, a ragged M under one tile, the encoder's 1500 rows of
@@ -1277,9 +1263,12 @@ def test_self_attention_read_only_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError):    # an int64 start
         decode_self_attention(row, cache, cache, 1,
                               start=torch.zeros(4, dtype=torch.long, device=dev))
-    with pytest.raises(ValueError):   # q at an offset that breaks 16-byte loads
-        off = torch.zeros(4 * 64 + 1, device=dev, dtype=bf)[1:].view(4, 64)
-        decode_self_attention(off, cache, cache, 1)
+    # q at an offset that breaks 16-byte loads: read through an aligned copy
+    off = torch.zeros(4 * 64 + 1, device=dev, dtype=bf)[1:].view(4, 64)
+    off.copy_(torch.randn(4, 64, device=dev))
+    full = torch.randn(4, 8, 64, device=dev).to(bf)
+    assert torch.equal(decode_self_attention(off, full, full, 1),
+                       decode_self_attention(off.clone(), full, full, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -1843,3 +1832,349 @@ def test_one_query_cross_attention_on_tp_local_heads(dev, kind):
     """3 rows x 6 local heads = 18 rows, no multiple of 16: the one-query
     kernel the TP decoder takes there."""
     test_cross_attention_one_query(dev, kind, 3 * 6, 1500, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Head dims other than 64 (every attention kernel is a template on it),
+# strided and offset inputs, long caches.
+
+OTHER_DIMS = [16, 32, 128]
+
+
+def _kv_of_dim(dev, kind, bh, dh, s_valid, dtype, seed):
+    """(k_t, v_t, k_scale, v_scale) of head dim dh: K/V in q's type, or int8
+    / split-half int4 quantized by the plain quantizers (positions >= s_valid
+    quantized zeros)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s_pad = -(-s_valid // 128) * 128
+    if kind == "fp":
+        return (*(torch.randn(bh, dh, s_pad, generator=g, device=dev).to(dtype)
+                  for _ in range(2)), None, None)
+    out = []
+    for _ in range(2):
+        x = torch.randn(1, s_pad, bh * dh, generator=g, device=dev)
+        x[:, s_valid:] = 0
+        data, scale = transpose_quant_kv_ref(x, bh)
+        if kind == "int4":
+            data, scale = whisper._quant_kv4_t(data.float() * scale)
+        out.append((data, scale))
+    (k, ks), (v, vs) = out
+    return k, v, ks, vs
+
+
+def _counter_of(kind, dtype):
+    return {"fp": "launches" + _COUNTER[dtype], "int8": "launches_int8",
+            "int4": "launches_int4"}[kind]
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh", OTHER_DIMS)
+def test_head_dims_cross_attention_grouped(dev, dh, dtype, kind):
+    """The grouped kernel at head dims 16, 32 and 128 (split-half int4 at
+    16: 8 stored rows), every storage kind under q in each type, at 1, 5 and
+    8 slots over 24 and 192 rows, s_valid 1500 and 100: within one step of
+    q's type of the plain version's largest output, one launch a call,
+    poisoned padding changing no output bit."""
+    for bh, s_valid in ((24, 1500), (192, 100)):
+        k, v, ks, vs = _kv_of_dim(dev, kind, bh, dh, s_valid, dtype, bh + dh)
+        g = torch.Generator(device=dev).manual_seed(dh + s_valid)
+        for kq in (1, 5, 8):
+            q = (torch.randn(bh, kq, dh, generator=g, device=dev) * dh ** -0.5).to(dtype)
+            attr = _counter_of(kind, dtype) + ("_wide" if kq > 4 else "")
+            before = getattr(decode_cross_attention_grouped, attr)
+            got = decode_cross_attention_grouped(q, k, v, ks, vs, s_valid)
+            assert getattr(decode_cross_attention_grouped, attr) == before + 1
+            ref = decode_cross_attention_grouped_ref(q, k, v, ks, vs, s_valid)
+            assert got.shape == q.shape and got.dtype == dtype
+            torch.testing.assert_close(
+                got.float(), ref.float(), rtol=0,
+                atol=_tol(dtype, float(ref.float().abs().max())),
+                msg=lambda m: f"BH {bh}, {kq} slots: {m}")
+        k[:, :, s_valid:] = 99 if kind != "fp" else 100.0
+        v[:, :, s_valid:] = -77 if kind == "fp" else 99
+        if ks is not None:
+            ks[:, :, s_valid:] = float("inf")
+            vs[:, :, s_valid:] = float("inf")
+        assert torch.equal(decode_cross_attention_grouped(q, k, v, ks, vs, s_valid), got)
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh", OTHER_DIMS)
+def test_head_dims_cross_attention_one_query(dev, dh, dtype, kind):
+    """The one-query kernel at head dims 16, 32 and 128 (at 128 it loads a
+    tile at a time), every storage kind under q in each type, at 12 and 36
+    rows, s_valid 1500 and 129: within one step of q's type of the plain
+    version and of the grouped kernel at one slot; one launch a call."""
+    for bh, s_valid in ((12, 1500), (36, 129)):
+        k, v, ks, vs = _kv_of_dim(dev, kind, bh, dh, s_valid, dtype, 3 * bh + dh)
+        g = torch.Generator(device=dev).manual_seed(bh * dh)
+        q = (torch.randn(bh, dh, generator=g, device=dev) * dh ** -0.5).to(dtype)
+        counter = _counter_of(kind, dtype)
+        before = getattr(decode_cross_attention, counter)
+        got = decode_cross_attention(q, k, v, ks, vs, s_valid)
+        assert getattr(decode_cross_attention, counter) == before + 1
+        ref = decode_cross_attention_ref(q, k, v, ks, vs, s_valid)
+        grouped = decode_cross_attention_grouped(q[:, None, :].contiguous(), k, v, ks, vs,
+                                                 s_valid)[:, 0, :]
+        assert got.shape == (bh, dh) and got.dtype == dtype
+        tol = _tol(dtype, float(ref.float().abs().max()))
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=tol)
+        torch.testing.assert_close(got.float(), grouped.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh", OTHER_DIMS)
+@pytest.mark.parametrize("b,s,h", [(2, 1500, 0), (1, 129, 3), (3, 64, 4)])
+def test_head_dims_transpose_quant_kv(dev, b, s, h, dh, dtype):
+    """The cross-KV quantizer at head dims 16, 32 and 128 (h = 0: a width of
+    768, the heads it holds at dh): codes and scales bit-equal to the plain
+    version, one launch a call."""
+    h = h or 768 // dh
+    g = torch.Generator(device=dev).manual_seed(b * s + h + dh)
+    x = (torch.randn(b, s, h * dh, generator=g, device=dev) * 0.4).to(dtype)
+    before = transpose_quant_kv.launches
+    q, sc = transpose_quant_kv(x, h)
+    assert transpose_quant_kv.launches == before + 1
+    q_ref, sc_ref = transpose_quant_kv_ref(x, h)
+    assert q.shape == (b * h, dh, -(-s // 128) * 128)
+    assert torch.equal(q, q_ref) and torch.equal(sc, sc_ref)
+
+
+def _strided_qkv_of_dim(dev, b, h, t, dh, seed):
+    """(B, H, T, dh) bf16 views of one fused (B, T, 3 H dh) projection."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fused = torch.randn(b, t, 3 * h * dh, generator=g, device=dev).bfloat16()
+    return [whisper.split_heads(fused[..., i * h * dh: (i + 1) * h * dh], h)
+            for i in range(3)]
+
+
+@pytest.mark.parametrize("dh", OTHER_DIMS)
+@pytest.mark.parametrize("b,h,t", [(1, 1, 1), (2, 3, 129), (2, 4, 1500), (1, 2, 257)])
+def test_head_dims_encoder_attention(dev, b, h, t, dh):
+    """The encoder attention at head dims 16 and 32 (32- and 64-byte
+    swizzled tiles) and 128 (two 64-dim halves, 64 keys a stage), on views
+    of one fused projection, within one bf16 step of the plain version's
+    largest output (q scaled by dh**-0.5 in the kernel); the output's memory
+    is (B, T, H, dh); contiguous inputs give the same bits."""
+    q, k, v = _strided_qkv_of_dim(dev, b, h, t, dh, b + h + t + dh)
+    before = encoder_attention.launches
+    got = encoder_attention(q, k, v)
+    assert encoder_attention.launches == before + 1
+    ref = encoder_attention_ref(q, k, v)
+    assert got.shape == (b, h, t, dh) and got.transpose(1, 2).is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(torch.bfloat16, float(ref.float().abs().max())))
+    assert torch.equal(encoder_attention(q.contiguous(), k.contiguous(),
+                                         v.contiguous()), got)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("with_start", [False, True], ids=["nostart", "start"])
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh", OTHER_DIMS)
+def test_head_dims_self_attention(dev, dh, dtype, with_start, int8):
+    """Both cache updates and the read-only attention at head dims 16, 32
+    and 128 (the f32 fp update at 128 loads V after the scores), at 13 and
+    36 rows, pos 0, 63 and 300 of a 448-row cache: caches and scales
+    bit-equal to the plain version's, the output within one step of q's
+    type, the read-only kernel on the written cache bit-equal to the
+    update's output; each launch counted."""
+    g = torch.Generator(device=dev).manual_seed(dh + int8)
+    for bh, s, pos in ((13, 64, 0), (36, 64, 63), (36, 448, 300)):
+        q = (torch.randn(bh, dh, generator=g, device=dev) * dh ** -0.5).to(dtype)
+        kn, vn = (torch.randn(2, bh, dh, generator=g, device=dev) * 2).to(dtype)
+        if int8:
+            kc, vc = torch.randint(-127, 128, (2, bh, s, dh), generator=g, device=dev,
+                                   dtype=torch.int8)
+            ks, vs = torch.rand(2, bh, s, generator=g, device=dev) * 0.03 + 1e-3
+            bufs = [kc, vc, ks, vs]
+            upd, upd_ref = decode_self_attention_update_int8, decode_self_attention_update_int8_ref
+            counter, read = "launches", "launches_int8"
+            scales = {"k_scale": ks, "v_scale": vs}
+        else:
+            bufs = [torch.randn(bh, s, dh, generator=g, device=dev).to(dtype)
+                    for _ in range(2)]
+            upd, upd_ref = decode_self_attention_update, decode_self_attention_update_ref
+            counter = read = "launches" + _COUNTER[dtype]
+            scales = {}
+        start = _mixed_start(dev, bh, pos) if with_start else None
+        suffix = "_start" if with_start else ""
+        refs = [t.clone() for t in bufs]
+        before = getattr(upd, counter + suffix)
+        got = upd(q, kn, vn, *bufs, pos, start=start)
+        assert getattr(upd, counter + suffix) == before + 1
+        ref = upd_ref(q, kn, vn, *refs, pos, start=start)
+        assert all(torch.equal(a, r) for a, r in zip(bufs, refs)), (bh, s, pos)
+        assert got.shape == (bh, dh) and got.dtype == dtype
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=_tol(dtype, float(ref.float().abs().max())),
+                                   msg=lambda m: f"BH {bh} S {s} pos {pos}: {m}")
+        before = getattr(decode_self_attention, read + suffix)
+        again = decode_self_attention(q, bufs[0], bufs[1], pos, start=start, **scales)
+        assert getattr(decode_self_attention, read + suffix) == before + 1
+        assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dh", [16, 64])
+def test_self_attention_long_cache(dev, dh, int8):
+    """A 16384-row cache at pos 16383 and, with a mixed start, 9000 (the cap
+    of 12288 rows is gone): caches bit-equal, output within one bf16 step."""
+    g = torch.Generator(device=dev).manual_seed(dh)
+    bh, s = 8, 16384
+    q = (torch.randn(bh, dh, generator=g, device=dev) * dh ** -0.5).bfloat16()
+    kn, vn = (torch.randn(2, bh, dh, generator=g, device=dev) * 2).bfloat16()
+    if int8:
+        bufs = [*torch.randint(-127, 128, (2, bh, s, dh), generator=g, device=dev,
+                               dtype=torch.int8),
+                *(torch.rand(2, bh, s, generator=g, device=dev) * 0.03 + 1e-3)]
+        upd, upd_ref = decode_self_attention_update_int8, decode_self_attention_update_int8_ref
+    else:
+        bufs = [torch.randn(bh, s, dh, generator=g, device=dev).bfloat16() for _ in range(2)]
+        upd, upd_ref = decode_self_attention_update, decode_self_attention_update_ref
+    for pos, start in ((s - 1, None), (9000, _mixed_start(dev, bh, 9000))):
+        refs = [t.clone() for t in bufs]
+        got = upd(q, kn, vn, *bufs, pos, start=start)
+        ref = upd_ref(q, kn, vn, *refs, pos, start=start)
+        assert all(torch.equal(a, r) for a, r in zip(bufs, refs))
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=_tol(torch.bfloat16, float(ref.float().abs().max())))
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("dh", [16, 64])
+def test_strided_cross_attention_inputs(dev, dh, kind):
+    """q as a slice of a fused (BH, 3 dh) projection, K/V and their scales at
+    storage offsets that break 16-byte loads: both cross-attention kernels
+    read them through aligned copies, one launch a call, and return the bits
+    they return on contiguous copies."""
+    bh, s_valid = 24, 1500
+    k, v, ks, vs = _kv_of_dim(dev, kind, bh, dh, s_valid, torch.bfloat16, dh)
+    g = torch.Generator(device=dev).manual_seed(dh + 1)
+    fused = torch.randn(bh, 3 * dh, generator=g, device=dev).bfloat16()
+    q = fused[:, dh: 2 * dh]
+
+    def offset(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    kv = [offset(t) if t is not None else None for t in (k, v, ks, vs)]
+    assert kv[0].data_ptr() % 16 != 0 and not q.is_contiguous()
+    counter = _counter_of(kind, torch.bfloat16)
+    for fn, qq in ((decode_cross_attention, q),
+                   (decode_cross_attention_grouped, fused.view(bh, 3, dh)[:, 1:])):
+        before = getattr(fn, counter)
+        got = fn(qq, *kv, s_valid)
+        assert getattr(fn, counter) == before + 1
+        assert torch.equal(got, fn(qq.contiguous(), k, v, ks, vs, s_valid))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dh", [16, 64])
+def test_strided_self_attention_caches(dev, dh, int8):
+    """q and the fresh rows as slices of a fused (BH, 3 dh) projection; the
+    caches (and int8 scales) as prefix views of longer buffers, then at a
+    storage offset that breaks 16-byte loads: the update writes row pos of
+    the caller's view (through a contiguous copy), leaves the buffer past
+    the view untouched, and returns what it returns on contiguous caches,
+    bit for bit; the read-only kernel on the views equals it too."""
+    g = torch.Generator(device=dev).manual_seed(dh + 2 * int8)
+    bh, s, pos, extra = 24, 64, 40, 16
+    fused = (torch.randn(bh, 3 * dh, generator=g, device=dev) * 0.5).bfloat16()
+    q, kn, vn = (fused[:, i * dh: (i + 1) * dh] for i in range(3))
+    if int8:
+        big = [*torch.randint(-127, 128, (2, bh, s + extra, dh), generator=g, device=dev,
+                              dtype=torch.int8),
+               *(torch.rand(2, bh, s + extra, generator=g, device=dev) * 0.03 + 1e-3)]
+        upd = decode_self_attention_update_int8
+    else:
+        big = [torch.randn(bh, s + extra, dh, generator=g, device=dev).bfloat16()
+               for _ in range(2)]
+        upd = decode_self_attention_update
+    views = [t[:, :s] for t in big]
+    flat = [torch.empty(t.numel() + 1, dtype=t.dtype, device=dev) for t in views]
+    offs = [f[1:].view(t.shape).copy_(t) for f, t in zip(flat, views)]
+    plain = [t.contiguous() for t in views]
+    tails = [t[:, s:].clone() for t in big]
+    assert not views[0].is_contiguous() and offs[0].data_ptr() % 16 != 0
+    want = upd(q.contiguous(), kn.contiguous(), vn.contiguous(), *plain, pos)
+    for bufs in (views, offs):
+        got = upd(q, kn, vn, *bufs, pos)
+        assert torch.equal(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(bufs, plain))
+        scales = {"k_scale": bufs[2], "v_scale": bufs[3]} if int8 else {}
+        assert torch.equal(decode_self_attention(q, bufs[0], bufs[1], pos, **scales), want)
+    assert all(torch.equal(t[:, s:], tail) for t, tail in zip(big, tails))
+
+
+@pytest.mark.parametrize("dh", [16, 64])
+def test_strided_transpose_quant_kv_and_encoder_inputs(dev, dh):
+    """The cross-KV quantizer on the k half of a fused (B, S, 2 H dh) K/V
+    projection, and the encoder attention with k at a storage offset:
+    equal to what they give on contiguous copies, one launch a call."""
+    g = torch.Generator(device=dev).manual_seed(dh)
+    b, s, h = 2, 1500, 4
+    kv = (torch.randn(b, s, 2 * h * dh, generator=g, device=dev) * 0.4).bfloat16()
+    x = kv[..., : h * dh]
+    before = transpose_quant_kv.launches
+    q8, sc = transpose_quant_kv(x, h)
+    assert transpose_quant_kv.launches == before + 1
+    q_ref, sc_ref = transpose_quant_kv_ref(x.contiguous(), h)
+    assert torch.equal(q8, q_ref) and torch.equal(sc, sc_ref)
+    q, k, v = _strided_qkv_of_dim(dev, 1, h, 300, dh, dh)
+    flat = torch.empty(k.numel() + 4, dtype=k.dtype, device=dev)
+    k_off = flat[4:].view(k.shape).copy_(k)
+    before = encoder_attention.launches
+    got = encoder_attention(q, k_off, v)
+    assert encoder_attention.launches == before + 1
+    assert torch.equal(got, encoder_attention(q, k.contiguous(), v))
+
+
+@pytest.mark.parametrize("tree,kv", [("f32", "fp"), ("f32", "int8"), ("f32", "int4"),
+                                     ("bf16", "int8")])
+@pytest.mark.parametrize("model", ["test2l", "test2l-ts"])
+@pytest.mark.parametrize("batch", [3, 4])
+def test_test_models_decode_on_the_card(dev, model, batch, tree, kv):
+    """The whole decode of the test models (head dim 16) through
+    `make_transcribe_fn` on the card, with the caches of each kind, at batch
+    4 (B·H = 16: the grouped cross-attention) and 3 (12 rows: the one-query
+    kernel): every decode attention kernel launches at head dim 16, and the
+    tokens equal the same tree's on the CPU in f32 or part at a tie proven
+    there (`chip_smoke.check_ties`)."""
+    import numpy as np
+
+    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import (
+        make_transcribe_fn, samples_for_arch)
+    from openai_whisper_compression_tpu_torch.models.decode import forced_prefix
+    from openai_whisper_compression_tpu_torch.models.params import init_params, tree_to
+
+    cs = _chip_smoke()
+    arch = ARCHS[model]
+    params_cpu = init_params(arch, 0, torch.float32, "cpu")
+    params = tree_to(params_cpu, dev, torch.float32 if tree == "f32" else torch.bfloat16)
+    switches = {"fp": {}, "int8": {"kv_int8": True, "cross_kv_int8": True},
+                "int4": {"kv_int8": True, "cross_kv_int4": True}}[kv]
+    cfg = DecodeConfig(max_new_tokens=8, language_token_id=None, task_token_id=None,
+                       notimestamps=model == "test2l", **switches)
+    wav = torch.from_numpy((np.random.default_rng(batch).standard_normal(
+        (batch, samples_for_arch(arch))) * 0.1).astype(np.float32))
+    counters = cs.zero_launches()
+    got, _ = make_transcribe_fn(arch, cfg, device=dev)(params, wav)
+    launched = {k: v for k, v in cs.read_launches(counters).items() if v}
+    rows = batch * arch.decoder_heads
+    if rows % 16:
+        assert any(k.startswith("decode_cross_attention_") or k == "decode_cross_attention"
+                   for k in launched), launched
+    else:
+        assert any(k.startswith("decode_cross_attention_grouped") for k in launched), launched
+    assert any(k.startswith("decode_self_attention_update") for k in launched), launched
+    want, _ = make_transcribe_fn(arch, cfg, device="cpu")(params_cpu, wav)
+    assert got.shape == want.shape
+    cs.check_ties(f"{model} {tree} {kv}", params_cpu, arch, cfg, wav, got.cpu(), want,
+                  len(forced_prefix(arch, cfg)), fast=False)

@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's attention kernels (PERF.md's rows 7-13: the
+one-query and grouped cross-attention, the cross-KV quantizer, the encoder
+attention, both cache updates and the read-only self-attention) at head dim
+64, at the shapes of `chip_smoke.py`'s phase 1, through their public
+wrappers, on one CUDA card, for the package of the checkout at --root:
+
+- row 7: the one-query cross-attention at 12 rows over bf16, int8 and int4
+  K/V and at 36 rows over bf16, f32 and f16 K/V (s_valid 1500 of 1536);
+- row 8: `transpose_quant_kv` at (96, 1500, 768) and (64, 1500, 1024) bf16;
+- row 9: the grouped cross-attention at 384 rows, 1 and 8 slots (bf16),
+  1152 rows, 1 slot (int8, int4), 192 rows, 1 slot (f32, f16);
+- row 10: the encoder attention at (96, 12, 1500, 64) and (64, 16, 1500,
+  64) on the strided layout the model hands it;
+- rows 11-13: the fp cache update at (384, 64, 64) bf16 pos 30 without and
+  with a mixed `start`, f32 and f16 at 192 rows; the int8 update at 1152
+  rows pos 30, without and with `start`; the read-only bodies (bf16 at 384
+  rows, int8 at 1152) on the caches the updates wrote.
+
+Each result is checked against its plain version first (one step of the
+output type, caches and codes bit for bit). Two checkouts are timed in one
+call by running it in turns (parent, change, change, parent):
+
+    python3 tools/torch_attention_ab.py --root path/to/checkout --tag parent
+
+Prints one JSON line: the tag, the card's name and power limit, and the
+device ms per call (`chip_smoke.cuda_ms`)."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+from chip_smoke import KERNEL_REL, check, cuda_ms, max_err  # noqa: E402
+
+S_PAD, S_VALID, POS, H = 1536, 1500, 30, 12
+BF, F32, F16 = torch.bfloat16, torch.float32, torch.float16
+
+
+def held(key: str, got, ref) -> None:
+    outs = got if isinstance(got, tuple) else (got,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    for a, b in zip(outs, refs):
+        if a.dtype in (torch.int8,) or key.startswith("tq"):
+            check(torch.equal(a, b), f"{key}: differs from its plain version")
+        else:
+            err, tol = max_err(a, b), KERNEL_REL[a.dtype] * float(b.float().abs().max())
+            check(err <= tol, f"{key}: err {err} > {tol}")
+
+
+def kv(gen, kind: str, bh: int, dtype=BF) -> tuple:
+    dev = gen.device
+    if kind == "fp":
+        return (*(torch.randn(bh, 64, S_PAD, generator=gen, device=dev).to(dtype)
+                  for _ in range(2)), None, None)
+    rows, lo = (64, -127) if kind == "int8" else (32, -128)
+    codes = [torch.randint(lo, 128, (bh, rows, S_PAD), generator=gen, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(bh, 1, S_PAD, generator=gen, device=dev) * 0.03 + 1e-3
+              for _ in range(2)]
+    return (*codes, *scales)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(ROOT),
+                    help="checkout whose openai_whisper_compression_tpu_torch is timed")
+    ap.add_argument("--tag", default="this", help="name printed with the result")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch sees no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    from openai_whisper_compression_tpu_torch.models.whisper import split_heads
+    from openai_whisper_compression_tpu_torch.ops import attention as att
+    from openai_whisper_compression_tpu_torch.ops import cross_attention as ca
+    from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = {"tag": args.tag, "root": args.root,
+           "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                   "--format=csv,noheader"], capture_output=True,
+                                  text=True, check=True).stdout.strip().splitlines()[0]}
+
+    def case(key, call, plain):
+        held(key, call(), plain())
+        res[key] = cuda_ms(call)
+        print(f"{args.tag} {key}: {res[key]:.4f} ms", flush=True)
+
+    for bh, kind, dtype in ((H, "fp", BF), (H, "int8", BF), (H, "int4", BF),
+                            (3 * H, "fp", BF), (3 * H, "fp", F32), (3 * H, "fp", F16)):
+        q = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(dtype)
+        k = kv(gen, kind, bh, dtype)
+        case(f"row7 one_query {kind} {str(dtype)[6:]} {bh}rows",
+             lambda: ca.decode_cross_attention(q, *k, S_VALID),
+             lambda: ca.decode_cross_attention_ref(q, *k, S_VALID))
+    for b, h in ((96, 12), (64, 16)):
+        x = (torch.randn(b, S_VALID, h * 64, generator=gen, device=dev) * 0.4).to(BF)
+        case(f"tq ({b}, {S_VALID}, {h * 64})", lambda: ca.transpose_quant_kv(x, h),
+             lambda: ca.transpose_quant_kv_ref(x, h))
+        del x
+    for bh, kq, kind, dtype in ((384, 1, "fp", BF), (384, 8, "fp", BF),
+                                (1152, 1, "int8", BF), (1152, 1, "int4", BF),
+                                (192, 1, "fp", F32), (192, 1, "fp", F16)):
+        q = (torch.randn(bh, kq, 64, generator=gen, device=dev) * 0.125).to(dtype)
+        k = kv(gen, kind, bh, dtype)
+        case(f"row9 grouped {kind} {str(dtype)[6:]} {bh}rows K={kq}",
+             lambda: ca.decode_cross_attention_grouped(q, *k, S_VALID),
+             lambda: ca.decode_cross_attention_grouped_ref(q, *k, S_VALID))
+        del k
+    torch.cuda.empty_cache()
+    for b, h in ((96, 12), (64, 16)):
+        q, k, v = (split_heads(torch.randn(b, S_VALID, h * 64, generator=gen, device=dev)
+                               .to(BF), h) for _ in range(3))
+        got, ref = att.encoder_attention(q, k, v), att.encoder_attention_ref(q, k, v)
+        held(f"row10 ({b}, {h})", got, ref)
+        del got, ref
+        res[f"row10 encoder ({b}, {h}, {S_VALID}, 64)"] = cuda_ms(
+            lambda: att.encoder_attention(q, k, v))
+        print(f"{args.tag} row10 ({b}, {h}): {res[f'row10 encoder ({b}, {h}, {S_VALID}, 64)']:.4f}"
+              " ms", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    for bh, dtype, with_start in ((384, BF, False), (384, BF, True), (192, F32, False),
+                                  (192, F16, False)):
+        start = ((torch.arange(bh, device=dev) // H * 5 % 13).to(torch.int32)
+                 if with_start else None)
+        q = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(dtype)
+        kn, vn = (torch.randn(2, bh, 64, generator=gen, device=dev) * 2).to(dtype)
+        bufs = [torch.randn(bh, 64, 64, generator=gen, device=dev).to(dtype) for _ in range(2)]
+        refs = [t.clone() for t in bufs]
+        key = f"row11 fp update {str(dtype)[6:]} {bh}rows" + (" start" if with_start else "")
+        out = sas.decode_self_attention_update(q, kn, vn, *bufs, POS, start=start)
+        held(key, out, sas.decode_self_attention_update_ref(q, kn, vn, *refs, POS, start))
+        check(all(torch.equal(a, b) for a, b in zip(bufs, refs)), f"{key}: caches differ")
+        res[key] = cuda_ms(lambda: sas.decode_self_attention_update(q, kn, vn, *bufs, POS,
+                                                                    start=start))
+        print(f"{args.tag} {key}: {res[key]:.4f} ms", flush=True)
+        if dtype == BF and not with_start:
+            check(torch.equal(sas.decode_self_attention(q, *bufs, POS), out),
+                  "row12 bf16: differs from the update's output")
+            res[f"row12 read-only bf16 {bh}rows"] = cuda_ms(
+                lambda: sas.decode_self_attention(q, *bufs, POS))
+    for with_start in (False, True):
+        bh = 96 * H
+        start = ((torch.arange(bh, device=dev) // H * 5 % 13).to(torch.int32)
+                 if with_start else None)
+        q = (torch.randn(bh, 64, generator=gen, device=dev) * 0.125).to(BF)
+        kn, vn = (torch.randn(2, bh, 64, generator=gen, device=dev) * 2).to(BF)
+        kc, vc = torch.randint(-127, 128, (2, bh, 64, 64), generator=gen, device=dev,
+                               dtype=torch.int8)
+        ks, vs = torch.rand(2, bh, 64, generator=gen, device=dev) * 0.03 + 1e-3
+        bufs, refs = [kc, vc, ks, vs], [t.clone() for t in (kc, vc, ks, vs)]
+        key = f"row13 int8 update {bh}rows" + (" start" if with_start else "")
+        out = sas.decode_self_attention_update_int8(q, kn, vn, *bufs, POS, start=start)
+        held(key, out, sas.decode_self_attention_update_int8_ref(q, kn, vn, *refs, POS,
+                                                                 start))
+        check(all(torch.equal(a, b) for a, b in zip(bufs, refs)), f"{key}: caches differ")
+        res[key] = cuda_ms(lambda: sas.decode_self_attention_update_int8(
+            q, kn, vn, *bufs, POS, start=start))
+        print(f"{args.tag} {key}: {res[key]:.4f} ms", flush=True)
+        if not with_start:
+            check(torch.equal(sas.decode_self_attention(q, kc, vc, POS, k_scale=ks,
+                                                        v_scale=vs), out),
+                  "row12 int8: differs from the update's output")
+            res[f"row12 read-only int8 {bh}rows"] = cuda_ms(
+                lambda: sas.decode_self_attention(q, kc, vc, POS, k_scale=ks, v_scale=vs))
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
