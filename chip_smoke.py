@@ -48,19 +48,21 @@ Phase 1  each kernel against its plain PyTorch version on the card, at
          port calls), and every kernel beside its bound: the larger of its
          bytes over the card's memory rate and its operations over the
          card's peak rate. Then (slice 18, `phase1_head_dims`) the attention
-         kernels at head dims 16, 32 and 128, whisper-small's width of 768
-         cut into 48, 24 and 6 heads: the cross-KV quantizer at (32, 1500,
-         768) in bf16 and f32 (bit for bit), the encoder attention at (8, H,
-         1500, Dh), the grouped cross-attention over batch 32's rows (1 and
-         5 slots over bf16 K/V, 1 slot over f32, f16, int8 and int4), the
-         one-query kernel over batch 3's rows in the same five kinds, both
-         cache updates at pos 30 of a 64-row cache (fp in bf16, f32 and f16,
-         int8 under bf16 q, each also with a mixed `start`) and the read-only
-         attention bit for bit against them; one call a wrapper on strided
-         or offset views (q a slice of a fused projection, K/V, scales and
-         caches at offsets or as prefix views); both updates over a
-         16384-row cache; each held against its plain version, each
-         launch counted.
+         kernels at head dims 16, 32 and 128 and at the RAGGED_DIMS 8, 36, 96,
+         100 and 256 (the RAGGED bodies of capacities 16, 64, 128, 128 and
+         256), whisper-small's width of 768 cut into 768 // Dh heads: the
+         cross-KV quantizer at (32, 1500, 768) in bf16 and f32 (bit for bit),
+         the encoder attention at (8, H, 1500, Dh), the grouped cross-attention
+         over batch 32's rows (1 and 5 slots over bf16 K/V, 1 slot over f32,
+         f16, int8 and int4), the one-query kernel over batch 3's rows in the
+         same five kinds, both cache updates at pos 30 of a 64-row cache (fp in
+         bf16, f32 and f16, int8 under bf16 q, each also with a mixed `start`)
+         and the read-only attention bit for bit against them; one call a
+         wrapper on strided or offset views (q a slice of a fused projection,
+         K/V, scales and caches at offsets or as prefix views); both updates
+         over a 16384-row cache; each held against its plain version, each
+         launch counted, timed only where noted (the f32 grouped body at 128
+         over 192 rows; `tools/torch_attention_ab.py` times the rest).
 Phase 2  decode runs at full width with seeded random weights (bf16, but
          for the f32 and f16 trees), fused
          decoder qkv, `make_transcribe_fn` (bf16 DFT mel, tanh encoder
@@ -408,7 +410,15 @@ Phase 11 (slice 18, last) the five examples of `examples_torch/` on the
          4 (16 rows: the grouped kernel) and 3 (12: the one-query kernel),
          held; every decode kernel of head dim 16 launched; the shapes
          timed as the kernels line's `name@test2l-...` entries
-         (P11_BASES).
+         (P11_BASES). Then the head dims no whole body has: the
+         same runs on test2l-dh36 (d_model 144, 4 heads of 36: capacity
+         64's RAGGED bodies) in f32 and bf16 trees (P11_DH36_RUNS), and
+         small-h8, whisper-small's width cut into 8 heads of 96 (capacity
+         128's RAGGED bodies): int8 weights, int8 self- and cross-KV, batch
+         32, greedy 25 tokens, EOT suppressed, held with exact launch
+         counts at full depth and at a 2-layer cut, the cut's first rows
+         against CPU f32 under the tie rule; their ragged bodies timed as
+         `name@test2l-dh36-...` and `name@small-h8-...` entries.
 
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
@@ -800,12 +810,20 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def held_only(phase: str, what: str, shape, err: float, tol: float) -> dict:
+    """Log a call held against its plain version and not timed (phase 1's
+    ragged head dims); its result entry holds the error alone."""
+    log(f"{phase} {what} {shape}: held, err {err:.3g} (bound {tol:.3g})".lstrip())
+    return {"max_abs_err": err}
+
+
 def check_grouped(what: str, qg: torch.Tensor, kv: tuple, s_valid: int,
-                  phase: str = "phase1") -> dict:
+                  phase: str = "phase1", timed: bool = True) -> dict:
     """The grouped cross-attention kernel on q (BH, K, 64) and kv = (k_t,
     v_t, k_scale, v_scale) against its plain version, with times, its bound
     (the valid part of K/V and its scales read once) and, for K/V in q's own
-    type, PyTorch's fused attention on the same tensors."""
+    type, PyTorch's fused attention on the same tensors (not `timed`: held
+    only)."""
     from openai_whisper_compression_tpu_torch.ops.cross_attention import (
         decode_cross_attention_grouped, decode_cross_attention_grouped_ref)
 
@@ -814,6 +832,8 @@ def check_grouped(what: str, qg: torch.Tensor, kv: tuple, s_valid: int,
     ref = decode_cross_attention_grouped_ref(qg, *kv, s_valid)
     err, tol = max_err(got, ref), KERNEL_REL[qg.dtype] * float(ref.float().abs().max())
     check(got.dtype == qg.dtype and err <= tol, f"{what}: err {err} > {tol}")
+    if not timed:
+        return held_only(phase, what, tuple(kv[0].shape), err, tol)
     t_k = cuda_ms(lambda: decode_cross_attention_grouped(qg, *kv, s_valid))
     t_p = cuda_ms(lambda: decode_cross_attention_grouped_ref(qg, *kv, s_valid))
     k_t, v_t, k_scale, _ = kv
@@ -834,7 +854,7 @@ def check_grouped(what: str, qg: torch.Tensor, kv: tuple, s_valid: int,
 
 def check_update(what: str, bh: int, pos: int, gen, int8: bool,
                  start: torch.Tensor | None, dtype=torch.bfloat16, dh: int = 64,
-                 s: int = 64, phase: str = "phase1") -> dict:
+                 s: int = 64, phase: str = "phase1", timed: bool = True) -> dict:
     """One of the two cache-update kernels over an `s`-row cache of `bh` rows
     of head dim `dh` against its plain version, q, the fresh rows and an fp
     cache in `dtype`: caches (codes and scales) bit for bit, the output
@@ -870,6 +890,8 @@ def check_update(what: str, bh: int, pos: int, gen, int8: bool,
     check(all(torch.equal(a, r) for a, r in zip(bufs, refs)),
           f"{what} pos={pos}: cache rows or scales differ")
     check(err <= tol, f"{what} pos={pos}: err {err} > {tol}")
+    if not timed:
+        return held_only(phase, f"{what} pos={pos}", (bh, s, dh), err, tol)
     t_k = cuda_ms(lambda: fn(qf, kn, vn, *bufs, pos, start=start))
     t_p = cuda_ms(lambda: ref_fn(qf, kn, vn, *refs, pos, start=start))
     # the decode step finds its cache in device memory
@@ -1030,7 +1052,7 @@ def phase1(dev, results: dict) -> None:
     check_update("self_attention_update", 36, 30, gen, False, None)
 
 
-def check_tq(x: torch.Tensor, h: int, phase: str = "phase1") -> tuple:
+def check_tq(x: torch.Tensor, h: int, phase: str = "phase1", timed: bool = True) -> tuple:
     """`transpose_quant_kv` on x (B, S, H * 64) bit for bit against its plain
     version, timed beside it and its bound; returns the result entry, the
     codes and the scales."""
@@ -1042,6 +1064,8 @@ def check_tq(x: torch.Tensor, h: int, phase: str = "phase1") -> tuple:
     what = f"{tuple(x.shape)} {str(x.dtype).removeprefix('torch.')} -> {tuple(q.shape)} int8"
     check(torch.equal(q, q_ref) and torch.equal(sc, sc_ref),
           f"transpose_quant_kv {what}: codes or scales differ from the plain version")
+    if not timed:
+        return held_only(phase, "transpose_quant_kv", what, 0.0, 0.0), q, sc
     res = {"max_abs_err": max(max_err(q, q_ref), max_err(sc, sc_ref)),
            "ms": cuda_ms(lambda: transpose_quant_kv(x, h)),
            "plain_ms": cuda_ms(lambda: transpose_quant_kv_ref(x, h)),
@@ -2811,9 +2835,10 @@ def held_summary(held: dict, shapes: dict) -> str:
             f"shapes {sorted(map(str, shapes))}")
 
 
-def check_enc_attn_shape(what: str, q, k, v) -> dict:
+def check_enc_attn_shape(what: str, q, k, v, timed: bool = True) -> dict:
     """The encoder attention at a recorded shape against its plain version,
-    timed beside it, `sdpa` and its bound (as phase 1 at T = 1500)."""
+    timed beside it, `sdpa` and its bound (as phase 1 at T = 1500; not
+    `timed`: held only)."""
     from openai_whisper_compression_tpu_torch.ops.attention import (
         encoder_attention, encoder_attention_ref)
 
@@ -2823,6 +2848,8 @@ def check_enc_attn_shape(what: str, q, k, v) -> dict:
     check(encoder_attention.launches == before + 1, f"{what}: no launch counted")
     err, tol = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
     check(err <= tol, f"{what}: err {err} > {tol}")
+    if not timed:
+        return held_only("", what, (b, h, t, dh), err, tol)
     t_k = cuda_ms(lambda: encoder_attention(q, k, v))
     t_p = cuda_ms(lambda: encoder_attention_ref(q, k, v), warmup=1, iters=3)
     t_lib = cuda_ms(lambda: sdpa(q, k, v))
@@ -6745,7 +6772,10 @@ def phase10(dev, int8_params, results: dict) -> dict:
 # on the card (phase 11)
 # ---------------------------------------------------------------------------
 
-OTHER_DIMS = (16, 32, 128)    # the head dims besides every Whisper size's 64
+OTHER_DIMS = (16, 32, 128)    # the whole head dims besides every Whisper size's 64
+# ragged head dims phase 1 holds (each the RAGGED body of its capacity: 16,
+# 64, 128, 128 and 256; 36 and 100 leave bf16 rows off 16 bytes)
+RAGGED_DIMS = (8, 36, 96, 100, 256)
 WIDTH = 768                   # whisper-small's d_model, cut into 768 / Dh heads
 LONG_CACHE = 16384            # the cache rows phase 1 holds (the cap was 12288)
 P11_EXAMPLES = ("compress_store_serve", "qat_recovery", "serving_and_speculative",
@@ -6764,6 +6794,33 @@ P11_BASES = ("decode_cross_attention_f32", "decode_cross_attention_grouped_f32",
              "transpose_quant_kv", "decode_cross_attention_int8",
              "decode_cross_attention_grouped_int8", "decode_cross_attention_int4",
              "decode_cross_attention_grouped_int4", "decode_self_attention_update_int8")
+
+
+# head dims no whole body has, on a model's path (phase 11): test2l at head
+# dim 36 (d_model 144, 4 heads: the RAGGED bodies of capacity 64) over each
+# cache kind in f32 and bf16 at P11_BATCHES, then whisper-small's width cut
+# into 8 heads of 96 (`small-h8`: capacity 128's) at full depth, int8
+# weights and caches, batch 32, greedy NEW_TOKENS, EOT suppressed; both
+# configurations the JAX package runs as they stand (nothing in config.py)
+P11_DH36 = {"name": "test2l-dh36", "d_model": 144, "encoder_heads": 4, "decoder_heads": 4,
+            "ffn_dim": 576}
+P11_DH36_RUNS = [(f"test2l-dh36-{tree}-{kv}", tree, switches)
+                 for tree in ("f32", "bf16") for kv, switches in
+                 (("fp", {}), ("int8", KV8),
+                  ("int4", {"kv_int8": True, "cross_kv_int4": True}))]
+P11_DH36_BASES = ("decode_cross_attention_f32", "decode_cross_attention_grouped_f32",
+                  "decode_self_attention_update_f32", "decode_cross_attention",
+                  "decode_cross_attention_grouped", "decode_self_attention_update",
+                  "transpose_quant_kv", "decode_cross_attention_int8",
+                  "decode_cross_attention_grouped_int8", "decode_cross_attention_int4",
+                  "decode_cross_attention_grouped_int4", "decode_self_attention_update_int8")
+P11_H8 = {"name": "small-h8", "encoder_heads": 8, "decoder_heads": 8}
+P11_H8_BATCH = 32
+P11_H8_PATH = ("log_mel_cuda", "encoder_attention", "transpose_quant_kv",
+               "decode_cross_attention_grouped_int8", "decode_self_attention_update_int8",
+               "int8_matmul")
+# the RAGGED bodies small-h8 runs, each timed at the shape it met there
+P11_H8_BASES = P11_H8_PATH[1:5]
 
 
 def quantized_cross_kv(gen, bh: int, dh: int, s_pad: int, bits: int) -> tuple:
@@ -6785,7 +6842,7 @@ def quantized_cross_kv(gen, bh: int, dh: int, s_pad: int, bits: int) -> tuple:
 
 
 def check_one_query(what: str, q: torch.Tensor, kv: tuple, s_valid: int,
-                    phase: str = "phase1") -> dict:
+                    phase: str = "phase1", timed: bool = True) -> dict:
     """The one-query cross-attention on q (BH, Dh) and kv = (k_t, v_t,
     k_scale, v_scale) against its plain version (within one step of q's
     type), one launch counted, timed warm and beside its bound and, for K/V
@@ -6805,6 +6862,8 @@ def check_one_query(what: str, q: torch.Tensor, kv: tuple, s_valid: int,
     ref = decode_cross_attention_ref(q, *kv, s_valid)
     err, tol = max_err(got, ref), KERNEL_REL[q.dtype] * float(ref.float().abs().max())
     check(got.shape == (bh, dh) and err <= tol, f"{what}: err {err} > {tol}")
+    if not timed:
+        return held_only(phase, what, tuple(k_t.shape), err, tol)
     t_k = cuda_ms(lambda: decode_cross_attention(q, *kv, s_valid))
     t_p = cuda_ms(lambda: decode_cross_attention_ref(q, *kv, s_valid))
     least = bound(nbytes(q, got) + s_valid / k_t.shape[2] * nbytes(*kv),
@@ -6819,10 +6878,11 @@ def check_one_query(what: str, q: torch.Tensor, kv: tuple, s_valid: int,
     return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least, "library_ms": t_lib}
 
 
-def check_read_only(what: str, bh: int, dh: int, gen, int8: bool) -> None:
+def check_read_only(what: str, bh: int, dh: int, gen, int8: bool, timed: bool = True) -> None:
     """The read-only self-attention at head dim dh, pos 30 of a 64-row
     cache (bf16 q), bit for bit against the update kernel's output on the
-    cache it wrote, writing nothing, one launch counted; timed."""
+    cache it wrote, writing nothing, one launch counted; timed (unless not
+    `timed`)."""
     from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
 
     dev = gen.device
@@ -6847,79 +6907,110 @@ def check_read_only(what: str, bh: int, dh: int, gen, int8: bool) -> None:
           f"{what}: {attr} did not count one launch")
     check(torch.equal(got, out) and all(torch.equal(a, b) for a, b in zip(bufs, written)),
           f"{what}: differs from the update kernel's output, or wrote to the cache")
+    if not timed:
+        held_only("phase1", f"{what} pos=30", (bh, 64, dh), 0.0, 0.0)
+        return
     t_k = cuda_ms(lambda: sas.decode_self_attention(q, bufs[0], bufs[1], 30, **scales))
     t_p = cuda_ms(lambda: sas.decode_self_attention_ref(q, bufs[0], bufs[1], 30, **scales))
     log(f"phase1 {what} pos=30 ({bh}, 64, {dh}): equal to the update kernel's output bit "
         f"for bit; kernel {t_k:.4f} ms plain {t_p:.4f} ms")
 
 
-def phase1_head_dims(dev, results: dict) -> None:
-    """The attention kernels at head dims 16, 32 and 128 (module docstring,
-    phase 1), then one strided or offset call a wrapper and both updates
-    over a LONG_CACHE-row cache; the results go to `results["dh<Dh> ..."]`, read
-    by the log and PERF.md, not by the kernels line."""
+def phase1_dim(dev, gen, dh: int, results: dict, timed: bool = True,
+               heads: int | None = None) -> None:
+    """The attention kernels at head dim dh over whisper-small's width cut into
+    WIDTH // dh heads, or `heads` (module docstring, phase 1): the quantizer
+    bit for bit in bf16 and f32, the encoder attention, the grouped (1 and 5
+    slots) and one-query cross-attention over fp, int8 and int4 K/V, both
+    updates with and without `start`, the read-only kernel bit for bit against
+    the update; each held against its plain version, each launch counted, timed
+    where `timed`. Results go to `results["dh<Dh> ..."]`."""
     from openai_whisper_compression_tpu_torch.models.whisper import split_heads
     from openai_whisper_compression_tpu_torch.ops import cross_attention as ca
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     bf16, s_pad, s_valid = torch.bfloat16, 1536, 1500
-    for dh in OTHER_DIMS:
-        h = WIDTH // dh
-        tag = f"dh{dh}"
-        for dtype in (bf16, torch.float32):
-            x = (torch.randn(BATCH, s_valid, WIDTH, generator=gen, device=dev) * 0.4).to(dtype)
-            before = ca.transpose_quant_kv.launches
-            results[f"{tag} transpose_quant_kv {dtype}"] = check_tq(x, h, f"phase1 {tag}")[0]
-            check(ca.transpose_quant_kv.launches > before, f"{tag}: tq launch not counted")
-            del x
-        q, k, v = (split_heads((torch.randn(8, s_valid, WIDTH, generator=gen, device=dev)
-                                ).to(bf16), h) for _ in range(3))
-        results[f"{tag} encoder_attention"] = check_enc_attn_shape(
-            f"phase1 {tag} encoder_attention", q, k, v)
-        del q, k, v
-        torch.cuda.empty_cache()
-        bh = BATCH * h
-        fp = {dt: tuple(torch.randn(bh, dh, s_pad, generator=gen, device=dev).to(dt)
-                        for _ in range(2)) + (None, None)
-              for dt in (bf16, torch.float32, torch.float16)}
-        kvq = {bits: quantized_cross_kv(gen, bh, dh, s_pad, bits) for bits in (8, 4)}
-        for name, kv, dtype, kq in (("bf16", fp[bf16], bf16, 1), ("bf16", fp[bf16], bf16, 5),
-                                    ("f32", fp[torch.float32], torch.float32, 1),
-                                    ("f16", fp[torch.float16], torch.float16, 1),
-                                    ("int8", kvq[8], bf16, 1), ("int4", kvq[4], bf16, 1)):
-            qg = (torch.randn(bh, kq, dh, generator=gen, device=dev) * dh ** -0.5).to(dtype)
-            attr = {"bf16": "launches", "f32": "launches_f32", "f16": "launches_f16",
-                    "int8": "launches_int8", "int4": "launches_int4"}[name]
-            attr += "_wide" if kq > 4 else ""
-            before = getattr(ca.decode_cross_attention_grouped, attr)
-            results[f"{tag} grouped {name} K={kq}"] = check_grouped(
-                f"{tag} cross_attention_grouped {name} K={kq}", qg, kv, s_valid)
-            check(getattr(ca.decode_cross_attention_grouped, attr) > before,
-                  f"{tag} grouped {name}: {attr} did not count")
-        rows = 3 * h
-        for name, kv, dtype in (("bf16", fp[bf16], bf16), ("f32", fp[torch.float32],
-                                                            torch.float32),
-                                ("f16", fp[torch.float16], torch.float16),
-                                ("int8", kvq[8], bf16), ("int4", kvq[4], bf16)):
-            q1 = (torch.randn(rows, dh, generator=gen, device=dev) * dh ** -0.5).to(dtype)
-            results[f"{tag} one_query {name}"] = check_one_query(
-                f"{tag} cross_attention {name} BH={rows}", q1,
-                tuple(t[:rows] if t is not None else None for t in kv), s_valid)
-        del fp, kvq
-        start = (torch.arange(bh, device=dev) // h * 5 % 13).to(torch.int32)
-        for dtype in (bf16, torch.float32, torch.float16):
-            results[f"{tag} self_update {dtype}"] = check_update(
-                f"{tag} self_attention_update {dtype}", bh, 30, gen, False, None, dtype, dh)
-        results[f"{tag} self_update start"] = check_update(
-            f"{tag} self_attention_update start", bh, 30, gen, False, start, bf16, dh)
-        results[f"{tag} self_update_int8"] = check_update(
-            f"{tag} self_attention_update_int8", bh, 30, gen, True, None, bf16, dh)
-        results[f"{tag} self_update_int8 start"] = check_update(
-            f"{tag} self_attention_update_int8 start", bh, 30, gen, True, start, bf16, dh)
-        for int8 in (False, True):
-            check_read_only(f"{tag} self_attention{'_int8' if int8 else ''}", bh, dh, gen,
-                            int8)
-        torch.cuda.empty_cache()
+    h = heads or WIDTH // dh
+    width = h * dh
+    tag = f"dh{dh}"
+    for dtype in (bf16, torch.float32):
+        x = (torch.randn(BATCH, s_valid, width, generator=gen, device=dev) * 0.4).to(dtype)
+        before = ca.transpose_quant_kv.launches
+        results[f"{tag} transpose_quant_kv {dtype}"] = check_tq(x, h, f"phase1 {tag}",
+                                                                timed)[0]
+        check(ca.transpose_quant_kv.launches > before, f"{tag}: tq launch not counted")
+        del x
+    q, k, v = (split_heads((torch.randn(8, s_valid, width, generator=gen, device=dev)
+                            ).to(bf16), h) for _ in range(3))
+    results[f"{tag} encoder_attention"] = check_enc_attn_shape(
+        f"phase1 {tag} encoder_attention", q, k, v, timed)
+    del q, k, v
+    torch.cuda.empty_cache()
+    bh = BATCH * h
+    fp = {dt: tuple(torch.randn(bh, dh, s_pad, generator=gen, device=dev).to(dt)
+                    for _ in range(2)) + (None, None)
+          for dt in (bf16, torch.float32, torch.float16)}
+    kvq = {bits: quantized_cross_kv(gen, bh, dh, s_pad, bits)
+           for bits in ((8, 4) if dh % 2 == 0 else (8,))}
+    kinds = [("bf16", fp[bf16], bf16), ("f32", fp[torch.float32], torch.float32),
+             ("f16", fp[torch.float16], torch.float16), ("int8", kvq[8], bf16)]
+    kinds += [("int4", kvq[4], bf16)] if 4 in kvq else []
+    for (name, kv, dtype), kq in [(kinds[0], 1), (kinds[0], 5)] + [(k, 1) for k in kinds[1:]]:
+        qg = (torch.randn(bh, kq, dh, generator=gen, device=dev) * dh ** -0.5).to(dtype)
+        attr = {"bf16": "launches", "f32": "launches_f32", "f16": "launches_f16",
+                "int8": "launches_int8", "int4": "launches_int4"}[name]
+        attr += "_wide" if kq > 4 else ""
+        before = getattr(ca.decode_cross_attention_grouped, attr)
+        results[f"{tag} grouped {name} K={kq}"] = check_grouped(
+            f"{tag} cross_attention_grouped {name} K={kq}", qg, kv, s_valid, timed=timed)
+        check(getattr(ca.decode_cross_attention_grouped, attr) > before,
+              f"{tag} grouped {name}: {attr} did not count")
+    rows = 3 * h
+    for name, kv, dtype in kinds:
+        q1 = (torch.randn(rows, dh, generator=gen, device=dev) * dh ** -0.5).to(dtype)
+        results[f"{tag} one_query {name}"] = check_one_query(
+            f"{tag} cross_attention {name} BH={rows}", q1,
+            tuple(t[:rows] if t is not None else None for t in kv), s_valid, timed=timed)
+    del fp, kvq, kinds
+    start = (torch.arange(bh, device=dev) // h * 5 % 13).to(torch.int32)
+    for dtype in (bf16, torch.float32, torch.float16):
+        results[f"{tag} self_update {dtype}"] = check_update(
+            f"{tag} self_attention_update {dtype}", bh, 30, gen, False, None, dtype, dh,
+            timed=timed)
+    results[f"{tag} self_update start"] = check_update(
+        f"{tag} self_attention_update start", bh, 30, gen, False, start, bf16, dh,
+        timed=timed)
+    results[f"{tag} self_update_int8"] = check_update(
+        f"{tag} self_attention_update_int8", bh, 30, gen, True, None, bf16, dh, timed=timed)
+    results[f"{tag} self_update_int8 start"] = check_update(
+        f"{tag} self_attention_update_int8 start", bh, 30, gen, True, start, bf16, dh,
+        timed=timed)
+    for int8 in (False, True):
+        check_read_only(f"{tag} self_attention{'_int8' if int8 else ''}", bh, dh, gen,
+                        int8, timed)
+    torch.cuda.empty_cache()
+
+
+def phase1_head_dims(dev, results: dict) -> None:
+    """The attention kernels at head dims 16, 32 and 128 and at the
+    RAGGED_DIMS, each call held (`phase1_dim`; `tools/torch_attention_ab.py`
+    times them); the f32 grouped body at 128 over BATCH * 6 rows, one slot
+    (its repaired body), timed against its plain version; then one strided
+    or offset call a wrapper and both updates over a LONG_CACHE-row cache.
+    The results go to `results["dh<Dh> ..."]`, read by the log and PERF.md,
+    not by the kernels line."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    for dh in OTHER_DIMS + RAGGED_DIMS:
+        phase1_dim(dev, gen, dh, results, timed=False)
+    log(f"phase1 head dims {OTHER_DIMS + RAGGED_DIMS} held in "
+        f"{time.perf_counter() - t0:.1f} s")
+    bh = BATCH * WIDTH // 128
+    kv = tuple(torch.randn(bh, 128, 1536, generator=gen, device=dev) for _ in range(2))
+    q = torch.randn(bh, 1, 128, generator=gen, device=dev) * 128 ** -0.5
+    results["dh128 grouped f32 K=1"] = check_grouped(
+        f"dh128 cross_attention_grouped f32 K=1 ({bh} rows)", q, (*kv, None, None), 1500)
+    del kv, q
     phase1_views(dev, gen, results)
     for int8 in (False, True):
         results[f"long self_update{'_int8' if int8 else ''}"] = check_update(
@@ -7071,20 +7162,23 @@ def time_p11_shape(what: str, key: tuple, args: tuple) -> dict:
 
 
 @torch.inference_mode()
-def run_p11_decodes(dev, shapes: dict, calls: dict) -> dict:
-    """P11_RUNS at P11_BATCHES, held, on test2l's seeded bf16 tree: tokens
-    and lengths of the expected shapes, finite; the launches of each run."""
+def run_p11_decodes(dev, shapes: dict, calls: dict, arch=None, runs=None) -> dict:
+    """`runs` (P11_RUNS: name, tree dtype, switches) at P11_BATCHES, held, on
+    `arch`'s (test2l's) seeded tree: tokens and lengths of the expected
+    shapes, finite; the launches of each run."""
     import numpy as np
 
     from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
     from openai_whisper_compression_tpu_torch.evaluation.harness import (
         make_transcribe_fn, samples_for_arch)
-    from openai_whisper_compression_tpu_torch.models.params import init_params
+    from openai_whisper_compression_tpu_torch.models.params import init_params, tree_to
 
-    arch = ARCHS["test2l"]
+    arch = arch or ARCHS["test2l"]
     params = init_params(arch, SEED, torch.bfloat16, dev)
+    trees = {"bf16": params, "f32": tree_to(params, dev, torch.float32)}
     out = {}
-    for name, switches in P11_RUNS:
+    for name, tree, switches in runs or [(n, "bf16", sw) for n, sw in P11_RUNS]:
+        params = trees[tree]
         cfg = DecodeConfig(max_new_tokens=8, language_token_id=None, task_token_id=None,
                            **switches)
         fn = make_transcribe_fn(arch, cfg, device=dev)
@@ -7102,9 +7196,11 @@ def run_p11_decodes(dev, shapes: dict, calls: dict) -> dict:
 
 
 def phase11(dev, results: dict) -> dict:
-    """Phase 11 (slice 18): the examples on the card, held, then P11_RUNS;
-    every kernel of P11_BASES launched; the P11 shapes timed into `results`
-    as `name@test2l-<rows>rows`. Returns the runs' summaries."""
+    """Phase 11 (slice 18): the examples on the card, held, then
+    P11_RUNS; every kernel of P11_BASES launched; the P11 shapes timed into
+    `results` as `name@test2l-<rows>rows`; then P11_DH36_RUNS and small-h8
+    (`run_small_h8`), their ragged bodies timed likewise. Returns the runs'
+    summaries."""
     import importlib
     import io
 
@@ -7140,19 +7236,111 @@ def phase11(dev, results: dict) -> dict:
     summaries.update(run_p11_decodes(dev, shapes, calls))
     total = {k: sum(s["launches"][k] for s in summaries.values()) for k in P11_BASES}
     log(f"phase11 head-dim-16 launches {json.dumps(total)}")
-    for base in P11_BASES:
-        check(total[base] > 0, f"phase11: {base} was never launched at head dim 16")
+    p11_entries(results, "test2l", P11_BASES, total, shapes, calls)
+    # head dim 36: the RAGGED bodies of capacity 64
+    from openai_whisper_compression_tpu_torch.config import ARCHS
+
+    t0 = time.perf_counter()
+    shapes36, calls36 = {}, {}
+    runs36 = run_p11_decodes(dev, shapes36, calls36, ARCHS["test2l"].replace(**P11_DH36),
+                             P11_DH36_RUNS)
+    summaries.update(runs36)
+    total = {k: sum(s["launches"][k] for s in runs36.values()) for k in P11_DH36_BASES}
+    log(f"phase11 head-dim-36 runs held in {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(total)}")
+    p11_entries(results, "test2l-dh36", P11_DH36_BASES, total, shapes36, calls36)
+    summaries.update(run_small_h8(dev, results))
+    return summaries
+
+
+def p11_entries(results: dict, label: str, bases, total: dict, shapes: dict,
+                calls: dict) -> None:
+    """Every kernel of `bases` launched (`total`) and timed at the first
+    shape it met (`shapes`, `calls` of a `checked_kernel_calls` block) into
+    `results` as `name@<label>-<rows>rows` (the kernels line's entries)."""
+    for base in bases:
+        check(total[base] > 0, f"phase11: {base} was never launched on {label}'s path")
         key = next(k for k in shapes if calls.get(k, {}).get(base, 0) > 0)
         if key[0] == "transpose_quant_kv":
-            entry = f"{base}@test2l-{key[1]}x{key[2]}"
+            entry = f"{base}@{label}-{key[1]}x{key[2]}"
+        elif key[0] == "encoder_attention":
+            entry = f"{base}@{label}-" + "x".join(map(str, key[1:]))
         else:   # the updates' keys hold the rows third, the cross-attentions' last
             rows = key[2] if key[0].startswith("decode_self") else key[-1]
-            entry = f"{base}@test2l-{rows}rows" + (
+            entry = f"{base}@{label}-{rows}rows" + (
                 f"-{key[3]}slots" if key[0] == "grouped" and key[3] > 1 else "")
         with torch.inference_mode():   # the recorded inputs are inference tensors
             results[entry] = {**time_p11_shape(entry, key, shapes[key]),
                               "launches": total[base], "base": base}
-    return summaries
+
+
+def run_small_h8(dev, results: dict) -> dict:
+    """small-h8 (P11_H8) cut to P8_PROOF_LAYERS layers and at full depth
+    through `make_transcribe_fn`, one batch each held (`checked_kernel_calls(
+    mel=True)`), launch counts exact; the cut's first REF_ROWS rows against
+    CPU f32 (a thread beside the full-depth run, joined last):
+    tokens equal or parted at a tie proven there; the RAGGED bodies it ran
+    timed at its shapes (P11_H8_BASES)."""
+    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+    from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
+    from openai_whisper_compression_tpu_torch.models.params import init_params, tree_to
+    from openai_whisper_compression_tpu_torch.quant.api import quantize_params
+
+    arch = ARCHS["small"].replace(**P11_H8)
+    check(arch.head_dim == 96, f"small-h8's head dim {arch.head_dim}")
+    params = fuse_qkv(quantize_params(init_params(arch, SEED, torch.bfloat16, dev), "int8"))
+    cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,), **KV8)
+    wav = torch.from_numpy(waveforms(SEED + 110, P11_H8_BATCH)).to(dev)
+    out, proof = {}, None
+    # the cut first: its CPU f32 proof runs beside the full-depth run
+    for name, (tree, tree_arch) in (("small-h8-2l", cut_layers(params, arch,
+                                                               P8_PROOF_LAYERS)),
+                                    ("small-h8", (params, arch))):
+        fn = make_transcribe_fn(tree_arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
+        shapes: dict = {}
+        calls: dict = {}
+        t0 = time.perf_counter()
+        with checked_kernel_calls(shapes, calls, mel=True) as held:
+            counters = zero_launches()
+            with torch.inference_mode():
+                toks, lens = fn(tree, wav)
+            toks, lens = toks.cpu(), lens.cpu()
+            launches = read_launches(counters)
+        check(toks.shape[0] == P11_H8_BATCH and bool((lens == 4 + NEW_TOKENS).all())
+              and int(toks.max()) < arch.vocab_size,
+              f"{name}: tokens {tuple(toks.shape)} or lengths {lens.tolist()}")
+        log(f"phase11 {name}: held batch of {P11_H8_BATCH} in "
+            f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(launched(launches))}; "
+            f"{held_summary(held, shapes)}")
+        check_launches(name, launches, P11_H8_PATH,
+                       p8_exact(tree_arch, tree, P11_H8_BATCH, P11_H8_PATH))
+        out[name] = {"launches": launches}
+        if name == "small-h8":
+            p11_entries(results, "small-h8", P11_H8_BASES, launches, shapes, calls)
+        else:
+            proof = Background(lambda n=name, t=tree, a=tree_arch, k=toks: small_h8_proof(
+                n, tree_to(t, "cpu", torch.float32), a, cfg, wav.cpu(), k))
+    out["small-h8-2l"]["parted"] = proof.result()
+    return out
+
+
+@torch.inference_mode()
+def small_h8_proof(name: str, params_cpu, arch, cfg, wav: torch.Tensor,
+                   toks: torch.Tensor) -> int:
+    """The first REF_ROWS rows of a decode on the card against the same
+    tree's CPU f32 decode (the same frontend and GELU): equal, or parted at a
+    tie proven there; returns the rows that parted."""
+    from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
+
+    t0 = time.perf_counter()
+    fn = make_transcribe_fn(arch, cfg, fast_mel=True, fast_gelu=True, device="cpu")
+    want, _ = fn(params_cpu, wav[:REF_ROWS])
+    parted = check_ties(f"phase11 {name} card vs CPU f32", params_cpu, arch, cfg,
+                        wav[:REF_ROWS], toks[:REF_ROWS], want, 4)
+    log(f"phase11 {name}: {REF_ROWS - parted} of {REF_ROWS} rows equal CPU f32, "
+        f"{parted} part at a tie proven there ({time.perf_counter() - t0:.1f} s)")
+    return parted
 
 
 def main() -> int:
@@ -7326,7 +7514,7 @@ def main() -> int:
         {**entries[r["base"]], "name": name,
          **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms")}}
-        for name, r in results.items() if "@test2l-" in name]
+        for name, r in results.items() if "@test2l-" in name or "@small-h8-" in name]
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

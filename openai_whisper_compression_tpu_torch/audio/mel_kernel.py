@@ -145,4 +145,14 @@ def launch(ops: MelOperands, dft_dtype: torch.dtype) -> torch.Tensor:
         kernels.stream_of(ops.wav))
     kernels.check("log_mel_cuda", err)
     log_mel_cuda.launches += 1
+    kernels.record_cost(log_mel_cost(b, ops.n_frames))
     return out
+
+
+def log_mel_cost(b: int, n_frames: int) -> dict:
+    """What the JAX `log_mel_pallas`'s `pl.CostEstimate` declares: frames
+    padded to 256 a grid step, the 400-tap DFT to 512 taps and 256 bins, the
+    mel bins to 128, whatever the dtype and mel count."""
+    fp = -(-n_frames // 256) * 256
+    return kernels.cost(2 * b * fp * 512 * 256 * 2 + 2 * b * fp * 256 * 128,
+                        b * fp * 512 * 4 + b * fp * 128 * 4, b * fp * 128)

@@ -14,6 +14,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // dtype codes shared with the Python wrappers (ops/kernels.py DTYPE_CODES)
 #define OWC_F32 0
 #define OWC_BF16 1
@@ -120,6 +122,87 @@ __device__ __forceinline__ void owc_reduce_scatter(float (&x)[N], int lane) {
       x[0] += __shfl_xor_sync(0xffffffffu, x[0], o);
     }
   }
+}
+
+// The RAGGED bodies read and write rows of a head dim dh that need not be
+// whole 16-byte pieces, or 16-byte aligned. A row's alignment class is 16
+// where its bytes and every base pointer are multiples of 16, else 1
+// (`owc_align_class`); the bodies take the class at compile time in each
+// load loop (one copy of the loop a class), so that a pass's loads stay in
+// flight together.
+template <typename... P>
+inline int owc_align_class(long long row_bytes, P... ptrs) {
+  uintptr_t bits = (uintptr_t)row_bytes;
+  ((bits |= (uintptr_t)ptrs), ...);
+  return bits % 16 == 0 ? 16 : 1;
+}
+
+// The 16 bytes of the first 16 / sizeof(T) elements at p, or of the first n
+// of them followed by zero bytes where n is smaller (zeros where n <= 0), p
+// in a row of alignment class A: one 16-byte load (A = 16: a piece lies
+// wholly inside or outside the row), or (A = 1) the 4-byte aligned words
+// that hold the piece's bytes, at most five, shifted into place: a word
+// holding a valid byte lies inside the allocation whatever it holds past
+// the row.
+template <int A, typename T>
+__device__ __forceinline__ uint4 owc_load_piece(const T* p, int n) {
+  if constexpr (A == 16) {
+    return n > 0 ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
+  } else {
+    constexpr int V0 = 16 / sizeof(T);
+    const int bytes = n <= 0 ? 0 : (n < V0 ? n : V0) * (int)sizeof(T);
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~(uintptr_t)3);
+    const int o = (int)(a & 3);
+    uint32_t r[5];
+#pragma unroll
+    for (int j = 0; j < 5; ++j) r[j] = 4 * j < o + bytes ? w[j] : 0u;
+    uint32_t out[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t v = __funnelshift_r(r[k], r[k + 1], 8 * o);
+      const int left = bytes - 4 * k;   // valid bytes of this word
+      out[k] = left >= 4 ? v : left <= 0 ? 0u : v & ((1u << (8 * left)) - 1u);
+    }
+    return make_uint4(out[0], out[1], out[2], out[3]);
+  }
+}
+
+// The first n elements of the 16 bytes u to p (all of them where n covers
+// the piece; none where n <= 0), p in a row of alignment class A: one
+// 16-byte store (A = 16) or a store an element.
+template <int A, typename T>
+__device__ __forceinline__ void owc_store_piece(T* p, const uint4& u, int n) {
+  if constexpr (A == 16) {
+    if (n > 0) *reinterpret_cast<uint4*>(p) = u;
+  } else {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    if constexpr (sizeof(T) == 4) {
+      uint32_t* e = reinterpret_cast<uint32_t*>(p);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (k < n) e[k] = w[k];
+    } else if constexpr (sizeof(T) == 2) {
+      unsigned short* e = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k < n) e[k] = (unsigned short)(w[k >> 1] >> (16 * (k & 1)));
+    } else {
+      unsigned char* e = reinterpret_cast<unsigned char*>(p);
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (k < n) e[k] = (unsigned char)(w[k >> 2] >> (8 * (k & 3)));
+    }
+  }
+}
+
+// Calls f(A) with A the integral_constant of alignment class `align`: 0 (a
+// whole body, which loads whole 16-byte pieces) unless RAGGED.
+template <bool RAGGED, typename F>
+__device__ __forceinline__ void owc_aligned_as(int align, F&& f) {
+  if constexpr (!RAGGED) f(std::integral_constant<int, 0>());
+  else if (align == 16) f(std::integral_constant<int, 16>());
+  else f(std::integral_constant<int, 1>());
 }
 
 __device__ __forceinline__ float owc_warp_sum(float v) {

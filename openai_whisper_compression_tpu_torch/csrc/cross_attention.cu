@@ -1,15 +1,24 @@
 // The C entry points of the decode cross-attention kernels
 // (cross_attention.cuh) and their head dim 64 instances; the other head
-// dims' instances are compiled apart, in cross_attention_d{16,32,128}.cu.
+// dims' instances are compiled apart, in cross_attention_d{16,32,128}.cu,
+// and the RAGGED ones of each capacity in cross_attention_r{16,...,256}.cu.
 #include "cross_attention.cuh"
 
 OWC_CROSS_DEFINE(64)
-OWC_CROSS_DECLARE(16)
-OWC_CROSS_DECLARE(32)
-OWC_CROSS_DECLARE(128)
+OWC_CROSS_DECLARE(d16)
+OWC_CROSS_DECLARE(d32)
+OWC_CROSS_DECLARE(d128)
+OWC_CROSS_DECLARE(r16)
+OWC_CROSS_DECLARE(r32)
+OWC_CROSS_DECLARE(r64)
+OWC_CROSS_DECLARE(r128)
+OWC_CROSS_DECLARE(r256)
 
 // In both entry points `dtype` is the code (common.cuh) of the element type
-// of q and out: f32, bf16 or f16, and `dh` the head dim: 16, 32, 64 or 128.
+// of q and out: f32, bf16 or f16; `dh` the head dim, 1..256, and `cap` its
+// capacity, the smallest of 16, 32, 64, 128, 256 that is >= dh: dh = cap <=
+// 128 runs the whole body, any other the RAGGED body of cap. Packed int4
+// K/V need an even dh.
 
 // q and out: KQ slots of dh values for each of BH rows, row g at element
 // g * row_stride (row_stride = KQ * dh for contiguous (BH, KQ, dh) tensors;
@@ -21,57 +30,57 @@ OWC_CROSS_DECLARE(128)
 // a row, each given at least one 32-position chunk of it. Requires 1 <= KQ
 // <= 8, 1 <= s_valid <= S_pad, S_pad a multiple of the kind's 16-byte chunk
 // (4 positions of f32, 8 of bf16 or f16, 16 of int8/int4), 16-byte aligned
-// k_t/v_t and scales, 4-byte aligned q rows.
+// k_t/v_t and scales, 4-byte aligned q rows where dh = cap (element aligned
+// otherwise).
 extern "C" int owc_cross_attention_grouped(const void* q, const void* k_t,
                                            const void* v_t, const void* k_scale,
                                            const void* v_scale, void* out,
                                            int BH, int KQ, int row_stride,
                                            int S_pad, int s_valid, int splits,
-                                           int kind, int dtype, int dh, void* stream) {
+                                           int kind, int dtype, int dh, int cap,
+                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16:
-      return owc_cross_grouped_d16(q, k_t, v_t, k_scale, v_scale, out, BH, KQ, row_stride,
-                                   S_pad, s_valid, splits, kind, dtype, st);
-    case 32:
-      return owc_cross_grouped_d32(q, k_t, v_t, k_scale, v_scale, out, BH, KQ, row_stride,
-                                   S_pad, s_valid, splits, kind, dtype, st);
-    case 64:
-      return owc_cross_grouped_d64(q, k_t, v_t, k_scale, v_scale, out, BH, KQ, row_stride,
-                                   S_pad, s_valid, splits, kind, dtype, st);
-    case 128:
-      return owc_cross_grouped_d128(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,
-                                    row_stride, S_pad, s_valid, splits, kind, dtype, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (dh < 1 || dh > cap || (cap > 16 && 2 * dh <= cap) || (kind == 2 && dh % 2))
+    return (int)cudaErrorInvalidValue;
+#define OWC_GROUPED(NAME)                                                                \
+  return owc_cross_grouped_##NAME(q, k_t, v_t, k_scale, v_scale, out, BH, KQ, row_stride, \
+                                  S_pad, s_valid, splits, kind, dtype, dh, st)
+  const bool whole = dh == cap;
+  switch (cap) {
+    case 16: if (whole) OWC_GROUPED(d16); OWC_GROUPED(r16);
+    case 32: if (whole) OWC_GROUPED(d32); OWC_GROUPED(r32);
+    case 64: if (whole) OWC_GROUPED(d64); OWC_GROUPED(r64);
+    case 128: if (whole) OWC_GROUPED(d128); OWC_GROUPED(r128);
+    case 256: OWC_GROUPED(r256);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef OWC_GROUPED
 }
 
-// One query per row: q and out (BH, dh); k_t/v_t, the scales and kind as
-// above. splits: the blocks (1..8) of the thread block cluster that shares a
-// row, each given at least one 64-position chunk of it. Requires 1 <= s_valid
-// <= S_pad, S_pad a multiple of the kind's 16-byte chunk, 16-byte aligned
-// k_t/v_t.
+// One query per row: q and out (BH, dh); k_t/v_t, the scales, kind, dh and
+// cap as above. splits: the blocks (1..8) of the thread block cluster that
+// shares a row, each given at least one 64-position chunk of it. Requires 1
+// <= s_valid <= S_pad, S_pad a multiple of the kind's 16-byte chunk,
+// 16-byte aligned k_t/v_t.
 extern "C" int owc_cross_attention(const void* q, const void* k_t,
                                    const void* v_t, const void* k_scale,
                                    const void* v_scale, void* out, int BH,
                                    int splits, int S_pad, int s_valid, int kind,
-                                   int dtype, int dh, void* stream) {
+                                   int dtype, int dh, int cap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16:
-      return owc_cross_one_query_d16(q, k_t, v_t, k_scale, v_scale, out, BH, splits,
-                                     S_pad, s_valid, kind, dtype, st);
-    case 32:
-      return owc_cross_one_query_d32(q, k_t, v_t, k_scale, v_scale, out, BH, splits,
-                                     S_pad, s_valid, kind, dtype, st);
-    case 64:
-      return owc_cross_one_query_d64(q, k_t, v_t, k_scale, v_scale, out, BH, splits,
-                                     S_pad, s_valid, kind, dtype, st);
-    case 128:
-      return owc_cross_one_query_d128(q, k_t, v_t, k_scale, v_scale, out, BH, splits,
-                                      S_pad, s_valid, kind, dtype, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (dh < 1 || dh > cap || (cap > 16 && 2 * dh <= cap) || (kind == 2 && dh % 2))
+    return (int)cudaErrorInvalidValue;
+#define OWC_ONE_QUERY(NAME)                                                           \
+  return owc_cross_one_query_##NAME(q, k_t, v_t, k_scale, v_scale, out, BH, splits,  \
+                                    S_pad, s_valid, kind, dtype, dh, st)
+  const bool whole = dh == cap;
+  switch (cap) {
+    case 16: if (whole) OWC_ONE_QUERY(d16); OWC_ONE_QUERY(r16);
+    case 32: if (whole) OWC_ONE_QUERY(d32); OWC_ONE_QUERY(r32);
+    case 64: if (whole) OWC_ONE_QUERY(d64); OWC_ONE_QUERY(r64);
+    case 128: if (whole) OWC_ONE_QUERY(d128); OWC_ONE_QUERY(r128);
+    case 256: OWC_ONE_QUERY(r256);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef OWC_ONE_QUERY
 }

@@ -80,10 +80,33 @@
 // k step in one 8-row tile, so that body reads the low and the high
 // nibbles of the same rows; the f32 body gives a lane DH / 32 value dims
 // (one, half the lanes idle, at DH = 16), and at DH = 128 runs 2 warps a
-// block, which keeps its stages inside the 227 KB of shared memory; the
-// one-query kernel's lane holds DH / 8 stored rows, and at DH = 128 stops
-// loading the next tile under this one (its 16 rows of K and V would take
-// every register).
+// block (the PR that added it; since repaired, below); the one-query
+// kernel's lane holds DH / 8 stored rows, and at DH = 128 stops loading the
+// next tile under this one (its 16 rows of K and V would take every
+// register).
+//
+// Any other head dim dh up to 256 runs the RAGGED instance of its capacity
+// (the smallest of 16, 32, 64, 128, 256 >= dh; one `.cu` file a capacity,
+// `cross_attention_r*.cu`), which takes dh at run time. K/V are stored
+// (BH, dh, S_pad) and int4 as dh / 2 rows, so the width changes only the
+// number of stored rows: a RAGGED body loads the rows < dh (dh / 2) into the
+// capacity's tiles, whose rows past them its copies zero fill,
+// reads q through `dim_of` (zeros past dh; split-half int4's high nibbles
+// are dims + dh / 2, so they sit at capacity dims + DH / 2) and writes its
+// records and the output at dims < dh only. The capacity sets the stages:
+// 256 dims of 16-bit K/V take 16-position chunks (a 32-position stage
+// would leave room for 2 warps a block), and int8 at 256 two stages.
+// The f32 body at DH = 128 and 256 and every RAGGED f32 body is a second
+// f32 body (`F32B`): the first kept a warp's whole 32-position stages of
+// f32 K/V (32 KB at DH = 128) and its codes converted into f32 tiles, so at
+// DH = 128 it ran 2 warps a block and spilled, 3x slower than its plain
+// version. The second takes 8 positions a stage of f32 K/V (a position's
+// dims split over 4 lanes, the partial scores summed by shuffles; int8 and
+// int4 keep 32-position stages), reads the codes from their stored tiles as
+// it multiplies (no converted tiles), keeps its partials in its drained
+// stages, runs 4 warps a block, two blocks an SM at DH = 128, and has a
+// loop of its own for one slot (a greedy step: no slot predicates, q in
+// registers).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -166,50 +189,90 @@ constexpr float LOG2E = 1.4426950408889634f;
 // at one column, or the rows a warp reads at one position, fall on distinct
 // banks, with no padding to waste the shared memory that holds the bytes in
 // flight.
-template <typename C> struct Tile {  // 16-bit
+// A tile of ROWB-byte rows (a chunk of one stored row); the swizzle of each
+// width spreads 8 neighbouring rows over distinct banks.
+template <int ROWB> struct Swz;
+template <> struct Swz<128> {
+  static constexpr int ROW = 128;
+  __device__ static int off(int d, int chunk) { return d * ROW + ((chunk ^ (d & 7)) << 4); }
+};
+template <> struct Swz<64> {
   static constexpr int ROW = 64;
   __device__ static int off(int d, int chunk) {
     return d * ROW + ((chunk ^ ((d >> 1) & 3)) << 4);
   }
 };
-template <> struct Tile<float> {
-  static constexpr int ROW = 128;
-  __device__ static int off(int d, int chunk) { return d * ROW + ((chunk ^ (d & 7)) << 4); }
-};
-template <> struct Tile<int8_t> {
-  static constexpr int ROW = G_CHUNK;
+template <> struct Swz<32> {
+  static constexpr int ROW = 32;
   __device__ static int off(int d, int chunk) {
     return d * ROW + ((chunk ^ ((d >> 2) & 1)) << 4);
   }
 };
+// the tile of CH positions of element type C: 16-bit 64-byte rows, f32 128,
+// int8 and int4 codes 32 at CH = 32
+template <typename C, int CH = G_CHUNK> struct Tile : Swz<CH * (int)sizeof(C)> {};
+
+// The dim of q and of the output that capacity dim c of a DH-wide body
+// stands for, at head dim dh; -1 where it stands for none (past dh). Split-
+// half int4 rows hold dims r and r + dh / 2, which a capacity body holds at
+// r and r + DH / 2.
+template <int KIND, int DH>
+__device__ __forceinline__ int dim_of(int c, int dh) {
+  if constexpr (KIND == KV_INT4) {
+    constexpr int CR = DH / 2;
+    const int r = c % CR, rows = dh / 2;
+    return r < rows ? r + (c / CR) * rows : -1;
+  } else {
+    return c < dh ? c : -1;
+  }
+}
 
 // A warp's shared memory: NS stages, each the chunk's K and V as stored (in
 // q's type already laid out as its compute tile; int8 and int4 as 32-byte
 // rows) and, for the scaled kinds, the chunk's k and v scales; then the
 // compute tiles the scaled kinds are converted into.
-template <int KIND, typename Q, int DH> struct GLayout {
+template <int KIND, typename Q, int DH, bool RAGGED = false> struct GLayout {
   static constexpr bool SCALED = KIND != KV_FP;
   static constexpr bool F32 = std::is_same<Q, float>::value;
-  using Raw = Tile<typename Store<KIND, Q, DH>::T>;
+  // the second f32 body (header): f32 q at DH >= 128 or RAGGED
+  static constexpr bool F32B = F32 && (RAGGED || DH >= 128);
+  // positions a warp takes at a time: 32, but 16 for 16-bit K/V at DH =
+  // 256 (a 32-position stage would pass 16 KB), and 8 for f32 K/V in the
+  // second f32 body (stages of 0.5-16 KB: two blocks an SM at 128; 4
+  // positions at 256, two blocks an SM, measured slower)
+  static constexpr int CHUNK = SCALED ? G_CHUNK
+                               : F32B ? 8
+                               : 2 * G_CHUNK * DH * (int)sizeof(Q) > 16384 ? 16
+                                                                          : G_CHUNK;
+  using Raw = Tile<typename Store<KIND, Q, DH>::T, CHUNK>;
   static constexpr int TILE = DH * Tile<Q>::ROW;                    // a compute tile
   static constexpr int RAW = Store<KIND, Q, DH>::ROWS * Raw::ROW;   // one of K, V
   static constexpr int SCALES = 2 * RAW;                            // offset in a stage
   static constexpr int STAGE = 2 * RAW + (SCALED ? 2 * G_CHUNK * 4 : 0);
-  // chunks in flight while one is used: an SM holds 8-16 warps, whose
-  // stages in flight must cover the card's memory latency at its rate
-  static constexpr int NS = SCALED || sizeof(Q) == 4 ? 3 : 2;
-  // the f32 body converts int8 and int4 codes into f32 compute tiles
-  static constexpr bool CONVERT = SCALED && F32;
-  static constexpr int WARP = NS * STAGE + (CONVERT ? 2 * TILE : 0);
-  // warps a block: 4, but 2 where the f32 body's stages of 128 dims would
-  // not fit in a block's shared memory
-  static constexpr int WARPS = F32 && DH == 128 ? 2 : 4;
+  // the first f32 body converts int8 and int4 codes into f32 compute tiles
+  static constexpr bool CONVERT = SCALED && F32 && !F32B;
+  static constexpr int WARPS = 4;
   static constexpr int THREADS = WARPS * 32;
   static constexpr int REC = DH + 2;  // a warp's partial of one slot: DH sums, m, l
-  // a warp's record room: its slots' partials, which the f32 body also
-  // uses for its [slot][G_CHUNK] probabilities
-  static constexpr int RECW = G_MAXQ * REC > G_MAXQ * G_CHUNK ? G_MAXQ * REC
-                                                               : G_MAXQ * G_CHUNK;
+  // a warp's record room: its slots' partials, which the f32 bodies also
+  // use for their [slot][CHUNK] probabilities; the second f32 body keeps its
+  // partials in its own stages once they are drained (RECS floats apart)
+  // and only the probabilities in the static room
+  static constexpr int RECW = G_MAXQ * REC > G_MAXQ * CHUNK ? G_MAXQ * REC
+                                                             : G_MAXQ * CHUNK;
+  static constexpr int RECW_STATIC = F32B ? G_MAXQ * CHUNK : RECW;
+  static constexpr int STATIC = (WARPS * RECW_STATIC + (F32 ? G_MAXQ : 1) * DH) * 4;
+  // chunks in flight while one is used: an SM holds 8-16 warps, whose
+  // stages in flight must cover the card's memory latency at its rate; 2
+  // where 3 would not fit in a block's 227 KB (int8 and f32 at DH = 256)
+  static constexpr int NS_MOST = SCALED || sizeof(Q) == 4 ? 3 : 2;
+  static constexpr int NS =
+      WARPS * (NS_MOST * STAGE + (CONVERT ? 2 * TILE : 0)) + STATIC > 232448 ? 2 : NS_MOST;
+  static constexpr int WARP = NS * STAGE + (CONVERT ? 2 * TILE : 0);
+  static constexpr int RECS = F32B ? WARP / 4 : RECW;   // floats between warps' partials
+  static_assert(!F32B || WARP >= G_MAXQ * REC * 4, "the partials fit in the stages");
+  static_assert(!SCALED || CHUNK == G_CHUNK, "scaled kinds load 32-position chunks");
+  static_assert(WARPS * WARP + STATIC <= 232448, "a block's shared memory");
 };
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -296,37 +359,41 @@ __device__ __forceinline__ uint32_t code_pair(uint32_t r, int odd, int nib, BF) 
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int KIND, typename Q, int DH>
-__global__ void __launch_bounds__(GLayout<KIND, Q, DH>::THREADS)
+// RAGGED: the capacity-DH body of head dim dh (< DH, or = DH = 256).
+template <int KIND, typename Q, int DH, bool RAGGED>
+__global__ void __launch_bounds__(GLayout<KIND, Q, DH, RAGGED>::THREADS)
 cross_attn_grouped_kernel(const Q* __restrict__ q,
                           const typename Store<KIND, Q, DH>::T* __restrict__ k_t,
                           const typename Store<KIND, Q, DH>::T* __restrict__ v_t,
                           const float* __restrict__ k_scale,
                           const float* __restrict__ v_scale,
                           Q* __restrict__ out, int KQ, int row_stride,
-                          int S_pad, int s_valid) {
-  using L = GLayout<KIND, Q, DH>;
+                          int S_pad, int s_valid, int dh) {
+  using L = GLayout<KIND, Q, DH, RAGGED>;
   using St = Store<KIND, Q, DH>;
   using T = typename St::T;
   constexpr bool F32 = L::F32;
   constexpr int NS = L::NS, G_WARPS = L::WARPS, G_THREADS = L::THREADS;
-  constexpr int REC = L::REC, RECW = L::RECW;
+  constexpr int REC = L::REC, RECW = L::RECW, CH = L::CHUNK;
+  // the head dim of q, the output and the stored rows; the rows loaded
+  const int dhr = RAGGED ? dh : DH;
+  const int rows = RAGGED ? (KIND == KV_INT4 ? dh / 2 : dh) : St::ROWS;
   constexpr int KS = DH / 16;   // k steps of 16 dims over q (16-bit body)
   constexpr int OT = DH / 8;    // 8-dim output tiles (16-bit body)
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float rec[G_WARPS][RECW];        // [slot][REC] partials a warp
+  __shared__ float rec[G_WARPS][L::RECW_STATIC];  // [slot][REC] partials a warp
   __shared__ float qs[F32 ? G_MAXQ : 1][DH];  // the f32 body's slots
   cg::cluster_group cluster = cg::this_cluster();
   const int g = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rank = (int)cluster.block_rank(), splits = (int)cluster.num_blocks();
-  const T* kg = k_t + (size_t)g * St::ROWS * S_pad;
-  const T* vg = v_t + (size_t)g * St::ROWS * S_pad;
+  const T* kg = k_t + (size_t)g * rows * S_pad;
+  const T* vg = v_t + (size_t)g * rows * S_pad;
   const float* ksg = L::SCALED ? k_scale + (size_t)g * S_pad : nullptr;
   const float* vsg = L::SCALED ? v_scale + (size_t)g * S_pad : nullptr;
   const Q* qg = q + (size_t)g * row_stride;
 
   // this warp's chunks: the block's share of the row, then the warp's
-  const int nch = (s_valid + G_CHUNK - 1) / G_CHUNK;
+  const int nch = (s_valid + CH - 1) / CH;
   const int b_lo = rank * nch / splits, b_hi = (rank + 1) * nch / splits;
   // the block's chunks dealt round to its warps, so that the warps' loads of
   // one round cover 128 neighbouring positions of every stored row
@@ -338,24 +405,27 @@ cross_attn_grouped_kernel(const Q* __restrict__ q,
 
   // the warp's chunk j into stage i: every 16-byte piece below s_valid (a
   // piece that straddles it is zero filled past it; the padding is never
-  // read)
+  // read); RAGGED: the stage rows past the stored rows are zero filled too
+  // (q is zero there, and 0 x garbage may be NaN), so the copies are the
+  // whole body's, at the capacity's rows
   auto load = [&](int j, int i) {
     if (j < nj) {
-      const int s0 = chunk_of(j) * G_CHUNK;
+      const int s0 = chunk_of(j) * CH;
       const uint32_t st = wsm_u + i * L::STAGE;
       constexpr int VEC = St::VEC, E = 16 / VEC;  // positions a piece, bytes each
-      constexpr int PPR = G_CHUNK / VEC;          // pieces a stored row
+      constexpr int PPR = CH / VEC;               // pieces a stored row
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const T* src = (h ? vg : kg) + s0;
 #pragma unroll
         for (int p = lane; p < St::ROWS * PPR; p += 32) {
           const int r = p / PPR, pc = p % PPR;
+          const bool in = !RAGGED || r < rows;
           const int dst = st + h * L::RAW + L::Raw::off(r, pc);
-          if (s0 + G_CHUNK <= s_valid) {  // a whole chunk: no piece straddles s_valid
-            cp_async16_line(dst, src + (size_t)r * S_pad + pc * VEC, 16);
+          if (s0 + CH <= s_valid) {  // a whole chunk: no piece straddles s_valid
+            cp_async16_line(dst, in ? src + (size_t)r * S_pad + pc * VEC : src, in ? 16 : 0);
           } else {
-            const int bytes = max(0, min(16, (s_valid - s0 - pc * VEC) * E));
+            const int bytes = in ? max(0, min(16, (s_valid - s0 - pc * VEC) * E)) : 0;
             cp_async16_line(dst, bytes ? src + (size_t)r * S_pad + pc * VEC : src, bytes);
           }
         }
@@ -420,14 +490,26 @@ cross_attn_grouped_kernel(const Q* __restrict__ q,
     // they lie; B is the V tile through ldmatrix (fp) or one 4-byte load of
     // four positions, split into the same even and odd pairs (codes).
     const int gq = lane >> 2, t4 = lane & 3, mi = lane >> 3, mr = lane & 7;
+    constexpr int NT = CH / 8;  // 8-position score tiles of a chunk
     uint32_t qa[KS][4];
+    // RAGGED: the 16 bits of q's capacity dim c (zero past dh)
+    auto q16 = [&](int c) -> uint32_t {
+      const int d = dim_of<KIND, DH>(c, dh);
+      return d >= 0 ? (uint32_t)reinterpret_cast<const unsigned short*>(qg + gq * dh)[d] : 0u;
+    };
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      const Q* qp = qg + gq * DH + ks * 16 + 2 * t4;
       const bool on = gq < KQ;
-      qa[ks][0] = on ? *reinterpret_cast<const uint32_t*>(qp) : 0u;
+      if constexpr (RAGGED) {
+        const int c = ks * 16 + 2 * t4;
+        qa[ks][0] = on ? q16(c) | (q16(c + 1) << 16) : 0u;
+        qa[ks][2] = on ? q16(c + 8) | (q16(c + 9) << 16) : 0u;
+      } else {
+        const Q* qp = qg + gq * DH + ks * 16 + 2 * t4;
+        qa[ks][0] = on ? *reinterpret_cast<const uint32_t*>(qp) : 0u;
+        qa[ks][2] = on ? *reinterpret_cast<const uint32_t*>(qp + 8) : 0u;
+      }
       qa[ks][1] = 0u;
-      qa[ks][2] = on ? *reinterpret_cast<const uint32_t*>(qp + 8) : 0u;
       qa[ks][3] = 0u;
     }
     // the chunk position of score tile n (two per 16 positions), element e
@@ -449,19 +531,19 @@ cross_attn_grouped_kernel(const Q* __restrict__ q,
       __syncwarp();              // ... and for the warp's; stage j - 1 is free
       load(j + NS - 1, (j + NS - 1) % NS);
       const uint32_t kt = wsm_u + i * L::STAGE, vt = kt + L::RAW;
-      float sc[4][4];
+      float sc[NT][4];
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[n][e] = 0.0f;
       if constexpr (!L::SCALED) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < CH / 16; ++h)
 #pragma unroll
           for (int ks = 0; ks < KS; ++ks) {
             uint32_t b[4];  // [d lo, d hi] x [positions 16h .. + 7, + 8 .. + 15]
-            ldmatrix_x4_trans(b, kt + Tile<Q>::off(ks * 16 + (mi & 1) * 8 + mr,
-                                                   h * 2 + (mi >> 1)));
+            ldmatrix_x4_trans(b, kt + L::Raw::off(ks * 16 + (mi & 1) * 8 + mr,
+                                                  h * 2 + (mi >> 1)));
             mma16(sc[2 * h], qa[ks], b[0], b[1], Q());
             mma16(sc[2 * h + 1], qa[ks], b[2], b[3], Q());
           }
@@ -496,13 +578,13 @@ cross_attn_grouped_kernel(const Q* __restrict__ q,
             mma16(sc[2 * h + odd], qa[0], code_pair<KIND>(b[h], odd, 0, Q()),
                   code_pair<KIND>(b[h], odd, 1, Q()), Q());
       }
-      // online softmax of slot gq over the chunk's 32 positions, in base 2
-      // (this thread: 8 of them; the 4 lanes of a slot hold the rest)
-      const int s0 = chunk_of(j) * G_CHUNK;
+      // online softmax of slot gq over the chunk's CH positions, in base 2
+      // (this thread: CH / 4 of them; the 4 lanes of a slot hold the rest)
+      const int s0 = chunk_of(j) * CH;
       const float* scl = L::SCALED ? scales(i) : nullptr;
-      float x[4][2], mt = -INFINITY;
+      float x[NT][2], mt = -INFINITY;
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int p = pos_of(n, e);
@@ -516,9 +598,9 @@ cross_attn_grouped_kernel(const Q* __restrict__ q,
       const float corr = ex2(m_run[0] - mn);
       m_run[0] = mn;
       float lsum = 0.0f;
-      uint32_t pa[2][4];
+      uint32_t pa[CH / 16][4];
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int n = 0; n < NT; ++n) {
         float pv[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -539,11 +621,11 @@ cross_attn_grouped_kernel(const Q* __restrict__ q,
       }
       if constexpr (!L::SCALED) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < CH / 16; ++h)
 #pragma unroll
           for (int dp = 0; dp < DH / 16; ++dp) {
             uint32_t b[4];  // [dims 16dp .. + 7, + 8 .. + 15] x [positions lo, hi]
-            ldmatrix_x4(b, vt + Tile<Q>::off((2 * dp + (mi >> 1)) * 8 + mr, h * 2 + (mi & 1)));
+            ldmatrix_x4(b, vt + L::Raw::off((2 * dp + (mi >> 1)) * 8 + mr, h * 2 + (mi & 1)));
             mma16(o[2 * dp], pa[h], b[0], b[1], Q());
             mma16(o[2 * dp + 1], pa[h], b[2], b[3], Q());
           }
@@ -568,15 +650,178 @@ cross_attn_grouped_kernel(const Q* __restrict__ q,
     float* r = &rec[warp][gq * REC];
 #pragma unroll
     for (int n = 0; n < OT; ++n) {
-      r[n * 8 + 2 * t4] = o[n][0];
-      r[n * 8 + 2 * t4 + 1] = o[n][1];
+      if constexpr (RAGGED) {  // at the dims they stand for
+        const int d0 = dim_of<KIND, DH>(n * 8 + 2 * t4, dh);
+        const int d1 = dim_of<KIND, DH>(n * 8 + 2 * t4 + 1, dh);
+        if (d0 >= 0) r[d0] = o[n][0];
+        if (d1 >= 0) r[d1] = o[n][1];
+      } else {
+        r[n * 8 + 2 * t4] = o[n][0];
+        r[n * 8 + 2 * t4 + 1] = o[n][1];
+      }
     }
     if (t4 == 0) {
       r[DH] = m_run[0];
       r[DH + 1] = l;
     }
+  } else if constexpr (L::F32B) {
+    // ---- f32 q, the second body: CUDA cores, f32 arithmetic ----
+    // q's slots by capacity dim (zeros past dh) in shared memory
+    for (int e = tid; e < G_MAXQ * DH; e += G_THREADS) {
+      const int jq = e / DH, c = e % DH;
+      const int d = RAGGED ? dim_of<KIND, DH>(c, dh) : c;
+      qs[jq][c] = jq < KQ && d >= 0 ? qg[jq * dhr + d] : 0.0f;
+    }
+    __syncthreads();
+    float* ps = rec[warp];  // [slot][CH] probabilities
+    // scores: R lanes a position, lane = (position sp, dims sg + R i)
+    constexpr int R = 32 / CH;
+    const int sp = lane % CH, sg = lane / CH;
+    // value dims of this lane: lane + 32 i (at DH = 16 lanes 16-31 repeat
+    // lanes 0-15's dims and keep nothing)
+    constexpr int DPL = DH >= 32 ? DH / 32 : 1;
+    const int dl = lane & (DH >= 32 ? 31 : DH - 1);
+    using Raw = typename L::Raw;
+    // K at capacity dim c, chunk position s, of a stage's stored K tile
+    auto kval = [&](const unsigned char* kt, int c, int s) -> float {
+      if constexpr (KIND == KV_FP) {
+        return *reinterpret_cast<const float*>(kt + Raw::off(c, s >> 2) + (s & 3) * 4);
+      } else if constexpr (KIND == KV_INT8) {
+        return (float)*reinterpret_cast<const int8_t*>(kt + Raw::off(c, s >> 4) + (s & 15));
+      } else {
+        constexpr int CR = DH / 2;
+        const int b = *reinterpret_cast<const int8_t*>(kt + Raw::off(c % CR, s >> 4) + (s & 15));
+        return (float)(c < CR ? ((b & 15) ^ 8) - 8 : b >> 4);
+      }
+    };
+    // V at capacity dim c, chunk positions 4 pq .. + 3
+    auto vval4 = [&](const unsigned char* vt, int c, int pq, float (&v)[4]) {
+      if constexpr (KIND == KV_FP) {
+        const float4 f = *reinterpret_cast<const float4*>(vt + Raw::off(c, pq));
+        v[0] = f.x;
+        v[1] = f.y;
+        v[2] = f.z;
+        v[3] = f.w;
+      } else if constexpr (KIND == KV_INT8) {
+        owc_int8x4_to_float(
+            *reinterpret_cast<const uint32_t*>(vt + Raw::off(c, pq >> 2) + (pq & 3) * 4), v);
+      } else {
+        constexpr int CR = DH / 2;
+        owc_int4x4_to_float(
+            *reinterpret_cast<const uint32_t*>(vt + Raw::off(c % CR, pq >> 2) + (pq & 3) * 4),
+            c < CR ? 0 : 4, v);
+      }
+    };
+    // the main loop over MQ slots: 1 where the launch holds one (a greedy
+    // step: no slot predicates, and q in registers where a lane's dims are
+    // at most 64), else G_MAXQ
+    auto run = [&](auto mq_tag) {
+      constexpr int MQ = decltype(mq_tag)::value;
+      constexpr bool QREG = MQ == 1 && DH / R <= 64;
+      auto on = [&](int jq) { return MQ == 1 || jq < KQ; };
+      float qreg[QREG ? DH / R : 1];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int ii = 0; ii < DH / R; ++ii) qreg[ii] = qs[0][ii * R + sg];
+      }
+      float o[MQ][DPL];
+#pragma unroll
+      for (int jq = 0; jq < MQ; ++jq)
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) o[jq][i] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NS - 1; ++i) load(i, i);
+      for (int j = 0; j < nj; ++j) {
+        const int i = j % NS;
+        cp_async_wait<NS - 2>();
+        __syncwarp();
+        load(j + NS - 1, (j + NS - 1) % NS);
+        const unsigned char* kt = wsm + i * L::STAGE;
+        const unsigned char* vt = kt + L::RAW;
+        float acc[MQ];
+#pragma unroll
+        for (int jq = 0; jq < MQ; ++jq) acc[jq] = 0.0f;
+        if constexpr (QREG) {   // unrolled whole: qreg stays in registers
+#pragma unroll
+          for (int ii = 0; ii < DH / R; ++ii)
+            acc[0] = fmaf(qreg[ii], kval(kt, ii * R + sg, sp), acc[0]);
+        } else {
+#pragma unroll 8
+          for (int ii = 0; ii < DH / R; ++ii) {
+            const int c = ii * R + sg;
+            const float kv = kval(kt, c, sp);
+#pragma unroll
+            for (int jq = 0; jq < MQ; ++jq)
+              if (on(jq)) acc[jq] = fmaf(qs[jq][c], kv, acc[jq]);
+          }
+        }
+#pragma unroll
+        for (int jq = 0; jq < MQ; ++jq)
+#pragma unroll
+          for (int o2 = CH; o2 < 32; o2 <<= 1)
+            if (on(jq)) acc[jq] += __shfl_xor_sync(0xffffffffu, acc[jq], o2);
+        const int pos = chunk_of(j) * CH + sp;
+        const bool valid = pos < s_valid;
+        const float* scl = L::SCALED ? scales(i) : nullptr;
+        __syncwarp();  // the previous chunk's probabilities have been read
+#pragma unroll
+        for (int jq = 0; jq < MQ; ++jq) {
+          if (on(jq)) {
+            const float x = valid ? (L::SCALED ? acc[jq] * scl[sp] : acc[jq]) : -INFINITY;
+            const float mn = fmaxf(m_run[jq], owc_warp_max(x));
+            const float corr = expf(m_run[jq] - mn);
+            m_run[jq] = mn;
+            const float p = expf(x - mn);
+            l_run[jq] = l_run[jq] * corr + owc_warp_sum(sg == 0 ? p : 0.0f);
+            if (sg == 0)
+              ps[jq * CH + sp] = L::SCALED ? (valid ? p * scl[CH + sp] : 0.0f) : p;
+#pragma unroll
+            for (int i2 = 0; i2 < DPL; ++i2) o[jq][i2] *= corr;
+          }
+        }
+        __syncwarp();
+        // values: lane = head dims lane + 32 i
+#pragma unroll
+        for (int pq = 0; pq < CH / 4; ++pq) {
+          float v[DPL][4];
+#pragma unroll
+          for (int i2 = 0; i2 < DPL; ++i2) vval4(vt, dl + 32 * i2, pq, v[i2]);
+#pragma unroll
+          for (int jq = 0; jq < MQ; ++jq) {
+            if (on(jq)) {
+              const float4 p = *reinterpret_cast<const float4*>(ps + jq * CH + pq * 4);
+#pragma unroll
+              for (int i2 = 0; i2 < DPL; ++i2)
+                o[jq][i2] = fmaf(p.x, v[i2][0],
+                                 fmaf(p.y, v[i2][1],
+                                      fmaf(p.z, v[i2][2], fmaf(p.w, v[i2][3], o[jq][i2]))));
+            }
+          }
+        }
+      }
+      cp_async_wait<0>();
+      __syncwarp();  // the drained stages become the warp's record
+      float* wrec = reinterpret_cast<float*>(wsm);
+#pragma unroll
+      for (int jq = 0; jq < MQ; ++jq) {
+        if (on(jq)) {
+#pragma unroll
+          for (int i2 = 0; i2 < DPL; ++i2) {
+            const int c = lane + 32 * i2;
+            const int d = RAGGED ? dim_of<KIND, DH>(c, dh) : c;
+            if (c < DH && d >= 0) wrec[jq * REC + d] = o[jq][i2];
+          }
+          if (lane == 0) {
+            wrec[jq * REC + DH] = m_run[jq];
+            wrec[jq * REC + DH + 1] = l_run[jq];
+          }
+        }
+      }
+    };
+    if (KQ == 1) run(std::integral_constant<int, 1>());
+    else run(std::integral_constant<int, G_MAXQ>());
   } else {
-    // ---- f32 q: CUDA cores, f32 arithmetic ----
+    // ---- f32 q, the first body (whole DH <= 64): CUDA cores, f32 ----
     for (int e = tid; e < G_MAXQ * DH; e += G_THREADS)
       qs[e / DH][e % DH] = e / DH < KQ ? qg[e] : 0.0f;
     __syncthreads();
@@ -673,20 +918,21 @@ cross_attn_grouped_kernel(const Q* __restrict__ q,
   // every warp's record of every block of the row, combined in a fixed order
   // (rank, then warp): no atomics, the same bits from run to run
   cluster.sync();
-  for (int e = rank * G_THREADS + tid; e < KQ * DH; e += splits * G_THREADS) {
-    const int j = e / DH, d = e % DH;
+  float* recs = L::F32B ? reinterpret_cast<float*>(smem) : &rec[0][0];
+  for (int e = rank * G_THREADS + tid; e < KQ * dhr; e += splits * G_THREADS) {
+    const int j = e / dhr, d = e % dhr;
     float big = -INFINITY;
     for (int sp = 0; sp < splits; ++sp) {
-      const float* rr = &cluster.map_shared_rank(&rec[0][0], sp)[j * REC];
+      const float* rr = &cluster.map_shared_rank(recs, sp)[j * REC];
 #pragma unroll
-      for (int w = 0; w < G_WARPS; ++w) big = fmaxf(big, rr[w * RECW + DH]);
+      for (int w = 0; w < G_WARPS; ++w) big = fmaxf(big, rr[w * L::RECS + DH]);
     }
     float l = 0.0f, acc = 0.0f;
     for (int sp = 0; sp < splits; ++sp) {
-      const float* rr = &cluster.map_shared_rank(&rec[0][0], sp)[j * REC];
+      const float* rr = &cluster.map_shared_rank(recs, sp)[j * REC];
 #pragma unroll
       for (int w = 0; w < G_WARPS; ++w) {
-        const float* x = rr + w * RECW;
+        const float* x = rr + w * L::RECS;
         const float m = x[DH];
         if (m == -INFINITY) continue;  // a warp that had no chunk
         const float wgt = F32 ? expf(m - big) : ex2(m - big);  // m in base 2 but for f32
@@ -694,20 +940,20 @@ cross_attn_grouped_kernel(const Q* __restrict__ q,
         acc = fmaf(x[d], wgt, acc);
       }
     }
-    owc_store(out + (size_t)g * row_stride + j * DH + d, acc / l);
+    owc_store(out + (size_t)g * row_stride + j * dhr + d, acc / l);
   }
   cluster.sync();  // no block leaves while another still reads its records
 }
 
-template <int KIND, typename Q, int DH>
+template <int KIND, typename Q, int DH, bool RAGGED>
 int launch(const void* q, const void* k_t, const void* v_t, const void* k_scale,
            const void* v_scale, void* out, int BH, int KQ, int row_stride,
-           int S_pad, int s_valid, int splits, cudaStream_t st) {
+           int S_pad, int s_valid, int splits, int dh, cudaStream_t st) {
   using T = typename Store<KIND, Q, DH>::T;
-  using L = GLayout<KIND, Q, DH>;
+  using L = GLayout<KIND, Q, DH, RAGGED>;
   constexpr int smem = L::WARPS * L::WARP;
   if (splits < 1 || splits > 8) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(cross_attn_grouped_kernel<KIND, Q, DH>,
+  cudaError_t e = cudaFuncSetAttribute(cross_attn_grouped_kernel<KIND, Q, DH, RAGGED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
@@ -722,11 +968,11 @@ int launch(const void* q, const void* k_t, const void* v_t, const void* k_scale,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, cross_attn_grouped_kernel<KIND, Q, DH>, static_cast<const Q*>(q),
-                         static_cast<const T*>(k_t), static_cast<const T*>(v_t),
-                         static_cast<const float*>(k_scale),
+  e = cudaLaunchKernelEx(&cfg, cross_attn_grouped_kernel<KIND, Q, DH, RAGGED>,
+                         static_cast<const Q*>(q), static_cast<const T*>(k_t),
+                         static_cast<const T*>(v_t), static_cast<const float*>(k_scale),
                          static_cast<const float*>(v_scale), static_cast<Q*>(out), KQ,
-                         row_stride, S_pad, s_valid);
+                         row_stride, S_pad, s_valid, dh);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1035,18 +1281,18 @@ int launch_one_query(const void* q, const void* k_t, const void* v_t, const void
   return (int)cudaGetLastError();
 }
 
-// The launchers of one head dim, over every storage kind and q type;
+// The launchers of one capacity, over every storage kind and q type;
 // cudaErrorInvalidValue where a code or a size is out of range.
-template <int DH>
+template <int DH, bool RAGGED>
 int grouped_dh(const void* q, const void* k_t, const void* v_t, const void* k_scale,
                const void* v_scale, void* out, int BH, int KQ, int row_stride, int S_pad,
-               int s_valid, int splits, int kind, int dtype, cudaStream_t st) {
+               int s_valid, int splits, int kind, int dtype, int dh, cudaStream_t st) {
   if (KQ < 1 || KQ > G_MAXQ || splits > (s_valid + G_CHUNK - 1) / G_CHUNK)
     return (int)cudaErrorInvalidValue;
   int err = 0;
   const bool ok = dispatch(kind, dtype, [&](auto kind_tag, auto qt) {
-    err = launch<decltype(kind_tag)::value, decltype(qt), DH>(
-        q, k_t, v_t, k_scale, v_scale, out, BH, KQ, row_stride, S_pad, s_valid, splits,
+    err = launch<decltype(kind_tag)::value, decltype(qt), DH, RAGGED>(
+        q, k_t, v_t, k_scale, v_scale, out, BH, KQ, row_stride, S_pad, s_valid, splits, dh,
         st);
   });
   return ok ? err : (int)cudaErrorInvalidValue;
@@ -1064,27 +1310,49 @@ int one_query_dh(const void* q, const void* k_t, const void* v_t, const void* k_
   return ok ? err : (int)cudaErrorInvalidValue;
 }
 
+// the one-query launcher of capacity DH: the one-query kernel's whole body,
+// else (RAGGED, and 256) the grouped kernel at one slot (see below)
+template <int DH, bool RAGGED>
+int one_query_any(const void* q, const void* k_t, const void* v_t, const void* k_scale,
+                  const void* v_scale, void* out, int BH, int splits, int S_pad,
+                  int s_valid, int kind, int dtype, int dh, cudaStream_t st) {
+  if constexpr (RAGGED || DH > 128)
+    return grouped_dh<DH, RAGGED>(q, k_t, v_t, k_scale, v_scale, out, BH, 1, dh, S_pad,
+                                  s_valid, splits, kind, dtype, dh, st);
+  else
+    return one_query_dh<DH>(q, k_t, v_t, k_scale, v_scale, out, BH, splits, S_pad,
+                            s_valid, kind, dtype, st);
+}
+
 }  // namespace
 
-// Declares, or with a body defines, the two launchers of head dim DH that
-// the C entry points of cross_attention.cu call.
+// Declares, or with a body defines, the two launchers of capacity DH, whole
+// (`owc_cross_*_d<DH>`, DH <= 128) or RAGGED (`owc_cross_*_r<DH>`, head dim
+// dh at run time), that the C entry points of cross_attention.cu call. A
+// RAGGED one-query launcher runs the grouped kernel's RAGGED body at one
+// slot (the computation the one-query kernel makes, at half the instances
+// to compile), as capacity 256 must: there the one-query kernel's lane
+// would hold 32 stored rows of K and of V.
 #define OWC_CROSS_GROUPED_ARGS                                                       \
   const void *q, const void *k_t, const void *v_t, const void *k_scale,             \
       const void *v_scale, void *out, int BH, int KQ, int row_stride, int S_pad,    \
-      int s_valid, int splits, int kind, int dtype, cudaStream_t st
+      int s_valid, int splits, int kind, int dtype, int dh, cudaStream_t st
 #define OWC_CROSS_ONE_QUERY_ARGS                                                     \
   const void *q, const void *k_t, const void *v_t, const void *k_scale,             \
       const void *v_scale, void *out, int BH, int splits, int S_pad, int s_valid,   \
-      int kind, int dtype, cudaStream_t st
-#define OWC_CROSS_DECLARE(DH)                                   \
-  int owc_cross_grouped_d##DH(OWC_CROSS_GROUPED_ARGS);          \
-  int owc_cross_one_query_d##DH(OWC_CROSS_ONE_QUERY_ARGS);
-#define OWC_CROSS_DEFINE(DH)                                                        \
-  int owc_cross_grouped_d##DH(OWC_CROSS_GROUPED_ARGS) {                             \
-    return grouped_dh<DH>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ, row_stride,   \
-                          S_pad, s_valid, splits, kind, dtype, st);                 \
+      int kind, int dtype, int dh, cudaStream_t st
+#define OWC_CROSS_DECLARE(NAME)                                 \
+  int owc_cross_grouped_##NAME(OWC_CROSS_GROUPED_ARGS);         \
+  int owc_cross_one_query_##NAME(OWC_CROSS_ONE_QUERY_ARGS);
+#define OWC_CROSS_DEFINE_AS(NAME, DH, RAGGED)                                       \
+  int owc_cross_grouped_##NAME(OWC_CROSS_GROUPED_ARGS) {                            \
+    return grouped_dh<DH, RAGGED>(q, k_t, v_t, k_scale, v_scale, out, BH, KQ,       \
+                                  row_stride, S_pad, s_valid, splits, kind, dtype,  \
+                                  dh, st);                                          \
   }                                                                                 \
-  int owc_cross_one_query_d##DH(OWC_CROSS_ONE_QUERY_ARGS) {                         \
-    return one_query_dh<DH>(q, k_t, v_t, k_scale, v_scale, out, BH, splits, S_pad,  \
-                            s_valid, kind, dtype, st);                              \
+  int owc_cross_one_query_##NAME(OWC_CROSS_ONE_QUERY_ARGS) {                        \
+    return one_query_any<DH, RAGGED>(q, k_t, v_t, k_scale, v_scale, out, BH, splits, \
+                                     S_pad, s_valid, kind, dtype, dh, st);          \
   }
+#define OWC_CROSS_DEFINE(DH) OWC_CROSS_DEFINE_AS(d##DH, DH, false)
+#define OWC_CROSS_DEFINE_RAGGED(DH) OWC_CROSS_DEFINE_AS(r##DH, DH, true)

@@ -86,6 +86,20 @@
 //   64 more output and 16 more q registers a thread would not fit, a stage
 //   holds 64 keys (m64n64k16 scores) in place of 128. The numbers above
 //   are DH = 64's.
+// - Any other head dim dh up to 256 runs the RAGGED instance of its
+//   capacity (the smallest of 16, 32, 64, 128, 256 >= dh), which takes dh
+//   at run time. The products run at the capacity's width: the tensor maps
+//   of k and v have the inner extent dh and boxes of the capacity's rows,
+//   so TMA fills the dims past dh with zeros, which add nothing to a score;
+//   q is read zero past dh, and only dh output columns are written (both in
+//   bf16 pairs where dh and the rows allow, else an element at a time). (The maps need (B, H, T) strides of 16-byte
+//   multiples; where a view lacks them, the wrapper copies it once into a
+//   zero-padded buffer of the capacity's width.) Capacity 256 takes 64-key
+//   stages like 128, a K tile of four 64-dim boxes, and splits the output
+//   dims over two items of 128 each (the scores of an item's rows are made
+//   twice, once for each half): 128 more output and 32 more q registers a
+//   thread would not fit. There q is loaded at the start of its item, not
+//   under the previous one.
 #include <limits.h>
 
 #include "hopper.cuh"
@@ -100,18 +114,26 @@ constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 using BF = __nv_bfloat16;
 
-// The tiles of head dim DH: BN keys a stage, each K or V tile HALVES
-// [BN][HD] halves of ROWB-byte rows in the ROWB-byte swizzle.
+// The tiles of head dim DH: BN keys a stage, a K tile HALVES [BN][HD]
+// halves of ROWB-byte rows in the ROWB-byte swizzle, a V tile the VHALVES
+// halves of the DV output dims an item makes (DV = DH but at 256: 128, and
+// each (batch, head, query block) is OSPLIT items, one a 128-dim half).
 template <int DH>
 struct Geo {
-  static constexpr int BN = DH == 128 ? 64 : 128;   // keys per stage
-  static constexpr int HALVES = DH == 128 ? 2 : 1;
-  static constexpr int HD = DH / HALVES;            // dims of a half
+  static constexpr int BN = DH >= 128 ? 64 : 128;   // keys per stage
+  static constexpr int HD = DH >= 128 ? 64 : DH;    // dims of a half
+  static constexpr int HALVES = DH / HD;
+  static constexpr int DV = DH > 128 ? 128 : DH;    // output dims of an item
+  static constexpr int VHALVES = DV / HD;
+  static constexpr int OSPLIT = DH / DV;
   static constexpr int ROWB = HD * 2;               // bytes of a half's row
   static constexpr int HALF_BYTES = BN * ROWB;
-  static constexpr int TILE_BYTES = BN * DH * 2;    // one K or V tile
-  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr int TILE_BYTES = BN * DH * 2;    // one K tile
+  static constexpr int V_BYTES = BN * DV * 2;       // one V tile
+  static constexpr int STAGE_BYTES = TILE_BYTES + V_BYTES;
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+  // the next item's q fetched under this one (not at 256: its 64 registers)
+  static constexpr bool PREFETCH_Q = DH <= 128;
 };
 
 // Keeps the compiler from moving reads or writes of registers that an
@@ -264,6 +286,13 @@ __device__ __forceinline__ uint32_t load_q2(const BF* p, float scale) {
   return pack_bf16(f.x * scale, f.y * scale);
 }
 
+// The same of the first n of the two (zeros past them), an element at a
+// time (RAGGED: q's rows need not be 4-byte aligned).
+__device__ __forceinline__ uint32_t load_q2_part(const BF* p, int n, float scale) {
+  return pack_bf16(n > 0 ? __bfloat162float(p[0]) * scale : 0.0f,
+                   n > 1 ? __bfloat162float(p[1]) * scale : 0.0f);
+}
+
 struct Strides {  // in elements; the head dim is contiguous
   long long b, h, t;
 };
@@ -284,19 +313,22 @@ __device__ __forceinline__ void load_kv_tile(void* dst, const CUtensorMap* map,
   tma_load_4d(dst, map, bar, d0, c[1], c[2], c[3]);
 }
 
-template <int DH>
+// RAGGED: the capacity-DH body of head dim dh (< DH, or = DH = 256).
+template <int DH, bool RAGGED>
 __global__ void __launch_bounds__(THREADS, 1)
 encoder_attention_kernel(const BF* __restrict__ q,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
                          BF* __restrict__ out, int BH, int H, int T, float scale,
-                         Strides qs, Strides os, CoordOrder ko, CoordOrder vo) {
+                         Strides qs, Strides os, CoordOrder ko, CoordOrder vo, int dh,
+                         bool pairs) {
   using G = Geo<DH>;
   constexpr int BN = G::BN, TILE_BYTES = G::TILE_BYTES, STAGE_BYTES = G::STAGE_BYTES;
+  constexpr int DV = G::DV, OSPLIT = G::OSPLIT;
   constexpr int KS = DH / 16;   // k steps of S = Q K^T
   constexpr int NS = BN / 8;    // 8-key score columns
   constexpr int PK = BN / 16;   // k steps of O += P V
-  constexpr int NO = DH / 8;    // 8-dim output columns
+  constexpr int NO = DV / 8;    // 8-dim output columns
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[STAGES];
   __shared__ __align__(8) uint64_t empty_bar[STAGES];
@@ -305,7 +337,8 @@ encoder_attention_kernel(const BF* __restrict__ q,
   const int tid = threadIdx.x;
   const int ntiles = (T + BN - 1) / BN;
   const int qblocks = (T + BM - 1) / BM;
-  const int items = qblocks * BH;  // (batch, head, query block), query block fastest
+  // (batch, head, output half, query block), query block fastest
+  const int items = qblocks * OSPLIT * BH;
 
   if (tid == 0) {
 #pragma unroll
@@ -323,19 +356,21 @@ encoder_attention_kernel(const BF* __restrict__ q,
     if (tid == CONSUMERS) {
       int it = 0;  // tiles loaded so far, over all of this block's items
       for (int w = blockIdx.x; w < items; w += gridDim.x) {
-        const int bh = w / qblocks, b = bh / H, h = bh % H;
+        const int bh = w / (qblocks * OSPLIT), b = bh / H, h = bh % H;
+        const int v0 = (w % (qblocks * OSPLIT)) / qblocks * DV;  // the item's V dims
         for (int j = 0; j < ntiles; ++j, ++it) {
           const int s = it % STAGES, round = it / STAGES;
           mbar_wait(&empty_bar[s], (round & 1) ^ 1);  // passes on a fresh barrier
           mbar_expect_tx(&full_bar[s], STAGE_BYTES);
           unsigned char* stage = tiles + s * STAGE_BYTES;
 #pragma unroll
-          for (int hf = 0; hf < G::HALVES; ++hf) {
+          for (int hf = 0; hf < G::HALVES; ++hf)
             load_kv_tile(stage + hf * G::HALF_BYTES, &k_map, &full_bar[s], ko, j * BN, h,
                          b, hf * G::HD);
+#pragma unroll
+          for (int hf = 0; hf < G::VHALVES; ++hf)
             load_kv_tile(stage + TILE_BYTES + hf * G::HALF_BYTES, &v_map, &full_bar[s], vo,
-                         j * BN, h, b, hf * G::HD);
-          }
+                         j * BN, h, b, v0 + hf * G::HD);
         }
       }
     }
@@ -349,7 +384,7 @@ encoder_attention_kernel(const BF* __restrict__ q,
   // A fragments of item w's scaled query rows: a0 (row g, cols 2t), a1 (row
   // g + 8), a2 (row g, cols 2t + 8), a3 (row g + 8, cols 2t + 8)
   auto load_q = [&](uint32_t (&f)[KS][4], int w) {
-    const int bh = w / qblocks, row0 = (w % qblocks) * BM + row_in_block;
+    const int bh = w / (qblocks * OSPLIT), row0 = (w % qblocks) * BM + row_in_block;
     const BF* qb = q + (bh / H) * qs.b + (bh % H) * qs.h;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
@@ -357,13 +392,18 @@ encoder_attention_kernel(const BF* __restrict__ q,
       for (int i = 0; i < 4; ++i) {
         const int row = row0 + (i & 1) * 8;
         const int col = kk * 16 + (i >> 1) * 8 + 2 * t4;
-        f[kk][i] = row < T ? load_q2(qb + row * qs.t + col, scale) : 0u;
+        if constexpr (RAGGED)   // pairs: dh even, q's rows 4-byte aligned
+          f[kk][i] = row >= T ? 0u
+                     : pairs  ? (col < dh ? load_q2(qb + row * qs.t + col, scale) : 0u)
+                              : load_q2_part(qb + row * qs.t + col, dh - col, scale);
+        else
+          f[kk][i] = row < T ? load_q2(qb + row * qs.t + col, scale) : 0u;
       }
   };
 
-  uint32_t qf[KS][4], q_next[KS][4];
+  uint32_t qf[KS][4], q_next[G::PREFETCH_Q ? KS : 1][4];
   float s_acc[BN / 2];  // scores of BN keys, then their exponentials
-  float o_acc[DH / 2];
+  float o_acc[DV / 2];
   uint32_t p_frag[PK][4];  // bf16 probabilities: the A operand of P V
   float m_run[2], l_run[2];  // rows g and g + 8; l is this lane's share
   int it = 0;  // tiles consumed before the current item
@@ -385,14 +425,14 @@ encoder_attention_kernel(const BF* __restrict__ q,
   auto issue_pv = [&](int j) {
     unsigned char* vt = tiles + ((it + j) % STAGES) * STAGE_BYTES + TILE_BYTES;
 #pragma unroll
-    for (int hf = 0; hf < G::HALVES; ++hf) {
+    for (int hf = 0; hf < G::VHALVES; ++hf) {
       const uint64_t vd = tile_desc<G::ROWB>(vt + hf * G::HALF_BYTES);
 #pragma unroll
       for (int kk = 0; kk < PK; ++kk) {  // 16 keys are 16 rows
         const uint64_t d = vd + ((kk * 16 * G::ROWB) >> 4);
-        if constexpr (DH == 64)
+        if constexpr (DV == 64)
           wgmma_pv(o_acc, p_frag[kk], d);
-        else if constexpr (G::HD == 64)  // DH = 128: half hf's 64 output dims
+        else if constexpr (G::HD == 64)  // DV = 128: half hf's 64 output dims
           wgmma_pv(*reinterpret_cast<float(*)[32]>(o_acc + 32 * hf), p_frag[kk], d);
         else if constexpr (G::HD == 32)
           wgmma_pv32(o_acc, p_frag[kk], d);
@@ -461,16 +501,21 @@ encoder_attention_kernel(const BF* __restrict__ q,
     for (int kk = 0; kk < PK; ++kk) reg_fence(p_frag[kk]);
   };
 
-  if ((int)blockIdx.x < items) load_q(q_next, blockIdx.x);
+  if constexpr (G::PREFETCH_Q)
+    if ((int)blockIdx.x < items) load_q(q_next, blockIdx.x);
   for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    if constexpr (G::PREFETCH_Q) {
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+      for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qf[kk][i] = q_next[kk][i];
-    // the next item's q arrives while this one's tiles stream by
-    if (w + (int)gridDim.x < items) load_q(q_next, w + gridDim.x);
+        for (int i = 0; i < 4; ++i) qf[kk][i] = q_next[kk][i];
+      // the next item's q arrives while this one's tiles stream by
+      if (w + (int)gridDim.x < items) load_q(q_next, w + gridDim.x);
+    } else {
+      load_q(qf, w);
+    }
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) o_acc[i] = 0.0f;
+    for (int i = 0; i < DV / 2; ++i) o_acc[i] = 0.0f;
     m_run[0] = m_run[1] = -INFINITY;
     l_run[0] = l_run[1] = 0.0f;
     float corr[2];
@@ -516,7 +561,8 @@ encoder_attention_kernel(const BF* __restrict__ q,
     release(ntiles - 1);
     it += ntiles;
 
-    const int bh = w / qblocks, row0 = (w % qblocks) * BM + row_in_block;
+    const int bh = w / (qblocks * OSPLIT), row0 = (w % qblocks) * BM + row_in_block;
+    const int c0 = (w % (qblocks * OSPLIT)) / qblocks * DV + 2 * t4;  // first column
     BF* ob = out + (bh / H) * os.b + (bh % H) * os.h;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -526,11 +572,22 @@ encoder_attention_kernel(const BF* __restrict__ q,
       const float inv = 1.0f / l;
       const int row = row0 + r * 8;
       if (row < T) {
-        BF* orow = ob + row * os.t + 2 * t4;
+        BF* orow = ob + row * os.t + c0;
 #pragma unroll
-        for (int n = 0; n < NO; ++n)
-          *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(
-              o_acc[4 * n + 2 * r] * inv, o_acc[4 * n + 2 * r + 1] * inv);
+        for (int n = 0; n < NO; ++n) {
+          const __nv_bfloat162 o2 = __floats2bfloat162_rn(o_acc[4 * n + 2 * r] * inv,
+                                                          o_acc[4 * n + 2 * r + 1] * inv);
+          if constexpr (RAGGED) {  // the columns below dh (in pairs where aligned)
+            if (pairs) {
+              if (c0 + n * 8 < dh) *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = o2;
+            } else {
+              if (c0 + n * 8 < dh) orow[n * 8] = o2.x;
+              if (c0 + n * 8 + 1 < dh) orow[n * 8 + 1] = o2.y;
+            }
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = o2;
+          }
+        }
       }
     }
   }
@@ -543,7 +600,7 @@ encoder_attention_kernel(const BF* __restrict__ q,
 // says where each landed.
 template <int DH>
 bool make_kv_map(CUtensorMap* map, CoordOrder* order, const void* base, int B, int H,
-                 int T, Strides st) {
+                 int T, int dh, Strides st) {
   using G = Geo<DH>;
   constexpr int BN = G::BN;
   EncodeTiledFn encode = encode_tiled_fn();
@@ -565,13 +622,16 @@ bool make_kv_map(CUtensorMap* map, CoordOrder* order, const void* base, int B, i
         dims[j] = dims[j + 1];
         dims[j + 1] = tmp;
       }
-  long long extent = DH;  // elements spanned by the dimensions so far
+  // elements spanned by the dimensions so far (a multiple of 8, so that a
+  // dimension of one element gets a 16-byte stride)
+  long long extent = (dh + 7) / 8 * 8;
   for (int i = 0; i < 3; ++i) {
     if (dims[i].size == 1) dims[i].stride = extent;
     const long long span = dims[i].stride * (long long)dims[i].size;
-    if (span > extent) extent = span;
+    if (span > extent) extent = (span + 7) / 8 * 8;
   }
-  cuuint64_t size[4] = {DH, 0, 0, 0};
+  // the inner extent dh: TMA fills a box's dims past it with zeros
+  cuuint64_t size[4] = {(cuuint64_t)dh, 0, 0, 0};
   cuuint64_t stride_bytes[3];
   cuuint32_t box[4] = {G::HD, 0, 0, 0};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
@@ -590,9 +650,9 @@ bool make_kv_map(CUtensorMap* map, CoordOrder* order, const void* base, int B, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DH, bool RAGGED>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int T,
-           float scale, const long long* strides, cudaStream_t stream) {
+           int dh, float scale, const long long* strides, cudaStream_t stream) {
   using G = Geo<DH>;
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
@@ -600,10 +660,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   const Strides os{strides[9], strides[10], strides[11]};
   CUtensorMap k_map, v_map;
   CoordOrder ko, vo;
-  if (!make_kv_map<DH>(&k_map, &ko, k, B, H, T, ks) ||
-      !make_kv_map<DH>(&v_map, &vo, v, B, H, T, vs))
+  if (!make_kv_map<DH>(&k_map, &ko, k, B, H, T, dh, ks) ||
+      !make_kv_map<DH>(&v_map, &vo, v, B, H, T, dh, vs))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(encoder_attention_kernel<DH>,
+  cudaError_t e = cudaFuncSetAttribute(encoder_attention_kernel<DH, RAGGED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        G::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
@@ -611,11 +671,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   int sms = 0;
   e = sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
-  const long long items = (long long)((T + BM - 1) / BM) * B * H;
+  const long long items = (long long)((T + BM - 1) / BM) * G::OSPLIT * B * H;
   const int grid = (int)(items < sms ? items : sms);
-  encoder_attention_kernel<DH><<<grid, THREADS, G::SMEM_BYTES, stream>>>(
+  // q and out read and written in pairs where every row starts 4-byte aligned
+  const bool pairs = owc_align_class(2LL * (dh | qs.b | qs.h | qs.t | os.b | os.h | os.t),
+                                     q, out) >= 4;
+  encoder_attention_kernel<DH, RAGGED><<<grid, THREADS, G::SMEM_BYTES, stream>>>(
       static_cast<const BF*>(q), k_map, v_map, static_cast<BF*>(out), B * H, H, T, scale,
-      qs, os, ko, vo);
+      qs, os, ko, vo, dh, pairs);
   return (int)cudaGetLastError();
 }
 
@@ -623,19 +686,32 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
 
 // q, k, v, out: bf16 (B, H, T, dh) addressed as base + b * sb + h * sh +
 // t * st + d, strides in elements, given for q, k, v and out in that order
-// as strides[12] = {sb, sh, st} x 4; dh 16, 32, 64 or 128. k and v need
-// 16-byte aligned rows (base pointer and every stride a multiple of 8
-// elements, positive strides), q and out 4-byte aligned rows. Requires
-// B * H <= 65535 and T >= 1.
+// as strides[12] = {sb, sh, st} x 4; dh 1..256 and cap its capacity, the
+// smallest of 16, 32, 64, 128, 256 that is >= dh (dh = cap <= 128 runs the
+// whole body, any other the RAGGED body of cap). k and v need 16-byte
+// aligned rows (base pointer and every stride a multiple of 8 elements,
+// positive strides), q and out 4-byte aligned rows where dh = cap (element
+// aligned otherwise). Requires B * H * (cap > 128 ? 2 : 1) <= 65535 and T >= 1.
 extern "C" int owc_encoder_attention(const void* q, const void* k, const void* v,
-                                     void* out, int B, int H, int T, int dh, float scale,
-                                     const long long* strides, void* stream) {
+                                     void* out, int B, int H, int T, int dh, int cap,
+                                     float scale, const long long* strides, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16: return launch<16>(q, k, v, out, B, H, T, scale, strides, st);
-    case 32: return launch<32>(q, k, v, out, B, H, T, scale, strides, st);
-    case 64: return launch<64>(q, k, v, out, B, H, T, scale, strides, st);
-    case 128: return launch<128>(q, k, v, out, B, H, T, scale, strides, st);
+  if (dh < 1 || dh > cap || (cap > 16 && 2 * dh <= cap)) return (int)cudaErrorInvalidValue;
+  const bool whole = dh == cap;
+  switch (cap) {
+    case 16:
+      return whole ? launch<16, false>(q, k, v, out, B, H, T, dh, scale, strides, st)
+                   : launch<16, true>(q, k, v, out, B, H, T, dh, scale, strides, st);
+    case 32:
+      return whole ? launch<32, false>(q, k, v, out, B, H, T, dh, scale, strides, st)
+                   : launch<32, true>(q, k, v, out, B, H, T, dh, scale, strides, st);
+    case 64:
+      return whole ? launch<64, false>(q, k, v, out, B, H, T, dh, scale, strides, st)
+                   : launch<64, true>(q, k, v, out, B, H, T, dh, scale, strides, st);
+    case 128:
+      return whole ? launch<128, false>(q, k, v, out, B, H, T, dh, scale, strides, st)
+                   : launch<128, true>(q, k, v, out, B, H, T, dh, scale, strides, st);
+    case 256: return launch<256, true>(q, k, v, out, B, H, T, dh, scale, strides, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

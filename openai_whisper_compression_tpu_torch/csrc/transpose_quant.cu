@@ -34,6 +34,14 @@
 //   a warp step's lane groups cover more (Dh = 16 and 32), that many, and
 //   the block has as many warps as its 128 positions need (2 at Dh = 16 in
 //   bf16).
+// - Any other head dim dh up to 256 runs the RAGGED instance of its
+//   capacity (the smallest of 16, 32, 64, 128, 256 >= dh), which takes dh
+//   at run time: a lane's dims past dh load as zeros (which leave the
+//   absmax and every code as they are), only dh code rows are written, and
+//   where a head's slice of x (h * dh elements in) is not 16-byte aligned
+//   a piece is read as the aligned 4-byte words that hold it, shifted into
+//   place. At capacity 256 in f32 a
+//   position is 64 pieces, so a lane takes two (32 lanes a position).
 // - Codes: v * (1 / scale) rounds to the same integer as the IEEE quotient
 //   v / scale unless it lies within 2^-10 of a half-integer (the product is
 //   within 2^-22 relative of the quotient, far less than that margin at
@@ -57,20 +65,24 @@ constexpr int CHUNKS = TS / 16;  // 16-byte chunks of a code row
 // the positions a warp covers, the warps a block.
 template <typename T, int DH>
 struct Cut {
-  static constexpr int V = 16 / sizeof(T);  // elements a 16-byte load holds: 8 or 4
+  static constexpr int V0 = 16 / sizeof(T);  // elements a 16-byte load holds: 8 or 4
+  // 16-byte pieces a lane: 2 where a position's pieces outnumber the lanes
+  // (f32 at DH = 256), else 1
+  static constexpr int PPL = DH / V0 > 32 ? DH / V0 / 32 : 1;
+  static constexpr int V = V0 * PPL;        // elements a lane
   static constexpr int L = DH / V;          // lanes a position
   static constexpr int Q = 32 / L;          // lane groups a warp step
-  static constexpr int STEPS = 16 / (4 * Q) > 1 ? 16 / (4 * Q) : 1;
+  static constexpr int STEPS = 16 / (4 * Q) / PPL > 1 ? 16 / (4 * Q) / PPL : 1;
   static constexpr int PW = 4 * Q * STEPS;  // positions a warp covers
   static constexpr int THREADS = 32 * TS / PW;
   static_assert(L >= 1 && L <= 32 && TS % PW == 0, "head dim");
 };
 
-__device__ __forceinline__ void unpack(const uint4& r, float (&v)[4]) {
+__device__ __forceinline__ void unpack(const uint4& r, float* v, float) {
   v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
   v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
 }
-__device__ __forceinline__ void unpack(const uint4& r, float (&v)[8], __nv_bfloat16) {
+__device__ __forceinline__ void unpack(const uint4& r, float* v, __nv_bfloat16) {
   const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -78,7 +90,7 @@ __device__ __forceinline__ void unpack(const uint4& r, float (&v)[8], __nv_bfloa
     v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
   }
 }
-__device__ __forceinline__ void unpack(const uint4& r, float (&v)[8], __half) {
+__device__ __forceinline__ void unpack(const uint4& r, float* v, __half) {
   const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -104,30 +116,47 @@ __device__ __forceinline__ int tile_word(int row, int word) {
   return row * (TS / 4) + ((((word >> 2) ^ (row >> 3)) & (CHUNKS - 1)) << 2) + (word & 3);
 }
 
-template <typename T, int DH>
+// RAGGED: the capacity-DH body of a head dim dh < DH (or dh = DH = 256)
+// given at run time; `align`: the alignment class of x's rows of dh
+// elements (`owc_align_class`).
+template <typename T, int DH, bool RAGGED>
 __global__ void __launch_bounds__(Cut<T, DH>::THREADS)
 transpose_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                       float* __restrict__ scales, int S, int H, int S_pad) {
+                       float* __restrict__ scales, int S, int H, int S_pad, int dh,
+                       int align) {
   using C = Cut<T, DH>;
+  constexpr int V0 = C::V0, PPL = C::PPL;
   constexpr int V = C::V, L = C::L, Q = C::Q, STEPS = C::STEPS, PW = C::PW;
   constexpr int THREADS = C::THREADS;
   __shared__ __align__(16) uint32_t tile[DH * TS / 4];
   const int s_base = blockIdx.x * TS, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int j = lane % L, grp = lane / L;
-  const size_t D = (size_t)H * DH;
+  const int dhr = RAGGED ? dh : DH;  // the head dim of x and of the code rows
+  const size_t D = (size_t)H * dhr;
   const size_t bh = (size_t)b * H + h;
-  const T* xb = x + (size_t)b * S * D + (size_t)h * DH + j * V;
+  const T* xb = x + (size_t)b * S * D + (size_t)h * dhr + j * V;
 
-  uint4 raw[STEPS][4];
+  uint4 raw[STEPS][4][PPL];
+  owc_aligned_as<RAGGED>(align, [&](auto A) {
 #pragma unroll
-  for (int st = 0; st < STEPS; ++st)
+    for (int st = 0; st < STEPS; ++st)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int s = s_base + PW * warp + 4 * (st * Q + grp) + i;
-      raw[st][i] = s < S ? __ldg(reinterpret_cast<const uint4*>(xb + (size_t)s * D))
-                         : make_uint4(0, 0, 0, 0);
-    }
+      for (int i = 0; i < 4; ++i) {
+        const int s = s_base + PW * warp + 4 * (st * Q + grp) + i;
+#pragma unroll
+        for (int pc = 0; pc < PPL; ++pc) {
+          const T* p = xb + (size_t)s * D + pc * V0;
+          if constexpr (decltype(A)::value == 0)
+            raw[st][i][pc] = s < S ? __ldg(reinterpret_cast<const uint4*>(p))
+                                   : make_uint4(0, 0, 0, 0);
+          else
+            raw[st][i][pc] = s < S ? owc_load_piece<decltype(A)::value>(
+                                         p, dh - (j * V + pc * V0))
+                                   : make_uint4(0, 0, 0, 0);
+        }
+      }
+  });
 
 #pragma unroll
   for (int st = 0; st < STEPS; ++st) {
@@ -135,8 +164,8 @@ transpose_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
     float v[4][V], sc[4], rc[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      if constexpr (V == 4) unpack(raw[st][i], v[i]);
-      else unpack(raw[st][i], v[i], T());
+#pragma unroll
+      for (int pc = 0; pc < PPL; ++pc) unpack(raw[st][i][pc], v[i] + pc * V0, T());
       float a = 0.0f;
 #pragma unroll
       for (int k = 0; k < V; ++k) a = fmaxf(a, fabsf(v[i][k]));
@@ -163,40 +192,60 @@ transpose_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
 #pragma unroll
   for (int c = tid; c < DH * CHUNKS; c += THREADS) {
     const int row = c / CHUNKS, ch = c % CHUNKS;
-    *reinterpret_cast<uint4*>(q + (bh * DH + row) * S_pad + s_base + ch * 16) =
+    if (RAGGED && row >= dh) continue;  // code rows past dh do not exist
+    *reinterpret_cast<uint4*>(q + (bh * dhr + row) * S_pad + s_base + ch * 16) =
         tile16[row * CHUNKS + ((ch ^ (row >> 3)) & (CHUNKS - 1))];
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool RAGGED>
 void launch(const void* x, int8_t* q, float* scales, int B, int S, int H, int S_pad,
-            cudaStream_t st) {
+            int dh, cudaStream_t st) {
   const dim3 grid(S_pad / TS, H, B);
-  transpose_quant_kernel<T, DH><<<grid, Cut<T, DH>::THREADS, 0, st>>>(
-      static_cast<const T*>(x), q, scales, S, H, S_pad);
+  transpose_quant_kernel<T, DH, RAGGED><<<grid, Cut<T, DH>::THREADS, 0, st>>>(
+      static_cast<const T*>(x), q, scales, S, H, S_pad, dh,
+      owc_align_class((long long)dh * sizeof(T), x));
 }
 
 }  // namespace
 
-// x (B, S, H * dh) f32, bf16 or f16 (dtype code), 16-byte aligned; q
-// (B * H, dh, S_pad) int8 and scales (B * H, 1, S_pad) f32, 16-byte
-// aligned, every position written. dh: 16, 32, 64 or 128. Requires S <=
-// S_pad, S_pad % 128 == 0, B <= 65535 and H <= 65535.
+// x (B, S, H * dh) f32, bf16 or f16 (dtype code), 16-byte aligned where dh
+// is 16, 32, 64 or 128 (element aligned otherwise); q (B * H, dh, S_pad)
+// int8 and scales (B * H, 1, S_pad) f32, 16-byte aligned, every position
+// written. dh: 1..256; cap: its capacity, the smallest of 16, 32, 64, 128,
+// 256 that is >= dh (dh = cap <= 128 runs the whole body, any other the
+// RAGGED one). Requires S <= S_pad, S_pad % 128 == 0, B <= 65535 and H <=
+// 65535.
 extern "C" int owc_transpose_quant_kv(const void* x, void* q, void* scales,
                                       int B, int S, int H, int S_pad, int dtype,
-                                      int dh, void* stream) {
-  if (S_pad % TS != 0 || S > S_pad) return (int)cudaErrorInvalidValue;
+                                      int dh, int cap, void* stream) {
+  if (S_pad % TS != 0 || S > S_pad || dh < 1 || dh > cap || (cap > 16 && 2 * dh <= cap))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* qo = static_cast<int8_t*>(q);
   float* so = static_cast<float*>(scales);
+  const bool whole = dh == cap;
   bool known = true;
   const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
     using T = decltype(tag);
-    switch (dh) {
-      case 16: launch<T, 16>(x, qo, so, B, S, H, S_pad, st); break;
-      case 32: launch<T, 32>(x, qo, so, B, S, H, S_pad, st); break;
-      case 64: launch<T, 64>(x, qo, so, B, S, H, S_pad, st); break;
-      case 128: launch<T, 128>(x, qo, so, B, S, H, S_pad, st); break;
+    switch (cap) {
+      case 16:
+        if (whole) launch<T, 16, false>(x, qo, so, B, S, H, S_pad, dh, st);
+        else launch<T, 16, true>(x, qo, so, B, S, H, S_pad, dh, st);
+        break;
+      case 32:
+        if (whole) launch<T, 32, false>(x, qo, so, B, S, H, S_pad, dh, st);
+        else launch<T, 32, true>(x, qo, so, B, S, H, S_pad, dh, st);
+        break;
+      case 64:
+        if (whole) launch<T, 64, false>(x, qo, so, B, S, H, S_pad, dh, st);
+        else launch<T, 64, true>(x, qo, so, B, S, H, S_pad, dh, st);
+        break;
+      case 128:
+        if (whole) launch<T, 128, false>(x, qo, so, B, S, H, S_pad, dh, st);
+        else launch<T, 128, true>(x, qo, so, B, S, H, S_pad, dh, st);
+        break;
+      case 256: launch<T, 256, true>(x, qo, so, B, S, H, S_pad, dh, st); break;
       default: known = false;
     }
   });

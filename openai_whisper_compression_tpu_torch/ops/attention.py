@@ -51,9 +51,9 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
     """Full (non-causal) attention, (B, H, T, Dh) -> (B, H, T, Dh); q
     unscaled (the kernel multiplies it by Dh**-0.5). A CUDA tensor launches
-    the kernel (bf16, Dh one of `kernels.HEAD_DIMS`: 16, 32, 64 or 128;
-    counted in `encoder_attention.launches`); a CPU tensor takes the plain
-    version.
+    the kernel (bf16, Dh 1..256: 16, 32, 64 and 128 run their whole bodies,
+    any other the RAGGED body of its capacity; counted in
+    `encoder_attention.launches`); a CPU tensor takes the plain version.
     The kernel stays bf16 only, unlike the decode kernels: the JAX package
     reaches its Pallas kernel only past a score size that no f32 or f16
     configuration's test reaches, and `models.whisper.attention` sends an
@@ -65,7 +65,10 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
     it writes the output in that same layout (returned as its (B, H, T, Dh)
     view), so that `merge_heads` of the result is a view too. An input
     whose rows are not contiguous, or do not start on 16-byte boundaries, is
-    copied to a contiguous buffer first."""
+    copied to a contiguous buffer first: at a whole Dh one of Dh columns, at
+    a RAGGED one a zero-padded buffer of the capacity's columns (whose
+    strides the kernel's tensor maps take), counted in
+    `encoder_attention.pad_copies`."""
     if not q.is_cuda:
         return encoder_attention_ref(q, k, v)
     return _launch_encoder_attention(q, k, v)
@@ -88,21 +91,48 @@ def _launch_encoder_attention(q: torch.Tensor, k: torch.Tensor,
     kernels.require_bf16(name, q, k, v)
     kernels.require(len({x.device for x in (q, k, v)}) == 1, name,
                     "q, k and v must share a device")
+    cap = kernels.head_dim_capacity(dh)
+    kernels.require(b * h * (2 if cap > 128 else 1) <= 65535, name,
+                    f"B*H {b * h} must be at most 32767 at head dim {dh}")
     # 16-byte rows for the tensor maps of k and v (the 4 bytes q and out
-    # need follow); a view without them is read through a contiguous copy
-    q, k, v = (x if _rows_aligned(x) else kernels.aligned(x) for x in (q, k, v))
+    # need follow); a view without them is read through a copy
+    q, k, v = (x if _rows_aligned(x) else _copy_rows(x, cap) for x in (q, k, v))
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out)
                                          for s in x.stride()[:3]))
     err = kernels.lib().owc_encoder_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t, dh,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t, dh, cap,
         dh ** -0.5, strides, kernels.stream_of(q))
     kernels.check(name, err)
     encoder_attention.launches += 1
+    kernels.record_cost(encoder_attention_cost(b, h, t, dh, q.element_size()))
     return out
 
 
 encoder_attention.launches = 0
+encoder_attention.pad_copies = 0   # RAGGED head dims' zero-padded copies
+
+
+def encoder_attention_cost(b: int, h: int, t: int, dh: int, itemsize: int) -> dict:
+    """What the JAX `encoder_attention_pallas`'s `pl.CostEstimate` declares:
+    T padded to a multiple of 128, as its kernel pads it."""
+    bh, t_pad = b * h, -(-t // 128) * 128
+    return kernels.cost(4 * bh * t_pad * t_pad * dh, 4 * bh * t_pad * dh * itemsize,
+                        bh * t_pad * t_pad)
+
+
+def _copy_rows(x: torch.Tensor, cap: int) -> torch.Tensor:
+    """A copy of x the kernel reads in place: contiguous at a whole head dim;
+    at a RAGGED one a view of its dh columns in a zero-padded (B, H, T, cap)
+    buffer, whose strides are multiples of 8 elements where dh's need not
+    be (counted in `encoder_attention.pad_copies`)."""
+    dh = x.shape[-1]
+    if dh == cap:
+        return kernels.aligned(x)
+    encoder_attention.pad_copies += 1
+    buf = torch.zeros((*x.shape[:3], cap), dtype=x.dtype, device=x.device)
+    buf[..., :dh] = x
+    return buf[..., :dh]
 
 
 def _rows_aligned(x: torch.Tensor) -> bool:

@@ -13,9 +13,10 @@ reading the K/V again (the JAX kernel takes any K in one call).
 `decode_cross_attention` is the one-query function that the JAX package's
 decode step takes where B·H is no multiple of 16 (`UNGROUPED_MODULUS`): few
 rows, so its kernel splits S over the blocks of a cluster
-(`one_query_splits`), in one launch. Every kernel takes
-the head dims of `kernels.HEAD_DIMS` (16, 32, 64, 128; each body a template
-on it) and raises on any other. K/V storage
+(`one_query_splits`), in one launch. Every kernel takes any head dim from 1
+to `kernels.MAX_HEAD_DIM` (256; even for packed int4 K/V): 16, 32, 64 and
+128 run their whole bodies, any other the RAGGED body of its capacity
+(`kernels.head_dim_capacity`), and above 256 the wrappers raise. K/V storage
 follows the JAX layout: (B·H, Dh, S_pad) in q's own type (float32, bfloat16
 or float16: the Pallas kernels are generic in it; f32 arithmetic, output in
 q's type); int8 with (B·H, 1, S_pad) f32 per-position scales; or split-half
@@ -76,10 +77,9 @@ def transpose_quant_kv(x: torch.Tensor, h: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, H*Dh) f32/bf16/f16 -> ((B*H, Dh, S_pad) int8, (B*H, 1, S_pad)
     f32 scales), S_pad = `pad_cross_len(S)`, padding positions quantized
-    from zeros. A CUDA tensor launches the kernel (Dh one of
-    `kernels.HEAD_DIMS`; counted in `transpose_quant_kv.launches`); an x that
-    is not contiguous or not 16-byte aligned is copied first. A CPU tensor
-    takes the plain version."""
+    from zeros. A CUDA tensor launches the kernel (Dh 1..256; counted in
+    `transpose_quant_kv.launches`); an x that is not contiguous or not
+    16-byte aligned is copied first. A CPU tensor takes the plain version."""
     if not x.is_cuda:
         return transpose_quant_kv_ref(x, h)
     return _launch_transpose_quant_kv(x, h)
@@ -106,10 +106,19 @@ def _launch_transpose_quant_kv(x: torch.Tensor, h: int
     scale = torch.empty((b * h, 1, s_pad), dtype=torch.float32, device=x.device)
     err = kernels.lib().owc_transpose_quant_kv(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), b, s, h, s_pad, code, dh,
-        kernels.stream_of(x))
+        kernels.head_dim_capacity(dh), kernels.stream_of(x))
     kernels.check(name, err)
     transpose_quant_kv.launches += 1
+    kernels.record_cost(transpose_quant_kv_cost(b, s, h, dh, x.element_size()))
     return q, scale
+
+
+def transpose_quant_kv_cost(b: int, s: int, h: int, dh: int, itemsize: int) -> dict:
+    """What the JAX `transpose_quant_kv`'s `pl.CostEstimate` declares for x
+    (B, S, H·Dh) of `itemsize`-byte elements."""
+    s_pad, d = pad_cross_len(s), h * dh
+    return kernels.cost(3 * b * s_pad * d, b * s * d * itemsize + b * d * s_pad
+                        + b * h * 4 * s_pad, 0)
 
 
 transpose_quant_kv.launches = 0
@@ -157,10 +166,10 @@ def _check_kv(name: str, q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
               k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
               s_valid: int | None) -> tuple[str, int, int]:
     """The checks of what both cross-attention kernels take: q in f32, bf16
-    or f16 of a head dim in `kernels.HEAD_DIMS` whose first axis is B·H, K/V
-    of one storage kind (q's type without scales, or int8 / int4 with them)
-    on one device. Returns (kind, S_pad, s_valid); the caller reads the
-    tensors through `kernels.aligned`."""
+    or f16 of a head dim of 1..`kernels.MAX_HEAD_DIM` (even for packed int4)
+    whose first axis is B·H, K/V of one storage kind (q's type without
+    scales, or int8 / int4 with them) on one device. Returns (kind, S_pad,
+    s_valid); the caller reads the tensors through `kernels.aligned`."""
     bh, dh = q.shape[0], q.shape[-1]
     rows, s_pad = k_t.shape[1], k_t.shape[2]
     s_valid = s_pad if s_valid is None else s_valid
@@ -179,6 +188,7 @@ def _check_kv(name: str, q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
                         f"int8 k_t has {dh} rows and packed int4 {dh // 2}, "
                         f"got {rows}")
         kind = "int8" if rows == dh else "int4"
+        kernels.require_head_dim(name, dh, int4=kind == "int4")
         kernels.require_dtype(name, torch.float32, k_scale, v_scale)
         kernels.require(k_scale.shape == (bh, 1, s_pad)
                         and v_scale.shape == k_scale.shape, name,
@@ -255,6 +265,7 @@ def _launch_decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
     kernels.require(1 <= bh < 2 ** 31, name, f"B*H {bh} outside 1..2**31 - 1")
     q, k_t, v_t, k_scale, v_scale = map(kernels.aligned, (q, k_t, v_t, k_scale, v_scale))
     splits = grouped_splits(bh, s_valid)
+    cap = kernels.head_dim_capacity(dh)
     out = torch.empty_like(q)
     for j0 in range(0, kq, MAX_SLOTS):   # slots j0.. of every row, in place
         offset = j0 * dh * q.element_size()
@@ -264,12 +275,23 @@ def _launch_decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
             None if k_scale is None else k_scale.data_ptr(),
             None if v_scale is None else v_scale.data_ptr(),
             out.data_ptr() + offset, bh, slots, kq * dh, s_pad, s_valid, splits, code,
-            kernels.DTYPE_CODES[q.dtype], dh, kernels.stream_of(q))
+            kernels.DTYPE_CODES[q.dtype], dh, cap, kernels.stream_of(q))
         kernels.check(name, err)
         attr = counter + ("_wide" if slots > NARROW_SLOTS else "")
         setattr(decode_cross_attention_grouped, attr,
                 getattr(decode_cross_attention_grouped, attr) + 1)
+    kernels.record_cost(decode_cross_attention_grouped_cost(bh, kq, dh, s_pad,
+                                                            k_t.element_size()))
     return out
+
+
+def decode_cross_attention_grouped_cost(bh: int, kq: int, dh: int, s_pad: int,
+                                        kv_itemsize: int) -> dict:
+    """What the JAX `decode_cross_attention_grouped`'s `pl.CostEstimate`
+    declares for one call of K query slots (its bytes count Dh rows of K/V
+    whatever the storage holds, int4's Dh/2 too)."""
+    return kernels.cost(4 * bh * kq * s_pad * dh, bh * 2 * dh * s_pad * kv_itemsize,
+                        bh * kq * s_pad)
 
 
 for _, _, _counter in _KINDS.values():   # bf16, f32, f16, int8, int4 K/V
@@ -297,7 +319,8 @@ def decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
     k_t/v_t, the scales and s_valid as `decode_cross_attention_grouped`
     takes them. Returns (BH, Dh) in q's dtype. A CUDA tensor launches the
     kernel once, S split over a cluster of `one_query_splits` blocks a row
-    (each storage kind counts its launches in its own attribute: `launches`
+    (at a head dim with no whole body, the grouped kernel's RAGGED body at
+    one slot; each storage kind counts its launches in its own attribute: `launches`
     for bf16 K/V, `launches_f32`, `launches_f16`, `launches_int8`,
     `launches_int4`); a CPU tensor takes the plain version."""
     if not q.is_cuda:
@@ -327,11 +350,26 @@ def _launch_decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         out.data_ptr(), bh, one_query_splits(bh, s_valid), s_pad, s_valid, code,
-        kernels.DTYPE_CODES[q.dtype], dh, kernels.stream_of(q))
+        kernels.DTYPE_CODES[q.dtype], dh, kernels.head_dim_capacity(dh),
+        kernels.stream_of(q))
     kernels.check(name, err)
     setattr(decode_cross_attention, counter,
             getattr(decode_cross_attention, counter) + 1)
+    kernels.record_cost(decode_cross_attention_cost(bh, dh, s_pad, k_t.shape[1],
+                                                    k_t.element_size(), kind))
     return out
+
+
+def decode_cross_attention_cost(bh: int, dh: int, s_pad: int, rows: int,
+                                kv_itemsize: int, kind: str) -> dict:
+    """What the JAX `decode_cross_attention`'s `pl.CostEstimate` declares:
+    K/V of `rows` stored rows (Dh, or Dh/2 for packed int4), their scales
+    for the int8 and int4 kinds, and q and the output."""
+    if kind in ("int8", "int4"):
+        nbytes = bh * (2 * rows * s_pad + 8 * s_pad + 4 * dh)
+    else:
+        nbytes = bh * (2 * dh * s_pad * kv_itemsize + 4 * dh)
+    return kernels.cost(4 * bh * s_pad * dh, nbytes, bh * s_pad)
 
 
 for _, _, _counter in _KINDS.values():   # bf16, f32, f16, int8, int4 K/V

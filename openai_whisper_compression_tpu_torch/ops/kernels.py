@@ -51,29 +51,33 @@ _SIGNATURES = {
                               _P],
     "owc_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "owc_mel_log10": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # the attention launchers take the head dim (one of HEAD_DIMS) last
-    # before the stream
+    # the attention launchers take the head dim, then the capacity of the
+    # body it runs (`head_dim_capacity`), last before the stream
     "owc_cross_attention_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _I, _P],
+                                    _I, _I, _I, _I, _I, _I, _P],
     "owc_cross_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _P],
-    "owc_transpose_quant_kv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                            _I, _P],
+    "owc_transpose_quant_kv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "owc_self_attention_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _P],
+                                  _I, _I, _P],
     "owc_self_attention_update_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                       _I, _I, _I, _I, _P],
-    "owc_self_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                                       _I, _I, _I, _I, _I, _P],
+    "owc_self_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "owc_self_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _P],
-    # B, H, T, the head dim, the scale; the 12 strides are a host array of
-    # long long
-    "owc_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                _I, _P],
+    # B, H, T, the head dim and capacity, the scale; the 12 strides are a
+    # host array of long long
+    "owc_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                               ctypes.POINTER(ctypes.c_longlong), _P],
 }
 
-# head dims the attention kernels are built for (each body a template on
-# it): every Whisper size has 64, the test models 16
+# head dims the attention kernels have whole bodies for (each body a
+# template on it): every Whisper size has 64, the test models 16. Any other
+# head dim up to MAX_HEAD_DIM runs the RAGGED body of its capacity
+# (`head_dim_capacity`), which takes the head dim at run time.
 HEAD_DIMS = (16, 32, 64, 128)
+CAPACITIES = HEAD_DIMS + (256,)
+MAX_HEAD_DIM = CAPACITIES[-1]
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of this process's build
@@ -193,13 +197,45 @@ def require(cond: bool, name: str, what: str) -> None:
         raise ValueError(f"{name}: {what}")
 
 
-def require_head_dim(name: str, dh: int) -> None:
-    """Raise ValueError unless the attention kernels are built for head dim
-    `dh` (`HEAD_DIMS`)."""
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim must be one of "
-                         f"{', '.join(map(str, HEAD_DIMS[:-1]))} or "
-                         f"{HEAD_DIMS[-1]}, got {dh}")
+def require_head_dim(name: str, dh: int, int4: bool = False) -> None:
+    """Raise ValueError unless the attention kernels take head dim `dh`:
+    1..`MAX_HEAD_DIM`, and even where `int4` (split-half packed int4 K/V
+    hold Dh / 2 byte rows)."""
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim must lie in 1..{MAX_HEAD_DIM} (the "
+                         f"widest body the attention kernels have), got {dh}")
+    if int4 and dh % 2:
+        raise ValueError(f"{name}: packed int4 K/V need an even head dim "
+                         f"(Dh / 2 byte rows), got {dh}")
+
+
+def head_dim_capacity(dh: int) -> int:
+    """The width of the body that serves head dim `dh`: the smallest of
+    `CAPACITIES` (16, 32, 64, 128, 256) that is >= dh. A dh equal to its
+    capacity among `HEAD_DIMS` runs that width's whole body; any other runs
+    the capacity's RAGGED body, which pads the head dim with zeros in
+    registers and shared memory, never in device memory."""
+    return next(c for c in CAPACITIES if c >= dh)
+
+
+# What the kernels launched so far declare they did, under XLA's key names:
+# each wrapper adds, at every launch, the cost the JAX package's
+# `pl.CostEstimate` declares for the same call (`record_cost`), so that
+# `utils.profiling.cost_analysis` can count work it cannot see as aten ops.
+COSTS = {"flops": 0.0, "bytes accessed": 0.0, "transcendentals": 0.0}
+
+
+def record_cost(launch_cost: dict) -> None:
+    """Add one launch's cost (flops, bytes accessed, transcendentals) to
+    `COSTS`."""
+    for key, v in launch_cost.items():
+        COSTS[key] += float(v)
+
+
+def cost(flops: int, bytes_accessed: int, transcendentals: int) -> dict:
+    """A cost under XLA's key names, from a `pl.CostEstimate`'s fields."""
+    return {"flops": flops, "bytes accessed": bytes_accessed,
+            "transcendentals": transcendentals}
 
 
 def aligned(t: torch.Tensor | None) -> torch.Tensor | None:

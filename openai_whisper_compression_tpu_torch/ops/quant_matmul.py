@@ -155,9 +155,10 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, stored_rows: int,
 
 
 def _run(name: str, launcher: str, x: torch.Tensor, n: int, ktiles: int,
-         before: tuple, after: tuple) -> torch.Tensor:
+         before: tuple, after: tuple, cost: dict) -> torch.Tensor:
     """Allocate the output and launch (one kernel):
-    `launcher(*before, out, M, N, K, *after, splits, dtype, stream)`."""
+    `launcher(*before, out, M, N, K, *after, splits, dtype, stream)`; record
+    the launch's `cost` (`kernels.record_cost`)."""
     m, k = x.shape
     kernels.require(1 <= m <= 65535 * _BM, name, f"M {m} outside 1..{65535 * _BM}")
     code = kernels.dtype_code(x, name)
@@ -166,7 +167,60 @@ def _run(name: str, launcher: str, x: torch.Tensor, n: int, ktiles: int,
         *before, out.data_ptr(), m, n, k, *after, _splits(m, n, ktiles), code,
         kernels.stream_of(x))
     kernels.check(name, err)
+    kernels.record_cost(cost)
     return out
+
+
+# The costs the JAX Pallas matmuls' `pl.CostEstimate`s declare, with their
+# padded extents: M to the row block (256 rows, or M rounded up to 16), N to
+# the column block (256, or N rounded up to 128), K to 128 where they pad it.
+# x is counted as 2-byte elements whatever its type, as JAX counts it.
+
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _padded_mn(m: int, n: int, block_m: int = 256) -> tuple[int, int]:
+    bm, bn = min(block_m, _pad(m, 16)), min(256, _pad(n, 128))
+    return _pad(m, bm), _pad(n, bn)
+
+
+def int8_matmul_cost(m: int, n: int, k: int) -> dict:
+    """`int8_matmul_pallas`'s cost at x (M, K), w (K, N)."""
+    mp, np_ = _padded_mn(m, n)
+    kp = _pad(k, 128)
+    return kernels.cost(2 * mp * np_ * kp, mp * kp * 2 + kp * np_ + mp * np_ * 2, 0)
+
+
+def int4_matmul_cost(m: int, n: int, k: int) -> dict:
+    """`int4_matmul_pallas`'s cost at x (M, K), packed w (K/2, N)."""
+    mp, np_ = _padded_mn(m, n)
+    khp = _pad(k // 2, 128)
+    return kernels.cost(2 * mp * np_ * 2 * khp, mp * khp * 4 + khp * np_ + mp * np_ * 2, 0)
+
+
+def nf4_matmul_cost(m: int, n: int, k: int, g: int) -> dict:
+    """`nf4_matmul_pallas`'s cost at x (M, K), packed w (K/2, N), scales
+    (K/G, N)."""
+    mp, np_ = _padded_mn(m, n)
+    return kernels.cost(2 * mp * np_ * k, mp * k * 2 + (k // 2) * np_ + (k // g) * np_ * 4
+                        + mp * np_ * 2, 0)
+
+
+def group_asym_matmul_cost(m: int, n: int, k: int, g: int, stored_rows: int) -> dict:
+    """`group_asym_matmul_pallas`'s cost at x (M, K), values of `stored_rows`
+    rows (K/2 nibbles or K uint8), scales and zeros (K/G, N)."""
+    mp, np_ = _padded_mn(m, n)
+    return kernels.cost(2 * mp * np_ * k, mp * k * 2 + stored_rows * np_
+                        + 2 * (k // g) * np_ * 4 + mp * np_ * 2, 0)
+
+
+def w8a8_matmul_cost(m: int, n: int, k: int) -> dict:
+    """`w8a8_matmul_pallas`'s cost at x (M, K), w (K, N): 128-row blocks, N
+    rounded up to 128."""
+    mp = _pad(m, min(128, _pad(m, 16)))
+    kp, np_ = _pad(k, 128), _pad(n, 128)
+    return kernels.cost(2 * mp * np_ * kp, mp * kp * 2 + kp * np_ + mp * np_ * 2, 0)
 
 
 def _colscale_ok(name: str, scale: torch.Tensor, n: int) -> None:
@@ -195,7 +249,8 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
     kernels.require(w.dtype == torch.int8, name, f"w must be int8, got {w.dtype}")
     _colscale_ok(name, scale, n)
     out = _run(name, "owc_int8_matmul", x, n, _ktiles(k),
-               (x.data_ptr(), w.data_ptr(), scale.data_ptr()), ())
+               (x.data_ptr(), w.data_ptr(), scale.data_ptr()), (),
+               int8_matmul_cost(m, n, k))
     int8_matmul.launches += 1
     return out
 
@@ -214,7 +269,8 @@ def int4_matmul(x: torch.Tensor, w: torch.Tensor,
                     f"w must be int8 nibbles of an even K, got {w.dtype}, K={k}")
     _colscale_ok(name, scale, n)
     out = _run(name, "owc_int4_matmul", x, n, _ktiles(k // 2),
-               (x.data_ptr(), w.data_ptr(), scale.data_ptr()), ())
+               (x.data_ptr(), w.data_ptr(), scale.data_ptr()), (),
+               int4_matmul_cost(m, n, k))
     int4_matmul.launches += 1
     return out
 
@@ -236,7 +292,8 @@ def nf4_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     _group_ok(name, k, g, [scale], n)
     code = (ctypes.c_float * 16)(*CODEBOOKS[kind].tolist())
     out = _run(name, "owc_nf4_matmul", x, n, _ktiles(k // 2),
-               (x.data_ptr(), w.data_ptr(), code, scale.data_ptr()), (g,))
+               (x.data_ptr(), w.data_ptr(), code, scale.data_ptr()), (g,),
+               nf4_matmul_cost(m, n, k, g))
     nf4_matmul.launches += 1
     return out
 
@@ -262,7 +319,7 @@ def group_asym_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     out = _run(name, "owc_group_asym_matmul", x, n,
                _ktiles(k // 2 if packed else k),
                (x.data_ptr(), w.data_ptr(), scale.data_ptr(), zero.data_ptr()),
-               (g, int(packed)))
+               (g, int(packed)), group_asym_matmul_cost(m, n, k, g, w.shape[0]))
     if packed:
         group_asym_matmul.launches += 1
     else:
@@ -364,6 +421,7 @@ def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         None if xq is None else xq.data_ptr(), None if sx is None else sx.data_ptr(),
         out.data_ptr(), m, n, k, splits, code, kernels.stream_of(x))
     kernels.check(name, err)
+    kernels.record_cost(w8a8_matmul_cost(m, n, k))
     if act_scale is None:
         w8a8_matmul.launches += 1
     else:

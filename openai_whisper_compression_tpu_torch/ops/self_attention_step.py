@@ -19,7 +19,10 @@ the int8 cache, position `pos` of k_scale/v_scale) is overwritten in place
 (the JAX functions donate the buffers and return the updated ones; here the
 caller keeps using its own tensors).
 
-The kernels take the head dims of `kernels.HEAD_DIMS` (16, 32, 64, 128)
+The kernels take any head dim from 1 to `kernels.MAX_HEAD_DIM` (256): 16,
+32, 64 and 128 run their whole bodies, any other the RAGGED body of its
+capacity (`kernels.head_dim_capacity`), which reads and writes the caller's
+rows of Dh values where they are (no cache is padded or copied for it);
 and caches of up to `MAX_CACHE_ROWS` positions. Their wrappers take any
 strided or offset view where the JAX functions take an array: q and the
 fresh rows, and the caches the read-only version reads, are copied to a
@@ -81,6 +84,13 @@ def _attend_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     scores = _mask_before_start(torch.einsum("gd,gsd->gs", q.float(), k), start)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("gs,gsd->gd", probs, v).to(q.dtype)
+
+
+def self_attention_cost(bh: int, s: int, dh: int, cache_itemsize: int) -> dict:
+    """What the JAX self-attention kernels' `pl.CostEstimate` declares (the
+    same for the update, its int8 variant and the read-only attention):
+    the whole S-row cache, whatever `pos` is."""
+    return kernels.cost(4 * bh * s * dh, 2 * bh * s * dh * cache_itemsize, bh * s)
 
 
 def _start_arg(name: str, start: torch.Tensor | None, q: torch.Tensor) -> int | None:
@@ -173,8 +183,9 @@ def _launch_decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
     err = kernels.lib().owc_self_attention_update(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), work[0].data_ptr(),
         work[1].data_ptr(), out.data_ptr(), start_ptr, bh, s, pos, code, dh,
-        kernels.stream_of(q))
+        kernels.head_dim_capacity(dh), kernels.stream_of(q))
     kernels.check(name, err)
+    kernels.record_cost(self_attention_cost(bh, s, dh, k_cache.element_size()))
     _write_back((k_cache, v_cache), work, pos)
     _count(decode_self_attention_update, "launches" + _FP_COUNTER[q.dtype]
            + ("" if start is None else "_start"))
@@ -280,8 +291,9 @@ def _launch_decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tens
     err = kernels.lib().owc_self_attention_update_int8(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         *(t.data_ptr() for t in work), out.data_ptr(), start_ptr, bh, s, pos,
-        code, dh, kernels.stream_of(q))
+        code, dh, kernels.head_dim_capacity(dh), kernels.stream_of(q))
     kernels.check(name, err)
+    kernels.record_cost(self_attention_cost(bh, s, dh, 1))
     _write_back(bufs, work, pos)
     _count(decode_self_attention_update_int8,
            "launches" + ("" if start is None else "_start"))
@@ -359,16 +371,18 @@ def _launch_decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q, k_cache, v_cache, k_scale, v_scale = map(
         kernels.aligned, (q, k_cache, v_cache, k_scale, v_scale))
     out = torch.empty_like(q)
+    cap = kernels.head_dim_capacity(dh)
     if int8:
         err = kernels.lib().owc_self_attention_int8(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), start_ptr,
-            bh, s, pos, code, dh, kernels.stream_of(q))
+            bh, s, pos, code, dh, cap, kernels.stream_of(q))
     else:
         err = kernels.lib().owc_self_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            start_ptr, bh, s, pos, code, dh, kernels.stream_of(q))
+            start_ptr, bh, s, pos, code, dh, cap, kernels.stream_of(q))
     kernels.check(name, err)
+    kernels.record_cost(self_attention_cost(bh, s, dh, k_cache.element_size()))
     _count(decode_self_attention,
            "launches" + ("_int8" if int8 else _FP_COUNTER[q.dtype])
            + ("" if start is None else "_start"))

@@ -2,12 +2,12 @@
 
 The port's counterpart of the JAX package's `utils/profiling.py`:
 `torch.profiler` trace capture (a Chrome trace), a per-call cost count
-under XLA's key names (`flops`, `bytes accessed`), and a timing harness that
-times the card with CUDA events and the CPU with `perf_counter`.
+under XLA's key names (`flops`, `bytes accessed`, and `transcendentals`
+where a hand-written kernel launched), and a timing harness that times the
+card with CUDA events and the CPU with `perf_counter`.
 
-XLA's cost model also reports `transcendentals`, `optimal_seconds` and
-per-operand byte counts; nothing here computes those, so they are absent,
-never 0.
+XLA's cost model also reports `optimal_seconds` and per-operand byte
+counts; nothing here computes those, so they are absent, never 0.
 """
 
 from __future__ import annotations
@@ -57,24 +57,13 @@ def _tensors(tree: Any, out: dict) -> None:
             _tensors(getattr(tree, f.name), out)
 
 
-def _kernel_launches() -> int:
-    """Launches of the port's hand-written kernels so far (every counter
-    attribute of every wrapper)."""
-    from ..audio import mel_kernel
-    from ..ops import attention, cross_attention, quant_matmul, self_attention_step
-
-    fns = [mel_kernel.log_mel_cuda, attention.encoder_attention,
-           cross_attention.transpose_quant_kv,
-           cross_attention.decode_cross_attention,
-           cross_attention.decode_cross_attention_grouped,
-           quant_matmul.int8_matmul, quant_matmul.int4_matmul,
-           quant_matmul.nf4_matmul, quant_matmul.group_asym_matmul,
-           quant_matmul.w8a8_matmul,
-           self_attention_step.decode_self_attention_update,
-           self_attention_step.decode_self_attention_update_int8,
-           self_attention_step.decode_self_attention]
-    return sum(v for f in fns for k, v in vars(f).items()
-               if k.startswith("launches") and isinstance(v, int))
+def _bmm_flop(a_shape, b_shape, out_dtype=None, *, out_shape=None, **kw) -> int:
+    """FLOPs of `aten.bmm`, its `dtype` overload too (a bf16 batched product
+    with an f32 output, which `ops.attention.matmul_f32` takes on the card):
+    `FlopCounterMode`'s own formula takes that overload's third argument for
+    the output shape and fails."""
+    b, n, k = a_shape
+    return 2 * b * n * k * b_shape[-1]
 
 
 def cost_analysis(fn: Callable, *args: Any) -> dict[str, float]:
@@ -82,29 +71,37 @@ def cost_analysis(fn: Callable, *args: Any) -> dict[str, float]:
 
     - `flops`: what `torch.utils.flop_counter.FlopCounterMode` counts, the
       matmuls, convolutions and attention of the call's aten ops (2 per
-      multiply-add; XLA also counts elementwise work, so this is lower);
+      multiply-add; XLA also counts elementwise work, so this is lower),
+      plus what every hand-written kernel the call launched declares;
     - `bytes accessed`: the bytes of every tensor the call reads (its
       arguments, QTensor fields included) and writes (its outputs), each
-      buffer once.
+      buffer once, plus what every launched kernel declares it moves (as
+      XLA sums each op's operands, a buffer a kernel reads is counted again);
+    - `transcendentals`, where a kernel launched: what the kernels declare.
 
-    A hand-written kernel's launch is not an aten op, so its FLOPs are not
-    counted: where the call launched any, `uncounted_kernel_launches` says
-    how many (a CPU call never does; it takes the plain versions)."""
+    A kernel declares, at each launch, the cost that the JAX package's
+    Pallas kernel declares in its `pl.CostEstimate` for the same call, with
+    JAX's padded extents (`kernels.record_cost`): XLA's cost model reports
+    just those numbers for the Mosaic call that JAX's `cost_analysis`
+    reads. A CPU call takes the plain versions, whose work is aten ops."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    before = _kernel_launches()
-    with FlopCounterMode(display=False) as counter:
+    from ..ops import kernels
+
+    before = dict(kernels.COSTS)
+    with FlopCounterMode(display=False,
+                         custom_mapping={torch.ops.aten.bmm: _bmm_flop}) as counter:
         out = fn(*args)
-    launched = _kernel_launches() - before
+    kernel = {k: kernels.COSTS[k] - before[k] for k in before}
     seen: dict = {}
     _tensors(args, seen)
     read = sum(seen.values())
     _tensors(out, seen)
     written = sum(seen.values()) - read
-    res = {"flops": float(counter.get_total_flops()),
-           "bytes accessed": float(read + written)}
-    if launched:
-        res["uncounted_kernel_launches"] = float(launched)
+    res = {"flops": float(counter.get_total_flops()) + kernel["flops"],
+           "bytes accessed": float(read + written) + kernel["bytes accessed"]}
+    if any(kernel.values()):
+        res["transcendentals"] = kernel["transcendentals"]
     return res
 
 
@@ -143,15 +140,12 @@ def timed(fn: Callable, *args: Any, iters: int = 3,
 
 
 def flops_per_second(fn: Callable, *args: Any, iters: int = 3) -> dict[str, float]:
-    """Achieved FLOP/s = counted flops / measured median time. Where the
-    count saw no FLOPs (or the call launched kernels it cannot see),
+    """Achieved FLOP/s = counted flops (the kernels' declared ones included)
+    / measured median time. Where the count saw no FLOPs,
     `achieved_tflops` is None rather than a made-up rate."""
     costs = cost_analysis(fn, *args)
     t = timed(fn, *args, iters=iters)
     fl = costs["flops"]
-    ok = fl > 0 and "uncounted_kernel_launches" not in costs
     return {**t, "model_flops": fl,
-            "achieved_tflops": fl / t["median_s"] / 1e12 if ok else None,
-            "bytes_accessed": costs["bytes accessed"],
-            **({"uncounted_kernel_launches": costs["uncounted_kernel_launches"]}
-               if "uncounted_kernel_launches" in costs else {})}
+            "achieved_tflops": fl / t["median_s"] / 1e12 if fl > 0 else None,
+            "bytes_accessed": costs["bytes accessed"]}

@@ -666,10 +666,10 @@ def test_self_attention_fp_rows(dev, bh, s, pos, with_start, dtype):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
-    x = torch.zeros(4, 48, device=dev)
-    with pytest.raises(ValueError, match="16, 32, 64 or 128"):  # head dim 48
-        decode_self_attention_update(x, x, x, torch.zeros(4, 8, 48, device=dev),
-                                     torch.zeros(4, 8, 48, device=dev), 1)
+    x = torch.zeros(4, 257, device=dev)
+    with pytest.raises(ValueError, match=r"1\.\.256"):  # head dim 257
+        decode_self_attention_update(x, x, x, torch.zeros(4, 8, 257, device=dev),
+                                     torch.zeros(4, 8, 257, device=dev), 1)
     row = torch.zeros(4, 64, device=dev, dtype=torch.bfloat16)
     cache = torch.zeros(4, 8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(TypeError):  # an int64 start
@@ -734,11 +734,15 @@ def test_quantized_wrappers_reject_what_the_kernels_do_not_take(dev):
         decode_cross_attention_grouped(q, kv8, kv8, sc8, sc8, 130)
     with pytest.raises(ValueError):  # scales of the wrong shape
         decode_cross_attention_grouped(q, kv, kv, sc[:, :, :64], sc[:, :, :64])
-    with pytest.raises(ValueError, match="16, 32, 64 or 128"):  # head dim 48
-        transpose_quant_kv(torch.zeros(1, 10, 96, device=dev, dtype=bf), 2)
-    with pytest.raises(ValueError, match="16, 32, 64 or 128"):  # head dim 48
-        decode_cross_attention_grouped(torch.zeros(4, 1, 48, device=dev, dtype=bf),
-                                       *torch.zeros(2, 4, 48, 128, device=dev, dtype=bf))
+    with pytest.raises(ValueError, match=r"1\.\.256"):  # head dim 257
+        transpose_quant_kv(torch.zeros(1, 10, 514, device=dev, dtype=bf), 2)
+    with pytest.raises(ValueError, match=r"1\.\.256"):  # head dim 257
+        decode_cross_attention_grouped(torch.zeros(4, 1, 257, device=dev, dtype=bf),
+                                       *torch.zeros(2, 4, 257, 128, device=dev, dtype=bf))
+    with pytest.raises(ValueError, match="even head dim"):  # int4 K/V of an odd one
+        packed = torch.zeros(4, 18, 128, device=dev, dtype=i8)
+        decode_cross_attention_grouped(torch.zeros(4, 1, 37, device=dev, dtype=bf),
+                                       packed, packed, sc, sc)
     with pytest.raises(TypeError):  # float64 input
         transpose_quant_kv(torch.zeros(1, 10, 128, device=dev,
                                        dtype=torch.float64), 2)
@@ -851,8 +855,9 @@ def test_encoder_attention_rejects_what_the_kernel_does_not_take(dev):
     x = torch.zeros(1, 2, 256, 64, device=dev, dtype=bf)
     with pytest.raises(TypeError):  # f32
         encoder_attention(x.float(), x.float(), x.float())
-    with pytest.raises(ValueError, match="16, 32, 64 or 128"):  # head dim 48
-        encoder_attention(x[..., :48], x[..., :48], x[..., :48])
+    y = torch.zeros(1, 2, 256, 257, device=dev, dtype=bf)
+    with pytest.raises(ValueError, match=r"1\.\.256"):  # head dim 257
+        encoder_attention(y, y, y)
     with pytest.raises(ValueError):  # Tq != Tk
         encoder_attention(x[:, :, :100], x, x)
 
@@ -2178,3 +2183,133 @@ def test_test_models_decode_on_the_card(dev, model, batch, tree, kv):
     assert got.shape == want.shape
     cs.check_ties(f"{model} {tree} {kv}", params_cpu, arch, cfg, wav, got.cpu(), want,
                   len(forced_prefix(arch, cfg)), fast=False)
+
+
+# ---------------------------------------------------------------------------
+# Ragged head dims: every width from 1 to 256 runs the RAGGED body of its
+# capacity (the smallest of 16, 32, 64, 128, 256 that holds it). The tests
+# above take them as they take the whole widths.
+
+RAGGED_DIMS = [1, 8, 24, 36, 48, 80, 96, 100, 160, 200, 256]
+_KINDS_AT = [(dh, kind) for dh in RAGGED_DIMS for kind in ("fp", "int8", "int4")
+             if kind != "int4" or dh % 2 == 0]   # packed int4 holds dh / 2 rows
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh,kind", _KINDS_AT)
+def test_ragged_dims_cross_attention_grouped(dev, dh, kind, dtype):
+    """The grouped kernel's RAGGED bodies, every storage kind under q in each
+    type (the f32 ones the second f32 body), as `test_head_dims_cross_
+    attention_grouped` holds the whole widths."""
+    test_head_dims_cross_attention_grouped(dev, dh, dtype, kind)
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh,kind", _KINDS_AT)
+def test_ragged_dims_cross_attention_one_query(dev, dh, kind, dtype):
+    """The one-query kernel's RAGGED bodies (past 128 the grouped kernel at
+    one slot), as `test_head_dims_cross_attention_one_query` holds the
+    whole widths."""
+    test_head_dims_cross_attention_one_query(dev, dh, dtype, kind)
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh", RAGGED_DIMS)
+@pytest.mark.parametrize("b,s,h", [(2, 1500, 0), (1, 129, 3)])
+def test_ragged_dims_transpose_quant_kv(dev, b, s, h, dh, dtype):
+    """The cross-KV quantizer's RAGGED bodies, bit-equal to the plain
+    version (rows of dh elements read by elements where dh * elem % 16 != 0)."""
+    test_head_dims_transpose_quant_kv(dev, b, s, h, dh, dtype)
+
+
+@pytest.mark.parametrize("dh", RAGGED_DIMS)
+@pytest.mark.parametrize("b,h,t", [(1, 1, 1), (2, 3, 129), (2, 4, 1500)])
+def test_ragged_dims_encoder_attention(dev, b, h, t, dh):
+    """The encoder attention's RAGGED bodies on views of one fused projection
+    (read in place where their strides are multiples of 8 elements, else
+    through one zero-padded copy each, counted), within one bf16 step of the
+    plain version; contiguous inputs give the same bits."""
+    before = encoder_attention.pad_copies
+    test_head_dims_encoder_attention(dev, b, h, t, dh)
+    copies = encoder_attention.pad_copies - before
+    # the fused views' (H dh, dh, 3 H dh) strides, then the contiguous copies'
+    aligned_view = dh % 8 == 0 and (3 * h * dh) % 8 == 0
+    assert copies == (0 if aligned_view else 3) + (0 if dh % 8 == 0 else 3)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("with_start", [False, True], ids=["nostart", "start"])
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh", RAGGED_DIMS)
+def test_ragged_dims_self_attention(dev, dh, dtype, with_start, int8):
+    """Both cache updates and the read-only attention at RAGGED widths, on
+    caches of dh-element rows updated in place (no copy): caches bit-equal,
+    the read-only output bit-equal to the update's."""
+    test_head_dims_self_attention(dev, dh, dtype, with_start, int8)
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("batch", [3, 4])
+def test_small_h8_decode_on_the_card(dev, batch, kv):
+    """whisper-small's width cut into 8 heads of 96 (`small-h8`), 2 layers,
+    bf16 weights: the decode through `make_transcribe_fn` launches the
+    RAGGED bodies of capacity 128 at batch 4 (32 rows: grouped) and 3 (24:
+    one-query), and the tokens equal the same tree's on the CPU in f32 or
+    part at a tie proven there."""
+    import numpy as np
+
+    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import (
+        make_transcribe_fn, samples_for_arch)
+    from openai_whisper_compression_tpu_torch.models.decode import forced_prefix
+    from openai_whisper_compression_tpu_torch.models.params import init_params, tree_to
+
+    cs = _chip_smoke()
+    arch = ARCHS["small"].replace(name="small-h8", encoder_heads=8, decoder_heads=8,
+                                  encoder_layers=2, decoder_layers=2)
+    assert arch.head_dim == 96
+    params_cpu = init_params(arch, 0, torch.float32, "cpu")
+    params = tree_to(params_cpu, dev, torch.bfloat16)
+    switches = {"fp": {}, "int8": {"kv_int8": True, "cross_kv_int8": True},
+                "int4": {"kv_int8": True, "cross_kv_int4": True}}[kv]
+    cfg = DecodeConfig(max_new_tokens=8, suppress_tokens=(arch.eos_token_id,), **switches)
+    wav = torch.from_numpy((np.random.default_rng(batch).standard_normal(
+        (batch, samples_for_arch(arch))) * 0.1).astype(np.float32))
+    counters = cs.zero_launches()
+    got, _ = make_transcribe_fn(arch, cfg, device=dev)(params, wav)
+    launched = {k: v for k, v in cs.read_launches(counters).items() if v}
+    grouped = batch * arch.decoder_heads % 16 == 0
+    assert any(k.startswith("decode_cross_attention_grouped" if grouped else
+                            "decode_cross_attention_") or (not grouped and
+                                                           k == "decode_cross_attention")
+               for k in launched), launched
+    assert any(k.startswith("decode_self_attention_update") for k in launched), launched
+    assert launched.get("encoder_attention", 0) == 2, launched
+    want, _ = make_transcribe_fn(arch, cfg, device="cpu")(params_cpu, wav)
+    assert got.shape == want.shape
+    cs.check_ties(f"small-h8 {kv}", params_cpu, arch, cfg, wav, got.cpu(), want,
+                  len(forced_prefix(arch, cfg)), fast=False)
+
+
+def test_flops_per_second_of_a_model_call_on_the_card(dev):
+    """`utils.profiling.flops_per_second` of a decode on the card gives a
+    rate: every kernel the call launched adds the cost its JAX Pallas
+    counterpart declares, so the count is no longer aten ops' alone."""
+    import numpy as np
+
+    from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
+    from openai_whisper_compression_tpu_torch.evaluation.harness import (
+        make_transcribe_fn, samples_for_arch)
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+    from openai_whisper_compression_tpu_torch.utils import profiling
+
+    arch = ARCHS["test2l"]
+    params = init_params(arch, 0, torch.bfloat16, dev)
+    fn = make_transcribe_fn(arch, DecodeConfig(max_new_tokens=8, kv_int8=True,
+                                               cross_kv_int8=True), device=dev)
+    wav = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (4, samples_for_arch(arch))) * 0.1).astype(np.float32)).to(dev)
+    costs = profiling.cost_analysis(fn, params, wav)
+    assert costs["transcendentals"] > 0 and costs["flops"] > 0
+    perf = profiling.flops_per_second(fn, params, wav, iters=2)
+    assert perf["achieved_tflops"] is not None and perf["achieved_tflops"] > 0

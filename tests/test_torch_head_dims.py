@@ -11,9 +11,10 @@ kernels read in 16-byte pieces aligned; a view the kernel cannot read in
 place replaced by a contiguous copy, and a contiguous aligned tensor (the
 Dh = 64 main path) passed as it is, with no copy; row `pos` of a strided or
 offset cache written back into the caller's view and nothing else of the
-buffer around it touched; caches of 16384 rows taken; head dim 48 refused
-with a message that names the four. And `utils/compile_cache.py` against
-the JAX package's semantics."""
+buffer around it touched; caches of 16384 rows taken; head dim 257 (past
+the widest body, 256), 0 and, for packed int4 K/V, an odd one refused with
+a message that names the bound. And `utils/compile_cache.py` against the
+JAX package's semantics."""
 
 import ctypes
 import os
@@ -50,7 +51,7 @@ class FakeLib:
 
     def _mark(self, name, args):
         int8 = name.endswith("int8")
-        bh, s, pos, code, dh = args[-6:-1]
+        bh, s, pos, code, dh, cap = args[-7:-1]
         elem = 1 if int8 else {0: 4, 1: 2, 2: 2}[code]
         for ptr in args[3:5]:   # the K and V caches
             for g in range(bh):
@@ -77,12 +78,19 @@ def _aligned(*ptrs):
 
 
 def test_require_head_dim_names_the_four():
-    for dh in DIMS:
+    """The four whole widths, and every other width up to 256, are taken;
+    257 and 0 are refused naming the bound, an odd width for packed int4."""
+    for dh in (*DIMS, 1, 8, 48, 96, 255, 256):
         kernels.require_head_dim("x", dh)
-    for dh in (8, 48, 96, 256):
-        with pytest.raises(ValueError, match=r"head dim must be one of 16, 32, 64 or 128, "
-                                             rf"got {dh}"):
+        assert kernels.head_dim_capacity(dh) == next(c for c in (16, 32, 64, 128, 256)
+                                                     if c >= dh)
+    for dh in (257, 0, 1024):
+        with pytest.raises(ValueError, match=rf"head dim must lie in 1\.\.256 .*got {dh}"):
             kernels.require_head_dim("x", dh)
+    for dh in (1, 37, 255):
+        kernels.require_head_dim("x", dh)
+        with pytest.raises(ValueError, match=rf"even head dim .*got {dh}"):
+            kernels.require_head_dim("x", dh, int4=True)
 
 
 @pytest.mark.parametrize("dh", DIMS)
@@ -92,14 +100,14 @@ def test_transpose_quant_kv_head_dims_and_views(lib, dh):
     before = ca.transpose_quant_kv.launches
     q, sc = ca._launch_transpose_quant_kv(x, h)
     (args,) = lib.of("owc_transpose_quant_kv")
-    assert args[0] == x.data_ptr() and args[-2] == dh and q.shape == (2 * h, dh, 384)
+    assert args[0] == x.data_ptr() and args[-3:-1] == (dh, dh) and q.shape == (2 * h, dh, 384)
     assert ca.transpose_quant_kv.launches == before + 1
     fused = torch.randn(2, 300, 2 * h * dh, dtype=torch.bfloat16)
     ca._launch_transpose_quant_kv(fused[..., h * dh:], h)   # a strided half
     args = lib.of("owc_transpose_quant_kv")[-1]
     assert args[0] != fused.data_ptr() + h * dh * 2 and _aligned(args[0])
-    with pytest.raises(ValueError, match="16, 32, 64 or 128"):
-        ca._launch_transpose_quant_kv(torch.zeros(1, 10, 2 * 48), 2)
+    with pytest.raises(ValueError, match=r"1\.\.256"):
+        ca._launch_transpose_quant_kv(torch.zeros(1, 10, 2 * 257), 2)
 
 
 def _kv(kind, bh, dh, s_pad, dtype):
@@ -125,12 +133,12 @@ def test_cross_attention_head_dims_and_views(lib, dh, kind):
     q = torch.randn(bh, 3, dh)
     ca._launch_decode_cross_attention_grouped(q, k, v, ks, vs, 1500)
     args = lib.of("owc_cross_attention_grouped")[-1]
-    assert args[-2] == dh and args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    assert args[-4] == {"fp": 0, "int8": 1, "int4": 2}[kind]
+    assert args[-3:-1] == (dh, dh) and args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[-5] == {"fp": 0, "int8": 1, "int4": 2}[kind]
     q1 = torch.randn(bh, dh)
     ca._launch_decode_cross_attention(q1, k, v, ks, vs, 1500)
     args = lib.of("owc_cross_attention")[-1]
-    assert args[-2] == dh and args[0] == q1.data_ptr() and args[1] == k.data_ptr()
+    assert args[-3:-1] == (dh, dh) and args[0] == q1.data_ptr() and args[1] == k.data_ptr()
     # q a slice of a fused projection, K/V and scales at an offset: copies
     fused = torch.randn(bh, 3 * dh)
     views = [_offset(t) if t is not None else None for t in (k, v, ks, vs)]
@@ -140,9 +148,9 @@ def test_cross_attention_head_dims_and_views(lib, dh, kind):
     ca._launch_decode_cross_attention_grouped(fused.view(bh, 3, dh)[:, 1:], *views, 1500)
     args = lib.of("owc_cross_attention_grouped")[-1]
     assert _aligned(*args[:5]) and args[8] == 2 * dh   # row stride of 2 slots
-    with pytest.raises(ValueError, match="16, 32, 64 or 128"):
-        ca._launch_decode_cross_attention(torch.randn(bh, 48), *_kv(kind, bh, 48, s_pad,
-                                                                    torch.float32), 1500)
+    with pytest.raises(ValueError, match=r"1\.\.256"):
+        ca._launch_decode_cross_attention(torch.randn(bh, 258), *_kv(kind, bh, 258, s_pad,
+                                                                     torch.float32), 1500)
 
 
 @pytest.mark.parametrize("dh", DIMS)
@@ -154,14 +162,14 @@ def test_encoder_attention_head_dims_and_views(lib, dh):
     out = att._launch_encoder_attention(q, k, v)
     args = lib.of("owc_encoder_attention")[-1]
     assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())   # read in place
-    assert args[7] == dh and args[8] == pytest.approx(dh ** -0.5)
+    assert args[7:9] == (dh, dh) and args[9] == pytest.approx(dh ** -0.5)
     assert out.shape == (b, h, t, dh) and out.transpose(1, 2).is_contiguous()
     k_off = _offset(k.contiguous())
     att._launch_encoder_attention(q, k_off, v)
     args = lib.of("owc_encoder_attention")[-1]
     assert args[1] != k_off.data_ptr() and _aligned(args[1])
-    with pytest.raises(ValueError, match="16, 32, 64 or 128"):
-        att._launch_encoder_attention(*(torch.zeros(1, 2, 256, 48).bfloat16(),) * 3)
+    with pytest.raises(ValueError, match=r"1\.\.256"):
+        att._launch_encoder_attention(*(torch.zeros(1, 2, 256, 257).bfloat16(),) * 3)
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
@@ -182,7 +190,7 @@ def test_self_attention_head_dims_views_and_long_caches(lib, dh, int8):
     fn(q.contiguous(), kn.contiguous(), vn.contiguous(), *caches, pos)
     args = lib.of(name)[-1]
     assert [args[3], args[4]] == [caches[0].data_ptr(), caches[1].data_ptr()]
-    assert args[-2] == dh and args[-5] == s
+    assert args[-3:-1] == (dh, dh) and args[-6] == s
     assert all(bool((c[:, pos] != 0).all()) and not bool(c[:, :pos].any()) for c in caches)
     # prefix views of longer buffers: written through copies, row pos only
     views = [t[:, :s] for t in big]
@@ -198,9 +206,9 @@ def test_self_attention_head_dims_views_and_long_caches(lib, dh, int8):
                 if c.dim() == 3 else torch.zeros(1, 1).expand(bh, sas.MAX_CACHE_ROWS + 1)
                 for c in caches]
         fn(q, kn, vn, *huge, 0)
-    with pytest.raises(ValueError, match="16, 32, 64 or 128"):
-        z = torch.zeros(bh, 48)
-        fn(z, z, z, *(torch.zeros(bh, 8, 48, dtype=c.dtype) if c.dim() == 3 else
+    with pytest.raises(ValueError, match=r"1\.\.256"):
+        z = torch.zeros(bh, 257)
+        fn(z, z, z, *(torch.zeros(bh, 8, 257, dtype=c.dtype) if c.dim() == 3 else
                       torch.zeros(bh, 8) for c in caches), 1)
 
 
@@ -211,13 +219,13 @@ def test_read_only_self_attention_head_dims_and_views(lib, dh):
     q = torch.randn(bh, 2 * dh)[:, dh:]
     sas._launch_decode_self_attention(q, kc, vc, s - 1)
     args = lib.of("owc_self_attention")[-1]
-    assert args[-2] == dh and args[-4] == s - 1 and _aligned(*args[:3])
+    assert args[-3:-1] == (dh, dh) and args[-5] == s - 1 and _aligned(*args[:3])
     kq, vq = (torch.zeros(bh, s, dh, dtype=torch.int8) for _ in range(2))
     ks, vs = (torch.ones(bh, s + 1)[:, 1:] for _ in range(2))
     sas._launch_decode_self_attention(q, kq, vq, 9000, k_scale=ks, v_scale=vs)
     args = lib.of("owc_self_attention_int8")[-1]
     assert args[1:3] == (kq.data_ptr(), vq.data_ptr()) and args[3] != ks.data_ptr()
-    assert args[-2] == dh
+    assert args[-3:-1] == (dh, dh)
 
 
 # ----------------------------------------------------------- compile cache
