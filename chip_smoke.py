@@ -95,11 +95,11 @@ Phase 2  decode runs at full width with seeded random weights (bf16, but
            small-b3-bf16, small-b3-int4ckv  batch 3 (36 rows), bf16 caches
                         and int4 cross-KV: its other two bodies;
            small-f32    `baseline_fp32` (an f32 tree, f32 caches), batch 16:
-                        the decode kernels' f32 bodies (the encoder's
-                        attention in plain torch, as the JAX package leaves
-                        an f32 encoder to XLA);
+                        the decode kernels' f32 bodies and the encoder
+                        attention's f32 (CUDA-core) body;
            small-b3-f32, small-b3-f16  `baseline_fp32` and `fp16` at batch 3:
-                        the one-query cross-attention's f32 and f16 bodies.
+                        the one-query cross-attention's f32 and f16 bodies
+                        (and the encoder attention's f16 body).
          bf16-kv, int8-kv and small-b1 run three batches with EOT suppressed, then
          the first batch again with EOT allowed and its embedding tied to
          a generated token, so that rows stop at different steps;
@@ -401,7 +401,9 @@ Phase 10 (slice 17, last) the CLI and the parallel paths at whisper-small's
                         `plain_kernels`); rank 0 then times the shard-local
                         shapes (P10_ENTRIES).
 
-Phase 11 (slice 18, last) the five examples of `examples_torch/` on the
+Phase 11 (slice 18; run inside phase 6, after phase 7's held part,
+         beside the queued CPU proofs: all of it held, its shapes timed by
+         CUDA events) the five examples of `examples_torch/` on the
          card at their defaults (the head-dim-16 test models, f32 trees),
          each `main(["--device", "cuda"])` inside `checked_kernel_calls(mel=
          True)`: compress_store_serve, qat_recovery, serving_and_speculative,
@@ -418,7 +420,17 @@ Phase 11 (slice 18, last) the five examples of `examples_torch/` on the
          32, greedy 25 tokens, EOT suppressed, held with exact launch
          counts at full depth and at a 2-layer cut, the cut's first rows
          against CPU f32 under the tie rule; their ragged bodies timed as
-         `name@test2l-dh36-...` and `name@small-h8-...` entries.
+         `name@test2l-dh36-...` and `name@small-h8-...` entries. Then the
+         head dims past 256, the WIDE bodies: test2l-dh288
+         (d_model 576, 2 heads of 288) as test2l-dh36, and small-h2
+         (whisper-small's width in 2 heads of 384) as small-h8, its cut
+         also behind `run_self_attention_replay` (the read-only WIDE body);
+         timed as `name@test2l-dh288-...` and `name@small-h2-...` entries.
+         Phase 1 holds every attention kernel at head dims 257, 384, 512 and
+         1024 (`WIDE_DIMS`, 384 timed: the `*_wide_dh` entries) and the
+         encoder attention in bf16, f16 and f32 at every head dim it holds,
+         f32 and f16 also at whisper-small batch 96 beside `sdpa` in the same
+         type (`enc_attn_f32`, `enc_attn_f16`).
 
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
@@ -561,7 +573,39 @@ KERNELS = [
     ("decode_cross_attention_f16", "ops.cross_attention", "decode_cross_attention",
      "launches_f16", "cross_attention.cuh", "ops/cross_attention.py:151",
      "cross1_f16"),
+    # the encoder attention's f32 (CUDA-core) and f16 (tensor-core) bodies,
+    # at whisper-small batch 96
+    ("encoder_attention_f32", "ops.attention", "encoder_attention", "launches_f32",
+     "encoder_attention_cc.cu", "ops/attention.py:57", "enc_attn_f32"),
+    ("encoder_attention_f16", "ops.attention", "encoder_attention", "launches_f16",
+     "encoder_attention_f16.cu", "ops/attention.py:57", "enc_attn_f16"),
+    # the WIDE bodies (head dims past 256), each timed at head dim 384
+    # (whisper-small's width in 2 heads: phase 11's small-h2)
+    ("encoder_attention_wide_dh", "ops.attention", "encoder_attention", "launches_wide_dh",
+     "encoder_attention_cc.cu", "ops/attention.py:57", "dh384 encoder_attention"),
+    ("transpose_quant_kv_wide_dh", "ops.cross_attention", "transpose_quant_kv",
+     "launches_wide_dh", "transpose_quant.cu", "ops/cross_attention.py:248",
+     "dh384 transpose_quant_kv torch.bfloat16"),
+    ("decode_cross_attention_grouped_wide_dh", "ops.cross_attention",
+     "decode_cross_attention_grouped", "launches_wide_dh", "cross_attention_wide.cu",
+     "ops/cross_attention.py:321", "dh384 grouped int8 K=1"),
+    ("decode_cross_attention_wide_dh", "ops.cross_attention", "decode_cross_attention",
+     "launches_wide_dh", "cross_attention_wide.cu", "ops/cross_attention.py:151",
+     "dh384 one_query bf16"),
+    ("decode_self_attention_update_wide_dh", "ops.self_attention_step",
+     "decode_self_attention_update", "launches_wide_dh", "self_attention_step_wide.cu",
+     "ops/self_attention_step.py:245", "dh384 self_update torch.bfloat16"),
+    ("decode_self_attention_update_int8_wide_dh", "ops.self_attention_step",
+     "decode_self_attention_update_int8", "launches_wide_dh", "self_attention_step_wide.cu",
+     "ops/self_attention_step.py:386", "dh384 self_update_int8"),
+    ("decode_self_attention_wide_dh", "ops.self_attention_step", "decode_self_attention",
+     "launches_wide_dh", "self_attention_step_wide.cu", "ops/self_attention_step.py:320",
+     "dh384 self_attention_int8"),
 ]
+# the encoder attention's entries, one a body family: each counts one launch
+# an encoder layer where the run's path holds it
+ENCODER_ENTRIES = ("encoder_attention", "encoder_attention_f32", "encoder_attention_f16",
+                   "encoder_attention_wide_dh")
 KV8 = {"kv_int8": True, "cross_kv_int8": True}
 DECODE_KERNELS = ("log_mel_cuda", "encoder_attention", "transpose_quant_kv",
                   "decode_cross_attention_grouped_int8",
@@ -609,17 +653,16 @@ RUNS = [
      SMALL_KERNELS + ("decode_cross_attention_grouped_int4",
                       "decode_cross_attention_int4",
                       "decode_self_attention_update_int8")),
-    # f32 and f16 trees (no quantized weights: no matmul kernel; an f32 or
-    # f16 encoder takes plain torch, as the JAX package leaves it to XLA):
-    # caches in the tree's own type
+    # f32 and f16 trees (no quantized weights: no matmul kernel; the encoder
+    # attention's f32 and f16 bodies): caches in the tree's own type
     ("small-f32", ARCH, "baseline_fp32", {}, 16, 1, False,
-     ("log_mel_cuda", "decode_cross_attention_grouped_f32",
+     ("log_mel_cuda", "encoder_attention_f32", "decode_cross_attention_grouped_f32",
       "decode_self_attention_update_f32")),
     ("small-b3-f32", ARCH, "baseline_fp32", {}, 3, 1, False,
-     ("log_mel_cuda", "decode_cross_attention_grouped_f32",
+     ("log_mel_cuda", "encoder_attention_f32", "decode_cross_attention_grouped_f32",
       "decode_cross_attention_f32", "decode_self_attention_update_f32")),
     ("small-b3-f16", ARCH, "fp16", {}, 3, 1, False,
-     ("log_mel_cuda", "decode_cross_attention_grouped_f16",
+     ("log_mel_cuda", "encoder_attention_f16", "decode_cross_attention_grouped_f16",
       "decode_cross_attention_f16", "decode_self_attention_update_f16")),
 ]
 # prompt-conditioned phase-2 runs of whisper-small: (name, DecodeConfig
@@ -1188,6 +1231,16 @@ def phase1_attention(dev, results: dict) -> None:
             f"at {sm_mhz:.0f} MHz)")
         del q, k, v, got
         torch.cuda.empty_cache()
+    # the f32 (CUDA-core) and f16 (tensor-core) bodies at whisper-small batch
+    # 96, beside `sdpa` in the same type; the f32 bound is operations at 67
+    # TFLOP/s (6.6e11 flop: 9.9 ms)
+    for dtype, key in ((torch.float32, "enc_attn_f32"), (torch.float16, "enc_attn_f16")):
+        q, k, v = (split_heads(torch.randn(HEAD_BATCH, 1500, 12 * 64, generator=gen,
+                                           device=dev).to(dtype), 12) for _ in range(3))
+        results[key] = check_enc_attn_shape(f"phase1 encoder_attention small {dtype}",
+                                            q, k, v)
+        del q, k, v
+        torch.cuda.empty_cache()
     # times only, at a length of whole 128-key tiles: what the ragged T = 1500
     # costs the kernel and the library call
     b, h, t = HEAD_BATCH, 12, 1536
@@ -1718,8 +1771,8 @@ def check_launches(name: str, launches: dict, path, exact: dict) -> None:
 def expected_launches(arch, path, steps: list, layers: tuple | None = None) -> dict:
     """How often one run's path calls the kernels whose count is known
     exactly, given the decoder steps of each batch: the encoder attention
-    once per encoder layer and batch (never for an f32 or f16 tree, whose
-    path does not hold it); the w8a8 matmul for every quantized
+    once per encoder layer and batch, counted by the entry of its body
+    family the path holds (`ENCODER_ENTRIES`); the w8a8 matmul for every quantized
     linear (6 an encoder layer, per decoder layer the cross K and V, 6 in
     the prefill and 6 a step); the cache update once per layer and step; the
     grouped cross-attention once per layer for the prefill window and once
@@ -1729,7 +1782,7 @@ def expected_launches(arch, path, steps: list, layers: tuple | None = None) -> d
     arch's."""
     enc_layers, layers = layers or (arch.encoder_layers, arch.decoder_layers)
     n, total = len(steps), sum(steps)
-    exact = {"encoder_attention": enc_layers * n if "encoder_attention" in path else 0}
+    exact = {k: enc_layers * n if k in path else 0 for k in ENCODER_ENTRIES}
     for k in path:
         if k.startswith("decode_self_attention_update"):
             exact[k] = layers * total
@@ -1758,7 +1811,7 @@ def expected_prompt_launches(arch, cfg, p_len: int, batches: int,
                              dtype=torch.bfloat16) -> dict:
     """How often one prompt run's path calls each attention kernel, the
     tree's activations being of `dtype`: the encoder attention once per
-    encoder layer (bf16 only); per decoder layer the prefill
+    encoder layer (in the entry of its type); per decoder layer the prefill
     window in launches of at most 8 slots and one grouped launch per step
     (of beam_size slots), one cache update per step, and the cross-KV
     quantization of K and V."""
@@ -1771,8 +1824,7 @@ def expected_prompt_launches(arch, cfg, p_len: int, batches: int,
     wide = sum(c > 4 for c in chunks) + NEW_TOKENS * (cfg.beam_size > 4)
     narrow = sum(c <= 4 for c in chunks) + NEW_TOKENS * (cfg.beam_size <= 4)
     layers = arch.decoder_layers
-    exact = {"log_mel_cuda": 1, "encoder_attention":
-             arch.encoder_layers if dtype == torch.bfloat16 else 0,
+    exact = {"log_mel_cuda": 1, "encoder_attention" + fp: arch.encoder_layers,
              cross + "_wide": layers * wide, cross: layers * narrow,
              update + "_start": layers * NEW_TOKENS}
     if cfg.cross_kv_int8 and not cfg.cross_kv_int4:
@@ -2065,7 +2117,8 @@ def profile_batch(name: str, batch) -> None:
 
 
 @torch.inference_mode()
-def run_self_attention_replay(dev, arch, params) -> dict:
+def run_self_attention_replay(dev, arch, params, name: str = "self-attn-replay",
+                              phase: str = "phase2") -> dict:
     """`decode_self_attention` on the model's own caches. The function has
     no caller in the model (as in the JAX package, whose decode step takes
     the update functions), so this run puts one behind every cache update of
@@ -2073,15 +2126,16 @@ def run_self_attention_replay(dev, arch, params) -> dict:
     without and with a left-padded prompt window): on the cache the update
     kernel just wrote, the read-only kernel must return that kernel's output
     bit for bit. Launch counts are exact: layers x steps for each of its
-    four bodies."""
+    four bodies (and, past head dim 256, the WIDE bodies' counts: phase 11
+    runs it on small-h2's 2-layer cut)."""
     from openai_whisper_compression_tpu_torch.audio.features import preprocess
     from openai_whisper_compression_tpu_torch.config import DecodeConfig
     from openai_whisper_compression_tpu_torch.models import decode
     from openai_whisper_compression_tpu_torch.models.whisper import encode
     from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
 
-    name, batch = "self-attn-replay", BATCH
-    log(f"phase2 {name}: {arch.name}, int8 weights, batch {batch}, bf16 and int8 "
+    batch = BATCH
+    log(f"{phase} {name}: {arch.name}, int8 weights, batch {batch}, bf16 and int8 "
         "caches, without and with a prompt window")
 
     def replayed(update, int8: bool):
@@ -2122,7 +2176,7 @@ def run_self_attention_replay(dev, arch, params) -> dict:
         (decode.decode_self_attention_update,
          decode.decode_self_attention_update_int8) = originals
     launches = read_launches(counters)
-    log(f"phase2 {name} launches {json.dumps(launches)}")
+    log(f"{phase} {name} launches {json.dumps(launched(launches))}")
     per_decode = arch.decoder_layers * NEW_TOKENS
     exact = {"log_mel_cuda": 1, "encoder_attention": arch.encoder_layers}
     for suffix in ("", "_start", "_int8", "_int8_start"):
@@ -2130,8 +2184,14 @@ def run_self_attention_replay(dev, arch, params) -> dict:
         exact["decode_self_attention_update" + suffix] = per_decode
     path = set(exact) | {"int8_matmul", "decode_cross_attention_grouped",
                          "decode_cross_attention_grouped_wide"}
+    if arch.head_dim > 256:   # every attention launch a WIDE body's
+        exact.update({"encoder_attention_wide_dh": arch.encoder_layers,
+                      "decode_self_attention_wide_dh": 4 * per_decode,
+                      "decode_self_attention_update_wide_dh": 2 * per_decode,
+                      "decode_self_attention_update_int8_wide_dh": 2 * per_decode})
+        path |= set(exact) | {"decode_cross_attention_grouped_wide_dh"}
     check_launches(name, launches, path, exact)
-    log(f"phase2 {name}: {4 * per_decode} read-only calls equal to the update "
+    log(f"{phase} {name}: {4 * per_decode} read-only calls equal to the update "
         f"kernels' outputs bit for bit; wall {wall:.2f} s")
     return {"batch": batch, "walls_s": [wall], "launches": launches}
 
@@ -2836,25 +2896,32 @@ def held_summary(held: dict, shapes: dict) -> str:
 
 
 def check_enc_attn_shape(what: str, q, k, v, timed: bool = True) -> dict:
-    """The encoder attention at a recorded shape against its plain version,
-    timed beside it, `sdpa` and its bound (as phase 1 at T = 1500; not
+    """The encoder attention at a recorded shape, in q's type, against its
+    plain version (within KERNEL_REL of its largest output), one launch
+    counted in the type's counter, timed beside it, `sdpa` in the same type
+    and its bound (the operations at the peak rate of the type: the tensor
+    cores' for bf16 and f16, 67 TFLOP/s for f32; as phase 1 at T = 1500; not
     `timed`: held only)."""
     from openai_whisper_compression_tpu_torch.ops.attention import (
         encoder_attention, encoder_attention_ref)
 
     b, h, t, dh = q.shape
-    before = encoder_attention.launches
+    attr = "launches" + _SUFFIX[q.dtype]
+    before = getattr(encoder_attention, attr)
     got, ref = encoder_attention(q, k, v), encoder_attention_ref(q, k, v)
-    check(encoder_attention.launches == before + 1, f"{what}: no launch counted")
-    err, tol = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
-    check(err <= tol, f"{what}: err {err} > {tol}")
+    check(getattr(encoder_attention, attr) == before + 1, f"{what}: no launch counted")
+    err, tol = max_err(got, ref), KERNEL_REL[q.dtype] * float(ref.float().abs().max())
+    check(got.dtype == q.dtype and bool(torch.isfinite(got).all()) and err <= tol,
+          f"{what}: err {err} > {tol}, or not finite, or of type {got.dtype}")
+    del ref
     if not timed:
         return held_only("", what, (b, h, t, dh), err, tol)
     t_k = cuda_ms(lambda: encoder_attention(q, k, v))
     t_p = cuda_ms(lambda: encoder_attention_ref(q, k, v), warmup=1, iters=3)
     t_lib = cuda_ms(lambda: sdpa(q, k, v))
-    least = bound(4 * b * h * t * dh * 2, 4 * b * h * t * t * dh / BF16_FLOPS)
-    log(f"{what} ({b}, {h}, {t}, {dh}) bf16: err {err:.3g} (bound {tol:.3g}) "
+    least = bound(4 * b * h * t * dh * q.element_size(),
+                  4 * b * h * t * t * dh / peak_flops(q.dtype))
+    log(f"{what} ({b}, {h}, {t}, {dh}) {q.dtype}: err {err:.3g} (bound {tol:.3g}) "
         f"kernel {t_k:.4f} ms plain {t_p:.4f} ms sdpa {t_lib:.4f} ms least "
         f"{least['bound_ms']:.4f} ms ({least['bound_by']})")
     return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least, "library_ms": t_lib}
@@ -4785,10 +4852,11 @@ P7_RUNS = [
       "decode_cross_attention_grouped_int4", "decode_self_attention_update_int8")),
     ("turbo_int8", "turbo_int8", "large-v3-turbo", 64, KV8, ("int8_matmul",) + DECODE_KERNELS),
     ("tiny_fp32_greedy", "tiny_fp32_greedy", "tiny", 16, {},
-     ("log_mel_cuda", "decode_cross_attention_grouped_f32", "decode_self_attention_update_f32")),
+     ("log_mel_cuda", "encoder_attention_f32", "decode_cross_attention_grouped_f32",
+      "decode_self_attention_update_f32")),
     ("small_fp16_beam5_longform", "small_fp16_beam5_longform", "small", LONGFORM_CLIPS,
      {"beam_size": 5},
-     ("log_mel_cuda", "decode_cross_attention_grouped_f16",
+     ("log_mel_cuda", "encoder_attention_f16", "decode_cross_attention_grouped_f16",
       "decode_cross_attention_grouped_f16_wide", "decode_self_attention_update_f16")),
 ]
 # kernels-line entries for the shapes only phase 7 gives the kernels: (entry
@@ -4952,7 +5020,8 @@ def phase7_timed(dev, summaries: dict) -> dict:
             walls.append(time.perf_counter() - t1)
         launches = read_launches(counters)
         if longform:
-            exact = {"log_mel_cuda": 3, "decode_cross_attention_grouped_f16": 3 * dec_l,
+            exact = {"log_mel_cuda": 3, "encoder_attention_f16": 3 * enc_l,
+                     "decode_cross_attention_grouped_f16": 3 * dec_l,
                      "decode_cross_attention_grouped_f16_wide": 3 * dec_l * NEW_TOKENS,
                      "decode_self_attention_update_f16": 3 * dec_l * NEW_TOKENS}
             check(all(o == outs[0] for o in outs) and outs[0]["num_chunks"] == LONGFORM_CLIPS,
@@ -5297,6 +5366,8 @@ def p8_exact(arch, params, batch: int, path) -> dict:
     encoder linear run at encoder M, above the kernels' threshold)."""
     exact = expected_launches(arch, path, [NEW_TOKENS])
     exact.update({"log_mel_cuda": 1, "transpose_quant_kv": 2 * arch.decoder_layers})
+    if "transpose_quant_kv_wide_dh" in path:   # every launch a WIDE body's
+        exact["transpose_quant_kv_wide_dh"] = exact["transpose_quant_kv"]
     for k in decoder_matmuls(params):
         exact[k] = exact.get(k, 0) + NEW_TOKENS + 1
     return exact
@@ -5813,7 +5884,8 @@ def decoder_matmuls(params) -> list:
 
 def recorded_launches(records: list) -> dict:
     """Exact launch counts of what `recorded_paths` recorded: the mel once a
-    card call; the encoder attention once an encoder layer of a bf16 pass;
+    card call; the encoder attention once an encoder layer of a pass (in the
+    entry of the pass's type);
     each quantized decoder linear's kernel once a teacher-forced pass, and
     once for the prefill and every step of a greedy decode (M = rows x
     window, at most 1024); per decode, the cross-KV quantizer for K and V
@@ -5834,8 +5906,8 @@ def recorded_launches(records: list) -> dict:
             add("log_mel_cuda", 1)
         elif r[0] == "encode":
             _, params, dtype, t = r
-            if dtype == torch.bfloat16 and t >= 256:
-                add("encoder_attention", len(params["encoder"]["layers"]))
+            if t >= 256:   # the body of the pass's type
+                add("encoder_attention" + _SUFFIX[dtype], len(params["encoder"]["layers"]))
         elif r[0] == "logits":
             if r[2] <= threshold:
                 for k in decoder_matmuls(r[1]):
@@ -6776,6 +6848,11 @@ OTHER_DIMS = (16, 32, 128)    # the whole head dims besides every Whisper size's
 # ragged head dims phase 1 holds (each the RAGGED body of its capacity: 16,
 # 64, 128, 128 and 256; 36 and 100 leave bf16 rows off 16 bytes)
 RAGGED_DIMS = (8, 36, 96, 100, 256)
+# head dims past 256 phase 1 holds (the WIDE bodies; 384 also timed: the
+# kernels line's `*_wide_dh` entries), over whisper-small's width where it
+# holds them (768 // Dh heads), else one head
+WIDE_DIMS = (257, 384, 512, 1024)
+WIDE_TIMED = 384
 WIDTH = 768                   # whisper-small's d_model, cut into 768 / Dh heads
 LONG_CACHE = 16384            # the cache rows phase 1 holds (the cap was 12288)
 P11_EXAMPLES = ("compress_store_serve", "qat_recovery", "serving_and_speculative",
@@ -6821,6 +6898,26 @@ P11_H8_PATH = ("log_mel_cuda", "encoder_attention", "transpose_quant_kv",
                "int8_matmul")
 # the RAGGED bodies small-h8 runs, each timed at the shape it met there
 P11_H8_BASES = P11_H8_PATH[1:5]
+# head dims past 256 on a model's path (the WIDE bodies): whisper-small's
+# width cut into 2 heads of 384 (`small-h2`) run as small-h8 is (int8
+# weights and caches, batch 32, full depth and a 2-layer cut against CPU
+# f32; its WIDE bodies timed at its shapes), then the same cut's read-only
+# replay (`run_self_attention_replay`); and test2l cut into 2 heads of 288
+# (d_model 576) over each cache kind in f32 and bf16 at P11_BATCHES (the
+# one-query WIDE body, the fp update's, int4 K/V), as test2l-dh36 runs
+P11_H2 = {"name": "small-h2", "encoder_heads": 2, "decoder_heads": 2}
+P11_WIDE = ("encoder_attention_wide_dh", "transpose_quant_kv_wide_dh",
+            "decode_cross_attention_grouped_wide_dh", "decode_self_attention_update_int8_wide_dh")
+P11_H2_PATH = P11_H8_PATH + P11_WIDE
+P11_DH288 = {"name": "test2l-dh288", "d_model": 576, "encoder_heads": 2, "decoder_heads": 2,
+             "ffn_dim": 2304}
+P11_DH288_RUNS = [(f"test2l-dh288-{tree}-{kv}", tree, switches)
+                  for tree in ("f32", "bf16") for kv, switches in
+                  (("fp", {}), ("int8", KV8),
+                   ("int4", {"kv_int8": True, "cross_kv_int4": True}))]
+P11_DH288_BASES = ("decode_cross_attention_wide_dh", "decode_cross_attention_grouped_wide_dh",
+                   "decode_self_attention_update_wide_dh",
+                   "decode_self_attention_update_int8_wide_dh", "transpose_quant_kv_wide_dh")
 
 
 def quantized_cross_kv(gen, bh: int, dh: int, s_pad: int, bits: int) -> tuple:
@@ -6878,11 +6975,12 @@ def check_one_query(what: str, q: torch.Tensor, kv: tuple, s_valid: int,
     return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **least, "library_ms": t_lib}
 
 
-def check_read_only(what: str, bh: int, dh: int, gen, int8: bool, timed: bool = True) -> None:
+def check_read_only(what: str, bh: int, dh: int, gen, int8: bool, timed: bool = True) -> dict:
     """The read-only self-attention at head dim dh, pos 30 of a 64-row
     cache (bf16 q), bit for bit against the update kernel's output on the
     cache it wrote, writing nothing, one launch counted; timed (unless not
-    `timed`)."""
+    `timed`) beside its plain version, its bound (rows 0..30 of K and V
+    read once) and, for an fp cache, `sdpa`. Returns the result entry."""
     from openai_whisper_compression_tpu_torch.ops import self_attention_step as sas
 
     dev = gen.device
@@ -6908,12 +7006,22 @@ def check_read_only(what: str, bh: int, dh: int, gen, int8: bool, timed: bool = 
     check(torch.equal(got, out) and all(torch.equal(a, b) for a, b in zip(bufs, written)),
           f"{what}: differs from the update kernel's output, or wrote to the cache")
     if not timed:
-        held_only("phase1", f"{what} pos=30", (bh, 64, dh), 0.0, 0.0)
-        return
+        return held_only("phase1", f"{what} pos=30", (bh, 64, dh), 0.0, 0.0)
     t_k = cuda_ms(lambda: sas.decode_self_attention(q, bufs[0], bufs[1], 30, **scales))
     t_p = cuda_ms(lambda: sas.decode_self_attention_ref(q, bufs[0], bufs[1], 30, **scales))
+    t_lib = None
+    if not int8:   # the library call over rows 0..30 of a cache in q's type
+        k, v = bufs[0][:, :31], bufs[1][:, :31]
+        t_lib = cuda_ms(lambda: sdpa(q[:, None, :], k, v, scale=1.0))
+    rows = bh * 31
+    least = bound(nbytes(q, got) + rows * 2 * dh * bufs[0].element_size()
+                  + (rows * 8 if int8 else 0), 4 * rows * dh / BF16_FLOPS)
     log(f"phase1 {what} pos=30 ({bh}, 64, {dh}): equal to the update kernel's output bit "
-        f"for bit; kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+        f"for bit; kernel {t_k:.4f} ms plain {t_p:.4f} ms least {least['bound_ms']:.5f} ms "
+        f"({least['bound_by']})" + ("" if t_lib is None else f" sdpa {t_lib:.4f} ms"))
+    return {"max_abs_err": max_err(got, sas.decode_self_attention_ref(
+        q, bufs[0], bufs[1], 30, **scales)), "ms": t_k, "plain_ms": t_p, **least,
+        "library_ms": t_lib}
 
 
 def phase1_dim(dev, gen, dh: int, results: dict, timed: bool = True,
@@ -6939,12 +7047,14 @@ def phase1_dim(dev, gen, dh: int, results: dict, timed: bool = True,
                                                                 timed)[0]
         check(ca.transpose_quant_kv.launches > before, f"{tag}: tq launch not counted")
         del x
-    q, k, v = (split_heads((torch.randn(8, s_valid, width, generator=gen, device=dev)
-                            ).to(bf16), h) for _ in range(3))
-    results[f"{tag} encoder_attention"] = check_enc_attn_shape(
-        f"phase1 {tag} encoder_attention", q, k, v, timed)
-    del q, k, v
-    torch.cuda.empty_cache()
+    for dtype in (bf16, torch.float16, torch.float32):   # the encoder in every type
+        q, k, v = (split_heads((torch.randn(8, s_valid, width, generator=gen, device=dev)
+                                ).to(dtype), h) for _ in range(3))
+        suffix = "" if dtype == bf16 else f" {dtype}"
+        results[f"{tag} encoder_attention{suffix}"] = check_enc_attn_shape(
+            f"phase1 {tag} encoder_attention{suffix}", q, k, v, timed)
+        del q, k, v
+        torch.cuda.empty_cache()
     bh = BATCH * h
     fp = {dt: tuple(torch.randn(bh, dh, s_pad, generator=gen, device=dev).to(dt)
                     for _ in range(2)) + (None, None)
@@ -6985,8 +7095,8 @@ def phase1_dim(dev, gen, dh: int, results: dict, timed: bool = True,
         f"{tag} self_attention_update_int8 start", bh, 30, gen, True, start, bf16, dh,
         timed=timed)
     for int8 in (False, True):
-        check_read_only(f"{tag} self_attention{'_int8' if int8 else ''}", bh, dh, gen,
-                        int8, timed)
+        name = f"{tag} self_attention{'_int8' if int8 else ''}"
+        results[name] = check_read_only(name, bh, dh, gen, int8, timed)
     torch.cuda.empty_cache()
 
 
@@ -7004,6 +7114,11 @@ def phase1_head_dims(dev, results: dict) -> None:
     for dh in OTHER_DIMS + RAGGED_DIMS:
         phase1_dim(dev, gen, dh, results, timed=False)
     log(f"phase1 head dims {OTHER_DIMS + RAGGED_DIMS} held in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for dh in WIDE_DIMS:
+        phase1_dim(dev, gen, dh, results, timed=dh == WIDE_TIMED, heads=max(1, WIDTH // dh))
+    log(f"phase1 WIDE head dims {WIDE_DIMS} held ({WIDE_TIMED} timed) in "
         f"{time.perf_counter() - t0:.1f} s")
     bh = BATCH * WIDTH // 128
     kv = tuple(torch.randn(bh, 128, 1536, generator=gen, device=dev) for _ in range(2))
@@ -7250,6 +7365,17 @@ def phase11(dev, results: dict) -> dict:
         f"{json.dumps(total)}")
     p11_entries(results, "test2l-dh36", P11_DH36_BASES, total, shapes36, calls36)
     summaries.update(run_small_h8(dev, results))
+    # head dims past 256: the WIDE bodies on a model's path
+    t0 = time.perf_counter()
+    shapes288, calls288 = {}, {}
+    runs288 = run_p11_decodes(dev, shapes288, calls288, ARCHS["test2l"].replace(**P11_DH288),
+                              P11_DH288_RUNS)
+    summaries.update(runs288)
+    total = {k: sum(s["launches"][k] for s in runs288.values()) for k in P11_DH288_BASES}
+    log(f"phase11 head-dim-288 runs held in {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(total)}")
+    p11_entries(results, "test2l-dh288", P11_DH288_BASES, total, shapes288, calls288)
+    summaries.update(run_small_h8(dev, results, P11_H2, 384, P11_H2_PATH, P11_WIDE))
     return summaries
 
 
@@ -7274,29 +7400,34 @@ def p11_entries(results: dict, label: str, bases, total: dict, shapes: dict,
                               "launches": total[base], "base": base}
 
 
-def run_small_h8(dev, results: dict) -> dict:
-    """small-h8 (P11_H8) cut to P8_PROOF_LAYERS layers and at full depth
-    through `make_transcribe_fn`, one batch each held (`checked_kernel_calls(
-    mel=True)`), launch counts exact; the cut's first REF_ROWS rows against
-    CPU f32 (a thread beside the full-depth run, joined last):
-    tokens equal or parted at a tie proven there; the RAGGED bodies it ran
-    timed at its shapes (P11_H8_BASES)."""
+def run_small_h8(dev, results: dict, spec: dict = P11_H8, head_dim: int = 96,
+                 path: tuple = P11_H8_PATH, bases: tuple = P11_H8_BASES) -> dict:
+    """small-h8 (P11_H8), or another head split of whisper-small (`spec`,
+    whose head dim must be `head_dim`: small-h2's 384), cut to
+    P8_PROOF_LAYERS layers and at full depth through `make_transcribe_fn`,
+    one batch each held (`checked_kernel_calls(mel=True)`), launch counts
+    exact over `path`; the cut's first REF_ROWS rows against CPU f32 (a
+    thread beside the full-depth run, joined last): tokens equal or parted
+    at a tie proven there; the bodies of `bases` timed at its shapes. Past
+    head dim 256 the cut also runs the read-only replay
+    (`run_self_attention_replay`), the WIDE read-only body's path."""
     from openai_whisper_compression_tpu_torch.config import ARCHS, DecodeConfig
     from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
     from openai_whisper_compression_tpu_torch.models.fuse import fuse_qkv
     from openai_whisper_compression_tpu_torch.models.params import init_params, tree_to
     from openai_whisper_compression_tpu_torch.quant.api import quantize_params
 
-    arch = ARCHS["small"].replace(**P11_H8)
-    check(arch.head_dim == 96, f"small-h8's head dim {arch.head_dim}")
+    label = spec["name"]
+    arch = ARCHS["small"].replace(**spec)
+    check(arch.head_dim == head_dim, f"{label}'s head dim {arch.head_dim}")
     params = fuse_qkv(quantize_params(init_params(arch, SEED, torch.bfloat16, dev), "int8"))
     cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,), **KV8)
     wav = torch.from_numpy(waveforms(SEED + 110, P11_H8_BATCH)).to(dev)
     out, proof = {}, None
     # the cut first: its CPU f32 proof runs beside the full-depth run
-    for name, (tree, tree_arch) in (("small-h8-2l", cut_layers(params, arch,
+    for name, (tree, tree_arch) in ((f"{label}-2l", cut_layers(params, arch,
                                                                P8_PROOF_LAYERS)),
-                                    ("small-h8", (params, arch))):
+                                    (label, (params, arch))):
         fn = make_transcribe_fn(tree_arch, cfg, fast_mel=True, fast_gelu=True, device=dev)
         shapes: dict = {}
         calls: dict = {}
@@ -7313,15 +7444,17 @@ def run_small_h8(dev, results: dict) -> dict:
         log(f"phase11 {name}: held batch of {P11_H8_BATCH} in "
             f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(launched(launches))}; "
             f"{held_summary(held, shapes)}")
-        check_launches(name, launches, P11_H8_PATH,
-                       p8_exact(tree_arch, tree, P11_H8_BATCH, P11_H8_PATH))
+        check_launches(name, launches, path, p8_exact(tree_arch, tree, P11_H8_BATCH, path))
         out[name] = {"launches": launches}
-        if name == "small-h8":
-            p11_entries(results, "small-h8", P11_H8_BASES, launches, shapes, calls)
+        if name == label:
+            p11_entries(results, label, bases, launches, shapes, calls)
         else:
             proof = Background(lambda n=name, t=tree, a=tree_arch, k=toks: small_h8_proof(
                 n, tree_to(t, "cpu", torch.float32), a, cfg, wav.cpu(), k))
-    out["small-h8-2l"]["parted"] = proof.result()
+            if head_dim > 256:
+                out[f"{name}-replay"] = run_self_attention_replay(
+                    dev, tree_arch, tree, name=f"{name}-replay", phase="phase11")
+    out[f"{label}-2l"]["parted"] = proof.result()
     return out
 
 
@@ -7460,20 +7593,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     summaries.update(phase9(dev, *small_int8, results))
     phase_done("phase9")
-    rows = {}
-    summaries.update(phase6(dev, *small_int8, results,
-                            between=lambda: rows.update(phase7_held(dev, p7, results))))
-    phase_done("phase6 (with phase 7's held part)")
+    rows, p11 = {}, {}
+
+    def beside_proofs():   # card work while the queued CPU proofs run
+        rows.update(phase7_held(dev, p7, results))
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        # phase 11's runs, all held; grad mode as at top level (the
+        # held stream passes run under inference mode; qat_recovery trains)
+        with torch.inference_mode(False), torch.enable_grad():
+            p11.update(phase11(dev, results))
+        log(f"phase11 (beside the queued CPU proofs): {time.perf_counter() - t1:.1f} s")
+        torch.cuda.empty_cache()
+
+    summaries.update(phase6(dev, *small_int8, results, between=beside_proofs))
+    summaries.update(p11)
+    phase_done("phase6 (with phase 7's held part and phase 11)")
     # the slice-17 runs: the CLI, DP and TP
     torch.cuda.empty_cache()
     summaries.update(phase10(dev, small_int8[1], results))
     phase_done("phase10")
-    # the slice-18 runs: the examples at head dim 16
-    del small_int8
-    built.clear()
-    torch.cuda.empty_cache()
-    summaries.update(phase11(dev, results))
-    phase_done("phase11")
     check(not LATER, f"CPU proofs never run: {[label for label, _ in LATER]}")
     check(set(rows) == {"small_int8", "medium_int4_kv8"} | {r[0] for r in P7_RUNS},
           f"phase 7 rows: {sorted(rows)}")
@@ -7514,7 +7653,8 @@ def main() -> int:
         {**entries[r["base"]], "name": name,
          **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms")}}
-        for name, r in results.items() if "@test2l-" in name or "@small-h8-" in name]
+        for name, r in results.items()
+        if any(f"@{label}-" in name for label in ("test2l", "small-h8", "small-h2"))]
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,11 @@
 #define OWC_BF16 1
 #define OWC_F16 2
 
+// The capacity code of the attention kernels' WIDE bodies, which take any
+// head dim past 256 at run time (ops/kernels.py WIDE); 16, 32, 64, 128 and
+// 256 name the other bodies.
+#define OWC_WIDE 0
+
 __device__ __forceinline__ float owc_to_float(float x) { return x; }
 __device__ __forceinline__ float owc_to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);

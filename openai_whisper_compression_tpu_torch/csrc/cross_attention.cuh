@@ -107,6 +107,8 @@
 // stages, runs 4 warps a block, two blocks an SM at DH = 128, and has a
 // loop of its own for one slot (a greedy step: no slot predicates, q in
 // registers).
+// A head dim past 256 runs the WIDE body of cross_attention_wide.cu, which
+// walks the head dim in chunks (no template here).
 #pragma once
 
 #include <cooperative_groups.h>

@@ -100,6 +100,8 @@
 // dims a lane. Where a pass's 32 slots of K and V would not fit in
 // registers together (f32 at 128, 16-bit and f32 at 256), V is loaded into
 // K's registers once the scores are made.
+// A head dim past 256 runs the WIDE body of self_attention_step_wide.cu,
+// which walks the head dim in chunks (no template here).
 // Long caches: positions and offsets are computed in 64 bits where they
 // meet a row's S, so S is bounded only by a pass's position staying inside
 // an int: S <= 2^31 - 257.

@@ -53,6 +53,8 @@
 //   fall on 32 banks (f32 input: 16, two lanes a bank) and a row reads back
 //   as whole 16-byte chunks. After one barrier each row of 128 codes leaves
 //   as a whole 128-byte line (8 lanes, 16 bytes each).
+// - A head dim past 256 runs the WIDE body (below), which walks the head dim
+//   in chunks of 32.
 // Any S and H work (S_pad is a multiple of 128).
 #include "common.cuh"
 
@@ -207,21 +209,79 @@ void launch(const void* x, int8_t* q, float* scales, int B, int S, int H, int S_
       owc_align_class((long long)dh * sizeof(T), x));
 }
 
+// The WIDE body: a head dim dh past 256, taken at run time. A block of 8
+// warps takes 32 positions of one (b, h): each warp the absmax of 4
+// positions over the whole dh (its lanes reading 32 neighbouring dims of a
+// row at a time), then the codes 32 dims at a time through a [32][33] float
+// tile in shared memory, so that the reads of x run along dims and each
+// code row leaves as 32 neighbouring bytes; no register array grows with dh.
+// The codes take the IEEE quotient (`owc_quant_int8`), bit for bit the
+// plain version's.
+constexpr int WIDE_POS = 32;
+constexpr int WIDE_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS)
+transpose_quant_wide_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                            float* __restrict__ scales, int S, int H, int S_pad, int dh) {
+  __shared__ float tile[WIDE_POS][WIDE_POS + 1];
+  __shared__ float sc[WIDE_POS];
+  const int s_base = blockIdx.x * WIDE_POS, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t D = (size_t)H * dh;
+  const size_t bh = (size_t)b * H + h;
+  const T* xb = x + (size_t)b * S * D + (size_t)h * dh;
+  for (int i = warp; i < WIDE_POS; i += WIDE_THREADS / 32) {
+    const int s = s_base + i;
+    float a = 0.0f;
+    if (s < S)
+      for (int d = lane; d < dh; d += 32) a = fmaxf(a, fabsf(owc_to_float(xb[s * D + d])));
+    a = owc_warp_max(a);
+    if (lane == 0) {
+      sc[i] = fmaxf(a, 1e-12f) * (1.0f / 127.0f);
+      scales[bh * S_pad + s] = sc[i];
+    }
+  }
+  for (int d0 = 0; d0 < dh; d0 += WIDE_POS) {
+    __syncthreads();   // sc is written; the previous tile has been read
+    for (int e = tid; e < WIDE_POS * WIDE_POS; e += WIDE_THREADS) {
+      const int i = e / WIDE_POS, dd = e % WIDE_POS, s = s_base + i;
+      tile[i][dd] = s < S && d0 + dd < dh ? owc_to_float(xb[s * D + d0 + dd]) : 0.0f;
+    }
+    __syncthreads();
+    for (int e = tid; e < WIDE_POS * WIDE_POS; e += WIDE_THREADS) {
+      const int dd = e / WIDE_POS, i = e % WIDE_POS;
+      if (d0 + dd < dh)
+        q[(bh * dh + d0 + dd) * S_pad + s_base + i] = (int8_t)owc_quant_int8(tile[i][dd], sc[i]);
+    }
+  }
+}
+
 }  // namespace
 
 // x (B, S, H * dh) f32, bf16 or f16 (dtype code), 16-byte aligned where dh
 // is 16, 32, 64 or 128 (element aligned otherwise); q (B * H, dh, S_pad)
 // int8 and scales (B * H, 1, S_pad) f32, 16-byte aligned, every position
-// written. dh: 1..256; cap: its capacity, the smallest of 16, 32, 64, 128,
-// 256 that is >= dh (dh = cap <= 128 runs the whole body, any other the
-// RAGGED one). Requires S <= S_pad, S_pad % 128 == 0, B <= 65535 and H <=
-// 65535.
+// written. cap: dh's capacity, the smallest of 16, 32, 64, 128, 256 that is
+// >= dh (dh = cap <= 128 runs the whole body, any other the RAGGED one), or
+// OWC_WIDE for a dh past 256 (the WIDE body, which reads x element aligned).
+// Requires S <= S_pad, S_pad % 128 == 0, B <= 65535 and H <= 65535.
 extern "C" int owc_transpose_quant_kv(const void* x, void* q, void* scales,
                                       int B, int S, int H, int S_pad, int dtype,
                                       int dh, int cap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cap == OWC_WIDE) {
+    if (S_pad % TS != 0 || S > S_pad || dh < 1) return (int)cudaErrorInvalidValue;
+    const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
+      using T = decltype(tag);
+      transpose_quant_wide_kernel<T><<<dim3(S_pad / WIDE_POS, H, B), WIDE_THREADS, 0, st>>>(
+          static_cast<const T*>(x), static_cast<int8_t*>(q), static_cast<float*>(scales), S,
+          H, S_pad, dh);
+    });
+    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+  }
   if (S_pad % TS != 0 || S > S_pad || dh < 1 || dh > cap || (cap > 16 && 2 * dh <= cap))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* qo = static_cast<int8_t*>(q);
   float* so = static_cast<float*>(scales);
   const bool whole = dh == cap;

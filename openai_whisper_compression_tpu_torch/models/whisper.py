@@ -9,9 +9,10 @@ tied to the embedding. Every matmul with a weight goes through
 `ops.linear.linear`.
 
 Encoder attention on the card runs the fused kernel of `ops.attention` at
-every size: the JAX package reaches `encoder_attention_pallas` only past
-the byte threshold where XLA's own fusion gives way, while eager PyTorch
-would materialise the (B, H, T, T) scores at every size. Not carried over:
+every size and in every float type (bf16, f16, f32): the JAX package
+reaches `encoder_attention_pallas` only past the byte threshold where XLA's
+own fusion gives way, whatever the type, while eager PyTorch would
+materialise the (B, H, T, T) f32 scores at every size. Not carried over:
 the JAX encoder's batch chunking (`_encode_batch_chunks`), which works
 around that same XLA cliff.
 
@@ -99,18 +100,23 @@ def qkv_project(p: Params, x: torch.Tensor, n_heads: int):
     return split_heads(q, n_heads), split_heads(k, n_heads), split_heads(v, n_heads)
 
 
+# the float types `encoder_attention` takes (the JAX kernel takes any)
+ENCODER_KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor | None = None) -> torch.Tensor:
     """Scaled dot-product attention over (B, H, T, Dh), as the JAX
-    package's. On the card, an unmasked bf16 call with Tq = Tk >= 256 (the
-    encoder's) goes to the fused `encoder_attention` kernel unless it needs
-    a gradient: the kernel has no backward, and the JAX package's gradient
-    too runs through its einsum path, never its Pallas kernel. Everything
-    else (a call that needs a gradient, the masked prefill window, f32,
-    short contexts, the CPU) is plain torch: f32 scores (plus an optional
-    additive f32 mask), f32 softmax, probabilities in q's dtype, matmul."""
+    package's. On the card, an unmasked bf16, f16 or f32 call with Tq = Tk
+    >= 256 (the encoder's) goes to the fused `encoder_attention` kernel
+    unless it needs a gradient: the kernel has no backward, and the JAX
+    package's gradient too runs through its einsum path, never its Pallas
+    kernel. Everything else (a call that needs a gradient, the masked
+    prefill window, short contexts, the CPU) is plain torch: f32 scores
+    (plus an optional additive f32 mask), f32 softmax, probabilities in q's
+    dtype, matmul."""
     dh = q.shape[-1]
-    if (mask is None and q.is_cuda and q.dtype == torch.bfloat16
+    if (mask is None and q.is_cuda and q.dtype in ENCODER_KERNEL_DTYPES
             and q.shape[2] == k.shape[2] >= 256 and not needs_grad(q, k, v)):
         return encoder_attention(q, k, v)
     scores = matmul_f32(q * (dh ** -0.5), k.transpose(-1, -2))

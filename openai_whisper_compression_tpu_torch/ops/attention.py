@@ -1,6 +1,9 @@
 """Non-causal encoder attention with the scores kept on chip
-(`csrc/encoder_attention.cu`) and its plain version: the port of the JAX
-package's `ops/attention.py::encoder_attention_pallas`.
+(`csrc/encoder_attention.cu`, `encoder_attention.cuh`,
+`encoder_attention_f16.cu`, `encoder_attention_cc.cu`) and its plain
+version: the port of the JAX package's
+`ops/attention.py::encoder_attention_pallas`, in bf16, f16 and f32 at any
+head dim.
 
 The contract of both versions (the TPU kernel's `_attn_kernel`): q comes in
 unscaled and is multiplied by Dh**-0.5 in its own dtype; scores and softmax
@@ -51,27 +54,33 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
     """Full (non-causal) attention, (B, H, T, Dh) -> (B, H, T, Dh); q
     unscaled (the kernel multiplies it by Dh**-0.5). A CUDA tensor launches
-    the kernel (bf16, Dh 1..256: 16, 32, 64 and 128 run their whole bodies,
-    any other the RAGGED body of its capacity; counted in
-    `encoder_attention.launches`); a CPU tensor takes the plain version.
-    The kernel stays bf16 only, unlike the decode kernels: the JAX package
-    reaches its Pallas kernel only past a score size that no f32 or f16
-    configuration's test reaches, and `models.whisper.attention` sends an
-    f32 or f16 encoder through plain torch, as the JAX package leaves it to
-    XLA.
+    a kernel: bf16 and f16 up to Dh 256 the tensor-core bodies (bf16's
+    whole bodies at 16, 32, 64 and 128, f16's at 64, any other width the
+    RAGGED body of its capacity), f32 at every head dim and bf16 and f16 past
+    256 the CUDA-core bodies (f32 products: TF32 would not hold an f32
+    bound). Each launch is counted by type, in `encoder_attention.launches`
+    for bf16, `.launches_f32` and `.launches_f16`, and a launch past head dim
+    256 also in `.launches_wide_dh`. A CPU tensor takes the plain version.
+    q, k and v share one type, as the JAX `encoder_attention_pallas` takes
+    any float type (its scores f32, its output in q's type).
 
     The kernel reads q, k and v through their (batch, head, row) strides,
     so the (B, T, H, Dh) memory that `split_heads` leaves is not copied, and
     it writes the output in that same layout (returned as its (B, H, T, Dh)
-    view), so that `merge_heads` of the result is a view too. An input
-    whose rows are not contiguous, or do not start on 16-byte boundaries, is
-    copied to a contiguous buffer first: at a whole Dh one of Dh columns, at
-    a RAGGED one a zero-padded buffer of the capacity's columns (whose
-    strides the kernel's tensor maps take), counted in
-    `encoder_attention.pad_copies`."""
+    view), so that `merge_heads` of the result is a view too. The
+    tensor-core bodies' tensor maps need rows of contiguous values at
+    16-byte aligned addresses: an input without them is copied to a
+    contiguous buffer first, at a whole Dh one of Dh columns, at a RAGGED
+    one a zero-padded buffer of the capacity's columns (whose strides the
+    tensor maps take), counted in `encoder_attention.pad_copies`. The
+    CUDA-core bodies read any view whose head dim is contiguous."""
     if not q.is_cuda:
         return encoder_attention_ref(q, k, v)
     return _launch_encoder_attention(q, k, v)
+
+
+# element type -> the launch counter after `launches`
+_COUNTER = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}
 
 
 def _launch_encoder_attention(q: torch.Tensor, k: torch.Tensor,
@@ -88,28 +97,36 @@ def _launch_encoder_attention(q: torch.Tensor, k: torch.Tensor,
     kernels.require_head_dim(name, dh)
     kernels.require(t >= 1 and 1 <= b * h <= 65535, name,
                     f"T {t} must be >= 1 and B*H {b * h} lie in 1..65535")
-    kernels.require_bf16(name, q, k, v)
+    code = kernels.dtype_code(q, name, k, v)
     kernels.require(len({x.device for x in (q, k, v)}) == 1, name,
                     "q, k and v must share a device")
     cap = kernels.head_dim_capacity(dh)
-    kernels.require(b * h * (2 if cap > 128 else 1) <= 65535, name,
-                    f"B*H {b * h} must be at most 32767 at head dim {dh}")
-    # 16-byte rows for the tensor maps of k and v (the 4 bytes q and out
-    # need follow); a view without them is read through a copy
-    q, k, v = (x if _rows_aligned(x) else _copy_rows(x, cap) for x in (q, k, v))
+    if q.dtype == torch.float32 or cap == kernels.WIDE:
+        # the CUDA-core bodies read rows of contiguous values where they are
+        q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+    else:
+        # 16-byte rows for the tensor maps of k and v (the 4 bytes q and out
+        # need follow); a view without them is read through a copy
+        q, k, v = (x if _rows_aligned(x) else _copy_rows(x, cap) for x in (q, k, v))
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out)
                                          for s in x.stride()[:3]))
     err = kernels.lib().owc_encoder_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t, dh, cap,
-        dh ** -0.5, strides, kernels.stream_of(q))
+        dh ** -0.5, strides, code, kernels.stream_of(q))
     kernels.check(name, err)
-    encoder_attention.launches += 1
+    attr = "launches" + _COUNTER[q.dtype]
+    setattr(encoder_attention, attr, getattr(encoder_attention, attr) + 1)
+    if cap == kernels.WIDE:
+        encoder_attention.launches_wide_dh += 1
     kernels.record_cost(encoder_attention_cost(b, h, t, dh, q.element_size()))
     return out
 
 
-encoder_attention.launches = 0
+encoder_attention.launches = 0       # bf16
+encoder_attention.launches_f32 = 0
+encoder_attention.launches_f16 = 0
+encoder_attention.launches_wide_dh = 0   # any type, head dims past 256
 encoder_attention.pad_copies = 0   # RAGGED head dims' zero-padded copies
 
 

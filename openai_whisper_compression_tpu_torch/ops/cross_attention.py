@@ -13,10 +13,12 @@ reading the K/V again (the JAX kernel takes any K in one call).
 `decode_cross_attention` is the one-query function that the JAX package's
 decode step takes where B·H is no multiple of 16 (`UNGROUPED_MODULUS`): few
 rows, so its kernel splits S over the blocks of a cluster
-(`one_query_splits`), in one launch. Every kernel takes any head dim from 1
-to `kernels.MAX_HEAD_DIM` (256; even for packed int4 K/V): 16, 32, 64 and
-128 run their whole bodies, any other the RAGGED body of its capacity
-(`kernels.head_dim_capacity`), and above 256 the wrappers raise. K/V storage
+(`one_query_splits`), in one launch. Every kernel takes any head dim (even
+for packed int4 K/V): 16, 32, 64 and 128 run their whole bodies, any other
+up to 256 the RAGGED body of its capacity (`kernels.head_dim_capacity`),
+and any past 256 the WIDE body (`csrc/cross_attention_wide.cu` for the
+cross-attentions, the quantizer's own), which walks the head dim in chunks;
+a WIDE launch is also counted in the wrapper's `launches_wide_dh`. K/V storage
 follows the JAX layout: (B·H, Dh, S_pad) in q's own type (float32, bfloat16
 or float16: the Pallas kernels are generic in it; f32 arithmetic, output in
 q's type); int8 with (B·H, 1, S_pad) f32 per-position scales; or split-half
@@ -77,9 +79,10 @@ def transpose_quant_kv(x: torch.Tensor, h: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, H*Dh) f32/bf16/f16 -> ((B*H, Dh, S_pad) int8, (B*H, 1, S_pad)
     f32 scales), S_pad = `pad_cross_len(S)`, padding positions quantized
-    from zeros. A CUDA tensor launches the kernel (Dh 1..256; counted in
-    `transpose_quant_kv.launches`); an x that is not contiguous or not
-    16-byte aligned is copied first. A CPU tensor takes the plain version."""
+    from zeros. A CUDA tensor launches the kernel (any Dh; counted in
+    `transpose_quant_kv.launches`, and past Dh 256 also in
+    `.launches_wide_dh`); an x that is not contiguous or not 16-byte
+    aligned is copied first. A CPU tensor takes the plain version."""
     if not x.is_cuda:
         return transpose_quant_kv_ref(x, h)
     return _launch_transpose_quant_kv(x, h)
@@ -104,11 +107,13 @@ def _launch_transpose_quant_kv(x: torch.Tensor, h: int
     s_pad = pad_cross_len(s)
     q = torch.empty((b * h, dh, s_pad), dtype=torch.int8, device=x.device)
     scale = torch.empty((b * h, 1, s_pad), dtype=torch.float32, device=x.device)
+    cap = kernels.head_dim_capacity(dh)
     err = kernels.lib().owc_transpose_quant_kv(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), b, s, h, s_pad, code, dh,
-        kernels.head_dim_capacity(dh), kernels.stream_of(x))
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), b, s, h, s_pad, code, dh, cap,
+        kernels.stream_of(x))
     kernels.check(name, err)
     transpose_quant_kv.launches += 1
+    transpose_quant_kv.launches_wide_dh += cap == kernels.WIDE
     kernels.record_cost(transpose_quant_kv_cost(b, s, h, dh, x.element_size()))
     return q, scale
 
@@ -122,6 +127,7 @@ def transpose_quant_kv_cost(b: int, s: int, h: int, dh: int, itemsize: int) -> d
 
 
 transpose_quant_kv.launches = 0
+transpose_quant_kv.launches_wide_dh = 0   # head dims past 256
 
 
 def unpack4(packed: torch.Tensor) -> torch.Tensor:
@@ -166,7 +172,7 @@ def _check_kv(name: str, q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
               k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
               s_valid: int | None) -> tuple[str, int, int]:
     """The checks of what both cross-attention kernels take: q in f32, bf16
-    or f16 of a head dim of 1..`kernels.MAX_HEAD_DIM` (even for packed int4)
+    or f16 of any head dim (even for packed int4)
     whose first axis is B·H, K/V of one storage kind (q's type without
     scales, or int8 / int4 with them) on one device. Returns (kind, S_pad,
     s_valid); the caller reads the tensors through `kernels.aligned`."""
@@ -280,6 +286,7 @@ def _launch_decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
         attr = counter + ("_wide" if slots > NARROW_SLOTS else "")
         setattr(decode_cross_attention_grouped, attr,
                 getattr(decode_cross_attention_grouped, attr) + 1)
+        decode_cross_attention_grouped.launches_wide_dh += cap == kernels.WIDE
     kernels.record_cost(decode_cross_attention_grouped_cost(bh, kq, dh, s_pad,
                                                             k_t.element_size()))
     return out
@@ -297,6 +304,7 @@ def decode_cross_attention_grouped_cost(bh: int, kq: int, dh: int, s_pad: int,
 for _, _, _counter in _KINDS.values():   # bf16, f32, f16, int8, int4 K/V
     setattr(decode_cross_attention_grouped, _counter, 0)            # 1..4 slots
     setattr(decode_cross_attention_grouped, _counter + "_wide", 0)  # 5..8 slots
+decode_cross_attention_grouped.launches_wide_dh = 0   # any kind, head dims past 256
 
 
 def decode_cross_attention_ref(q: torch.Tensor, k_t: torch.Tensor,
@@ -319,8 +327,8 @@ def decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
     k_t/v_t, the scales and s_valid as `decode_cross_attention_grouped`
     takes them. Returns (BH, Dh) in q's dtype. A CUDA tensor launches the
     kernel once, S split over a cluster of `one_query_splits` blocks a row
-    (at a head dim with no whole body, the grouped kernel's RAGGED body at
-    one slot; each storage kind counts its launches in its own attribute: `launches`
+    (at a head dim with no whole body, the grouped kernel's RAGGED or WIDE
+    body at one slot; each storage kind counts its launches in its own attribute: `launches`
     for bf16 K/V, `launches_f32`, `launches_f16`, `launches_int8`,
     `launches_int4`); a CPU tensor takes the plain version."""
     if not q.is_cuda:
@@ -345,16 +353,17 @@ def _launch_decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
     kernels.require(1 <= bh < 2 ** 31, name, f"B*H {bh} outside 1..2**31 - 1")
     q, k_t, v_t, k_scale, v_scale = map(kernels.aligned, (q, k_t, v_t, k_scale, v_scale))
     out = torch.empty_like(q)
+    cap = kernels.head_dim_capacity(dh)
     err = kernels.lib().owc_cross_attention(
         q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         out.data_ptr(), bh, one_query_splits(bh, s_valid), s_pad, s_valid, code,
-        kernels.DTYPE_CODES[q.dtype], dh, kernels.head_dim_capacity(dh),
-        kernels.stream_of(q))
+        kernels.DTYPE_CODES[q.dtype], dh, cap, kernels.stream_of(q))
     kernels.check(name, err)
     setattr(decode_cross_attention, counter,
             getattr(decode_cross_attention, counter) + 1)
+    decode_cross_attention.launches_wide_dh += cap == kernels.WIDE
     kernels.record_cost(decode_cross_attention_cost(bh, dh, s_pad, k_t.shape[1],
                                                     k_t.element_size(), kind))
     return out
@@ -374,3 +383,4 @@ def decode_cross_attention_cost(bh: int, dh: int, s_pad: int, rows: int,
 
 for _, _, _counter in _KINDS.values():   # bf16, f32, f16, int8, int4 K/V
     setattr(decode_cross_attention, _counter, 0)
+decode_cross_attention.launches_wide_dh = 0   # any kind, head dims past 256

@@ -66,18 +66,20 @@ _SIGNATURES = {
     "owc_self_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _P],
     # B, H, T, the head dim and capacity, the scale; the 12 strides are a
-    # host array of long long
+    # host array of long long; then the dtype code
     "owc_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                              ctypes.POINTER(ctypes.c_longlong), _P],
+                              ctypes.POINTER(ctypes.c_longlong), _I, _P],
 }
 
 # head dims the attention kernels have whole bodies for (each body a
 # template on it): every Whisper size has 64, the test models 16. Any other
-# head dim up to MAX_HEAD_DIM runs the RAGGED body of its capacity
-# (`head_dim_capacity`), which takes the head dim at run time.
+# head dim up to 256 runs the RAGGED body of its capacity
+# (`head_dim_capacity`), which takes the head dim at run time, and any head
+# dim past 256 the WIDE body of each kernel, which walks the head dim in
+# chunks (capacity code `WIDE`, csrc/common.cuh's OWC_WIDE).
 HEAD_DIMS = (16, 32, 64, 128)
 CAPACITIES = HEAD_DIMS + (256,)
-MAX_HEAD_DIM = CAPACITIES[-1]
+WIDE = 0
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of this process's build
@@ -179,11 +181,6 @@ def dtype_code(t: torch.Tensor, name: str, *same: torch.Tensor) -> int:
     return DTYPE_CODES[t.dtype]
 
 
-def require_bf16(name: str, *tensors: torch.Tensor) -> None:
-    """Raise TypeError unless every tensor is bfloat16 (bf16-only kernels)."""
-    require_dtype(name, torch.bfloat16, *tensors)
-
-
 def require_dtype(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
     """Raise TypeError unless every tensor has `dtype`."""
     for t in tensors:
@@ -199,11 +196,10 @@ def require(cond: bool, name: str, what: str) -> None:
 
 def require_head_dim(name: str, dh: int, int4: bool = False) -> None:
     """Raise ValueError unless the attention kernels take head dim `dh`:
-    1..`MAX_HEAD_DIM`, and even where `int4` (split-half packed int4 K/V
+    any width of at least 1, even where `int4` (split-half packed int4 K/V
     hold Dh / 2 byte rows)."""
-    if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim must lie in 1..{MAX_HEAD_DIM} (the "
-                         f"widest body the attention kernels have), got {dh}")
+    if dh < 1:
+        raise ValueError(f"{name}: head dim must be at least 1, got {dh}")
     if int4 and dh % 2:
         raise ValueError(f"{name}: packed int4 K/V need an even head dim "
                          f"(Dh / 2 byte rows), got {dh}")
@@ -211,11 +207,12 @@ def require_head_dim(name: str, dh: int, int4: bool = False) -> None:
 
 def head_dim_capacity(dh: int) -> int:
     """The width of the body that serves head dim `dh`: the smallest of
-    `CAPACITIES` (16, 32, 64, 128, 256) that is >= dh. A dh equal to its
-    capacity among `HEAD_DIMS` runs that width's whole body; any other runs
-    the capacity's RAGGED body, which pads the head dim with zeros in
-    registers and shared memory, never in device memory."""
-    return next(c for c in CAPACITIES if c >= dh)
+    `CAPACITIES` (16, 32, 64, 128, 256) that is >= dh, or `WIDE` past 256. A
+    dh equal to its capacity among `HEAD_DIMS` runs that width's whole body;
+    any other up to 256 runs the capacity's RAGGED body, which pads the head
+    dim with zeros in registers and shared memory, never in device memory;
+    a WIDE body takes the head dim at run time and walks it in chunks."""
+    return next((c for c in CAPACITIES if c >= dh), WIDE)
 
 
 # What the kernels launched so far declare they did, under XLA's key names:

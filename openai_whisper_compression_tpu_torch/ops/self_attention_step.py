@@ -19,17 +19,19 @@ the int8 cache, position `pos` of k_scale/v_scale) is overwritten in place
 (the JAX functions donate the buffers and return the updated ones; here the
 caller keeps using its own tensors).
 
-The kernels take any head dim from 1 to `kernels.MAX_HEAD_DIM` (256): 16,
-32, 64 and 128 run their whole bodies, any other the RAGGED body of its
-capacity (`kernels.head_dim_capacity`), which reads and writes the caller's
-rows of Dh values where they are (no cache is padded or copied for it);
-and caches of up to `MAX_CACHE_ROWS` positions. Their wrappers take any
-strided or offset view where the JAX functions take an array: q and the
-fresh rows, and the caches the read-only version reads, are copied to a
-contiguous, aligned buffer where the kernel cannot read them in place; a
-cache (or scale row) that an update writes and that is not contiguous or
-not 16-byte aligned is updated in a contiguous copy, whose row `pos` is
-then copied back into it.
+The kernels take any head dim: 16, 32, 64 and 128 run their whole bodies,
+any other up to 256 the RAGGED body of its capacity
+(`kernels.head_dim_capacity`), and any past 256 the WIDE body
+(`csrc/self_attention_step_wide.cu`, counted also in each wrapper's
+`launches_wide_dh`), which walks the head dim in chunks; both read and
+write the caller's rows of Dh values where they are (no cache is padded or
+copied for them); and caches of up to `MAX_CACHE_ROWS` positions. Their
+wrappers take any strided or offset view where the JAX functions take an
+array: q and the fresh rows, and the caches the read-only version reads,
+are copied to a contiguous, aligned buffer where the kernel cannot read
+them in place; a cache (or scale row) that an update writes and that is
+not contiguous or not 16-byte aligned is updated in a contiguous copy,
+whose row `pos` is then copied back into it.
 """
 
 from __future__ import annotations
@@ -47,8 +49,11 @@ MAX_CACHE_ROWS = 2 ** 31 - 257
 _FP_COUNTER = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}
 
 
-def _count(fn, attr: str) -> None:
+def _count(fn, attr: str, dh: int) -> None:
+    """One launch in `fn.<attr>`, and in `fn.launches_wide_dh` where head dim
+    `dh` ran a WIDE body."""
     setattr(fn, attr, getattr(fn, attr) + 1)
+    fn.launches_wide_dh += kernels.head_dim_capacity(dh) == kernels.WIDE
 
 
 def _mask_before_start(scores: torch.Tensor,
@@ -188,13 +193,14 @@ def _launch_decode_self_attention_update(q: torch.Tensor, k_new: torch.Tensor,
     kernels.record_cost(self_attention_cost(bh, s, dh, k_cache.element_size()))
     _write_back((k_cache, v_cache), work, pos)
     _count(decode_self_attention_update, "launches" + _FP_COUNTER[q.dtype]
-           + ("" if start is None else "_start"))
+           + ("" if start is None else "_start"), dh)
     return out
 
 
 for _suffix in _FP_COUNTER.values():   # bf16, f32, f16 caches
     setattr(decode_self_attention_update, "launches" + _suffix, 0)   # without start
     setattr(decode_self_attention_update, "launches" + _suffix + "_start", 0)
+decode_self_attention_update.launches_wide_dh = 0   # head dims past 256
 
 
 def decode_self_attention_update_int8_ref(q: torch.Tensor, k_new: torch.Tensor,
@@ -296,12 +302,13 @@ def _launch_decode_self_attention_update_int8(q: torch.Tensor, k_new: torch.Tens
     kernels.record_cost(self_attention_cost(bh, s, dh, 1))
     _write_back(bufs, work, pos)
     _count(decode_self_attention_update_int8,
-           "launches" + ("" if start is None else "_start"))
+           "launches" + ("" if start is None else "_start"), dh)
     return out
 
 
 decode_self_attention_update_int8.launches = 0         # without start
 decode_self_attention_update_int8.launches_start = 0   # with start
+decode_self_attention_update_int8.launches_wide_dh = 0   # head dims past 256
 
 
 def decode_self_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
@@ -385,10 +392,11 @@ def _launch_decode_self_attention(q: torch.Tensor, k_cache: torch.Tensor,
     kernels.record_cost(self_attention_cost(bh, s, dh, k_cache.element_size()))
     _count(decode_self_attention,
            "launches" + ("_int8" if int8 else _FP_COUNTER[q.dtype])
-           + ("" if start is None else "_start"))
+           + ("" if start is None else "_start"), dh)
     return out
 
 
 for _suffix in (*_FP_COUNTER.values(), "_int8"):   # bf16, f32, f16, int8 caches
     setattr(decode_self_attention, "launches" + _suffix, 0)   # without start
     setattr(decode_self_attention, "launches" + _suffix + "_start", 0)
+decode_self_attention.launches_wide_dh = 0   # head dims past 256

@@ -1,14 +1,16 @@
-"""The attention kernels at any head dim from 1 to 256, on the CPU: what
-each wrapper's card path hands the kernels at widths that are not whole
-bodies (16, 32, 64, 128 are), the plain versions against the JAX
-functions at those widths, and the kernels' declared costs against the
+"""The attention kernels at any head dim, on the CPU: what each wrapper's
+card path hands the kernels at widths that are not whole bodies (16, 32,
+64, 128 are), up to 256 and past it (the WIDE bodies), the plain versions
+against the JAX functions at those widths, the encoder attention's f16 and
+f32 calls (dtype codes, the model's dispatch, the plain version against the
+Pallas kernel), and the kernels' declared costs against the
 `pl.CostEstimate`s of the JAX package's Pallas kernels.
 
 The card paths (`_launch_*`) run on CPU tensors with the kernel library
 replaced by `test_torch_head_dims.FakeLib`, which records every launcher's
 arguments and marks row `pos` of the caches an update is handed. Holds: the
 head dim and its capacity (the smallest of 16, 32, 64, 128, 256 that holds
-it) handed to the launchers; no cache padded or copied to reach a capacity
+it, `kernels.WIDE` past 256) handed to the launchers; no cache padded or copied to reach a capacity
 (the caller's pointers are passed, and the update's mark lands in rows of dh
 elements); the encoder attention's zero-padded copy made exactly where the
 strides need it (a stride not a multiple of 8 elements). The JAX side runs
@@ -41,13 +43,13 @@ from test_torch_head_dims import FakeLib
 
 torch.set_num_threads(2)
 
-WIDTHS = [1, 8, 24, 36, 48, 80, 96, 100, 160, 200, 256]
+WIDTHS = [1, 8, 24, 36, 48, 80, 96, 100, 160, 200, 256, 257, 288, 384, 512]
 KINDS_AT = [(dh, kind) for dh in WIDTHS for kind in ("fp", "int8", "int4")
             if kind != "int4" or dh % 2 == 0]   # packed int4 holds dh / 2 rows
 
 
 def cap_of(dh):
-    return next(c for c in (16, 32, 64, 128, 256) if c >= dh)
+    return next((c for c in (16, 32, 64, 128, 256) if c >= dh), kernels.WIDE)
 
 
 class PadReader(FakeLib):
@@ -79,8 +81,9 @@ def lib(monkeypatch):
 
 def test_capacity_of_every_width():
     assert [kernels.head_dim_capacity(d) for d in range(1, 257)] == [
-        cap_of(d) for d in range(1, 257)]
-    assert kernels.CAPACITIES == (16, 32, 64, 128, 256) and kernels.MAX_HEAD_DIM == 256
+        next(c for c in (16, 32, 64, 128, 256) if c >= d) for d in range(1, 257)]
+    assert kernels.CAPACITIES == (16, 32, 64, 128, 256)
+    assert {kernels.head_dim_capacity(d) for d in range(257, 1100)} == {kernels.WIDE}
 
 
 @pytest.mark.parametrize("dh", WIDTHS)
@@ -132,8 +135,10 @@ def test_encoder_attention_pads_only_where_the_strides_need_it(lib, dh):
     """The fused projection's views are read in place where every stride is
     a multiple of 8 elements (dh % 8 == 0 here); otherwise each of q, k and
     v is copied once into a (B, H, T, capacity) buffer whose columns past dh
-    are zero. Contiguous (B, H, T, dh) inputs likewise. The output is written
-    for dh columns in (B, T, H, dh) memory; the scale is dh ** -0.5."""
+    are zero. Contiguous (B, H, T, dh) inputs likewise. Past 256 (the WIDE
+    body, which needs no tensor map) every view is read in place. The
+    output is written for dh columns in (B, T, H, dh) memory; the scale is
+    dh ** -0.5, the dtype code bf16's."""
     b, h, t = 2, 3, 300
     cap = cap_of(dh)
     fused = torch.randn(b, t, 3 * h * dh).bfloat16()
@@ -144,8 +149,12 @@ def test_encoder_attention_pads_only_where_the_strides_need_it(lib, dh):
         args = lib.of("owc_encoder_attention")[-1]
         copied = att.encoder_attention.pad_copies - before
         assert args[7:9] == (dh, cap) and args[9] == pytest.approx(dh ** -0.5)
+        assert args[11] == kernels.DTYPE_CODES[torch.bfloat16]
         strides = list(args[10][:12])
-        if dh % 8 == 0:
+        if cap == kernels.WIDE:
+            assert copied == 0 and args[:3] == tuple(x.data_ptr() for x in inputs)
+            assert strides[3:6] == list(inputs[1].stride()[:3])
+        elif dh % 8 == 0:
             assert copied == 0 and args[:3] == tuple(x.data_ptr() for x in inputs)
         else:
             assert copied == 3 and args[1] != inputs[1].data_ptr()
@@ -153,9 +162,85 @@ def test_encoder_attention_pads_only_where_the_strides_need_it(lib, dh):
             row0 = inputs[1][0, 0, 0].contiguous().view(torch.int16)
             assert lib.k_row0[0] == row0.numpy().tobytes()
             assert set(lib.k_row0[1]) <= {0}   # the capacity's columns past dh
-        assert all(s % 8 == 0 for s in strides[:9])
+        assert cap == kernels.WIDE or all(s % 8 == 0 for s in strides[:9])
         assert out.shape == (b, h, t, dh) and out.transpose(1, 2).is_contiguous()
         assert strides[9:] == [t * h * dh, dh, h * dh]
+
+
+@pytest.mark.parametrize("dh", [64, 36, 384])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32], ids=["f16", "f32"])
+def test_encoder_attention_hands_f16_and_f32(lib, dtype, dh):
+    """f16 and f32 calls reach the launcher with their dtype codes (2 and 0),
+    each counted in its type's counter (and past 256 in `launches_wide_dh`).
+    f32 at every width and f16 past 256 go to the CUDA-core bodies, which
+    read the fused projection's views in place; f16 up to 256 to the
+    tensor-core bodies, whose tensor maps need 16-byte strides (dh 36: one
+    zero-padded copy each of q, k and v)."""
+    b, h, t = 2, 3, 300
+    fused = torch.randn(b, t, 3 * h * dh).to(dtype)
+    q, k, v = (split_heads(fused[..., i * h * dh: (i + 1) * h * dh], h) for i in range(3))
+    attr = {torch.float16: "launches_f16", torch.float32: "launches_f32"}[dtype]
+    before = (getattr(att.encoder_attention, attr), att.encoder_attention.launches,
+              att.encoder_attention.pad_copies, att.encoder_attention.launches_wide_dh)
+    out = att._launch_encoder_attention(q, k, v)
+    (args,) = lib.of("owc_encoder_attention")
+    assert args[11] == kernels.DTYPE_CODES[dtype] == {torch.float16: 2, torch.float32: 0}[dtype]
+    assert args[7:9] == (dh, cap_of(dh)) and out.dtype == dtype
+    copies = att.encoder_attention.pad_copies - before[2]
+    in_place = dtype == torch.float32 or dh > 256 or dh % 8 == 0
+    assert copies == (0 if in_place else 3)
+    assert (args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())) == in_place
+    assert (getattr(att.encoder_attention, attr) - before[0],
+            att.encoder_attention.launches - before[1],
+            att.encoder_attention.launches_wide_dh - before[3]) == (1, 0, int(dh > 256))
+    with pytest.raises(TypeError):   # q, k and v of one type
+        att._launch_encoder_attention(q, k.bfloat16(), v)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so that the model's
+    dispatch takes its card path (whose launch goes to the recording
+    library)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "f16", "f32"])
+def test_model_attention_routes_every_type_to_the_kernel(lib, monkeypatch, dtype):
+    """`models.whisper.attention` sends an unmasked encoder call (Tq = Tk >=
+    256) in bf16, f16 or f32 to `encoder_attention`'s card path, with the
+    type's dtype code, and a masked or short call to plain torch."""
+    from openai_whisper_compression_tpu_torch.models import whisper
+
+    # the plain branch's bf16 product with an f32 output has no CPU kernel
+    monkeypatch.setattr(whisper, "matmul_f32", lambda a, b: torch.matmul(a.float(), b.float()))
+    q, k, v = (torch.randn(1, 2, 256, 64).to(dtype).as_subclass(_OnCard) for _ in range(3))
+    whisper.attention(q, k, v)
+    (args,) = lib.of("owc_encoder_attention")
+    assert args[4:9] == (1, 2, 256, 64, 64) and args[11] == kernels.DTYPE_CODES[dtype]
+    whisper.attention(q, k, v, torch.zeros(256, 256))
+    whisper.attention(q[:, :, :255], k[:, :, :255], v[:, :, :255])
+    assert len(lib.of("owc_encoder_attention")) == 1
+
+
+@pytest.mark.parametrize("t", [256, 300])
+@pytest.mark.parametrize("dtype", ["float16", "float32"])
+def test_encoder_attention_plain_matches_jax_in_f16_and_f32(dtype, t):
+    """The plain version against `encoder_attention_pallas` (interpret mode)
+    in f16 and f32 at T >= 256, the length from which the model takes the
+    kernel: f32 within 1e-5 (sums ordered otherwise), f16 within one f16 step
+    of the largest output (2**-10 of it: the two sides round f32 values that
+    differ by sum order)."""
+    rng = np.random.default_rng(t)
+    q, k, v = rng.standard_normal((3, 2, 3, t, 64)).astype(dtype)
+    want = np.asarray(jax_att.encoder_attention_pallas(*map(jnp.asarray, (q, k, v))))
+    got = att.encoder_attention(*map(torch.from_numpy, (q, k, v)))
+    assert got.dtype == getattr(torch, dtype) and want.dtype == np.dtype(dtype)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -10 * float(np.abs(want).max())
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32), rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
@@ -406,6 +491,24 @@ def test_cost_functions_equal_the_pallas_cost_estimates(name, shape):
     assert cost == _as_cost(est)
 
 
+# the attention kernels past head dim 256 (their WIDE bodies)
+WIDE_COST_CASES = [
+    ("transpose_quant_kv", (2, 1500, 2, 384)), ("encoder_attention", (1, 2, 300, 257)),
+    ("cross_grouped", (24, 3, 288, 256, "int4")), ("cross_grouped", (16, 1, 512, 1536, "fp")),
+    ("cross_one_query", (12, 1, 384, 1536, "int8")), ("self_update", (6, 40, 320)),
+    ("self_update_int8", (8, 64, 512)), ("self_attention", (6, 40, 257)),
+]
+
+
+@pytest.mark.parametrize("name,shape", WIDE_COST_CASES,
+                         ids=[f"{n}-{s[-2] if n.startswith('cross') else s[-1]}"
+                              for n, s in WIDE_COST_CASES])
+def test_cost_functions_equal_the_pallas_cost_estimates_past_256(name, shape):
+    fn, args, kw, cost = _case(name, shape)
+    (est,) = _pallas_costs(fn, *args, **kw)
+    assert cost == _as_cost(est)
+
+
 def test_the_costs_cover_all_13_kernels():
     kernels_of = {"log_mel", "int8_matmul", "int4_matmul", "nf4_matmul",
                   "group_asym_matmul", "w8a8_matmul", "transpose_quant_kv",
@@ -474,11 +577,12 @@ def test_flops_per_second_counts_kernel_flops(lib):
 # ------------------------------------------------------------ the test models
 
 def _variant(dh):
-    """test2l cut into 4 heads of 36 (d_model 144) or 2 of 96 (192)."""
+    """test2l cut into 4 heads of 36 (d_model 144), 2 of 96 (192) or 2 of 288
+    (576: the WIDE bodies)."""
     from openai_whisper_compression_tpu.config import ARCHS as JAX_ARCHS
     from openai_whisper_compression_tpu_torch.config import ARCHS
 
-    heads = {36: 4, 96: 2}[dh]
+    heads = {36: 4, 96: 2, 288: 2}[dh]
     kw = dict(name=f"test2l-dh{dh}", d_model=heads * dh, encoder_heads=heads,
               decoder_heads=heads, ffn_dim=4 * heads * dh)
     return JAX_ARCHS["test2l"].replace(**kw), ARCHS["test2l"].replace(**kw)
@@ -490,7 +594,7 @@ def variant_params():
     from openai_whisper_compression_tpu_torch.models.params import from_numpy
 
     out = {}
-    for dh in (36, 96):
+    for dh in (36, 96, 288):
         jarch, arch = _variant(dh)
         jp = JP.init_params_jit(jarch, jax.random.PRNGKey(dh), std=0.5)
         out[dh] = (jarch, arch, jp, from_numpy(jax.tree.map(np.asarray, jp), device="cpu"))
@@ -503,11 +607,11 @@ DECODES = {"fp": {}, "int8": {"kv_int8": True, "cross_kv_int8": True},
 
 @pytest.mark.parametrize("beam", [1, 2], ids=["greedy", "beam2"])
 @pytest.mark.parametrize("kv", DECODES)
-@pytest.mark.parametrize("dh", [36, 96])
+@pytest.mark.parametrize("dh", [36, 96, 288])
 def test_test_model_variants_decode_like_jax(variant_params, dh, kv, beam):
-    """`make_transcribe_fn` on the f32 test2l variants (head dims 36 and 96)
-    over fp, int8 and int4 caches, greedy and beam 2, at batch 3: the same
-    tokens and lengths as the jitted JAX transcription function."""
+    """`make_transcribe_fn` on the f32 test2l variants (head dims 36, 96 and
+    288) over fp, int8 and int4 caches, greedy and beam 2, at batch 3: the
+    same tokens and lengths as the jitted JAX transcription function."""
     from openai_whisper_compression_tpu.config import DecodeConfig as JaxDecodeConfig
     from openai_whisper_compression_tpu.evaluation.harness import (
         make_transcribe_fn as jax_make_transcribe_fn)

@@ -16,7 +16,9 @@ occupancy, a serving bucket of 8) with every kernel call held against its
 plain version (`chip_smoke.checked_kernel_calls`); the w8a8 matmul at ragged
 widths; every wrapper's refusal of inputs that need a gradient, the model's
 plain attention under grad, a bf16 `nll_loss` gradient against CPU f32, and
-the GPTQ solve against the CPU's. Marked `cuda`; every test skips where no
+the GPTQ solve against the CPU's; the encoder attention in f16 and f32; every
+attention kernel past head dim 256 (the WIDE bodies: 257-1024, every kind
+and q type, a 16384-row cache at 512). Marked `cuda`; every test skips where no
 CUDA device is present. Needs no jax, so on the GPU machine run it without the JAX test
 configuration:
 
@@ -666,10 +668,12 @@ def test_self_attention_fp_rows(dev, bh, s, pos, with_start, dtype):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
-    x = torch.zeros(4, 257, device=dev)
-    with pytest.raises(ValueError, match=r"1\.\.256"):  # head dim 257
-        decode_self_attention_update(x, x, x, torch.zeros(4, 8, 257, device=dev),
-                                     torch.zeros(4, 8, 257, device=dev), 1)
+    x = torch.ones(4, 257, device=dev)   # head dim 257: the WIDE body, no refusal
+    caches = [torch.zeros(4, 8, 257, device=dev) for _ in range(2)]
+    before = decode_self_attention_update.launches_wide_dh
+    got = decode_self_attention_update(x, x, x, *caches, 1)
+    assert decode_self_attention_update.launches_wide_dh == before + 1
+    assert bool((caches[0][:, 1] == 1).all()) and bool((got == 1).all())
     row = torch.zeros(4, 64, device=dev, dtype=torch.bfloat16)
     cache = torch.zeros(4, 8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(TypeError):  # an int64 start
@@ -734,11 +738,17 @@ def test_quantized_wrappers_reject_what_the_kernels_do_not_take(dev):
         decode_cross_attention_grouped(q, kv8, kv8, sc8, sc8, 130)
     with pytest.raises(ValueError):  # scales of the wrong shape
         decode_cross_attention_grouped(q, kv, kv, sc[:, :, :64], sc[:, :, :64])
-    with pytest.raises(ValueError, match=r"1\.\.256"):  # head dim 257
-        transpose_quant_kv(torch.zeros(1, 10, 514, device=dev, dtype=bf), 2)
-    with pytest.raises(ValueError, match=r"1\.\.256"):  # head dim 257
-        decode_cross_attention_grouped(torch.zeros(4, 1, 257, device=dev, dtype=bf),
-                                       *torch.zeros(2, 4, 257, 128, device=dev, dtype=bf))
+    # head dim 257, once refused: the WIDE bodies, held to the plain versions
+    x257 = torch.randn(1, 10, 514, device=dev, dtype=bf)
+    codes, scales = transpose_quant_kv(x257, 2)
+    want = transpose_quant_kv_ref(x257, 2)
+    assert torch.equal(codes, want[0]) and torch.equal(scales, want[1])
+    q257 = torch.randn(4, 1, 257, device=dev, dtype=bf) * 257 ** -0.5
+    kv257 = torch.randn(2, 4, 257, 128, device=dev, dtype=bf)
+    got = decode_cross_attention_grouped(q257, *kv257)
+    ref = decode_cross_attention_grouped_ref(q257, *kv257)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(bf, float(ref.float().abs().max())))
     with pytest.raises(ValueError, match="even head dim"):  # int4 K/V of an odd one
         packed = torch.zeros(4, 18, 128, device=dev, dtype=i8)
         decode_cross_attention_grouped(torch.zeros(4, 1, 37, device=dev, dtype=bf),
@@ -836,28 +846,45 @@ def test_encoder_attention_peaked_scores(dev):
 
 def test_model_attention_dispatch(dev):
     """On the card `attention()` launches the encoder kernel for unmasked
-    bf16 calls with Tq = Tk >= 256 and for nothing else."""
+    bf16, f16 and f32 calls with Tq = Tk >= 256 (each counted in its type's
+    counter) and for nothing else."""
+    counters = ("launches", "launches_f32", "launches_f16")
+
     def launched(q, k, v, mask=None):
-        before = encoder_attention.launches
+        before = [getattr(encoder_attention, c) for c in counters]
         whisper.attention(q, k, v, mask)
-        return encoder_attention.launches - before
+        return sum(getattr(encoder_attention, c) - b for c, b in zip(counters, before))
 
     q, k, v = _strided_qkv(dev, 1, 2, 256, 1)
     assert launched(q, k, v) == 1
     assert launched(q, k, v, torch.zeros(256, 256, device=dev)) == 0
-    assert launched(q.float(), k.float(), v.float()) == 0
+    before = encoder_attention.launches_f32
+    assert launched(q.float(), k.float(), v.float()) == 1
+    assert encoder_attention.launches_f32 == before + 1
+    before = encoder_attention.launches_f16
+    assert launched(q.half(), k.half(), v.half()) == 1
+    assert encoder_attention.launches_f16 == before + 1
     assert launched(q[:, :, :255], k[:, :, :255], v[:, :, :255]) == 0
     assert launched(q[:, :, :1], k, v) == 0
 
 
 def test_encoder_attention_rejects_what_the_kernel_does_not_take(dev):
+    """float64 and q, k, v of two types are refused, and so is Tq != Tk; f32
+    and head dim 257 (the WIDE body), which the kernel once refused, are
+    taken and held to the plain version."""
     bf = torch.bfloat16
     x = torch.zeros(1, 2, 256, 64, device=dev, dtype=bf)
-    with pytest.raises(TypeError):  # f32
-        encoder_attention(x.float(), x.float(), x.float())
-    y = torch.zeros(1, 2, 256, 257, device=dev, dtype=bf)
-    with pytest.raises(ValueError, match=r"1\.\.256"):  # head dim 257
-        encoder_attention(y, y, y)
+    with pytest.raises(TypeError):  # float64
+        encoder_attention(x.double(), x.double(), x.double())
+    with pytest.raises(TypeError):  # q f32, k and v bf16
+        encoder_attention(x.float(), x, x)
+    g = torch.Generator(device=dev).manual_seed(257)
+    y = torch.randn(1, 2, 256, 257, generator=g, device=dev, dtype=bf)
+    before = encoder_attention.launches_wide_dh
+    got, ref = encoder_attention(y, y, y), encoder_attention_ref(y, y, y)   # head dim 257
+    assert encoder_attention.launches_wide_dh == before + 1
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(bf, float(ref.float().abs().max())))
     with pytest.raises(ValueError):  # Tq != Tk
         encoder_attention(x[:, :, :100], x, x)
 
@@ -2024,10 +2051,11 @@ def test_head_dims_self_attention(dev, dh, dtype, with_start, int8):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
-@pytest.mark.parametrize("dh", [16, 64])
+@pytest.mark.parametrize("dh", [16, 64, 512])
 def test_self_attention_long_cache(dev, dh, int8):
     """A 16384-row cache at pos 16383 and, with a mixed start, 9000 (the cap
-    of 12288 rows is gone): caches bit-equal, output within one bf16 step."""
+    of 12288 rows is gone), also at head dim 512 (the WIDE body): caches
+    bit-equal, output within one bf16 step."""
     g = torch.Generator(device=dev).manual_seed(dh)
     bh, s = 8, 16384
     q = (torch.randn(bh, dh, generator=g, device=dev) * dh ** -0.5).bfloat16()
@@ -2246,6 +2274,106 @@ def test_ragged_dims_self_attention(dev, dh, dtype, with_start, int8):
     caches of dh-element rows updated in place (no copy): caches bit-equal,
     the read-only output bit-equal to the update's."""
     test_head_dims_self_attention(dev, dh, dtype, with_start, int8)
+
+
+# ---------------------------------------------------------------------------
+# Head dims past 256: every attention kernel runs its WIDE body, which takes
+# the head dim at run time and walks it in chunks; each launch is counted in
+# the wrapper's `launches_wide_dh` besides its kind's counter.
+
+WIDE_DIMS = [257, 320, 384, 512, 1024]
+_WIDE_KINDS_AT = [(dh, kind) for dh in WIDE_DIMS for kind in ("fp", "int8", "int4")
+                  if kind != "int4" or dh % 2 == 0]
+
+
+def _wide_launches(fn, call):
+    before = fn.launches_wide_dh
+    call()
+    return fn.launches_wide_dh - before
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh,kind", _WIDE_KINDS_AT)
+def test_wide_dims_cross_attention_grouped(dev, dh, kind, dtype):
+    """The grouped kernel's WIDE body, every storage kind under q in each
+    type, as `test_head_dims_cross_attention_grouped` holds the whole widths
+    (1, 5 and 8 slots, 24 and 192 rows, poisoned padding): 8 launches, all
+    WIDE."""
+    assert _wide_launches(decode_cross_attention_grouped, lambda:
+                          test_head_dims_cross_attention_grouped(dev, dh, dtype, kind)) == 8
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh,kind", _WIDE_KINDS_AT)
+def test_wide_dims_cross_attention_one_query(dev, dh, kind, dtype):
+    """The one-query kernel past 256 (the grouped WIDE body at one slot), as
+    `test_head_dims_cross_attention_one_query` holds the whole widths."""
+    assert _wide_launches(decode_cross_attention, lambda:
+                          test_head_dims_cross_attention_one_query(dev, dh, dtype, kind)) == 2
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh", WIDE_DIMS)
+@pytest.mark.parametrize("b,s,h", [(2, 1500, 2), (1, 129, 3)])
+def test_wide_dims_transpose_quant_kv(dev, b, s, h, dh, dtype):
+    """The cross-KV quantizer's WIDE body: codes and scales bit-equal to the
+    plain version (the absmax over the whole dh before any code)."""
+    assert _wide_launches(transpose_quant_kv, lambda:
+                          test_head_dims_transpose_quant_kv(dev, b, s, h, dh, dtype)) == 1
+
+
+@pytest.mark.parametrize("dh", WIDE_DIMS)
+@pytest.mark.parametrize("b,h,t", [(1, 1, 1), (2, 3, 129), (2, 2, 1500)])
+def test_wide_dims_encoder_attention(dev, b, h, t, dh):
+    """The encoder attention's WIDE body in bf16 on views of one fused
+    projection, read in place (no padded copy), within one bf16 step of the
+    plain version; contiguous inputs give the same bits."""
+    before = encoder_attention.pad_copies
+    assert _wide_launches(encoder_attention, lambda:
+                          test_head_dims_encoder_attention(dev, b, h, t, dh)) == 2
+    assert encoder_attention.pad_copies == before
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("with_start", [False, True], ids=["nostart", "start"])
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+@pytest.mark.parametrize("dh", WIDE_DIMS)
+def test_wide_dims_self_attention(dev, dh, dtype, with_start, int8):
+    """Both cache updates and the read-only attention at WIDE widths:
+    caches and scales bit-equal to the plain version's (the int8 codes from
+    the absmax over the whole dh), the read-only output bit-equal to the
+    update's."""
+    fns = (decode_self_attention_update_int8 if int8 else decode_self_attention_update,
+           decode_self_attention)
+    before = [f.launches_wide_dh for f in fns]
+    test_head_dims_self_attention(dev, dh, dtype, with_start, int8)
+    assert [f.launches_wide_dh - b for f, b in zip(fns, before)] == [3, 3]
+
+
+@pytest.mark.parametrize("dh", [64, 96, 384])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32], ids=_IDS.get)
+def test_encoder_attention_f16_f32(dev, dtype, dh):
+    """The encoder attention in f16 (the tensor-core body with f16 operands;
+    at 384 the WIDE CUDA-core body) and f32 (the CUDA-core body: f32
+    products, no TF32) at (8, 768 / Dh, 1500, Dh) on views of (B, T, H Dh)
+    projections: within one f16 step (2**-10) or 1e-5 of the plain version's
+    largest output, one launch counted in the type's counter; contiguous
+    inputs give the same bits."""
+    h, t = 768 // dh, 1500
+    g = torch.Generator(device=dev).manual_seed(dh)
+    q, k, v = (whisper.split_heads(torch.randn(8, t, h * dh, generator=g, device=dev)
+                                   .to(dtype), h) for _ in range(3))
+    attr = "launches" + _COUNTER[dtype]
+    before = getattr(encoder_attention, attr)
+    got = encoder_attention(q, k, v)
+    assert getattr(encoder_attention, attr) == before + 1
+    ref = encoder_attention_ref(q, k, v)
+    assert got.shape == (8, h, t, dh) and got.dtype == dtype
+    assert got.transpose(1, 2).is_contiguous() and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(dtype, float(ref.float().abs().max())))
+    assert torch.equal(encoder_attention(q.contiguous(), k.contiguous(), v.contiguous()),
+                       got)
 
 
 @pytest.mark.parametrize("kv", ["fp", "int8", "int4"])

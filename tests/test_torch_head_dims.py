@@ -11,10 +11,10 @@ kernels read in 16-byte pieces aligned; a view the kernel cannot read in
 place replaced by a contiguous copy, and a contiguous aligned tensor (the
 Dh = 64 main path) passed as it is, with no copy; row `pos` of a strided or
 offset cache written back into the caller's view and nothing else of the
-buffer around it touched; caches of 16384 rows taken; head dim 257 (past
-the widest body, 256), 0 and, for packed int4 K/V, an odd one refused with
-a message that names the bound. And `utils/compile_cache.py` against the
-JAX package's semantics."""
+buffer around it touched; caches of 16384 rows taken; head dims past 256
+(257, 258) handed to the WIDE bodies (capacity `kernels.WIDE`); head dim 0
+and, for packed int4 K/V, an odd one refused with a message that names the
+bound. And `utils/compile_cache.py` against the JAX package's semantics."""
 
 import ctypes
 import os
@@ -79,14 +79,17 @@ def _aligned(*ptrs):
 
 def test_require_head_dim_names_the_four():
     """The four whole widths, and every other width up to 256, are taken;
-    257 and 0 are refused naming the bound, an odd width for packed int4."""
+    257 and 1024 too, served by the WIDE bodies; 0 is refused naming the
+    bound, an odd width for packed int4."""
     for dh in (*DIMS, 1, 8, 48, 96, 255, 256):
         kernels.require_head_dim("x", dh)
         assert kernels.head_dim_capacity(dh) == next(c for c in (16, 32, 64, 128, 256)
                                                      if c >= dh)
-    for dh in (257, 0, 1024):
-        with pytest.raises(ValueError, match=rf"head dim must lie in 1\.\.256 .*got {dh}"):
-            kernels.require_head_dim("x", dh)
+    for dh in (257, 1024):
+        kernels.require_head_dim("x", dh)
+        assert kernels.head_dim_capacity(dh) == kernels.WIDE
+    with pytest.raises(ValueError, match=r"head dim must be at least 1, got 0"):
+        kernels.require_head_dim("x", 0)
     for dh in (1, 37, 255):
         kernels.require_head_dim("x", dh)
         with pytest.raises(ValueError, match=rf"even head dim .*got {dh}"):
@@ -106,8 +109,9 @@ def test_transpose_quant_kv_head_dims_and_views(lib, dh):
     ca._launch_transpose_quant_kv(fused[..., h * dh:], h)   # a strided half
     args = lib.of("owc_transpose_quant_kv")[-1]
     assert args[0] != fused.data_ptr() + h * dh * 2 and _aligned(args[0])
-    with pytest.raises(ValueError, match=r"1\.\.256"):
-        ca._launch_transpose_quant_kv(torch.zeros(1, 10, 2 * 257), 2)
+    q, sc = ca._launch_transpose_quant_kv(torch.zeros(1, 10, 2 * 257), 2)   # WIDE
+    args = lib.of("owc_transpose_quant_kv")[-1]
+    assert args[-3:-1] == (257, kernels.WIDE) and q.shape == (2, 257, 128)
 
 
 def _kv(kind, bh, dh, s_pad, dtype):
@@ -148,9 +152,9 @@ def test_cross_attention_head_dims_and_views(lib, dh, kind):
     ca._launch_decode_cross_attention_grouped(fused.view(bh, 3, dh)[:, 1:], *views, 1500)
     args = lib.of("owc_cross_attention_grouped")[-1]
     assert _aligned(*args[:5]) and args[8] == 2 * dh   # row stride of 2 slots
-    with pytest.raises(ValueError, match=r"1\.\.256"):
-        ca._launch_decode_cross_attention(torch.randn(bh, 258), *_kv(kind, bh, 258, s_pad,
-                                                                     torch.float32), 1500)
+    ca._launch_decode_cross_attention(torch.randn(bh, 258), *_kv(kind, bh, 258, s_pad,
+                                                                 torch.float32), 1500)
+    assert lib.of("owc_cross_attention")[-1][-3:-1] == (258, kernels.WIDE)   # WIDE
 
 
 @pytest.mark.parametrize("dh", DIMS)
@@ -168,8 +172,10 @@ def test_encoder_attention_head_dims_and_views(lib, dh):
     att._launch_encoder_attention(q, k_off, v)
     args = lib.of("owc_encoder_attention")[-1]
     assert args[1] != k_off.data_ptr() and _aligned(args[1])
-    with pytest.raises(ValueError, match=r"1\.\.256"):
-        att._launch_encoder_attention(*(torch.zeros(1, 2, 256, 257).bfloat16(),) * 3)
+    before = att.encoder_attention.pad_copies
+    att._launch_encoder_attention(*(torch.zeros(1, 2, 256, 257).bfloat16(),) * 3)   # WIDE
+    args = lib.of("owc_encoder_attention")[-1]
+    assert args[7:9] == (257, kernels.WIDE) and att.encoder_attention.pad_copies == before
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
@@ -206,10 +212,12 @@ def test_self_attention_head_dims_views_and_long_caches(lib, dh, int8):
                 if c.dim() == 3 else torch.zeros(1, 1).expand(bh, sas.MAX_CACHE_ROWS + 1)
                 for c in caches]
         fn(q, kn, vn, *huge, 0)
-    with pytest.raises(ValueError, match=r"1\.\.256"):
-        z = torch.zeros(bh, 257)
-        fn(z, z, z, *(torch.zeros(bh, 8, 257, dtype=c.dtype) if c.dim() == 3 else
-                      torch.zeros(bh, 8) for c in caches), 1)
+    z = torch.ones(bh, 257)   # WIDE: the mark lands in row 1 of rows 257 long
+    wide = [torch.zeros(bh, 8, 257, dtype=c.dtype) if c.dim() == 3 else torch.zeros(bh, 8)
+            for c in caches]
+    fn(z, z, z, *wide, 1)
+    assert lib.of(name)[-1][-3:-1] == (257, kernels.WIDE)
+    assert all(bool((c[:, 1] != 0).all()) and not bool(c[:, 2:].any()) for c in wide)
 
 
 @pytest.mark.parametrize("dh", DIMS)

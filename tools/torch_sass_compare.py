@@ -4,9 +4,9 @@ compile each source of both (the flags of `ops/kernels.py`, all nvcc
 processes at once), disassemble with `cuobjdump -sass`, count each kernel's
 SASS instructions, and print, a source at a time, the kernels whose counts
 differ and how many are equal. A kernel of this checkout that carries one
-more template argument than the other's (a RAGGED flag) is matched to the
-other's kernel by its `false` instance. Needs nvcc and cuobjdump (the GPU
-machine):
+more template argument than the other's is matched to the other's kernel
+by its `false` instance (a RAGGED flag) or by its bf16 one (an element
+type put first). Needs nvcc and cuobjdump (the GPU machine):
 
     python3 tools/torch_sass_compare.py --root path/to/other/checkout [source ...]
 
@@ -73,7 +73,9 @@ def main() -> int:
             this, other = (counts(Path(tmp) / f"{side}_{src}.o", cuobjdump) for side in trees)
             same, differ = 0, []
             for kern, n in sorted(other.items()):
-                mine = this.get(kern, this.get(kern[:-1] + ", false>"))
+                mine = next((this[c] for c in (kern, kern[:-1] + ", false>",
+                                               kern.replace("<", "<__nv_bfloat16, ", 1))
+                             if c in this), None)
                 if mine == n:
                     same += 1
                 else:
