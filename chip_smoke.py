@@ -96,7 +96,7 @@ Phase 2  decode runs at full width with seeded random weights (bf16, but
                         and int4 cross-KV: its other two bodies;
            small-f32    `baseline_fp32` (an f32 tree, f32 caches), batch 16:
                         the decode kernels' f32 bodies and the encoder
-                        attention's f32 (CUDA-core) body;
+                        attention's f32 (3xTF32 tensor-core) body;
            small-b3-f32, small-b3-f16  `baseline_fp32` and `fp16` at batch 3:
                         the one-query cross-attention's f32 and f16 bodies
                         (and the encoder attention's f16 body).
@@ -254,16 +254,18 @@ Phase 6  again with whisper-small, int8 weights (phase 7's trees resident
                         (the fixed-token decoder at the set's mean length),
                         a float32 pool under transfer="int16" refused;
            stream-steady, stream-churn  `StreamingPool` at bench.py's
-                        streaming rows: 32 sessions of 32 s (bench.py: 60 s;
-                        cut so that the held pass fits, each window still
-                        sliding once; noise x 0.1, seed 0) in 0.5 s chunks,
+                        streaming rows: 16 sessions of 32 s (bench.py: 32
+                        sessions of 60 s; cut so that the passes fit the
+                        run's time, each window still sliding once; noise x
+                        0.1, seed 0) in 0.5 s chunks,
                         a tick a round, agreement 2,
-                        min_step 1 s, timestamps on; churn: 30 s streams, a
+                        min_step 1 s, timestamps on; churn: 16 s streams
+                        (bench.py: 30 s; cut to fit the run's time), a
                         quarter of the sessions closed and reopened every
                         quarter of the run (aggregate_rtfx, device_rtfx, tick
                         p50/p95, occupancy, draft_accept_rate,
                         sessions_closed); churn's held pass replays the first
-                        20 of its 60 rounds (one churn), its partials and
+                        12 of its 32 rounds (one churn), its partials and
                         the churned sessions' finals equal to the timed
                         pass's; in the held pass every synced
                         mirror row bit-equal to its host window and zero past
@@ -347,7 +349,9 @@ Phase 9  (slice 16, after phase 8, before phase 6) storage, checkpoint
            storage-small  phase 2's int8 tree through `save_npz` and
                         `save_gzip`, an NF4 tree through gzip, an f32 tree
                         pruned 80% by `prune_global_l1` through
-                        `save_sparse_zip` (how many leaves the sparse branch
+                        `save_sparse_zip`, each cut to its first 2 encoder
+                        and decoder layers (full width; the whole depth
+                        only multiplies the bytes) (how many leaves the sparse branch
                         carried); each read back onto the card, every leaf
                         bit-equal and contiguous, one held batch whose
                         tokens equal the in-memory tree's from this run;
@@ -373,7 +377,9 @@ Phase 9  (slice 16, after phase 8, before phase 6) storage, checkpoint
          each part's seconds printed, then the shapes only phase 9 gives
          the kernels timed (P9_ENTRIES).
 
-Phase 10 (slice 17, last) the CLI and the parallel paths at whisper-small's
+Phase 10 (slice 17; run inside phase 6, after phase 11, beside the queued
+         CPU proofs: nothing of it timed on the host) the CLI and the
+         parallel paths at whisper-small's
          full width and depth, seeded, every kernel call held against its
          plain version (`checked_kernel_calls`) and the launches counted:
            cli-*        `cli.main([...])` in process, on the card by default:
@@ -430,7 +436,9 @@ Phase 11 (slice 18; run inside phase 6, after phase 7's held part,
          1024 (`WIDE_DIMS`, 384 timed: the `*_wide_dh` entries) and the
          encoder attention in bf16, f16 and f32 at every head dim it holds,
          f32 and f16 also at whisper-small batch 96 beside `sdpa` in the same
-         type (`enc_attn_f32`, `enc_attn_f16`).
+         type (`enc_attn_f32`, `enc_attn_f16`). Since slice 21 phase 1 also
+         holds, untimed, each wrapper past the grid's 65535 rows
+         (`phase1_limits`: B*H, B or H = 70000, M = 65535 * 128 + 1).
 
 Any failure exits nonzero. On success the last stdout line is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
@@ -573,16 +581,16 @@ KERNELS = [
     ("decode_cross_attention_f16", "ops.cross_attention", "decode_cross_attention",
      "launches_f16", "cross_attention.cuh", "ops/cross_attention.py:151",
      "cross1_f16"),
-    # the encoder attention's f32 (CUDA-core) and f16 (tensor-core) bodies,
-    # at whisper-small batch 96
+    # the encoder attention's f32 (3xTF32 on wgmma at head dim 64) and f16
+    # tensor-core bodies, at whisper-small batch 96
     ("encoder_attention_f32", "ops.attention", "encoder_attention", "launches_f32",
-     "encoder_attention_cc.cu", "ops/attention.py:57", "enc_attn_f32"),
+     "encoder_attention_f32_wg.cu", "ops/attention.py:57", "enc_attn_f32"),
     ("encoder_attention_f16", "ops.attention", "encoder_attention", "launches_f16",
      "encoder_attention_f16.cu", "ops/attention.py:57", "enc_attn_f16"),
     # the WIDE bodies (head dims past 256), each timed at head dim 384
     # (whisper-small's width in 2 heads: phase 11's small-h2)
     ("encoder_attention_wide_dh", "ops.attention", "encoder_attention", "launches_wide_dh",
-     "encoder_attention_cc.cu", "ops/attention.py:57", "dh384 encoder_attention"),
+     "encoder_attention_wide.cu", "ops/attention.py:57", "dh384 encoder_attention"),
     ("transpose_quant_kv_wide_dh", "ops.cross_attention", "transpose_quant_kv",
      "launches_wide_dh", "transpose_quant.cu", "ops/cross_attention.py:248",
      "dh384 transpose_quant_kv torch.bfloat16"),
@@ -759,8 +767,9 @@ RESCORE_REL = 0.005
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the
 # bounds: device memory bytes/s, tensor-core bf16 FLOP/s and int8 OP/s, f32
-# FLOP/s outside the tensor cores.
+# FLOP/s outside the tensor cores, TF32 FLOP/s on them.
 HBM_BPS, BF16_FLOPS, F32_FLOPS, INT8_OPS = 3.35e12, 989e12, 67e12, 1979e12
+TF32_FLOPS = 495e12
 
 
 def nbytes(*tensors) -> int:
@@ -782,6 +791,13 @@ def peak_flops(dtype: torch.dtype) -> float:
     """The card's peak rate for products of `dtype`: the tensor cores' for
     bf16 and f16, the f32 rate outside them for f32."""
     return F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+
+
+def enc_attn_op_seconds(flop: float, dtype: torch.dtype) -> float:
+    """The least time the encoder attention's products take on the card:
+    bf16 and f16 at the tensor cores' peak; f32-accurate products as three
+    TF32 products each (3xTF32) at the TF32 peak, whatever body runs."""
+    return 3 * flop / TF32_FLOPS if dtype == torch.float32 else flop / BF16_FLOPS
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale=None,
@@ -1231,9 +1247,9 @@ def phase1_attention(dev, results: dict) -> None:
             f"at {sm_mhz:.0f} MHz)")
         del q, k, v, got
         torch.cuda.empty_cache()
-    # the f32 (CUDA-core) and f16 (tensor-core) bodies at whisper-small batch
-    # 96, beside `sdpa` in the same type; the f32 bound is operations at 67
-    # TFLOP/s (6.6e11 flop: 9.9 ms)
+    # the f32 (3xTF32) and f16 tensor-core bodies at whisper-small batch 96,
+    # beside `sdpa` in the same type (TF32 off); the f32 bound is three TF32
+    # products a product at 495 TFLOP/s (3 x 6.6e11 flop: 4.0 ms)
     for dtype, key in ((torch.float32, "enc_attn_f32"), (torch.float16, "enc_attn_f16")):
         q, k, v = (split_heads(torch.randn(HEAD_BATCH, 1500, 12 * 64, generator=gen,
                                            device=dev).to(dtype), 12) for _ in range(3))
@@ -2900,8 +2916,9 @@ def check_enc_attn_shape(what: str, q, k, v, timed: bool = True) -> dict:
     plain version (within KERNEL_REL of its largest output), one launch
     counted in the type's counter, timed beside it, `sdpa` in the same type
     and its bound (the operations at the peak rate of the type: the tensor
-    cores' for bf16 and f16, 67 TFLOP/s for f32; as phase 1 at T = 1500; not
-    `timed`: held only)."""
+    cores' for bf16 and f16, three TF32 products a product at 495 TFLOP/s for
+    f32, `enc_attn_op_seconds`; as phase 1 at T = 1500; not `timed`: held
+    only)."""
     from openai_whisper_compression_tpu_torch.ops.attention import (
         encoder_attention, encoder_attention_ref)
 
@@ -2920,7 +2937,7 @@ def check_enc_attn_shape(what: str, q, k, v, timed: bool = True) -> dict:
     t_p = cuda_ms(lambda: encoder_attention_ref(q, k, v), warmup=1, iters=3)
     t_lib = cuda_ms(lambda: sdpa(q, k, v))
     least = bound(4 * b * h * t * dh * q.element_size(),
-                  4 * b * h * t * t * dh / peak_flops(q.dtype))
+                  enc_attn_op_seconds(4 * b * h * t * t * dh, q.dtype))
     log(f"{what} ({b}, {h}, {t}, {dh}) {q.dtype}: err {err:.3g} (bound {tol:.3g}) "
         f"kernel {t_k:.4f} ms plain {t_p:.4f} ms sdpa {t_lib:.4f} ms least "
         f"{least['bound_ms']:.4f} ms ({least['bound_by']})")
@@ -3845,14 +3862,15 @@ CB_GREEDY_ROWS = 48   # the first requests held against one greedy batch (`cb_ya
 CB_CHUNK, CB_LANES = 8, 24
 CB_SCALE = 1.0 / 32767.0     # continuous batching's int16 wire (models/continuous.py)
 # bench.py's streaming rows: 32 sessions of 60 s (steady) and 30 s (churn);
-# steady here takes 32 s, so that each session's window still slides once
-# (past 30 s) while the held passes fit the run's time
-STREAMS, STEADY_S, CHURN_S, STREAM_CHUNK_S = 32, 32.0, 30.0, 0.5
-# the held churn pass replays the first 20 of the timed pass's 60 rounds: the
-# first of its three churns (at round 15) and 5 rounds of the sessions it
+# here 16 sessions, steady takes 32 s, so that each session's window still
+# slides once (past 30 s), and churn 16 s (its three churns, no slide), so
+# that the passes fit the run's time
+STREAMS, STEADY_S, CHURN_S, STREAM_CHUNK_S = 16, 32.0, 16.0, 0.5
+# the held churn pass replays the first 12 of the timed pass's 32 rounds: the
+# first of its three churns (at round 8) and 4 rounds of the sessions it
 # opened, every kernel call held, its partials and the churned sessions'
 # finals equal to the timed pass's
-HELD_CHURN_ROUNDS = 20
+HELD_CHURN_ROUNDS = 12
 SERVE_BATCH, SERVE_REQUESTS, UTT_S = 32, 128, 7.42   # bench.py's serve row
 OPENLOOP_REQUESTS, OPENLOOP_LOAD, MULAW_REQUESTS = 96, 0.6, 32
 LONG_S = 65.0                # one request the service splits into three windows
@@ -3870,7 +3888,7 @@ P6_ENTRIES = [
     ("decode_cross_attention_grouped_int8_wide@stream-60slots",
      "decode_cross_attention_grouped_int8_wide", "stream-steady",
      ("grouped", "torch.int8", 1500, 60, STREAMS * 12)),
-    ("decode_self_attention_update_int8_start@stream-384rows",
+    (f"decode_self_attention_update_int8_start@stream-{STREAMS * 12}rows",
      "decode_self_attention_update_int8_start", "stream-steady",
      ("decode_self_attention_update_int8", "torch.bfloat16", STREAMS * 12, 64, True)),
     ("int8_matmul@serve-b8-qkv-M8", "int8_matmul", "serve-flac", ("int8_matmul", 8, 768, 2304)),
@@ -3946,6 +3964,9 @@ class Background:
 # CPU f32 proofs of runs on the card (tie proofs, CPU references), queued by
 # `later` and run by `run_later` on a thread beside phase 6's held passes
 LATER: list = []
+# the interpreter's thread switch interval while that thread runs (Python's
+# default is 5 ms)
+PROOF_SWITCH_S = 0.0005
 # the CPU f32 encoder states (fast frontend) of `waveforms(SEED, BATCH)` under
 # whisper-small's int8 tree, by row: the tie proofs of unfused-int8, spec-*
 # and verified-* decode that audio with that tree, and share them
@@ -4001,16 +4022,19 @@ def padded_rows(rows, length: int, eot: int) -> torch.Tensor:
     return out
 
 
-def decode_exact(arch, calls: int, windows: int, steps: int, window_chunks: list) -> dict:
+def decode_exact(arch, calls: int, windows: int, steps: int, window_chunks: list,
+                 kernel_windows: int = 0) -> dict:
     """Exact launch counts of `calls` encodes of whisper-small with int8
     weights and caches, `windows` windowed passes (the grouped kernel in the
-    window's chunks of at most 8 slots a layer, linears past the kernels' M)
-    and `steps` decode steps with a per-row `start` (grouped cross-attention,
-    6 int8 matmuls and the int8 update a layer)."""
+    window's chunks of at most 8 slots a layer; the linears of the
+    `kernel_windows` of them whose M is within `kernel_m_threshold()` 6 int8
+    matmuls a layer, the others' past the kernels' M) and `steps` decode
+    steps with a per-row `start` (grouped cross-attention, 6 int8 matmuls and
+    the int8 update a layer)."""
     layers = arch.decoder_layers
     return {"log_mel_cuda": calls, "encoder_attention": arch.encoder_layers * calls,
             "transpose_quant_kv": 2 * layers * calls,
-            "int8_matmul": 6 * layers * steps,
+            "int8_matmul": 6 * layers * (steps + kernel_windows),
             "decode_cross_attention_grouped_int8":
                 layers * (steps + windows * sum(c <= 4 for c in window_chunks)),
             "decode_cross_attention_grouped_int8_wide":
@@ -4083,6 +4107,11 @@ def run_cb_small(dev, arch, params, params_cpu, results: dict, after_timed=None)
             # encoders keep theirs)
             threads = torch.get_num_threads()
             torch.set_num_threads(max(1, threads - 2))
+            # the proofs' one-row decodes are thousands of small ops, each
+            # taking the GIL back from the held runs' host loop: at the
+            # default 5 ms switch interval each waits up to that long
+            switch = sys.getswitchinterval()
+            sys.setswitchinterval(PROOF_SWITCH_S)
             ties = Background(lambda: (cb_ties(params_cpu, arch, cfg, pool_f32, runs, want,
                                                fg), run_later()))
             if after_timed is not None:
@@ -4144,6 +4173,7 @@ def run_cb_small(dev, arch, params, params_cpu, results: dict, after_timed=None)
     def finish() -> None:
         summary["parted"], secs = ties.result()
         torch.set_num_threads(threads)
+        sys.setswitchinterval(switch)
         log(f"phase6 {name}: the earlier runs' CPU f32 proofs, seconds each: "
             f"{json.dumps(secs)}")
 
@@ -4269,10 +4299,10 @@ def stream_pass(pool, audio: list, churn: bool, on_tick=None,
 
 @torch.inference_mode()
 def run_streams(dev, arch, params, params_cpu, results: dict, before_timed=None) -> dict:
-    """`StreamingPool` at bench.py's streaming rows: 32 sessions, agreement 2,
+    """`StreamingPool` at bench.py's streaming rows cut to STREAMS sessions, agreement 2,
     min_step 1 s, timestamps on, 25 tokens, int8 caches, a 32-token prompt
     window. stream-steady: STEADY_S s streams (noise x 0.1, seed 0); stream-churn:
-    30 s streams, a quarter of the sessions closed and reopened every
+    CHURN_S s streams, a quarter of the sessions closed and reopened every
     quarter of the run, on the same pool. Each run once with every kernel
     call held, every synced mirror row checked bit for bit against its host
     window (zero past it, a reused row's too) and committed text never
@@ -4289,6 +4319,7 @@ def run_streams(dev, arch, params, params_cpu, results: dict, before_timed=None)
     from openai_whisper_compression_tpu_torch.evaluation.tokenizer import default_tokenizer
     from openai_whisper_compression_tpu_torch.models import speculative
     from openai_whisper_compression_tpu_torch.models.decode import forced_prefix
+    from openai_whisper_compression_tpu_torch.ops.linear import kernel_m_threshold
 
     cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, notimestamps=False, **KV8)
     tok = default_tokenizer(arch)
@@ -4297,7 +4328,7 @@ def run_streams(dev, arch, params, params_cpu, results: dict, before_timed=None)
     fg = pool._pw + len(forced_prefix(arch, cfg))
     window = fg + NEW_TOKENS
     chunks = [min(8, window - j) for j in range(0, window, 8)]
-    counts = {"calls": 0, "windows": 0, "steps": 0}
+    counts = {"calls": 0, "windows": 0, "steps": 0, "kernel_windows": 0}
     # recorded decodes of the compared streams: sid -> [(wav, prompt, plen, tokens)]
     rec = {"on": False, "pool": {}, "solo": {}, "closing": None}
     real_batched, real_single, real_close = pool._batched_step, pool._single_step, pool.close
@@ -4342,9 +4373,10 @@ def run_streams(dev, arch, params, params_cpu, results: dict, before_timed=None)
         counts["steps"] += 1
         return real_step(*a, **kw)
 
-    def win(*a, **kw):
+    def win(params_, arch_, window, *a, **kw):
         counts["windows"] += 1
-        return real_window(*a, **kw)
+        counts["kernel_windows"] += window.numel() <= kernel_m_threshold()
+        return real_window(params_, arch_, window, *a, **kw)
 
     def solo_compare(s: int, chunks_s, final) -> str:
         """Stream s alone on the pool's step, every kernel call held, fed
@@ -4403,7 +4435,7 @@ def run_streams(dev, arch, params, params_cpu, results: dict, before_timed=None)
             before_timed()
         for name, seconds, churn in runs:
             pool.reset_stats()
-            counts.update(calls=0, windows=0, steps=0)
+            counts.update(calls=0, windows=0, steps=0, kernel_windows=0)
             shapes, kcalls, committed = {}, {}, {}
             synced = {"rows": 0, "reused": 0}
             if held_on and not churn:     # the compared streams' decodes
@@ -4444,7 +4476,7 @@ def run_streams(dev, arch, params, params_cpu, results: dict, before_timed=None)
                 rec["on"] = False
             stats = pool.stats()
             exact = decode_exact(arch, counts["calls"], counts["windows"], counts["steps"],
-                                 chunks)
+                                 chunks, counts["kernel_windows"])
             check_launches(f"{name}{' held' if held_on else ''}", launches, tuple(exact),
                            exact)
             check(counts["windows"] == 2 * counts["calls"],
@@ -4765,7 +4797,7 @@ def phase6(dev, arch, params, results: dict, between=None) -> dict:
     """The slice-13 runs (module docstring), each run's seconds printed; then
     the P6_ENTRIES shapes timed. `between()` runs after the held stream
     passes, beside the queued CPU proofs, before they are joined (phase 7's
-    held part). Returns the runs' summaries."""
+    held part, phase 11 and phase 10). Returns the runs' summaries."""
     from openai_whisper_compression_tpu_torch.models.params import tree_to
 
     params_cpu = tree_to(params, "cpu", torch.float32)
@@ -4786,8 +4818,8 @@ def phase6(dev, arch, params, results: dict, between=None) -> dict:
             if between is not None:
                 t1 = time.perf_counter()
                 between()
-                log(f"phase7 held part, beside the queued CPU proofs: "
-                    f"{time.perf_counter() - t1:.1f} s")
+                log(f"phase7 held part, phase 11 and phase 10, beside the queued CPU "
+                    f"proofs: {time.perf_counter() - t1:.1f} s")
             t1 = time.perf_counter()
             finish_cb()
             log(f"phase6 cb-small tie proofs and the queued CPU proofs joined after a "
@@ -5798,6 +5830,7 @@ def phase8(dev, results: dict) -> dict:
 P9_BATCH = 32
 P9_PRUNE = 0.8      # storage-small's f32 tree, pruned by prune_global_l1
 P9_SPARSE_AT = 0.7  # save_sparse_zip's default threshold
+P9_STORE_LAYERS = 2  # storage-small's trees: their first 2 encoder and decoder layers
 P9_SWEEP = ("baseline_bf16", "quanto_int8", "quanto_int4", "l1_global_50pct")
 P9_INTERRUPT_AFTER = 2   # the sweep is interrupted when its third config starts
 P9_UTTS = 32             # the sweep's synthetic utterances: one batch
@@ -6021,9 +6054,10 @@ def p9_through(dev, name: str, arch, params, ref, fmt: str, tmp: str, cfg, wav, 
 def run_storage_small(dev, arch, int8_params, tmp: str, results: dict) -> dict:
     """storage-small: phase 2's int8 whisper-small tree through npz and gzip,
     an NF4 tree through gzip, an f32 tree pruned 80% (global L1) through the
-    sparse zip; each read back onto the card, bit-equal, decoded as one held
-    batch to the in-memory tree's tokens (int8 caches, 25 tokens, EOT
-    suppressed)."""
+    sparse zip, each cut to its first P9_STORE_LAYERS encoder and decoder
+    layers (full width); each read back onto the card, bit-equal, decoded as
+    one held batch to the in-memory tree's tokens (int8 caches, 25 tokens,
+    EOT suppressed)."""
     from openai_whisper_compression_tpu_torch import runtime_native
     from openai_whisper_compression_tpu_torch.config import DecodeConfig
     from openai_whisper_compression_tpu_torch.models.params import (init_params, named_leaves,
@@ -6035,12 +6069,14 @@ def run_storage_small(dev, arch, int8_params, tmp: str, results: dict) -> dict:
     log(f"phase9 storage-small: the sparse codec runs "
         f"{'natively (runtime/build/libowcruntime.so)' if runtime_native.available() else 'the numpy fallback'}")
     out = {}
+    full = arch
+    int8_params, arch = cut_layers(int8_params, full, P9_STORE_LAYERS)
     want, _, box = p9_decode(dev, "int8-in-memory", arch, int8_params, cfg, wav, False)
     out["int8-in-memory"] = {"launches": box["launches"]}
     for fmt in ("npz", "gzip"):
         out[f"int8-{fmt}"] = p9_through(dev, "int8", arch, int8_params, int8_params, fmt, tmp,
                                         cfg, wav, want, results)
-    _, nf4 = make_params(dev, ARCH, "nf4")
+    nf4, _ = cut_layers(make_params(dev, ARCH, "nf4")[1], arch, P9_STORE_LAYERS)
     want, _, _ = p9_decode(dev, "nf4-in-memory", arch, nf4, cfg, wav, False)
     host = tree_to(nf4, "cpu", torch.bfloat16)
     del nf4
@@ -6048,7 +6084,8 @@ def run_storage_small(dev, arch, int8_params, tmp: str, results: dict) -> dict:
     out["nf4-gzip"] = p9_through(dev, "nf4", arch, host, host, "gzip", tmp, cfg, wav, want,
                                  results)
     del host
-    pruned = prune_global_l1(init_params(arch, seed=SEED, dtype=torch.float32, device=dev),
+    pruned = prune_global_l1(cut_layers(init_params(full, seed=SEED, dtype=torch.float32,
+                                                    device=dev), full, P9_STORE_LAYERS)[0],
                              P9_PRUNE)
     want, _, _ = p9_decode(dev, "sparse-f32-in-memory", arch, pruned, cfg, wav, False)
     host = tree_to(pruned, "cpu", torch.float32)
@@ -7100,6 +7137,65 @@ def phase1_dim(dev, gen, dh: int, results: dict, timed: bool = True,
     torch.cuda.empty_cache()
 
 
+# the calls past the grid's 65535 rows that phase 1 holds (slice 21): B*H
+# of the encoder attention, clips of the log-mel, B and H of the cross-KV
+# quantizer, M of the weight-only matmuls (65535 row tiles of 128, and one
+# row more)
+LIMIT_ROWS = 70000
+LIMIT_M = 65535 * 128 + 1
+
+
+def phase1_limits(dev, results: dict) -> None:
+    """Each wrapper once past the grid's 65535 rows, held against its plain
+    version and not timed: the encoder attention at B*H = 70000, T = 8 in
+    bf16, f16 and f32 at Dh 64 and 288 (every body family), `log_mel_cuda`
+    on (70000, 800) in both DFT types (no less exact than the plain version
+    against float64), `transpose_quant_kv` at B = 70000 and at H = 70000
+    (bit for bit), the int8 matmul at M = LIMIT_M, K = 32. The results go to
+    `results["limit ..."]`, read by the log and PERF.md."""
+    from openai_whisper_compression_tpu_torch.audio import features, mel_kernel
+    from openai_whisper_compression_tpu_torch.models.whisper import split_heads
+    from openai_whisper_compression_tpu_torch.ops import cross_attention as ca
+    from openai_whisper_compression_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    t0 = time.perf_counter()
+    b, h = LIMIT_ROWS // 2, 2
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for dh in (64, 288):
+            q, k, v = (split_heads(torch.randn(b, 8, h * dh, generator=gen, device=dev)
+                                   .to(dtype), h) for _ in range(3))
+            results[f"limit encoder_attention {dtype} dh{dh}"] = check_enc_attn_shape(
+                f"phase1 limit encoder_attention {dtype}", q, k, v, timed=False)
+    del q, k, v
+    wav = torch.randn(LIMIT_ROWS, 800, generator=gen, device=dev) * 0.1
+    for dtype in (torch.float32, torch.bfloat16):
+        got = mel_kernel.log_mel_cuda(wav, 80, dtype)
+        ref = features.log_mel(wav, 80, dtype)
+        check(got.shape == (LIMIT_ROWS, 80, 5), f"limit mel: shape {tuple(got.shape)}")
+        mel_exactness(f"limit ({LIMIT_ROWS}, 800) {dtype}", wav, got, ref, 80, dtype)
+        results[f"limit mel {dtype}"] = {"max_abs_err": max_err(got, ref)}
+    del wav, got, ref
+    for b, h in ((LIMIT_ROWS, 1), (1, LIMIT_ROWS)):
+        x = (torch.randn(b, 8, h * 64, generator=gen, device=dev) * 0.4).to(torch.bfloat16)
+        got, ref = ca.transpose_quant_kv(x, h), ca.transpose_quant_kv_ref(x, h)
+        check(all(torch.equal(a, r) for a, r in zip(got, ref)),
+              f"limit transpose_quant_kv B={b} H={h}: differs from the plain version")
+        results[f"limit transpose_quant_kv B={b} H={h}"] = {"max_abs_err": 0.0}
+    del x, got, ref
+    x = torch.randn(LIMIT_M, 32, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (32, 64), generator=gen, device=dev, dtype=torch.int8)
+    scale = torch.rand(64, generator=gen, device=dev) * 0.01
+    got, ref = qm.int8_matmul(x, w, scale), qm.int8_matmul_ref(x, w, scale)
+    err, tol = max_err(got, ref), BF16_REL * float(ref.float().abs().max())
+    check(err <= tol, f"limit int8_matmul M={LIMIT_M}: err {err} > {tol}")
+    results["limit int8_matmul"] = {"max_abs_err": err}
+    del x, got, ref
+    torch.cuda.empty_cache()
+    log(f"phase1 limits: B*H, B, H = {LIMIT_ROWS} and M = {LIMIT_M} held (codes equal, "
+        f"int8_matmul err {err:.3g} of {tol:.3g}) in {time.perf_counter() - t0:.1f} s")
+
+
 def phase1_head_dims(dev, results: dict) -> None:
     """The attention kernels at head dims 16, 32 and 128 and at the
     RAGGED_DIMS, each call held (`phase1_dim`; `tools/torch_attention_ab.py`
@@ -7527,6 +7623,7 @@ def main() -> int:
     phase1_crossover(dev)
     torch.cuda.empty_cache()
     phase1_head_dims(dev, results)
+    phase1_limits(dev, results)
     phase_done("phase1")
     built: dict = {}
     build_s: dict = {}
@@ -7598,21 +7695,23 @@ def main() -> int:
     def beside_proofs():   # card work while the queued CPU proofs run
         rows.update(phase7_held(dev, p7, results))
         torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        # phase 11's runs, all held; grad mode as at top level (the
-        # held stream passes run under inference mode; qat_recovery trains)
+        # phase 11's runs and then phase 10's (the CLI, DP and TP), all
+        # held, nothing of them timed on the host; grad mode as at top
+        # level (the held stream passes run under inference mode;
+        # qat_recovery trains)
         with torch.inference_mode(False), torch.enable_grad():
+            t1 = time.perf_counter()
             p11.update(phase11(dev, results))
-        log(f"phase11 (beside the queued CPU proofs): {time.perf_counter() - t1:.1f} s")
-        torch.cuda.empty_cache()
+            log(f"phase11 (beside the queued CPU proofs): {time.perf_counter() - t1:.1f} s")
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            p11.update(phase10(dev, small_int8[1], results))
+            log(f"phase10 (beside the queued CPU proofs): {time.perf_counter() - t1:.1f} s")
+            torch.cuda.empty_cache()
 
     summaries.update(phase6(dev, *small_int8, results, between=beside_proofs))
     summaries.update(p11)
-    phase_done("phase6 (with phase 7's held part and phase 11)")
-    # the slice-17 runs: the CLI, DP and TP
-    torch.cuda.empty_cache()
-    summaries.update(phase10(dev, small_int8[1], results))
-    phase_done("phase10")
+    phase_done("phase6 (with phase 7's held part, phase 11 and phase 10)")
     check(not LATER, f"CPU proofs never run: {[label for label, _ in LATER]}")
     check(set(rows) == {"small_int8", "medium_int4_kv8"} | {r[0] for r in P7_RUNS},
           f"phase 7 rows: {sorted(rows)}")

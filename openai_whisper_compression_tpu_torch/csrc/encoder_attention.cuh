@@ -2,9 +2,11 @@
 // the tensor-core bodies, templates on the 16-bit element type E (bf16 or
 // f16) and the head dim. `encoder_attention.cu` holds the C entry point and
 // the bf16 instances, `encoder_attention_f16.cu` the f16 ones (the whole
-// body at head dim 64, the RAGGED body of every capacity), and
-// `encoder_attention_cc.cu` the CUDA-core bodies that take f32 at every
-// head dim and bf16 and f16 past 256.
+// body at head dim 64, the RAGGED body of every capacity);
+// `encoder_attention_f32.cu` and `encoder_attention_f32_wg.cu` take f32 up
+// to head dim 256 (3xTF32 on the tensor cores), `encoder_attention_wide.cu`
+// bf16 and f16 past 256, and `encoder_attention_cc.cu` f32 past 256 (CUDA
+// cores).
 //
 // Replaces: openai_whisper_compression_tpu/ops/attention.py
 //           encoder_attention_pallas (kernel body _attn_kernel).
@@ -109,8 +111,9 @@
 //   twice, once for each half): 128 more output and 32 more q registers a
 //   thread would not fit. There q is loaded at the start of its item, not
 //   under the previous one. A head dim past 256 would need a query tile
-//   wider than the registers hold: it runs the CUDA-core WIDE body
-//   (encoder_attention_cc.cu).
+//   wider than the registers hold: it runs the WIDE body
+//   (encoder_attention_wide.cu), whose q and output live in shared memory
+//   and in two warpgroups' registers.
 #pragma once
 
 #include <limits.h>
@@ -776,13 +779,21 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
 
 }  // namespace
 
-// The f16 tensor-core bodies (encoder_attention_f16.cu) and the CUDA-core
-// ones (encoder_attention_cc.cu), compiled apart so that the build runs
-// them beside this file; owc_encoder_attention (encoder_attention.cu) picks
-// among them.
+// The f16 tensor-core bodies (encoder_attention_f16.cu), the f32 ones
+// (encoder_attention_f32.cu, which calls encoder_attention_f32_wg.cu's at
+// capacity 64), the 16-bit WIDE one (encoder_attention_wide.cu)
+// and the f32 CUDA-core one past 256 (encoder_attention_cc.cu), compiled
+// apart so that the build runs them beside this file; owc_encoder_attention
+// (encoder_attention.cu) picks among them.
 int owc_encoder_attention_f16(const void* q, const void* k, const void* v, void* out, int B,
                               int H, int T, int dh, int cap, float scale,
                               const long long* strides, cudaStream_t st);
+int owc_encoder_attention_f32(const void* q, const void* k, const void* v, void* out, int B,
+                              int H, int T, int dh, int cap, float scale,
+                              const long long* strides, cudaStream_t st);
+int owc_encoder_attention_wide(const void* q, const void* k, const void* v, void* out, int B,
+                               int H, int T, int dh, float scale, const long long* strides,
+                               int dtype, cudaStream_t st);
 int owc_encoder_attention_cc(const void* q, const void* k, const void* v, void* out, int B,
                              int H, int T, int dh, float scale, const long long* strides,
-                             int dtype, cudaStream_t st);
+                             cudaStream_t st);

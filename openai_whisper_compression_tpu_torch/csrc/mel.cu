@@ -416,41 +416,53 @@ mel_f32_kernel(const float* __restrict__ wav, const float* __restrict__ bases,
 
 }  // namespace
 
+// At most 65535 clips go to one launch (the grid's y extent): a larger B is
+// launched in slices of 65535 clips, each with its rows of wav and out.
+constexpr int MAX_CLIPS = 65535;
+
 // wav (B, stride) f32, the reflect-padded waveform (stride % 4 == 0, 16-byte
 // aligned rows); bases: bf16 (416, 400) [column][tap] for the bf16 body, f32
 // (400, 416) [tap][column] for the f32 body, columns 2f / 2f + 1 = cos / sin
 // of bin f; bands (n_mels, 2) int32 (first bin, width); weights (n_mels,
-// band_w) f32; out (B * n_frames, n_mels) f32. Requires n_mels <= 128,
-// band_w <= 201 and B <= 65535.
+// band_w) f32; out (B * n_frames, n_mels) f32. Requires n_mels <= 128 and
+// band_w <= 201.
 extern "C" int owc_mel_log10(const void* wav, const void* bases, const void* bands,
                              const void* weights, void* out, int B, int stride,
                              int n_frames, int n_mels, int band_w, int dtype,
                              void* stream) {
-  if (n_mels < 1 || n_mels > MAX_MELS || band_w > NFREQ || stride % 4 != 0)
+  if (n_mels < 1 || n_mels > MAX_MELS || band_w > NFREQ || stride % 4 != 0 || B < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* w = static_cast<const float*>(wav);
   const int* bd = static_cast<const int*>(bands);
   const float* bw = static_cast<const float*>(weights);
-  float* o = static_cast<float*>(out);
   if (dtype == OWC_BF16) {
     cudaError_t e = cudaFuncSetAttribute(
         mel_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((n_frames + BM - 1) / BM, B);
-    mel_bf16_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
-        w, static_cast<const __nv_bfloat16*>(bases), bd, bw, o, stride, n_frames,
-        n_mels, band_w);
   } else if (dtype == OWC_F32) {
     cudaError_t e = cudaFuncSetAttribute(
         mel_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((n_frames + FM - 1) / FM, B);
-    mel_f32_kernel<<<grid, F_THREADS, F_SMEM_BYTES, st>>>(
-        w, static_cast<const float*>(bases), bd, bw, o, stride, n_frames, n_mels,
-        band_w);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  for (int b0 = 0; b0 < B; b0 += MAX_CLIPS) {
+    const int nb = B - b0 < MAX_CLIPS ? B - b0 : MAX_CLIPS;
+    const float* w = static_cast<const float*>(wav) + (size_t)b0 * stride;
+    float* o = static_cast<float*>(out) + (size_t)b0 * n_frames * n_mels;
+    if (dtype == OWC_BF16) {
+      const dim3 grid((n_frames + BM - 1) / BM, nb);
+      mel_bf16_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
+          w, static_cast<const __nv_bfloat16*>(bases), bd, bw, o, stride, n_frames,
+          n_mels, band_w);
+    } else {
+      const dim3 grid((n_frames + FM - 1) / FM, nb);
+      mel_f32_kernel<<<grid, F_THREADS, F_SMEM_BYTES, st>>>(
+          w, static_cast<const float*>(bases), bd, bw, o, stride, n_frames, n_mels,
+          band_w);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }

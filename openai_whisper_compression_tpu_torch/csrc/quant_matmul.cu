@@ -491,6 +491,8 @@ qmm_kernel(const T* __restrict__ x, W wt, Code16 code_arg,
   cluster.sync();  // no block leaves while another still reads its tile
 }
 
+constexpr long long MAX_ROW_TILES = 65535;
+
 template <typename T, typename W, bool RAGGED>
 int launch_t(const void* x, const W& wt, const Code16& code, const void* colscale,
              void* out, int M, int N, int K, int splits, cudaStream_t st) {
@@ -502,7 +504,6 @@ int launch_t(const void* x, const W& wt, const Code16& code, const void* colscal
                                        smem_bytes<T, W>(BM));
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -513,11 +514,22 @@ int launch_t(const void* x, const W& wt, const Code16& code, const void* colscal
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, qmm_kernel<T, W, RAGGED>, static_cast<const T*>(x), wt, code,
-                         static_cast<const float*>(colscale), static_cast<T*>(out), M,
-                         N, K, xrows, ktiles / splits);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  // the grid's y extent holds at most 65535 row tiles: a larger M runs in
+  // slices of 65535 * BM rows, each with its rows of x and out (one launch
+  // where M fits, as it always was); the cluster's shape is the same in each
+  for (long long m0 = 0; m0 < M; m0 += MAX_ROW_TILES * BM) {
+    const int ms = (int)(M - m0 < MAX_ROW_TILES * BM ? M - m0 : MAX_ROW_TILES * BM);
+    cfg.gridDim = dim3((N + BN - 1) / BN, (ms + BM - 1) / BM, splits);
+    e = cudaLaunchKernelEx(&cfg, qmm_kernel<T, W, RAGGED>,
+                           static_cast<const T*>(x) + (size_t)m0 * K, wt, code,
+                           static_cast<const float*>(colscale),
+                           static_cast<T*>(out) + (size_t)m0 * N, ms, N, K, xrows,
+                           ktiles / splits);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 template <typename W>

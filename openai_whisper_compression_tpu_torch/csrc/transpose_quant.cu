@@ -200,13 +200,37 @@ transpose_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   }
 }
 
+// The grid's y and z extents hold at most 65535 heads and clips: a larger H
+// or B is launched in slices, each kernel given the full H (its strides) and
+// x, q and scales offset to its first (b, h), so a call that fits is one
+// launch as it always was.
+constexpr int MAX_YZ = 65535;
+
+template <typename T, typename F>
+cudaError_t over_slices(const void* x, int8_t* q, float* scales, int B, int S, int H,
+                        int S_pad, int dh, F&& launch_slice) {
+  const size_t D = (size_t)H * dh;
+  for (int b0 = 0; b0 < B; b0 += MAX_YZ)
+    for (int h0 = 0; h0 < H; h0 += MAX_YZ) {
+      const size_t bh0 = (size_t)b0 * H + h0;
+      launch_slice(static_cast<const T*>(x) + (size_t)b0 * S * D + (size_t)h0 * dh,
+                   q + bh0 * dh * S_pad, scales + bh0 * S_pad,
+                   B - b0 < MAX_YZ ? B - b0 : MAX_YZ, H - h0 < MAX_YZ ? H - h0 : MAX_YZ);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+  return cudaSuccess;
+}
+
 template <typename T, int DH, bool RAGGED>
-void launch(const void* x, int8_t* q, float* scales, int B, int S, int H, int S_pad,
-            int dh, cudaStream_t st) {
-  const dim3 grid(S_pad / TS, H, B);
-  transpose_quant_kernel<T, DH, RAGGED><<<grid, Cut<T, DH>::THREADS, 0, st>>>(
-      static_cast<const T*>(x), q, scales, S, H, S_pad, dh,
-      owc_align_class((long long)dh * sizeof(T), x));
+cudaError_t launch(const void* x, int8_t* q, float* scales, int B, int S, int H, int S_pad,
+                   int dh, cudaStream_t st) {
+  return over_slices<T>(x, q, scales, B, S, H, S_pad, dh,
+                        [&](const T* xs, int8_t* qs, float* ss, int nb, int nh) {
+    const dim3 grid(S_pad / TS, nh, nb);
+    transpose_quant_kernel<T, DH, RAGGED><<<grid, Cut<T, DH>::THREADS, 0, st>>>(
+        xs, qs, ss, S, H, S_pad, dh, owc_align_class((long long)dh * sizeof(T), xs));
+  });
 }
 
 // The WIDE body: a head dim dh past 256, taken at run time. A block of 8
@@ -265,50 +289,55 @@ transpose_quant_wide_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
 // written. cap: dh's capacity, the smallest of 16, 32, 64, 128, 256 that is
 // >= dh (dh = cap <= 128 runs the whole body, any other the RAGGED one), or
 // OWC_WIDE for a dh past 256 (the WIDE body, which reads x element aligned).
-// Requires S <= S_pad, S_pad % 128 == 0, B <= 65535 and H <= 65535.
+// Requires S <= S_pad and S_pad % 128 == 0.
 extern "C" int owc_transpose_quant_kv(const void* x, void* q, void* scales,
                                       int B, int S, int H, int S_pad, int dtype,
                                       int dh, int cap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* qo = static_cast<int8_t*>(q);
+  float* so = static_cast<float*>(scales);
+  if (B < 1 || H < 1) return (int)cudaErrorInvalidValue;
   if (cap == OWC_WIDE) {
     if (S_pad % TS != 0 || S > S_pad || dh < 1) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSuccess;
     const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
       using T = decltype(tag);
-      transpose_quant_wide_kernel<T><<<dim3(S_pad / WIDE_POS, H, B), WIDE_THREADS, 0, st>>>(
-          static_cast<const T*>(x), static_cast<int8_t*>(q), static_cast<float*>(scales), S,
-          H, S_pad, dh);
+      err = over_slices<T>(x, qo, so, B, S, H, S_pad, dh,
+                           [&](const T* xs, int8_t* qs, float* ss, int nb, int nh) {
+        transpose_quant_wide_kernel<T><<<dim3(S_pad / WIDE_POS, nh, nb), WIDE_THREADS, 0,
+                                         st>>>(xs, qs, ss, S, H, S_pad, dh);
+      });
     });
-    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+    return ok ? (int)err : (int)cudaErrorInvalidValue;
   }
   if (S_pad % TS != 0 || S > S_pad || dh < 1 || dh > cap || (cap > 16 && 2 * dh <= cap))
     return (int)cudaErrorInvalidValue;
-  int8_t* qo = static_cast<int8_t*>(q);
-  float* so = static_cast<float*>(scales);
   const bool whole = dh == cap;
   bool known = true;
+  cudaError_t err = cudaSuccess;
   const bool ok = owc_dispatch_float(dtype, [&](auto tag) {
     using T = decltype(tag);
     switch (cap) {
       case 16:
-        if (whole) launch<T, 16, false>(x, qo, so, B, S, H, S_pad, dh, st);
-        else launch<T, 16, true>(x, qo, so, B, S, H, S_pad, dh, st);
+        err = whole ? launch<T, 16, false>(x, qo, so, B, S, H, S_pad, dh, st)
+                    : launch<T, 16, true>(x, qo, so, B, S, H, S_pad, dh, st);
         break;
       case 32:
-        if (whole) launch<T, 32, false>(x, qo, so, B, S, H, S_pad, dh, st);
-        else launch<T, 32, true>(x, qo, so, B, S, H, S_pad, dh, st);
+        err = whole ? launch<T, 32, false>(x, qo, so, B, S, H, S_pad, dh, st)
+                    : launch<T, 32, true>(x, qo, so, B, S, H, S_pad, dh, st);
         break;
       case 64:
-        if (whole) launch<T, 64, false>(x, qo, so, B, S, H, S_pad, dh, st);
-        else launch<T, 64, true>(x, qo, so, B, S, H, S_pad, dh, st);
+        err = whole ? launch<T, 64, false>(x, qo, so, B, S, H, S_pad, dh, st)
+                    : launch<T, 64, true>(x, qo, so, B, S, H, S_pad, dh, st);
         break;
       case 128:
-        if (whole) launch<T, 128, false>(x, qo, so, B, S, H, S_pad, dh, st);
-        else launch<T, 128, true>(x, qo, so, B, S, H, S_pad, dh, st);
+        err = whole ? launch<T, 128, false>(x, qo, so, B, S, H, S_pad, dh, st)
+                    : launch<T, 128, true>(x, qo, so, B, S, H, S_pad, dh, st);
         break;
-      case 256: launch<T, 256, true>(x, qo, so, B, S, H, S_pad, dh, st); break;
+      case 256: err = launch<T, 256, true>(x, qo, so, B, S, H, S_pad, dh, st); break;
       default: known = false;
     }
   });
   if (!ok || !known) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -1,6 +1,8 @@
 """Non-causal encoder attention with the scores kept on chip
 (`csrc/encoder_attention.cu`, `encoder_attention.cuh`,
-`encoder_attention_f16.cu`, `encoder_attention_cc.cu`) and its plain
+`encoder_attention_f16.cu`, `encoder_attention_f32.cu`,
+`encoder_attention_f32_wg.cu`, `encoder_attention_wide.cu`,
+`encoder_attention_cc.cu`) and its plain
 version: the port of the JAX package's
 `ops/attention.py::encoder_attention_pallas`, in bf16, f16 and f32 at any
 head dim.
@@ -56,24 +58,26 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
     unscaled (the kernel multiplies it by Dh**-0.5). A CUDA tensor launches
     a kernel: bf16 and f16 up to Dh 256 the tensor-core bodies (bf16's
     whole bodies at 16, 32, 64 and 128, f16's at 64, any other width the
-    RAGGED body of its capacity), f32 at every head dim and bf16 and f16 past
-    256 the CUDA-core bodies (f32 products: TF32 would not hold an f32
-    bound). Each launch is counted by type, in `encoder_attention.launches`
-    for bf16, `.launches_f32` and `.launches_f16`, and a launch past head dim
-    256 also in `.launches_wide_dh`. A CPU tensor takes the plain version.
+    RAGGED body of its capacity), past 256 the WIDE tensor-core body; f32 up
+    to 256 the 3xTF32 bodies (f32-accurate products on the tensor cores), past
+    256 the CUDA-core body. Each launch is counted by type, in
+    `encoder_attention.launches` for bf16, `.launches_f32` and
+    `.launches_f16`, and a launch past head dim 256 also in
+    `.launches_wide_dh`. Any B*H. A CPU tensor takes the plain version.
     q, k and v share one type, as the JAX `encoder_attention_pallas` takes
     any float type (its scores f32, its output in q's type).
 
     The kernel reads q, k and v through their (batch, head, row) strides,
     so the (B, T, H, Dh) memory that `split_heads` leaves is not copied, and
     it writes the output in that same layout (returned as its (B, H, T, Dh)
-    view), so that `merge_heads` of the result is a view too. The
-    tensor-core bodies' tensor maps need rows of contiguous values at
-    16-byte aligned addresses: an input without them is copied to a
-    contiguous buffer first, at a whole Dh one of Dh columns, at a RAGGED
-    one a zero-padded buffer of the capacity's columns (whose strides the
-    tensor maps take), counted in `encoder_attention.pad_copies`. The
-    CUDA-core bodies read any view whose head dim is contiguous."""
+    view), so that `merge_heads` of the result is a view too. The 16-bit
+    bodies' tensor maps need rows of contiguous values at 16-byte aligned
+    addresses: an input without them is copied to a contiguous buffer
+    first, at a whole Dh one of Dh columns, at a RAGGED one a zero-padded
+    buffer of the capacity's columns, past 256 one of Dh rounded up to 8
+    (whose strides the tensor maps take), a padded copy counted in
+    `encoder_attention.pad_copies`. The f32 bodies read any view whose head
+    dim is contiguous."""
     if not q.is_cuda:
         return encoder_attention_ref(q, k, v)
     return _launch_encoder_attention(q, k, v)
@@ -95,14 +99,13 @@ def _launch_encoder_attention(q: torch.Tensor, k: torch.Tensor,
                     f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, t, dh = q.shape
     kernels.require_head_dim(name, dh)
-    kernels.require(t >= 1 and 1 <= b * h <= 65535, name,
-                    f"T {t} must be >= 1 and B*H {b * h} lie in 1..65535")
+    kernels.require(t >= 1 and b * h >= 1, name, f"T {t} and B*H {b * h} must be >= 1")
     code = kernels.dtype_code(q, name, k, v)
     kernels.require(len({x.device for x in (q, k, v)}) == 1, name,
                     "q, k and v must share a device")
     cap = kernels.head_dim_capacity(dh)
-    if q.dtype == torch.float32 or cap == kernels.WIDE:
-        # the CUDA-core bodies read rows of contiguous values where they are
+    if q.dtype == torch.float32:
+        # the f32 bodies read rows of contiguous values where they are
         q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
     else:
         # 16-byte rows for the tensor maps of k and v (the 4 bytes q and out
@@ -127,7 +130,7 @@ encoder_attention.launches = 0       # bf16
 encoder_attention.launches_f32 = 0
 encoder_attention.launches_f16 = 0
 encoder_attention.launches_wide_dh = 0   # any type, head dims past 256
-encoder_attention.pad_copies = 0   # RAGGED head dims' zero-padded copies
+encoder_attention.pad_copies = 0   # zero-padded copies of unaligned views
 
 
 def encoder_attention_cost(b: int, h: int, t: int, dh: int, itemsize: int) -> dict:
@@ -139,15 +142,17 @@ def encoder_attention_cost(b: int, h: int, t: int, dh: int, itemsize: int) -> di
 
 
 def _copy_rows(x: torch.Tensor, cap: int) -> torch.Tensor:
-    """A copy of x the kernel reads in place: contiguous at a whole head dim;
-    at a RAGGED one a view of its dh columns in a zero-padded (B, H, T, cap)
-    buffer, whose strides are multiples of 8 elements where dh's need not
-    be (counted in `encoder_attention.pad_copies`)."""
+    """A copy of x the kernel reads in place: contiguous at a whole head dim
+    (and past 256 at a multiple of 8); otherwise a view of its dh columns in
+    a zero-padded (B, H, T, width) buffer, width the capacity or, past 256,
+    dh rounded up to 8, whose strides are multiples of 8 elements where dh's
+    need not be (counted in `encoder_attention.pad_copies`)."""
     dh = x.shape[-1]
-    if dh == cap:
+    width = -(-dh // 8) * 8 if cap == kernels.WIDE else cap
+    if dh == width:
         return kernels.aligned(x)
     encoder_attention.pad_copies += 1
-    buf = torch.zeros((*x.shape[:3], cap), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((*x.shape[:3], width), dtype=x.dtype, device=x.device)
     buf[..., :dh] = x
     return buf[..., :dh]
 

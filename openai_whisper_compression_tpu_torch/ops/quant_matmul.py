@@ -160,7 +160,7 @@ def _run(name: str, launcher: str, x: torch.Tensor, n: int, ktiles: int,
     `launcher(*before, out, M, N, K, *after, splits, dtype, stream)`; record
     the launch's `cost` (`kernels.record_cost`)."""
     m, k = x.shape
-    kernels.require(1 <= m <= 65535 * _BM, name, f"M {m} outside 1..{65535 * _BM}")
+    kernels.require(m >= 1, name, f"M {m} must be >= 1")
     code = kernels.dtype_code(x, name)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     err = getattr(kernels.lib(), launcher)(

@@ -54,7 +54,8 @@ def cap_of(dh):
 
 class PadReader(FakeLib):
     """FakeLib that also reads, during the encoder attention's launch, row 0
-    of the k it is handed: (dh columns, the capacity's columns past them)."""
+    of the k it is handed: (dh columns, the padded columns past them: the
+    capacity's, or past 256 dh rounded up to 8)."""
 
     def __getattr__(self, name):
         launch = super().__getattr__(name)
@@ -63,7 +64,7 @@ class PadReader(FakeLib):
 
         def read(*args):
             dh, cap = args[7], args[8]
-            row = ctypes.string_at(args[1], cap * 2)
+            row = ctypes.string_at(args[1], (cap or -(-dh // 8) * 8) * 2)
             self.k_row0 = (row[: 2 * dh], row[2 * dh:])
             return launch(*args)
         return read
@@ -136,11 +137,12 @@ def test_encoder_attention_pads_only_where_the_strides_need_it(lib, dh):
     a multiple of 8 elements (dh % 8 == 0 here); otherwise each of q, k and
     v is copied once into a (B, H, T, capacity) buffer whose columns past dh
     are zero. Contiguous (B, H, T, dh) inputs likewise. Past 256 (the WIDE
-    body, which needs no tensor map) every view is read in place. The
-    output is written for dh columns in (B, T, H, dh) memory; the scale is
-    dh ** -0.5, the dtype code bf16's."""
+    body, whose tensor maps need the same strides) the buffer has dh
+    rounded up to 8 columns. The output is written for dh columns in (B, T,
+    H, dh) memory; the scale is dh ** -0.5, the dtype code bf16's."""
     b, h, t = 2, 3, 300
     cap = cap_of(dh)
+    width = cap or -(-dh // 8) * 8
     fused = torch.randn(b, t, 3 * h * dh).bfloat16()
     q, k, v = (split_heads(fused[..., i * h * dh: (i + 1) * h * dh], h) for i in range(3))
     for inputs in ((q, k, v), tuple(x.contiguous() for x in (q, k, v))):
@@ -151,18 +153,16 @@ def test_encoder_attention_pads_only_where_the_strides_need_it(lib, dh):
         assert args[7:9] == (dh, cap) and args[9] == pytest.approx(dh ** -0.5)
         assert args[11] == kernels.DTYPE_CODES[torch.bfloat16]
         strides = list(args[10][:12])
-        if cap == kernels.WIDE:
+        if dh % 8 == 0:
             assert copied == 0 and args[:3] == tuple(x.data_ptr() for x in inputs)
             assert strides[3:6] == list(inputs[1].stride()[:3])
-        elif dh % 8 == 0:
-            assert copied == 0 and args[:3] == tuple(x.data_ptr() for x in inputs)
         else:
             assert copied == 3 and args[1] != inputs[1].data_ptr()
-            assert strides[3:6] == [h * t * cap, t * cap, cap]   # k's copy
+            assert strides[3:6] == [h * t * width, t * width, width]   # k's copy
             row0 = inputs[1][0, 0, 0].contiguous().view(torch.int16)
             assert lib.k_row0[0] == row0.numpy().tobytes()
-            assert set(lib.k_row0[1]) <= {0}   # the capacity's columns past dh
-        assert cap == kernels.WIDE or all(s % 8 == 0 for s in strides[:9])
+            assert set(lib.k_row0[1]) <= {0}   # the padded columns past dh
+        assert all(s % 8 == 0 for s in strides[:9])
         assert out.shape == (b, h, t, dh) and out.transpose(1, 2).is_contiguous()
         assert strides[9:] == [t * h * dh, dh, h * dh]
 
@@ -172,10 +172,10 @@ def test_encoder_attention_pads_only_where_the_strides_need_it(lib, dh):
 def test_encoder_attention_hands_f16_and_f32(lib, dtype, dh):
     """f16 and f32 calls reach the launcher with their dtype codes (2 and 0),
     each counted in its type's counter (and past 256 in `launches_wide_dh`).
-    f32 at every width and f16 past 256 go to the CUDA-core bodies, which
-    read the fused projection's views in place; f16 up to 256 to the
-    tensor-core bodies, whose tensor maps need 16-byte strides (dh 36: one
-    zero-padded copy each of q, k and v)."""
+    f32 goes to the f32 bodies (3xTF32 up to 256, CUDA cores past it), which
+    read the fused projection's views in place; f16 to the tensor-core
+    bodies, whose tensor maps need 16-byte strides (dh 36: one zero-padded
+    copy each of q, k and v)."""
     b, h, t = 2, 3, 300
     fused = torch.randn(b, t, 3 * h * dh).to(dtype)
     q, k, v = (split_heads(fused[..., i * h * dh: (i + 1) * h * dh], h) for i in range(3))
@@ -187,7 +187,7 @@ def test_encoder_attention_hands_f16_and_f32(lib, dtype, dh):
     assert args[11] == kernels.DTYPE_CODES[dtype] == {torch.float16: 2, torch.float32: 0}[dtype]
     assert args[7:9] == (dh, cap_of(dh)) and out.dtype == dtype
     copies = att.encoder_attention.pad_copies - before[2]
-    in_place = dtype == torch.float32 or dh > 256 or dh % 8 == 0
+    in_place = dtype == torch.float32 or dh % 8 == 0
     assert copies == (0 if in_place else 3)
     assert (args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())) == in_place
     assert (getattr(att.encoder_attention, attr) - before[0],

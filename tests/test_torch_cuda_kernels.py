@@ -2326,12 +2326,15 @@ def test_wide_dims_transpose_quant_kv(dev, b, s, h, dh, dtype):
 @pytest.mark.parametrize("b,h,t", [(1, 1, 1), (2, 3, 129), (2, 2, 1500)])
 def test_wide_dims_encoder_attention(dev, b, h, t, dh):
     """The encoder attention's WIDE body in bf16 on views of one fused
-    projection, read in place (no padded copy), within one bf16 step of the
-    plain version; contiguous inputs give the same bits."""
+    projection, read in place where every stride is a multiple of 8
+    elements (its tensor maps need 16-byte rows; else through one
+    zero-padded copy each of q, k and v, counted), within one bf16 step of
+    the plain version; contiguous inputs give the same bits."""
     before = encoder_attention.pad_copies
     assert _wide_launches(encoder_attention, lambda:
                           test_head_dims_encoder_attention(dev, b, h, t, dh)) == 2
-    assert encoder_attention.pad_copies == before
+    # the fused views, then the contiguous copies: each padded where dh % 8
+    assert encoder_attention.pad_copies == before + (6 if dh % 8 else 0)
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
@@ -2354,8 +2357,9 @@ def test_wide_dims_self_attention(dev, dh, dtype, with_start, int8):
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32], ids=_IDS.get)
 def test_encoder_attention_f16_f32(dev, dtype, dh):
     """The encoder attention in f16 (the tensor-core body with f16 operands;
-    at 384 the WIDE CUDA-core body) and f32 (the CUDA-core body: f32
-    products, no TF32) at (8, 768 / Dh, 1500, Dh) on views of (B, T, H Dh)
+    at 384 the WIDE one) and f32 (3xTF32 on the tensor cores, at 384 the
+    CUDA-core body: f32-accurate products) at (8, 768 / Dh, 1500, Dh) on
+    views of (B, T, H Dh)
     projections: within one f16 step (2**-10) or 1e-5 of the plain version's
     largest output, one launch counted in the type's counter; contiguous
     inputs give the same bits."""
@@ -2441,3 +2445,102 @@ def test_flops_per_second_of_a_model_call_on_the_card(dev):
     assert costs["transcendentals"] > 0 and costs["flops"] > 0
     perf = profiling.flops_per_second(fn, params, wav, iters=2)
     assert perf["achieved_tflops"] is not None and perf["achieved_tflops"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The f32 encoder attention on the tensor cores (3xTF32) at every capacity,
+# the 16-bit WIDE body, and every wrapper past the grid's 65535 rows (the
+# launchers walk them from a persistent grid or launch in slices).
+
+def _qkv(dev, b, h, t, dh, dtype, seed):
+    """(B, H, T, dh) views of three (B, T, H dh) projections."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [whisper.split_heads(torch.randn(b, t, h * dh, generator=g, device=dev)
+                                .to(dtype), h) for _ in range(3)]
+
+
+def _held_encoder(q, k, v, attr):
+    before = getattr(encoder_attention, attr)
+    got = encoder_attention(q, k, v)
+    assert getattr(encoder_attention, attr) == before + 1
+    ref = encoder_attention_ref(q, k, v)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=_tol(q.dtype, float(ref.float().abs().max())))
+    return got
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 256, 8, 36, 100, 200, 255])
+@pytest.mark.parametrize("b,h,t", [(1, 1, 1), (2, 3, 129), (1, 2, 1500), (3, 2, 257)])
+def test_f32_encoder_attention_every_capacity(dev, b, h, t, dh):
+    """The 3xTF32 body of each capacity (16-256) at whole and ragged head
+    dims, within 1e-5 of the plain version's largest output, on views (16-byte
+    copies where dh % 4 == 0, 4-byte ones otherwise); contiguous inputs give
+    the same bits."""
+    q, k, v = _qkv(dev, b, h, t, dh, torch.float32, b + h + t + dh)
+    got = _held_encoder(q, k, v, "launches_f32")
+    assert torch.equal(encoder_attention(q.contiguous(), k.contiguous(), v.contiguous()),
+                       got)
+
+
+@pytest.mark.parametrize("dh", [64, 98, 256])
+def test_f32_encoder_attention_on_offset_views(dev, dh):
+    """Views that start one element in and skip a column (rows 4-byte
+    aligned only), and a transposed head layout: read in place."""
+    q, k, v = _qkv(dev, 2, 3, 301, dh + 1, torch.float32, dh)
+    _held_encoder(*(x[:, :, 1:, 1:] for x in (q, k, v)), "launches_f32")
+    _held_encoder(*(x.transpose(0, 1) for x in (q, k, v)), "launches_f32")
+
+
+def test_f32_encoder_attention_peaked_scores(dev):
+    """`test_encoder_attention_peaked_scores` in f32: scores of 30 to 45, the
+    running maximum moving while the keys stream by."""
+    q, k, v = (x.float() for x in _strided_qkv(dev, 1, 4, 1500, 5, scale=4.0))
+    q, k = q.clone(), k.clone()
+    q[..., 0], k[..., 0] = 8.0, 30.0
+    _held_encoder(q, k, v, "launches_f32")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=_IDS.get)
+@pytest.mark.parametrize("dh", [257, 288, 384, 512])
+@pytest.mark.parametrize("b,h,t", [(1, 1, 1), (2, 3, 129), (2, 2, 1500), (1, 1, 65)])
+def test_wide_encoder_attention_16_bit(dev, b, h, t, dh, dtype):
+    """The 16-bit WIDE body (the scores of a tile once, the output dims
+    shared over two warpgroups) within one step of its type of the plain
+    version, one launch counted in the type's counter and in
+    `launches_wide_dh`; contiguous inputs give the same bits."""
+    q, k, v = _qkv(dev, b, h, t, dh, dtype, b + h + t + dh)
+    before = encoder_attention.launches_wide_dh
+    got = _held_encoder(q, k, v, "launches" + _COUNTER[dtype])
+    assert encoder_attention.launches_wide_dh == before + 1
+    assert torch.equal(encoder_attention(q.contiguous(), k.contiguous(), v.contiguous()),
+                       got)
+
+
+@pytest.mark.parametrize("dh", [64, 288])
+@pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
+def test_encoder_attention_past_65535_heads(dev, dtype, dh):
+    """B*H = 70000 at T = 8, which the grid's y extent once refused."""
+    _held_encoder(*_qkv(dev, 35000, 2, 8, dh, dtype, dh), "launches" + _COUNTER[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_log_mel_past_65535_clips(dev, dtype):
+    """70000 clips of 800 samples (launched in slices of 65535): no less
+    exact than the plain version against float64, as `test_log_mel`."""
+    test_log_mel(dev, dtype, 70000, 800, 80, 7)
+
+
+@pytest.mark.parametrize("b,h", [(70000, 1), (1, 70000)])
+def test_transpose_quant_kv_past_65535(dev, b, h):
+    """B or H = 70000 (launched in slices of 65535 clips or heads): codes and
+    scales bit for bit."""
+    test_transpose_quant_kv(dev, torch.bfloat16, b, 8, h)
+
+
+def test_int8_matmul_past_65535_row_tiles(dev):
+    """M = 65535 * 128 + 1 rows at K = 32 (launched in slices of 65535 row
+    tiles): within one bf16 step, the last row included."""
+    test_int8_matmul(dev, torch.bfloat16, 65535 * 128 + 1, 32, 64)
+

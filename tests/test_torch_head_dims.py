@@ -175,7 +175,9 @@ def test_encoder_attention_head_dims_and_views(lib, dh):
     before = att.encoder_attention.pad_copies
     att._launch_encoder_attention(*(torch.zeros(1, 2, 256, 257).bfloat16(),) * 3)   # WIDE
     args = lib.of("owc_encoder_attention")[-1]
-    assert args[7:9] == (257, kernels.WIDE) and att.encoder_attention.pad_copies == before
+    # the WIDE body's tensor maps need 16-byte rows: 257 columns pad to 264
+    assert args[7:9] == (257, kernels.WIDE) and att.encoder_attention.pad_copies == before + 3
+    assert list(args[10][3:6]) == [2 * 256 * 264, 256 * 264, 264]
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
