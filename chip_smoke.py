@@ -135,9 +135,12 @@ Phase 3  first-step logits of 2 utterances, card (bf16, kernels) against
          batch 1; the f32 and the f16 tree in their own types (bounds of
          their own: an f32 tree differs by sum order only); and the
          beam5-prompt configuration (prompted, five beams). The CPU side
-         of phases 3-5 (these references, forward-small's, the tie proofs,
-         the alignment's) is queued (`later`) and runs on a thread beside
-         phase 6's held passes, never beside a timed pass.
+         of phases 3-5 (these references, forward-small's, the alignment's)
+         is queued (`later`) and runs on a thread beside phase 6's held
+         passes, never beside a timed pass; the tie proofs of phases 4 and
+         5 run at once, in f32 on the card through the plain versions
+         (`card_ties`, TF32 off, no kernel launches), as phases 7, 8 and 10
+         prove theirs.
 Phase 4  with no other tree resident, whisper-small with int8 weights
          through the slice-11 entry points:
            eval-headline  `evaluate_model` at the headline decode, batch 96,
@@ -157,8 +160,8 @@ Phase 4  with no other tree resident, whisper-small with int8 weights
                         `cross_kv_pool=2` over int8 cross-KV, `cross_kv_merge=
                         300` over bf16 cross-KV; the new shapes timed
                         (T = 750; S = 750; S = 1200, the kernels line's `@`
-                        entries), row 0 against the CPU f32 path under the
-                        tie rule;
+                        entries), row 0 against the f32 path on the card
+                        through the plain versions under the tie rule;
            fallback     `decode_with_fallback`, batch 32, bf16 caches, the
                         default ladder, best_of 2, a seeded generator on the
                         card, the logprob gate at the median of a greedy
@@ -232,7 +235,10 @@ Phase 7, timed part  the presets of `sweep/presets.py` at full width and
          int8-kv and medium-int4 runs. Each row prints rtfx, ms_per_batch,
          params_mb (`size_in_mb`), the seconds to build and transform the
          tree and `model_gflops`. The trees stay resident through phase 6.
-Phase 6  again with whisper-small, int8 weights (phase 7's trees resident
+Phase 6  again with whisper-small, int8 weights, cut to its first
+         P6_LAYERS = 2 encoder and decoder layers (full width: the serving
+         runs' host loops and held checks grow with the depth, and the
+         run's time limit holds them to this; phase 7's trees resident
          beside it; no memory is measured here), int8 self-KV and cross-KV,
          through the slice-13 serving workloads;
          each run timed and run with every kernel call held against its
@@ -370,7 +376,9 @@ Phase 9  (slice 16, after phase 8, before phase 6) storage, checkpoint
                         interrupted when its third config starts, then
                         resumed: configs 1-2 skipped;
            curve        `run_curve` over the int8, heads50+int8 and
-                        declayers-25%+int8 rungs, recover_steps 0: a timed
+                        declayers-25%+int8 rungs on the seeded tree cut to
+                        its first 4 encoder and decoder layers (full width),
+                        recover_steps 0: a timed
                         pass (iters 3), then a held pass (iters 1) whose
                         points equal it but for rtfx; each point's rtfx,
                         size_mb, hbm_mb and token_agreement printed;
@@ -378,9 +386,10 @@ Phase 9  (slice 16, after phase 8, before phase 6) storage, checkpoint
          the kernels timed (P9_ENTRIES).
 
 Phase 10 (slice 17; run inside phase 6, after phase 11, beside the queued
-         CPU proofs: nothing of it timed on the host) the CLI and the
-         parallel paths at whisper-small's
-         full width and depth, seeded, every kernel call held against its
+         CPU proofs: nothing of it timed on the host) the CLI at
+         whisper-small's full width and depth and the parallel paths at its
+         first P10_LAYERS = 2 encoder and decoder layers (full width),
+         seeded, every kernel call held against its
          plain version (`checked_kernel_calls`) and the launches counted:
            cli-*        `cli.main([...])` in process, on the card by default:
                         `transcribe` of a 60 s WAV writing every format
@@ -591,6 +600,10 @@ KERNELS = [
     # (whisper-small's width in 2 heads: phase 11's small-h2)
     ("encoder_attention_wide_dh", "ops.attention", "encoder_attention", "launches_wide_dh",
      "encoder_attention_wide.cu", "ops/attention.py:57", "dh384 encoder_attention"),
+    # the f32 WIDE body (3xTF32), launched on small-h2's 2-layer f32 encode
+    ("encoder_attention_f32_wide_dh", "ops.attention", "encoder_attention",
+     "launches_f32_wide_dh", "encoder_attention_f32_wide.cu", "ops/attention.py:57",
+     "dh384 encoder_attention torch.float32"),
     ("transpose_quant_kv_wide_dh", "ops.cross_attention", "transpose_quant_kv",
      "launches_wide_dh", "transpose_quant.cu", "ops/cross_attention.py:248",
      "dh384 transpose_quant_kv torch.bfloat16"),
@@ -613,7 +626,7 @@ KERNELS = [
 # the encoder attention's entries, one a body family: each counts one launch
 # an encoder layer where the run's path holds it
 ENCODER_ENTRIES = ("encoder_attention", "encoder_attention_f32", "encoder_attention_f16",
-                   "encoder_attention_wide_dh")
+                   "encoder_attention_wide_dh", "encoder_attention_f32_wide_dh")
 KV8 = {"kv_int8": True, "cross_kv_int8": True}
 DECODE_KERNELS = ("log_mel_cuda", "encoder_attention", "transpose_quant_kv",
                   "decode_cross_attention_grouped_int8",
@@ -2351,9 +2364,10 @@ def check_ties(name: str, params_cpu, arch, cfg, wav: torch.Tensor, got: torch.T
         live = logits[logits > NEG_INF / 2]   # not the suppressed tokens
         limit = TIE_REL * float(live.pow(2).mean().sqrt())
         log(f"{name}: row {r} parts at position {div} ({int(a[div])} vs "
-            f"{int(b[div])}): CPU f32 gap to the top logit {gap:.4g} (tie bound "
+            f"{int(b[div])}): {'CPU' if str(device) == 'cpu' else 'card'} f32 gap to the "
+            f"top logit {gap:.4g} (tie bound "
             f"{limit:.4g})")
-        check(gap <= limit, f"{name}: row {r} parts at position {div} with a CPU "
+        check(gap <= limit, f"{name}: row {r} parts at position {div} with an "
               f"f32 gap {gap:.4g} > {limit:.4g}: not a tie")
     return len(rows)
 
@@ -2570,10 +2584,10 @@ def run_unfused_int8(dev, arch, params) -> dict:
     check(torch.equal(lengths, runs["fused"][1]) and bool((lengths == 4 + NEW_TOKENS).all()),
           f"{name}: lengths {lengths.tolist()}")
     summary = {"batch": b, "walls_s": [wall], "launches": launches}
-    later_ties(name, tree_to(params, "cpu", torch.float32), arch, cfg_u, wav, tokens,
-               runs["fused"][0], 4, summary,
-               lambda p: f"phase4 {name}: {b - p} of {b} rows equal the fused run's "
-                         f"tokens, {p} part at a proven tie", encs=SEED_ENCS)
+    card_ties(name, tree_to(params, dev, torch.float32), arch, cfg_u, wav, tokens,
+              runs["fused"][0], 4, summary,
+              lambda p: f"phase4 {name}: {b - p} of {b} rows equal the fused run's "
+                        f"tokens, {p} part at a proven tie", encs=SEED_ENCS)
     return summary
 
 
@@ -2953,8 +2967,8 @@ def run_merge_pool(dev, arch, params, results: dict) -> dict:
     cross-attentions is held against its plain version as the model makes
     it (`checked_kernel_calls`, the int8 matmul and the cache update too);
     each new shape is then timed beside its plain version and bound. Exact
-    launch counts per configuration; the first rows' tokens against the CPU
-    f32 path under the tie rule."""
+    launch counts per configuration; the first rows' tokens against the f32
+    path on the card through the plain versions under the tie rule."""
     from openai_whisper_compression_tpu_torch.config import DecodeConfig
     from openai_whisper_compression_tpu_torch.evaluation.harness import make_transcribe_fn
     from openai_whisper_compression_tpu_torch.models import decode
@@ -2962,7 +2976,7 @@ def run_merge_pool(dev, arch, params, results: dict) -> dict:
 
     b, n_ref = BATCH, 1
     wav = torch.from_numpy(waveforms(SEED + 7, b)).to(dev)
-    params_cpu = tree_to(params, "cpu", torch.float32)
+    params32 = tree_to(params, dev, torch.float32)
     summaries = {}
     for name, fn_kw, switches, path in MERGE_RUNS:
         cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,),
@@ -2985,16 +2999,21 @@ def run_merge_pool(dev, arch, params, results: dict) -> dict:
               f"{name}: lengths {lengths.tolist()}")
         log(f"phase4 {name}: wall {wall:.4f} s (every kernel call checked)")
 
-        def against_cpu(name, fn_kw, cfg, wav, tokens):
-            # the first rows against the CPU f32 path, tie rule
-            enc = cpu_enc(params_cpu, arch, wav, **fn_kw)
-            ref, _ = decode.greedy_decode(params_cpu, arch, enc, cfg)
-            parted = check_ties(name, params_cpu, arch, cfg, wav, tokens, ref, 4, fn_kw)
-            log(f"phase4 {name}: the first {n_ref} row(s) against the CPU f32 path: "
-                f"{n_ref - parted} equal, {parted} part at a proven tie")
-
-        later(f"phase4 {name}", functools.partial(against_cpu, name, dict(fn_kw), cfg,
-                                                  wav[:n_ref].cpu(), tokens[:n_ref]))
+        # the first rows against the f32 path on the card through the plain
+        # versions (no kernel launches), tie rule
+        t1 = time.perf_counter()
+        counters = zero_launches()
+        with plain_kernels(), torch.inference_mode():
+            enc = cpu_enc(params32, arch, wav[:n_ref], device=dev, **fn_kw)
+            ref, _ = decode.greedy_decode(params32, arch, enc, cfg)
+            parted = check_ties(name, params32, arch, cfg, wav[:n_ref], tokens[:n_ref],
+                                ref.cpu(), 4, fn_kw, device=dev)
+        ref_launches = read_launches(counters)
+        check(not any(ref_launches.values()),
+              f"{name}: the f32 recompute launched {launched(ref_launches)}")
+        log(f"phase4 {name}: the first {n_ref} row(s) against the f32 path on the card "
+            f"through the plain versions: {n_ref - parted} equal, {parted} part at a "
+            f"proven tie ({time.perf_counter() - t1:.1f} s, no kernel launched)")
         # the new shapes this run reports, timed
         for _, _, run, key, rkey in SHAPE_ENTRIES:
             if run != name:
@@ -3551,7 +3570,7 @@ def run_speculative(dev, arch, params, results: dict, encs: dict) -> dict:
     g_tok, g_len = (x.cpu() for x in fn_g(params, wav))
     g_wall = time.perf_counter() - t0
     log(f"phase5 spec: target greedy at batch {b}: wall {g_wall:.4f} s")
-    params_cpu = tree_to(params, "cpu", torch.float32)
+    params32 = tree_to(params, dev, torch.float32)
     tiny_arch, tiny = make_params(dev, "tiny", "int8")
     summaries, walks = {}, {}   # both runs are held against g_tok: one walk a row
     for name, (arch_d, draft) in (
@@ -3613,10 +3632,10 @@ def run_speculative(dev, arch, params, results: dict, encs: dict) -> dict:
         summaries[name] = {"rounds": rounds, "draft_steps": steps,
                            "accepted_per_round": advanced / rounds - 1, "wall_s": wall,
                            "greedy_wall_s": g_wall, "launches": launches}
-        later_ties(name, params_cpu, arch, cfg, wav, tokens, g_tok, 4, summaries[name],
-                   lambda p, name=name: f"phase5 {name}: {b - p} of {b} rows equal "
-                                        f"greedy's tokens, {p} part at a proven tie",
-                   encs=encs, walks=walks)
+        card_ties(name, params32, arch, cfg, wav, tokens, g_tok, 4, summaries[name],
+                  lambda p, name=name: f"phase5 {name}: {b - p} of {b} rows equal "
+                                       f"greedy's tokens, {p} part at a proven tie",
+                  encs=encs, walks=walks)
     del tiny
     return summaries
 
@@ -3666,7 +3685,7 @@ def run_verified(dev, arch, params, results: dict, encs: dict) -> dict:
         "verified-junk": (enc, junk, torch.where(odd, 0, g), None),
         "verified-active": (torch.where(active[:, None, None], enc, 0), exact_draft,
                             torch.where(active, g, 0), active)}
-    params_cpu = tree_to(params, "cpu", torch.float32)
+    params32 = tree_to(params, dev, torch.float32)
     real_step = speculative.decoder_step
     window = fg + g
     chunks = [min(8, window - j0) for j0 in range(0, window, 8)]
@@ -3712,11 +3731,11 @@ def run_verified(dev, arch, params, results: dict, encs: dict) -> dict:
             f"{json.dumps(launches)}")
         summaries[name] = {"n_acc_min": n0, "steps": s, "wall_s": wall, "launches": launches}
         n_rows = tokens[rows].shape[0]
-        later_ties(name, params_cpu, arch, cfg, wav[rows], tokens[rows], g_tok[rows], fg,
-                   summaries[name],
-                   lambda p, name=name, n_rows=n_rows: f"phase5 {name}: {n_rows - p} of "
-                   f"{n_rows} rows equal greedy's tokens, {p} part at a proven tie",
-                   prompt=prompt[rows], lens=lens[rows], encs=encs, walks=walks)
+        card_ties(name, params32, arch, cfg, wav[rows], tokens[rows], g_tok[rows], fg,
+                  summaries[name],
+                  lambda p, name=name, n_rows=n_rows: f"phase5 {name}: {n_rows - p} of "
+                  f"{n_rows} rows equal greedy's tokens, {p} part at a proven tie",
+                  prompt=prompt[rows], lens=lens[rows], encs=encs, walks=walks)
     return summaries
 
 
@@ -3857,6 +3876,11 @@ def phase5(dev, arch, params, results: dict) -> dict:
 # Phase 6 (slice 13): continuous batching, streaming, the serving service
 # ---------------------------------------------------------------------------
 
+# phase 6's tree: whisper-small's int8 tree cut to its first P6_LAYERS
+# encoder and decoder layers (full width, `cut_layers`): every serving run's
+# host loop and held checks grow with the depth, and the smoke's time limit
+# holds the runs to this one
+P6_LAYERS = 2
 CB_BATCH, CB_REQUESTS, CB_TOKENS = 96, 384, 64   # bench.py's continuous_batching row
 CB_GREEDY_ROWS = 48   # the first requests held against one greedy batch (`cb_yardsticks`)
 CB_CHUNK, CB_LANES = 8, 24
@@ -3967,9 +3991,10 @@ LATER: list = []
 # the interpreter's thread switch interval while that thread runs (Python's
 # default is 5 ms)
 PROOF_SWITCH_S = 0.0005
-# the CPU f32 encoder states (fast frontend) of `waveforms(SEED, BATCH)` under
-# whisper-small's int8 tree, by row: the tie proofs of unfused-int8, spec-*
-# and verified-* decode that audio with that tree, and share them
+# the f32 encoder states (fast frontend, on the card through the plain
+# versions) of `waveforms(SEED, BATCH)` under whisper-small's int8 tree, by
+# row: the tie proofs of unfused-int8, spec-* and verified-* decode that
+# audio with that tree, and share them
 SEED_ENCS: dict = {}
 
 
@@ -3981,19 +4006,23 @@ def later(label: str, fn) -> None:
     LATER.append((label, fn))
 
 
-def later_ties(name: str, params_cpu, arch, cfg, wav, got, want, first_gen: int,
-               summary: dict, line, **kw) -> None:
-    """Queue `check_ties` on CPU copies of its tensors (`later`); when it
-    has run, `summary["parted"]` holds the rows that parted and `line(parted)`
-    is logged."""
-    cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
-    wav, got, want = wav.cpu(), got.cpu(), want.cpu()
-
-    def proof():
-        summary["parted"] = check_ties(name, params_cpu, arch, cfg, wav, got, want,
-                                       first_gen, **cpu)
-        log(line(summary["parted"]))
-    later(name, proof)
+def card_ties(name: str, params32, arch, cfg, wav, got, want, first_gen: int,
+              summary: dict, line, **kw) -> None:
+    """`check_ties` now, in f32 on the card through the plain versions
+    (`plain_kernels`; TF32 off: `main` sets it), as phases 7, 8 and 10
+    prove theirs: `params32` the tree in f32 on the card, `wav` there too;
+    no kernel launches. `summary["parted"]` gets the rows that parted and
+    `line(parted)` is logged."""
+    t0 = time.perf_counter()
+    counters = zero_launches()
+    with plain_kernels():
+        summary["parted"] = check_ties(name, params32, arch, cfg, wav, got, want,
+                                       first_gen, device=wav.device, **kw)
+    launches = read_launches(counters)
+    check(not any(launches.values()),
+          f"{name}: the f32 recompute launched {launched(launches)}")
+    log(f"{line(summary['parted'])} (f32 on the card through the plain versions, "
+        f"{time.perf_counter() - t0:.1f} s, no kernel launched)")
 
 
 @torch.inference_mode()
@@ -4079,7 +4108,8 @@ def run_cb_small(dev, arch, params, params_cpu, results: dict, after_timed=None)
     pool = cb.stage(wavs)
     cb.warmup()
     torch.cuda.synchronize()
-    log(f"phase6 {name}: {arch.name}, int8 weights, int8 self-KV and cross-KV, batch {b}, "
+    log(f"phase6 {name}: {arch.name} cut to {arch.encoder_layers} encoder and "
+        f"{arch.decoder_layers} decoder layers, int8 weights, int8 self-KV and cross-KV, batch {b}, "
         f"{CB_REQUESTS} requests of {lens.min() / 16000:.2f}-{lens.max() / 16000:.2f} s "
         f"({sum(durations):.1f} s), caps {min(caps)}-{max(caps)} (mean {np.mean(caps):.2f}), "
         f"chunk {CB_CHUNK}, {CB_LANES} admit lanes, stage_encode, int16 pool "
@@ -5836,6 +5866,9 @@ P9_INTERRUPT_AFTER = 2   # the sweep is interrupted when its third config starts
 P9_UTTS = 32             # the sweep's synthetic utterances: one batch
 P9_RUNGS = ("int8", "heads50+int8", "declayers-25%+int8")
 P9_CURVE_ITERS = 3
+# the curve's tree: the seeded bf16 tree cut to its first 4 encoder and
+# decoder layers (full width; declayers-25% then keeps 3 decoder layers)
+P9_CURVE_LAYERS = 4
 P9_AGREE = 8             # run_curve's agreement_samples
 # kernels-line entries for the shapes only phase 9 gives the kernels: (entry
 # name, the KERNELS entry, the run whose held calls at that shape it counts
@@ -6302,7 +6335,7 @@ def run_curve_small(dev, arch, dense, results: dict) -> dict:
 
 def phase9(dev, arch, int8_params, results: dict) -> dict:
     """Phase 9 (slice 16): storage-small, hf-small, sweep-small and the
-    curve at whisper-small's full width and depth (module docstring); each
+    curve at whisper-small's full width (module docstring); each
     part's seconds printed; then the P9_ENTRIES shapes timed. Returns the
     runs' summaries."""
     import tempfile
@@ -6322,7 +6355,9 @@ def phase9(dev, arch, int8_params, results: dict) -> dict:
         summaries.update(run_sweep_small(dev, arch, dense, tmp))
         log(f"phase9 sweep-small: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        summaries.update(run_curve_small(dev, arch, dense, results))
+        curve_tree, curve_arch = cut_layers(dense, arch, P9_CURVE_LAYERS)
+        summaries.update(run_curve_small(dev, curve_arch, curve_tree, results))
+        del curve_tree
         log(f"phase9 curve: {time.perf_counter() - t0:.1f} s")
         del dense
         torch.cuda.empty_cache()
@@ -6470,6 +6505,10 @@ P10_DP_BATCH = 96     # DP transcription, the headline's batch
 P10_CLI_SAMPLES = 32
 P10_AGREE = 8
 P10_WORLD_TIMEOUT_S = 600.0
+# the parallel runs' depth: whisper-small's first 2 encoder and decoder
+# layers (full width), in the two-process group and in the single-process
+# runs it is held against
+P10_LAYERS = 2
 P10_ENTRIES = [
     ("int8_matmul@tp2-qkv-N384", "int8_matmul", ("int8_matmul", P10_TP_BATCH, 768, 384)),
     ("int8_matmul@tp2-o-K384", "int8_matmul", ("int8_matmul", P10_TP_BATCH, 384, 768)),
@@ -6494,14 +6533,17 @@ def p10_tp_cfg(arch):
 
 def p10_tree(dev):
     """The TP runs' tree: seeded bf16 whisper-small, int8 weights, qkv left
-    unfused (a fused qkv is replicated under TP, as in the JAX package)."""
+    unfused (a fused qkv is replicated under TP, as in the JAX package), cut
+    to its first P10_LAYERS encoder and decoder layers (full width)."""
     from openai_whisper_compression_tpu_torch.config import ARCHS
     from openai_whisper_compression_tpu_torch.models.params import init_params
     from openai_whisper_compression_tpu_torch.quant.api import quantize_params
 
     arch = ARCHS[ARCH]
-    return arch, quantize_params(init_params(arch, seed=SEED, dtype=torch.bfloat16,
-                                             device=dev), "int8")
+    tree = quantize_params(init_params(arch, seed=SEED, dtype=torch.bfloat16, device=dev),
+                           "int8")
+    tree, arch = cut_layers(tree, arch, P10_LAYERS)
+    return arch, tree
 
 
 def tree_digest(params) -> list:
@@ -6747,7 +6789,9 @@ def run_cli_small(dev, tmp: str) -> dict:
 
 def run_parallel_small(dev, tmp: str, int8_params) -> dict:
     """DP at world size 1 under NCCL, the TP and DP references, then the
-    two-process gloo group on the one card (`p10_world`); its tokens equal
+    two-process gloo group on the one card (`p10_world`), every tree cut to
+    P10_LAYERS layers (`int8_params`, whisper-small's fused int8 tree, as
+    `p10_tree` cuts its own); its tokens equal
     the single-process runs' or part at a proven top-2 tie (`check_ties`, an
     f32 recompute on the card with every kernel's plain version)."""
     import os
@@ -6762,6 +6806,7 @@ def run_parallel_small(dev, tmp: str, int8_params) -> dict:
     from openai_whisper_compression_tpu_torch.parallel import multihost, steps, tp_forward
 
     arch, tree = p10_tree(dev)
+    int8_params, _ = cut_layers(int8_params, arch, P10_LAYERS)
     out = {}
     cfg = DecodeConfig(max_new_tokens=NEW_TOKENS, suppress_tokens=(arch.eos_token_id,), **KV8)
     wav_dp = waveforms(SEED + 112, P10_DP_BATCH)
@@ -7550,8 +7595,40 @@ def run_small_h8(dev, results: dict, spec: dict = P11_H8, head_dim: int = 96,
             if head_dim > 256:
                 out[f"{name}-replay"] = run_self_attention_replay(
                     dev, tree_arch, tree, name=f"{name}-replay", phase="phase11")
+                out[f"{name}-f32-encode"] = run_f32_wide_encode(dev, tree_arch, wav,
+                                                                f"{name}-f32-encode")
     out[f"{label}-2l"]["parted"] = proof.result()
     return out
+
+
+@torch.inference_mode()
+def run_f32_wide_encode(dev, arch, wav: torch.Tensor, name: str) -> dict:
+    """The encoder of a dense f32 tree of `arch` (seeded; a head dim past
+    256: the f32 WIDE body) on `wav`, each kernel call held against its
+    plain version (`checked_kernel_calls(mel=True)`), the encoder states
+    finite; launch counts exact: the log-mel once, the encoder attention once
+    a layer in its f32, WIDE and f32 WIDE counters."""
+    from openai_whisper_compression_tpu_torch.audio import features
+    from openai_whisper_compression_tpu_torch.models.params import init_params
+    from openai_whisper_compression_tpu_torch.models.whisper import encode
+
+    params = init_params(arch, SEED, torch.float32, dev)
+    t0 = time.perf_counter()
+    with checked_kernel_calls({}, {}, mel=True) as held:   # shims `features.preprocess`
+        counters = zero_launches()
+        enc = encode(params, arch, features.preprocess(wav, arch.num_mel_bins), fast_gelu=True)
+        torch.cuda.synchronize()
+        launches = read_launches(counters)
+    check(enc.shape == (wav.shape[0], arch.max_source_positions, arch.d_model)
+          and enc.dtype == torch.float32 and bool(torch.isfinite(enc).all()),
+          f"{name}: encoder states {tuple(enc.shape)} {enc.dtype}, or not finite")
+    layers = arch.encoder_layers
+    exact = {"log_mel_cuda": 1, "encoder_attention_f32": layers,
+             "encoder_attention_wide_dh": layers, "encoder_attention_f32_wide_dh": layers}
+    check_launches(name, launches, set(exact), exact)
+    log(f"phase11 {name}: {wav.shape[0]} clips held in {time.perf_counter() - t0:.2f} s; "
+        f"launches {json.dumps(launched(launches))}; {held_summary(held, {})}")
+    return {"launches": launches}
 
 
 @torch.inference_mode()
@@ -7597,7 +7674,7 @@ def main() -> int:
     log(f"phase0 {smi}")
     log(f"phase0 torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     kernels.lib()
     log(f"phase0 kernel library {kernels.library_path().name}: ready in "
         f"{time.perf_counter() - t0:.2f} s (nvcc build "
@@ -7709,7 +7786,9 @@ def main() -> int:
             log(f"phase10 (beside the queued CPU proofs): {time.perf_counter() - t1:.1f} s")
             torch.cuda.empty_cache()
 
-    summaries.update(phase6(dev, *small_int8, results, between=beside_proofs))
+    p6_params, p6_arch = cut_layers(small_int8[1], small_int8[0], P6_LAYERS)
+    summaries.update(phase6(dev, p6_arch, p6_params, results, between=beside_proofs))
+    del p6_params
     summaries.update(p11)
     phase_done("phase6 (with phase 7's held part, phase 11 and phase 10)")
     check(not LATER, f"CPU proofs never run: {[label for label, _ in LATER]}")
@@ -7754,6 +7833,8 @@ def main() -> int:
                                "bound_by", "library_ms")}}
         for name, r in results.items()
         if any(f"@{label}-" in name for label in ("test2l", "small-h8", "small-h2"))]
+    log(f"whole run: {time.perf_counter() - t_start:.1f} s, the build included "
+        f"(phases {time.perf_counter() - t_run:.1f} s)")
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

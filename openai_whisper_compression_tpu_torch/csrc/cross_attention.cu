@@ -17,16 +17,16 @@ OWC_CROSS_DECLARE(r256)
 // the WIDE body (cross_attention_wide.cu): head dims past 256
 int owc_cross_grouped_wide(const void* q, const void* k_t, const void* v_t,
                            const void* k_scale, const void* v_scale, void* out, int BH,
-                           int KQ, int row_stride, int S_pad, int s_valid, int kind,
-                           int dtype, int dh, cudaStream_t st);
+                           int KQ, int row_stride, int S_pad, int s_valid, int splits,
+                           int kind, int dtype, int dh, cudaStream_t st);
 
 // In both entry points `dtype` is the code (common.cuh) of the element type
 // of q and out: f32, bf16 or f16; `dh` the head dim and `cap` its capacity,
 // the smallest of 16, 32, 64, 128, 256 that is >= dh, or OWC_WIDE for a dh
 // past 256: dh = cap <= 128 runs the whole body, a cap of 256 or less the
 // RAGGED body of cap, OWC_WIDE the WIDE body (cross_attention_wide.cu, which
-// takes any dh and no cluster: `splits` is not read). Packed int4 K/V need
-// an even dh.
+// takes any dh; its cluster's blocks each take at least one chunk of 16
+// positions of f32 K/V, 32 of the others). Packed int4 K/V need an even dh.
 
 // q and out: KQ slots of dh values for each of BH rows, row g at element
 // g * row_stride (row_stride = KQ * dh for contiguous (BH, KQ, dh) tensors;
@@ -50,7 +50,7 @@ extern "C" int owc_cross_attention_grouped(const void* q, const void* k_t,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cap == OWC_WIDE)
     return owc_cross_grouped_wide(q, k_t, v_t, k_scale, v_scale, out, BH, KQ, row_stride,
-                                  S_pad, s_valid, kind, dtype, dh, st);
+                                  S_pad, s_valid, splits, kind, dtype, dh, st);
   if (dh < 1 || dh > cap || (cap > 16 && 2 * dh <= cap) || (kind == 2 && dh % 2))
     return (int)cudaErrorInvalidValue;
 #define OWC_GROUPED(NAME)                                                                \
@@ -81,7 +81,7 @@ extern "C" int owc_cross_attention(const void* q, const void* k_t,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cap == OWC_WIDE)   // the WIDE body at one slot
     return owc_cross_grouped_wide(q, k_t, v_t, k_scale, v_scale, out, BH, 1, dh, S_pad,
-                                  s_valid, kind, dtype, dh, st);
+                                  s_valid, splits, kind, dtype, dh, st);
   if (dh < 1 || dh > cap || (cap > 16 && 2 * dh <= cap) || (kind == 2 && dh % 2))
     return (int)cudaErrorInvalidValue;
 #define OWC_ONE_QUERY(NAME)                                                           \

@@ -108,7 +108,7 @@
 // loop of its own for one slot (a greedy step: no slot predicates, q in
 // registers).
 // A head dim past 256 runs the WIDE body of cross_attention_wide.cu, which
-// walks the head dim in chunks (no template here).
+// takes the head dim at run time (no template here).
 #pragma once
 
 #include <cooperative_groups.h>

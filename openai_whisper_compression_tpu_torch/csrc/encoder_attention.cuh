@@ -5,8 +5,8 @@
 // body at head dim 64, the RAGGED body of every capacity);
 // `encoder_attention_f32.cu` and `encoder_attention_f32_wg.cu` take f32 up
 // to head dim 256 (3xTF32 on the tensor cores), `encoder_attention_wide.cu`
-// bf16 and f16 past 256, and `encoder_attention_cc.cu` f32 past 256 (CUDA
-// cores).
+// bf16 and f16 past 256, and `encoder_attention_f32_wide.cu` f32 past 256
+// (3xTF32).
 //
 // Replaces: openai_whisper_compression_tpu/ops/attention.py
 //           encoder_attention_pallas (kernel body _attn_kernel).
@@ -782,7 +782,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
 // The f16 tensor-core bodies (encoder_attention_f16.cu), the f32 ones
 // (encoder_attention_f32.cu, which calls encoder_attention_f32_wg.cu's at
 // capacity 64), the 16-bit WIDE one (encoder_attention_wide.cu)
-// and the f32 CUDA-core one past 256 (encoder_attention_cc.cu), compiled
+// and the f32 one past 256 (encoder_attention_f32_wide.cu), compiled
 // apart so that the build runs them beside this file; owc_encoder_attention
 // (encoder_attention.cu) picks among them.
 int owc_encoder_attention_f16(const void* q, const void* k, const void* v, void* out, int B,
@@ -794,6 +794,6 @@ int owc_encoder_attention_f32(const void* q, const void* k, const void* v, void*
 int owc_encoder_attention_wide(const void* q, const void* k, const void* v, void* out, int B,
                                int H, int T, int dh, float scale, const long long* strides,
                                int dtype, cudaStream_t st);
-int owc_encoder_attention_cc(const void* q, const void* k, const void* v, void* out, int B,
-                             int H, int T, int dh, float scale, const long long* strides,
-                             cudaStream_t st);
+int owc_encoder_attention_f32_wide(const void* q, const void* k, const void* v, void* out,
+                                   int B, int H, int T, int dh, float scale,
+                                   const long long* strides, cudaStream_t st);

@@ -71,7 +71,7 @@
 // - The online softmax's row maximum and sum are shuffles over a row's 4
 //   threads; keys past T score -inf (their V rows are zeros, so 0 * v adds
 //   nothing).
-// - Head dims past 256 keep the CUDA-core body (encoder_attention_cc.cu).
+// - Head dims past 256 run the WIDE body (encoder_attention_f32_wide.cu).
 #include "common.cuh"
 #include "hopper.cuh"  // sm_count
 

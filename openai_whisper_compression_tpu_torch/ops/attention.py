@@ -2,7 +2,7 @@
 (`csrc/encoder_attention.cu`, `encoder_attention.cuh`,
 `encoder_attention_f16.cu`, `encoder_attention_f32.cu`,
 `encoder_attention_f32_wg.cu`, `encoder_attention_wide.cu`,
-`encoder_attention_cc.cu`) and its plain
+`encoder_attention_f32_wide.cu`) and its plain
 version: the port of the JAX package's
 `ops/attention.py::encoder_attention_pallas`, in bf16, f16 and f32 at any
 head dim.
@@ -58,12 +58,13 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
     unscaled (the kernel multiplies it by Dh**-0.5). A CUDA tensor launches
     a kernel: bf16 and f16 up to Dh 256 the tensor-core bodies (bf16's
     whole bodies at 16, 32, 64 and 128, f16's at 64, any other width the
-    RAGGED body of its capacity), past 256 the WIDE tensor-core body; f32 up
-    to 256 the 3xTF32 bodies (f32-accurate products on the tensor cores), past
-    256 the CUDA-core body. Each launch is counted by type, in
+    RAGGED body of its capacity), past 256 the WIDE tensor-core body; f32
+    the 3xTF32 bodies (f32-accurate products on the tensor cores), past 256
+    the f32 WIDE one. Each launch is counted by type, in
     `encoder_attention.launches` for bf16, `.launches_f32` and
     `.launches_f16`, and a launch past head dim 256 also in
-    `.launches_wide_dh`. Any B*H. A CPU tensor takes the plain version.
+    `.launches_wide_dh` and, in f32, `.launches_f32_wide_dh`. Any B*H. A CPU
+    tensor takes the plain version.
     q, k and v share one type, as the JAX `encoder_attention_pallas` takes
     any float type (its scores f32, its output in q's type).
 
@@ -122,6 +123,7 @@ def _launch_encoder_attention(q: torch.Tensor, k: torch.Tensor,
     setattr(encoder_attention, attr, getattr(encoder_attention, attr) + 1)
     if cap == kernels.WIDE:
         encoder_attention.launches_wide_dh += 1
+        encoder_attention.launches_f32_wide_dh += q.dtype == torch.float32
     kernels.record_cost(encoder_attention_cost(b, h, t, dh, q.element_size()))
     return out
 
@@ -130,6 +132,7 @@ encoder_attention.launches = 0       # bf16
 encoder_attention.launches_f32 = 0
 encoder_attention.launches_f16 = 0
 encoder_attention.launches_wide_dh = 0   # any type, head dims past 256
+encoder_attention.launches_f32_wide_dh = 0   # f32 past 256 (the f32 WIDE body)
 encoder_attention.pad_copies = 0   # zero-padded copies of unaligned views
 
 

@@ -16,12 +16,13 @@ rows, so its kernel splits S over the blocks of a cluster
 (`one_query_splits`), in one launch. Every kernel takes any head dim (even
 for packed int4 K/V): 16, 32, 64 and 128 run their whole bodies, any other
 up to 256 the RAGGED body of its capacity (`kernels.head_dim_capacity`),
-and any past 256 the WIDE body (`csrc/cross_attention_wide.cu` for the
-cross-attentions, the quantizer's own), which walks the head dim in chunks;
-a WIDE launch is also counted in the wrapper's `launches_wide_dh`. K/V storage
-follows the JAX layout: (B·H, Dh, S_pad) in q's own type (float32, bfloat16
-or float16: the Pallas kernels are generic in it; f32 arithmetic, output in
-q's type); int8 with (B·H, 1, S_pad) f32 per-position scales; or split-half
+and any past 256 the WIDE body (`csrc/cross_attention_wide.cu` for both
+cross-attentions, S split over a cluster of `wide_splits` blocks a row
+and the scores of a row made once; the quantizer's own), which takes the
+head dim at run time; a WIDE launch is also counted in the wrapper's
+`launches_wide_dh`. K/V storage follows the JAX layout: (B·H, Dh, S_pad)
+in q's own type (float32, bfloat16 or float16: the Pallas kernels are
+generic in it; f32 arithmetic, output in q's type); int8 with (B·H, 1, S_pad) f32 per-position scales; or split-half
 packed int4 (B·H, Dh/2, S_pad) with the same scales, told apart from int8 by
 its Dh/2 rows, as the JAX package does. A launch over fp K/V is counted per
 type: in `launches` for bfloat16, in `launches_f32` and `launches_f16`.
@@ -42,10 +43,12 @@ NEG_INF = -1e30
 MAX_SLOTS = 8   # query slots per (batch, head) row one launch holds
 UNGROUPED_MODULUS = 16  # a decode step with B*H % 16 != 0 takes the one-query kernel
 ONE_QUERY_CHUNK = 64  # positions the one-query kernel shares out over a cluster
-_ONE_QUERY_BLOCKS = 132  # blocks of the one-query kernel the H100 holds at once: one an SM
+_SMS = 132         # the H100's SMs
+_ONE_QUERY_BLOCKS = _SMS  # blocks of the one-query kernel the H100 holds at once: one an SM
 NARROW_SLOTS = 4  # launches of more slots are counted apart (`_wide`)
 GROUPED_CHUNK = 32  # positions a warp of the grouped kernel takes at a time
 _GROUPED_BLOCKS = 264  # blocks the grouped kernel wants: two an SM of the H100
+WIDE_CHUNK = 64    # positions of a chunk of the WIDE body (32 of f32 K/V)
 _MAX_CLUSTER = 8       # blocks of one cluster (the portable limit)
 # K/V storage kind -> (code of csrc/cross_attention.cu, positions per
 # 16-byte load, launch counter on the two wrappers); "fp" is K/V in q's type
@@ -221,6 +224,20 @@ def grouped_splits(bh: int, s_valid: int) -> int:
     return max(1, min(_MAX_CLUSTER, chunks, -(-_GROUPED_BLOCKS // bh)))
 
 
+def wide_splits(bh: int, s_valid: int) -> int:
+    """Blocks of the thread block cluster that shares one row of the WIDE
+    body (head dims past 256), in both wrappers, one query too: one block an
+    SM while B·H rows fit the card's `_SMS` SMs (a block more would start a
+    second wave, which the card ran slower than fewer, longer blocks, each
+    block having a fixed cost), about two an SM past that; at most
+    `_MAX_CLUSTER`, and no more than the row has `WIDE_CHUNK`-position
+    chunks, so that every block gets at least one. The body's slot template
+    is the launch's slot count rounded up to 1, 4 or 8."""
+    chunks = -(-s_valid // WIDE_CHUNK)
+    per_row = _SMS // bh if bh <= _SMS else -(-2 * _SMS // bh)
+    return max(1, min(_MAX_CLUSTER, chunks, per_row))
+
+
 def one_query_splits(bh: int, s_valid: int) -> int:
     """Blocks of the thread block cluster that shares one row of the
     one-query kernel: as many as keep B·H rows within the
@@ -269,8 +286,8 @@ def _launch_decode_cross_attention_grouped(q: torch.Tensor, k_t: torch.Tensor,
     code, _, counter = _KINDS[kind]
     kernels.require(1 <= bh < 2 ** 31, name, f"B*H {bh} outside 1..2**31 - 1")
     q, k_t, v_t, k_scale, v_scale = map(kernels.aligned, (q, k_t, v_t, k_scale, v_scale))
-    splits = grouped_splits(bh, s_valid)
     cap = kernels.head_dim_capacity(dh)
+    splits = (wide_splits if cap == kernels.WIDE else grouped_splits)(bh, s_valid)
     out = torch.empty_like(q)
     for j0 in range(0, kq, MAX_SLOTS):   # slots j0.. of every row, in place
         offset = j0 * dh * q.element_size()
@@ -327,9 +344,10 @@ def decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
     takes them. Returns (BH, Dh) in q's dtype. A CUDA tensor launches the
     kernel once, S split over a cluster of `one_query_splits` blocks a row
     (at a head dim with no whole body, the grouped kernel's RAGGED or WIDE
-    body at one slot; each storage kind counts its launches in its own attribute: `launches`
-    for bf16 K/V, `launches_f32`, `launches_f16`, `launches_int8`,
-    `launches_int4`); a CPU tensor takes the plain version."""
+    body at one slot, the WIDE one over `wide_splits` blocks; each storage
+    kind counts its launches in its own attribute: `launches` for bf16 K/V,
+    `launches_f32`, `launches_f16`, `launches_int8`, `launches_int4`); a CPU
+    tensor takes the plain version."""
     if not q.is_cuda:
         return decode_cross_attention_ref(q, k_t, v_t, k_scale, v_scale, s_valid)
     return _launch_decode_cross_attention(q, k_t, v_t, k_scale, v_scale, s_valid)
@@ -353,11 +371,12 @@ def _launch_decode_cross_attention(q: torch.Tensor, k_t: torch.Tensor,
     q, k_t, v_t, k_scale, v_scale = map(kernels.aligned, (q, k_t, v_t, k_scale, v_scale))
     out = torch.empty_like(q)
     cap = kernels.head_dim_capacity(dh)
+    splits = (wide_splits if cap == kernels.WIDE else one_query_splits)(bh, s_valid)
     err = kernels.lib().owc_cross_attention(
         q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
-        out.data_ptr(), bh, one_query_splits(bh, s_valid), s_pad, s_valid, code,
+        out.data_ptr(), bh, splits, s_pad, s_valid, code,
         kernels.DTYPE_CODES[q.dtype], dh, cap, kernels.stream_of(q))
     kernels.check(name, err)
     setattr(decode_cross_attention, counter,

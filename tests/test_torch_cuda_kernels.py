@@ -18,7 +18,8 @@ widths; every wrapper's refusal of inputs that need a gradient, the model's
 plain attention under grad, a bf16 `nll_loss` gradient against CPU f32, and
 the GPTQ solve against the CPU's; the encoder attention in f16 and f32; every
 attention kernel past head dim 256 (the WIDE bodies: 257-1024, every kind
-and q type, a 16384-row cache at 512). Marked `cuda`; every test skips where no
+and q type, the cross-attention's at 1-1024 rows and s_valid 1-1500, the
+encoder's in bf16 and f32, a 16384-row cache at 512). Marked `cuda`; every test skips where no
 CUDA device is present. Needs no jax, so on the GPU machine run it without the JAX test
 configuration:
 
@@ -2292,24 +2293,77 @@ def _wide_launches(fn, call):
     return fn.launches_wide_dh - before
 
 
+# (rows, s_valid) of the WIDE sweep: every row count the body's split rule
+# and passes cut differently (1 to 1024 rows: 8 to 1 blocks a cluster), each
+# s_valid its chunks split on (1, 127, 129, 1500 of 32-position chunks)
+_WIDE_SWEEP = [(1, 1500), (6, 1500), (17, 129), (64, 1500), (192, 127), (1024, 1)]
+
+
+def _wide_sweep(dev, dh, dtype, kind, one_query):
+    """The WIDE cross-attention body at `_WIDE_SWEEP`'s shapes, 1, 3, 5 and 8
+    slots (one query: one), within one step of q's type of the plain
+    version's largest output (1e-5 for f32: every product in f32 on the
+    CUDA cores, the probabilities not rounded), a repeat call bit-equal (the
+    cluster's fixed-order combine), poisoned padding past s_valid changing
+    no output bit; returns the launches it made."""
+    fn = decode_cross_attention if one_query else decode_cross_attention_grouped
+    ref_fn = decode_cross_attention_ref if one_query else decode_cross_attention_grouped_ref
+    launches = 0
+    for bh, s_valid in _WIDE_SWEEP:
+        k, v, ks, vs = _kv_of_dim(dev, kind, bh, dh, s_valid, dtype, bh + dh + s_valid)
+        g = torch.Generator(device=dev).manual_seed(bh * dh + s_valid)
+        outs = []
+        for kq in ((1,) if one_query else (1, 3, 5, 8)):
+            shape = (bh, dh) if one_query else (bh, kq, dh)
+            q = (torch.randn(*shape, generator=g, device=dev) * dh ** -0.5).to(dtype)
+            got = fn(q, k, v, ks, vs, s_valid)
+            ref = ref_fn(q, k, v, ks, vs, s_valid)
+            assert got.shape == q.shape and got.dtype == dtype
+            torch.testing.assert_close(
+                got.float(), ref.float(), rtol=0,
+                atol=_tol(dtype, float(ref.float().abs().max())),
+                msg=lambda m: f"BH {bh}, s_valid {s_valid}, {kq} slots: {m}")
+            assert torch.equal(fn(q, k, v, ks, vs, s_valid), got)
+            outs.append((q, got))
+            launches += 2
+        k[:, :, s_valid:] = 99 if kind != "fp" else 100.0
+        v[:, :, s_valid:] = -77 if kind == "fp" else 99
+        if ks is not None:
+            ks[:, :, s_valid:] = float("inf")
+            vs[:, :, s_valid:] = float("inf")
+        for q, got in outs:
+            assert torch.equal(fn(q, k, v, ks, vs, s_valid), got)
+            launches += 1
+        del k, v, ks, vs, outs
+    return launches
+
+
 @pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 @pytest.mark.parametrize("dh,kind", _WIDE_KINDS_AT)
 def test_wide_dims_cross_attention_grouped(dev, dh, kind, dtype):
     """The grouped kernel's WIDE body, every storage kind under q in each
     type, as `test_head_dims_cross_attention_grouped` holds the whole widths
     (1, 5 and 8 slots, 24 and 192 rows, poisoned padding): 8 launches, all
-    WIDE."""
+    WIDE; then `_wide_sweep` (1-1024 rows, s_valid 1-1500, 1, 3, 5 and 8
+    slots, repeat calls bit-equal), every launch WIDE."""
     assert _wide_launches(decode_cross_attention_grouped, lambda:
                           test_head_dims_cross_attention_grouped(dev, dh, dtype, kind)) == 8
+    n = []
+    assert _wide_launches(decode_cross_attention_grouped, lambda: n.append(
+        _wide_sweep(dev, dh, dtype, kind, one_query=False))) == n[0] == 6 * 12
 
 
 @pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
 @pytest.mark.parametrize("dh,kind", _WIDE_KINDS_AT)
 def test_wide_dims_cross_attention_one_query(dev, dh, kind, dtype):
     """The one-query kernel past 256 (the grouped WIDE body at one slot), as
-    `test_head_dims_cross_attention_one_query` holds the whole widths."""
+    `test_head_dims_cross_attention_one_query` holds the whole widths; then
+    `_wide_sweep` at one query."""
     assert _wide_launches(decode_cross_attention, lambda:
                           test_head_dims_cross_attention_one_query(dev, dh, dtype, kind)) == 2
+    n = []
+    assert _wide_launches(decode_cross_attention, lambda: n.append(
+        _wide_sweep(dev, dh, dtype, kind, one_query=True))) == n[0] == 6 * 3
 
 
 @pytest.mark.parametrize("dtype", FLOATS, ids=_IDS.get)
@@ -2329,12 +2383,27 @@ def test_wide_dims_encoder_attention(dev, b, h, t, dh):
     projection, read in place where every stride is a multiple of 8
     elements (its tensor maps need 16-byte rows; else through one
     zero-padded copy each of q, k and v, counted), within one bf16 step of
-    the plain version; contiguous inputs give the same bits."""
+    the plain version; contiguous inputs give the same bits. Then the f32
+    WIDE body (3xTF32) on the same views in f32, read in place, within 1e-5
+    of the plain version, counted in `launches_f32_wide_dh`; contiguous
+    inputs and a repeat call give the same bits."""
     before = encoder_attention.pad_copies
     assert _wide_launches(encoder_attention, lambda:
                           test_head_dims_encoder_attention(dev, b, h, t, dh)) == 2
     # the fused views, then the contiguous copies: each padded where dh % 8
     assert encoder_attention.pad_copies == before + (6 if dh % 8 else 0)
+    g = torch.Generator(device=dev).manual_seed(b + h + t + dh)
+    fused = torch.randn(b, t, 3 * h * dh, generator=g, device=dev)
+    q, k, v = (whisper.split_heads(fused[..., i * h * dh: (i + 1) * h * dh], h)
+               for i in range(3))
+    before = (encoder_attention.launches_f32_wide_dh, encoder_attention.pad_copies)
+    got = _held_encoder(q, k, v, "launches_f32")
+    assert got.transpose(1, 2).is_contiguous()
+    assert (encoder_attention.launches_f32_wide_dh, encoder_attention.pad_copies) == (
+        before[0] + 1, before[1])
+    assert torch.equal(encoder_attention(q, k, v), got)
+    assert torch.equal(encoder_attention(q.contiguous(), k.contiguous(), v.contiguous()),
+                       got)
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])

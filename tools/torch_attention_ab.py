@@ -27,6 +27,16 @@ call by running it in turns (parent, change, change, parent):
     python3 tools/torch_attention_ab.py --root path/to/checkout --tag parent
     python3 tools/torch_attention_ab.py --dims 16,32,64,128 --tag change
 
+--wide times the WIDE cross-attention body (PERF.md rows 7 and 9 past head
+dim 256) at Dh 384, S 1500 of 1536: the one-query call at 6 rows over f32,
+bf16 and f16 K/V in q's type and int8 and int4 K/V, and at 66 rows over
+bf16 and int8 K/V; the grouped call at 64 rows, one slot, over the same
+five, at 64 rows and 5 slots over bf16 K/V, and at 192 rows, one slot,
+over bf16 and int8 K/V. With --yardsticks it also times each call's plain
+version and, for K/V in q's type, `sdpa` on the same inputs, and prints
+each call's bound (`chip_smoke.bound`: K/V up to s_valid, q and the output
+moved once, or 4 flop an element at the peak of q's type).
+
 --ragged times, for the checkout's own package, every attention kernel at
 the head dims no whole body has (8, 36, 96, 100, 256) as `chip_smoke.py`'s
 phase 1 holds them (`phase1_dim`: kernel, plain version, bound, `sdpa`),
@@ -86,6 +96,10 @@ def main() -> int:
     ap.add_argument("--dims", default="64", help="head dims to time, comma separated")
     ap.add_argument("--ragged", action="store_true",
                     help="time the ragged head dims against their capacities' bodies")
+    ap.add_argument("--wide", action="store_true",
+                    help="time the WIDE cross-attention body at Dh 384")
+    ap.add_argument("--yardsticks", action="store_true",
+                    help="with --wide: also time the plain versions and sdpa")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch sees no CUDA device", file=sys.stderr)
@@ -110,10 +124,57 @@ def main() -> int:
 
     if args.ragged:
         return ragged(args.tag, dev, res)
+    if args.wide:
+        wide(gen, case, res, ca, args.yardsticks)
+        print(json.dumps(res), flush=True)
+        return 0
     for dh in map(int, args.dims.split(",")):
         whole_dim(dh, dev, gen, case, res, args.tag, split_heads, att, ca, sas)
     print(json.dumps(res), flush=True)
     return 0
+
+
+WIDE_DH = 384
+# (call, rows, slots, K/V kind, q type) of --wide
+WIDE_CALLS = ([("one_query", 6, 1, kind, dtype) for kind, dtype in
+               (("fp", F32), ("fp", BF), ("fp", F16), ("int8", BF), ("int4", BF))]
+              + [("one_query", 66, 1, kind, BF) for kind in ("fp", "int8")]
+              + [("grouped", 64, 1, kind, dtype) for kind, dtype in
+                 (("fp", F32), ("fp", BF), ("fp", F16), ("int8", BF), ("int4", BF))]
+              + [("grouped", 64, 5, "fp", BF), ("grouped", 192, 1, "fp", BF),
+                 ("grouped", 192, 1, "int8", BF)])
+
+
+def wide(gen, case, res: dict, ca, yardsticks: bool) -> None:
+    """The WIDE cross-attention calls of `WIDE_CALLS`, each held and timed
+    (`case`); with `yardsticks` also its plain version, `sdpa` (K/V in q's
+    type) and its bound, under the call's key + " plain", " sdpa",
+    " bound"."""
+    from chip_smoke import bound, nbytes, peak_flops, sdpa
+
+    dev, dh = gen.device, WIDE_DH
+    for call, bh, kq, kind, dtype in WIDE_CALLS:
+        one = call == "one_query"
+        q = (torch.randn(*((bh, dh) if one else (bh, kq, dh)), generator=gen, device=dev)
+             * dh ** -0.5).to(dtype)
+        k = kv(gen, kind, bh, dtype, dh)
+        fn, plain = ((ca.decode_cross_attention, ca.decode_cross_attention_ref) if one else
+                     (ca.decode_cross_attention_grouped,
+                      ca.decode_cross_attention_grouped_ref))
+        key = f"wide {call} {kind} {str(dtype)[6:]} {bh}rows K={kq}"
+        case(key, lambda: fn(q, *k, S_VALID), lambda: plain(q, *k, S_VALID))
+        if yardsticks:
+            res[key + " plain"] = cuda_ms(lambda: plain(q, *k, S_VALID))
+            moved = 2 * nbytes(q) + S_VALID / S_PAD * nbytes(*k)
+            res[key + " bound"] = bound(moved, 4 * bh * kq * dh * S_VALID / peak_flops(dtype))
+            if kind == "fp":
+                kk, vv = (t[:, :, :S_VALID].transpose(1, 2) for t in k[:2])
+                q3 = q[:, None, :] if one else q
+                res[key + " sdpa"] = cuda_ms(lambda: sdpa(q3, kk, vv, scale=1.0))
+            print(f"{key}: plain {res[key + ' plain']:.4f} ms, sdpa "
+                  f"{res.get(key + ' sdpa')}, bound {res[key + ' bound']}", flush=True)
+        del q, k
+        torch.cuda.empty_cache()
 
 
 def ragged(tag: str, dev, res: dict) -> int:

@@ -8,9 +8,10 @@ checkout at --root:
   beside `sdpa` in f32 (TF32 off) and the bound (three TF32 products at 495
   TFLOP/s, or the bytes); held at every capacity (16, 32, 64, 128, 256),
   at ragged dims (8, 36, 100, 200) and on a view with odd strides;
-- WIDE (bf16 and f16 past 256): (8, 2, 1500, 384) and small-h2's (32, 2,
-  1500, 384), timed beside `sdpa` and the bound (the 16-bit tensor-core
-  peak); held at 257, 288, 384, 512 and 1024;
+- WIDE (bf16, f16 and f32 past 256): (8, 2, 1500, 384) and small-h2's
+  (32, 2, 1500, 384), timed beside `sdpa` and the bound (the 16-bit
+  tensor-core peak; f32 as three TF32 products); held at 257, 288, 384,
+  512 and 1024;
 - past 65535 (held only): the encoder attention at B*H = 70000 (T = 8) in
   bf16, f16 and f32 at Dh 64 and 288, `log_mel_cuda` on (70000, 800) in
   both DFT types, `transpose_quant_kv` at B = 70000 and at H = 70000, the
@@ -25,7 +26,8 @@ one call by running it in turns (parent, change, change, parent):
     python3 tools/torch_encoder_bodies.py --tag change
 
 --held-only skips the timing (a first check of a build); --no-limits skips
-the calls past 65535 (a checkout that refuses them). Prints one JSON line:
+the calls past 65535 (a checkout that refuses them); --f32-wide runs only the
+f32 WIDE body's calls. Prints one JSON line:
 the tag, the card's name and power limit, the times (ms per call,
 `chip_smoke.cuda_ms`) and every held call's error."""
 
@@ -59,6 +61,7 @@ def main() -> int:
     ap.add_argument("--tag", default="change")
     ap.add_argument("--held-only", action="store_true")
     ap.add_argument("--no-limits", action="store_true")
+    ap.add_argument("--f32-wide", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     for mod in [m for m in sys.modules if m.startswith("openai_whisper_compression_tpu_torch")]:
@@ -100,8 +103,16 @@ def main() -> int:
               f"{t_lib:.4f} ms least {least['bound_ms']:.4f} ms ({least['bound_by']})",
               flush=True)
 
+    if args.f32_wide:
+        for b in (8, 32):
+            timed(f"wide {F32} ({b}, 2, 1500, 384)", *views(gen, b, 2, 1500, 384, F32))
+        for dh in (257, 288, 384, 512, 1024):
+            for b, h, t in ((2, 3, 129), (2, 2, 1500), (1, 1, 1)):
+                hold(f"wide {F32} ({b}, {h}, {t}, {dh})", *views(gen, b, h, t, dh, F32))
+        print(json.dumps(res), flush=True)
+        return 0
     timed("f32 small (96, 12, 1500, 64)", *views(gen, 96, 12, 1500, 64, F32))
-    for dtype in (BF, F16):
+    for dtype in (BF, F16, F32):
         for b in (8, 32):
             timed(f"wide {dtype} ({b}, 2, 1500, 384)", *views(gen, b, 2, 1500, 384, dtype))
     torch.cuda.empty_cache()
@@ -111,7 +122,7 @@ def main() -> int:
     q, k, v = views(gen, 2, 3, 300, 100, F32)
     hold("f32 odd view", q[:, :, 1:, 1:99], k[:, :, 1:, 1:99], v[:, :, 1:, 1:99])
     for dh in (257, 288, 384, 512, 1024):
-        for dtype in (BF, F16):
+        for dtype in (BF, F16, F32):
             for b, h, t in ((2, 3, 129), (2, 2, 1500), (1, 1, 1)):
                 hold(f"wide {dtype} ({b}, {h}, {t}, {dh})", *views(gen, b, h, t, dh, dtype))
     torch.cuda.empty_cache()
